@@ -1,0 +1,69 @@
+"""Load a port Holder from another holder's state exported as numpy.
+
+The state is plain data, so this module needs nothing of the exporting
+package:
+
+    {index_name: {
+        "track_existence": bool,
+        "fields": {field_name: {
+            "type": "set" | "mutex",
+            "cache_type": str, "cache_size": int,
+            "views": {view_name: {shard: {row_id: (rep, array)}}},
+        }},
+    }}
+
+`rep` is "dense" (array = uint32[WORDS_PER_ROW] words) or "sparse"
+(array = sorted uint32 in-shard positions), the row's host representation
+in the exporter, which the import keeps: dense rows go through
+import_row_words, sparse rows through exact position imports. Hidden
+fields such as `_exists` are listed like any other field.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+
+from pilosa_tpu_torch.core.field import FIELD_TYPE_MUTEX, FieldOptions
+from pilosa_tpu_torch.core.holder import Holder
+from pilosa_tpu_torch.core.index import EXISTENCE_FIELD_NAME
+from pilosa_tpu_torch.ops.bitmap import unpack_positions
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+
+def holder_from_numpy(state: Dict[str, Dict[str, Any]], device=None) -> Holder:
+    holder = Holder(None, device=device)
+    for index_name, ispec in state.items():
+        idx = holder.create_index(index_name, track_existence=ispec.get("track_existence", True))
+        for field_name, fspec in ispec["fields"].items():
+            if field_name == EXISTENCE_FIELD_NAME:
+                f = idx.existence_field()
+                if f is None:
+                    raise ValueError(f"{index_name}: {field_name} without existence tracking")
+            else:
+                f = idx.create_field(
+                    field_name,
+                    FieldOptions(
+                        type=fspec.get("type", "set"),
+                        cache_type=fspec.get("cache_type", "ranked"),
+                        cache_size=fspec.get("cache_size", 50_000),
+                    ),
+                )
+            for view_name, shards in fspec["views"].items():
+                view = f._view_create(view_name)
+                for shard, rows in shards.items():
+                    frag = view.fragment(int(shard))
+                    for row_id, (rep, arr) in rows.items():
+                        if rep == "dense" and f.options.type != FIELD_TYPE_MUTEX:
+                            frag.import_row_words(int(row_id), arr)
+                            continue
+                        pos = unpack_positions(arr) if rep == "dense" else arr
+                        keys = np.uint64(row_id) * np.uint64(SHARD_WIDTH) + np.asarray(
+                            pos, np.uint64
+                        )
+                        if f.options.type == FIELD_TYPE_MUTEX:
+                            frag.bulk_import(np.full(len(keys), row_id, np.uint64), keys)
+                        else:
+                            frag.import_positions(keys, None)
+    return holder

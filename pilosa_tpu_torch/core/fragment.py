@@ -1,0 +1,523 @@
+"""Fragment: one (index, field, view, shard) slab of bits.
+
+The port of pilosa_tpu/core/fragment.py, in memory only. The host store
+keeps each row as sparse positions or dense words (core/rowstore.py), the
+mutex vector for mutex fields, and the exact rank cache that unfiltered
+TopN reads. Device copies of rows live in the holder's DeviceCache and are
+dropped on mutation. Staged ingest (`stage_positions`) appends positions
+to a pending buffer that every host read merges first (`_sync_locked`).
+
+Not ported here: the WAL, snapshots, transfer capture and the BSI
+methods, which raise.
+
+Position convention: pos = row_id * SHARD_WIDTH + (col % SHARD_WIDTH).
+"""
+
+from __future__ import annotations
+
+import threading
+from itertools import repeat
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from pilosa_tpu_torch.core import cache as cachemod
+from pilosa_tpu_torch.core.devcache import DeviceCache, new_owner_token
+from pilosa_tpu_torch.core.rowstore import RowBits
+from pilosa_tpu_torch.ops import bitmap as ob
+from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
+from pilosa_tpu_torch.utils.arrays import group_slices
+
+_BSI = "ported in the BSI slice"
+
+
+class Fragment:
+    """One shard of one view of one field. A re-entrant lock guards the
+    host structures."""
+
+    def __init__(
+        self,
+        index: str,
+        field: str,
+        view: str,
+        shard: int,
+        *,
+        device: torch.device,
+        dcache: DeviceCache,
+        mutex: bool = False,
+        cache_type: str = cachemod.CACHE_TYPE_RANKED,
+        cache_size: int = cachemod.DEFAULT_CACHE_SIZE,
+    ):
+        self.index = index
+        self.field = field
+        self.view = view
+        self.shard = shard
+        self.device = device
+        self.dcache = dcache
+        self.cache = cachemod.make_cache(cache_type, cache_size)
+        self._cache_top_arrays = None  # memoized (top, rids, cnts)
+        self._cache_id_arrays = None  # memoized id-sorted (top, rids, cnts)
+        self._mu = threading.RLock()
+        self._rows: Dict[int, RowBits] = {}
+        # staged SET positions not yet merged into _rows (stage_positions)
+        self._pending: List[np.ndarray] = []
+        self._pending_n = 0
+        # device rows under _token, multi-row stacks under _stack_token
+        self._token = new_owner_token()
+        self._stack_token = new_owner_token()
+        # monotonic mutation counter; view stack keys carry it
+        self.version = 0
+        # mutex fields: col -> owning row
+        self._mutex_map: Optional[Dict[int, int]] = {} if mutex else None
+        # owner hook fired after any mutation (the View drops its stacks)
+        self.on_mutate = None
+
+    # ------------------------------------------------------------------
+    # reads (host metadata)
+    # ------------------------------------------------------------------
+
+    def row_words(self, row_id: int) -> np.ndarray:
+        """Host dense uint32 words for one row (zeros if absent)."""
+        with self._mu:
+            self._sync_locked()
+            rb = self._rows.get(row_id)
+            return rb.to_words() if rb is not None else ob.empty_row()
+
+    def row_positions(self, row_id: int) -> np.ndarray:
+        with self._mu:
+            self._sync_locked()
+            rb = self._rows.get(row_id)
+            return rb.to_positions() if rb is not None else np.empty(0, np.uint32)
+
+    def rows_sparse_concat(self, row_ids) -> Tuple[np.ndarray, np.ndarray]:
+        """One-lock bulk sparse read for the TopN tally: concatenated
+        sorted bit positions of the listed rows plus per-row lengths;
+        length -1 marks a dense-rep row (routed through the plane path)."""
+        with self._mu:
+            self._sync_locked()
+            parts = []
+            lens = np.empty(len(row_ids), np.int64)
+            for i, rid in enumerate(row_ids):
+                rb = self._rows.get(rid)
+                if rb is None:
+                    lens[i] = 0
+                elif rb.dense is not None:
+                    lens[i] = -1
+                else:
+                    p = rb.positions
+                    lens[i] = len(p)
+                    if len(p):
+                        parts.append(p)
+            cat = np.concatenate(parts) if parts else np.empty(0, np.uint32)
+            return cat, lens
+
+    def rows_device(self, row_ids: Iterable[int]) -> torch.Tensor:
+        """Stacked int32[k, W] device matrix for the given rows (one
+        cached entry, one transfer)."""
+        ids = tuple(row_ids)
+        with self._mu:
+            return self.dcache.get_or_build(
+                (self._stack_token, ids),
+                lambda: ob.from_host(
+                    np.stack([self.row_words(r) for r in ids])
+                    if ids
+                    else np.empty((0, WORDS_PER_ROW), np.uint32),
+                    self.device,
+                ),
+            )
+
+    def row_count(self, row_id: int) -> int:
+        with self._mu:
+            self._sync_locked()
+            rb = self._rows.get(row_id)
+            return rb.count() if rb is not None else 0
+
+    def cache_top(self):
+        with self._mu:
+            self._sync_locked()
+            return self.cache.top()
+
+    def cache_top_arrays(self):
+        """(row_ids uint64[], counts uint64[]) of the rank cache in rank
+        order, memoized against the cache's own top() snapshot."""
+        with self._mu:
+            self._sync_locked()
+            t = self.cache.top()
+            memo = self._cache_top_arrays
+            if memo is None or memo[0] is not t:
+                n = len(t)
+                rids = np.fromiter((p[0] for p in t), np.uint64, n)
+                cnts = np.fromiter((p[1] for p in t), np.uint64, n)
+                memo = self._cache_top_arrays = (t, rids, cnts)
+            return memo[1], memo[2]
+
+    def cache_counts_exact(self, row_ids: np.ndarray) -> Optional[np.ndarray]:
+        """uint64 cardinalities for row_ids from the rank cache, or None
+        unless the cache is complete (never pruned for capacity)."""
+        with self._mu:
+            self._sync_locked()
+            cache = self.cache
+            t = cache.top()
+            if getattr(cache, "pruned", True):
+                return None  # checked after top(): recalculate may prune
+            memo = self._cache_id_arrays
+            if memo is None or memo[0] is not t:
+                rids, cnts = self.cache_top_arrays()
+                o = np.argsort(rids)
+                memo = self._cache_id_arrays = (t, rids[o], cnts[o])
+            _, rs, cs = memo
+            ids = np.asarray(row_ids, np.uint64)
+            if not len(rs):
+                return np.zeros(len(ids), np.uint64)
+            pos = np.searchsorted(rs, ids)
+            posc = np.minimum(pos, len(rs) - 1)
+            found = (pos < len(rs)) & (rs[posc] == ids)
+            return np.where(found, cs[posc], 0).astype(np.uint64)
+
+    def row_counts_host(self, row_ids) -> np.ndarray:
+        """Cardinalities of the listed rows as one uint64 vector."""
+        with self._mu:
+            self._sync_locked()
+            rows = self._rows
+            return np.fromiter(
+                (rb.count() if (rb := rows.get(r)) is not None else 0 for r in row_ids),
+                np.uint64,
+                len(row_ids),
+            )
+
+    def row_counts(
+        self, row_ids: List[int], filter_words=None, chunk: int = 256
+    ) -> np.ndarray:
+        """Cardinality of each listed row, optionally intersected with a
+        filter row, counted on the device by the rows_counts kernel."""
+        out = np.empty(len(row_ids), dtype=np.uint64)
+        for i in range(0, len(row_ids), chunk):
+            ids = row_ids[i : i + chunk]
+            counts = kernels.rows_counts(self.rows_device(ids), filter_words)
+            out[i : i + len(ids)] = counts.cpu().numpy()
+        return out
+
+    # ------------------------------------------------------------------
+    # writes: everything funnels through _apply_positions / _sync_locked
+    # ------------------------------------------------------------------
+
+    def set_bit(self, row_id: int, col: int) -> bool:
+        """Set one bit; col is in-shard or an absolute column of this
+        shard. Returns True if it changed."""
+        pos = self._pos(row_id, col)
+        if self._mutex_map is not None:
+            return self._set_bit_mutex(row_id, col % SHARD_WIDTH)
+        changed, _ = self.import_positions(np.array([pos], np.uint64), None)
+        return changed > 0
+
+    def clear_bit(self, row_id: int, col: int) -> bool:
+        pos = self._pos(row_id, col)
+        _, cleared = self.import_positions(None, np.array([pos], np.uint64))
+        return cleared > 0
+
+    def _set_bit_mutex(self, row_id: int, in_shard: int) -> bool:
+        with self._mu:
+            existing = self._mutex_map.get(in_shard)
+            if existing == row_id:
+                return False
+            to_clear = None
+            if existing is not None:
+                to_clear = np.array([existing * SHARD_WIDTH + in_shard], np.uint64)
+            to_set = np.array([row_id * SHARD_WIDTH + in_shard], np.uint64)
+            changed, _ = self.import_positions(to_set, to_clear)
+            self._mutex_map[in_shard] = row_id
+        return changed > 0
+
+    def import_positions(
+        self, to_set: Optional[np.ndarray], to_clear: Optional[np.ndarray]
+    ) -> Tuple[int, int]:
+        """Batched exact bit mutation by fragment position; merges the
+        pending staged delta first so the (n_set, n_clear) counts are
+        exact."""
+        with self._mu:
+            self._sync_locked()
+            return self._apply_positions(
+                to_set if to_set is not None else np.empty(0, np.uint64),
+                to_clear if to_clear is not None else np.empty(0, np.uint64),
+            )
+
+    def stage_positions(self, positions: np.ndarray, *, notify: bool = True) -> int:
+        """Bulk-ingest fast path: append SET positions to the pending
+        buffer without merging; the merge is deferred to the next read
+        barrier. notify=False leaves the device-cache invalidation and the
+        on_mutate hook to the caller (View.stage_bulk batches them).
+        Not for mutex fields."""
+        positions = np.asarray(positions, dtype=np.uint64)
+        n = len(positions)
+        with self._mu:
+            if self._mutex_map is not None:
+                raise ValueError("stage_positions is not supported on mutex fields")
+            if not n:
+                return 0
+            self._pending.append(positions)
+            self._pending_n += n
+            self.version += 1
+            if notify:
+                self.dcache.invalidate_owners((self._token, self._stack_token))
+                if self.on_mutate is not None:
+                    self.on_mutate()
+        return n
+
+    def _sync_locked(self) -> None:
+        """Merge the pending staged delta into the row store (under _mu).
+        Versions and device invalidation were handled at stage time."""
+        if not self._pending_n:
+            return
+        parts = self._pending
+        self._pending = []
+        self._pending_n = 0
+        inc = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        touched: set = set()
+        self._bulk_set_sparse(inc, touched)
+        rows_store = self._rows
+        self.cache.add_many(
+            (rid, rb.count() if (rb := rows_store.get(rid)) is not None else 0)
+            for rid in touched
+        )
+
+    def sync_pending_now(self) -> None:
+        with self._mu:
+            self._sync_locked()
+
+    def _apply_positions(self, to_set: np.ndarray, to_clear: np.ndarray) -> Tuple[int, int]:
+        """The exact mutation funnel (under _mu): row store, mutex vector,
+        rank cache and device invalidation."""
+        n_set = n_clear = 0
+        touched: set = set()
+        if len(to_set):
+            if self._mutex_map is None:
+                n_set += self._bulk_set_sparse(to_set, touched)
+            else:
+                rows = (to_set // SHARD_WIDTH).astype(np.int64)
+                cols = (to_set % SHARD_WIDTH).astype(np.uint32)
+                for row_id, sl in group_slices(rows):
+                    row_id = int(row_id)
+                    rb = self._rows.get(row_id)
+                    if rb is None:
+                        rb = self._rows[row_id] = RowBits(SHARD_WIDTH)
+                    row_cols = cols[sl]
+                    n_set += rb.add(row_cols)
+                    touched.add(row_id)
+                    self._mutex_map.update(zip(row_cols.tolist(), repeat(row_id)))
+        if len(to_clear):
+            n_clear += self._bulk_clear_sparse(to_clear, touched)
+            if self._mutex_map is not None:
+                mm = self._mutex_map
+                rows = (to_clear // SHARD_WIDTH).astype(np.int64)
+                cols = (to_clear % SHARD_WIDTH).astype(np.uint32)
+                for row_id, sl in group_slices(rows):
+                    row_id = int(row_id)
+                    for c in cols[sl].tolist():
+                        if mm.get(c) == row_id:
+                            del mm[c]
+        if touched:
+            rows_store = self._rows
+            self.cache.add_many(
+                (rid, rb.count() if (rb := rows_store.get(rid)) is not None else 0)
+                for rid in touched
+            )
+            self.dcache.invalidate_many((self._token, rid) for rid in touched)
+            self.dcache.invalidate_owner(self._stack_token)
+            self.version += 1
+            if self.on_mutate is not None:
+                self.on_mutate()
+        return n_set, n_clear
+
+    def _bulk_set_sparse(self, to_set: np.ndarray, touched: set) -> int:
+        """Set keyed positions (row*SHARD_WIDTH + col): dense-rep rows OR
+        in place; all sparse-rep rows merge in ONE np.unique over the
+        re-keyed concatenation."""
+        rows_arr = to_set // SHARD_WIDTH
+        uniq_rows = np.unique(rows_arr).astype(np.uint64)
+        dense_rows = [
+            int(r)
+            for r in uniq_rows
+            if (rb := self._rows.get(int(r))) is not None and rb.dense is not None
+        ]
+        n = 0
+        if dense_rows:
+            m = np.isin(rows_arr, np.array(dense_rows, np.uint64))
+            cols = (to_set[m] % SHARD_WIDTH).astype(np.uint32)
+            for row_id, sl in group_slices(rows_arr[m].astype(np.int64)):
+                n += self._rows[int(row_id)].add(cols[sl])
+                touched.add(int(row_id))
+            if len(dense_rows) == len(uniq_rows):
+                return n
+            incoming = to_set[~m]
+        else:
+            incoming = to_set
+        dense_set = set(dense_rows)
+        sparse_rows = [int(r) for r in uniq_rows if int(r) not in dense_set]
+        parts = [incoming.astype(np.uint64)]
+        before = 0
+        for rid in sparse_rows:
+            rb = self._rows.get(rid)
+            if rb is not None and len(rb.positions):
+                before += len(rb.positions)
+                parts.append(
+                    rb.positions.astype(np.uint64) + np.uint64(rid) * np.uint64(SHARD_WIDTH)
+                )
+        merged = np.unique(np.concatenate(parts))
+        # each row takes a COPY of its slice: a view would pin the buffer
+        all_pos = (merged % np.uint64(SHARD_WIDTH)).astype(np.uint32)
+        edges = np.searchsorted(
+            merged,
+            np.array(
+                [r * SHARD_WIDTH for r in sparse_rows] + [(sparse_rows[-1] + 1) * SHARD_WIDTH],
+                np.uint64,
+            ),
+        )
+        for i, rid in enumerate(sparse_rows):
+            rb = self._rows.get(rid)
+            if rb is None:
+                rb = self._rows[rid] = RowBits(SHARD_WIDTH)
+            rb.positions = all_pos[edges[i] : edges[i + 1]].copy()
+            rb._maybe_densify()
+            touched.add(rid)
+        return n + len(merged) - before
+
+    def _bulk_clear_sparse(self, to_clear: np.ndarray, touched: set) -> int:
+        """Clear keyed positions: dense-rep rows per row; sparse-rep rows
+        with one merged membership test. Returns bits actually cleared."""
+        rows_arr = to_clear // SHARD_WIDTH
+        uniq_rows = np.unique(rows_arr).astype(np.uint64)
+        dense_rows: List[int] = []
+        sparse_rows: List[int] = []
+        for r in uniq_rows:
+            rb = self._rows.get(int(r))
+            if rb is None:
+                continue
+            (dense_rows if rb.dense is not None else sparse_rows).append(int(r))
+        n = 0
+        if dense_rows:
+            m = np.isin(rows_arr, np.array(dense_rows, np.uint64))
+            cols = (to_clear[m] % SHARD_WIDTH).astype(np.uint32)
+            for row_id, sl in group_slices(rows_arr[m].astype(np.int64)):
+                n += self._rows[int(row_id)].discard(cols[sl])
+                touched.add(int(row_id))
+        if not sparse_rows:
+            return n
+        inc_mask = np.isin(rows_arr, np.array(sparse_rows, np.uint64))
+        inc = np.unique(to_clear[inc_mask].astype(np.uint64))
+        parts = []
+        for rid in sparse_rows:
+            p = self._rows[rid].positions
+            if len(p):
+                parts.append(p.astype(np.uint64) + np.uint64(rid) * np.uint64(SHARD_WIDTH))
+        if not parts:
+            return n
+        stored = np.concatenate(parts)
+        idx = np.searchsorted(inc, stored)
+        idxc = np.minimum(idx, len(inc) - 1)
+        hit = (idx < len(inc)) & (inc[idxc] == stored)
+        kept = stored[~hit]
+        n += len(stored) - len(kept)
+        all_pos = (kept % np.uint64(SHARD_WIDTH)).astype(np.uint32)
+        edges = np.searchsorted(
+            kept,
+            np.array(
+                [r * SHARD_WIDTH for r in sparse_rows] + [(sparse_rows[-1] + 1) * SHARD_WIDTH],
+                np.uint64,
+            ),
+        )
+        for i, rid in enumerate(sparse_rows):
+            rb = self._rows[rid]
+            sl = all_pos[edges[i] : edges[i + 1]]
+            if len(sl) != rb.count():
+                rb.positions = sl.copy()
+            touched.add(rid)
+        return n
+
+    def import_row_words(self, row_id: int, words: np.ndarray) -> int:
+        """Word-level bulk union of dense uint32[W] words into one row.
+        Returns how many bits were newly set."""
+        words = np.ascontiguousarray(words, dtype=np.uint32)
+        if words.shape != (WORDS_PER_ROW,):
+            raise ValueError(
+                f"import_row_words: want shape ({WORDS_PER_ROW},), got {words.shape}"
+            )
+        with self._mu:
+            if self._mutex_map is not None:
+                raise ValueError("word-level import is not supported on mutex fields")
+            self._sync_locked()
+            rb = self._rows.get(row_id)
+            if rb is None:
+                rb = self._rows[row_id] = RowBits(SHARD_WIDTH)
+            added = rb.union_words(words)
+            if added:
+                self.cache.add(row_id, rb.count())
+                self.dcache.invalidate((self._token, row_id))
+                self.dcache.invalidate_owner(self._stack_token)
+                self.version += 1
+                if self.on_mutate is not None:
+                    self.on_mutate()
+            return added
+
+    def _pos(self, row_id: int, col: int) -> int:
+        if col >= SHARD_WIDTH:
+            min_col = self.shard * SHARD_WIDTH
+            if not min_col <= col < min_col + SHARD_WIDTH:
+                raise ValueError(f"column {col} out of bounds for shard {self.shard}")
+        return row_id * SHARD_WIDTH + (col % SHARD_WIDTH)
+
+    def bulk_import(self, row_ids: np.ndarray, cols: np.ndarray, clear: bool = False) -> int:
+        """Batched exact import; cols may be absolute or in-shard."""
+        row_ids = np.asarray(row_ids, dtype=np.uint64)
+        cols = np.asarray(cols, dtype=np.uint64) % SHARD_WIDTH
+        positions = row_ids * SHARD_WIDTH + cols
+        if self._mutex_map is not None and not clear:
+            return self._bulk_import_mutex(row_ids, cols)
+        if clear:
+            return self.import_positions(None, positions)[1]
+        return self.import_positions(positions, None)[0]
+
+    def _bulk_import_mutex(self, row_ids: np.ndarray, cols: np.ndarray) -> int:
+        """Mutex import: the last write per column wins."""
+        with self._mu:
+            _, last_idx = np.unique(cols[::-1], return_index=True)
+            idx = len(cols) - 1 - last_idx
+            to_set, to_clear, updates = [], [], {}
+            for i in idx:
+                col, row = int(cols[i]), int(row_ids[i])
+                existing = self._mutex_map.get(col)
+                if existing == row:
+                    continue
+                if existing is not None:
+                    to_clear.append(existing * SHARD_WIDTH + col)
+                to_set.append(row * SHARD_WIDTH + col)
+                updates[col] = row
+            n, _ = self.import_positions(
+                np.array(to_set, np.uint64) if to_set else None,
+                np.array(to_clear, np.uint64) if to_clear else None,
+            )
+            self._mutex_map.update(updates)
+            return n
+
+    # ------------------------------------------------------------------
+    # BSI (int fields)
+    # ------------------------------------------------------------------
+
+    def set_value(self, col: int, bit_depth: int, value: int, clear: bool = False) -> bool:
+        raise NotImplementedError(_BSI)
+
+    def import_values(self, cols: np.ndarray, values: np.ndarray, bit_depth: int) -> None:
+        raise NotImplementedError(_BSI)
+
+    def value(self, col: int, bit_depth: int) -> Tuple[int, bool]:
+        raise NotImplementedError(_BSI)
+
+    def range_op(self, op: str, bit_depth: int, predicate: int):
+        raise NotImplementedError(_BSI)
+
+    def range_between(self, bit_depth: int, pmin: int, pmax: int):
+        raise NotImplementedError(_BSI)
+
+    def not_null(self):
+        raise NotImplementedError(_BSI)

@@ -1,0 +1,56 @@
+"""Holder: the node-level root of the storage tree, in memory.
+
+The port of pilosa_tpu/core/holder.py. `Holder(path=None, device=None)`
+runs on the CUDA card (device None) and raises if there is none; pass
+device="cpu" for the plain-PyTorch path. The holder owns the device cache
+its fragments and views stage tensors in. Durable holders (a data
+directory, WAL and snapshots) come in a later slice.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional
+
+from pilosa_tpu_torch.core.devcache import DeviceCache, default_budget
+from pilosa_tpu_torch.core.index import Index
+from pilosa_tpu_torch.device import resolve
+
+
+class Holder:
+    def __init__(self, path: Optional[str] = None, device=None):
+        if path is not None:
+            raise NotImplementedError("durable holders are not ported yet; pass path=None")
+        self.path = None
+        self.device = resolve(device)
+        self.dcache = DeviceCache(default_budget(self.device))
+        self._mu = threading.RLock()
+        self._indexes: Dict[str, Index] = {}
+
+    def open(self) -> "Holder":
+        return self
+
+    def close(self) -> None:
+        with self._mu:
+            self._indexes.clear()
+            self.dcache.clear()
+
+    def create_index(self, name: str, *, keys: bool = False, track_existence: bool = True) -> Index:
+        with self._mu:
+            if name in self._indexes:
+                raise ValueError(f"index already exists: {name}")
+            idx = self._indexes[name] = Index(
+                name,
+                device=self.device,
+                dcache=self.dcache,
+                keys=keys,
+                track_existence=track_existence,
+            )
+            return idx
+
+    def index(self, name: str) -> Optional[Index]:
+        return self._indexes.get(name)
+
+    def indexes(self) -> List[Index]:
+        with self._mu:
+            return [self._indexes[n] for n in sorted(self._indexes)]

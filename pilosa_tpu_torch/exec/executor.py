@@ -1,0 +1,924 @@
+"""Query executor for one node on one device.
+
+The port of pilosa_tpu/exec/executor.py for the main path: PQL bitmap
+trees (Row, Intersect, Union, Difference, Xor, Not, All, Shift) lower to
+stacked plans over [S, W] device row stacks (exec/plan.py); Count runs the
+plan_count kernel (adjacent Counts batch into one MultiCountPlan); Set and
+Clear write; TopN answers unfiltered queries from the rank caches and
+filtered ones from one plan plus a device tally (rows_counts for dense
+candidates, gather_tally for sparse ones).
+
+Every other call raises ExecError("<Call> not yet ported"). There is no
+per-shard fallback: a tree the stacked lowering cannot express is an
+error here, never a slower path.
+"""
+
+from __future__ import annotations
+
+import heapq
+import math
+from dataclasses import dataclass, replace
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from pilosa_tpu_torch.core.field import FIELD_TYPE_BOOL, FIELD_TYPE_INT, FIELD_TYPE_TIME, Field
+from pilosa_tpu_torch.core.holder import Holder
+from pilosa_tpu_torch.core.index import Index
+from pilosa_tpu_torch.core.row import Row
+from pilosa_tpu_torch.core.view import VIEW_STANDARD
+from pilosa_tpu_torch.exec import groupby as gb
+from pilosa_tpu_torch.exec import plan as planmod
+from pilosa_tpu_torch.exec.plan import (
+    BudgetExceeded,
+    MultiCountPlan,
+    PLeaf,
+    PNary,
+    PNode,
+    PShift,
+    PZero,
+    SparseView,
+    StackedPlan,
+)
+from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.pql import Call, Query, parse
+from pilosa_tpu_torch.shardwidth import WORDS_PER_ROW
+
+DEFAULT_MIN_THRESHOLD = 1
+
+# calls of the reference executor that later slices port
+_NOT_PORTED = frozenset(
+    {
+        "Sum", "Min", "Max", "MinRow", "MaxRow", "ClearRow", "Store",
+        "SetRowAttrs", "SetColumnAttrs", "Rows", "GroupBy", "Options",
+    }
+)
+
+
+class ExecError(Exception):
+    pass
+
+
+class NotFoundError(ExecError):
+    pass
+
+
+@dataclass
+class ExecOptions:
+    shards: Optional[List[int]] = None
+    max_writes: int = 5000
+
+
+@dataclass
+class QueryResponse:
+    results: List[Any]
+
+
+@dataclass
+class Pair:
+    """TopN result entry."""
+
+    id: int
+    count: int
+
+    def to_json(self):
+        return {"id": self.id, "count": self.count}
+
+
+@dataclass
+class _TopNSpec:
+    f: Field
+    n: int
+    ids: Optional[list]
+    threshold: int
+    tanimoto: int
+    src_call: Optional[Call]
+
+
+# TopN dispatch accounting: the batched path issues O(1) device tallies
+TOPN_STATS = {"batched": 0, "tally_evals": 0, "one_pass": 0}
+
+
+class _TallyBundle:
+    """Prepared filtered-TopN tally inputs: the dense/sparse candidate split
+    and the sparse rows' device gather entries (idx, mask, starts, ends)."""
+
+    __slots__ = ("dense_rows", "sparse_rows", "dev")
+
+    def __init__(self, dense_rows, sparse_rows, dev):
+        self.dense_rows = dense_rows
+        self.sparse_rows = sparse_rows
+        self.dev = dev
+
+    @property
+    def nbytes(self) -> int:
+        if self.dev is None:
+            return 64
+        return sum(t.numel() * 4 for t in self.dev)
+
+
+class _StackedLowering:
+    """Lower a PQL bitmap call tree to plan nodes over stacked [S, W]
+    operands. Semantic errors raise ExecError; absent rows/views lower to
+    PZero. `collect` walks the tree recording touched views without
+    staging (the pre-pass of compacted lowering)."""
+
+    def __init__(
+        self,
+        ex: "Executor",
+        idx: Index,
+        shards: List[int],
+        collect: bool = False,
+        no_sparse_guard: bool = False,
+    ):
+        self.ex = ex
+        self.idx = idx
+        self.shards = list(shards)
+        self.operands: List[torch.Tensor] = []
+        self._call_memo: Dict[int, PNode] = {}
+        self._leaf_memo: Dict[Tuple, PNode] = {}
+        self.collect = collect
+        self.no_sparse_guard = no_sparse_guard
+        self.views: Dict[int, Any] = {}
+
+    def _stack_guard(self, view) -> None:
+        n = len(self.shards)
+        if n >= 64 and not self.no_sparse_guard:
+            present = sum(1 for s in self.shards if view.fragment_if_exists(s) is not None)
+            if present and present * 8 < n:
+                raise SparseView("sparse view: stacked form would densify")
+        if n * WORDS_PER_ROW * 4 > self.idx.dcache.budget_bytes // 4:
+            raise BudgetExceeded("stack exceeds device budget")
+
+    def _view_leaf(self, view, row_id: int) -> PNode:
+        key = ("row", id(view), row_id)
+        node = self._leaf_memo.get(key)
+        if node is None:
+            self.views.setdefault(id(view), view)
+            if self.collect:
+                node = PLeaf(0)
+            else:
+                self._stack_guard(view)
+                arr = view.row_stack(row_id, self.shards)
+                if arr is None:
+                    node = PZero()
+                else:
+                    self.operands.append(arr)
+                    node = PLeaf(len(self.operands) - 1)
+            self._leaf_memo[key] = node
+        return node
+
+    def lower(self, c: Call) -> PNode:
+        node = self._call_memo.get(id(c))
+        if node is None:
+            node = self._call_memo[id(c)] = self._lower(c)
+        return node
+
+    def _lower(self, c: Call) -> PNode:
+        name = c.name
+        if name in ("Row", "Range"):
+            return self._lower_row(c)
+        if name == "Intersect":
+            if not c.children:
+                raise ExecError("empty Intersect query is currently not supported")
+            ch = tuple(self.lower(x) for x in c.children)
+            if any(isinstance(x, PZero) for x in ch):
+                return PZero()
+            return ch[0] if len(ch) == 1 else PNary("and", ch)
+        if name in ("Union", "Xor"):
+            ch = tuple(x for x in (self.lower(x) for x in c.children) if not isinstance(x, PZero))
+            if not ch:
+                return PZero()
+            if len(ch) == 1:
+                return ch[0]
+            return PNary("or" if name == "Union" else "xor", ch)
+        if name == "Difference":
+            if not c.children:
+                return PZero()
+            ch = tuple(self.lower(x) for x in c.children)
+            if isinstance(ch[0], PZero):
+                return PZero()
+            rest = tuple(x for x in ch[1:] if not isinstance(x, PZero))
+            if not rest:
+                return ch[0]
+            return PNary("andnot", (ch[0],) + rest)
+        if name == "Not":
+            if not self.idx.track_existence:
+                raise ExecError("Not() query requires existence tracking to be enabled")
+            if len(c.children) != 1:
+                raise ExecError("Not() requires a single bitmap input")
+            exists = self._existence_leaf()
+            if isinstance(exists, PZero):
+                return PZero()
+            child = self.lower(c.children[0])
+            if isinstance(child, PZero):
+                return exists
+            return PNary("andnot", (exists, child))
+        if name == "All":
+            return self._existence_leaf()
+        if name == "Shift":
+            if len(c.children) != 1:
+                raise ExecError("Shift() requires a single bitmap input")
+            n = c.int_arg("n")
+            n = 1 if n is None else n
+            child = self.lower(c.children[0])
+            if isinstance(child, PZero):
+                return PZero()
+            return PShift(child, n, self._prev_idx())
+        if name in _NOT_PORTED:
+            raise ExecError(f"{name} not yet ported")
+        raise ExecError(f"unknown call: {name}")
+
+    def _existence_leaf(self) -> PNode:
+        ef = self.idx.existence_field()
+        if ef is None:
+            raise ExecError("existence field not available")
+        v = ef.view(VIEW_STANDARD)
+        if v is None:
+            return PZero()
+        return self._view_leaf(v, 0)
+
+    def _prev_idx(self) -> Tuple[int, ...]:
+        """Stack index of shard_id-1 per stack position (-1 = absent)."""
+        pos = {s: i for i, s in enumerate(self.shards)}
+        return tuple(pos.get(s - 1, -1) for s in self.shards)
+
+    def _lower_row(self, c: Call) -> PNode:
+        ex, idx = self.ex, self.idx
+        if c.has_conditions():
+            # condition rows are BSI rows; only int fields (not ported) have them
+            conds = c.condition_args()
+            if len(c.args) != 1 or len(conds) != 1:
+                raise ExecError("Row(): exactly one condition required")
+            field_name = next(iter(conds))
+            ex._field_of(idx, field_name)
+            raise ExecError(f"field {field_name} is not an int field")
+        field_name = ex._field_arg_name(c)
+        f = ex._field_of(idx, field_name)
+        row_id = c.args.get(field_name)
+        if isinstance(row_id, bool):
+            if f.options.type != FIELD_TYPE_BOOL:
+                raise ExecError("Row() bool value requires a bool field")
+        if not isinstance(row_id, int):
+            if isinstance(row_id, str):
+                raise ExecError(f"string row key {row_id!r} requires field keys (translation)")
+            raise ExecError("Row() must specify a row")
+        if c.args.get("from") is not None or c.args.get("to") is not None:
+            if f.options.type != FIELD_TYPE_TIME:
+                raise ExecError(f"field {field_name} is not a time field")
+        v = f.view(VIEW_STANDARD)
+        if v is None:
+            return PZero()
+        return self._view_leaf(v, row_id)
+
+
+class Executor:
+    """Single-node executor over a port Holder."""
+
+    _EMPTY = "empty"  # sentinel: nothing materialized in the shard range
+
+    def __init__(self, holder: Holder):
+        self.holder = holder
+
+    # ------------------------------------------------------------------
+    # entry
+    # ------------------------------------------------------------------
+
+    def execute(
+        self,
+        index_name: str,
+        query: Union[str, Query],
+        shards: Optional[Sequence[int]] = None,
+        opt: Optional[ExecOptions] = None,
+    ) -> List[Any]:
+        return self.execute_response(index_name, query, shards, opt).results
+
+    def execute_response(
+        self,
+        index_name: str,
+        query: Union[str, Query],
+        shards: Optional[Sequence[int]] = None,
+        opt: Optional[ExecOptions] = None,
+    ) -> QueryResponse:
+        opt = replace(opt) if opt is not None else ExecOptions()
+        if isinstance(query, str):
+            query = parse(query)
+        idx = self.holder.index(index_name)
+        if idx is None:
+            raise NotFoundError(f"index not found: {index_name}")
+        if query.write_call_n() > opt.max_writes:
+            raise ExecError("too many writes in a single request")
+        if shards is None:
+            shards = opt.shards
+        results: List[Any] = []
+        calls = query.calls
+        i = 0
+        while i < len(calls):
+            # a run of adjacent Counts evaluates as one multi-root plan
+            j = i
+            while j < len(calls) and calls[j].name == "Count" and len(calls[j].children) == 1:
+                j += 1
+            if j - i >= 2:
+                batch = self._execute_count_batch(idx, calls[i:j], shards)
+                if batch is None:
+                    batch = [self._execute_call(idx, cc, shards) for cc in calls[i:j]]
+                results.extend(batch)
+                i = j
+                continue
+            results.append(self._execute_call(idx, calls[i], shards))
+            i += 1
+        return QueryResponse(results=results)
+
+    def _shards_for(self, idx: Index, shards, call: Optional[Call] = None) -> List[int]:
+        s = list(shards) if shards is not None else (sorted(idx.available_shards()) or [0])
+        if call is not None:
+            # Shift carries bits into following shards: include them
+            k = self._count_shifts(call)
+            if k:
+                ext = set(s)
+                for sh in s:
+                    ext.update(range(sh + 1, sh + 1 + k))
+                s = sorted(ext)
+        return s
+
+    def _execute_call(self, idx: Index, c: Call, shards):
+        name = c.name
+        if name not in ("Set", "Clear"):
+            shards = self._shards_for(idx, shards, c)
+        if name == "Count":
+            return self._execute_count(idx, c, shards)
+        if name == "Set":
+            return self._execute_set(idx, c)
+        if name == "Clear":
+            return self._execute_clear(idx, c)
+        if name == "TopN":
+            return self._execute_topn(idx, c, shards)
+        if name in _NOT_PORTED:
+            raise ExecError(f"{name} not yet ported")
+        return self._execute_bitmap_call(idx, c, shards)
+
+    # ------------------------------------------------------------------
+    # lowering
+    # ------------------------------------------------------------------
+
+    def _count_shifts(self, c: Call) -> int:
+        n = 1 if c.name == "Shift" else 0
+        n += sum(self._count_shifts(ch) for ch in c.children)
+        n += sum(self._count_shifts(v) for v in c.args.values() if isinstance(v, Call))
+        return n
+
+    def _lower_roots(self, idx: Index, calls: List[Call], shard_list):
+        """Lower call trees over ONE shared operand set. Returns (roots,
+        lowering, n_out, out_shards) or the _EMPTY sentinel when no operand
+        is materialized anywhere; BudgetExceeded propagates."""
+        shard_list = list(shard_list)
+        # Shift reads the previous shard's bits for its carry: stack the
+        # predecessors of an explicit shard subset too (output excludes them)
+        k = max(self._count_shifts(c) for c in calls)
+        aug = shard_list
+        if k:
+            present = set(shard_list)
+            extra = []
+            for s in shard_list:
+                for p in range(max(0, s - k), s):
+                    if p not in present:
+                        present.add(p)
+                        extra.append(p)
+            aug = shard_list + sorted(extra)
+        low = _StackedLowering(self, idx, aug)
+        try:
+            roots = [low.lower(c) for c in calls]
+        except SparseView:
+            return self._lower_roots_compacted(idx, calls, shard_list, aug, k)
+        if not low.operands:
+            return self._EMPTY
+        return roots, low, len(shard_list), shard_list
+
+    def _lower_roots_compacted(self, idx: Index, calls: List[Call], shard_list, aug, k: int):
+        """SparseView recovery: keep only shards where a touched view is
+        materialized (plus up to k Shift relay successors) and re-lower."""
+        collect = _StackedLowering(self, idx, aug, collect=True)
+        for c in calls:
+            collect.lower(c)
+        views = list(collect.views.values())
+        keep = {s for s in aug if any(v.fragment_if_exists(s) is not None for v in views)}
+        if k:
+            aug_set = set(aug)
+            for s in sorted(keep):
+                for t in range(s + 1, s + 1 + k):
+                    if t in aug_set:
+                        keep.add(t)
+        compact = [s for s in aug if s in keep]
+        if not compact:
+            return self._EMPTY
+        req = set(shard_list)
+        n_out = sum(1 for s in compact if s in req)
+        low = _StackedLowering(self, idx, compact, no_sparse_guard=True)
+        roots = [low.lower(c) for c in calls]
+        if not low.operands:
+            return self._EMPTY
+        # requested shards precede the extras in `compact`
+        return roots, low, n_out, compact[:n_out]
+
+    def _lower_plans(self, idx: Index, c: Call, shard_list) -> List[StackedPlan]:
+        """One stacked plan when the operands fit the device budget; a
+        handful of shard-axis chunks when they do not; [] when empty."""
+
+        def one(chunk):
+            lowered = self._lower_roots(idx, [c], chunk)
+            if lowered is self._EMPTY:
+                return []
+            roots, low, n_out, out_shards = lowered
+            return [StackedPlan(roots[0], low.operands, n_out, out_shards)]
+
+        return self._chunk_by_budget(list(shard_list), one)
+
+    @staticmethod
+    def _chunk_by_budget(shard_list, lower_one):
+        if not shard_list:
+            return []
+        try:
+            return lower_one(shard_list)
+        except BudgetExceeded:
+            if len(shard_list) < 2:
+                raise ExecError("one shard's stack exceeds the device budget") from None
+            mid = len(shard_list) // 2
+            return Executor._chunk_by_budget(
+                shard_list[:mid], lower_one
+            ) + Executor._chunk_by_budget(shard_list[mid:], lower_one)
+
+    # ------------------------------------------------------------------
+    # bitmap calls
+    # ------------------------------------------------------------------
+
+    def _execute_bitmap_call(self, idx: Index, c: Call, shards) -> Row:
+        shard_list = self._shards_for(idx, shards)
+        segments = {}
+        for sp in self._lower_plans(idx, c, shard_list):
+            stack = sp.rows()
+            nonzero = stack.ne(0).any(dim=1).cpu().tolist()
+            for i, shard in enumerate(sp.out_shards):
+                if nonzero[i]:
+                    segments[shard] = stack[i].clone()
+        return Row(segments)
+
+    def _field_of(self, idx: Index, name: str) -> Field:
+        f = idx.field(name)
+        if f is None:
+            raise NotFoundError(f"field not found: {name}")
+        return f
+
+    def _field_arg_name(self, c: Call) -> str:
+        for k in c.args:
+            if not k.startswith("_") and k not in ("from", "to"):
+                return k
+        raise ExecError(f"{c.name}() argument required: field")
+
+    # ------------------------------------------------------------------
+    # Count
+    # ------------------------------------------------------------------
+
+    def _execute_count_batch(self, idx: Index, calls: List[Call], shards) -> Optional[List[int]]:
+        """N adjacent Counts as one multi-root dispatch + one [N, S] read;
+        None sends the caller to per-call execution."""
+        children = []
+        for c in calls:
+            if len(c.children) != 1:
+                raise ExecError("Count() only accepts a single bitmap input")
+            children.append(c.children[0])
+        # every call must agree on its shard list (Shift extends theirs)
+        lists = [self._shards_for(idx, shards, c) for c in calls]
+        if any(lst != lists[0] for lst in lists[1:]):
+            return None
+        try:
+            lowered = self._lower_roots(idx, children, lists[0])
+        except BudgetExceeded:
+            return None  # per-call execution chunks each count instead
+        if lowered is self._EMPTY:
+            return [0] * len(calls)
+        roots, low, n_out, out_shards = lowered
+        return MultiCountPlan(roots, low.operands, n_out, out_shards).counts()
+
+    def _execute_count(self, idx: Index, c: Call, shards) -> int:
+        if len(c.children) != 1:
+            raise ExecError("Count() only accepts a single bitmap input")
+        shard_list = self._shards_for(idx, shards)
+        # one dispatch + one [S] host read per budget-sized shard chunk
+        return sum(sp.count() for sp in self._lower_plans(idx, c.children[0], shard_list))
+
+    # ------------------------------------------------------------------
+    # writes
+    # ------------------------------------------------------------------
+
+    def _execute_set(self, idx: Index, c: Call) -> bool:
+        col = c.args.get("_col")
+        if not isinstance(col, int):
+            raise ExecError("Set() column argument required (or keys not enabled)")
+        field_name = self._field_arg_name(c)
+        f = self._field_of(idx, field_name)
+        row_id = c.args.get(field_name)
+        if not isinstance(row_id, int):
+            raise ExecError("Set() row argument required")
+        changed = f.set_bit(row_id, col, c.args.get("_timestamp"))
+        idx.track_columns(np.array([col], np.uint64))
+        return changed
+
+    def _execute_clear(self, idx: Index, c: Call) -> bool:
+        col = c.args.get("_col")
+        if not isinstance(col, int):
+            raise ExecError("Clear() column argument required")
+        field_name = self._field_arg_name(c)
+        f = self._field_of(idx, field_name)
+        row_id = c.args.get(field_name)
+        if not isinstance(row_id, int):
+            raise ExecError("Clear() row argument required")
+        return f.clear_bit(row_id, col)
+
+    # ------------------------------------------------------------------
+    # TopN (two-pass protocol)
+    # ------------------------------------------------------------------
+
+    def _execute_topn(self, idx: Index, c: Call, shards) -> List[Pair]:
+        ids_arg = c.args.get("ids")
+        n = c.uint_arg("n")
+        if not ids_arg:
+            # one pass: the batched tally already holds exact counts for
+            # every candidate in every present shard
+            pairs = self._topn_local_full(idx, c, shards)
+            if pairs is not None:
+                return pairs[:n] if n else pairs
+        pairs = self._topn_shards(idx, c, shards)
+        if not pairs or ids_arg:
+            return pairs
+        # second pass: exact counts for the candidate ids
+        other = Call(c.name, dict(c.args), list(c.children))
+        other.args["ids"] = sorted(p.id for p in pairs)
+        trimmed = self._topn_shards(idx, other, shards)
+        return trimmed[:n] if n else trimmed
+
+    def _topn_local_full(self, idx: Index, c: Call, shards) -> Optional[List[Pair]]:
+        """Both TopN passes against ONE device tally (filtered queries
+        without Tanimoto); None sends the caller to the two-pass path."""
+        spec = self._topn_parse(idx, c)
+        if spec.src_call is None or spec.tanimoto > 0:
+            return None
+        vp = self._topn_present(spec, self._shards_for(idx, shards))
+        if vp is None:
+            return []
+        v, present = vp
+        present, sp = self._stacked_filter(idx, spec.src_call, present)
+        if not present:
+            return []
+        TOPN_STATS["one_pass"] += 1
+        src_stack = sp.rows_full()
+        thr = np.uint64(max(spec.threshold, 1))
+        # pass 1 survivors: threshold prune over the rank-cache arrays
+        surv = []
+        for _, frag in present:
+            rids, cnts = frag.cache_top_arrays()
+            m = cnts >= thr
+            surv.append((rids[m], cnts[m]))
+        if not any(len(s[0]) for s in surv):
+            return []
+        cand = np.unique(np.concatenate([s[0] for s in surv]))
+        order, fused = self._topn_icounts_raw(v, [int(x) for x in cand], present, src_stack)
+        pos_of = np.empty(len(order), np.int64)
+        pos_of[np.searchsorted(cand, np.asarray(order, np.uint64))] = np.arange(len(order))
+        ic_mat = fused[pos_of]  # uint64[R, S] in cand order
+        n1 = spec.n
+        merged_mask = np.zeros(len(cand), bool)
+        for j, (srids, scnts) in enumerate(surv):
+            if not len(srids):
+                continue
+            pos = np.searchsorted(cand, srids)
+            ic = ic_mat[pos, j]
+            if n1 == 0 or len(srids) <= n1:
+                merged_mask[pos[ic >= thr]] = True
+                continue
+            # exact cache-order walk with the reference's early stop
+            taken = 0
+            low = None
+            for i in range(len(srids)):
+                count = int(ic[i])
+                if taken < n1:
+                    if count < int(thr):
+                        continue
+                    merged_mask[pos[i]] = True
+                    taken += 1
+                    low = count if low is None or count < low else low
+                    continue
+                if low < int(thr) or int(scnts[i]) < low:
+                    break
+                if count < low:
+                    continue
+                merged_mask[pos[i]] = True
+        if not merged_mask.any():
+            return []
+        # pass 2: a (row, shard) cell contributes iff it passes threshold
+        sel = np.flatnonzero(merged_mask)
+        take = ic_mat[sel] >= thr
+        totals = (ic_mat[sel] * take).sum(axis=1, dtype=np.uint64)
+        pairs = [Pair(id=int(cand[i]), count=int(t)) for i, t in zip(sel, totals) if t > 0]
+        pairs.sort(key=lambda p: (-p.count, p.id))
+        return pairs
+
+    def _topn_parse(self, idx: Index, c: Call) -> _TopNSpec:
+        field_name = c.args.get("_field")
+        f = self._field_of(idx, field_name)
+        if f.options.type == FIELD_TYPE_INT:
+            raise ExecError(f"cannot compute TopN() on integer field: {field_name!r}")
+        if f.options.cache_type == "none":
+            raise ExecError(f'cannot compute TopN(), field has no cache: "{field_name}"')
+        tanimoto = c.uint_arg("tanimotoThreshold") or 0
+        if tanimoto > 100:
+            raise ExecError("Tanimoto Threshold is from 1 to 100 only")
+        if len(c.children) > 1:
+            raise ExecError("TopN() can only have one input bitmap")
+        if c.args.get("attrName") and c.args.get("attrValues"):
+            raise ExecError("TopN() attrName/attrValues not yet ported")
+        return _TopNSpec(
+            f=f,
+            n=c.uint_arg("n") or 0,
+            ids=c.args.get("ids"),
+            threshold=c.uint_arg("threshold") or DEFAULT_MIN_THRESHOLD,
+            tanimoto=tanimoto,
+            src_call=c.children[0] if c.children else None,
+        )
+
+    def _topn_pool(self, spec: _TopNSpec, frag) -> Tuple[int, list]:
+        """One shard's candidate pool in rank order: explicit ids read
+        exact counts (no truncation, n=0); otherwise the rank cache."""
+        if spec.ids:
+            ids = [int(i) for i in spec.ids]
+            counts = frag.cache_counts_exact(np.asarray(ids, np.uint64))
+            if counts is None:
+                counts = frag.row_counts_host(ids)
+            pairs = [(rid, int(cnt)) for rid, cnt in zip(ids, counts) if cnt > 0]
+            pairs.sort(key=lambda p: (-p[1], p[0]))
+            return 0, pairs
+        return spec.n, frag.cache_top()
+
+    @staticmethod
+    def _topn_survivors(spec: _TopNSpec, pairs, use_tan: bool, src_count: int):
+        if use_tan:
+            min_tan = src_count * spec.tanimoto / 100.0
+            max_tan = src_count * 100.0 / spec.tanimoto
+        survivors: List[Tuple[int, int]] = []
+        for rid, cnt in pairs:
+            if cnt == 0:
+                continue
+            if use_tan:
+                if not (min_tan < cnt < max_tan):
+                    continue
+            elif cnt < spec.threshold:
+                continue
+            survivors.append((rid, cnt))
+        return survivors
+
+    @staticmethod
+    def _topn_select(spec: _TopNSpec, n: int, survivors, src_count: int, icounts):
+        """The per-shard heap selection with a filter bitmap: a min-heap
+        caps the result at n; cache rank order bounds the remaining
+        candidates once it is full. Returns (count, rid) tuples."""
+        use_tan = spec.tanimoto > 0
+        results: List[Tuple[int, int]] = []
+        for rid, cnt in survivors:
+            if n == 0 or len(results) < n:
+                count = icounts[rid]
+                if count == 0:
+                    continue
+                if use_tan:
+                    t = math.ceil(count * 100 / (cnt + src_count - count))
+                    if t <= spec.tanimoto:
+                        continue
+                elif count < spec.threshold:
+                    continue
+                heapq.heappush(results, (count, rid))
+                continue
+            low = results[0][0]
+            if low < spec.threshold or cnt < low:
+                break
+            count = icounts[rid]
+            if count < low:
+                continue
+            heapq.heappush(results, (count, rid))
+        return results
+
+    def _topn_shards(self, idx: Index, c: Call, shards) -> List[Pair]:
+        spec = self._topn_parse(idx, c)
+        merged = self._topn_merged_batched(spec, idx, self._shards_for(idx, shards))
+        pairs = [Pair(id=i, count=cnt) for i, cnt in merged.items()]
+        pairs.sort(key=lambda p: (-p.count, p.id))
+        return pairs
+
+    def _topn_merged_batched(self, spec: _TopNSpec, idx: Index, shard_list) -> Dict[int, int]:
+        """All shards' TopN tallies in one batched pass: candidates from
+        the rank caches; a filter bitmap lowers to ONE plan and the
+        survivors' intersection counts come from one device tally."""
+        vp = self._topn_present(spec, shard_list)
+        if vp is None:
+            return {}
+        v, present = vp
+        TOPN_STATS["batched"] += 1
+        if spec.src_call is None:
+            return self._topn_merged_hostfast(spec, present)
+        present, sp = self._stacked_filter(idx, spec.src_call, present)
+        if not present:
+            return {}
+        src_stack = sp.rows_full()
+        use_tan = spec.tanimoto > 0
+        src_counts = None
+        if use_tan:
+            TOPN_STATS["tally_evals"] += 1
+            src_counts = kernels.rows_counts(src_stack).cpu().numpy()[: len(present)]
+        pools = []
+        cand_union: Dict[int, None] = {}
+        for j, (_, frag) in enumerate(present):
+            n, pairs = self._topn_pool(spec, frag)
+            sc = int(src_counts[j]) if use_tan else 0
+            survivors = self._topn_survivors(spec, pairs, use_tan, sc)
+            pools.append((n, survivors, sc))
+            for rid, _ in survivors:
+                cand_union[rid] = None
+        ic_rows: Dict[int, np.ndarray] = {}
+        if cand_union:
+            order, fused = self._topn_icounts_raw(v, sorted(cand_union), present, src_stack)
+            ic_rows = {rid: fused[k] for k, rid in enumerate(order)}
+        merged: Dict[int, int] = {}
+        for j, (n, survivors, sc) in enumerate(pools):
+            icounts = {rid: int(ic_rows[rid][j]) for rid, _ in survivors}
+            for count, rid in self._topn_select(spec, n, survivors, sc, icounts):
+                merged[rid] = merged.get(rid, 0) + count
+        return merged
+
+    @staticmethod
+    def _topn_merged_hostfast(spec: _TopNSpec, present) -> Dict[int, int]:
+        """The no-filter merge: counts are exact host metadata, so both
+        passes are vectorized rank-cache walks with no device work."""
+        merged: Dict[int, int] = {}
+        if spec.ids:
+            # explicit ids: no truncation; per shard, counts >= threshold
+            ids = [int(i) for i in spec.ids]
+            ids_arr = np.asarray(ids, np.uint64)
+            totals = np.zeros(len(ids), np.uint64)
+            thr = np.uint64(spec.threshold)
+            for _, frag in present:
+                c = frag.cache_counts_exact(ids_arr)
+                if c is None:
+                    c = frag.row_counts_host(ids)
+                c[c < thr] = 0
+                totals += c
+            for rid, cnt in zip(ids, totals):
+                if cnt:
+                    merged[rid] = merged.get(rid, 0) + int(cnt)
+            return merged
+        # pass 1: per-shard top-n of the rank cache (sorted descending, so
+        # the threshold cut is a prefix), merged with one bincount
+        n = spec.n
+        thr = np.uint64(max(spec.threshold, 1))
+        sel_rids, sel_cnts = [], []
+        for _, frag in present:
+            rids, cnts = frag.cache_top_arrays()
+            end = int(np.searchsorted(-cnts.view(np.int64), -int(thr), "right"))
+            rids, cnts = rids[:end], cnts[:end]
+            if n and len(rids) > n:
+                rids, cnts = rids[:n], cnts[:n]
+            if len(rids):
+                sel_rids.append(rids)
+                sel_cnts.append(cnts)
+        if sel_rids:
+            uniq, inv = np.unique(np.concatenate(sel_rids), return_inverse=True)
+            # float64 weights are exact below 2^53
+            totals = np.bincount(inv, weights=np.concatenate(sel_cnts).astype(np.float64))
+            for rid, t in zip(uniq, totals):
+                merged[int(rid)] = int(t)
+        return merged
+
+    def _topn_present(self, spec: _TopNSpec, shard_list):
+        """(standard view, present (shard, fragment) pairs), or None when
+        the view or every listed fragment is absent."""
+        v = spec.f.view(VIEW_STANDARD)
+        if v is None:
+            return None
+        present = [(s, frag) for s in shard_list if (frag := v.fragment_if_exists(s)) is not None]
+        if not present:
+            return None
+        v.sync_pending(frags=[frag for _, frag in present])
+        return v, present
+
+    def _stacked_filter(self, idx: Index, filter_call: Call, present):
+        """Lower a filter bitmap over the present fragments' shards.
+        Returns (present, plan), `present` restricted to the plan's
+        out_shards when compaction dropped shards (they hold no filter
+        bits); ([], None) when the filter is empty everywhere."""
+        pshards = [s for s, _ in present]
+        try:
+            lowered = self._lower_roots(idx, [filter_call], pshards)
+        except BudgetExceeded:
+            raise ExecError("TopN filter stack exceeds the device budget") from None
+        if lowered is self._EMPTY:
+            return [], None
+        roots, low, n_out, out_shards = lowered
+        sp = StackedPlan(roots[0], low.operands, n_out, out_shards)
+        if sp.out_shards != pshards:
+            outs = set(sp.out_shards)
+            present = [(s, frag) for s, frag in present if s in outs]
+        return present, sp
+
+    def _topn_icounts_raw(self, view, cand: List[int], present, src_stack):
+        """Intersection counts of every candidate row with the filter in
+        every present shard, with ONE host read: (row order, uint64[R, S]).
+        Rows sparse in every present shard tally only their live words
+        (gather_tally); rows dense anywhere go through [R_c, S, W] plane
+        stacks (rows_counts)."""
+        pshards = tuple(s for s, _ in present)
+        n_present = len(present)
+        s_full, w = src_stack.shape
+        bundle = view.dcache.get_or_build(
+            view._stack_key("topn_sparse", tuple(cand), pshards),
+            lambda: self._topn_tally_build(cand, present, w, src_stack.device),
+        )
+        parts: List[torch.Tensor] = []
+        order: List[int] = []
+        with planmod.dispatch_mutex():
+            r_c = gb.gmax(s_full, w)
+            for i in range(0, len(bundle.dense_rows), r_c):
+                ids = bundle.dense_rows[i : i + r_c]
+                planes = view.plane_stack(ids, pshards)
+                TOPN_STATS["tally_evals"] += 1
+                counts = gb.counts_cross(src_stack[: planes.shape[1]], planes)
+                parts.append(counts[:, :n_present])
+                order.extend(ids)
+            if bundle.sparse_rows:
+                n_sparse = len(bundle.sparse_rows)
+                if bundle.dev is None:
+                    parts.append(
+                        torch.zeros((n_sparse, n_present), dtype=torch.int32, device=src_stack.device)
+                    )
+                else:
+                    TOPN_STATS["tally_evals"] += 1
+                    seg = kernels.gather_tally(src_stack, *bundle.dev)
+                    parts.append(seg.reshape(n_sparse, n_present))
+                order.extend(bundle.sparse_rows)
+            if not order:
+                return [], np.empty((0, n_present), np.uint64)
+            fused = torch.cat(parts).cpu().numpy().astype(np.uint64)
+            planmod.STATS["host_reads"] += 1
+        return order, fused
+
+    @staticmethod
+    def _topn_tally_build(cand: List[int], present, w: int, device) -> _TallyBundle:
+        """Split candidates into dense (a dense rep in any present shard)
+        and sparse rows, and fold the sparse rows' live bits into sorted
+        (word index, mask) entries with segment bounds, one segment per
+        (sparse row k, present shard j) at k * n_present + j."""
+        r_all = len(cand)
+        n_present = len(present)
+        cats, lens = [], []
+        for _, frag in present:
+            c_, l_ = frag.rows_sparse_concat(cand)
+            cats.append(c_)
+            lens.append(l_)
+        lens_mat = np.stack(lens)  # [S, R]; -1 marks a dense rep
+        dense_mask = (lens_mat < 0).any(axis=0)
+        if int(np.clip(lens_mat, 0, None).sum()) >= 1 << 27:
+            dense_mask = np.ones(r_all, bool)  # keep int32 segment sums exact
+        dense_rows = [rid for i, rid in enumerate(cand) if dense_mask[i]]
+        sparse_rows = [rid for i, rid in enumerate(cand) if not dense_mask[i]]
+        dev = None
+        if sparse_rows:
+            k_of = np.full(r_all, -1, np.int64)
+            k_of[~dense_mask] = np.arange(len(sparse_rows))
+            wkey_parts, bit_parts = [], []
+            for j in range(n_present):
+                l_ = np.clip(lens_mat[j], 0, None)
+                if not l_.sum():
+                    continue
+                rows_per_el = np.repeat(np.arange(r_all), l_)
+                keep = ~dense_mask[rows_per_el]
+                pos = cats[j][keep].astype(np.int64)
+                seg = k_of[rows_per_el[keep]] * n_present + j
+                wkey_parts.append(seg * w + (pos >> 5))
+                bit_parts.append(np.uint32(1) << (pos & np.int64(31)).astype(np.uint32))
+            if wkey_parts:
+                wkeys = np.concatenate(wkey_parts)
+                bits = np.concatenate(bit_parts)
+                o = np.argsort(wkeys, kind="stable")
+                sk, sb = wkeys[o], bits[o]
+                new_grp = np.empty(len(sk), bool)
+                new_grp[0] = True
+                np.not_equal(sk[1:], sk[:-1], out=new_grp[1:])
+                gstart = np.flatnonzero(new_grp)
+                masks = np.bitwise_or.reduceat(sb, gstart)
+                uk = sk[gstart]
+                seg_of = uk // w
+                idx = ((seg_of % n_present) * w + uk % w).astype(np.int32)
+                segs = np.arange(len(sparse_rows) * n_present)
+                starts = np.searchsorted(seg_of, segs, "left").astype(np.int32)
+                ends = np.searchsorted(seg_of, segs, "right").astype(np.int32)
+                dev = tuple(
+                    torch.from_numpy(a).to(device)
+                    for a in (idx, masks.view(np.int32), starts, ends)
+                )
+        return _TallyBundle(dense_rows, sparse_rows, dev)

@@ -133,3 +133,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-process E2E tests (boot real server processes)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc; skips where either is missing"
+    )

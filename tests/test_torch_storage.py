@@ -1,0 +1,146 @@
+"""The port's storage layer against pilosa_tpu's: the device cache
+contract, and fragments fed the same writes (staged, exact, word-level,
+mutex) reading back identical words, positions and rank caches."""
+
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from pilosa_tpu.core.fragment import Fragment as JFragment
+from pilosa_tpu_torch.core.devcache import DeviceCache, new_owner_token
+from pilosa_tpu_torch.core.fragment import Fragment as TFragment
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
+
+
+def test_devcache_evicts_lru_over_budget_and_keeps_new_entry():
+    c = DeviceCache(budget_bytes=3 * 400)
+    owner = new_owner_token()
+    for i in range(3):
+        c.get_or_build((owner, i), lambda: torch.zeros(100, dtype=torch.int32))
+    c.get_or_build((owner, 0), lambda: pytest.fail("cached entry rebuilt"))  # touch 0
+    c.get_or_build((owner, 3), lambda: torch.zeros(100, dtype=torch.int32))
+    assert c.bytes_used == 3 * 400 and c.evictions == 1
+    rebuilt = []
+    c.get_or_build((owner, 1), lambda: rebuilt.append(1) or torch.zeros(100, dtype=torch.int32))
+    assert rebuilt == [1]  # 1 was the least recently used
+    big = c.get_or_build((owner, 9), lambda: torch.zeros(10_000, dtype=torch.int32))
+    assert big.numel() == 10_000 and c.bytes_used == 40_000  # admitted alone
+
+
+def test_devcache_invalidation_by_key_and_owner():
+    c = DeviceCache(budget_bytes=1 << 20)
+    a, b = new_owner_token(), new_owner_token()
+    for owner in (a, b):
+        for i in range(2):
+            c.get_or_build((owner, i), lambda: torch.ones(4, dtype=torch.int32))
+    c.invalidate((a, 0))
+    c.invalidate_owners([b])
+    assert c.bytes_used == 16
+    built = []
+    c.get_or_build((a, 0), lambda: built.append("a0") or torch.ones(4, dtype=torch.int32))
+    c.get_or_build((b, 1), lambda: built.append("b1") or torch.ones(4, dtype=torch.int32))
+    c.get_or_build((a, 1), lambda: built.append("a1") or torch.ones(4, dtype=torch.int32))
+    assert built == ["a0", "b1"]
+
+
+def test_devcache_get_or_build_is_single_flight():
+    c = DeviceCache(budget_bytes=1 << 20)
+    key = (new_owner_token(), "k")
+    calls = []
+    gate = threading.Event()
+
+    def build():
+        calls.append(1)
+        gate.wait(5)
+        return torch.arange(8, dtype=torch.int32)
+
+    out = []
+    threads = [threading.Thread(target=lambda: out.append(c.get_or_build(key, build))) for _ in range(8)]
+    for t in threads:
+        t.start()
+    gate.set()
+    for t in threads:
+        t.join(10)
+        assert not t.is_alive()
+    assert len(calls) == 1 and len(out) == 8
+    assert all(o is out[0] for o in out)
+
+
+def test_devcache_failed_build_is_retried():
+    c = DeviceCache(budget_bytes=1 << 20)
+    key = (new_owner_token(), 0)
+    with pytest.raises(RuntimeError):
+        c.get_or_build(key, lambda: (_ for _ in ()).throw(RuntimeError("boom")))
+    assert c.get_or_build(key, lambda: torch.ones(1, dtype=torch.int32)).item() == 1
+
+
+def _pair(mutex=False):
+    ref = JFragment(None, "i", "f", "standard", 2, mutex=mutex).open()
+    port = TFragment(
+        "i", "f", "standard", 2, device=torch.device("cpu"),
+        dcache=DeviceCache(1 << 30), mutex=mutex,
+    )
+    return ref, port
+
+
+def _same(ref, port, rows):
+    for r in rows:
+        np.testing.assert_array_equal(port.row_words(r), ref.row_words(r))
+        np.testing.assert_array_equal(port.row_positions(r), ref.row_positions(r))
+        assert port.row_count(r) == ref.row_count(r)
+    assert port.cache_top() == ref.cache_top()
+    ids = np.asarray(rows, np.uint64)
+    np.testing.assert_array_equal(port.cache_counts_exact(ids), ref.cache_counts_exact(ids))
+    np.testing.assert_array_equal(port.row_counts_host(list(rows)), ref.row_counts_host(list(rows)))
+
+
+def test_fragment_writes_match_reference():
+    rng = np.random.default_rng(5)
+    ref, port = _pair()
+    rows = list(range(6))
+    for _ in range(3):  # staged bursts merge at the next read barrier
+        pos = rng.integers(0, 6, 3000).astype(np.uint64) * np.uint64(SHARD_WIDTH) + rng.integers(
+            0, SHARD_WIDTH, 3000
+        ).astype(np.uint64)
+        assert port.stage_positions(pos) == ref.stage_positions(pos)
+    _same(ref, port, rows)
+    dense = rng.integers(0, 2**32, WORDS_PER_ROW, dtype=np.uint32)
+    assert port.import_row_words(1, dense) == ref.import_row_words(1, dense)
+    clear = rng.integers(0, 2 * SHARD_WIDTH, 5000).astype(np.uint64)
+    assert port.import_positions(None, clear) == ref.import_positions(None, clear)
+    for r, c in [(0, 5), (0, 5), (3, SHARD_WIDTH * 2 + 17), (1, 9)]:
+        assert port.set_bit(r, c) == ref.set_bit(r, c)
+        assert port.clear_bit(r, c + 1) == ref.clear_bit(r, c + 1)
+    _same(ref, port, rows)
+    cat_p, len_p = port.rows_sparse_concat(rows)
+    cat_r, len_r = ref.rows_sparse_concat(rows)
+    np.testing.assert_array_equal(cat_p, cat_r)
+    np.testing.assert_array_equal(len_p, len_r)
+    with pytest.raises(ValueError):
+        port.set_bit(0, 5 * SHARD_WIDTH)  # column of another shard
+
+
+def test_mutex_fragment_matches_reference():
+    rng = np.random.default_rng(6)
+    ref, port = _pair(mutex=True)
+    cols = rng.integers(0, SHARD_WIDTH, 2000).astype(np.uint64)
+    cols = np.concatenate([cols, cols[:300]])
+    rows = rng.integers(0, 4, len(cols)).astype(np.uint64)
+    assert port.bulk_import(rows, cols) == ref.bulk_import(rows, cols)
+    for r, c in [(1, 7), (2, 7), (2, 7), (0, int(cols[0]))]:
+        assert port.set_bit(r, c) == ref.set_bit(r, c)
+    _same(ref, port, range(4))
+    with pytest.raises(ValueError):
+        port.stage_positions(np.array([1], np.uint64))
+    with pytest.raises(ValueError):
+        port.import_row_words(0, np.zeros(WORDS_PER_ROW, np.uint32))
+
+
+def test_bsi_methods_raise():
+    _, port = _pair()
+    with pytest.raises(NotImplementedError, match="BSI slice"):
+        port.set_value(1, 8, 3)
+    with pytest.raises(NotImplementedError, match="BSI slice"):
+        port.not_null()
