@@ -166,7 +166,26 @@ def kernel_phase(rng, dev, errs):
             want = K.plan_count_plain([cpu(t) for t in leaves], prog, n)
             same("plan_count", K.plan_count(leaves, prog, n), want)
     check({"andnot", "xor", "zero"} <= seen, f"plan trees lacked a case: {seen}")
-    print("kernels: plan_count equal to twin on 24 random depth-3 trees")
+    # wide and deep: 40 leaves in one node, a 40-level nest, an andnot whose
+    # head comes last (rev_andnot), and a hand-built program 30 entries deep
+    wide = [rand_words(s, w) for _ in range(40)]
+    leaf = planmod.PLeaf
+    nest = leaf(0)
+    for d in range(1, 40):
+        nest = planmod.PNary(("and", "or", "xor", "andnot")[d % 4], (nest, leaf(d)) if d % 3 else (leaf(d), nest))
+    roots = [
+        planmod.PNary("or", tuple(leaf(i) for i in range(40))),
+        planmod.PNary("andnot", (leaf(39), planmod.PNary("or", tuple(leaf(i) for i in range(35))))),
+        nest,
+    ]
+    progs = [planmod._compile(r, wide) for r in roots]
+    check(K.BINOPS["rev_andnot"] in progs[1][1], "wide andnot did not compile to rev_andnot")
+    progs.append((wide[:30], list(range(30)) + [K.BINOPS["or"]] * 29))
+    for leaves, prog in progs:
+        want = K.plan_count_plain([cpu(t) for t in leaves], prog, s)
+        same("plan_count", K.plan_count(leaves, prog, s), want)
+    del wide
+    print("kernels: plan_count equal to twin on 24 random depth-3 trees and 4 wide/deep programs")
 
     # gather_tally with empty segments
     src = rand_words(6, 2048)
@@ -263,13 +282,27 @@ def main_path(args, rng):
         all_cols.reshape(-1)[c >> 5] |= np.uint32(1 << (c & 31))
 
     def shifted_count(words):
+        """(count, [S + 1, W] words) of the row shifted up one column; the
+        last shard's top bit carries into shard S."""
         flat = np.concatenate([words.reshape(-1), np.zeros(W, np.uint32)])
         out = (flat << np.uint32(1)) | np.concatenate([[np.uint32(0)], flat[:-1] >> np.uint32(31)])
-        return np_popcount(out), out[: S * W].reshape(S, W)
+        return np_popcount(out), out.reshape(S + 1, W)
 
     R = lambda fld, r: rows[(fld, r)]  # noqa: E731
     pc = np_popcount
     shift_n, shift_words = shifted_count(R("f", 6))
+    # 34 distinct leaves: g=0 minus the union of every other row and six
+    # shifted rows (the shifts extend the shard list past the last shard)
+    wide_rows = [R("f", r) for r in range(n_dense + n_sparse)] + [R("g", r) for r in range(1, n_g)]
+    wide_union = np.concatenate([np.bitwise_or.reduce(wide_rows), np.zeros((1, W), np.uint32)]).reshape(-1)
+    for r in range(6):
+        wide_union |= shifted_count(R("f", r))[1].reshape(-1)
+    wide_g0 = np.concatenate([R("g", 0), np.zeros((1, W), np.uint32)]).reshape(-1)
+    wide_pql = "Count(Difference(Row(g=0), Union({})))".format(", ".join(
+        [f"Row(f={r})" for r in range(n_dense + n_sparse)]
+        + [f"Row(g={r})" for r in range(1, n_g)]
+        + [f"Shift(Row(f={r}), n=1)" for r in range(6)]
+    ))
     queries = [
         ("Count(Intersect(Row(f=1), Row(g=0)))", [pc(R("f", 1) & R("g", 0))]),
         ("Count(Union(Row(f=0), Row(f=1), Row(f=2)))", [pc(R("f", 0) | R("f", 1) | R("f", 2))]),
@@ -281,7 +314,9 @@ def main_path(args, rng):
             "Count(Intersect(Row(f=0), Row(f=16))) Count(Union(Row(f=7), Row(g=3)))",
             [pc(R("f", 0) & R("f", 16)), pc(R("f", 7) | R("g", 3))],
         ),
+        (wide_pql, [pc(wide_g0 & ~wide_union)]),
     ]
+    del wide_rows, wide_union, wide_g0
     totals = {r: pc(R("f", r)) for r in range(n_dense + n_sparse)}
     top = sorted(totals.items(), key=lambda kv: (-kv[1], kv[0]))[:10]
     ic = {r: pc(R("f", r) & R("g", 0)) for r in range(n_dense + n_sparse)}
@@ -322,7 +357,8 @@ def main_path(args, rng):
     lat = {}
     timed = [q for q, _ in queries] + ["Row(f=1)", "TopN(f, n=10)", "TopN(f, Row(g=0), n=10)"]
     for pql in timed:
-        lat[pql] = host_p50_ms(lambda pql=pql: ex.execute("smoke", pql))
+        name = "Count(Difference(Row(g=0), Union(<33 rows, 6 of them shifted>)))" if pql == wide_pql else pql
+        lat[name] = host_p50_ms(lambda pql=pql: ex.execute("smoke", pql))
     lat["Row(f=1) + .count()"] = host_p50_ms(lambda: ex.execute("smoke", "Row(f=1)")[0].count())
     for pql, ms in lat.items():
         print(f"query p50 {ms:.3f} ms  {pql}")
@@ -415,6 +451,29 @@ def kernel_timing(holder, ex, launches, errs):
         "popcount_SxW": cuda_time_ms(lambda: K.popcount(a)),
     }
     print(f"kernel count2(and) on [S, W]: {extra['count2_and_SxW']:.4f} ms (twin {extra['count2_and_SxW_plain']:.4f} ms)")
+    # plan_count over 28 leaves: g=0 minus the union of the other 27 rows
+    from pilosa_tpu_torch.exec import plan as planmod
+
+    stacks = [view_f.row_stack(r, shards) for r in range(24)] + [view_g.row_stack(r, shards) for r in range(4)]
+    wide_root = planmod.PNary(
+        "andnot", (planmod.PLeaf(24), planmod.PNary("or", tuple(planmod.PLeaf(i) for i in range(28) if i != 24)))
+    )
+    wl, wp = planmod._compile(wide_root, stacks)
+    check(len(wl) == 28, f"wide plan has {len(wl)} leaves")
+    check(torch.equal(K.plan_count(wl, wp, s_all).cpu(), K.plan_count_plain(wl, wp, s_all).cpu()), "wide plan_count differs from twin")
+    extra["plan_count_28_leaves"] = cuda_time_ms(lambda: K.plan_count(wl, wp, s_all))
+    extra["plan_count_28_leaves_plain"] = cuda_time_ms(lambda: K.plan_count_plain(wl, wp, s_all))
+    extra["plan_count_28_leaves_bound"] = (28 * a.numel() * 4 + s_all * 8) / HBM_BYTES_PER_S * 1e3
+    # the per-launch copy of plan_count's leaf-pointer + program table,
+    # inside every plan_count time above (3 entries: the 2-leaf plan)
+    extra["plan_count_table_copy"] = cuda_time_ms(
+        lambda: torch.tensor([a.data_ptr(), b.data_ptr()] + prog, dtype=torch.int64).to(a.device)
+    )
+    print(f"plan_count table copy (3 entries): {extra['plan_count_table_copy']:.4f} ms")
+    print(
+        f"kernel plan_count, 28 leaves: {extra['plan_count_28_leaves']:.4f} ms "
+        f"(twin {extra['plan_count_28_leaves_plain']:.4f} ms, bound {extra['plan_count_28_leaves_bound']:.4f} ms)"
+    )
     return rows, extra
 
 
@@ -466,7 +525,7 @@ def main() -> int:
     }))
     print(json.dumps({
         "ok": True,
-        "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},
+        "device": {"platform": "gpu", "kind": kind, "count": 1},
     }))
     return 0
 

@@ -6,10 +6,10 @@ tree to a small static tree of plan nodes over operand stacks; this module
 evaluates it:
 
 - count / total / shard_counts run the plan_count kernel: the tree is
-  compiled to a postfix program over up to 32 leaf stacks and evaluated
-  word by word on the card with nothing intermediate written to memory,
-  giving exact int64 per-shard counts. `total` sums them on the device
-  (exact, so the reference's halfword pair is not needed).
+  compiled to a postfix program over any number of leaf stacks and
+  evaluated word by word on the card with nothing intermediate written to
+  memory, giving exact int64 per-shard counts. `total` sums them on the
+  device (exact, so the reference's halfword pair is not needed).
 - PShift subtrees are evaluated with ops.bitmap.shift_bits (plus the
   cross-shard carry) and enter the kernel as materialized leaves.
 - row mode (rows / rows_full) evaluates with PyTorch bitwise ops.
@@ -150,13 +150,35 @@ def _eval_rows(node: PNode, operands, memo: Dict[int, torch.Tensor]) -> torch.Te
     return val
 
 
+def _need(node: PNode, memo: Dict[int, int]) -> int:
+    """Operand-stack entries the postfix program of `node` needs when each
+    n-ary node emits its children deepest first: at most
+    floor(log2(leaf occurrences)) + 1."""
+    hit = memo.get(id(node))
+    if hit is None:
+        hit = 1
+        if isinstance(node, PNary):
+            ds = sorted((_need(c, memo) for c in node.children), reverse=True)
+            hit = max(ds[0], 1 + ds[1]) if len(ds) > 1 else ds[0]
+        memo[id(node)] = hit
+    return hit
+
+
 def _compile(root: PNode, operands) -> Tuple[List[torch.Tensor], List[int]]:
     """Postfix program for the plan_count kernel: (leaf stacks, program).
-    PShift subtrees are materialized (row mode) into leaves."""
+    PShift subtrees are materialized (row mode) into leaves.
+
+    Each n-ary node folds its children into the value on top of the stack,
+    deepest child first, so the stack depth grows with the log of the
+    tree's size, not with its width or nesting. and/or/xor reorder freely;
+    for andnot (c0 &~ c1 &~ ...) the subtracted children met before c0 are
+    or-ed together, c0 then takes `rev_andnot` against that union, and
+    the rest fold with `andnot`."""
     leaves: List[torch.Tensor] = []
     leaf_of: Dict[Tuple[str, int], int] = {}
     prog: List[int] = []
     memo: Dict[int, torch.Tensor] = {}
+    need: Dict[int, int] = {}
 
     def leaf(key: Tuple[str, int], make) -> None:
         i = leaf_of.get(key)
@@ -171,10 +193,19 @@ def _compile(root: PNode, operands) -> Tuple[List[torch.Tensor], List[int]]:
         elif isinstance(node, PZero):
             prog.append(kernels.PUSH_ZERO)
         elif isinstance(node, PNary):
-            emit(node.children[0])
-            for c in node.children[1:]:
-                emit(c)
-                prog.append(kernels.BINOPS[node.op])
+            ch = node.children
+            order = sorted(range(len(ch)), key=lambda i: -_need(ch[i], need))
+            head_seen = False
+            for k, i in enumerate(order):
+                emit(ch[i])
+                if node.op != "andnot":
+                    op = node.op
+                elif i == 0:
+                    head_seen, op = True, "rev_andnot"
+                else:
+                    op = "andnot" if head_seen else "or"
+                if k:
+                    prog.append(kernels.BINOPS[op])
         elif isinstance(node, PShift):
             leaf(("node", id(node)), lambda: _eval_rows(node, operands, memo))
         else:
@@ -189,13 +220,6 @@ def _root_counts(root: PNode, operands, n_shards: int) -> torch.Tensor:
     leaves, prog = _compile(root, operands)
     if not leaves:  # the root is all-zero
         return torch.zeros(n_shards, dtype=torch.int64, device=operands[0].device)
-    try:
-        kernels.check_program(len(leaves), prog)
-    except ValueError:
-        # too wide or deep for one kernel program: materialize the root
-        # and count its rows with the rows_counts kernel instead
-        rows = _eval_rows(root, operands, {})[:n_shards].contiguous()
-        return kernels.rows_counts(rows).to(torch.int64)
     return kernels.plan_count(leaves, prog, n_shards)
 
 

@@ -139,26 +139,20 @@ rows_counts_kernel(const uint32_t* __restrict__ stack, int64_t W,
 // word from a postfix program, then popcount, then per-shard counts.
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxLeaves = 32;
-constexpr int kMaxProg = 96;
-constexpr int kMaxStack = 8;
+// Operand stack entries per thread. The compiler orders each n-ary node's
+// children deepest first, so a program needs at most floor(log2(leaf
+// occurrences)) + 1 entries; 32 covers any program under 2^31 instructions.
+constexpr int kMaxStack = 32;
 
 // program instructions: >= 0 pushes that leaf; the rest are below
-constexpr int8_t kPushZero = -1;
-constexpr int8_t kAnd = -2;
-constexpr int8_t kOr = -3;
-constexpr int8_t kXor = -4;
-constexpr int8_t kAndNot = -5;
+constexpr int64_t kPushZero = -1;
+constexpr int64_t kAnd = -2;
+constexpr int64_t kOr = -3;
+constexpr int64_t kXor = -4;
+constexpr int64_t kAndNot = -5;     // below & ~top
+constexpr int64_t kRevAndNot = -6;  // top & ~below
 
-struct PlanArgs {
-  const uint4* leaves[kMaxLeaves];
-  int8_t prog[kMaxProg];
-  int32_t n_prog;
-  int32_t blocks_per_shard;
-  int64_t w4;  // uint4 per (row, shard)
-};
-
-__device__ __forceinline__ uint4 binop(int8_t ins, uint4 a, uint4 b) {
+__device__ __forceinline__ uint4 binop(int64_t ins, uint4 a, uint4 b) {
   switch (ins) {
     case kAnd:
       return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
@@ -166,30 +160,38 @@ __device__ __forceinline__ uint4 binop(int8_t ins, uint4 a, uint4 b) {
       return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
     case kXor:
       return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
-    default:  // kAndNot
+    case kAndNot:
       return make_uint4(a.x & ~b.x, a.y & ~b.y, a.z & ~b.z, a.w & ~b.w);
+    default:  // kRevAndNot
+      return make_uint4(b.x & ~a.x, b.y & ~a.y, b.z & ~a.z, b.w & ~a.w);
   }
 }
 
-// Block b works on shard b / blocks_per_shard; each block adds its partial
-// count into out[shard] once. Every thread runs the same program, so there
-// is no divergence; the operand stack lives in registers/local memory and
-// no intermediate bitmap is written anywhere.
+// `table` is one device buffer: n_leaves leaf pointers (each an [S, W]
+// stack of uint4-aligned words) followed by n_prog instructions; every
+// thread reads the same entry at once, so each read is one L1 broadcast.
+// Block b works on shard b / bps and adds its partial count into
+// out[shard] once. Every thread runs the same program, so there is no
+// divergence; the operand stack lives in local memory and no intermediate
+// bitmap is written anywhere.
 __global__ void __launch_bounds__(kThreads)
-plan_count_kernel(const PlanArgs args, unsigned long long* __restrict__ out) {
+plan_count_kernel(const int64_t* __restrict__ table, int64_t n_leaves,
+                  int64_t n_prog, int64_t w4, int32_t bps,
+                  unsigned long long* __restrict__ out) {
   __shared__ uint32_t partial[kWarps];
-  const int64_t s = blockIdx.x / args.blocks_per_shard;
-  const int64_t part = blockIdx.x % args.blocks_per_shard;
-  const int64_t base = s * args.w4;
-  const int64_t step = (int64_t)args.blocks_per_shard * blockDim.x;
+  const int64_t* prog = table + n_leaves;
+  const int64_t s = blockIdx.x / bps;
+  const int64_t part = blockIdx.x % bps;
+  const int64_t base = s * w4;
+  const int64_t step = (int64_t)bps * blockDim.x;
   uint32_t acc = 0;
-  for (int64_t i = part * blockDim.x + threadIdx.x; i < args.w4; i += step) {
+  for (int64_t i = part * blockDim.x + threadIdx.x; i < w4; i += step) {
     uint4 st[kMaxStack];
     int sp = 0;
-    for (int pc = 0; pc < args.n_prog; ++pc) {
-      const int8_t ins = args.prog[pc];
+    for (int64_t pc = 0; pc < n_prog; ++pc) {
+      const int64_t ins = __ldg(prog + pc);
       if (ins >= 0) {
-        st[sp++] = args.leaves[ins][base + i];
+        st[sp++] = reinterpret_cast<const uint4*>(__ldg(table + ins))[base + i];
       } else if (ins == kPushZero) {
         st[sp++] = make_uint4(0u, 0u, 0u, 0u);
       } else {
@@ -277,28 +279,24 @@ PT_EXPORT int pt_rows_counts(const void* stack, int64_t rows, int64_t w,
   return (int)cudaGetLastError();
 }
 
-PT_EXPORT int pt_plan_count(const void* const* leaves, int n_leaves,
-                            const int8_t* prog, int n_prog, int64_t shards,
-                            int64_t w, void* out, void* stream) {
-  if (n_leaves > kMaxLeaves || n_prog > kMaxProg || n_prog < 1 || w % 4 != 0) {
+// `table` (device memory) holds n_leaves leaf pointers then n_prog
+// instructions; the caller has checked the program (leaf indices in range,
+// stack depth <= kMaxStack, one value left).
+PT_EXPORT int pt_plan_count(const void* table, int64_t n_leaves, int64_t n_prog,
+                            int64_t shards, int64_t w, void* out, void* stream) {
+  if (n_leaves < 1 || n_prog < 1 || w % 4 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  PlanArgs args;
-  for (int i = 0; i < kMaxLeaves; ++i) {
-    args.leaves[i] = i < n_leaves ? static_cast<const uint4*>(leaves[i]) : nullptr;
-  }
-  for (int i = 0; i < kMaxProg; ++i) args.prog[i] = i < n_prog ? prog[i] : 0;
-  args.n_prog = n_prog;
-  args.w4 = w / 4;
+  const int64_t w4 = w / 4;
   // about four uint4 per thread per pass
-  int64_t bps = (args.w4 + kThreads * 4 - 1) / (kThreads * 4);
+  int64_t bps = (w4 + kThreads * 4 - 1) / (kThreads * 4);
   if (bps < 1) bps = 1;
-  args.blocks_per_shard = (int32_t)bps;
   const int64_t grid = shards * bps;
   if (grid > 0) {
     plan_count_kernel<<<(unsigned int)grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        args, static_cast<unsigned long long*>(out));
+        static_cast<const int64_t*>(table), n_leaves, n_prog, w4, (int32_t)bps,
+        static_cast<unsigned long long*>(out));
   }
   return (int)cudaGetLastError();
 }

@@ -64,12 +64,13 @@ BUILD_LOG = {"text": ""}
 
 _OPS = {"none": 0, "and": 1, "or": 2, "xor": 3, "andnot": 4}
 
-# plan_count program encoding (mirrors bitmap_kernels.cu)
-MAX_LEAVES = 32
-MAX_PROG = 96
-MAX_STACK = 8
+# plan_count program encoding (mirrors bitmap_kernels.cu). Leaves and
+# instructions are unbounded; the operand stack holds MAX_STACK entries,
+# which a program compiled deepest-child-first needs only past 2^31 leaves.
+MAX_STACK = 32
 PUSH_ZERO = -1
-BINOPS = {"and": -2, "or": -3, "xor": -4, "andnot": -5}
+# "andnot" is below & ~top; "rev_andnot" is top & ~below
+BINOPS = {"and": -2, "or": -3, "xor": -4, "andnot": -5, "rev_andnot": -6}
 
 _lib = None
 _lib_mu = threading.Lock()
@@ -123,7 +124,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.pt_count2.argtypes = [p, p, i64, i32, i32, p, p]
     lib.pt_rows_counts.argtypes = [p, i64, i64, p, i64, i32, p, p]
-    lib.pt_plan_count.argtypes = [p, i32, p, i32, i64, i64, p, p]
+    lib.pt_plan_count.argtypes = [p, i64, i64, i64, i64, p, p]
     lib.pt_gather_tally.argtypes = [p, p, p, p, p, i64, p, p]
     for fn in (lib.pt_count2, lib.pt_rows_counts, lib.pt_plan_count, lib.pt_gather_tally):
         fn.restype = ctypes.c_int
@@ -292,10 +293,8 @@ def rows_counts(stack: torch.Tensor, filt: Optional[torch.Tensor] = None) -> tor
 def check_program(n_leaves: int, prog: Sequence[int]) -> None:
     """Validate a postfix plan program: leaf indices in range, stack depth
     within the kernel's, exactly one value left."""
-    if n_leaves > MAX_LEAVES or len(prog) > MAX_PROG or not prog:
-        raise ValueError(
-            f"plan program too large: {n_leaves} leaves, {len(prog)} instructions"
-        )
+    if not prog:
+        raise ValueError("plan program is empty")
     depth = 0
     for ins in prog:
         if ins >= 0:
@@ -332,9 +331,16 @@ def plan_count_plain(
             b = st.pop()
             a = st.pop()
             op = names[ins]
-            st.append(
-                a & b if op == "and" else a | b if op == "or" else a ^ b if op == "xor" else a & ~b
-            )
+            if op == "and":
+                st.append(a & b)
+            elif op == "or":
+                st.append(a | b)
+            elif op == "xor":
+                st.append(a ^ b)
+            elif op == "andnot":
+                st.append(a & ~b)
+            else:  # rev_andnot
+                st.append(b & ~a)
     return popcount_words(st[0]).sum(dim=-1, dtype=torch.int64)
 
 
@@ -356,13 +362,15 @@ def plan_count(
         return plan_count_plain(leaves, prog, shards)
     if w % 4 != 0 or not _aligned(*leaves):
         raise ValueError("plan_count: W % 4 != 0 or a leaf not 16-byte aligned")
-    out = torch.zeros(shards, dtype=torch.int64, device=leaves[0].device)
-    ptrs = (ctypes.c_void_p * len(leaves))(*[t.data_ptr() for t in leaves])
-    code = (ctypes.c_int8 * len(prog))(*prog)
+    dev = leaves[0].device
+    out = torch.zeros(shards, dtype=torch.int64, device=dev)
+    # leaf pointers then instructions, in one device buffer (copied on the
+    # launch stream, so the kernel sees it)
+    table = torch.tensor([t.data_ptr() for t in leaves] + list(prog), dtype=torch.int64)
+    table = table.to(dev)
     rc = library().pt_plan_count(
-        ctypes.cast(ptrs, ctypes.c_void_p),
+        table.data_ptr(),
         len(leaves),
-        ctypes.cast(code, ctypes.c_void_p),
         len(prog),
         shards,
         w,

@@ -283,6 +283,35 @@ def test_sparse_view_compaction_matches_reference():
         run_both(ref_ex, port_ex, pql)
 
 
+def test_wide_and_deep_trees_match_reference():
+    """Counts over 40 distinct rows, and a tree nested 40 deep, run as one
+    plan_count program on the port and equal the reference."""
+    ref, port = JHolder(None).open(), THolder(device="cpu")
+    rng = np.random.default_rng(5)
+    cols = rng.integers(0, 3 * SHARD_WIDTH, 40 * 600).astype(np.uint64)
+    rows = np.repeat(np.arange(40, dtype=np.uint64), 600)
+    for h in (ref, port):
+        idx = h.create_index("i", track_existence=True)
+        idx.create_field("w").import_bits(rows, cols)
+        idx.track_columns(cols)
+    ref_ex, port_ex = JExecutor(ref), TExecutor(port)
+    w = [f"Row(w={r})" for r in range(40)]
+    deep = w[0]
+    for d in range(1, 40):
+        call = ("Intersect", "Union", "Xor", "Difference")[d % 4]
+        deep = f"{call}({deep}, {w[d]})" if d % 3 else f"{call}({w[d]}, {deep})"
+    for pql in [
+        f"Count(Union({', '.join(w)}))",
+        f"Count(Xor({', '.join(w)}))",
+        f"Count(Difference(Row(w=39), Union({', '.join(w[:35])})))",
+        f"Count(Not(Union({', '.join(w[:36])})))",
+        f"Count({deep})",
+        f"Count(Union({', '.join(w)})) Count({deep})",
+        f"TopN(w, Union({', '.join(w[:34])}), n=5)",
+    ]:
+        run_both(ref_ex, port_ex, pql)
+
+
 # ---------------------------------------------------------------------------
 # package rules
 # ---------------------------------------------------------------------------

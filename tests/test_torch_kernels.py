@@ -132,11 +132,67 @@ def test_check_program_limits():
         (1, [0, 0]),  # two values left
         (1, [K.BINOPS["or"]]),  # operator without operands
         (1, [1]),  # leaf out of range
-        (K.MAX_LEAVES + 1, [0]),
+        (1, []),
         (1, [0] * (K.MAX_STACK + 1) + [K.BINOPS["or"]] * K.MAX_STACK),
     ]:
         with pytest.raises(ValueError):
             K.check_program(n_leaves, prog)
+
+
+def max_depth(prog):
+    depth = top = 0
+    for ins in prog:
+        depth += 1 if ins >= K.PUSH_ZERO else -1
+        top = max(top, depth)
+    return top
+
+
+def nested(depth, n_leaves, rng):
+    """A spec nesting `depth` levels: each level is an n-ary node over a
+    leaf and the next level, in a random operator and child position."""
+    spec = ("leaf", 0)
+    for d in range(depth):
+        kids = [spec, ("leaf", int(rng.integers(n_leaves)))]
+        if rng.random() < 0.5:
+            kids.reverse()
+        spec = (OPS[d % 4], tuple(kids))
+    return spec
+
+
+@pytest.mark.parametrize(
+    "shape",
+    ["union40", "xor40", "andnot40", "andnot_head_last", "nested40", "balanced64"],
+)
+def test_plan_count_wide_and_deep_matches_eval_jit(shape):
+    """Trees wider than 32 leaves and nested 40 deep compile to one
+    program (no leaf or length limit, a stack of log2 depth) whose count
+    equals the reference's."""
+    rng = np.random.default_rng(400)
+    s, n_leaves = 3, 64
+    ops = [words(rng, s, W) for _ in range(n_leaves)]
+    leaf = lambda i: ("leaf", i)  # noqa: E731
+    spec = {
+        "union40": ("or", tuple(leaf(i) for i in range(40))),
+        "xor40": ("xor", tuple(leaf(i) for i in range(40))),
+        "andnot40": ("andnot", tuple(leaf(i) for i in range(40))),
+        # the head is the shallowest child: it comes last, against the
+        # union of the subtracted subtrees
+        "andnot_head_last": (
+            "andnot",
+            (leaf(0), ("or", (leaf(1), ("and", (leaf(2), leaf(3))))), ("xor", (leaf(4), leaf(5)))),
+        ),
+        "nested40": nested(40, n_leaves, rng),
+        "balanced64": (
+            "or",
+            tuple(("and", (("xor", (leaf(4 * i), leaf(4 * i + 1))), ("andnot", (leaf(4 * i + 2), leaf(4 * i + 3))))) for i in range(16)),
+        ),
+    }[shape]
+    leaves, prog = tplan._compile(build(spec, tplan), [t(o) for o in ops])
+    assert max_depth(prog) <= 7
+    if shape == "andnot_head_last":
+        assert K.BINOPS["rev_andnot"] in prog
+    want = np.asarray(jplan._eval_jit(build(spec, jplan), "count", tuple(jnp.asarray(o) for o in ops), ()))
+    np.testing.assert_array_equal(K.plan_count(leaves, prog, s).numpy(), want.astype(np.int64))
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -198,9 +254,10 @@ def test_cuda_kernels_match_twins(cuda_device):
     for f in (None, t(filt[0]), t(filt)):
         got = K.rows_counts(t(stack).to(dev), None if f is None else f.to(dev)).cpu()
         assert torch.equal(got, K.rows_counts(t(stack), f))
-    ops = [t(words(rng, 5, 32768)) for _ in range(3)]
-    for seed in range(8):
-        spec = random_tree(np.random.default_rng(seed), 3, 3)
+    ops = [t(words(rng, 5, 32768)) for _ in range(48)]
+    specs = [random_tree(np.random.default_rng(seed), 3, 3) for seed in range(8)]
+    specs += [("or", tuple(("leaf", i) for i in range(48))), nested(40, 48, rng)]
+    for spec in specs:
         leaves, prog = tplan._compile(build(spec, tplan), ops)
         if leaves:
             got = K.plan_count([x.to(dev) for x in leaves], prog, 5).cpu()
