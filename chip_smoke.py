@@ -6,9 +6,12 @@
 Phases, each fatal on any mismatch or exception:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
-2. kernels: build the hand-written CUDA kernels from the checkout, then
-   hold each against its plain-PyTorch twin on the card (exact equality)
-   at awkward shapes, including the popcount wrap mod 2^32;
+2. kernels: build the hand-written CUDA kernels from the checkout (one
+   nvcc per source, started together), then hold each against its
+   plain-PyTorch twin on the card (exact equality) at awkward shapes,
+   including the popcount wrap mod 2^32 and, for the BSI kernels, depths
+   1..32, signed and unsigned fields, filters, every range kind and edge
+   predicates;
 3. main path: a 2^30-column index (1024 shards x 2^20 columns) with
    dense and sparse rows of a set field `f` and dense rows of `g`, loaded
    through Field.import_row_words / Field.import_bits / Set(), then the
@@ -16,7 +19,15 @@ Phases, each fatal on any mismatch or exception:
    numpy computation on the generated words (byte-LUT popcount). Kernel
    launch counts are reset just before this phase and read just after it;
    every kernel of the path must have launched;
-4. timing: each kernel at the shapes the main path gave it against its
+3b. BSI path: two int fields on the same index, `amount` (signed,
+   [-1e6, 1e6], about 90% of columns) and `age` (unsigned, [0, 120], every
+   existing column), loaded through Field.import_values (16 shards) and
+   the BSI view's fragment word imports (the rest), plus PQL Set/Clear of
+   values; then Sum/Min/Max (filtered and not), condition-row counts and
+   condition rows in trees, each held to numpy answers built per shard
+   while generating. Launch counts are reset before and read after this
+   phase too; bsi_sum, bsi_min_max and bsi_range must have launched;
+4. timing: each kernel at the shapes the main paths gave it against its
    twin (CUDA events, median of 20 after warm-up), and each query's warm
    p50 latency over 20 runs.
 
@@ -34,11 +45,15 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published device-memory rate
 REPS = 20
+# the set-field phase's depth: dense and sparse rows of `f`, rows of `g`
+# (8 dense rows since the BSI phase joined the run; 16 before)
+N_DENSE, N_SPARSE, N_G = 8, 8, 4
 
 _LUT = np.array([bin(i).count("1") for i in range(256)], np.uint8)
 
@@ -200,7 +215,48 @@ def kernel_phase(rng, dev, errs):
     want = K.gather_tally_plain(cpu(src), cpu(idx), cpu(mask), cpu(starts), cpu(ends))
     same("gather_tally", K.gather_tally(src, idx, mask, starts, ends), want)
     print("kernels: gather_tally equal to twin (with empty segments)")
+
+    # BSI kernels: depths 1..32, S = 1 and 13, W = 32768 and W % 4 != 0
+    n_range = 0
+    for d in (1, 7, 8, 9, 20, 31, 32):
+        top = (1 << d) - 1
+        # edge predicates: 0, 1, the top two magnitudes, one past depth_max
+        # (the ladders read bits below d only) and a random one
+        preds = sorted({0, 1, top - 1, top, min(top + 1, 2**32 - 1), int(rng.integers(0, top + 1))})
+        for s, w in ((1, 32768), (13, 32768), (13, 1001)):
+            planes, ex, sg, ft = rand_words(d, s, w), rand_words(s, w), rand_words(s, w), rand_words(s, w)
+            c = lambda x: None if x is None else x.cpu()  # noqa: E731
+            for sign in (sg, None):
+                for filt in (ft, None):
+                    same("bsi_sum", K.bsi_sum(planes, ex, sign, filt), K.bsi_sum_plain(c(planes), c(ex), c(sign), c(filt)))
+                    for is_min in (True, False):
+                        same(
+                            "bsi_min_max",
+                            K.bsi_min_max(planes, ex, sign, filt, is_min),
+                            K.bsi_min_max_plain(c(planes), c(ex), c(sign), c(filt), is_min),
+                        )
+                for sel in ("consider", "pos", "neg") if sign is not None else ("consider",):
+                    for kind, allow in (("eq", False), ("lt", False), ("lt", True), ("gt", False), ("gt", True), ("between", False)):
+                        for p0 in preds:
+                            p1 = max(p0, top) if kind == "between" else 0
+                            for mode in ("rows", "count"):
+                                n_range += 1
+                                same(
+                                    "bsi_range",
+                                    K.bsi_range(planes, ex, sign, sel, kind, allow, p0, p1, mode),
+                                    K.bsi_range_plain(c(planes), c(ex), c(sign), sel, kind, allow, p0, p1, mode),
+                                )
+        empty = torch.zeros((13, 32768), dtype=torch.int32, device=dev)
+        for sign in (rand_words(13, 32768), None):
+            for is_min in (True, False):
+                got = K.bsi_min_max(rand_words(d, 13, 32768), empty, sign, None, is_min)
+                check(got.tolist() == [0, 0, 0], f"bsi_min_max on an empty mask: {got.tolist()}")
     torch.cuda.synchronize()
+    print(
+        "kernels: bsi_sum/bsi_min_max equal to twins at depths 1..32, signed and unsigned, "
+        f"with and without a filter (empty masks give any = 0); bsi_range equal in {n_range} "
+        "kind/sel/predicate/mode cases"
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +272,7 @@ def main_path(args, rng):
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
     S, W = args.shards, WORDS_PER_ROW
-    n_dense, n_sparse, n_g = 16, 8, 4
+    n_dense, n_sparse, n_g = N_DENSE, N_SPARSE, N_G
 
     # data, generated in bulk from the seed
     t0 = time.perf_counter()
@@ -298,11 +354,12 @@ def main_path(args, rng):
     for r in range(6):
         wide_union |= shifted_count(R("f", r))[1].reshape(-1)
     wide_g0 = np.concatenate([R("g", 0), np.zeros((1, W), np.uint32)]).reshape(-1)
-    wide_pql = "Count(Difference(Row(g=0), Union({})))".format(", ".join(
+    wide_rows_pql = (
         [f"Row(f={r})" for r in range(n_dense + n_sparse)]
         + [f"Row(g={r})" for r in range(1, n_g)]
         + [f"Shift(Row(f={r}), n=1)" for r in range(6)]
-    ))
+    )
+    wide_pql = "Count(Difference(Row(g=0), Union({})))".format(", ".join(wide_rows_pql))
     queries = [
         ("Count(Intersect(Row(f=1), Row(g=0)))", [pc(R("f", 1) & R("g", 0))]),
         ("Count(Union(Row(f=0), Row(f=1), Row(f=2)))", [pc(R("f", 0) | R("f", 1) | R("f", 2))]),
@@ -311,8 +368,8 @@ def main_path(args, rng):
         ("Count(Not(Row(f=5)))", [pc(all_cols & ~R("f", 5))]),
         ("Count(Shift(Row(f=6), n=1))", [shift_n]),
         (
-            "Count(Intersect(Row(f=0), Row(f=16))) Count(Union(Row(f=7), Row(g=3)))",
-            [pc(R("f", 0) & R("f", 16)), pc(R("f", 7) | R("g", 3))],
+            f"Count(Intersect(Row(f=0), Row(f={n_dense}))) Count(Union(Row(f=7), Row(g=3)))",
+            [pc(R("f", 0) & R("f", n_dense)), pc(R("f", 7) | R("g", 3))],
         ),
         (wide_pql, [pc(wide_g0 & ~wide_union)]),
     ]
@@ -352,17 +409,262 @@ def main_path(args, rng):
         f"main: device cache resident {resident} B; torch allocated "
         f"{torch.cuda.memory_allocated()} B, peak {torch.cuda.max_memory_allocated()} B"
     )
+    state = {"f1": R("f", 1), "g0": R("g", 0), "exists": all_cols}
 
     # warm per-query latency
     lat = {}
     timed = [q for q, _ in queries] + ["Row(f=1)", "TopN(f, n=10)", "TopN(f, Row(g=0), n=10)"]
     for pql in timed:
-        name = "Count(Difference(Row(g=0), Union(<33 rows, 6 of them shifted>)))" if pql == wide_pql else pql
+        wide_name = f"Count(Difference(Row(g=0), Union(<{len(wide_rows_pql)} rows, 6 of them shifted>)))"
+        name = wide_name if pql == wide_pql else pql
         lat[name] = host_p50_ms(lambda pql=pql: ex.execute("smoke", pql))
     lat["Row(f=1) + .count()"] = host_p50_ms(lambda: ex.execute("smoke", "Row(f=1)")[0].count())
     for pql, ms in lat.items():
         print(f"query p50 {ms:.3f} ms  {pql}")
-    return holder, ex, launches, lat, ingest_s, resident
+    return holder, ex, launches, lat, ingest_s, resident, state
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the BSI path over the same 2^30 columns
+# ---------------------------------------------------------------------------
+
+AMOUNT = (-1_000_000, 1_000_000)  # signed: base 0, 20 magnitude bits
+AGE = (0, 120)  # unsigned: base 0, 7 magnitude bits, no sign row
+N_VALUE_IMPORT = 16  # shards loaded through Field.import_values
+
+
+def _bits(words: np.ndarray) -> np.ndarray:
+    """uint32 words -> one bool per column (bit b of word w = column 32w + b)."""
+    return np.unpackbits(np.ascontiguousarray(words).view(np.uint8), bitorder="little").astype(bool)
+
+
+def _pack(bits: np.ndarray) -> np.ndarray:
+    """bool [..., columns] -> uint32 words, the inverse of _bits."""
+    return np.packbits(np.ascontiguousarray(bits), axis=-1, bitorder="little").view(np.uint32)
+
+
+def _planes(has: np.ndarray, vals: np.ndarray, depth: int) -> np.ndarray:
+    """[depth, W] magnitude plane words of the columns in `has`."""
+    mag = np.where(has, np.abs(vals), 0).astype(np.uint32)
+    out = np.empty((depth, len(mag) // 32), np.uint32)
+    for d in range(depth):
+        out[d] = _pack(((mag >> np.uint32(d)) & np.uint32(1)).astype(bool))
+    return out
+
+
+def _extreme(vals: np.ndarray, is_min: bool):
+    if not len(vals):
+        return None
+    v = int(vals.min() if is_min else vals.max())
+    return v, int((vals == v).sum())
+
+
+def _merge_extreme(a, b, is_min: bool):
+    if a is None or b is None:
+        return a if b is None else b
+    if a[0] == b[0]:
+        return a[0], a[1] + b[1]
+    return min(a, b) if is_min else max(a, b)
+
+
+def bsi_shard(seed: int, s: int, state, writes, sample: bool):
+    """Generate one shard's int values, the words or columns to ingest
+    (before the PQL writes), and the shard's numpy answers (after them)."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng([seed, 3, s])
+    has_a = rng.random(SHARD_WIDTH) < 0.9
+    amt = rng.integers(AMOUNT[0], AMOUNT[1] + 1, SHARD_WIDTH)
+    has_g = _bits(state["exists"][s])
+    age = rng.integers(AGE[0], AGE[1] + 1, SHARD_WIDTH)
+    for field, col, value in writes:
+        # every write changes its column: a Clear target holds a value at
+        # ingest, a Set target none
+        if col // SHARD_WIDTH == s:
+            (has_a if field == "amount" else has_g)[col % SHARD_WIDTH] = value is None
+    out = {"s": s}
+    if s < N_VALUE_IMPORT:
+        ca, cg = np.flatnonzero(has_a), np.flatnonzero(has_g)
+        base = np.uint64(s * SHARD_WIDTH)
+        out["values"] = (ca.astype(np.uint64) + base, amt[ca], cg.astype(np.uint64) + base, age[cg])
+    else:
+        out["words"] = {
+            "amount": (_pack(has_a), _pack(has_a & (amt < 0)), _planes(has_a, amt, 20)),
+            "age": (_pack(has_g), None, _planes(has_g, age, 7)),
+        }
+    # the state after the PQL writes
+    has_a, amt, has_g, age = has_a.copy(), amt.copy(), has_g.copy(), age.copy()
+    for field, col, value in writes:
+        if col // SHARD_WIDTH != s:
+            continue
+        pos = col % SHARD_WIDTH
+        has, vals = (has_a, amt) if field == "amount" else (has_g, age)
+        has[pos] = value is not None
+        vals[pos] = 0 if value is None else value
+    f1, g0 = _bits(state["f1"][s]), _bits(state["g0"][s])
+    a = amt[has_a]
+    old = has_a & has_g & (age > 65)
+    out["ans"] = {
+        "sum": (int(a.sum()), len(a)),
+        "sum_f1": (int(amt[has_a & f1].sum()), int((has_a & f1).sum())),
+        "sum_old": (int(amt[old].sum()), int(old.sum())),
+        "min": _extreme(a, True),
+        "max": _extreme(a, False),
+        "max_age_g0": _extreme(age[has_g & g0], False),
+        "gt500k": int((a > 500_000).sum()),
+        "le_m250k": int((a <= -250_000).sum()),
+        "eq12345": int((a == 12345).sum()),
+        "ne0": int((a != 0).sum()),
+        "btw1000": int(((a >= -1000) & (a <= 1000)).sum()),
+        "notnull": len(a),
+        "adult_f1": int((has_g & (age >= 18) & f1).sum()),
+        "young_or_old": int((has_g & ((age < 13) | (age > 65))).sum()),
+    }
+    if sample:
+        out["age42"] = _pack(has_g & (age == 42))
+    return out
+
+
+def bsi_path(args, holder, ex, state):
+    import torch
+
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT, BSI_SIGN_BIT
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    S = args.shards
+    idx = holder.index("smoke")
+    sw = SHARD_WIDTH
+    # PQL writes: (field, column, value or None for Clear); the first goes
+    # below -2^19, so its sign row and top plane change
+    writes = [
+        ("amount", 3 * sw + 12345, -777_777),
+        ("amount", 5 * sw + 99, 0),
+        ("amount", 2 * sw + 1, None),
+        ("amount", (S // 2) * sw + 777, 1_000_000),
+        ("amount", (S - 1) * sw + 5, None),
+        ("age", ((S * 7) // 8) * sw + 3, 120),
+    ]
+    samples = sorted({0, N_VALUE_IMPORT, S // 2, S - 1})
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    amount = idx.create_field("amount", FieldOptions(type="int", min=AMOUNT[0], max=AMOUNT[1]))
+    age = idx.create_field("age", FieldOptions(type="int", min=AGE[0], max=AGE[1]))
+    check(
+        (amount.options.base, amount.options.bit_depth, age.options.base, age.options.bit_depth) == (0, 20, 0, 7),
+        f"int field options: amount {amount.options}, age {age.options}",
+    )
+    ans, age42 = {}, {}
+    gen_s = import_s = values_s = 0.0
+    n_values = 0
+
+    def fold(out):
+        for k, v in out["ans"].items():
+            if k in ("min", "max", "max_age_g0"):
+                ans[k] = _merge_extreme(ans.get(k), v, k == "min")
+            elif isinstance(v, tuple):
+                old = ans.get(k, (0, 0))
+                ans[k] = (old[0] + v[0], old[1] + v[1])
+            else:
+                ans[k] = ans.get(k, 0) + v
+        if "age42" in out:
+            age42[out["s"]] = out["age42"]
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        jobs = pool.map(lambda s: bsi_shard(args.seed, s, state, writes, s in samples), range(S))
+        t_gen = time.perf_counter()
+        for out in jobs:
+            gen_s += time.perf_counter() - t_gen
+            t_imp = time.perf_counter()
+            if "values" in out:
+                ca, va, cg, vg = out["values"]
+                amount.import_values(ca, va)
+                age.import_values(cg, vg)
+                n_values += len(ca) + len(cg)
+                values_s += time.perf_counter() - t_imp
+            else:
+                for f, (ex_w, sign_w, planes_w) in ((amount, out["words"]["amount"]), (age, out["words"]["age"])):
+                    frag = f.view(f.bsi_view_name()).fragment(out["s"])
+                    frag.import_row_words(BSI_EXISTS_BIT, ex_w)
+                    if sign_w is not None:
+                        frag.import_row_words(BSI_SIGN_BIT, sign_w)
+                    for d, pw in enumerate(planes_w):
+                        frag.import_row_words(BSI_OFFSET_BIT + d, pw)
+            fold(out)
+            import_s += time.perf_counter() - t_imp
+            t_gen = time.perf_counter()
+    got = []
+    for field, col, value in writes:
+        pql = f"Clear({col}, {field}=0)" if value is None else f"Set({col}, {field}={value})"
+        got += ex.execute("smoke", pql)
+    check(got == [True] * len(writes), f"BSI writes returned {got}")
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    values_per_s = n_values / values_s
+    print(
+        f"bsi: ingest {ingest_s:.2f} s (waits for generation {gen_s:.2f} s, imports {import_s:.2f} s); "
+        f"Field.import_values took {n_values} values in {values_s:.2f} s = {values_per_s:.0f} values/s"
+    )
+
+    A = ans
+    queries = [
+        ("Sum(field=amount)", [A["sum"]], "bsi_sum"),
+        ("Sum(Row(f=1), field=amount)", [A["sum_f1"]], "bsi_sum"),
+        ("Sum(field=amount, filter=Row(age > 65))", [A["sum_old"]], "bsi_sum"),
+        ("Min(field=amount)", [A["min"]], "bsi_min_max"),
+        ("Max(field=amount)", [A["max"]], "bsi_min_max"),
+        ("Max(Row(g=0), field=age)", [A["max_age_g0"]], "bsi_min_max"),
+        ("Count(Row(amount > 500000))", [A["gt500k"]], "bsi_range"),
+        ("Count(Row(amount <= -250000))", [A["le_m250k"]], "bsi_range"),
+        ("Count(Row(amount == 12345))", [A["eq12345"]], "bsi_range"),
+        ("Count(Row(amount != 0))", [A["ne0"]], "bsi_range"),
+        ("Count(Row(-1000 <= amount <= 1000))", [A["btw1000"]], "bsi_range"),
+        ("Count(Row(amount != null))", [A["notnull"]], "plan_count"),
+        ("Count(Intersect(Row(age >= 18), Row(f=1)))", [A["adult_f1"]], "bsi_range"),
+        ("Count(Union(Row(age < 13), Row(age > 65)))", [A["young_or_old"]], "bsi_range"),
+    ]
+
+    def norm(r):
+        return (r.value, r.count) if hasattr(r, "value") else r
+
+    t0 = time.perf_counter()
+    for pql, want, kernel in queries:
+        before = dict(K.LAUNCHES)
+        got = [norm(r) for r in ex.execute("smoke", pql)]
+        check(got == want, f"{pql}: got {got}, numpy says {want}")
+        check(K.LAUNCHES[kernel] > before[kernel], f"{pql} launched no {kernel}")
+    before = K.LAUNCHES["bsi_range"]
+    row = ex.execute("smoke", "Row(age == 42)")[0]
+    check(K.LAUNCHES["bsi_range"] > before, "Row(age == 42) launched no bsi_range")
+    for s, words in age42.items():
+        seg = row.segment(s)
+        got_w = np.zeros_like(words) if seg is None else seg.cpu().numpy().view(np.uint32)
+        check(np.array_equal(got_w, words), f"Row(age == 42) shard {s} differs from numpy")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    for name in ("bsi_sum", "bsi_min_max", "bsi_range", "plan_count"):
+        check(launches[name] > 0, f"BSI path never launched {name}: {launches}")
+    print(
+        f"bsi: first pass of the {len(queries) + 1} BSI queries (plane staging included) "
+        f"{first_s:.2f} s; every answer equals numpy"
+    )
+    print(f"bsi: launches during ingest + queries: {launches}")
+
+    lat = {}
+    for pql in [q for q, _, _ in queries] + ["Row(age == 42)"]:
+        lat[pql] = host_p50_ms(lambda pql=pql: ex.execute("smoke", pql))
+    for pql, ms in lat.items():
+        print(f"query p50 {ms:.3f} ms  {pql}")
+    info = {
+        "ingest_s": ingest_s,
+        "first_pass_s": first_s,
+        "import_values": n_values,
+        "import_values_per_s": values_per_s,
+    }
+    return launches, lat, info
 
 
 # ---------------------------------------------------------------------------
@@ -434,7 +736,7 @@ def kernel_timing(holder, ex, launches, errs):
     )
     # gather_tally: the sparse rows' entries of TopN(f, Row(g=0))
     present = [(s, view_f.fragment_if_exists(s)) for s in shards]
-    bundle = ex._topn_tally_build(list(range(16, 24)), present, w, a.device)
+    bundle = ex._topn_tally_build(list(range(N_DENSE, N_DENSE + N_SPARSE)), present, w, a.device)
     gi, gm, gs, ge = bundle.dev
     n_ent, n_seg = gi.numel(), gs.numel()
     row(
@@ -451,12 +753,15 @@ def kernel_timing(holder, ex, launches, errs):
         "popcount_SxW": cuda_time_ms(lambda: K.popcount(a)),
     }
     print(f"kernel count2(and) on [S, W]: {extra['count2_and_SxW']:.4f} ms (twin {extra['count2_and_SxW_plain']:.4f} ms)")
-    # plan_count over 28 leaves: g=0 minus the union of the other 27 rows
+    # plan_count over 28 leaves: g=0 minus the union of the other 27 stacks
+    # (every row of f and g, then copies of f rows up to 28 distinct stacks)
     from pilosa_tpu_torch.exec import plan as planmod
 
-    stacks = [view_f.row_stack(r, shards) for r in range(24)] + [view_g.row_stack(r, shards) for r in range(4)]
+    n_f = N_DENSE + N_SPARSE
+    stacks = [view_f.row_stack(r, shards) for r in range(n_f)] + [view_g.row_stack(r, shards) for r in range(N_G)]
+    stacks += [stacks[i].clone() for i in range(28 - len(stacks))]
     wide_root = planmod.PNary(
-        "andnot", (planmod.PLeaf(24), planmod.PNary("or", tuple(planmod.PLeaf(i) for i in range(28) if i != 24)))
+        "andnot", (planmod.PLeaf(n_f), planmod.PNary("or", tuple(planmod.PLeaf(i) for i in range(28) if i != n_f)))
     )
     wl, wp = planmod._compile(wide_root, stacks)
     check(len(wl) == 28, f"wide plan has {len(wl)} leaves")
@@ -470,6 +775,60 @@ def kernel_timing(holder, ex, launches, errs):
         lambda: torch.tensor([a.data_ptr(), b.data_ptr()] + prog, dtype=torch.int64).to(a.device)
     )
     print(f"plan_count table copy (3 entries): {extra['plan_count_table_copy']:.4f} ms")
+
+    # BSI kernels at the BSI path's shapes: the amount field's [20, S, W]
+    # planes with its exists and sign rows; the age field's [7, S, W]
+    # planes with its exists row (no sign row: an unsigned field)
+    from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT, BSI_SIGN_BIT
+
+    bsrc = "pilosa_tpu_torch/ops/cuda/bsi_kernels.cu"
+    fa, fg = idx.field("amount"), idx.field("age")
+    va, vg = fa.view(fa.bsi_view_name()), fg.view(fg.bsi_view_name())
+    da, dg = fa.options.bit_depth, fg.options.bit_depth
+    ap = va.plane_stack(range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + da), shards)
+    ae, asg = va.row_stack(BSI_EXISTS_BIT, shards), va.row_stack(BSI_SIGN_BIT, shards)
+    gp = vg.plane_stack(range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + dg), shards)
+    ge = vg.row_stack(BSI_EXISTS_BIT, shards)
+    stack_b = ae.numel() * 4
+    row(
+        "bsi_sum", bsrc, "pilosa_tpu/ops/pallas_kernels.py:232",
+        lambda: K.bsi_sum(ap, ae, asg, None), lambda: K.bsi_sum_plain(ap, ae, asg, None),
+        (da + 2) * stack_b + (1 + 2 * da) * 8,
+    )
+    row(
+        "bsi_min_max", bsrc, "pilosa_tpu/ops/bsi.py:568",
+        lambda: K.bsi_min_max(ap, ae, asg, None, True), lambda: K.bsi_min_max_plain(ap, ae, asg, None, True),
+        (da + 2) * stack_b + 3 * 8,
+    )
+    # Count(Row(amount > 500000)): one job, gt over the positive mask
+    row(
+        "bsi_range", bsrc, "pilosa_tpu/ops/bsi.py:861",
+        lambda: K.bsi_range(ap, ae, asg, "pos", "gt", False, 500_000, 0, "count"),
+        lambda: K.bsi_range_plain(ap, ae, asg, "pos", "gt", False, 500_000, 0, "count"),
+        (da + 2) * stack_b + s_all * 8,
+    )
+    # Count(Row(age > 65)) on the unsigned field, and the rows mode of
+    # Row(age == 42)
+    age_count = lambda: K.bsi_range(gp, ge, None, "consider", "gt", False, 65, 0, "count")  # noqa: E731
+    check(
+        torch.equal(age_count().cpu(), K.bsi_range_plain(gp, ge, None, "consider", "gt", False, 65, 0, "count").cpu()),
+        "bsi_range on age differs from its twin",
+    )
+    extra["bsi_range_age_count"] = cuda_time_ms(age_count)
+    extra["bsi_range_age_count_plain"] = cuda_time_ms(
+        lambda: K.bsi_range_plain(gp, ge, None, "consider", "gt", False, 65, 0, "count")
+    )
+    extra["bsi_range_age_count_bound"] = ((dg + 1) * stack_b + s_all * 8) / HBM_BYTES_PER_S * 1e3
+    extra["bsi_range_age_rows"] = cuda_time_ms(lambda: K.bsi_range(gp, ge, None, "consider", "eq", False, 42, 0, "rows"))
+    extra["bsi_range_age_rows_bound"] = (dg + 2) * stack_b / HBM_BYTES_PER_S * 1e3
+    extra["bsi_sum_amount_filtered"] = cuda_time_ms(lambda: K.bsi_sum(ap, ae, asg, ge))
+    extra["bsi_sum_amount_filtered_bound"] = ((da + 3) * stack_b + (1 + 2 * da) * 8) / HBM_BYTES_PER_S * 1e3
+    print(
+        f"kernel bsi_range on age (count): {extra['bsi_range_age_count']:.4f} ms "
+        f"(twin {extra['bsi_range_age_count_plain']:.4f} ms, bound {extra['bsi_range_age_count_bound']:.4f} ms); "
+        f"rows mode {extra['bsi_range_age_rows']:.4f} ms (bound {extra['bsi_range_age_rows_bound']:.4f} ms); "
+        f"bsi_sum filtered {extra['bsi_sum_amount_filtered']:.4f} ms (bound {extra['bsi_sum_amount_filtered_bound']:.4f} ms)"
+    )
     print(
         f"kernel plan_count, 28 leaves: {extra['plan_count_28_leaves']:.4f} ms "
         f"(twin {extra['plan_count_28_leaves_plain']:.4f} ms, bound {extra['plan_count_28_leaves_bound']:.4f} ms)"
@@ -498,10 +857,10 @@ def main() -> int:
     print(f"device: {smi} | torch: {kind} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    lib = K.build()
+    libs = K.build()
     K.library()
     build_s = time.perf_counter() - t0
-    print(f"build: {lib.name} in {build_s:.1f} s")
+    print(f"build: {', '.join(p.name for p in libs)} in {build_s:.1f} s")
     for line in K.BUILD_LOG["text"].splitlines():
         if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
             print(f"  ptxas: {line.strip()}")
@@ -509,19 +868,40 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda", 0)
     errs = {}
+    phase_s = {"build": build_s}
+    t0 = time.perf_counter()
     kernel_phase(rng, dev, errs)
-    holder, ex, launches, lat, ingest_s, resident = main_path(args, rng)
+    phase_s["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    holder, ex, launches, lat, ingest_s, resident, state = main_path(args, rng)
+    phase_s["main"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bsi_launches, bsi_lat, bsi_info = bsi_path(args, holder, ex, state)
+    phase_s["bsi"] = time.perf_counter() - t0
+    del state
+    for name in ("bsi_sum", "bsi_min_max", "bsi_range"):
+        launches[name] = bsi_launches[name]
+    t0 = time.perf_counter()
     rows, extra = kernel_timing(holder, ex, launches, errs)
+    phase_s["timing"] = time.perf_counter() - t0
+    print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     print(smi)
     print(json.dumps({
-        "kernels": [rows[k] for k in ("plan_count", "gather_tally", "rows_counts", "count2")],
+        "kernels": [
+            rows[k]
+            for k in ("plan_count", "gather_tally", "rows_counts", "count2", "bsi_sum", "bsi_min_max", "bsi_range")
+        ],
         "extra_ms": extra,
         "query_p50_ms": lat,
+        "bsi_query_p50_ms": bsi_lat,
+        "bsi": bsi_info,
+        "bsi_launches": bsi_launches,
         "ingest_s": ingest_s,
         "device_cache_bytes": resident,
         "shards": args.shards,
         "build_s": build_s,
+        "phase_s": phase_s,
     }))
     print(json.dumps({
         "ok": True,

@@ -6,8 +6,9 @@ package:
     {index_name: {
         "track_existence": bool,
         "fields": {field_name: {
-            "type": "set" | "mutex",
+            "type": "set" | "mutex" | "int",
             "cache_type": str, "cache_size": int,
+            "min": int, "max": int, "base": int, "bit_depth": int,  # int only
             "views": {view_name: {shard: {row_id: (rep, array)}}},
         }},
     }}
@@ -16,7 +17,10 @@ package:
 (array = sorted uint32 in-shard positions), the row's host representation
 in the exporter, which the import keeps: dense rows go through
 import_row_words, sparse rows through exact position imports. Hidden
-fields such as `_exists` are listed like any other field.
+fields such as `_exists` are listed like any other field. An int field's
+BSI view (`bsig_<name>`) lists its plane rows (core/fragment.py BSI_*_BIT)
+like any other rows; its options keep the exporter's bit depth, which may
+have grown past what the range needs, and must derive the same base.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from typing import Any, Dict
 
 import numpy as np
 
-from pilosa_tpu_torch.core.field import FIELD_TYPE_MUTEX, FieldOptions
+from pilosa_tpu_torch.core.field import FIELD_TYPE_INT, FIELD_TYPE_MUTEX, FieldOptions
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import EXISTENCE_FIELD_NAME
 from pilosa_tpu_torch.ops.bitmap import unpack_positions
@@ -42,14 +46,20 @@ def holder_from_numpy(state: Dict[str, Dict[str, Any]], device=None) -> Holder:
                 if f is None:
                     raise ValueError(f"{index_name}: {field_name} without existence tracking")
             else:
-                f = idx.create_field(
-                    field_name,
-                    FieldOptions(
-                        type=fspec.get("type", "set"),
-                        cache_type=fspec.get("cache_type", "ranked"),
-                        cache_size=fspec.get("cache_size", 50_000),
-                    ),
+                opts = FieldOptions(
+                    type=fspec.get("type", "set"),
+                    cache_type=fspec.get("cache_type", "ranked"),
+                    cache_size=fspec.get("cache_size", 50_000),
                 )
+                if opts.type == FIELD_TYPE_INT:
+                    opts.min, opts.max = int(fspec["min"]), int(fspec["max"])
+                    opts.bit_depth = int(fspec.get("bit_depth", 0))
+                f = idx.create_field(field_name, opts)
+                if opts.type == FIELD_TYPE_INT and "base" in fspec and f.options.base != fspec["base"]:
+                    raise ValueError(
+                        f"{index_name}.{field_name}: base {fspec['base']} differs from the "
+                        f"base {f.options.base} of range [{opts.min}, {opts.max}]"
+                    )
             for view_name, shards in fspec["views"].items():
                 view = f._view_create(view_name)
                 for shard, rows in shards.items():

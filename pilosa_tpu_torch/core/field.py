@@ -1,8 +1,12 @@
 """Field: typed container of views.
 
-The port of pilosa_tpu/core/field.py for set and mutex fields, in memory.
-Int (BSI), time and bool fields come in later slices and raise at
+The port of pilosa_tpu/core/field.py for set, mutex and int (BSI) fields,
+in memory. Time and bool fields come in later slices and raise at
 creation.
+
+An int field stores `value - base` in sign + magnitude bit planes in its
+BSI view (`bsig_<name>`): row 0 marks columns that hold a value, row 1
+the sign, rows 2.. the magnitude bits (core/fragment.py BSI_*_BIT).
 """
 
 from __future__ import annotations
@@ -10,7 +14,7 @@ from __future__ import annotations
 import re
 import threading
 from dataclasses import dataclass
-from typing import Dict, Optional, Set
+from typing import Dict, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +26,7 @@ from pilosa_tpu_torch.core.cache import (
     DEFAULT_CACHE_SIZE,
 )
 from pilosa_tpu_torch.core.devcache import DeviceCache
-from pilosa_tpu_torch.core.view import VIEW_STANDARD, View
+from pilosa_tpu_torch.core.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXPONENT
 from pilosa_tpu_torch.utils.arrays import group_slices
 
@@ -32,7 +36,7 @@ FIELD_TYPE_TIME = "time"
 FIELD_TYPE_MUTEX = "mutex"
 FIELD_TYPE_BOOL = "bool"
 
-PORTED_TYPES = (FIELD_TYPE_SET, FIELD_TYPE_MUTEX)
+PORTED_TYPES = (FIELD_TYPE_SET, FIELD_TYPE_MUTEX, FIELD_TYPE_INT)
 FIELD_TYPES = (FIELD_TYPE_SET, FIELD_TYPE_INT, FIELD_TYPE_TIME, FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL)
 CACHE_TYPES = (CACHE_TYPE_RANKED, CACHE_TYPE_LRU, CACHE_TYPE_NONE)
 
@@ -44,11 +48,30 @@ def validate_name(name: str) -> None:
         raise ValueError(f"invalid name {name!r}")
 
 
+def bit_depth_of(uvalue: int) -> int:
+    """Bits needed for a magnitude (at least 1)."""
+    return max(1, int(uvalue).bit_length())
+
+
+def bsi_base(min_v: int, max_v: int) -> int:
+    """The default base: the range end nearest zero, or zero inside it."""
+    if min_v > 0:
+        return min_v
+    if max_v < 0:
+        return max_v
+    return 0
+
+
 @dataclass
 class FieldOptions:
     type: str = FIELD_TYPE_SET
     cache_type: str = CACHE_TYPE_RANKED
     cache_size: int = DEFAULT_CACHE_SIZE
+    # int fields: value range, base (derived from the range) and bit depth
+    min: int = 0
+    max: int = 0
+    base: int = 0
+    bit_depth: int = 0
 
 
 class Field:
@@ -70,6 +93,8 @@ class Field:
             raise NotImplementedError(f"{options.type} fields are not ported yet")
         if options.cache_type not in CACHE_TYPES:
             raise ValueError(f"invalid cache type {options.cache_type!r}")
+        if options.type == FIELD_TYPE_INT:
+            _init_int_options(options)
         self.index = index
         self.name = name
         self.options = options
@@ -89,7 +114,12 @@ class Field:
                     device=self.device,
                     dcache=self.dcache,
                     mutex=self.options.type == FIELD_TYPE_MUTEX,
-                    cache_type=self.options.cache_type,
+                    # BSI views hold bit planes, not rankable rows
+                    cache_type=(
+                        CACHE_TYPE_NONE
+                        if name.startswith(VIEW_BSI_PREFIX)
+                        else self.options.cache_type
+                    ),
                     cache_size=self.options.cache_size,
                 )
                 self.views[name] = v
@@ -97,6 +127,9 @@ class Field:
 
     def view(self, name: str = VIEW_STANDARD) -> Optional[View]:
         return self.views.get(name)
+
+    def bsi_view_name(self) -> str:
+        return VIEW_BSI_PREFIX + self.name
 
     def available_shards(self) -> Set[int]:
         with self._mu:
@@ -119,8 +152,58 @@ class Field:
             views = list(self.views.values())
         changed = False
         for v in views:
-            changed |= v.clear_bit(row_id, col)
+            if not v.name.startswith(VIEW_BSI_PREFIX):
+                changed |= v.clear_bit(row_id, col)
         return changed
+
+    def _check_value_range(self, lo: int, hi: int) -> None:
+        """Values in [lo, hi] must fit the int field's [min, max]."""
+        if self.options.type != FIELD_TYPE_INT:
+            raise ValueError(f"field {self.name} is not an int field")
+        if lo < self.options.min:
+            raise ValueError(f"value {lo} below field minimum {self.options.min}")
+        if hi > self.options.max:
+            raise ValueError(f"value {hi} above field maximum {self.options.max}")
+
+    def _grow_bit_depth(self, magnitude: int) -> None:
+        """Widen the field to hold `magnitude`; planes older shards never
+        wrote read as zero (View.plane_stack)."""
+        required = bit_depth_of(magnitude)
+        if required > self.options.bit_depth:
+            with self._mu:
+                self.options.bit_depth = max(self.options.bit_depth, required)
+
+    def set_value(self, col: int, value: int) -> bool:
+        """Write one int value (the BSI view), growing the bit depth when
+        the magnitude needs more planes."""
+        self._check_value_range(value, value)
+        base_value = value - self.options.base
+        self._grow_bit_depth(abs(base_value))
+        v = self._view_create(self.bsi_view_name())
+        return v.set_value(col, self.options.bit_depth, base_value)
+
+    def clear_value(self, col: int) -> bool:
+        v = self.view(self.bsi_view_name())
+        if v is None:
+            return False
+        val, exists = v.value(col, self.options.bit_depth)
+        if not exists:
+            return False
+        return v.set_value(col, self.options.bit_depth, val, clear=True)
+
+    def import_values(self, cols: np.ndarray, values: np.ndarray) -> None:
+        """Bulk int import grouped by shard; the last write per column
+        wins."""
+        cols = np.asarray(cols, dtype=np.uint64)
+        values = np.asarray(values, dtype=np.int64)
+        if not len(values):
+            return
+        self._check_value_range(int(values.min()), int(values.max()))
+        base_values = values - self.options.base
+        self._grow_bit_depth(int(np.abs(base_values).max()))
+        v = self._view_create(self.bsi_view_name())
+        for shard, m in group_slices(cols // np.uint64(SHARD_WIDTH)):
+            v.fragment(int(shard)).import_values(cols[m], base_values[m], self.options.bit_depth)
 
     def import_bits(self, row_ids: np.ndarray, cols: np.ndarray, clear: bool = False) -> None:
         """Bulk import grouped by shard. Set-field SET imports take the
@@ -147,4 +230,75 @@ class Field:
             raise ValueError(f"word-level import not supported on {self.options.type} fields")
         return self._view_create(VIEW_STANDARD).fragment(int(shard)).import_row_words(
             row_id, words
+        )
+
+    # ------------------------------------------------------------------
+    # int reads and predicate bounds
+    # ------------------------------------------------------------------
+
+    def value(self, col: int) -> Tuple[int, bool]:
+        """(value, exists) of one column."""
+        v = self.view(self.bsi_view_name())
+        if v is None:
+            return 0, False
+        val, exists = v.value(col, self.options.bit_depth)
+        if not exists:
+            return 0, False
+        return val + self.options.base, True
+
+    def _depth_bounds(self) -> Tuple[int, int]:
+        o = self.options
+        return o.base - (1 << o.bit_depth) + 1, o.base + (1 << o.bit_depth) - 1
+
+    def base_value(self, op: str, value: int) -> Tuple[int, bool]:
+        """A predicate value relative to the base, clamped to what the bit
+        depth can hold: (base value, out of range)."""
+        depth_min, depth_max = self._depth_bounds()
+        base = self.options.base
+        if op in ("gt", "gte"):
+            if value > depth_max:
+                return 0, True
+            if value > depth_min:
+                return value - base, False
+            return 0, False
+        if op in ("lt", "lte"):
+            if value < depth_min:
+                return 0, True
+            if value > depth_max:
+                return depth_max - base, False
+            return value - base, False
+        if op in ("eq", "neq"):
+            if value < depth_min or value > depth_max:
+                return 0, True
+            return value - base, False
+        raise ValueError(f"invalid op {op}")
+
+    def base_value_between(self, lo: int, hi: int) -> Tuple[int, int, bool]:
+        depth_min, depth_max = self._depth_bounds()
+        if hi < depth_min or lo > depth_max:
+            return 0, 0, True
+        lo = max(lo, depth_min)
+        hi = min(hi, depth_max)
+        return lo - self.options.base, hi - self.options.base, False
+
+
+def _init_int_options(options: FieldOptions) -> None:
+    """Creation rules of an int field: the default range [0, 2^31 - 1],
+    the base from the range, and the bit depth the range needs; at most
+    32 magnitude bits (the kernels' words are 32 bits)."""
+    if options.min == 0 and options.max == 0:
+        options.max = 2**31 - 1
+    options.base = bsi_base(options.min, options.max)
+    required = max(
+        bit_depth_of(abs(options.min - options.base)),
+        bit_depth_of(abs(options.max - options.base)),
+    )
+    if options.bit_depth == 0:
+        options.bit_depth = required
+    if max(required, options.bit_depth) > 32:
+        raise ValueError(
+            f"int field range [{options.min}, {options.max}] needs "
+            f"{max(required, options.bit_depth)}-bit magnitudes; device "
+            "BSI supports at most 32 (narrow the range or shift it "
+            "closer to the base)"
         )

@@ -7,8 +7,12 @@ TopN reads. Device copies of rows live in the holder's DeviceCache and are
 dropped on mutation. Staged ingest (`stage_positions`) appends positions
 to a pending buffer that every host read merges first (`_sync_locked`).
 
-Not ported here: the WAL, snapshots, transfer capture and the BSI
-methods, which raise.
+Int (BSI) fragments keep sign + magnitude bit planes as ordinary rows
+(BSI_EXISTS_BIT, BSI_SIGN_BIT, then BSI_OFFSET_BIT + i for magnitude bit
+i); writes and point reads are host work here, and the aggregates run on
+the stacked path (exec/bsistream.py, plan range nodes). Not ported: the
+WAL, snapshots, transfer capture and the per-fragment BSI aggregates,
+which raise.
 
 Position convention: pos = row_id * SHARD_WIDTH + (col % SHARD_WIDTH).
 """
@@ -30,7 +34,15 @@ from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 from pilosa_tpu_torch.utils.arrays import group_slices
 
-_BSI = "ported in the BSI slice"
+# BSI plane rows
+BSI_EXISTS_BIT = 0
+BSI_SIGN_BIT = 1
+BSI_OFFSET_BIT = 2
+
+_BSI_STACKED = (
+    "per-fragment BSI aggregates are not ported: Sum/Min/Max and condition "
+    "rows run on the stacked path (exec/bsistream.py, exec/plan.py range nodes)"
+)
 
 
 class Fragment:
@@ -504,20 +516,101 @@ class Fragment:
     # BSI (int fields)
     # ------------------------------------------------------------------
 
+    def contains(self, row_id: int, in_shard: int) -> bool:
+        with self._mu:
+            self._sync_locked()
+            rb = self._rows.get(row_id)
+            return rb is not None and rb.contains(in_shard)
+
     def set_value(self, col: int, bit_depth: int, value: int, clear: bool = False) -> bool:
-        raise NotImplementedError(_BSI)
+        """Sign + magnitude write of one column (clear=True removes it).
+        Returns True if any bit changed."""
+        in_shard = col % SHARD_WIDTH
+        uvalue = abs(value)
+        to_set: List[int] = []
+        to_clear: List[int] = []
+        (to_clear if clear else to_set).append(BSI_EXISTS_BIT * SHARD_WIDTH + in_shard)
+        (to_clear if (value >= 0 or clear) else to_set).append(
+            BSI_SIGN_BIT * SHARD_WIDTH + in_shard
+        )
+        for i in range(bit_depth):
+            p = (BSI_OFFSET_BIT + i) * SHARD_WIDTH + in_shard
+            (to_set if (uvalue >> i) & 1 and not clear else to_clear).append(p)
+        n_set, n_clear = self.import_positions(
+            np.array(to_set, np.uint64), np.array(to_clear, np.uint64)
+        )
+        return (n_set + n_clear) > 0
 
     def import_values(self, cols: np.ndarray, values: np.ndarray, bit_depth: int) -> None:
-        raise NotImplementedError(_BSI)
+        """Columnar write; the last write per column wins. Each plane row
+        takes its new bits in one word-level pass over the written
+        columns (row = (row & ~written) | bits), never as positions."""
+        cols = np.asarray(cols, dtype=np.uint64) % SHARD_WIDTH
+        values = np.asarray(values, dtype=np.int64)
+        if not len(cols):
+            return
+        _, last_idx = np.unique(cols[::-1], return_index=True)
+        idx = len(cols) - 1 - last_idx
+        cols, values = cols[idx].astype(np.int64), values[idx]
+        mags = np.abs(values).astype(np.uint64)
+
+        def words_of(sel: np.ndarray) -> np.ndarray:
+            bits = np.zeros(SHARD_WIDTH, bool)
+            bits[sel] = True
+            return np.packbits(bits, bitorder="little").view(np.uint32)
+
+        written = words_of(cols)
+        new_rows = {BSI_EXISTS_BIT: written, BSI_SIGN_BIT: words_of(cols[values < 0])}
+        for i in range(bit_depth):
+            has = (mags >> np.uint64(i)) & np.uint64(1) != 0
+            new_rows[BSI_OFFSET_BIT + i] = words_of(cols[has])
+        with self._mu:
+            self._sync_locked()
+            touched = []
+            for row_id, words in new_rows.items():
+                rb = self._rows.get(row_id)
+                if rb is None:
+                    if not words.any():
+                        continue  # clearing a row that does not exist
+                    rb = self._rows[row_id] = RowBits(SHARD_WIDTH)
+                rb.assign_words(written, words)
+                touched.append(row_id)
+            rows_store = self._rows
+            self.cache.add_many((rid, rows_store[rid].count()) for rid in touched)
+            self.dcache.invalidate_many((self._token, rid) for rid in touched)
+            self.dcache.invalidate_owner(self._stack_token)
+            self.version += 1
+            if self.on_mutate is not None:
+                self.on_mutate()
 
     def value(self, col: int, bit_depth: int) -> Tuple[int, bool]:
-        raise NotImplementedError(_BSI)
+        """(stored value, exists) of one column (a host point read)."""
+        with self._mu:
+            in_shard = col % SHARD_WIDTH
+            if not self.contains(BSI_EXISTS_BIT, in_shard):
+                return 0, False
+            v = 0
+            for i in range(bit_depth):
+                if self.contains(BSI_OFFSET_BIT + i, in_shard):
+                    v |= 1 << i
+            if self.contains(BSI_SIGN_BIT, in_shard):
+                v = -v
+            return v, True
+
+    def sum(self, filter_words, bit_depth: int):
+        raise NotImplementedError(_BSI_STACKED)
+
+    def min(self, filter_words, bit_depth: int):
+        raise NotImplementedError(_BSI_STACKED)
+
+    def max(self, filter_words, bit_depth: int):
+        raise NotImplementedError(_BSI_STACKED)
 
     def range_op(self, op: str, bit_depth: int, predicate: int):
-        raise NotImplementedError(_BSI)
+        raise NotImplementedError(_BSI_STACKED)
 
     def range_between(self, bit_depth: int, pmin: int, pmax: int):
-        raise NotImplementedError(_BSI)
+        raise NotImplementedError(_BSI_STACKED)
 
     def not_null(self):
-        raise NotImplementedError(_BSI)
+        raise NotImplementedError(_BSI_STACKED)

@@ -149,6 +149,18 @@ class RowBits:
         self._maybe_sparsify()
         return added
 
+    def assign_words(self, mask: np.ndarray, words: np.ndarray) -> None:
+        """Overwrite the bits under a dense word mask with `words` (a
+        subset of it): row = (row & ~mask) | words. The word-level path
+        of columnar int imports."""
+        if self.dense is None:
+            self.dense = self._to_dense()
+            self.positions = None
+        np.bitwise_and(self.dense, np.bitwise_not(mask), out=self.dense)
+        np.bitwise_or(self.dense, words, out=self.dense)
+        self._n = _popcount_words(self.dense)
+        self._maybe_sparsify()
+
     def discard(self, gone: np.ndarray) -> int:
         """Clear the given positions; returns how many were actually cleared."""
         gone = np.asarray(gone, dtype=np.uint32)

@@ -21,6 +21,7 @@ from pilosa_tpu_torch.hbm import residency
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
 VIEW_STANDARD = "standard"
+VIEW_BSI_PREFIX = "bsig_"
 
 
 class View:
@@ -126,24 +127,22 @@ class View:
 
     def plane_stack(self, row_ids, shards) -> Optional[torch.Tensor]:
         """int32[D, S, W] device stack (rows x shards), or None when no
-        listed shard has a fragment."""
+        listed shard has a fragment. A row a fragment lacks reads as zero
+        words (an int field's high plane that older shards never wrote
+        after its bit depth grew)."""
         row_ids = tuple(row_ids)
         shards = tuple(shards)
         frags = self._frags_for(shards)
         if all(f is None for f in frags):
             return None
         self.sync_pending(frags=frags)
-        zeros = np.zeros(WORDS_PER_ROW, np.uint32)
-
         def build() -> np.ndarray:
-            if not row_ids:
-                return np.zeros((0, len(frags), WORDS_PER_ROW), np.uint32)
-            return np.stack(
-                [
-                    np.stack([f.row_words(r) if f is not None else zeros for f in frags])
-                    for r in row_ids
-                ]
-            )
+            out = np.zeros((len(row_ids), len(frags), WORDS_PER_ROW), np.uint32)
+            for j, f in enumerate(frags):
+                if f is not None:
+                    for i, r in enumerate(row_ids):
+                        out[i, j] = f.row_words(r)
+            return out
 
         return residency.stage_plane_stack(
             self.dcache,
@@ -178,3 +177,12 @@ class View:
     def clear_bit(self, row_id: int, col: int) -> bool:
         frag = self.fragment_if_exists(col // SHARD_WIDTH)
         return frag.clear_bit(row_id, col) if frag is not None else False
+
+    def set_value(self, col: int, bit_depth: int, value: int, clear: bool = False) -> bool:
+        return self.fragment(col // SHARD_WIDTH).set_value(col, bit_depth, value, clear)
+
+    def value(self, col: int, bit_depth: int):
+        frag = self.fragment_if_exists(col // SHARD_WIDTH)
+        if frag is None:
+            return 0, False
+        return frag.value(col, bit_depth)

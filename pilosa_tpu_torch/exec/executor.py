@@ -1,12 +1,15 @@
 """Query executor for one node on one device.
 
 The port of pilosa_tpu/exec/executor.py for the main path: PQL bitmap
-trees (Row, Intersect, Union, Difference, Xor, Not, All, Shift) lower to
-stacked plans over [S, W] device row stacks (exec/plan.py); Count runs the
-plan_count kernel (adjacent Counts batch into one MultiCountPlan); Set and
-Clear write; TopN answers unfiltered queries from the rank caches and
-filtered ones from one plan plus a device tally (rows_counts for dense
-candidates, gather_tally for sparse ones).
+trees (Row, Intersect, Union, Difference, Xor, Not, All, Shift, and BSI
+condition rows such as Row(v > 10)) lower to stacked plans over [S, W]
+device row stacks (exec/plan.py); Count runs the plan_count kernel
+(adjacent Counts batch into one MultiCountPlan) and a lone condition row
+runs the bsi_range kernel in count mode (exec/bsistream.py); Sum, Min and
+Max over int fields run the bsi_sum and bsi_min_max kernels; Set and Clear
+write bits and int values; TopN answers unfiltered queries from the rank
+caches and filtered ones from one plan plus a device tally (rows_counts
+for dense candidates, gather_tally for sparse ones).
 
 Every other call raises ExecError("<Call> not yet ported"). There is no
 per-shard fallback: a tree the stacked lowering cannot express is an
@@ -24,10 +27,12 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.core.field import FIELD_TYPE_BOOL, FIELD_TYPE_INT, FIELD_TYPE_TIME, Field
+from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT, BSI_SIGN_BIT
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
+from pilosa_tpu_torch.exec import bsistream
 from pilosa_tpu_torch.exec import groupby as gb
 from pilosa_tpu_torch.exec import plan as planmod
 from pilosa_tpu_torch.exec.plan import (
@@ -36,6 +41,9 @@ from pilosa_tpu_torch.exec.plan import (
     PLeaf,
     PNary,
     PNode,
+    PRangeBetween,
+    PRangeCmp,
+    PRangeEQ,
     PShift,
     PZero,
     SparseView,
@@ -43,6 +51,7 @@ from pilosa_tpu_torch.exec.plan import (
 )
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.pql import Call, Query, parse
+from pilosa_tpu_torch.pql.ast import BETWEEN, GT, GTE, LT, LTE, NEQ
 from pilosa_tpu_torch.shardwidth import WORDS_PER_ROW
 
 DEFAULT_MIN_THRESHOLD = 1
@@ -50,7 +59,7 @@ DEFAULT_MIN_THRESHOLD = 1
 # calls of the reference executor that later slices port
 _NOT_PORTED = frozenset(
     {
-        "Sum", "Min", "Max", "MinRow", "MaxRow", "ClearRow", "Store",
+        "MinRow", "MaxRow", "ClearRow", "Store",
         "SetRowAttrs", "SetColumnAttrs", "Rows", "GroupBy", "Options",
     }
 )
@@ -73,6 +82,17 @@ class ExecOptions:
 @dataclass
 class QueryResponse:
     results: List[Any]
+
+
+@dataclass
+class ValCount:
+    """Sum/Min/Max result."""
+
+    value: int
+    count: int
+
+    def to_json(self):
+        return {"value": self.value, "count": self.count}
 
 
 @dataclass
@@ -142,13 +162,13 @@ class _StackedLowering:
         self.no_sparse_guard = no_sparse_guard
         self.views: Dict[int, Any] = {}
 
-    def _stack_guard(self, view) -> None:
+    def _stack_guard(self, view, mult: int = 1) -> None:
         n = len(self.shards)
         if n >= 64 and not self.no_sparse_guard:
             present = sum(1 for s in self.shards if view.fragment_if_exists(s) is not None)
             if present and present * 8 < n:
                 raise SparseView("sparse view: stacked form would densify")
-        if n * WORDS_PER_ROW * 4 > self.idx.dcache.budget_bytes // 4:
+        if n * WORDS_PER_ROW * 4 * mult > self.idx.dcache.budget_bytes // 4:
             raise BudgetExceeded("stack exceeds device budget")
 
     def _view_leaf(self, view, row_id: int) -> PNode:
@@ -168,6 +188,26 @@ class _StackedLowering:
                     node = PLeaf(len(self.operands) - 1)
             self._leaf_memo[key] = node
         return node
+
+    def _plane_slot(self, view, bit_depth: int) -> Optional[int]:
+        """Operand slot of the view's [D, S, W] magnitude plane stack, or
+        None when no listed shard has a fragment."""
+        key = ("planes", id(view), bit_depth)
+        if key not in self._leaf_memo:
+            self.views.setdefault(id(view), view)
+            if self.collect:
+                self._leaf_memo[key] = 0
+            else:
+                self._stack_guard(view, mult=bit_depth)
+                arr = view.plane_stack(
+                    range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + bit_depth), self.shards
+                )
+                if arr is None:
+                    self._leaf_memo[key] = None
+                else:
+                    self.operands.append(arr)
+                    self._leaf_memo[key] = len(self.operands) - 1
+        return self._leaf_memo[key]
 
     def lower(self, c: Call) -> PNode:
         node = self._call_memo.get(id(c))
@@ -247,13 +287,7 @@ class _StackedLowering:
     def _lower_row(self, c: Call) -> PNode:
         ex, idx = self.ex, self.idx
         if c.has_conditions():
-            # condition rows are BSI rows; only int fields (not ported) have them
-            conds = c.condition_args()
-            if len(c.args) != 1 or len(conds) != 1:
-                raise ExecError("Row(): exactly one condition required")
-            field_name = next(iter(conds))
-            ex._field_of(idx, field_name)
-            raise ExecError(f"field {field_name} is not an int field")
+            return self._lower_row_bsi(c)
         field_name = ex._field_arg_name(c)
         f = ex._field_of(idx, field_name)
         row_id = c.args.get(field_name)
@@ -271,6 +305,132 @@ class _StackedLowering:
         if v is None:
             return PZero()
         return self._view_leaf(v, row_id)
+
+    # -- BSI condition rows --------------------------------------------------
+
+    def _lower_row_bsi(self, c: Call) -> PNode:
+        """A condition row over an int field: the sign/saturation
+        decomposition of the predicate, emitted as range nodes over the
+        field's [D, S, W] plane stack (one bsi_range launch each)."""
+        ex, idx = self.ex, self.idx
+        conds = c.condition_args()
+        if len(c.args) != 1 or len(conds) != 1:
+            raise ExecError("Row(): exactly one condition required")
+        field_name, cond = next(iter(conds.items()))
+        f = ex._field_of(idx, field_name)
+        if f.options.type != FIELD_TYPE_INT:
+            raise ExecError(f"field {field_name} is not an int field")
+        o = f.options
+        bsiv = f.view(f.bsi_view_name())
+        if bsiv is None:
+            return PZero()
+        exists = self._view_leaf(bsiv, BSI_EXISTS_BIT)
+        if isinstance(exists, PZero):
+            return PZero()
+        # unsigned fields (min >= base) never store a sign bit
+        sign = self._view_leaf(bsiv, BSI_SIGN_BIT) if bsistream._signed_field(f) else None
+        planes = self._plane_slot(bsiv, o.bit_depth)
+        if planes is None:
+            return PZero()
+        b = _BsiRows(exists, sign, planes)
+
+        if cond.op == NEQ and cond.value is None:  # != null
+            return exists
+        if cond.op == BETWEEN:
+            lo, hi = cond.int_pair()
+            blo, bhi, out_of_range = f.base_value_between(lo, hi)
+            if out_of_range:
+                return PZero()
+            if lo <= o.min and hi >= o.max:
+                return exists
+            return self._between(b, blo, bhi)
+
+        if not isinstance(cond.value, int) or isinstance(cond.value, bool):
+            raise ExecError("Row(): conditions only support integer values")
+        value = cond.value
+        op = bsistream.COND_OP_NAME[cond.op]
+        base_value, out_of_range = f.base_value(op, value)
+        if out_of_range and cond.op != NEQ:
+            return PZero()
+        if (
+            (cond.op == LT and value > o.max)
+            or (cond.op == LTE and value >= o.max)
+            or (cond.op == GT and value < o.min)
+            or (cond.op == GTE and value <= o.min)
+        ):
+            return exists
+        if out_of_range and cond.op == NEQ:
+            return exists
+        return self._range_op(b, op, base_value)
+
+    @staticmethod
+    def _pos_neg(b: "_BsiRows") -> Tuple[PNode, PNode]:
+        if b.sign is None:
+            return b.exists, PZero()
+        return PNary("andnot", (b.exists, b.sign)), PNary("and", (b.exists, b.sign))
+
+    def _range_op(self, b: "_BsiRows", op: str, predicate: int) -> PNode:
+        upred = abs(predicate)
+        positives, negatives = self._pos_neg(b)
+        if op in ("eq", "neq"):
+            eq = b.node(PRangeEQ, "neg" if predicate < 0 else "pos", pred=upred)
+            if op == "eq":
+                return eq
+            return b.exists if isinstance(eq, PZero) else PNary("andnot", (b.exists, eq))
+        if op in ("lt", "lte"):
+            allow_eq = op == "lte"
+            if predicate > 0 or (predicate == 0 and allow_eq):
+                pos = b.node(PRangeCmp, "pos", kind="lt", pred=upred, allow_eq=allow_eq)
+                return _or(negatives, pos)
+            if predicate == 0:  # strict < 0
+                return negatives
+            return b.node(PRangeCmp, "neg", kind="gt", pred=upred, allow_eq=allow_eq)
+        if op in ("gt", "gte"):
+            allow_eq = op == "gte"
+            if predicate > 0 or (predicate == 0 and allow_eq):
+                return b.node(PRangeCmp, "pos", kind="gt", pred=upred, allow_eq=allow_eq)
+            if predicate == 0:  # strict > 0
+                return b.node(PRangeCmp, "pos", kind="gt", pred=upred, allow_eq=False)
+            neg = b.node(PRangeCmp, "neg", kind="lt", pred=upred, allow_eq=allow_eq)
+            return _or(positives, neg)
+        raise ExecError(f"invalid range op {op!r}")
+
+    @staticmethod
+    def _between(b: "_BsiRows", pmin: int, pmax: int) -> PNode:
+        if pmin >= 0:
+            return b.node(PRangeBetween, "pos", lo=abs(pmin), hi=abs(pmax))
+        if pmax < 0:
+            return b.node(PRangeBetween, "neg", lo=abs(pmax), hi=abs(pmin))
+        pos = b.node(PRangeCmp, "pos", kind="lt", pred=abs(pmax), allow_eq=True)
+        neg = b.node(PRangeCmp, "neg", kind="lt", pred=abs(pmin), allow_eq=True)
+        return _or(pos, neg)
+
+
+@dataclass(frozen=True)
+class _BsiRows:
+    """The operands of an int field's range nodes: the exists leaf, the
+    sign leaf (None for an unsigned field) and the plane-stack slot."""
+
+    exists: PNode
+    sign: Optional[PNode]
+    planes: int
+
+    def node(self, cls, sel: str, **kw) -> PNode:
+        """A range node over the base mask `sel` (pos or neg); an unsigned
+        field's pos mask is all of exists and its neg mask is empty."""
+        if self.sign is None:
+            if sel == "neg":
+                return PZero()
+            sel = "consider"
+        return cls(exists=self.exists, sign=self.sign, sel=sel, planes=self.planes, **kw)
+
+
+def _or(a: PNode, b: PNode) -> PNode:
+    if isinstance(a, PZero):
+        return b
+    if isinstance(b, PZero):
+        return a
+    return PNary("or", (a, b))
 
 
 class Executor:
@@ -354,6 +514,12 @@ class Executor:
             return self._execute_clear(idx, c)
         if name == "TopN":
             return self._execute_topn(idx, c, shards)
+        if name == "Sum":
+            return self._execute_bsi_aggregate(idx, c, shards, "sum")
+        if name == "Min":
+            return self._execute_bsi_aggregate(idx, c, shards, "min")
+        if name == "Max":
+            return self._execute_bsi_aggregate(idx, c, shards, "max")
         if name in _NOT_PORTED:
             raise ExecError(f"{name} not yet ported")
         return self._execute_bitmap_call(idx, c, shards)
@@ -504,8 +670,26 @@ class Executor:
         if len(c.children) != 1:
             raise ExecError("Count() only accepts a single bitmap input")
         shard_list = self._shards_for(idx, shards)
+        child = c.children[0]
+        if child.name in ("Row", "Range") and child.has_conditions():
+            # a lone condition: bsi_range in count mode, one launch per
+            # decomposition job (exec/bsistream.py)
+            counted = bsistream.count_range(self, idx, child, shard_list)
+            if counted is not None:
+                return counted
         # one dispatch + one [S] host read per budget-sized shard chunk
-        return sum(sp.count() for sp in self._lower_plans(idx, c.children[0], shard_list))
+        return sum(sp.count() for sp in self._lower_plans(idx, child, shard_list))
+
+    # ------------------------------------------------------------------
+    # Sum / Min / Max (int fields)
+    # ------------------------------------------------------------------
+
+    def _execute_bsi_aggregate(self, idx: Index, c: Call, shards, kind: str) -> ValCount:
+        field_name = c.string_arg("field") or self._field_arg_name(c)
+        f = self._field_of(idx, field_name)
+        if f.options.type != FIELD_TYPE_INT:
+            raise ExecError(f"field {field_name} is not an int field")
+        return bsistream.aggregate(self, idx, c, f, self._shards_for(idx, shards), kind)
 
     # ------------------------------------------------------------------
     # writes
@@ -517,10 +701,16 @@ class Executor:
             raise ExecError("Set() column argument required (or keys not enabled)")
         field_name = self._field_arg_name(c)
         f = self._field_of(idx, field_name)
-        row_id = c.args.get(field_name)
-        if not isinstance(row_id, int):
-            raise ExecError("Set() row argument required")
-        changed = f.set_bit(row_id, col, c.args.get("_timestamp"))
+        if f.options.type == FIELD_TYPE_INT:
+            value = c.int_arg(field_name)
+            if value is None:
+                raise ExecError("Set() int field requires an integer value")
+            changed = f.set_value(col, value)
+        else:
+            row_id = c.args.get(field_name)
+            if not isinstance(row_id, int):
+                raise ExecError("Set() row argument required")
+            changed = f.set_bit(row_id, col, c.args.get("_timestamp"))
         idx.track_columns(np.array([col], np.uint64))
         return changed
 
@@ -530,6 +720,8 @@ class Executor:
             raise ExecError("Clear() column argument required")
         field_name = self._field_arg_name(c)
         f = self._field_of(idx, field_name)
+        if f.options.type == FIELD_TYPE_INT:
+            return f.clear_value(col)
         row_id = c.args.get(field_name)
         if not isinstance(row_id, int):
             raise ExecError("Clear() row argument required")

@@ -12,7 +12,11 @@ evaluates it:
   device (exact, so the reference's halfword pair is not needed).
 - PShift subtrees are evaluated with ops.bitmap.shift_bits (plus the
   cross-shard carry) and enter the kernel as materialized leaves.
-- row mode (rows / rows_full) evaluates with PyTorch bitwise ops.
+- BSI condition rows (PRangeEQ / PRangeCmp / PRangeBetween) are
+  materialized by the bsi_range kernel in rows mode and enter the same
+  way.
+- row mode (rows / rows_full) evaluates with PyTorch bitwise ops, and
+  range nodes with bsi_range.
 
 STATS counts dispatches (`evals`) and blocking device->host reads
 (`host_reads`); one dispatch lock serializes them.
@@ -22,7 +26,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -97,6 +101,50 @@ class PShift(PNode):
 
 
 @dataclass(frozen=True)
+class PRangeEQ(PNode):
+    """BSI magnitude == pred within the base mask. The mask is formed from
+    the `exists` node and the `sign` node (None: an unsigned field) by
+    `sel` in {consider, pos, neg}; `planes` is the operand slot of the
+    int32[D, S, W] plane stack. Predicates are plain ints (nothing is
+    traced)."""
+
+    exists: PNode
+    sign: Optional[PNode]
+    sel: str
+    planes: int
+    pred: int
+
+
+@dataclass(frozen=True)
+class PRangeCmp(PNode):
+    """BSI magnitude < (kind lt) or > (kind gt) pred, or <= / >= with
+    allow_eq, within the base mask (as PRangeEQ)."""
+
+    kind: str
+    exists: PNode
+    sign: Optional[PNode]
+    sel: str
+    planes: int
+    pred: int
+    allow_eq: bool
+
+
+@dataclass(frozen=True)
+class PRangeBetween(PNode):
+    """BSI lo <= magnitude <= hi within the base mask (as PRangeEQ)."""
+
+    exists: PNode
+    sign: Optional[PNode]
+    sel: str
+    planes: int
+    lo: int
+    hi: int
+
+
+_RANGE_NODES = (PRangeEQ, PRangeCmp, PRangeBetween)
+
+
+@dataclass(frozen=True)
 class PZero(PNode):
     """All-zero stack (absent rows)."""
 
@@ -144,10 +192,26 @@ def _eval_rows(node: PNode, operands, memo: Dict[int, torch.Tensor]) -> torch.Te
             keep = torch.from_numpy(has_prev).to(dev)[:, None]
             shifted = shifted | torch.where(keep, overflow[take], torch.zeros_like(shifted))
         val = shifted
+    elif isinstance(node, _RANGE_NODES):
+        val = _range_rows(node, operands, memo)
     else:
         raise AssertionError(type(node))
     memo[id(node)] = val
     return val
+
+
+def _range_rows(node: PNode, operands, memo) -> torch.Tensor:
+    """A range node's [S, W] result words from one bsi_range launch."""
+    exists = _eval_rows(node.exists, operands, memo)
+    sign = None if node.sign is None else _eval_rows(node.sign, operands, memo)
+    planes = operands[node.planes]
+    if isinstance(node, PRangeEQ):
+        kind, allow_eq, p0, p1 = "eq", False, node.pred, 0
+    elif isinstance(node, PRangeCmp):
+        kind, allow_eq, p0, p1 = node.kind, node.allow_eq, node.pred, 0
+    else:
+        kind, allow_eq, p0, p1 = "between", False, node.lo, node.hi
+    return kernels.bsi_range(planes, exists, sign, node.sel, kind, allow_eq, p0, p1, "rows")
 
 
 def _need(node: PNode, memo: Dict[int, int]) -> int:
@@ -166,7 +230,8 @@ def _need(node: PNode, memo: Dict[int, int]) -> int:
 
 def _compile(root: PNode, operands) -> Tuple[List[torch.Tensor], List[int]]:
     """Postfix program for the plan_count kernel: (leaf stacks, program).
-    PShift subtrees are materialized (row mode) into leaves.
+    PShift subtrees and range nodes are materialized (row mode) into
+    leaves.
 
     Each n-ary node folds its children into the value on top of the stack,
     deepest child first, so the stack depth grows with the log of the
@@ -206,7 +271,7 @@ def _compile(root: PNode, operands) -> Tuple[List[torch.Tensor], List[int]]:
                     op = "andnot" if head_seen else "or"
                 if k:
                     prog.append(kernels.BINOPS[op])
-        elif isinstance(node, PShift):
+        elif isinstance(node, (PShift,) + _RANGE_NODES):
             leaf(("node", id(node)), lambda: _eval_rows(node, operands, memo))
         else:
             raise AssertionError(type(node))

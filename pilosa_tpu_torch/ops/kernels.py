@@ -1,12 +1,12 @@
-"""The port's four hand-written CUDA kernels: build, binding, dispatch and
+"""The port's hand-written CUDA kernels: build, binding, dispatch and
 their plain-PyTorch twins.
 
 Each kernel function below takes int32 word tensors (the bits of the
 reference's uint32 words). On a CUDA tensor it launches its kernel from
-`cuda/bitmap_kernels.cu`; on a CPU tensor it runs its twin, which has the
-same contract and is the oracle the kernel is held to. There is no other
-route: a CUDA tensor never reaches a twin through these functions, and a
-failed build or launch raises.
+`cuda/bitmap_kernels.cu` or `cuda/bsi_kernels.cu`; on a CPU tensor it runs
+its twin, which has the same contract and is the oracle the kernel is held
+to. There is no other route: a CUDA tensor never reaches a twin through
+these functions, and a failed build or launch raises.
 
 | function       | replaces (TPU side)                                     |
 |----------------|---------------------------------------------------------|
@@ -14,13 +14,18 @@ failed build or launch raises.
 | `rows_counts`  | pallas_kernels.py `_rows_counts`                        |
 | `plan_count`   | exec/plan.py `_eval_jit`/`_root_out` (XLA program)      |
 | `gather_tally` | ops/bitmap.py `gather_tally_sorted` (XLA program)       |
+| `bsi_sum`      | pallas_kernels.py `sum_counts` (`_bsi_sum_kernel`)      |
+| `bsi_min_max`  | ops/bsi.py `min_max_stream` (XLA program)               |
+| `bsi_range`    | ops/bsi.py `range_*_unsigned`, `range_stream_single`    |
 
-All four read every input word once and do one popcount per word, so on
-the card they are bound by device-memory bytes.
+All of them read every input word once and do a few bitwise operations
+and popcounts per word, so on the card they are bound by device-memory
+bytes.
 
-The library is compiled lazily, at the first CUDA launch, with `nvcc` into
-`ops/_build/` under a name keyed by a hash of the sources and flags, and
-loaded with ctypes (pointers and the stream pass as c_void_p).
+Each `.cu` source is compiled lazily, at the first CUDA launch, with its
+own `nvcc` process (all started together) into `ops/_build/`, under a
+name keyed by a hash of the sources and flags, and loaded with ctypes
+(pointers and the stream pass as c_void_p, predicates as c_uint32).
 `LAUNCHES` counts kernel launches per kernel (`popcount` launches count
 under `count2`: one kernel template serves both); only the CUDA route
 counts.
@@ -39,6 +44,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from pilosa_tpu_torch.ops import bsi as obsi
 from pilosa_tpu_torch.ops.bitmap import MASK32, popcount_words
 
 _SRC_DIR = Path(__file__).resolve().parent / "cuda"
@@ -56,13 +62,33 @@ NVCC_FLAGS = (
 )
 
 # launches per kernel function (CUDA route only)
-LAUNCHES = {"count2": 0, "rows_counts": 0, "plan_count": 0, "gather_tally": 0}
+LAUNCHES = {
+    "count2": 0,
+    "rows_counts": 0,
+    "plan_count": 0,
+    "gather_tally": 0,
+    "bsi_sum": 0,
+    "bsi_min_max": 0,
+    "bsi_range": 0,
+}
 
-# nvcc's stderr of the build this process loaded (ptxas register/spill
-# report), or "" when the library was already built
+# nvcc's stderr of the builds this process ran (ptxas register/spill
+# report), or "" when the libraries were already built
 BUILD_LOG = {"text": ""}
 
 _OPS = {"none": 0, "and": 1, "or": 2, "xor": 3, "andnot": 4}
+
+# bsi_range encodings (mirror bsi_kernels.cu)
+RANGE_KINDS = {"eq": 0, "lt": 1, "gt": 2, "between": 3}
+RANGE_SELS = {"consider": 0, "pos": 1, "neg": 2}
+RANGE_MODES = ("rows", "count")
+
+# grid-stride kernels (bsi_sum, bsi_min_max): 132 SMs x 16 blocks, more
+# only where a thread would otherwise walk over 256 items (the bound of
+# bsi_sum's 32-bit block counters)
+_THREADS = 256
+_MAX_GRID = 132 * 16
+_MAX_ITEMS_PER_THREAD = 256
 
 # plan_count program encoding (mirrors bitmap_kernels.cu). Leaves and
 # instructions are unbounded; the operand stack holds MAX_STACK entries,
@@ -96,47 +122,71 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin)")
 
 
-def build() -> Path:
-    """Compile the kernel library if this source hash has no build yet;
-    return its path. Raises with nvcc's stderr on failure."""
+def build() -> List[Path]:
+    """Compile each kernel source whose hash has no build yet, one nvcc
+    process per source, all started together; return the libraries'
+    paths. Raises with nvcc's stderr on failure."""
     sources = sorted(_SRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    out = _BUILD_DIR / f"libpilosa_kernels_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
-    BUILD_LOG["text"] = proc.stderr
-    os.replace(tmp, out)
-    return out
+    tag = h.hexdigest()[:16]
+    outs = [_BUILD_DIR / f"lib{src.stem}_{tag}.so" for src in sources]
+    todo = [(src, out) for src, out in zip(sources, outs) if not out.exists()]
+    if todo:
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for src, out in todo:
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            procs.append((src, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            )))
+        logs, failed = [], []
+        for src, out, tmp, proc in procs:
+            _, err = proc.communicate()
+            logs.append(f"== {src.name}\n{err}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {src.name} with exit code {proc.returncode}:\n{err}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        BUILD_LOG["text"] = "\n".join(logs)
+    return outs
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.pt_count2.argtypes = [p, p, i64, i32, i32, p, p]
-    lib.pt_rows_counts.argtypes = [p, i64, i64, p, i64, i32, p, p]
-    lib.pt_plan_count.argtypes = [p, i64, i64, i64, i64, p, p]
-    lib.pt_gather_tally.argtypes = [p, p, p, p, p, i64, p, p]
-    for fn in (lib.pt_count2, lib.pt_rows_counts, lib.pt_plan_count, lib.pt_gather_tally):
-        fn.restype = ctypes.c_int
-    return lib
+class _Library:
+    """The kernels' C entry points, gathered from the per-source
+    libraries."""
+
+    def __init__(self, libs: Sequence[ctypes.CDLL]):
+        p, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
+        argtypes = {
+            "pt_count2": [p, p, i64, i32, i32, p, p],
+            "pt_rows_counts": [p, i64, i64, p, i64, i32, p, p],
+            "pt_plan_count": [p, i64, i64, i64, i64, p, p],
+            "pt_gather_tally": [p, p, p, p, p, i64, p, p],
+            "pt_bsi_sum": [p, p, p, p, i32, i64, i32, i32, p, p],
+            "pt_bsi_min_max": [p, p, p, p, i32, i64, i32, i32, i32, p, p, p, p],
+            "pt_bsi_range": [p, p, p, i32, i64, i64, i32, i32, i32, u32, u32, i32, i32, p, p],
+        }
+        for name, types in argtypes.items():
+            fn = next((getattr(lib, name) for lib in libs if hasattr(lib, name)), None)
+            if fn is None:
+                raise RuntimeError(f"kernel entry point {name} is missing from the build")
+            fn.argtypes = types
+            fn.restype = ctypes.c_int
+            setattr(self, name, fn)
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, building it on first use."""
+def library() -> _Library:
+    """The loaded kernel libraries, building them on first use."""
     global _lib
     with _lib_mu:
         if _lib is None:
-            _lib = _bind(ctypes.CDLL(str(build())))
+            _lib = _Library([ctypes.CDLL(str(path)) for path in build()])
         return _lib
 
 
@@ -421,4 +471,188 @@ def gather_tally(
         _stream(src),
     )
     _launched("gather_tally", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# BSI kernels: bsi_sum (Pallas sum_counts), bsi_min_max and bsi_range
+# (ops/bsi.py XLA programs). planes int32[D, S, W], row operands int32[S, W].
+# ---------------------------------------------------------------------------
+
+
+def _bsi_check(name: str, planes: torch.Tensor, rows) -> List[torch.Tensor]:
+    """Validate a plane stack and its [S, W] row operands (None skipped);
+    returns the tensors for routing."""
+    _words(planes, f"{name} planes")
+    if planes.dim() != 3:
+        raise ValueError(f"{name}: want planes [D, S, W], got {tuple(planes.shape)}")
+    d = planes.shape[0]
+    if not 1 <= d <= obsi.MAX_DEPTH:
+        raise ValueError(f"{name}: depth {d} outside [1, {obsi.MAX_DEPTH}]")
+    ts = [planes]
+    for what, t in rows:
+        if t is None:
+            continue
+        _words(t, f"{name} {what}")
+        if tuple(t.shape) != tuple(planes.shape[1:]):
+            raise ValueError(f"{name}: {what} shape {tuple(t.shape)} vs planes {tuple(planes.shape)}")
+        ts.append(t)
+    return ts
+
+
+def _grid_stride(n: int, vec: bool) -> int:
+    items = n // 4 if vec else n
+    cap = max(_MAX_GRID, -(-items // (_THREADS * _MAX_ITEMS_PER_THREAD)))
+    return max(1, min(cap, -(-items // _THREADS)))
+
+
+def bsi_sum_plain(planes, exists, sign=None, filt=None) -> torch.Tensor:
+    return obsi.sum_counts_stacked(planes, exists, sign, filt).sum(dim=1)
+
+
+def bsi_sum(
+    planes: torch.Tensor,
+    exists: torch.Tensor,
+    sign: Optional[torch.Tensor] = None,
+    filt: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The BSI sum tally over the whole stack: int64[1 + 2D] = [count of
+    consider = exists & filt, pos[d] = pc(plane_d & consider & ~sign),
+    neg[d] = pc(plane_d & consider & sign)]. sign None is an unsigned
+    field (the negative counts are zero); filt None considers every
+    column that holds a value."""
+    ts = _bsi_check("bsi_sum", planes, (("exists", exists), ("sign", sign), ("filter", filt)))
+    if _route(*ts) == "cpu":
+        return bsi_sum_plain(planes, exists, sign, filt)
+    d = planes.shape[0]
+    n = exists.numel()
+    out = torch.zeros(1 + 2 * d, dtype=torch.int64, device=planes.device)
+    vec = n % 4 == 0 and _aligned(*ts)
+    rc = library().pt_bsi_sum(
+        planes.data_ptr(),
+        exists.data_ptr(),
+        0 if sign is None else sign.data_ptr(),
+        0 if filt is None else filt.data_ptr(),
+        d,
+        n,
+        int(vec),
+        _grid_stride(n, vec),
+        out.data_ptr(),
+        _stream(planes),
+    )
+    _launched("bsi_sum", rc)
+    return out
+
+
+def bsi_min_max_plain(planes, exists, sign=None, filt=None, is_min: bool = True) -> torch.Tensor:
+    return obsi.min_max_stream(planes, exists, sign, filt, is_min)
+
+
+def bsi_min_max(
+    planes: torch.Tensor,
+    exists: torch.Tensor,
+    sign: Optional[torch.Tensor],
+    filt: Optional[torch.Tensor],
+    is_min: bool,
+) -> torch.Tensor:
+    """Min or Max over the considered columns as the virtual-key ladder:
+    int64[3] = [best key, any, count of columns at that key], decoded by
+    ops.bsi.decode_min_max. The cross-word reduce finishes in the kernel
+    (the last block to finish reduces every block's partial)."""
+    ts = _bsi_check("bsi_min_max", planes, (("exists", exists), ("sign", sign), ("filter", filt)))
+    if _route(*ts) == "cpu":
+        return bsi_min_max_plain(planes, exists, sign, filt, is_min)
+    d = planes.shape[0]
+    n = exists.numel()
+    dev = planes.device
+    vec = n % 4 == 0 and _aligned(*ts)
+    grid = _grid_stride(n, vec)
+    partials = torch.empty(2 * grid, dtype=torch.int64, device=dev)
+    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.empty(3, dtype=torch.int64, device=dev)
+    rc = library().pt_bsi_min_max(
+        planes.data_ptr(),
+        exists.data_ptr(),
+        0 if sign is None else sign.data_ptr(),
+        0 if filt is None else filt.data_ptr(),
+        d,
+        n,
+        int(vec),
+        int(is_min),
+        grid,
+        partials.data_ptr(),
+        ticket.data_ptr(),
+        out.data_ptr(),
+        _stream(planes),
+    )
+    _launched("bsi_min_max", rc)
+    return out
+
+
+def _range_args(sel: str, kind: str, mode: str, p0: int, p1: int, sign) -> None:
+    if sel not in RANGE_SELS:
+        raise ValueError(f"bsi_range: unknown sel {sel!r}")
+    if kind not in RANGE_KINDS:
+        raise ValueError(f"bsi_range: unknown kind {kind!r}")
+    if mode not in RANGE_MODES:
+        raise ValueError(f"bsi_range: unknown mode {mode!r}")
+    if sel != "consider" and sign is None:
+        raise ValueError(f"bsi_range: sel {sel!r} needs the sign row")
+    for p in (p0, p1):
+        if not 0 <= p <= MASK32:
+            raise ValueError(f"bsi_range: predicate {p} is not a uint32 magnitude")
+
+
+def bsi_range_plain(planes, base, sign, sel, kind, allow_eq, p0, p1, mode) -> torch.Tensor:
+    _range_args(sel, kind, mode, p0, p1, sign)
+    return obsi.range_single(planes, base, sign, sel, kind, allow_eq, p0, p1, mode)
+
+
+def bsi_range(
+    planes: torch.Tensor,
+    base: torch.Tensor,
+    sign: Optional[torch.Tensor],
+    sel: str,
+    kind: str,
+    allow_eq: bool,
+    p0: int,
+    p1: int = 0,
+    mode: str = "rows",
+) -> torch.Tensor:
+    """One BSI predicate ladder over magnitudes. The starting mask is
+    `base` (sel "consider"), base & ~sign ("pos") or base & sign ("neg");
+    kind is eq (== p0), lt / gt (< / > p0, or <= / >= with allow_eq) or
+    between (p0 <= magnitude <= p1). Predicates are uint32 magnitudes.
+    mode "rows" returns the int32[S, W] result words, "count" its int64[S]
+    per-shard popcounts."""
+    _range_args(sel, kind, mode, p0, p1, sign)
+    ts = _bsi_check("bsi_range", planes, (("base", base), ("sign", sign)))
+    if _route(*ts) == "cpu":
+        return bsi_range_plain(planes, base, sign, sel, kind, allow_eq, p0, p1, mode)
+    d, s, w = planes.shape
+    dev = planes.device
+    count = mode == "count"
+    if count:
+        out = torch.zeros(s, dtype=torch.int64, device=dev)
+    else:
+        out = torch.empty((s, w), dtype=torch.int32, device=dev)
+    vec = w % 4 == 0 and _aligned(*ts, out)
+    rc = library().pt_bsi_range(
+        planes.data_ptr(),
+        base.data_ptr(),
+        0 if sign is None else sign.data_ptr(),
+        d,
+        s,
+        w,
+        RANGE_SELS[sel],
+        RANGE_KINDS[kind],
+        int(bool(allow_eq)),
+        p0,
+        p1,
+        int(count),
+        int(vec),
+        out.data_ptr(),
+        _stream(planes),
+    )
+    _launched("bsi_range", rc)
     return out

@@ -63,6 +63,8 @@ def export_state(h) -> dict:
                 "cache_size": o.cache_size,
                 "views": views,
             }
+            if o.type == "int":
+                fields[f.name].update(min=o.min, max=o.max, base=o.base, bit_depth=o.bit_depth)
         state[idx.name] = {"track_existence": idx.track_existence, "fields": fields}
     return state
 
@@ -224,7 +226,7 @@ def test_errors_match_reference(loaded, pql):
 
 def test_unported_calls_raise(loaded):
     _, port_ex = loaded
-    for pql in ["Sum(field=f)", "GroupBy(Rows(f))", "Rows(f)", "ClearRow(f=1)"]:
+    for pql in ["MinRow(field=f)", "GroupBy(Rows(f))", "Rows(f)", "ClearRow(f=1)"]:
         with pytest.raises(TExecError, match="not yet ported"):
             port_ex.execute("i", pql)
 

@@ -139,8 +139,65 @@ def test_mutex_fragment_matches_reference():
 
 
 def test_bsi_methods_raise():
+    """The per-fragment BSI aggregates stay unported: they raise and name
+    the stacked path that serves them."""
     _, port = _pair()
-    with pytest.raises(NotImplementedError, match="BSI slice"):
-        port.set_value(1, 8, 3)
-    with pytest.raises(NotImplementedError, match="BSI slice"):
-        port.not_null()
+    assert port.set_value(1, 8, 3)
+    for call in (
+        lambda: port.sum(None, 8),
+        lambda: port.min(None, 8),
+        lambda: port.max(None, 8),
+        lambda: port.range_op("lt", 8, 3),
+        lambda: port.range_between(8, 1, 3),
+        lambda: port.not_null(),
+    ):
+        with pytest.raises(NotImplementedError, match="stacked path"):
+            call()
+
+
+def test_bsi_fragment_writes_match_reference():
+    """Sign + magnitude writes (point and columnar, clears, last write
+    wins) leave identical plane rows and point reads."""
+    rng = np.random.default_rng(8)
+    ref, port = _pair()
+    cols = rng.integers(0, SHARD_WIDTH, 4000).astype(np.uint64)
+    vals = rng.integers(-(2**19), 2**19, len(cols))
+    ref.import_values(cols, vals, 20)
+    port.import_values(cols, vals, 20)
+    for col, v, clear in [(5, -3, False), (5, 7, False), (int(cols[0]), 0, True), (9, 2**19 - 1, False)]:
+        assert port.set_value(col, 20, v, clear) == ref.set_value(col, 20, v, clear)
+        assert port.set_value(col, 20, v, clear) == ref.set_value(col, 20, v, clear)
+    _same(ref, port, range(22))
+    for col in [5, 9, int(cols[0]), int(cols[1]), int(cols[-1]), 123457]:
+        assert port.value(col, 20) == ref.value(col, 20)
+
+
+def test_int_field_round_trips_through_numpy_state():
+    """A pilosa_tpu holder's int field (options with a grown bit depth,
+    the BSI view's plane rows) through export_state and
+    compat.holder_from_numpy reads back the same values and options."""
+    from pilosa_tpu.core.field import FieldOptions as JFieldOptions
+    from pilosa_tpu.core.holder import Holder as JHolder
+    from pilosa_tpu_torch.compat import holder_from_numpy
+    from test_torch_executor import export_state
+
+    rng = np.random.default_rng(4)
+    ref = JHolder(None).open()
+    idx = ref.create_index("i")
+    f = idx.create_field("v", JFieldOptions(type="int", min=-100, max=10_000, bit_depth=5))
+    cols = rng.choice(3 * SHARD_WIDTH, 5000, replace=False).astype(np.uint64)
+    f.import_values(cols, rng.integers(-20, 21, len(cols)))
+    f.set_value(2 * SHARD_WIDTH + 1, 9000)  # grows the depth to 14
+    state = export_state(ref)
+    assert state["i"]["fields"]["v"]["bit_depth"] == 14
+    port = holder_from_numpy(state, device="cpu")
+    pf = port.index("i").field("v")
+    o, jo = pf.options, f.options
+    assert (o.type, o.min, o.max, o.base, o.bit_depth) == ("int", jo.min, jo.max, jo.base, jo.bit_depth)
+    assert sorted(pf.views) == sorted(f.views)
+    for col in list(cols[:200]) + [2 * SHARD_WIDTH + 1, 7]:
+        assert pf.value(int(col)) == f.value(int(col))
+    bad = export_state(ref)
+    bad["i"]["fields"]["v"]["base"] = 3
+    with pytest.raises(ValueError, match="base"):
+        holder_from_numpy(bad, device="cpu")
