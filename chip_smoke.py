@@ -7,18 +7,23 @@ Phases, each fatal on any mismatch or exception:
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
 2. kernels: build the hand-written CUDA kernels from the checkout (one
-   nvcc per source, started together), then hold each against its
+   nvcc per source, started together; ptxas' registers, stack frame and
+   spills per function are printed), then hold each against its
    plain-PyTorch twin on the card (exact equality) at awkward shapes,
-   including the popcount wrap mod 2^32 and, for the BSI kernels, depths
-   1..32, signed and unsigned fields, filters, every range kind and edge
-   predicates;
+   including the popcount wrap mod 2^32, count2 over lists of 0-300
+   segments of mixed widths and alignments (one launch each), plan_count
+   at tile-edge widths, S = 1, one leaf, PUSH_ZERO alone, 48 leaves, a
+   40-deep nest, the full stack depth and a table too large for shared
+   memory, and, for the BSI kernels, depths 1..32, signed and unsigned
+   fields, filters, every range kind and edge predicates;
 3. main path: a 2^30-column index (1024 shards x 2^20 columns) with
    dense and sparse rows of a set field `f` and dense rows of `g`, loaded
    through Field.import_row_words / Field.import_bits / Set(), then the
    query set through Executor.execute, each answer held to an independent
    numpy computation on the generated words (byte-LUT popcount). Kernel
    launch counts are reset just before this phase and read just after it;
-   every kernel of the path must have launched;
+   every kernel of the path must have launched, and Row(f=1).count()
+   over every shard's segment must make exactly one count2 launch;
 3b. BSI path: two int fields on the same index, `amount` (signed,
    [-1e6, 1e6], about 90% of columns) and `age` (unsigned, [0, 120], every
    existing column), loaded through Field.import_values (16 shards) and
@@ -27,9 +32,13 @@ Phases, each fatal on any mismatch or exception:
    condition rows in trees, each held to numpy answers built per shard
    while generating. Launch counts are reset before and read after this
    phase too; bsi_sum, bsi_min_max and bsi_range must have launched;
-4. timing: each kernel at the shapes the main paths gave it against its
-   twin (CUDA events, median of 20 after warm-up), and each query's warm
-   p50 latency over 20 runs.
+4. timing: each kernel at the shapes the main paths gave it (count2 at
+   Row.count()'s 1024 segments) against its twin: device time as 20
+   back-to-back calls between two CUDA events, divided by 20, with a
+   sleep kernel holding the card until all 20 are queued (so the host's
+   dispatch stays out of it), and dispatch time, the host time of one
+   call with the card idle (median of 20); each query's warm p50 latency
+   over 20 runs.
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with a row per kernel; the last line is
@@ -41,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -71,21 +81,63 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+_SLEEP = {}
+
+
+def _sleep_cycles_per_ms() -> float:
+    """Clock cycles of torch.cuda._sleep per millisecond on this card."""
+    import torch
+
+    if "per_ms" not in _SLEEP:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        _SLEEP["per_ms"] = 20_000_000 / start.elapsed_time(end)
+    return _SLEEP["per_ms"]
+
+
 def cuda_time_ms(fn, reps: int = REPS) -> float:
+    """Device time of one call: `reps` calls back to back between two CUDA
+    events, divided by `reps`. A sleep kernel queued ahead of the first
+    event holds the card until every call is queued, so the host's dispatch
+    work between calls stays out of the figure."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(_sleep_cycles_per_ms() * (1.5 * host_ms + 2.0)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def dispatch_ms(fn, reps: int = REPS) -> float:
+    """Host time of one call with the card idle (median of `reps`): what the
+    wrapper costs the host before the card starts."""
+    import torch
+
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -136,15 +188,36 @@ def kernel_phase(rng, dev, errs):
         fb2 = b.reshape(-1)[1:]
         same("count2", K.count2(fa2, fb2, "and"), K.count2(cpu(fa), cpu(fb), "and"))
         same("count2", K.popcount(fa2), K.popcount(cpu(fa)))
-    # the wrap: 2^27 all-ones words hold 2^32 bits, which must read 0
+    # segment lists, one launch each: 0, 1, 3, 37 and 300 segments of mixed
+    # widths (empty, under one uint4, across the 4096-word tile edge, the
+    # shard width), each starting 0-3 words past a 16-byte boundary
+    check(K.count2_segments([], None, "none").numel() == 0, "count2 over no segments")
+    widths = [0, 1, 3, 4, 5, 1000, 4095, 4096, 4097, 8192, 12345, 32768]
+    for n_seg in (1, 3, 37, 300):
+        ws = [int(rng.choice(widths)) for _ in range(n_seg)]
+        offs = rng.integers(0, 4, size=(2, n_seg))
+        a_l = [rand_words(w + 3)[o : o + w] for w, o in zip(ws, offs[0])]
+        b_l = [rand_words(w + 3)[o : o + w] for w, o in zip(ws, offs[1])]
+        for op in ("none", "and", "or", "xor", "andnot"):
+            bl = None if op == "none" else b_l
+            before = K.LAUNCHES["count2"]
+            got = K.count2_segments(a_l, bl, op)
+            launched = K.LAUNCHES["count2"] - before
+            check(launched == (1 if sum(ws) else 0), f"count2 over {n_seg} segments made {launched} launches")
+            same("count2", got, K.count2_segments_plain([cpu(x) for x in a_l], None if bl is None else [cpu(x) for x in bl], op))
+    # the wrap: 2^27 all-ones words hold 2^32 bits, which must read 0 from
+    # count2/popcount and exactly 2^32 as a segment count
     ones = torch.full((1 << 27,), -1, dtype=torch.int32, device=dev)
     got = K.popcount(ones)
     same("count2", got, K.count2_plain(ones, None, "none"))
     check(int(got.item()) == 0, f"popcount wrap: 2^32 bits read {int(got.item())}")
     got = K.count2(ones, ones, "and")
     check(int(got.item()) == 0, f"count2 wrap: 2^32 bits read {int(got.item())}")
+    got = K.count2_segments([ones, ones[:5]], None, "none").tolist()
+    check(got == [1 << 32, 160], f"count2_segments over 2^32 bits: {got}")
     del ones
-    print("kernels: count2/popcount equal to twins (incl. wrap mod 2^32)")
+    print("kernels: count2/popcount and count2_segments (0-300 segments, one launch each) "
+          "equal to twins (incl. wrap mod 2^32 and the exact 2^32 segment count)")
 
     # rows_counts: R = 1 and 13, W = 32768, filters of 0, 1 and S rows
     for r, s in [(1, 1), (13, 13), (3 * 13, 13), (5, 5)]:
@@ -181,26 +254,46 @@ def kernel_phase(rng, dev, errs):
             want = K.plan_count_plain([cpu(t) for t in leaves], prog, n)
             same("plan_count", K.plan_count(leaves, prog, n), want)
     check({"andnot", "xor", "zero"} <= seen, f"plan trees lacked a case: {seen}")
-    # wide and deep: 40 leaves in one node, a 40-level nest, an andnot whose
-    # head comes last (rev_andnot), and a hand-built program 30 entries deep
-    wide = [rand_words(s, w) for _ in range(40)]
+    # the edges of the kernel's tiles (512 uint4 of a row, 256 for programs
+    # more than 9 entries deep) and items: W not a multiple of the tile,
+    # below one tile, one uint4; S = 1; one leaf; a program of PUSH_ZERO
+    # alone
+    deep = [i % 3 for i in range(11)] + [K.BINOPS["xor"]] * 10  # 11 deep: the 256-uint4 tile
+    progs3 = [[0], [K.PUSH_ZERO], [0, 1, K.BINOPS["and"]], [0, 1, 2, K.BINOPS["xor"], K.BINOPS["rev_andnot"]], deep]
+    for es, ew in ((1, 32768), (5, 1000), (3, 32772), (2, 4), (1, 1024)):
+        ops3 = [rand_words(es, ew) for _ in range(3)]
+        for prog in progs3:
+            lv = ops3[: max([i + 1 for i in prog if i >= 0] or [1])]
+            same("plan_count", K.plan_count(lv, prog, es), K.plan_count_plain([cpu(t) for t in lv], prog, es))
+    # wide and deep: 48 leaves in one node, a 40-level nest, an andnot whose
+    # head comes last (rev_andnot), a hand-built program at the full stack
+    # depth (32), and a union of 1200 leaf references whose table is too
+    # large for the kernel's shared-memory copy
+    wide = [rand_words(s, w) for _ in range(48)]
     leaf = planmod.PLeaf
     nest = leaf(0)
     for d in range(1, 40):
         nest = planmod.PNary(("and", "or", "xor", "andnot")[d % 4], (nest, leaf(d)) if d % 3 else (leaf(d), nest))
     roots = [
-        planmod.PNary("or", tuple(leaf(i) for i in range(40))),
+        planmod.PNary("or", tuple(leaf(i) for i in range(48))),
         planmod.PNary("andnot", (leaf(39), planmod.PNary("or", tuple(leaf(i) for i in range(35))))),
         nest,
+        planmod.PNary("xor", tuple(leaf(i % 48) for i in range(1200))),
     ]
     progs = [planmod._compile(r, wide) for r in roots]
     check(K.BINOPS["rev_andnot"] in progs[1][1], "wide andnot did not compile to rev_andnot")
-    progs.append((wide[:30], list(range(30)) + [K.BINOPS["or"]] * 29))
+    codes, pushes, _ = K.plan_micro_program(progs[3][1])
+    table_bytes = 8 * (len(codes) + len(pushes))
+    check(table_bytes > 16384, f"the long program's table ({table_bytes} B) fits shared memory")
+    progs.append((wide[: K.MAX_STACK], list(range(K.MAX_STACK)) + [K.BINOPS["or"]] * (K.MAX_STACK - 1)))
     for leaves, prog in progs:
         want = K.plan_count_plain([cpu(t) for t in leaves], prog, s)
         same("plan_count", K.plan_count(leaves, prog, s), want)
     del wide
-    print("kernels: plan_count equal to twin on 24 random depth-3 trees and 4 wide/deep programs")
+    print(
+        "kernels: plan_count equal to twin on 24 random depth-3 trees, tile-edge widths "
+        "(W = 4, 1000, 1024, 32772), S = 1, one leaf, PUSH_ZERO alone, and 5 wide/deep/long programs"
+    )
 
     # gather_tally with empty segments
     src = rand_words(6, 2048)
@@ -383,8 +476,16 @@ def main_path(args, rng):
     for pql, want in queries:
         got = ex.execute("smoke", pql)
         check(got == want, f"{pql}: got {got}, numpy says {want}")
-    row_count = ex.execute("smoke", "Row(f=1)")[0].count()
+    row_f1 = ex.execute("smoke", "Row(f=1)")[0]
+    before = K.LAUNCHES["count2"]
+    row_count = row_f1.count()
+    launched = K.LAUNCHES["count2"] - before
     check(row_count == totals[1], f"Row(f=1).count() {row_count} != {totals[1]}")
+    check(
+        launched == 1,
+        f"Row(f=1).count() over {len(row_f1.segments)} segments made {launched} count2 launches, not 1",
+    )
+    print(f"main: Row(f=1).count() over {len(row_f1.segments)} segments: {launched} count2 launch")
     shifted = ex.execute("smoke", "Shift(Row(f=6), n=1)")[0]
     for s in (0, 1, S // 2, S - 1):
         seg = shifted.segment(s).cpu().numpy().view(np.uint32)
@@ -687,7 +788,7 @@ def kernel_timing(holder, ex, launches, errs):
     w = a.shape[1]
     rows = {}
 
-    def row(name, source, replaces, fn, plain, nbytes, same_inputs=None):
+    def row(name, source, replaces, fn, plain, nbytes):
         got = fn()
         want = plain()
         torch.cuda.synchronize()
@@ -695,7 +796,9 @@ def kernel_timing(holder, ex, launches, errs):
         check(diff == 0, f"{name}: kernel differs from twin by {diff} at main-path shape")
         errs[name] = max(errs.get(name, 0), diff)
         ms = cuda_time_ms(fn)
+        disp = dispatch_ms(fn)
         plain_ms = cuda_time_ms(plain)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
         rows[name] = {
             "name": name,
             "route": "cuda",
@@ -705,19 +808,30 @@ def kernel_timing(holder, ex, launches, errs):
             "max_abs_err": errs.get(name, 0),
             "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": bound,
             "bound_by": "bytes",
             "library_ms": None,
+            "dispatch_ms": disp,
+            "share_of_bound": bound / ms,
             "bytes": nbytes,
         }
-        print(f"kernel {name}: {ms:.4f} ms (twin {plain_ms:.4f} ms), {nbytes} B moved, bound {rows[name]['bound_ms']:.4f} ms")
+        print(
+            f"kernel {name}: device {ms:.4f} ms, dispatch {disp:.4f} ms (host, per call), "
+            f"twin {plain_ms:.4f} ms, {nbytes} B moved, bound {bound:.4f} ms ({bound / ms:.1%} of it), "
+            f"{launches.get(name, 0)} launches on the main paths"
+        )
 
     src = "pilosa_tpu_torch/ops/cuda/bitmap_kernels.cu"
-    seg = a[0].contiguous()
-    # count2 (op none = popcount): Row.count() counts one [W] segment per launch
+    # count2 at Row.count()'s shape: every segment of Row(f=1), one launch
+    segs = list(ex.execute("smoke", "Row(f=1)")[0].segments.values())
     row(
-        "count2", src, "pilosa_tpu/ops/pallas_kernels.py:63",
-        lambda: K.popcount(seg), lambda: K.count2_plain(seg, None, "none"), w * 4 + 4,
+        "count2", src, "pilosa_tpu/ops/pallas_kernels.py:134",
+        lambda: K.count2_segments(segs, None, "none"), lambda: K.count2_segments_plain(segs, None, "none"),
+        sum(t.numel() for t in segs) * 4 + len(segs) * 8,
+    )
+    print(
+        f"Row(f=1).count(): 1 count2 launch over {len(segs)} segments, device {rows['count2']['ms']:.4f} ms "
+        f"(bound {rows['count2']['bound_ms']:.4f} ms)"
     )
     # plan_count: Count(Intersect(Row(f=1), Row(g=0))), two [S, W] leaves
     prog = [0, 1, K.BINOPS["and"]]
@@ -730,7 +844,7 @@ def kernel_timing(holder, ex, launches, errs):
     # rows_counts: the filtered-TopN dense tally tile (2 rows x S shards)
     planes = view_f.plane_stack((0, 1), shards).reshape(-1, w)
     row(
-        "rows_counts", src, "pilosa_tpu/ops/pallas_kernels.py:150",
+        "rows_counts", src, "pilosa_tpu/ops/pallas_kernels.py:177",
         lambda: K.rows_counts(planes, b), lambda: K.rows_counts_plain(planes, b),
         (planes.numel() + b.numel()) * 4 + planes.shape[0] * 4,
     )
@@ -744,15 +858,26 @@ def kernel_timing(holder, ex, launches, errs):
         lambda: K.gather_tally(b, gi, gm, gs, ge), lambda: K.gather_tally_plain(b, gi, gm, gs, ge),
         n_ent * 4 * 3 + n_seg * 4 * 3,
     )
-    # count2 with an operator is on no executor path: timed on the
-    # Count(Intersect) operands for comparison with plan_count
+    # count2 on one [W] segment (Row.count()'s launch before segment
+    # lists) and with an operator on the Count(Intersect) operands, for
+    # comparison with plan_count
+    seg = a[0].contiguous()
     extra = {
+        "count2_one_segment": cuda_time_ms(lambda: K.popcount(seg)),
+        "count2_one_segment_dispatch": dispatch_ms(lambda: K.popcount(seg)),
+        "count2_one_segment_bound": (w * 4 + 8) / HBM_BYTES_PER_S * 1e3,
         "count2_and_SxW": cuda_time_ms(lambda: K.count2(a, b, "and")),
+        "count2_and_SxW_dispatch": dispatch_ms(lambda: K.count2(a, b, "and")),
         "count2_and_SxW_plain": cuda_time_ms(lambda: K.count2_plain(a, b, "and")),
-        "count2_and_SxW_bound": (2 * a.numel() * 4 + 4) / HBM_BYTES_PER_S * 1e3,
+        "count2_and_SxW_bound": (2 * a.numel() * 4 + 8) / HBM_BYTES_PER_S * 1e3,
         "popcount_SxW": cuda_time_ms(lambda: K.popcount(a)),
     }
-    print(f"kernel count2(and) on [S, W]: {extra['count2_and_SxW']:.4f} ms (twin {extra['count2_and_SxW_plain']:.4f} ms)")
+    print(
+        f"kernel count2(and) on [S, W]: device {extra['count2_and_SxW']:.4f} ms "
+        f"(dispatch {extra['count2_and_SxW_dispatch']:.4f} ms, twin {extra['count2_and_SxW_plain']:.4f} ms, "
+        f"bound {extra['count2_and_SxW_bound']:.4f} ms); popcount of one [W] segment: device "
+        f"{extra['count2_one_segment']:.4f} ms, dispatch {extra['count2_one_segment_dispatch']:.4f} ms"
+    )
     # plan_count over 28 leaves: g=0 minus the union of the other 27 stacks
     # (every row of f and g, then copies of f rows up to 28 distinct stacks)
     from pilosa_tpu_torch.exec import plan as planmod
@@ -767,14 +892,23 @@ def kernel_timing(holder, ex, launches, errs):
     check(len(wl) == 28, f"wide plan has {len(wl)} leaves")
     check(torch.equal(K.plan_count(wl, wp, s_all).cpu(), K.plan_count_plain(wl, wp, s_all).cpu()), "wide plan_count differs from twin")
     extra["plan_count_28_leaves"] = cuda_time_ms(lambda: K.plan_count(wl, wp, s_all))
+    extra["plan_count_28_leaves_dispatch"] = dispatch_ms(lambda: K.plan_count(wl, wp, s_all))
     extra["plan_count_28_leaves_plain"] = cuda_time_ms(lambda: K.plan_count_plain(wl, wp, s_all))
     extra["plan_count_28_leaves_bound"] = (28 * a.numel() * 4 + s_all * 8) / HBM_BYTES_PER_S * 1e3
-    # the per-launch copy of plan_count's leaf-pointer + program table,
-    # inside every plan_count time above (3 entries: the 2-leaf plan)
-    extra["plan_count_table_copy"] = cuda_time_ms(
-        lambda: torch.tensor([a.data_ptr(), b.data_ptr()] + prog, dtype=torch.int64).to(a.device)
+    # what replaced the per-launch pageable table copy: the host side of
+    # staging the 2-leaf table in a pinned slot, and the device side of
+    # its asynchronous copy (zeros for the [S] output included)
+    parts = (np.zeros(s_all, np.int64), [a.data_ptr(), b.data_ptr()], prog, [0, 1])
+    n_table = sum(len(p) for p in parts)
+    extra["plan_count_staging_host"] = dispatch_ms(lambda: K._STAGING.launch(a.device, parts, lambda *args: 0))
+    pinned = torch.zeros(n_table, dtype=torch.int64, pin_memory=True)
+    extra["plan_count_staging_copy"] = cuda_time_ms(
+        lambda: torch.empty(n_table, dtype=torch.int64, device=a.device).copy_(pinned, non_blocking=True)
     )
-    print(f"plan_count table copy (3 entries): {extra['plan_count_table_copy']:.4f} ms")
+    print(
+        f"plan_count staging ({n_table} int64): host {extra['plan_count_staging_host']:.4f} ms, "
+        f"device copy {extra['plan_count_staging_copy']:.4f} ms"
+    )
 
     # BSI kernels at the BSI path's shapes: the amount field's [20, S, W]
     # planes with its exists and sign rows; the age field's [7, S, W]
@@ -830,10 +964,46 @@ def kernel_timing(holder, ex, launches, errs):
         f"bsi_sum filtered {extra['bsi_sum_amount_filtered']:.4f} ms (bound {extra['bsi_sum_amount_filtered_bound']:.4f} ms)"
     )
     print(
-        f"kernel plan_count, 28 leaves: {extra['plan_count_28_leaves']:.4f} ms "
-        f"(twin {extra['plan_count_28_leaves_plain']:.4f} ms, bound {extra['plan_count_28_leaves_bound']:.4f} ms)"
+        f"kernel plan_count, 28 leaves: device {extra['plan_count_28_leaves']:.4f} ms "
+        f"(dispatch {extra['plan_count_28_leaves_dispatch']:.4f} ms, twin {extra['plan_count_28_leaves_plain']:.4f} ms, "
+        f"bound {extra['plan_count_28_leaves_bound']:.4f} ms, "
+        f"{extra['plan_count_28_leaves_bound'] / extra['plan_count_28_leaves']:.1%} of it)"
     )
     return rows, extra
+
+
+def _kernel_name(mangled: str) -> str:
+    """`count2_kernel<4>` for a mangled kernel name (c++filt where the
+    toolkit's host compiler brought it; else the name as it is)."""
+    try:
+        name = subprocess.run(["c++filt", mangled], capture_output=True, text=True, check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        return mangled
+    return name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+
+
+def ptxas_report(log: str):
+    """One line per compiled function of nvcc's -Xptxas -v log: registers,
+    stack frame (local memory) and spills."""
+    out, fn, frame = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn, frame = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            frame = m.groups()
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            f = frame or ("?", "?", "?")
+            out.append(
+                f"{_kernel_name(fn)}: {m.group(1)} registers, {f[0]} B stack frame, "
+                f"{f[1]} B spill stores, {f[2]} B spill loads"
+            )
+            fn = None
+    return out
 
 
 def main() -> int:
@@ -861,9 +1031,9 @@ def main() -> int:
     K.library()
     build_s = time.perf_counter() - t0
     print(f"build: {', '.join(p.name for p in libs)} in {build_s:.1f} s")
-    for line in K.BUILD_LOG["text"].splitlines():
-        if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
-            print(f"  ptxas: {line.strip()}")
+    ptxas = ptxas_report(K.BUILD_LOG["text"])
+    for line in ptxas:
+        print(f"  ptxas: {line}")
 
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda", 0)
@@ -902,6 +1072,7 @@ def main() -> int:
         "shards": args.shards,
         "build_s": build_s,
         "phase_s": phase_s,
+        "ptxas": ptxas,
     }))
     print(json.dumps({
         "ok": True,

@@ -1,8 +1,8 @@
 """Row: a cross-shard query-result bitmap, shard -> int32 device words.
 
-The port of pilosa_tpu/core/row.py. `count()` runs the popcount kernel on
-each segment and reads the per-segment counts back once, summed exactly
-on the host.
+The port of pilosa_tpu/core/row.py. `count()` counts every segment with
+one count2 launch and reads the per-segment counts back once, summed
+exactly on the host.
 """
 
 from __future__ import annotations
@@ -30,10 +30,10 @@ class Row:
     def count(self) -> int:
         if not self.segments:
             return 0
-        # one popcount launch per segment (a segment holds < 2^32 bits, so
-        # none wraps), one host read for all of them
-        counts = torch.stack([kernels.popcount(w) for w in self.segments.values()])
-        return int(counts.sum().item())
+        # one count2 launch for every segment (exact per-segment counts),
+        # one host read for all of them
+        counts = kernels.count2_segments(list(self.segments.values()), None, "none")
+        return int(counts.cpu().sum())
 
     def any(self) -> bool:
         return any(bool(ob.any_set(w)) for w in self.segments.values())

@@ -17,7 +17,11 @@
 //                      XLA program
 //
 // Each C entry point launches on the caller's stream, does not synchronise,
-// allocates nothing, and returns cudaGetLastError() as an int.
+// allocates nothing, and returns cudaGetLastError() as an int. count2 and
+// plan_count take a table the wrapper staged in pinned host memory: the
+// entry point copies it (one asynchronous copy on the same stream) into a
+// device buffer whose head is the kernel's output, so the same copy zeroes
+// the output and no memset or pageable copy precedes the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,8 +32,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// resident blocks for grid-stride kernels: 132 SMs x 16
-constexpr int kMaxGrid = 132 * 16;
 
 enum Op : int { OP_NONE = 0, OP_AND = 1, OP_OR = 2, OP_XOR = 3, OP_ANDNOT = 4 };
 
@@ -40,6 +42,12 @@ __device__ __forceinline__ uint32_t apply(uint32_t a, uint32_t b) {
   if constexpr (OP == OP_XOR) return a ^ b;
   if constexpr (OP == OP_ANDNOT) return a & ~b;
   return a;
+}
+
+template <int OP>
+__device__ __forceinline__ uint4 apply4(uint4 a, uint4 b) {
+  return make_uint4(apply<OP>(a.x, b.x), apply<OP>(a.y, b.y), apply<OP>(a.z, b.z),
+                    apply<OP>(a.w, b.w));
 }
 
 __device__ __forceinline__ uint32_t popc4(uint4 v) {
@@ -66,37 +74,142 @@ __device__ __forceinline__ uint32_t block_sum(uint32_t v, uint32_t* partial) {
   return v;
 }
 
-// Sum of popcount(a op b) over n words, wrapping mod 2^32 like the Pallas
-// kernel's int32 accumulator. OP_NONE is plain popcount (b unused).
+// 64-bit sum over a kThreads block (valid in thread 0), callable any number
+// of times per launch: it syncs again before `partial` can be rewritten.
+__device__ __forceinline__ unsigned long long block_sum64(unsigned long long v,
+                                                          unsigned long long* partial) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) partial[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < kWarps ? partial[lane] : 0ull;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  }
+  __syncthreads();
+  return v;
+}
+
+// Add the block's per-thread counts into *out with one 64-bit atomic.
+__device__ __forceinline__ void flush_count(unsigned long long* out, uint32_t acc,
+                                            unsigned long long* partial) {
+  const unsigned long long total = block_sum64(acc, partial);
+  if (threadIdx.x == 0 && total != 0ull) atomicAdd(out, total);
+}
+
+// The contiguous run [lo, hi) of work items this block owns: a grid sized
+// to the resident blocks walks every item in one wave, and each block meets
+// only the few segments or shards its run crosses.
+__device__ __forceinline__ void block_items(int64_t n_items, int64_t* lo, int64_t* hi) {
+  *lo = n_items * blockIdx.x / gridDim.x;
+  *hi = n_items * (blockIdx.x + 1) / gridDim.x;
+}
+
+// ---------------------------------------------------------------------------
+// count2: popcount(a_g op b_g) for a list of segments in one launch.
+// ---------------------------------------------------------------------------
+
+// uint4 loads a thread issues per operand and tile before its first popcount
+constexpr int kVecLoads = 4;
+constexpr int64_t kTileWords = (int64_t)kThreads * kVecLoads * 4;  // 4096
+
+// meta: a[n_seg] and b[n_seg] word pointers (b unused for OP_NONE),
+// len[n_seg] in words, first[n_seg + 1] the first tile item of each segment
+// (first[n_seg] = n_items; an empty segment owns no item). out[g] is exact:
+// each block adds its count of segment g once, as a 64-bit atomic. A
+// segment whose pointers are 16-byte aligned is read as uint4 with a scalar
+// tail for len % 4 words; any other is read word by word.
 template <int OP>
 __global__ void __launch_bounds__(kThreads)
-count2_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-              int64_t n, int vec, uint32_t* __restrict__ out) {
-  __shared__ uint32_t partial[kWarps];
-  const int64_t tid = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t n4 = vec ? n / 4 : 0;
+count2_kernel(const int64_t* __restrict__ meta, int64_t n_seg, int64_t n_items,
+              unsigned long long* __restrict__ out) {
+  __shared__ unsigned long long partial[kWarps];
+  const int64_t* a_of = meta;
+  const int64_t* b_of = meta + n_seg;
+  const int64_t* len_of = meta + 2 * n_seg;
+  const int64_t* first = meta + 3 * n_seg;
+  int64_t lo, hi;
+  block_items(n_items, &lo, &hi);
+  if (lo >= hi) return;
+  // the segment holding item lo: first[g0] <= lo < first[g0 + 1]. Guess it
+  // as if segments were equal (exact for a Row's equal-width segments),
+  // widen a bracket around the guess exponentially, then bisect it: a few
+  // dependent loads instead of log2(n_seg) before the first data load.
+  int64_t g0 = lo * n_seg / n_items, g1 = g0 + 1;
+  for (int64_t step = 1; g0 > 0 && first[g0] > lo; step *= 2) {
+    g1 = g0;
+    g0 = g0 > step ? g0 - step : 0;
+  }
+  for (int64_t step = 1; g1 < n_seg && first[g1] <= lo; step *= 2) {
+    g0 = g1;
+    g1 = g1 + step < n_seg ? g1 + step : n_seg;
+  }
+  while (g1 - g0 > 1) {
+    const int64_t mid = (g0 + g1) / 2;
+    if (first[mid] <= lo) g0 = mid; else g1 = mid;
+  }
+  int64_t g = g0;
+  int64_t next = first[g + 1];
+  int64_t t = lo - first[g];
+  const int tid = threadIdx.x;
   uint32_t acc = 0;
-  const uint4* a4 = reinterpret_cast<const uint4*>(a);
-  const uint4* b4 = reinterpret_cast<const uint4*>(b);
-  for (int64_t i = tid; i < n4; i += stride) {
-    uint4 x = a4[i];
-    if constexpr (OP != OP_NONE) {
-      uint4 y = b4[i];
-      x.x = apply<OP>(x.x, y.x);
-      x.y = apply<OP>(x.y, y.y);
-      x.z = apply<OP>(x.z, y.z);
-      x.w = apply<OP>(x.w, y.w);
+  for (int64_t item = lo; item < hi; ++item) {
+    if (item == next) {  // on to the next non-empty segment
+      flush_count(out + g, acc, partial);
+      acc = 0;
+      do {
+        ++g;
+        next = first[g + 1];
+      } while (next == item);
+      t = 0;
     }
-    acc += popc4(x);
+    const uint32_t* a = reinterpret_cast<const uint32_t*>(a_of[g]);
+    const uint32_t* b = reinterpret_cast<const uint32_t*>(b_of[g]);
+    const int64_t w0 = t * kTileWords;
+    const int64_t rest = len_of[g] - w0;
+    const int wn = (int)(rest < kTileWords ? rest : kTileWords);  // words in this tile
+    if (((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15u) == 0) {
+      const uint4* a4 = reinterpret_cast<const uint4*>(a + w0);
+      const uint4* b4 = reinterpret_cast<const uint4*>(b + w0);
+      const int q = wn / 4;
+      uint4 x[kVecLoads], y[kVecLoads];
+#pragma unroll
+      for (int k = 0; k < kVecLoads; ++k) {
+        const int j = tid + k * kThreads;
+        x[k] = j < q ? __ldg(a4 + j) : make_uint4(0u, 0u, 0u, 0u);
+        if constexpr (OP != OP_NONE) y[k] = j < q ? __ldg(b4 + j) : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int k = 0; k < kVecLoads; ++k) {
+        if constexpr (OP != OP_NONE) x[k] = apply4<OP>(x[k], y[k]);
+        acc += popc4(x[k]);
+      }
+      const int tail = 4 * q + tid;  // the len % 4 words of a segment's last tile
+      if (tail < wn) {
+        uint32_t v = __ldg(a + w0 + tail);
+        if constexpr (OP != OP_NONE) v = apply<OP>(v, __ldg(b + w0 + tail));
+        acc += __popc(v);
+      }
+    } else {
+      constexpr int kWordLoads = kTileWords / kThreads;
+      uint32_t x[kWordLoads];
+#pragma unroll
+      for (int k = 0; k < kWordLoads; ++k) {
+        const int j = tid + k * kThreads;
+        x[k] = j < wn ? __ldg(a + w0 + j) : 0u;
+        if constexpr (OP != OP_NONE) {
+          if (j < wn) x[k] = apply<OP>(x[k], __ldg(b + w0 + j));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kWordLoads; ++k) acc += __popc(x[k]);
+    }
+    ++t;
   }
-  for (int64_t i = n4 * 4 + tid; i < n; i += stride) {
-    uint32_t x = a[i];
-    if constexpr (OP != OP_NONE) x = apply<OP>(x, b[i]);
-    acc += __popc(x);
-  }
-  acc = block_sum(acc, partial);
-  if (threadIdx.x == 0) atomicAdd(out, acc);
+  flush_count(out + g, acc, partial);
 }
 
 // One block per row r of stack[R, W]: out[r] = popcount(row & filt[r % F])
@@ -139,72 +252,239 @@ rows_counts_kernel(const uint32_t* __restrict__ stack, int64_t W,
 // word from a postfix program, then popcount, then per-shard counts.
 // ---------------------------------------------------------------------------
 
-// Operand stack entries per thread. The compiler orders each n-ary node's
-// children deepest first, so a program needs at most floor(log2(leaf
-// occurrences)) + 1 entries; 32 covers any program under 2^31 instructions.
+// Operand stack entries a postfix program may need. The compiler orders
+// each n-ary node's children deepest first, so a program needs at most
+// floor(log2(leaf occurrences)) + 1 entries; 32 covers any program under
+// 2^31 instructions.
 constexpr int kMaxStack = 32;
+// leaf tiles in a block's shared-memory ring, of which kRing - 1 are being
+// filled while the program consumes the oldest
+constexpr int kRing = 4;
+// the micro program and push pointers go to shared memory up to this size;
+// a larger table is read from device memory (L1-cached broadcasts)
+constexpr int kMetaSmemBytes = 16384;
+// stack entries up to which a launch takes two uint4 per thread and push
+// (VEC 2); a deeper program takes one, so its stack fits shared memory
+constexpr int kWideStackSlots = 8;
+// the most dynamic shared memory a launch asks for (VEC 1 at full depth)
+constexpr int kMaxDynSmem =
+    (kRing + kMaxStack - 1) * kThreads * (int)sizeof(uint4) + kMetaSmemBytes;
 
-// program instructions: >= 0 pushes that leaf; the rest are below
-constexpr int64_t kPushZero = -1;
-constexpr int64_t kAnd = -2;
-constexpr int64_t kOr = -3;
-constexpr int64_t kXor = -4;
-constexpr int64_t kAndNot = -5;     // below & ~top
-constexpr int64_t kRevAndNot = -6;  // top & ~below
+// Micro program (built on the host from the postfix program): code =
+// kind * 8 + op. A push that an operator follows is folded into that
+// operator, so only pushes that stay on the stack spill to it.
+enum MicroKind : int {
+  M_PUSH = 0,      // push the next staged leaf tile
+  M_ZERO = 1,      // push zeros
+  M_LEAF_OP = 2,   // top = op(top, next staged leaf tile)
+  M_ZERO_OP = 3,   // top = op(top, zeros)
+  M_STACK_OP = 4,  // top = op(popped entry, top)
+};
+// ops: 0 and, 1 or, 2 xor, 3 andnot (a & ~b), 4 rev_andnot (b & ~a), for
+// op(a, b) with a the older operand
 
-__device__ __forceinline__ uint4 binop(int64_t ins, uint4 a, uint4 b) {
-  switch (ins) {
-    case kAnd:
+__device__ __forceinline__ uint4 binop(int op, uint4 a, uint4 b) {
+  switch (op) {
+    case 0:
       return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
-    case kOr:
+    case 1:
       return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
-    case kXor:
+    case 2:
       return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
-    case kAndNot:
+    case 3:
       return make_uint4(a.x & ~b.x, a.y & ~b.y, a.z & ~b.z, a.w & ~b.w);
-    default:  // kRevAndNot
+    default:
       return make_uint4(b.x & ~a.x, b.y & ~a.y, b.z & ~a.z, b.w & ~a.w);
   }
 }
 
-// `table` is one device buffer: n_leaves leaf pointers (each an [S, W]
-// stack of uint4-aligned words) followed by n_prog instructions; every
-// thread reads the same entry at once, so each read is one L1 broadcast.
-// Block b works on shard b / bps and adds its partial count into
-// out[shard] once. Every thread runs the same program, so there is no
-// divergence; the operand stack lives in local memory and no intermediate
-// bitmap is written anywhere.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the barrier's phase `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA 1-D bulk copy of `bytes` (a multiple of 16) from device memory into
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Work items are (shard, tile) pairs, a tile being kThreads * VEC uint4 of
+// a row, and a thread evaluates the program on its VEC uint4 of a tile;
+// each block walks its contiguous run of items (block_items). Every leaf
+// push, across items, is one TMA bulk copy of the leaf's tile into a
+// shared-memory ring of kRing slots, issued by thread 0 kRing - 1 pushes
+// ahead of the push that consumes it, so each block keeps kRing - 1 tiles
+// of 8 KiB in flight with one instruction each. A slot's `full` barrier
+// completes when its bytes land; its `empty` barrier when every warp has
+// read it, and only then is it refilled. The top of the operand stack lives
+// in registers and the entries below it in shared memory (VEC uint4 per
+// thread and entry); with pushes folded into their operators, a wide union
+// or a two-leaf intersection touches no stack. meta: the leaf pointer of
+// each push in program order [n_push], then the micro program [n_code]; it
+// is read once per block into shared memory when it fits. Each block adds
+// its count of a shard into out[shard] once.
+template <int VEC>
 __global__ void __launch_bounds__(kThreads)
-plan_count_kernel(const int64_t* __restrict__ table, int64_t n_leaves,
-                  int64_t n_prog, int64_t w4, int32_t bps,
-                  unsigned long long* __restrict__ out) {
-  __shared__ uint32_t partial[kWarps];
-  const int64_t* prog = table + n_leaves;
-  const int64_t s = blockIdx.x / bps;
-  const int64_t part = blockIdx.x % bps;
-  const int64_t base = s * w4;
-  const int64_t step = (int64_t)bps * blockDim.x;
+plan_count_kernel(const int64_t* __restrict__ meta, int32_t n_push, int32_t n_code,
+                  int32_t stack_slots, int32_t meta_in_smem, int64_t w4, int64_t tiles,
+                  int64_t n_items, unsigned long long* __restrict__ out) {
+  constexpr int kTile = kThreads * VEC;
+  extern __shared__ uint4 smem[];
+  __shared__ unsigned long long partial[kWarps];
+  __shared__ uint64_t full[kRing], empty[kRing];
+  int64_t lo, hi;
+  block_items(n_items, &lo, &hi);
+  if (lo >= hi || n_push == 0) return;  // PUSH_ZERO alone: the table copy zeroed out
+  const int tid = threadIdx.x;
+  uint4* ring = smem;                            // [kRing][VEC * kThreads]
+  uint4* stack = smem + kRing * VEC * kThreads;  // [stack_slots][VEC][kThreads]
+  const int64_t* m = meta;
+  if (meta_in_smem) {
+    int64_t* sm = reinterpret_cast<int64_t*>(stack + (int64_t)stack_slots * VEC * kThreads);
+    for (int i = tid; i < n_push + n_code; i += kThreads) sm[i] = meta[i];
+    m = sm;
+  }
+  if (tid == 0) {
+    for (int j = 0; j < kRing; ++j) {
+      mbar_init(&full[j], 1);
+      mbar_init(&empty[j], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int64_t* push_ptr = m;
+  const int64_t* code = m + n_push;
+
+  // thread 0's copy cursor: push q of the run, its item's row offset and
+  // first column (uint4), and how many of that item's pushes are left
+  const int64_t n_total = (hi - lo) * n_push;
+  int64_t q = 0, q_row = 0, q_col = 0;
+  int q_push = 0;
+  uint32_t q_bytes = 0;
+  auto set_item = [&](int64_t item) {
+    const int64_t s = item / tiles;
+    q_row = s * w4;
+    q_col = (item - s * tiles) * kTile;
+    const int64_t rest = w4 - q_col;
+    q_bytes = (uint32_t)((rest < kTile ? rest : kTile) * sizeof(uint4));
+  };
+  auto issue = [&]() {  // thread 0: copy push q into slot q % kRing
+    if (q >= n_total) return;
+    const int j = (int)(q % kRing);
+    const int64_t use = q / kRing;
+    if (use > 0) mbar_wait(&empty[j], (uint32_t)((use - 1) & 1));
+    mbar_expect_tx(&full[j], q_bytes);
+    const uint4* src = reinterpret_cast<const uint4*>(push_ptr[q_push]) + q_row + q_col;
+    bulk_copy(ring + j * kTile, src, q_bytes, &full[j]);
+    ++q;
+    if (++q_push == n_push) {
+      q_push = 0;
+      if (q < n_total) set_item(lo + q / n_push);
+    }
+  };
+  if (tid == 0) {
+    set_item(lo);
+    for (int k = 0; k < kRing - 1; ++k) issue();
+  }
+
+  int slot = 0;
+  uint32_t phase = 0;
+  int64_t s = lo / tiles, t = lo % tiles, cur = s;
   uint32_t acc = 0;
-  for (int64_t i = part * blockDim.x + threadIdx.x; i < w4; i += step) {
-    uint4 st[kMaxStack];
-    int sp = 0;
-    for (int64_t pc = 0; pc < n_prog; ++pc) {
-      const int64_t ins = __ldg(prog + pc);
-      if (ins >= 0) {
-        st[sp++] = reinterpret_cast<const uint4*>(__ldg(table + ins))[base + i];
-      } else if (ins == kPushZero) {
-        st[sp++] = make_uint4(0u, 0u, 0u, 0u);
+  for (int64_t item = lo; item < hi; ++item) {
+    if (s != cur) {
+      flush_count(out + cur, acc, partial);
+      acc = 0;
+      cur = s;
+    }
+    const int64_t col = t * kTile + tid;  // the thread's first column (uint4)
+    uint4 top[VEC];
+    int sp = 0;  // entries below top, in stack[0, sp)
+    for (int pc = 0; pc < n_code; ++pc) {
+      const int c = (int)code[pc];
+      const int kind = c >> 3, op = c & 7;
+      if (kind == M_STACK_OP) {
+        --sp;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          top[k] = binop(op, stack[(sp * VEC + k) * kThreads + tid], top[k]);
+        }
+        continue;
+      }
+      uint4 v[VEC];
+      if (kind == M_PUSH || kind == M_LEAF_OP) {
+        mbar_wait(&full[slot], phase);
+        const uint4* tile = ring + slot * kTile;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          // past the row's end the slot holds stale bytes: read zeros
+          v[k] = col + k * kThreads < w4 ? tile[k * kThreads + tid] : make_uint4(0u, 0u, 0u, 0u);
+        }
+        __syncwarp();
+        if ((tid & 31) == 0) mbar_arrive(&empty[slot]);
+        if (tid == 0) issue();
+        if (++slot == kRing) {
+          slot = 0;
+          phase ^= 1u;
+        }
       } else {
-        const uint4 rhs = st[--sp];
-        st[sp - 1] = binop(ins, st[sp - 1], rhs);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) v[k] = make_uint4(0u, 0u, 0u, 0u);
+      }
+      if (kind >= M_LEAF_OP) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) top[k] = binop(op, top[k], v[k]);
+      } else {
+        if (pc > 0) {  // every push but the first has a value under it
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) stack[(sp * VEC + k) * kThreads + tid] = top[k];
+          ++sp;
+        }
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) top[k] = v[k];
       }
     }
-    acc += popc4(st[0]);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc += popc4(top[k]);
+    if (++t == tiles) {
+      t = 0;
+      ++s;
+    }
   }
-  acc = block_sum(acc, partial);
-  if (threadIdx.x == 0 && acc != 0u) {
-    atomicAdd(out + s, (unsigned long long)acc);
-  }
+  flush_count(out + cur, acc, partial);
 }
 
 // One warp per segment: out[g] = sum over k in [starts[g], ends[g]) of
@@ -228,40 +508,64 @@ gather_tally_kernel(const uint32_t* __restrict__ src,
   if (lane == 0) out[seg] = (int32_t)acc;
 }
 
-int grid_for(int64_t items) {
-  int64_t g = (items + kThreads - 1) / kThreads;
-  if (g < 1) g = 1;
-  if (g > kMaxGrid) g = kMaxGrid;
-  return (int)g;
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  return sms;
+}
+
+// Every block of `kernel` that fits on the card at once, at most `items`.
+template <typename Kernel>
+int resident_grid(Kernel kernel, size_t smem, int64_t items) {
+  int per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  int64_t g = (int64_t)(per_sm > 0 ? per_sm : 1) * sm_count();
+  if (g > items) g = items;
+  return (int)(g > 0 ? g : 1);
+}
+
+template <int OP>
+void launch_count2(const int64_t* meta, int64_t n_seg, int64_t n_items,
+                   unsigned long long* out, cudaStream_t st) {
+  const int grid = resident_grid(count2_kernel<OP>, 0, n_items);
+  count2_kernel<OP><<<grid, kThreads, 0, st>>>(meta, n_seg, n_items, out);
 }
 
 }  // namespace
 
-PT_EXPORT int pt_count2(const void* a, const void* b, int64_t n, int op, int vec,
-                        void* out, void* stream) {
-  const auto* pa = static_cast<const uint32_t*>(a);
-  const auto* pb = static_cast<const uint32_t*>(b);
-  auto* po = static_cast<uint32_t*>(out);
+// `host_table` (pinned) holds n_seg zeros (the output), then count2_kernel's
+// meta; it is copied to `dev_table` and the kernel counts every segment.
+PT_EXPORT int pt_count2(const void* host_table, int64_t table_bytes, void* dev_table,
+                        int64_t n_seg, int64_t n_items, int op, void* stream) {
+  if (n_seg < 1 || n_items < 1 || op < OP_NONE || op > OP_ANDNOT) {
+    return (int)cudaErrorInvalidValue;
+  }
   auto st = static_cast<cudaStream_t>(stream);
-  const int grid = grid_for(vec ? n / 4 : n);
+  const cudaError_t err =
+      cudaMemcpyAsync(dev_table, host_table, table_bytes, cudaMemcpyHostToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+  auto* out = static_cast<unsigned long long*>(dev_table);
+  const int64_t* meta = static_cast<const int64_t*>(dev_table) + n_seg;
   switch (op) {
     case OP_NONE:
-      count2_kernel<OP_NONE><<<grid, kThreads, 0, st>>>(pa, pb, n, vec, po);
+      launch_count2<OP_NONE>(meta, n_seg, n_items, out, st);
       break;
     case OP_AND:
-      count2_kernel<OP_AND><<<grid, kThreads, 0, st>>>(pa, pb, n, vec, po);
+      launch_count2<OP_AND>(meta, n_seg, n_items, out, st);
       break;
     case OP_OR:
-      count2_kernel<OP_OR><<<grid, kThreads, 0, st>>>(pa, pb, n, vec, po);
+      launch_count2<OP_OR>(meta, n_seg, n_items, out, st);
       break;
     case OP_XOR:
-      count2_kernel<OP_XOR><<<grid, kThreads, 0, st>>>(pa, pb, n, vec, po);
-      break;
-    case OP_ANDNOT:
-      count2_kernel<OP_ANDNOT><<<grid, kThreads, 0, st>>>(pa, pb, n, vec, po);
+      launch_count2<OP_XOR>(meta, n_seg, n_items, out, st);
       break;
     default:
-      return (int)cudaErrorInvalidValue;
+      launch_count2<OP_ANDNOT>(meta, n_seg, n_items, out, st);
+      break;
   }
   return (int)cudaGetLastError();
 }
@@ -279,26 +583,52 @@ PT_EXPORT int pt_rows_counts(const void* stack, int64_t rows, int64_t w,
   return (int)cudaGetLastError();
 }
 
-// `table` (device memory) holds n_leaves leaf pointers then n_prog
-// instructions; the caller has checked the program (leaf indices in range,
-// stack depth <= kMaxStack, one value left).
-PT_EXPORT int pt_plan_count(const void* table, int64_t n_leaves, int64_t n_prog,
-                            int64_t shards, int64_t w, void* out, void* stream) {
-  if (n_leaves < 1 || n_prog < 1 || w % 4 != 0) {
+namespace {
+
+template <int VEC>
+int launch_plan_count(const int64_t* meta, int64_t shards, int64_t n_push, int64_t n_code,
+                      int64_t stack_slots, int64_t w, unsigned long long* out, cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      plan_count_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int64_t w4 = w / 4;
+  const int64_t tiles = (w4 + kThreads * VEC - 1) / (kThreads * VEC);
+  const int64_t n_meta = n_push + n_code;
+  const int meta_in_smem = n_meta * (int64_t)sizeof(int64_t) <= kMetaSmemBytes;
+  const size_t smem = (size_t)(kRing + stack_slots) * VEC * kThreads * sizeof(uint4) +
+                      (meta_in_smem ? (size_t)n_meta * sizeof(int64_t) : 0);
+  const int64_t n_items = shards * tiles;
+  const int grid = resident_grid(plan_count_kernel<VEC>, smem, n_items);
+  plan_count_kernel<VEC><<<grid, kThreads, smem, st>>>(
+      meta, (int32_t)n_push, (int32_t)n_code, (int32_t)stack_slots, meta_in_smem, w4, tiles,
+      n_items, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// `host_table` (pinned) holds `shards` zeros (the output), then the leaf
+// pointer of each of the n_push pushes in program order, then the n_code
+// micro program entries; the caller has built them from a checked program
+// (stack_slots < kMaxStack entries below the top) and checked that every
+// leaf is 16-byte aligned and that w % 4 == 0.
+PT_EXPORT int pt_plan_count(const void* host_table, int64_t table_bytes, void* dev_table,
+                            int64_t shards, int64_t n_push, int64_t n_code, int64_t stack_slots,
+                            int64_t w, void* stream) {
+  if (shards < 1 || n_push < 0 || n_code < 1 || stack_slots < 0 || stack_slots >= kMaxStack ||
+      w < 4 || w % 4 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const int64_t w4 = w / 4;
-  // about four uint4 per thread per pass
-  int64_t bps = (w4 + kThreads * 4 - 1) / (kThreads * 4);
-  if (bps < 1) bps = 1;
-  const int64_t grid = shards * bps;
-  if (grid > 0) {
-    plan_count_kernel<<<(unsigned int)grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int64_t*>(table), n_leaves, n_prog, w4, (int32_t)bps,
-        static_cast<unsigned long long*>(out));
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cudaMemcpyAsync(dev_table, host_table, table_bytes, cudaMemcpyHostToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t* meta = static_cast<const int64_t*>(dev_table) + shards;
+  auto* out = static_cast<unsigned long long*>(dev_table);
+  if (stack_slots <= kWideStackSlots) {
+    return launch_plan_count<2>(meta, shards, n_push, n_code, stack_slots, w, out, st);
   }
-  return (int)cudaGetLastError();
+  return launch_plan_count<1>(meta, shards, n_push, n_code, stack_slots, w, out, st);
 }
 
 PT_EXPORT int pt_gather_tally(const void* src, const void* idx, const void* mask,

@@ -8,15 +8,17 @@ its twin, which has the same contract and is the oracle the kernel is held
 to. There is no other route: a CUDA tensor never reaches a twin through
 these functions, and a failed build or launch raises.
 
-| function       | replaces (TPU side)                                     |
-|----------------|---------------------------------------------------------|
-| `count2`       | pallas_kernels.py `_count2` (+ `popcount`, op "none")   |
-| `rows_counts`  | pallas_kernels.py `_rows_counts`                        |
-| `plan_count`   | exec/plan.py `_eval_jit`/`_root_out` (XLA program)      |
-| `gather_tally` | ops/bitmap.py `gather_tally_sorted` (XLA program)       |
-| `bsi_sum`      | pallas_kernels.py `sum_counts` (`_bsi_sum_kernel`)      |
-| `bsi_min_max`  | ops/bsi.py `min_max_stream` (XLA program)               |
-| `bsi_range`    | ops/bsi.py `range_*_unsigned`, `range_stream_single`    |
+| function          | replaces (TPU side)                                 |
+|-------------------|-----------------------------------------------------|
+| `count2_segments` | pallas_kernels.py `_count2` and `popcount`, for a   |
+|                   | list of segments in one launch (`count2` and        |
+|                   | `popcount` are its one-segment case)                |
+| `rows_counts`     | pallas_kernels.py `_rows_counts`                    |
+| `plan_count`      | exec/plan.py `_eval_jit`/`_root_out` (XLA program)  |
+| `gather_tally`    | ops/bitmap.py `gather_tally_sorted` (XLA program)   |
+| `bsi_sum`         | pallas_kernels.py `sum_counts` (`_bsi_sum_kernel`)  |
+| `bsi_min_max`     | ops/bsi.py `min_max_stream` (XLA program)           |
+| `bsi_range`       | ops/bsi.py `range_*_unsigned`, `range_stream_single` |
 
 All of them read every input word once and do a few bitwise operations
 and popcounts per word, so on the card they are bound by device-memory
@@ -26,9 +28,16 @@ Each `.cu` source is compiled lazily, at the first CUDA launch, with its
 own `nvcc` process (all started together) into `ops/_build/`, under a
 name keyed by a hash of the sources and flags, and loaded with ctypes
 (pointers and the stream pass as c_void_p, predicates as c_uint32).
-`LAUNCHES` counts kernel launches per kernel (`popcount` launches count
-under `count2`: one kernel template serves both); only the CUDA route
-counts.
+`LAUNCHES` counts kernel launches per kernel (`count2_segments`, `count2`
+and `popcount` launches count under `count2`: one kernel template serves
+them all); only the CUDA route counts.
+
+`count2_segments` and `plan_count` take a table built on the host for
+each launch (segment pointers and lengths; leaf pointers and the micro
+program). It goes through `_Staging`, a ring of pinned host slots: the C
+entry point copies the slot to the card asynchronously on the launch
+stream, zeros for the output included, so a launch makes no pageable
+copy and no separate memset.
 """
 
 from __future__ import annotations
@@ -40,8 +49,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import bsi as obsi
@@ -90,6 +100,9 @@ _THREADS = 256
 _MAX_GRID = 132 * 16
 _MAX_ITEMS_PER_THREAD = 256
 
+# words in one count2 work item (mirrors kTileWords in bitmap_kernels.cu)
+COUNT2_TILE_WORDS = 4096
+
 # plan_count program encoding (mirrors bitmap_kernels.cu). Leaves and
 # instructions are unbounded; the operand stack holds MAX_STACK entries,
 # which a program compiled deepest-child-first needs only past 2^31 leaves.
@@ -97,6 +110,10 @@ MAX_STACK = 32
 PUSH_ZERO = -1
 # "andnot" is below & ~top; "rev_andnot" is top & ~below
 BINOPS = {"and": -2, "or": -3, "xor": -4, "andnot": -5, "rev_andnot": -6}
+# the kernel's micro program (plan_micro_program; mirrors MicroKind and
+# binop in bitmap_kernels.cu)
+MICRO_KINDS = {"push": 0, "zero": 1, "leaf_op": 2, "zero_op": 3, "stack_op": 4}
+MICRO_OPS = {BINOPS[k]: i for i, k in enumerate(("and", "or", "xor", "andnot", "rev_andnot"))}
 
 _lib = None
 _lib_mu = threading.Lock()
@@ -164,9 +181,9 @@ class _Library:
     def __init__(self, libs: Sequence[ctypes.CDLL]):
         p, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
         argtypes = {
-            "pt_count2": [p, p, i64, i32, i32, p, p],
+            "pt_count2": [p, i64, p, i64, i64, i32, p],
             "pt_rows_counts": [p, i64, i64, p, i64, i32, p, p],
-            "pt_plan_count": [p, i64, i64, i64, i64, p, p],
+            "pt_plan_count": [p, i64, p, i64, i64, i64, i64, i64, p],
             "pt_gather_tally": [p, p, p, p, p, i64, p, p],
             "pt_bsi_sum": [p, p, p, p, i32, i64, i32, i32, p, p],
             "pt_bsi_min_max": [p, p, p, p, i32, i64, i32, i32, i32, p, p, p, p],
@@ -222,55 +239,143 @@ def _aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
+class _Staging:
+    """Pinned host slots for the tables that count2 and plan_count copy to
+    the card with each launch. The C entry point copies the slot to the
+    device table asynchronously on the launch stream, right before the
+    kernel, so the host never waits on a pageable copy. An event recorded
+    after the launch guards the slot: it is rewritten only once that event
+    has completed, so at most `slots` launches run ahead of the card."""
+
+    def __init__(self, slots: int = 32):
+        self._host: List[Optional[torch.Tensor]] = [None] * slots
+        self._arr: List[Optional[np.ndarray]] = [None] * slots
+        self._done: List[Optional[torch.cuda.Event]] = [None] * slots
+        self._next = 0
+        self._mu = threading.Lock()
+
+    def launch(self, dev: torch.device, parts, call):
+        """Write `parts` (int64 sequences) back to back into a pinned slot,
+        then `call(host_ptr, nbytes, table_ptr, stream)`, which copies the
+        slot into a fresh device table of the same length and launches on
+        it. Returns (device table, the call's return code)."""
+        n = sum(len(p) for p in parts)
+        table = torch.empty(n, dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev)
+        with self._mu:
+            k = self._next
+            self._next = (k + 1) % len(self._host)
+            if self._done[k] is not None:
+                self._done[k].synchronize()
+            if self._host[k] is None or self._host[k].numel() < n:
+                self._host[k] = torch.empty(max(n, 4096), dtype=torch.int64, pin_memory=True)
+                self._arr[k] = self._host[k].numpy()
+            arr = self._arr[k]
+            off = 0
+            for p in parts:
+                arr[off : off + len(p)] = p
+                off += len(p)
+            rc = call(self._host[k].data_ptr(), n * 8, table.data_ptr(), stream.cuda_stream)
+            done = torch.cuda.Event()
+            done.record(stream)
+            self._done[k] = done
+        return table, rc
+
+
+_STAGING = _Staging()
+
+
 # ---------------------------------------------------------------------------
 # count2 / popcount  (Pallas _count2 + popcount)
 # ---------------------------------------------------------------------------
 
 
-def count2_plain(a: torch.Tensor, b: Optional[torch.Tensor], op: str) -> torch.Tensor:
+def _apply_op(a: torch.Tensor, b: Optional[torch.Tensor], op: str) -> torch.Tensor:
     if op == "none":
-        x = a
-    elif op == "and":
-        x = a & b
-    elif op == "or":
-        x = a | b
-    elif op == "xor":
-        x = a ^ b
-    elif op == "andnot":
-        x = a & ~b
-    else:
+        return a
+    if op == "and":
+        return a & b
+    if op == "or":
+        return a | b
+    if op == "xor":
+        return a ^ b
+    if op == "andnot":
+        return a & ~b
+    raise ValueError(f"unknown op {op!r}")
+
+
+def count2_segments_plain(a_list, b_list, op: str) -> torch.Tensor:
+    a_list = list(a_list)
+    bs = [None] * len(a_list) if b_list is None else list(b_list)
+    if not a_list:
+        return torch.zeros(0, dtype=torch.int64)
+    return torch.stack(
+        [popcount_words(_apply_op(a, b, op)).sum(dtype=torch.int64) for a, b in zip(a_list, bs)]
+    )
+
+
+def count2_segments(
+    a_list: Sequence[torch.Tensor], b_list: Optional[Sequence[torch.Tensor]], op: str
+) -> torch.Tensor:
+    """popcount(a_i op b_i) summed over the words of each segment i, for
+    every segment in one launch: exact int64[n] on the segments' device (an
+    empty CPU tensor for no segments). op "none" counts a_i alone (b_list
+    None). Segments are contiguous int32 tensors of any shape and width,
+    aligned or not; a_i and b_i have one shape."""
+    if op not in _OPS:
         raise ValueError(f"unknown op {op!r}")
-    return popcount_words(x).sum(dtype=torch.int64) & MASK32
+    if (op == "none") != (b_list is None):
+        raise ValueError("op 'none' takes no second operand list; the others need one")
+    a_list = list(a_list)
+    b_list = None if b_list is None else list(b_list)
+    if b_list is not None and len(b_list) != len(a_list):
+        raise ValueError(f"count2: {len(a_list)} first operands vs {len(b_list)} second")
+    ts = a_list if b_list is None else a_list + b_list
+    if not ts:
+        return torch.zeros(0, dtype=torch.int64)
+    # one cheap pass over every segment (Row.count() hands over 1024);
+    # the helpers name what is wrong
+    dev = ts[0].device
+    for t in ts:
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev:
+            _words(t, "count2")
+            _route(ts[0], t)
+    if b_list is not None:
+        for a, b in zip(a_list, b_list):
+            if a.shape != b.shape:
+                raise ValueError(f"count2: shapes differ {tuple(a.shape)} vs {tuple(b.shape)}")
+    if _route(ts[0]) == "cpu":
+        return count2_segments_plain(a_list, b_list, op)
+    n = len(a_list)
+    lens = np.fromiter((t.numel() for t in a_list), np.int64, n)
+    first = np.zeros(n + 1, np.int64)
+    np.cumsum(-(-lens // COUNT2_TILE_WORDS), out=first[1:])
+    n_items = int(first[-1])
+    if n_items == 0:  # every segment is empty: nothing to launch
+        return torch.zeros(n, dtype=torch.int64, device=dev)
+    a_ptrs = [t.data_ptr() for t in a_list]
+    b_ptrs = [t.data_ptr() for t in b_list] if b_list is not None else np.zeros(n, np.int64)
+    table, rc = _STAGING.launch(
+        dev,
+        (np.zeros(n, np.int64), a_ptrs, b_ptrs, lens, first),
+        lambda host, nbytes, tab, stream: library().pt_count2(
+            host, nbytes, tab, n, n_items, _OPS[op], stream
+        ),
+    )
+    _launched("count2", rc)
+    return table[:n]
+
+
+def count2_plain(a: torch.Tensor, b: Optional[torch.Tensor], op: str) -> torch.Tensor:
+    return count2_segments_plain([a], None if b is None else [b], op)[0] & MASK32
 
 
 def count2(a: torch.Tensor, b: Optional[torch.Tensor], op: str) -> torch.Tensor:
     """Sum of popcount(a op b) over every word, wrapping mod 2^32 as the
     TPU kernel's int32 accumulator does; op "none" is plain popcount of a
-    (b is None). Returns a 0-d int64 tensor in [0, 2^32) on a's device."""
-    if op not in _OPS:
-        raise ValueError(f"unknown op {op!r}")
-    if (op == "none") != (b is None):
-        raise ValueError("op 'none' takes no second operand; the others need one")
-    ts = (a,) if b is None else (a, b)
-    for t in ts:
-        _words(t, "count2")
-    if b is not None and a.shape != b.shape:
-        raise ValueError(f"count2: shapes differ {tuple(a.shape)} vs {tuple(b.shape)}")
-    if _route(*ts) == "cpu":
-        return count2_plain(a, b, op)
-    out = torch.zeros(1, dtype=torch.int32, device=a.device)
-    n = a.numel()
-    rc = library().pt_count2(
-        a.data_ptr(),
-        0 if b is None else b.data_ptr(),
-        n,
-        _OPS[op],
-        int(_aligned(*ts)),
-        out.data_ptr(),
-        _stream(a),
-    )
-    _launched("count2", rc)
-    return out[0].to(torch.int64) & MASK32
+    (b is None). Returns a 0-d int64 tensor in [0, 2^32) on a's device:
+    the one-segment case of `count2_segments`."""
+    return count2_segments([a], None if b is None else [b], op)[0] & MASK32
 
 
 def popcount(a: torch.Tensor) -> torch.Tensor:
@@ -365,6 +470,39 @@ def check_program(n_leaves: int, prog: Sequence[int]) -> None:
         raise ValueError("plan program leaves more than one value")
 
 
+def plan_micro_program(prog: Sequence[int]) -> Tuple[List[int], List[int], int]:
+    """The plan_count kernel's form of a checked postfix program: (micro
+    codes, the leaf index of each push in program order, the stack entries
+    below the top that it needs). A code is kind * 8 + op (MICRO_KINDS,
+    MICRO_OPS). A push of a leaf or of zeros that an operator follows is
+    folded into that operator, so only values that wait for a later
+    operand are stacked: a wide union or a two-leaf intersection needs no
+    stack entry at all."""
+    codes: List[int] = []
+    pushes: List[int] = []
+    depth = most = 0
+    i = 0
+    while i < len(prog):
+        ins = prog[i]
+        if ins >= PUSH_ZERO:
+            if ins >= 0:
+                pushes.append(ins)
+            nxt = prog[i + 1] if i + 1 < len(prog) else PUSH_ZERO
+            if nxt < PUSH_ZERO:
+                kind = MICRO_KINDS["leaf_op" if ins >= 0 else "zero_op"]
+                codes.append(kind * 8 + MICRO_OPS[nxt])
+                i += 2
+                continue
+            codes.append(MICRO_KINDS["push" if ins >= 0 else "zero"] * 8)
+            depth += 1
+            most = max(most, depth)
+        else:
+            codes.append(MICRO_KINDS["stack_op"] * 8 + MICRO_OPS[ins])
+            depth -= 1
+        i += 1
+    return codes, pushes, most - 1
+
+
 def plan_count_plain(
     leaves: Sequence[torch.Tensor], prog: Sequence[int], shards: int
 ) -> torch.Tensor:
@@ -413,22 +551,20 @@ def plan_count(
     if w % 4 != 0 or not _aligned(*leaves):
         raise ValueError("plan_count: W % 4 != 0 or a leaf not 16-byte aligned")
     dev = leaves[0].device
-    out = torch.zeros(shards, dtype=torch.int64, device=dev)
-    # leaf pointers then instructions, in one device buffer (copied on the
-    # launch stream, so the kernel sees it)
-    table = torch.tensor([t.data_ptr() for t in leaves] + list(prog), dtype=torch.int64)
-    table = table.to(dev)
-    rc = library().pt_plan_count(
-        table.data_ptr(),
-        len(leaves),
-        len(prog),
-        shards,
-        w,
-        out.data_ptr(),
-        _stream(leaves[0]),
+    if shards == 0 or w == 0:  # nothing to count: nothing to launch
+        return torch.zeros(shards, dtype=torch.int64, device=dev)
+    codes, pushes, slots = plan_micro_program(prog)
+    ptrs = [t.data_ptr() for t in leaves]
+    # the table: zeros for the output, each push's leaf pointer, the codes
+    table, rc = _STAGING.launch(
+        dev,
+        (np.zeros(shards, np.int64), [ptrs[i] for i in pushes], codes),
+        lambda host, nbytes, tab, stream: library().pt_plan_count(
+            host, nbytes, tab, shards, len(pushes), len(codes), slots, w, stream
+        ),
     )
     _launched("plan_count", rc)
-    return out
+    return table[:shards]
 
 
 # ---------------------------------------------------------------------------

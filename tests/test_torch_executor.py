@@ -428,6 +428,27 @@ def test_row_count_and_fragment_row_counts_match_reference(loaded):
         np.testing.assert_array_equal(tl, jl)
 
 
+@pytest.mark.parametrize(
+    "pql",
+    ["Row(f=1)", "Intersect(Row(f=0), Row(g=1))", "Shift(Row(f=4), n=1)", "Shift(Row(f=0), n=33)", "Row(f=99)"],
+)
+@pytest.mark.parametrize("shards", [None, [1, 3]], ids=["all", "1,3"])
+def test_row_count_matches_reference(loaded, pql, shards, monkeypatch):
+    """Row.count() after Row()/Intersect()/Shift() equals pilosa_tpu's
+    Row.count() on the same data, counting every segment in one
+    count2_segments call (one launch on the card)."""
+    from pilosa_tpu_torch.ops import kernels
+
+    ref_ex, port_ex = loaded
+    (jr,) = ref_ex.execute("i", pql, shards=shards)
+    (tr,) = port_ex.execute("i", pql, shards=shards)
+    calls = []
+    real = kernels.count2_segments
+    monkeypatch.setattr(kernels, "count2_segments", lambda *a: calls.append(len(a[0])) or real(*a))
+    assert tr.count() == jr.count()
+    assert calls == ([len(tr.segments)] if tr.segments else [])
+
+
 def test_counts_cross_matches_reference(loaded):
     """The filtered-TopN dense tally (exec/groupby.counts_cross, rows_counts
     kernel) against the reference _counts_cross on the same stacks."""

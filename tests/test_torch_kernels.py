@@ -57,6 +57,57 @@ def test_popcount_matches_pallas(shape):
     assert int(K.popcount(t(a))) == int(pk.popcount(a))
 
 
+# segment widths: mixed, and few distinct shapes, so the interpret-mode
+# reference compiles each once
+SEG_WIDTHS = [0, 1, 131, W, W + 1]
+PALLAS_COUNT2 = {
+    "and": pk.count_and,
+    "or": pk.count_or,
+    "xor": pk.count_xor,
+    "andnot": pk.count_andnot,
+}
+
+
+def pallas_count(op, a, b):
+    """The Pallas count of one segment; the kernels take no empty array,
+    and an empty segment counts 0."""
+    if a.size == 0:
+        return 0
+    return int(pk.popcount(a)) if op == "none" else int(PALLAS_COUNT2[op](a, b))
+
+
+@pytest.mark.parametrize("n_seg", [0, 1, 3, 37])
+@pytest.mark.parametrize("op", ["none", "and", "or", "xor", "andnot"])
+def test_count2_segments_matches_pallas(n_seg, op):
+    """One count2_segments call over segments of mixed widths, every other
+    one a [1:] view (4 bytes past its buffer, not 16-byte aligned), equals
+    the Pallas popcount / count_<op> called per segment."""
+    rng = np.random.default_rng(20 + n_seg)
+    ws = rng.choice(SEG_WIDTHS, n_seg)
+    bufs = [(words(rng, w + 1), words(rng, w + 1)) for w in ws]
+    a_np = [a[1:] if i % 2 else a[:-1] for i, (a, _) in enumerate(bufs)]
+    b_np = [b[1:] if i % 2 else b[:-1] for i, (_, b) in enumerate(bufs)]
+    a_t = [t(a)[1:] if i % 2 else t(a)[:-1] for i, (a, _) in enumerate(bufs)]
+    b_t = [t(b)[1:] if i % 2 else t(b)[:-1] for i, (_, b) in enumerate(bufs)]
+    got = K.count2_segments(a_t, None if op == "none" else b_t, op)
+    assert got.dtype == torch.int64 and got.shape == (n_seg,)
+    assert got.tolist() == [pallas_count(op, a, b) for a, b in zip(a_np, b_np)]
+
+
+def test_count2_wraps_mod_2_32(monkeypatch):
+    """count2 and popcount are count2_segments' one-segment case, reduced
+    mod 2^32 as the Pallas kernels' int32 accumulators are; the segment
+    count itself stays exact. (A real 2^32-bit operand is 512 MiB; the
+    chip check and the cuda test below count one.)"""
+    exact = torch.tensor([2**32 + 123], dtype=torch.int64)
+    monkeypatch.setattr(K, "count2_segments_plain", lambda a_list, b_list, op: exact.clone())
+    a = torch.zeros(4, dtype=torch.int32)
+    assert K.count2_segments([a], None, "none").tolist() == [2**32 + 123]
+    assert int(K.popcount(a)) == 123
+    assert int(K.count2(a, a, "xor")) == 123
+    assert int(K.count2_plain(a, a, "and")) == 123
+
+
 @pytest.mark.parametrize("rows", [1, 8, 13])
 def test_rows_counts_matches_pallas(rows):
     rng = np.random.default_rng(12)
@@ -195,6 +246,60 @@ def test_plan_count_wide_and_deep_matches_eval_jit(shape):
     np.testing.assert_array_equal(K.plan_count(leaves, prog, s).numpy(), want.astype(np.int64))
 
 
+def run_micro(codes, pushes, slots, leaves):
+    """The plan_count kernel's evaluation of a micro program, in numpy:
+    the top in a variable, at most `slots` entries below it, leaf values
+    taken in push order."""
+    fns = [np.bitwise_and, np.bitwise_or, np.bitwise_xor, lambda a, b: a & ~b, lambda a, b: b & ~a]
+    staged = iter(pushes)
+    zero = np.zeros_like(leaves[0])
+    top, stack = None, []
+    for pc, c in enumerate(codes):
+        kind, op = c >> 3, c & 7
+        if kind == K.MICRO_KINDS["stack_op"]:
+            top = fns[op](stack.pop(), top)
+            continue
+        v = leaves[next(staged)] if kind in (K.MICRO_KINDS["push"], K.MICRO_KINDS["leaf_op"]) else zero
+        if kind in (K.MICRO_KINDS["leaf_op"], K.MICRO_KINDS["zero_op"]):
+            top = fns[op](top, v)
+        else:
+            if pc > 0:
+                stack.append(top)
+                assert len(stack) <= slots
+            top = v
+    assert next(staged, None) is None and not stack
+    return top
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_plan_micro_program_matches_postfix(seed):
+    """The micro program plan_count runs (pushes folded into the operators
+    that follow them) gives the postfix program's words on random,
+    wide, nested and hand-built programs, within its stack slots."""
+    rng = np.random.default_rng(500 + seed)
+    n_leaves = 48
+    ops = [words(rng, 2, 64) for _ in range(n_leaves)]
+    specs = [random_tree(rng, 4, 6) for _ in range(12)]
+    specs += [("or", tuple(("leaf", i) for i in range(48))), nested(40, n_leaves, rng), ("andnot", (("leaf", 0), ("zero",)))]
+    programs = [tplan._compile(build(spec, tplan), [t(o) for o in ops]) for spec in specs]
+    b = K.BINOPS
+    programs += [
+        (ops[:1], [K.PUSH_ZERO]),
+        (ops[:1], [0]),
+        (ops[: K.MAX_STACK], list(range(K.MAX_STACK)) + [b["or"]] * (K.MAX_STACK - 1)),
+    ]
+    for leaves, prog in programs:
+        if not leaves:
+            continue
+        leaves = [np.asarray(x) for x in leaves]
+        codes, pushes, slots = K.plan_micro_program(prog)
+        assert sum(c >> 3 in (K.MICRO_KINDS["push"], K.MICRO_KINDS["leaf_op"]) for c in codes) == len(pushes)
+        assert 0 <= slots < K.MAX_STACK
+        want = K.plan_count_plain([torch.from_numpy(x.view(np.int32)) for x in leaves], prog, 2)
+        got = run_micro(codes, pushes, slots, [x.view(np.uint32) for x in leaves])
+        assert [int(np.unpackbits(r.view(np.uint8)).sum()) for r in got] == want.tolist()
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_gather_tally_matches_gather_tally_sorted(seed):
     rng = np.random.default_rng(200 + seed)
@@ -223,6 +328,25 @@ def test_wrappers_reject_bad_inputs():
         K.rows_counts(torch.zeros((2, 8), dtype=torch.int32)[:, ::2])
     with pytest.raises(ValueError):
         K.rows_counts(torch.zeros((2, 8), dtype=torch.int32), torch.zeros(4, dtype=torch.int32))
+    seg = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="different devices"):
+        K.count2_segments([seg, torch.zeros(8, dtype=torch.int32, device="meta")], None, "none")
+    with pytest.raises(ValueError, match="different devices"):
+        K.count2_segments([seg], [torch.zeros(8, dtype=torch.int32, device="meta")], "and")
+    with pytest.raises(TypeError):
+        K.count2_segments([seg, seg.to(torch.int64)], None, "none")
+    with pytest.raises(ValueError, match="shapes differ"):
+        K.count2_segments([seg, seg], [seg, seg[:4]], "and")
+    with pytest.raises(ValueError):
+        K.count2_segments([seg, seg], [seg], "and")
+    with pytest.raises(ValueError):
+        K.count2_segments([seg], [seg], "none")
+    with pytest.raises(ValueError):
+        K.count2_segments([seg], None, "and")
+    with pytest.raises(ValueError):
+        K.count2_segments([seg], None, "nand")
+    with pytest.raises(ValueError, match="contiguous"):
+        K.count2_segments([seg, torch.zeros((2, 8), dtype=torch.int32)[:, ::2]], None, "none")
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +378,23 @@ def test_cuda_kernels_match_twins(cuda_device):
     for f in (None, t(filt[0]), t(filt)):
         got = K.rows_counts(t(stack).to(dev), None if f is None else f.to(dev)).cpu()
         assert torch.equal(got, K.rows_counts(t(stack), f))
+    # count2 over segment lists: widths across the 4096-word tile edge,
+    # starts 0-3 words past a 16-byte boundary, one launch per call
+    ws = [0, 1, 5, 4095, 4096, 4097, 32768, 3]
+    bufs = [t(words(rng, w + 3)).to(dev) for w in ws] + [t(words(rng, w + 3)).to(dev) for w in ws]
+    segs = [buf[k % 4 : k % 4 + w] for k, (buf, w) in enumerate(zip(bufs, ws + ws))]
+    for op in ["none", "and", "or", "xor", "andnot"]:
+        a_l, b_l = segs[: len(ws)], None if op == "none" else segs[len(ws) :]
+        before = K.LAUNCHES["count2"]
+        got = K.count2_segments(a_l, b_l, op).cpu()
+        assert K.LAUNCHES["count2"] == before + 1
+        want = K.count2_segments([x.cpu() for x in a_l], None if b_l is None else [x.cpu() for x in b_l], op)
+        assert torch.equal(got, want)
+    # 2^32 bits: count2/popcount wrap to 0, a segment count is exact
+    ones = torch.full((1 << 27,), -1, dtype=torch.int32, device=dev)
+    assert int(K.popcount(ones)) == 0 and int(K.count2(ones, ones, "and")) == 0
+    assert K.count2_segments([ones, ones[:5]], None, "none").tolist() == [1 << 32, 160]
+    del ones
     ops = [t(words(rng, 5, 32768)) for _ in range(48)]
     specs = [random_tree(np.random.default_rng(seed), 3, 3) for seed in range(8)]
     specs += [("or", tuple(("leaf", i) for i in range(48))), nested(40, 48, rng)]
@@ -262,6 +403,13 @@ def test_cuda_kernels_match_twins(cuda_device):
         if leaves:
             got = K.plan_count([x.to(dev) for x in leaves], prog, 5).cpu()
             assert torch.equal(got, K.plan_count(leaves, prog, 5))
+    # plan_count at the edges of its tiles (256 uint4 of a row): W not a
+    # multiple of the tile, S = 1, one leaf, a program of PUSH_ZERO alone
+    for s, w in [(5, 1000), (1, 32768), (3, 32772), (2, 4)]:
+        lv = [t(words(rng, s, w)) for _ in range(2)]
+        for prog in ([0], [K.PUSH_ZERO], [0, 1, K.BINOPS["rev_andnot"]]):
+            got = K.plan_count([x.to(dev) for x in lv], prog, s).cpu()
+            assert torch.equal(got, K.plan_count(lv, prog, s))
     src = t(words(rng, 4, 2048))
     lens = rng.integers(0, 30, 16)
     ends = np.cumsum(lens).astype(np.int32)
