@@ -14,16 +14,20 @@ Phases, each fatal on any mismatch or exception:
    segments of mixed widths and alignments (one launch each), plan_count
    at tile-edge widths, S = 1, one leaf, PUSH_ZERO alone, 48 leaves, a
    40-deep nest, the full stack depth and a table too large for shared
-   memory, and, for the BSI kernels, depths 1..32, signed and unsigned
-   fields, filters, every range kind and edge predicates;
+   memory, gather_tally on shard-major rows sharing words, a 10^5-entry
+   segment, entries in no segment, src's last word, unaligned views and
+   1024 shards x 8 rows with uniform and Zipf-skewed segment lengths, and,
+   for the BSI kernels, depths 1..32, signed and unsigned fields, filters,
+   every range kind and edge predicates;
 3. main path: a 2^30-column index (1024 shards x 2^20 columns) with
    dense and sparse rows of a set field `f` and dense rows of `g`, loaded
    through Field.import_row_words / Field.import_bits / Set(), then the
    query set through Executor.execute, each answer held to an independent
    numpy computation on the generated words (byte-LUT popcount). Kernel
    launch counts are reset just before this phase and read just after it;
-   every kernel of the path must have launched, and Row(f=1).count()
-   over every shard's segment must make exactly one count2 launch;
+   every kernel of the path must have launched, Row(f=1).count() over
+   every shard's segment must make exactly one count2 launch, and
+   TopN(f, Row(g=0), n=10) exactly one gather_tally launch;
 3b. BSI path: two int fields on the same index, `amount` (signed,
    [-1e6, 1e6], about 90% of columns) and `age` (unsigned, [0, 120], every
    existing column), loaded through Field.import_values (16 shards) and
@@ -38,7 +42,9 @@ Phases, each fatal on any mismatch or exception:
    sleep kernel holding the card until all 20 are queued (so the host's
    dispatch stays out of it), and dispatch time, the host time of one
    call with the card idle (median of 20); each query's warm p50 latency
-   over 20 runs.
+   over 20 runs. gather_tally's bound counts the 32-byte sectors of src
+   that its entries touch, and it is timed again over Zipf-skewed segment
+   lengths with the same number of entries.
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with a row per kernel; the last line is
@@ -151,6 +157,46 @@ def host_p50_ms(fn, reps: int = REPS) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def zipf_lengths(rng, total: int, n: int, cap: int, a: float = 1.0) -> np.ndarray:
+    """n segment lengths min(cap, floor(c / rank^a)) over a random order of
+    the ranks 1..n (Zipf, exponent a), c chosen so that they sum to about
+    `total`."""
+    r = rng.permutation(np.arange(1, n + 1)).astype(np.float64)
+    lo, hi = 1.0, float(total) * n
+    for _ in range(100):
+        c = (lo + hi) / 2
+        lo, hi = (c, hi) if np.minimum(cap, np.floor(c / r**a)).sum() < total else (lo, c)
+    return np.minimum(cap, np.floor(hi / r**a)).astype(np.int64)
+
+
+def shard_major_idx(rng, lens: np.ndarray, w: int, pool: int = 0) -> np.ndarray:
+    """gather_tally entries laid out as the executor lays out a filtered
+    TopN's sparse rows: for lens[S, R], segment j * R + k holds lens[j, k]
+    distinct sorted words of shard j's slice of an [S, w] src (drawn from
+    `pool` words per shard when pool > 0, so the rows share words)."""
+    parts = []
+    for j, row_lens in enumerate(lens):
+        words = rng.choice(w, pool, replace=False) if pool else None
+        for n in row_lens:
+            if words is not None:
+                ws = rng.choice(words, n, replace=False)
+            elif n > w // 8:
+                ws = rng.choice(w, n, replace=False)
+            else:  # a few more draws than n, deduplicated, then n of them
+                ws = np.unique(rng.integers(0, w, n + n * n // w + 8))
+                ws = rng.choice(ws, n, replace=False) if len(ws) >= n else rng.choice(w, n, replace=False)
+            parts.append(j * w + np.sort(ws))
+    return np.concatenate(parts).astype(np.int32)
+
+
+def sector_bytes(idx, n_seg: int) -> tuple:
+    """gather_tally's least traffic: idx and mask (8 B per entry), starts,
+    ends and out (12 B per segment), and 32 B per distinct 32-byte sector of
+    src that idx touches (src is 256-byte aligned); also the sector count."""
+    sectors = int(np.unique(idx.cpu().numpy().astype(np.int64) >> 3).size)
+    return 8 * idx.numel() + 12 * n_seg + 32 * sectors, sectors
 
 
 # ---------------------------------------------------------------------------
@@ -295,19 +341,53 @@ def kernel_phase(rng, dev, errs):
         "(W = 4, 1000, 1024, 32772), S = 1, one leaf, PUSH_ZERO alone, and 5 wide/deep/long programs"
     )
 
-    # gather_tally with empty segments
+    # gather_tally: random lengths with empty segments; 8 row segments per
+    # shard sharing words; Zipf lengths with one segment of 10^5 entries;
+    # entries in no segment; entries on src's last word; idx and mask not
+    # 16-byte aligned; then at card size, 1024 shards x 8 rows shard-major
+    # as the main path lays them out, with ~985 entries per segment and with
+    # Zipf lengths of the same total
+    # (the first case draws from `rng` as this phase always has, so the
+    # main path's data stay the same; the others draw from their own)
+    def gather_check(src, idx, lens, what, draw=rand_words):
+        ends = np.cumsum(lens).astype(np.int32)
+        args = (src, torch.from_numpy(np.asarray(idx, np.int32)).to(dev), draw(len(idx)),
+                torch.from_numpy(ends - lens.astype(np.int32)).to(dev), torch.from_numpy(ends).to(dev))
+        same("gather_tally", K.gather_tally(*args), K.gather_tally_plain(*args))
+        if len(idx) > 1 and len(lens):  # the same entries from [1:] views
+            v = (args[1][1:], args[2][1:], args[3].clamp(max=len(idx) - 1), args[4].clamp(max=len(idx) - 1))
+            same("gather_tally", K.gather_tally(src, *v), K.gather_tally_plain(src, *(x.contiguous() for x in v)))
+        return what
+
     src = rand_words(6, 2048)
-    n_seg = 40
-    lens = rng.integers(0, 50, n_seg)
+    lens = rng.integers(0, 50, 40)
     lens[::3] = 0
-    k = int(lens.sum())
-    idx = torch.from_numpy(rng.integers(0, src.numel(), k).astype(np.int32)).to(dev)
-    mask = rand_words(k)
-    ends = torch.from_numpy(np.cumsum(lens).astype(np.int32)).to(dev)
-    starts = torch.from_numpy((np.cumsum(lens) - lens).astype(np.int32)).to(dev)
-    want = K.gather_tally_plain(cpu(src), cpu(idx), cpu(mask), cpu(starts), cpu(ends))
-    same("gather_tally", K.gather_tally(src, idx, mask, starts, ends), want)
-    print("kernels: gather_tally equal to twin (with empty segments)")
+    done = [gather_check(src, rng.integers(0, src.numel(), lens.sum()), lens, "empty segments")]
+    grng = np.random.default_rng(4)
+
+    def gwords(*shape):
+        return torch.from_numpy(grng.integers(0, 2**32, size=shape, dtype=np.uint32).view(np.int32)).to(dev)
+
+    small = gwords(4, 1024)
+    lens = np.full(32, 40)
+    idx = shard_major_idx(grng, lens.reshape(4, 8), 1024, pool=64)
+    done.append(gather_check(small, idx, lens, "8 rows per shard sharing words", gwords))
+    lens = np.minimum(grng.zipf(1.4, 300), 4000)
+    lens[17] = 100_000
+    done.append(gather_check(small, grng.integers(0, small.numel(), lens.sum()), lens, "a 10^5-entry segment", gwords))
+    idx = grng.integers(0, small.numel(), 300)
+    done.append(gather_check(small, idx, np.zeros(40, np.int64), "entries in no segment", gwords))
+    lens = np.array([3, 0, 5, 260, 9])
+    done.append(gather_check(small, np.full(lens.sum(), small.numel() - 1), lens, "src's last word", gwords))
+    big = gwords(1024, 32768)
+    for what, lens in (
+        ("uniform", np.full((1024, 8), 985)),
+        ("Zipf", zipf_lengths(grng, 1024 * 8 * 985, 1024 * 8, 32768).reshape(1024, 8)),
+    ):
+        idx = shard_major_idx(grng, lens, 32768)
+        done.append(gather_check(big, idx, lens.reshape(-1), f"1024 shards x 8 rows, {what}", gwords))
+    del big
+    print(f"kernels: gather_tally equal to twin on {', '.join(done)} (each also from unaligned views)")
 
     # BSI kernels: depths 1..32, S = 1 and 13, W = 32768 and W % 4 != 0
     n_range = 0
@@ -492,8 +572,11 @@ def main_path(args, rng):
         check(np.array_equal(seg, shift_words[s]), f"Shift(Row(f=6)) shard {s} differs from numpy")
     got = [(p.id, p.count) for p in ex.execute("smoke", "TopN(f, n=10)")[0]]
     check(got == top, f"TopN(f, n=10): got {got}, numpy says {top}")
+    before = K.LAUNCHES["gather_tally"]
     got = [(p.id, p.count) for p in ex.execute("smoke", "TopN(f, Row(g=0), n=10)")[0]]
+    launched = K.LAUNCHES["gather_tally"] - before
     check(got == top_f, f"TopN(f, Row(g=0), n=10): got {got}, numpy says {top_f}")
+    check(launched == 1, f"TopN(f, Row(g=0), n=10) made {launched} gather_tally launches, not 1")
     torch.cuda.synchronize()
     first_query_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
@@ -788,7 +871,7 @@ def kernel_timing(holder, ex, launches, errs):
     w = a.shape[1]
     rows = {}
 
-    def row(name, source, replaces, fn, plain, nbytes):
+    def row(name, source, replaces, fn, plain, nbytes, bound_by="bytes"):
         got = fn()
         want = plain()
         torch.cuda.synchronize()
@@ -809,7 +892,7 @@ def kernel_timing(holder, ex, launches, errs):
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound,
-            "bound_by": "bytes",
+            "bound_by": bound_by,
             "library_ms": None,
             "dispatch_ms": disp,
             "share_of_bound": bound / ms,
@@ -848,21 +931,63 @@ def kernel_timing(holder, ex, launches, errs):
         lambda: K.rows_counts(planes, b), lambda: K.rows_counts_plain(planes, b),
         (planes.numel() + b.numel()) * 4 + planes.shape[0] * 4,
     )
-    # gather_tally: the sparse rows' entries of TopN(f, Row(g=0))
+    # gather_tally: the sparse rows' entries of TopN(f, Row(g=0)), bound by
+    # the 32-byte sectors of the filter stack they touch
     present = [(s, view_f.fragment_if_exists(s)) for s in shards]
     bundle = ex._topn_tally_build(list(range(N_DENSE, N_DENSE + N_SPARSE)), present, w, a.device)
     gi, gm, gs, ge = bundle.dev
     n_ent, n_seg = gi.numel(), gs.numel()
+    g_bytes, g_sectors = sector_bytes(gi, n_seg)
     row(
         "gather_tally", src, "pilosa_tpu/ops/bitmap.py:179",
         lambda: K.gather_tally(b, gi, gm, gs, ge), lambda: K.gather_tally_plain(b, gi, gm, gs, ge),
-        n_ent * 4 * 3 + n_seg * 4 * 3,
+        g_bytes, "bytes (32-byte sectors)",
     )
+    rows["gather_tally"]["sectors"] = g_sectors
+    # the same number of entries over Zipf-skewed segment lengths (one
+    # segment per shard and sparse row, at most W entries)
+    z_lens = zipf_lengths(np.random.default_rng(1), n_ent, n_seg, w)
+    zi = torch.from_numpy(shard_major_idx(np.random.default_rng(2), z_lens.reshape(-1, N_SPARSE), w)).to(a.device)
+    z_ends = np.cumsum(z_lens).astype(np.int32)
+    z_args = (b, zi, torch.ones_like(zi), torch.from_numpy(z_ends - z_lens.astype(np.int32)).to(a.device),
+              torch.from_numpy(z_ends).to(a.device))
+    check(torch.equal(K.gather_tally(*z_args).cpu(), K.gather_tally_plain(*z_args).cpu()), "skewed gather_tally differs from twin")
+    z_bytes, z_sectors = sector_bytes(zi, n_seg)
+    # the main path's entries in the row-major order of earlier bundles
+    # (segment k * n_present + j): what the shard-major layout is worth
+    lens = (ge - gs).cpu().numpy()
+    seg_of = np.repeat(np.arange(n_seg), lens)
+    perm = torch.from_numpy(np.lexsort((np.arange(n_ent), seg_of // N_SPARSE, seg_of % N_SPARSE))).to(a.device)
+    rm_lens = lens.reshape(-1, N_SPARSE).T.reshape(-1)
+    rm_ends = np.cumsum(rm_lens).astype(np.int32)
+    rm_args = (b, gi[perm], gm[perm], torch.from_numpy(rm_ends - rm_lens.astype(np.int32)).to(a.device),
+               torch.from_numpy(rm_ends).to(a.device))
+    check(
+        torch.equal(K.gather_tally(*rm_args).reshape(N_SPARSE, -1).T.cpu(), K.gather_tally(b, gi, gm, gs, ge).reshape(-1, N_SPARSE).cpu()),
+        "gather_tally over the row-major layout differs from the shard-major one",
+    )
+    extra = {
+        "gather_tally_bound_words_ms": (n_ent * 4 * 3 + n_seg * 4 * 3) / HBM_BYTES_PER_S * 1e3,
+        "gather_tally_row_major": cuda_time_ms(lambda: K.gather_tally(*rm_args)),
+        "gather_tally_skewed": cuda_time_ms(lambda: K.gather_tally(*z_args)),
+        "gather_tally_skewed_bound": z_bytes / HBM_BYTES_PER_S * 1e3,
+    }
+    extra["gather_tally_skewed_share"] = extra["gather_tally_skewed_bound"] / extra["gather_tally_skewed"]
+    del rm_args, perm
+    print(
+        f"gather_tally: {n_ent} entries, {n_seg} segments, {g_sectors} sectors touched; old 4-byte-gather bound "
+        f"{extra['gather_tally_bound_words_ms']:.4f} ms; the same entries row-major "
+        f"{extra['gather_tally_row_major']:.4f} ms. Zipf-skewed, {zi.numel()} entries (longest segment "
+        f"{int(z_lens.max())}), {z_sectors} sectors: device {extra['gather_tally_skewed']:.4f} ms, bound "
+        f"{extra['gather_tally_skewed_bound']:.4f} ms ({extra['gather_tally_skewed_share']:.1%} of it), "
+        f"{extra['gather_tally_skewed'] / rows['gather_tally']['ms']:.2f}x the main path's"
+    )
+    del z_args, zi
     # count2 on one [W] segment (Row.count()'s launch before segment
     # lists) and with an operator on the Count(Intersect) operands, for
     # comparison with plan_count
     seg = a[0].contiguous()
-    extra = {
+    extra |= {
         "count2_one_segment": cuda_time_ms(lambda: K.popcount(seg)),
         "count2_one_segment_dispatch": dispatch_ms(lambda: K.popcount(seg)),
         "count2_one_segment_bound": (w * 4 + 8) / HBM_BYTES_PER_S * 1e3,

@@ -1051,7 +1051,7 @@ class Executor:
                 else:
                     TOPN_STATS["tally_evals"] += 1
                     seg = kernels.gather_tally(src_stack, *bundle.dev)
-                    parts.append(seg.reshape(n_sparse, n_present))
+                    parts.append(seg.reshape(n_present, n_sparse).T)
                 order.extend(bundle.sparse_rows)
             if not order:
                 return [], np.empty((0, n_present), np.uint64)
@@ -1064,7 +1064,11 @@ class Executor:
         """Split candidates into dense (a dense rep in any present shard)
         and sparse rows, and fold the sparse rows' live bits into sorted
         (word index, mask) entries with segment bounds, one segment per
-        (sparse row k, present shard j) at k * n_present + j."""
+        (present shard j, sparse row k) at j * n_sparse + k. Shard-major:
+        every row's entries for shard j lie next to each other, so the
+        gather_tally kernel's warps in flight gather from the same few
+        shards' words at once and L2 serves each word's sector to all
+        the rows that need it."""
         r_all = len(cand)
         n_present = len(present)
         cats, lens = [], []
@@ -1080,8 +1084,9 @@ class Executor:
         sparse_rows = [rid for i, rid in enumerate(cand) if not dense_mask[i]]
         dev = None
         if sparse_rows:
+            n_sparse = len(sparse_rows)
             k_of = np.full(r_all, -1, np.int64)
-            k_of[~dense_mask] = np.arange(len(sparse_rows))
+            k_of[~dense_mask] = np.arange(n_sparse)
             wkey_parts, bit_parts = [], []
             for j in range(n_present):
                 l_ = np.clip(lens_mat[j], 0, None)
@@ -1090,7 +1095,7 @@ class Executor:
                 rows_per_el = np.repeat(np.arange(r_all), l_)
                 keep = ~dense_mask[rows_per_el]
                 pos = cats[j][keep].astype(np.int64)
-                seg = k_of[rows_per_el[keep]] * n_present + j
+                seg = j * n_sparse + k_of[rows_per_el[keep]]
                 wkey_parts.append(seg * w + (pos >> 5))
                 bit_parts.append(np.uint32(1) << (pos & np.int64(31)).astype(np.uint32))
             if wkey_parts:
@@ -1105,8 +1110,8 @@ class Executor:
                 masks = np.bitwise_or.reduceat(sb, gstart)
                 uk = sk[gstart]
                 seg_of = uk // w
-                idx = ((seg_of % n_present) * w + uk % w).astype(np.int32)
-                segs = np.arange(len(sparse_rows) * n_present)
+                idx = ((seg_of // n_sparse) * w + uk % w).astype(np.int32)
+                segs = np.arange(n_sparse * n_present)
                 starts = np.searchsorted(seg_of, segs, "left").astype(np.int32)
                 ends = np.searchsorted(seg_of, segs, "right").astype(np.int32)
                 dev = tuple(

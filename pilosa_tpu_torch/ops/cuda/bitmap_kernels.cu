@@ -3,7 +3,8 @@
 // Words are 32-bit little-endian bitmap words (bit b of word w = in-shard
 // column 32w + b). PyTorch holds them as int32; the kernels read them as
 // uint32. Every kernel here is a popcount reduction that reads each input
-// word once, so all four are bound by device-memory bytes, not operations:
+// word once (gather_tally: each word idx points at), so all four are bound
+// by device-memory bytes, not operations:
 // loads are 128-bit (uint4) where the pointers and the row width allow it,
 // popcount is one __popc per word, and partial sums stay in registers and
 // shared memory (nothing intermediate is written to device memory).
@@ -14,7 +15,7 @@
 //   plan_count_kernel  pilosa_tpu/exec/plan.py _eval_jit/_eval_multi_jit +
 //                      _root_out ("count" mode), an XLA program
 //   gather_tally_kernel pilosa_tpu/ops/bitmap.py gather_tally_sorted, an
-//                      XLA program
+//                      XLA program (bound by the 32-byte sectors it gathers)
 //
 // Each C entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() as an int. count2 and
@@ -487,25 +488,170 @@ plan_count_kernel(const int64_t* __restrict__ meta, int32_t n_push, int32_t n_co
   flush_count(out + cur, acc, partial);
 }
 
-// One warp per segment: out[g] = sum over k in [starts[g], ends[g]) of
-// popcount(src[idx[k]] & mask[k]). Entries are bounded by 2^27 by the
-// caller, so the int32 sum is exact.
-__global__ void __launch_bounds__(kThreads)
-gather_tally_kernel(const uint32_t* __restrict__ src,
-                    const int32_t* __restrict__ idx,
-                    const uint32_t* __restrict__ mask,
-                    const int32_t* __restrict__ starts,
-                    const int32_t* __restrict__ ends, int64_t n_seg,
-                    int32_t* __restrict__ out) {
-  const int64_t seg = (blockIdx.x * (int64_t)blockDim.x + threadIdx.x) >> 5;
+// ---------------------------------------------------------------------------
+// gather_tally: out[g] = sum over k in [starts[g], ends[g]) of
+// popcount(src[idx[k]] & mask[k]), segments sorted and disjoint.
+// ---------------------------------------------------------------------------
+//
+// Replaces pilosa_tpu/ops/bitmap.py gather_tally_sorted (an XLA program):
+// the sparse half of the filtered TopN tally, one entry per live word of a
+// sparse candidate row and one segment per (shard, row).
+//
+// Bound: bytes. Each entry streams 8 B (idx, mask), each segment 12 B
+// (starts, ends, out), and src is read only where idx points: HBM moves
+// whole 32-byte sectors, so the least the card can move for src is 32 B
+// per distinct sector that idx touches (at the main path's 8 rows x ~985
+// words per shard, about 85% of each shard's 128 KiB slice), not 4 B per
+// gather.
+//
+// Design. Work is balanced over entries, not segments: the entry axis is
+// cut into chunks of 32 * kGtRun entries, one per warp, and the warps of a
+// persistent grid take chunks in turn (chunk c goes to warp c mod warps),
+// so a segment of any length is shared among as many warps as its entries
+// fill. A warp reads its chunk's idx and mask 128 coalesced bytes at a
+// time as streaming loads (evict first: they are read once), lane l taking
+// entries c0 + l + 32 i, and issues all kGtRun gathers of src of each lane
+// before its first popcount; the 32 gathers of one load then fall on
+// neighbouring words of one row, a few sectors apart. Because the warps in
+// flight hold neighbouring chunks, the card works on a window of about
+// warps * 32 * kGtRun consecutive entries at a time; with entries laid out
+// shard-major (the executor puts every row's entries for shard j next to
+// each other) that window spans a few hundred shards' src slices, well
+// inside L2, so the rows of one shard that gather from the same sector
+// meet it in L1 or L2 and HBM delivers it once. The popcounts go through
+// shared memory to lane-major order (lane l holds entries c0 + l * kGtRun
+// + i), where a lane walks its run through starts/ends. The segment of a
+// lane's first entry comes from a 32-way warp search of starts: one round
+// over the 32 segments around a guess from the mean segment length for the
+// chunk's first entry, one from there for its last, a wider search only
+// when the answer lies outside, then a short search between the two. A
+// lane adds a segment piece it finishes with an atomic, and the warp sums
+// the lanes' last pieces with a segmented shuffle reduction (the lanes'
+// segments are in order), one atomic per segment piece and warp. The sums
+// are integers, so the atomics' order cannot change a result; they are
+// uint32, wrapping as the reference's uint32 cumsum does (the caller keeps
+// entries under 2^27, so no segment wraps). The entry point zeroes out
+// with a memset on the same stream first.
+constexpr int kGtThreads = 256;             // threads per block
+constexpr int kGtWarps = kGtThreads / 32;
+constexpr int kGtRun = 8;                   // entries per lane and chunk
+constexpr int kGtChunk = 32 * kGtRun;       // entries per warp chunk
+
+// The number of g in [lo, hi) with starts[g] <= x, plus lo (starts sorted):
+// each round every lane probes one of 32 evenly spaced points, so a range
+// of n segments takes about log32(n) rounds. Every lane of the warp calls it
+// with the same arguments and gets the same answer.
+__device__ __forceinline__ int warp_upper_bound(const int32_t* __restrict__ starts, int lo, int hi,
+                                                int32_t x, int lane) {
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int p = lo + (lane + 1) * step - 1;
+    const bool le = p < hi && __ldg(starts + p) <= x;
+    const int c = __popc(__ballot_sync(0xffffffffu, le));
+    lo += c * step;
+    hi = min(hi, lo + step - 1);
+  }
+  return lo;
+}
+
+// The same count, found first in one round over the 32 segments from
+// `near` on (a guess), and by warp_upper_bound over what lies beyond that
+// window only when the answer is outside it.
+__device__ __forceinline__ int warp_upper_bound_near(const int32_t* __restrict__ starts, int n_seg,
+                                                     int32_t x, int64_t near, int lane) {
+  const int64_t top = (int64_t)n_seg - 32;
+  const int b = (int)(near < 0 || top < 0 ? 0 : near < top ? near : top);
+  const int p = b + lane;
+  const bool le = p < n_seg && __ldg(starts + p) <= x;
+  const int cnt = __popc(__ballot_sync(0xffffffffu, le));
+  if (cnt == 0 && b > 0) return warp_upper_bound(starts, 0, b, x, lane);
+  if (cnt == 32 && b + 32 < n_seg) return warp_upper_bound(starts, b + 32, n_seg, x, lane);
+  return b + cnt;
+}
+
+__global__ void __launch_bounds__(kGtThreads)
+gather_tally_kernel(const uint32_t* __restrict__ src, int64_t n_src,
+                    const int32_t* __restrict__ idx, const uint32_t* __restrict__ mask,
+                    int32_t n_ent, const int32_t* __restrict__ starts,
+                    const int32_t* __restrict__ ends, int32_t n_seg,
+                    unsigned int* __restrict__ out) {
+  // each warp's chunk of popcounts, turned from the load order (entry
+  // c0 + lane + 32 i) to the walk order (entry c0 + lane * kGtRun + i)
+  __shared__ __align__(16) uint32_t vals[kGtWarps][kGtChunk];
   const int lane = threadIdx.x & 31;
-  if (seg >= n_seg) return;  // uniform across the warp
-  const int32_t lo = starts[seg];
-  const int32_t hi = ends[seg];
-  uint32_t acc = 0;
-  for (int32_t k = lo + lane; k < hi; k += 32) acc += __popc(src[idx[k]] & mask[k]);
-  acc = warp_sum(acc);
-  if (lane == 0) out[seg] = (int32_t)acc;
+  uint32_t* wv = vals[threadIdx.x >> 5];
+  const int64_t warps = (int64_t)gridDim.x * kGtWarps;
+  const int64_t n_chunks = ((int64_t)n_ent + kGtChunk - 1) / kGtChunk;
+  for (int64_t c = (int64_t)blockIdx.x * kGtWarps + (threadIdx.x >> 5); c < n_chunks; c += warps) {
+    const int64_t c0 = c * kGtChunk;
+    // idx and mask of entries c0 + lane + 32 i (each load 128 coalesced
+    // bytes), then every gather, before anything waits on them: the 32
+    // gathers of one load hit neighbouring words of one row
+    int32_t ix[kGtRun];
+    uint32_t mk[kGtRun];
+#pragma unroll
+    for (int i = 0; i < kGtRun; ++i) {
+      const int64_t k = c0 + lane + 32 * i;
+      const bool in = k < n_ent;
+      ix[i] = in ? __ldcs(idx + k) : -1;
+      mk[i] = in ? __ldcs(mask + k) : 0u;
+    }
+    uint32_t v[kGtRun];
+#pragma unroll
+    for (int i = 0; i < kGtRun; ++i) {
+      // an idx outside src (outside the contract) reads nothing, counts 0
+      v[i] = (uint64_t)(uint32_t)ix[i] < (uint64_t)n_src ? __ldg(src + ix[i]) : 0u;
+    }
+    // the segment of the lane's run c0 + lane * kGtRun ...: the last g with
+    // starts[g] <= its first entry (-1 if none); the chunk's first and last
+    // entries bound the search for every lane
+    const int64_t k0 = c0 + lane * kGtRun;
+    const int32_t c_last = (int32_t)(c0 + kGtChunk < n_ent ? c0 + kGtChunk - 1 : n_ent - 1);
+    const int ga = warp_upper_bound_near(starts, n_seg, (int32_t)c0, c0 * n_seg / n_ent - 16, lane);
+    const int gb = warp_upper_bound_near(starts, n_seg, c_last, ga - 1, lane);
+    int lo = ga, hi = gb;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(starts + mid) <= k0) lo = mid + 1; else hi = mid;
+    }
+    int g = lo - 1;
+    int32_t end = g >= 0 ? __ldg(ends + g) : 0;
+    int32_t nxt = g + 1 < n_seg ? __ldg(starts + g + 1) : INT32_MAX;
+#pragma unroll
+    for (int i = 0; i < kGtRun; ++i) wv[lane + 32 * i] = __popc(v[i] & mk[i]);
+    __syncwarp();
+    uint32_t r[kGtRun];
+#pragma unroll
+    for (int h = 0; h < kGtRun / 4; ++h) {
+      const uint4 q = reinterpret_cast<const uint4*>(wv + lane * kGtRun)[h];
+      r[4 * h] = q.x, r[4 * h + 1] = q.y, r[4 * h + 2] = q.z, r[4 * h + 3] = q.w;
+    }
+    __syncwarp();  // every lane has read its run before the next chunk's writes
+    uint32_t acc = 0;
+#pragma unroll
+    for (int i = 0; i < kGtRun; ++i) {
+      const int64_t k = k0 + i;
+      if (k >= n_ent) break;
+      while (k >= nxt) {  // k lies past segment g: on to the next one
+        if (acc != 0u) atomicAdd(out + g, acc);
+        acc = 0u;
+        ++g;
+        end = __ldg(ends + g);
+        nxt = g + 1 < n_seg ? __ldg(starts + g + 1) : INT32_MAX;
+      }
+      if (k < end) acc += r[i];
+    }
+    // the lanes' last pieces: keys g are in lane order, so a suffix sum
+    // over equal keys leaves each run's total in its first lane
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t a = __shfl_down_sync(0xffffffffu, acc, o);
+      const int kg = __shfl_down_sync(0xffffffffu, g, o);
+      if (lane + o < 32 && kg == g) acc += a;
+    }
+    const int prev = __shfl_up_sync(0xffffffffu, g, 1);
+    if ((lane == 0 || prev != g) && g >= 0 && acc != 0u) atomicAdd(out + g, acc);
+  }
 }
 
 int sm_count() {
@@ -520,9 +666,9 @@ int sm_count() {
 
 // Every block of `kernel` that fits on the card at once, at most `items`.
 template <typename Kernel>
-int resident_grid(Kernel kernel, size_t smem, int64_t items) {
+int resident_grid(Kernel kernel, size_t smem, int64_t items, int threads = kThreads) {
   int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   int64_t g = (int64_t)(per_sm > 0 ? per_sm : 1) * sm_count();
   if (g > items) g = items;
   return (int)(g > 0 ? g : 1);
@@ -631,17 +777,25 @@ PT_EXPORT int pt_plan_count(const void* host_table, int64_t table_bytes, void* d
   return launch_plan_count<1>(meta, shards, n_push, n_code, stack_slots, w, out, st);
 }
 
-PT_EXPORT int pt_gather_tally(const void* src, const void* idx, const void* mask,
-                              const void* starts, const void* ends,
-                              int64_t n_seg, void* out, void* stream) {
-  if (n_seg > 0) {
-    const int64_t blocks = (n_seg + kWarps - 1) / kWarps;
-    gather_tally_kernel<<<(unsigned int)blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(src), static_cast<const int32_t*>(idx),
-        static_cast<const uint32_t*>(mask),
-        static_cast<const int32_t*>(starts), static_cast<const int32_t*>(ends),
-        n_seg, static_cast<int32_t*>(out));
+// n_src words of src; n_ent entries of idx and mask; n_seg segments of
+// starts, ends and out.
+PT_EXPORT int pt_gather_tally(const void* src, int64_t n_src, const void* idx, const void* mask,
+                              int64_t n_ent, const void* starts, const void* ends, int64_t n_seg,
+                              void* out, void* stream) {
+  constexpr int64_t kMaxCount = INT32_MAX - 256;
+  if (n_src < 0 || n_ent < 0 || n_ent > kMaxCount || n_seg < 0 || n_seg > kMaxCount) {
+    return (int)cudaErrorInvalidValue;
   }
+  if (n_seg == 0) return (int)cudaGetLastError();
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(out, 0, (size_t)n_seg * sizeof(int32_t), st);
+  if (err != cudaSuccess || n_ent == 0) return (int)err;
+  const int64_t n_chunks = (n_ent + kGtChunk - 1) / kGtChunk;
+  const int grid =
+      resident_grid(gather_tally_kernel, 0, (n_chunks + kGtWarps - 1) / kGtWarps, kGtThreads);
+  gather_tally_kernel<<<grid, kGtThreads, 0, st>>>(
+      static_cast<const uint32_t*>(src), n_src, static_cast<const int32_t*>(idx),
+      static_cast<const uint32_t*>(mask), (int32_t)n_ent, static_cast<const int32_t*>(starts),
+      static_cast<const int32_t*>(ends), (int32_t)n_seg, static_cast<unsigned int*>(out));
   return (int)cudaGetLastError();
 }

@@ -184,7 +184,7 @@ class _Library:
             "pt_count2": [p, i64, p, i64, i64, i32, p],
             "pt_rows_counts": [p, i64, i64, p, i64, i32, p, p],
             "pt_plan_count": [p, i64, p, i64, i64, i64, i64, i64, p],
-            "pt_gather_tally": [p, p, p, p, p, i64, p, p],
+            "pt_gather_tally": [p, i64, p, p, i64, p, p, i64, p, p],
             "pt_bsi_sum": [p, p, p, p, i32, i64, i32, i32, p, p],
             "pt_bsi_min_max": [p, p, p, p, i32, i64, i32, i32, i32, p, p, p, p],
             "pt_bsi_range": [p, p, p, i32, i64, i64, i32, i32, i32, u32, u32, i32, i32, p, p],
@@ -571,6 +571,11 @@ def plan_count(
 # gather_tally  (ops/bitmap.py gather_tally_sorted)
 # ---------------------------------------------------------------------------
 
+# the most entries or segments one launch takes: int32 positions, with
+# room for the kernel's segment search to probe past the last (mirrors
+# pt_gather_tally)
+_GATHER_MAX_COUNT = 2**31 - 1 - 256
+
 
 def gather_tally_plain(src, idx, mask, starts, ends) -> torch.Tensor:
     vals = popcount_words(src.reshape(-1)[idx.long()] & mask)
@@ -585,21 +590,28 @@ def gather_tally(
     starts: torch.Tensor,
     ends: torch.Tensor,
 ) -> torch.Tensor:
-    """Segment sums of popcount(src.flat[idx[k]] & mask[k]) over sorted
-    half-open [starts[g], ends[g]) entry ranges -> int32[n_seg]. The
-    caller bounds the entry count by 2^27, so sums are exact."""
+    """Segment sums of popcount(src.flat[idx[k]] & mask[k]) over sorted,
+    disjoint half-open [starts[g], ends[g]) entry ranges (starts[g] <=
+    ends[g] <= starts[g + 1]; empty segments and entries in no segment are
+    allowed) -> int32[n_seg], the bits of the reference's uint32 sums. The
+    caller bounds the entry count by 2^27, so sums are exact. Every idx
+    lies in [0, src.numel())."""
     for t, what in ((src, "src"), (idx, "idx"), (mask, "mask"), (starts, "starts"), (ends, "ends")):
         _words(t, f"gather_tally {what}")
     if idx.shape != mask.shape or starts.shape != ends.shape:
         raise ValueError("gather_tally: idx/mask or starts/ends shapes differ")
     if _route(src, idx, mask, starts, ends) == "cpu":
         return gather_tally_plain(src, idx, mask, starts, ends)
-    n_seg = starts.numel()
+    n_ent, n_seg = idx.numel(), starts.numel()
+    if max(n_ent, n_seg) > _GATHER_MAX_COUNT:
+        raise ValueError(f"gather_tally: {n_ent} entries or {n_seg} segments over {_GATHER_MAX_COUNT}")
     out = torch.empty(n_seg, dtype=torch.int32, device=src.device)
     rc = library().pt_gather_tally(
         src.data_ptr(),
+        src.numel(),
         idx.data_ptr(),
         mask.data_ptr(),
+        n_ent,
         starts.data_ptr(),
         ends.data_ptr(),
         n_seg,

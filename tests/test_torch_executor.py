@@ -467,3 +467,45 @@ def test_counts_cross_matches_reference(loaded):
     )[0]
     got = tgb.counts_cross(src, tv.plane_stack((0, 2, 5), shards))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int32))
+
+
+def test_topn_tally_shard_major_matches_row_major_reference(loaded):
+    """The filtered-TopN sparse tally: the port's shard-major bundle
+    (segment j * n_sparse + k for shard j, sparse row k) through
+    gather_tally and the [n_present, n_sparse] -> [n_sparse, n_present]
+    transpose gives the reference's tallies, which gather_tally_sorted
+    computes over its row-major bundle (segment k * s_pow2 + j); so does
+    the whole tally, dense rows included."""
+    import jax.numpy as jnp
+
+    from pilosa_tpu.ops import bitmap as jb
+    from pilosa_tpu_torch.ops import kernels
+
+    ref_ex, port_ex = loaded
+    shards = tuple(range(N_SHARDS))
+    jv = ref_ex.holder.index("i").field("f").view()
+    tv = port_ex.holder.index("i").field("f").view()
+    src = port_ex.holder.index("i").field("g").view().row_stack(0, shards)
+    jsrc = jnp.asarray(src.numpy().view(np.uint32))
+    jpresent = [(s, jv.fragment_if_exists(s)) for s in shards]
+    tpresent = [(s, tv.fragment_if_exists(s)) for s in shards]
+    cand = list(range(12))
+    jbundle = ref_ex._topn_tally_build(cand, jpresent, WORDS_PER_ROW)
+    tbundle = TExecutor._topn_tally_build(cand, tpresent, WORDS_PER_ROW, src.device)
+    assert (tbundle.dense_rows, tbundle.sparse_rows) == (jbundle.dense_rows, jbundle.sparse_rows)
+    n_sparse, n_present = len(tbundle.sparse_rows), len(shards)
+    assert n_sparse >= 4 and tbundle.dense_rows
+    idx, mask, starts, ends = (x.numpy() for x in tbundle.dev)
+    assert starts.size == n_present * n_sparse and np.all(starts[1:] == ends[:-1])
+    for seg in range(starts.size):  # shard-major: segment seg holds shard seg // n_sparse
+        assert np.all(idx[starts[seg] : ends[seg]] // WORDS_PER_ROW == seg // n_sparse)
+    got = kernels.gather_tally(src, *tbundle.dev).reshape(n_present, n_sparse).T
+    j_idx, j_mask, j_starts, j_ends, r_pad, s_pow2 = jbundle.dev
+    want = np.asarray(jb.gather_tally_sorted(jsrc, j_idx, j_mask, j_starts, j_ends))
+    want = want.reshape(r_pad, s_pow2)[:n_sparse, :n_present]
+    assert want.any()
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int32))
+    order, fused = port_ex._topn_icounts_raw(tv, cand, tpresent, src)
+    j_order, j_fused, _ = ref_ex._topn_icounts_raw(jv, cand, jpresent, jsrc)
+    assert order == j_order
+    np.testing.assert_array_equal(fused, j_fused)

@@ -1,4 +1,4 @@
-"""The port's four kernel functions (pilosa_tpu_torch/ops/kernels.py)
+"""The port's kernel functions (pilosa_tpu_torch/ops/kernels.py)
 against the JAX functions they replace, on the same numpy inputs: exact
 equality.
 
@@ -300,17 +300,61 @@ def test_plan_micro_program_matches_postfix(seed):
         assert [int(np.unpackbits(r.view(np.uint8)).sum()) for r in got] == want.tolist()
 
 
-@pytest.mark.parametrize("seed", range(3))
-def test_gather_tally_matches_gather_tally_sorted(seed):
-    rng = np.random.default_rng(200 + seed)
-    src = words(rng, 4, W)
-    lens = rng.integers(0, 40, 24)
-    lens[::4] = 0  # empty segments
-    k = int(lens.sum())
-    idx = rng.integers(0, src.size, k).astype(np.int32)
-    mask = words(rng, k)
+def gather_case(case):
+    """(src, idx, mask, starts, ends) numpy inputs of gather_tally: a seed
+    (random lengths, every fourth segment empty) or a named layout."""
+    if isinstance(case, int):
+        rng = np.random.default_rng(200 + case)
+        src = words(rng, 4, W)
+        lens = rng.integers(0, 40, 24)
+        lens[::4] = 0  # empty segments
+        idx = rng.integers(0, src.size, int(lens.sum())).astype(np.int32)
+    elif case == "shard_major":
+        # the executor's layout: per shard j, 8 row segments (j * 8 + k) of
+        # sorted distinct words, drawn from one small pool so rows share words
+        rng = np.random.default_rng(210)
+        src = words(rng, 4, W)
+        idx_parts, lens = [], []
+        for j in range(4):
+            pool = rng.choice(W, 64, replace=False)
+            for _ in range(8):
+                ws = np.sort(rng.choice(pool, int(rng.integers(0, 48)), replace=False))
+                idx_parts.append(j * W + ws)
+                lens.append(len(ws))
+        idx = np.concatenate(idx_parts).astype(np.int32)
+        lens = np.array(lens)
+    elif case == "zipf":
+        # power-law lengths, one segment of 10^5 entries among short ones
+        rng = np.random.default_rng(211)
+        src = words(rng, 4, W)
+        lens = np.minimum(rng.zipf(1.4, 300), 4000)
+        lens[17] = 100_000
+        idx = rng.integers(0, src.size, int(lens.sum())).astype(np.int32)
+    elif case == "all_empty":
+        # entries that no segment covers
+        rng = np.random.default_rng(212)
+        src = words(rng, 4, W)
+        lens = np.zeros(40, np.int64)
+        idx = rng.integers(0, src.size, 300).astype(np.int32)
+    else:  # "last_word": entries on src's last word, in the last segment
+        rng = np.random.default_rng(213)
+        src = words(rng, 4, W)
+        lens = np.array([3, 0, 5, 260, 9])
+        idx = rng.integers(0, src.size, int(lens.sum())).astype(np.int32)
+        idx[-9:] = src.size - 1
+        idx[0] = src.size - 1
+    mask = words(rng, len(idx))
     ends = np.cumsum(lens).astype(np.int32)
     starts = (ends - lens).astype(np.int32)
+    return src, idx, mask, starts, ends
+
+
+GATHER_CASES = [0, 1, 2, "shard_major", "zipf", "all_empty", "last_word"]
+
+
+@pytest.mark.parametrize("seed", GATHER_CASES)
+def test_gather_tally_matches_gather_tally_sorted(seed):
+    src, idx, mask, starts, ends = gather_case(seed)
     got = K.gather_tally(t(src), t(idx), t(mask), t(starts), t(ends)).numpy()
     want = np.asarray(jb.gather_tally_sorted(src, idx, mask, starts, ends))
     np.testing.assert_array_equal(got, want.astype(np.int32))
@@ -410,11 +454,15 @@ def test_cuda_kernels_match_twins(cuda_device):
         for prog in ([0], [K.PUSH_ZERO], [0, 1, K.BINOPS["rev_andnot"]]):
             got = K.plan_count([x.to(dev) for x in lv], prog, s).cpu()
             assert torch.equal(got, K.plan_count(lv, prog, s))
-    src = t(words(rng, 4, 2048))
-    lens = rng.integers(0, 30, 16)
-    ends = np.cumsum(lens).astype(np.int32)
-    idx = t(rng.integers(0, src.numel(), int(lens.sum())).astype(np.int32))
-    mask = t(words(rng, int(lens.sum())))
-    args = (src, idx, mask, t((ends - lens).astype(np.int32)), t(ends))
-    got = K.gather_tally(*[x.to(dev) for x in args]).cpu()
-    assert torch.equal(got, K.gather_tally(*args))
+    # gather_tally on every CPU case (one launch each), and once on [1:]
+    # views of idx and mask (not 16-byte aligned)
+    for case in GATHER_CASES:
+        args = [t(x) for x in gather_case(case)]
+        before = K.LAUNCHES["gather_tally"]
+        got = K.gather_tally(*[x.to(dev) for x in args]).cpu()
+        assert K.LAUNCHES["gather_tally"] == before + 1
+        assert torch.equal(got, K.gather_tally(*args))
+    src, idx, mask, starts, ends = [t(x) for x in gather_case(0)]
+    idx, mask, starts, ends = idx[1:], mask[1:], starts.clamp(max=len(idx) - 1), ends.clamp(max=len(idx) - 1)
+    got = K.gather_tally(*[x.to(dev) for x in (src, idx, mask, starts, ends)]).cpu()
+    assert torch.equal(got, K.gather_tally(src, idx.contiguous(), mask.contiguous(), starts, ends))
