@@ -44,7 +44,22 @@ Phases, each fatal on any mismatch or exception:
    call with the card idle (median of 20); each query's warm p50 latency
    over 20 runs. gather_tally's bound counts the 32-byte sectors of src
    that its entries touch, and it is timed again over Zipf-skewed segment
-   lengths with the same number of entries.
+   lengths with the same number of entries;
+5. serve: the port's NodeServer on the card, driven only over HTTP on one
+   kept-alive connection. Index `s` over the same 2^30 columns: set field
+   `f` (2 dense, 4 sparse rows) through one import-roaring POST per shard,
+   set field `g` (2 sparse rows) through /import JSON in batches of 5000,
+   int field `amount` in 16 shards through import-value; export-roaring of
+   4 shards reads back exactly what went in, and a Set/Clear changes the
+   next Count by exactly its effect. Then 11 queries (Counts, Row, TopN
+   with and without a filter, Sum/Min/Max, a condition count), each held
+   to numpy and to Executor.execute on the server's holder; launch counts
+   are reset before the served query set and read after it, and six
+   kernels must have launched. GroupBy answers 400, an unknown index 404;
+   8 clients x 5 rounds must get the serial answers; served and
+   in-process p50s per query and the HTTP ingest rates are printed. The
+   CLI (`python -m pilosa_tpu_torch.cli server`) must serve on the card
+   and exit 0 on SIGTERM, and exit non-zero with CUDA_VISIBLE_DEVICES="".
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with a row per kernel; the last line is
@@ -1097,6 +1112,360 @@ def kernel_timing(holder, ex, launches, errs):
     return rows, extra
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the port served over HTTP
+# ---------------------------------------------------------------------------
+
+# f's dense rows: bit densities 2^-1 and 2^-3 (the AND of 1 and 3 draws)
+SERVE_DENSE_DRAWS = (1, 3)
+N_SERVE_SPARSE_F, N_SERVE_G = 4, 2  # sparse rows of f and g, ~1000 bits per shard each
+N_SERVE_VALUES = 16  # shards of `amount` loaded through import-value
+IMPORT_BATCH = 5000  # writes per /import request: the default max-writes-per-request
+SERVE_QUERIES = [
+    "Count(Intersect(Row(f=0), Row(g=0)))",
+    "Count(Union(Row(f=0), Row(f=1), Row(g=1)))",
+    "Count(Not(Row(f=1)))",
+    "Row(g=0)",
+    "TopN(f, n=5)",
+    "TopN(f, Row(g=0), n=5)",
+    "Sum(field=amount)",
+    "Min(field=amount)",
+    "Max(field=amount)",
+    "Sum(Row(g=0), field=amount)",
+    "Count(Row(amount > 500000))",
+]
+SERVE_KERNELS = ("plan_count", "rows_counts", "gather_tally", "bsi_sum", "bsi_min_max", "bsi_range")
+
+
+class _Http:
+    """One kept-alive HTTP/1.1 connection (http.client) to a node."""
+
+    def __init__(self, uri: str):
+        import http.client
+
+        host, port = uri.removeprefix("http://").rsplit(":", 1)
+        self.conn = http.client.HTTPConnection(host, int(port), timeout=600)
+
+    def raw(self, method: str, path: str, body=None, ctype: str = "application/json"):
+        """(status, raw body); a body that is not bytes goes as JSON."""
+        if body is not None and not isinstance(body, bytes):
+            body = json.dumps(body).encode()
+        self.conn.request(method, path, body=body, headers={"Content-Type": ctype} if body is not None else {})
+        r = self.conn.getresponse()
+        return r.status, r.read()
+
+    def json(self, method: str, path: str, body=None, ctype: str = "application/json"):
+        status, raw = self.raw(method, path, body, ctype)
+        check(status == 200, f"{method} {path}: HTTP {status}: {raw[:300]!r}")
+        return json.loads(raw)
+
+    def pql(self, query: str):
+        return self.json("POST", "/index/s/query", query.encode(), "text/plain")["results"]
+
+    def close(self):
+        self.conn.close()
+
+
+def _serve_cli(env=None):
+    """`python -m pilosa_tpu_torch.cli server` in memory on a free port."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--data-dir", "", "--bind", "127.0.0.1:0"],
+        stderr=subprocess.PIPE, text=True, env=env,
+    )
+
+
+def cli_check():
+    """The CLI serves on the card and stops with code 0 on SIGTERM (with a
+    kept-alive connection open); without a card it exits non-zero."""
+    import os
+    import select
+    import signal
+
+    p = _serve_cli()
+    try:
+        ready, _, _ = select.select([p.stderr], [], [], 120)
+        check(bool(ready), "CLI server printed nothing in 120 s")
+        line = p.stderr.readline()
+        m = re.search(r"listening on (http://\S+) \(device (\S+)\)", line)
+        check(m is not None and m.group(2).startswith("cuda"), f"CLI server said {line!r}")
+        c = _Http(m.group(1))
+        c.json("POST", "/index/s", {})
+        c.json("POST", "/index/s/field/f", {})
+        check(c.pql("Set(7, f=1)") == [True] and c.pql("Count(Row(f=1))") == [1], "CLI server: Set then Count")
+        t0 = time.perf_counter()
+        p.send_signal(signal.SIGTERM)
+        try:
+            rc = p.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            fail("CLI server did not stop within 10 s of SIGTERM")
+        c.close()
+        check(rc == 0, f"CLI server exited {rc} on SIGTERM")
+        print(f"serve: CLI server {m.group(1)} on {m.group(2)}: Set, Count 1; SIGTERM -> exit 0 in {time.perf_counter() - t0:.2f} s")
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        p.stderr.close()
+    p = _serve_cli(dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    try:
+        _, err = p.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        fail("CLI server without a card did not exit in 120 s")
+    check(p.returncode != 0 and "no CUDA device" in err, f"CLI server without a card: exit {p.returncode}, {err!r}")
+    print(f"serve: CLI server without a card exits {p.returncode}: {err.strip().splitlines()[-1]}")
+
+
+def serve_path(args):
+    import threading
+
+    import torch
+
+    from pilosa_tpu_torch.core import roaring_io
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.server import NodeServer, wire
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
+
+    S, W = args.shards, WORDS_PER_ROW
+    n_val = min(S, N_SERVE_VALUES)
+    rng = np.random.default_rng([args.seed, 5])
+    print(
+        f"serve: cut: int field amount in {n_val} of {S} shards (import-value JSON carries ~15M values; "
+        "the BSI phase drives the int path over every shard)"
+    )
+
+    # data from the seed: f = dense rows, then sparse rows (one roaring body
+    # per shard); g = sparse rows (JSON /import); amount = int values
+    t0 = time.perf_counter()
+    rows = {}
+    for r, draws in enumerate(SERVE_DENSE_DRAWS):
+        w = rng.integers(0, 2**32, size=(S, W), dtype=np.uint32)
+        for _ in range(draws - 1):
+            w &= rng.integers(0, 2**32, size=(S, W), dtype=np.uint32)
+        rows[("f", r)] = w
+    base = (np.arange(S, dtype=np.uint64) * np.uint64(SHARD_WIDTH))[:, None]
+
+    def sparse_row():
+        """(absolute columns, [S, W] words) of ~1000 random bits per shard."""
+        cols = (rng.integers(0, SHARD_WIDTH, size=(S, 1000), dtype=np.uint64) + base).ravel()
+        words = np.zeros(S * W, np.uint32)
+        np.bitwise_or.at(words, (cols >> np.uint64(5)).astype(np.int64), np.uint32(1) << (cols & np.uint64(31)).astype(np.uint32))
+        return cols, words.reshape(S, W)
+
+    n_dense = len(SERVE_DENSE_DRAWS)
+    for r in range(N_SERVE_SPARSE_F):
+        rows[("f", n_dense + r)] = sparse_row()[1]
+    g_cols = []
+    for r in range(N_SERVE_G):
+        cols, rows[("g", r)] = sparse_row()
+        g_cols.append(cols)
+    has_a = rng.random((n_val, SHARD_WIDTH)) < 0.9
+    amt = rng.integers(AMOUNT[0], AMOUNT[1] + 1, size=(n_val, SHARD_WIDTH))
+    f_ids = range(n_dense + N_SERVE_SPARSE_F)
+    R = lambda fld, r: rows[(fld, r)]  # noqa: E731
+
+    def shard_positions(s):
+        """Shard s's bits of f as sorted fragment positions row * 2^20 + col."""
+        return np.concatenate(
+            [np.flatnonzero(_bits(R("f", r)[s])).astype(np.uint64) + np.uint64(r * SHARD_WIDTH) for r in f_ids]
+        )
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        bodies = list(pool.map(lambda s: roaring_io.encode(shard_positions(s)), range(S)))
+    f_shard_bits = sum(_LUT[R("f", r).view(np.uint8)].reshape(S, -1).sum(axis=1, dtype=np.int64) for r in f_ids)
+    exists = np.zeros((S, W), np.uint32)
+    for words in rows.values():
+        exists |= words
+    exists[:n_val] |= _pack(has_a)
+    n_body = sum(map(len, bodies))
+    print(f"serve: generated the data and {S} roaring bodies ({n_body} B) in {time.perf_counter() - t0:.1f} s")
+
+    srv = NodeServer(None, "smoke", bind="127.0.0.1:0", max_writes_per_request=0).start()
+    http = _Http(srv.node.uri)
+    try:
+        print(f"serve: NodeServer {srv.node.uri} on {srv.holder.device}")
+        http.json("POST", "/index/s", {"options": {"trackExistence": True}})
+        http.json("POST", "/index/s/field/f", {})
+        http.json("POST", "/index/s/field/g", {})
+        http.json("POST", "/index/s/field/amount", {"options": {"type": "int", "min": AMOUNT[0], "max": AMOUNT[1]}})
+
+        # ingest: one import-roaring POST per shard; /import JSON in batches
+        # of 5000 writes; one import-value POST per shard of values
+        t0 = time.perf_counter()
+        for s, body in enumerate(bodies):
+            out = http.json("POST", f"/index/s/field/f/import-roaring/{s}", body, "application/octet-stream")
+            check(out == {"changed": int(f_shard_bits[s])}, f"import-roaring shard {s}: {out}, want {int(f_shard_bits[s])} changed")
+        roaring_s = time.perf_counter() - t0
+        del bodies
+        t0 = time.perf_counter()
+        n_requests = n_import = 0
+        for r, cols in enumerate(g_cols):
+            for i in range(0, len(cols), IMPORT_BATCH):
+                c = cols[i : i + IMPORT_BATCH]
+                out = http.json("POST", "/index/s/field/g/import", {"rows": [r] * len(c), "cols": c.tolist()})
+                check(out["errors"] == [] and out["applied"] == out["expected"] > 0, f"/import: {out}")
+                n_requests += 1
+                n_import += len(c)
+        import_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_values = 0
+        for s in range(n_val):
+            cols = np.flatnonzero(has_a[s])
+            body = {"cols": (cols + s * SHARD_WIDTH).tolist(), "values": amt[s, cols].tolist()}
+            out = http.json("POST", "/index/s/field/amount/import-value", body)
+            check(out == {"applied": 1, "expected": 1, "errors": []}, f"import-value shard {s}: {out}")
+            n_values += len(cols)
+        value_s = time.perf_counter() - t0
+        ingest = {
+            "roaring_s": roaring_s,
+            "roaring_bytes": n_body,
+            "roaring_bits": int(f_shard_bits.sum()),
+            "roaring_mib_per_s": n_body / 2**20 / roaring_s,
+            "roaring_bits_per_s": int(f_shard_bits.sum()) / roaring_s,
+            "import_s": import_s,
+            "import_requests": n_requests,
+            "import_bits_per_s": n_import / import_s,
+            "import_value_s": value_s,
+            "import_value_values": n_values,
+            "import_value_values_per_s": n_values / value_s,
+        }
+        ingest["ingest_s"] = roaring_s + import_s + value_s
+        print(
+            f"serve: ingest {ingest['ingest_s']:.1f} s over HTTP: import-roaring {S} POSTs, {n_body / 2**20:.1f} MiB, "
+            f"{ingest['roaring_bits']} bits in {roaring_s:.1f} s ({ingest['roaring_mib_per_s']:.2f} MiB/s, "
+            f"{ingest['roaring_bits_per_s']:.0f} bits/s); /import {n_requests} POSTs, {n_import} bits in {import_s:.1f} s "
+            f"({ingest['import_bits_per_s']:.0f} bits/s); import-value {n_val} POSTs, {n_values} values in {value_s:.1f} s "
+            f"({ingest['import_value_values_per_s']:.0f} values/s)"
+        )
+
+        # read back what was acknowledged
+        for s in sorted({0, 1, S // 2, S - 1}):
+            status, raw = http.raw("GET", f"/index/s/field/f/export-roaring/{s}")
+            check(status == 200 and np.array_equal(roaring_io.decode(raw), shard_positions(s)),
+                  f"export-roaring shard {s} differs from what was imported")
+
+        # numpy answers
+        pc = np_popcount
+        vals = amt[has_a]
+        g0v = _bits(R("g", 0)[:n_val]).reshape(n_val, SHARD_WIDTH) & has_a
+        top = sorted(((r, pc(R("f", r))) for r in f_ids), key=lambda kv: (-kv[1], kv[0]))[:5]
+        ic = ((r, pc(R("f", r) & R("g", 0))) for r in f_ids)
+        top_g0 = sorted(((r, c) for r, c in ic if c), key=lambda kv: (-kv[1], kv[0]))[:5]
+        lo, hi = _extreme(vals, True), _extreme(vals, False)
+        row_g0 = np.unique(g_cols[0])
+        want = dict(zip(SERVE_QUERIES, [
+            [pc(R("f", 0) & R("g", 0))],
+            [pc(R("f", 0) | R("f", 1) | R("g", 1))],
+            [pc(exists & ~R("f", 1))],
+            [{"attrs": {}, "columns": row_g0.tolist()}],
+            [[{"id": r, "count": c} for r, c in top]],
+            [[{"id": r, "count": c} for r, c in top_g0]],
+            [{"value": int(vals.sum()), "count": len(vals)}],
+            [{"value": lo[0], "count": lo[1]}],
+            [{"value": hi[0], "count": hi[1]}],
+            [{"value": int(amt[g0v].sum()), "count": int(g0v.sum())}],
+            [int((vals > 500_000).sum())],
+        ]))
+
+        # the query set over HTTP; launches counted for it alone
+        torch.cuda.synchronize()
+        K.reset_launches()
+        served, first_ms = {}, {}
+        for q in SERVE_QUERIES:
+            tq = time.perf_counter()
+            status, served[q] = http.raw("POST", "/index/s/query", q.encode(), "text/plain")
+            first_ms[q] = (time.perf_counter() - tq) * 1e3
+            check(status == 200, f"{q}: HTTP {status}: {served[q][:300]!r}")
+            print(f"serve: first pass {first_ms[q]:.1f} ms  {q}")
+        first_pass_s = sum(first_ms.values()) / 1e3
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        for name in SERVE_KERNELS:
+            check(launches[name] > 0, f"the served queries never launched {name}: {launches}")
+        resident = srv.holder.dcache.bytes_used
+        for q in SERVE_QUERIES:
+            got = json.loads(served[q])["results"]
+            check(got == want[q], f"served {q}: {str(got)[:300]}, numpy says {str(want[q])[:300]}")
+            local = [wire.result_to_public_json(r) for r in srv.executor.execute("s", q)]
+            check(got == local, f"served {q} differs from Executor.execute on the server's holder")
+        print(
+            f"serve: {len(SERVE_QUERIES)} queries over HTTP equal numpy and Executor.execute; first query "
+            f"{first_ms[SERVE_QUERIES[0]]:.1f} ms, first pass {first_pass_s:.2f} s; launches {launches}; "
+            f"device cache {resident} B; Row(g=0) has {len(row_g0)} columns"
+        )
+
+        # errors
+        status, raw = http.raw("POST", "/index/s/query", b"GroupBy(Rows(f))", "text/plain")
+        check(status == 400 and b"not yet ported" in raw, f"GroupBy: HTTP {status} {raw!r}")
+        status, raw = http.raw("POST", "/index/nope/query", b"Count(Row(f=0))", "text/plain")
+        check(status == 404, f"unknown index: HTTP {status} {raw!r}")
+
+        # a write changes the next Count by exactly its effect
+        s = S // 2
+        col = s * SHARD_WIDTH + int(np.flatnonzero(_bits(exists[s] & ~R("f", 0)[s]))[0])
+        n0 = pc(R("f", 0))
+        steps = [("Count(Row(f=0))", [n0]), (f"Set({col}, f=0)", [True]), ("Count(Row(f=0))", [n0 + 1]),
+                 (f"Set({col}, f=0)", [False]), ("Count(Row(f=0))", [n0 + 1]), (f"Clear({col}, f=0)", [True]),
+                 ("Count(Row(f=0)) Count(Not(Row(f=1)))", [n0, want[SERVE_QUERIES[2]][0]])]
+        for q, expect in steps:
+            got = http.pql(q)
+            check(got == expect, f"{q}: {got}, want {expect}")
+        print(f"serve: Set/Clear of column {col} moved Count(Row(f=0)) by exactly +1 and -1")
+
+        # warm p50s: served (HTTP round trip) and in process (Executor.execute)
+        lat = {}
+        for q in SERVE_QUERIES:
+            body = q.encode()
+            served_ms = host_p50_ms(lambda: http.raw("POST", "/index/s/query", body, "text/plain"))
+            local_ms = host_p50_ms(lambda: srv.executor.execute("s", q))
+            lat[q] = {"served_ms": served_ms, "in_process_ms": local_ms, "front_end_ms": served_ms - local_ms}
+            print(f"serve p50 {served_ms:.3f} ms served, {local_ms:.3f} ms in process, front end {served_ms - local_ms:.3f} ms  {q}")
+
+        # 8 clients at once, 5 rounds of the query set each
+        errors = []
+
+        def client(k):
+            c = _Http(srv.node.uri)
+            try:
+                for rnd in range(5):
+                    for j in np.random.default_rng([k, rnd]).permutation(len(SERVE_QUERIES)).tolist():
+                        q = SERVE_QUERIES[j]
+                        status, raw = c.raw("POST", "/index/s/query", q.encode(), "text/plain")
+                        if status != 200 or raw != served[q]:
+                            errors.append((k, q, status, raw[:200]))
+            finally:
+                c.close()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        check(not any(t.is_alive() for t in threads), "concurrent clients did not finish in 900 s")
+        check(not errors, f"{len(errors)} concurrent answers differ from the serial ones: {errors[:3]}")
+        concurrent_s = time.perf_counter() - t0
+        print(f"serve: 8 clients x 5 rounds x {len(SERVE_QUERIES)} queries in {concurrent_s:.1f} s, every answer equal to the serial one")
+    finally:
+        http.close()
+        srv.stop()
+    t0 = time.perf_counter()
+    cli_check()
+    return {
+        "launches": launches,
+        "query_p50_ms": lat,
+        "first_query_ms": first_ms[SERVE_QUERIES[0]],
+        "first_pass_ms": first_ms,
+        "row_g0_columns": len(row_g0),
+        "first_pass_s": first_pass_s,
+        "ingest": ingest,
+        "device_cache_bytes": resident,
+        "concurrent_s": concurrent_s,
+        "cli_s": time.perf_counter() - t0,
+    }
+
+
 def _kernel_name(mangled: str) -> str:
     """`count2_kernel<4>` for a mangled kernel name (c++filt where the
     toolkit's host compiler brought it; else the name as it is)."""
@@ -1179,6 +1548,14 @@ def main() -> int:
     t0 = time.perf_counter()
     rows, extra = kernel_timing(holder, ex, launches, errs)
     phase_s["timing"] = time.perf_counter() - t0
+    holder.close()  # the served node gets the card's memory to itself
+    del holder, ex
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve = serve_path(args)
+    phase_s["serve"] = time.perf_counter() - t0
+    for name, row in rows.items():
+        row["launches_served"] = serve["launches"].get(name, 0)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     print(smi)
@@ -1194,6 +1571,7 @@ def main() -> int:
         "bsi_launches": bsi_launches,
         "ingest_s": ingest_s,
         "device_cache_bytes": resident,
+        "serve": serve,
         "shards": args.shards,
         "build_s": build_s,
         "phase_s": phase_s,

@@ -12,7 +12,13 @@ only. Entry points:
     idx = h.create_index("i")
     idx.create_field("f").import_bits(rows, cols)
     Executor(h).execute("i", "Count(Intersect(Row(f=1), Row(f=2)))")
+
+Served over HTTP (pilosa_tpu_torch.server, one node, in memory):
+
+    python -m pilosa_tpu_torch.cli server --data-dir '' --bind localhost:10101
 """
+
+__version__ = "0.1.0"
 
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.exec.executor import Executor, ExecError

@@ -72,6 +72,10 @@ class FieldOptions:
     max: int = 0
     base: int = 0
     bit_depth: int = 0
+    # carried for the schema; keyed fields and time views raise at creation
+    time_quantum: str = ""
+    keys: bool = False
+    no_standard_view: bool = False
 
 
 class Field:
@@ -91,6 +95,10 @@ class Field:
             raise ValueError(f"invalid field type {options.type!r}")
         if options.type not in PORTED_TYPES:
             raise NotImplementedError(f"{options.type} fields are not ported yet")
+        if options.keys:
+            raise NotImplementedError("key translation is not ported yet")
+        if options.time_quantum or options.no_standard_view:
+            raise NotImplementedError("time views are not ported yet")
         if options.cache_type not in CACHE_TYPES:
             raise ValueError(f"invalid cache type {options.cache_type!r}")
         if options.type == FIELD_TYPE_INT:
@@ -127,6 +135,12 @@ class Field:
 
     def view(self, name: str = VIEW_STANDARD) -> Optional[View]:
         return self.views.get(name)
+
+    def close(self) -> None:
+        """Drop every device tensor the field's views and fragments cached."""
+        with self._mu:
+            for v in self.views.values():
+                v.close()
 
     def bsi_view_name(self) -> str:
         return VIEW_BSI_PREFIX + self.name

@@ -45,6 +45,24 @@ _BSI_STACKED = (
 )
 
 
+# positions per row from which a set batch merges by column mask, not sort
+_MASK_MERGE_MIN = SHARD_WIDTH // 64
+
+
+def _ordered(a: np.ndarray) -> bool:
+    return len(a) < 2 or bool(np.all(a[1:] >= a[:-1]))
+
+
+def _unique(a: np.ndarray) -> np.ndarray:
+    """np.unique(a), without the sort when `a` is already in order (the
+    positions of a roaring body or of a row-major batch are)."""
+    if not _ordered(a):
+        return np.unique(a)
+    keep = np.ones(len(a), bool)
+    np.not_equal(a[1:], a[:-1], out=keep[1:])
+    return a[keep]
+
+
 class Fragment:
     """One shard of one view of one field. A re-entrant lock guards the
     host structures."""
@@ -139,6 +157,22 @@ class Fragment:
                     self.device,
                 ),
             )
+
+    def pairs(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Bits as (row_ids, in-shard cols) uint64 arrays, row-major sorted
+        (the exports read these)."""
+        with self._mu:
+            self._sync_locked()
+            rows_out = []
+            cols_out = []
+            for row_id in sorted(self._rows):
+                pos = self._rows[row_id].to_positions()
+                if len(pos):
+                    rows_out.append(np.full(len(pos), row_id, dtype=np.uint64))
+                    cols_out.append(pos.astype(np.uint64))
+            if not rows_out:
+                return np.empty(0, np.uint64), np.empty(0, np.uint64)
+            return np.concatenate(rows_out), np.concatenate(cols_out)
 
     def row_count(self, row_id: int) -> int:
         with self._mu:
@@ -344,10 +378,11 @@ class Fragment:
 
     def _bulk_set_sparse(self, to_set: np.ndarray, touched: set) -> int:
         """Set keyed positions (row*SHARD_WIDTH + col): dense-rep rows OR
-        in place; all sparse-rep rows merge in ONE np.unique over the
-        re-keyed concatenation."""
+        in place; all sparse-rep rows merge in ONE pass over the re-keyed
+        concatenation (a dedupe when it is in order, else np.unique, or a
+        column mask per row for a large batch over few rows)."""
         rows_arr = to_set // SHARD_WIDTH
-        uniq_rows = np.unique(rows_arr).astype(np.uint64)
+        uniq_rows = _unique(rows_arr).astype(np.uint64)
         dense_rows = [
             int(r)
             for r in uniq_rows
@@ -376,7 +411,10 @@ class Fragment:
                 parts.append(
                     rb.positions.astype(np.uint64) + np.uint64(rid) * np.uint64(SHARD_WIDTH)
                 )
-        merged = np.unique(np.concatenate(parts))
+        cat = np.concatenate(parts) if len(parts) > 1 else parts[0]
+        if not _ordered(cat) and len(incoming) >= len(sparse_rows) * _MASK_MERGE_MIN:
+            return n + self._merge_by_mask(incoming, sparse_rows, touched)
+        merged = _unique(cat)
         # each row takes a COPY of its slice: a view would pin the buffer
         all_pos = (merged % np.uint64(SHARD_WIDTH)).astype(np.uint32)
         edges = np.searchsorted(
@@ -394,6 +432,26 @@ class Fragment:
             rb._maybe_densify()
             touched.add(rid)
         return n + len(merged) - before
+
+    def _merge_by_mask(self, incoming: np.ndarray, sparse_rows: List[int], touched: set) -> int:
+        """The sparse-row merge of a large unordered batch over few rows
+        (staged column imports): one column mask per row, linear in the
+        shard width, instead of a sort of the whole batch."""
+        cols = incoming & np.uint64(SHARD_WIDTH - 1)
+        rows = incoming // SHARD_WIDTH if len(sparse_rows) > 1 else None
+        added = 0
+        for rid in sparse_rows:
+            rb = self._rows.get(rid)
+            if rb is None:
+                rb = self._rows[rid] = RowBits(SHARD_WIDTH)
+            mask = np.zeros(SHARD_WIDTH, bool)
+            mask[cols if rows is None else cols[rows == rid]] = True
+            mask[rb.positions] = True
+            before = rb.count()
+            rb.assign_mask(mask)
+            added += rb.count() - before
+            touched.add(rid)
+        return added
 
     def _bulk_clear_sparse(self, to_clear: np.ndarray, touched: set) -> int:
         """Clear keyed positions: dense-rep rows per row; sparse-rep rows

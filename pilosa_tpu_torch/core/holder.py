@@ -48,9 +48,73 @@ class Holder:
             )
             return idx
 
+    def create_index_if_not_exists(self, name: str, **kw) -> Index:
+        with self._mu:
+            if name in self._indexes:
+                return self._indexes[name]
+            return self.create_index(name, **kw)
+
     def index(self, name: str) -> Optional[Index]:
         return self._indexes.get(name)
 
     def indexes(self) -> List[Index]:
         with self._mu:
             return [self._indexes[n] for n in sorted(self._indexes)]
+
+    def delete_index(self, name: str) -> None:
+        """Forget an index and drop its device tensors (a recreated index
+        gets new owner tokens, so LRU pressure alone would be the only way
+        the old stacks left)."""
+        with self._mu:
+            idx = self._indexes.pop(name, None)
+            if idx is None:
+                raise KeyError(f"index not found: {name}")
+        idx.close()
+
+    def pending_repair_count(self) -> int:
+        """Replica writes awaiting repair: none on one node."""
+        return 0
+
+    def staged_position_count(self) -> int:
+        """Staged SET positions not yet merged into row stores."""
+        return sum(
+            frag._pending_n
+            for idx in self.indexes()
+            for f in idx.fields(include_hidden=True)
+            for v in list(f.views.values())
+            for frag in list(v.fragments.values())
+        )
+
+    def schema(self) -> List[dict]:
+        """The schema description of `GET /schema` (the reference's
+        holder.schema(), key for key)."""
+        out = []
+        for idx in self.indexes():
+            fields = []
+            for f in idx.fields():
+                o = f.options
+                fields.append(
+                    {
+                        "name": f.name,
+                        "options": {
+                            "type": o.type,
+                            "cacheType": o.cache_type,
+                            "cacheSize": o.cache_size,
+                            "min": o.min,
+                            "max": o.max,
+                            "base": o.base,
+                            "bitDepth": o.bit_depth,
+                            "timeQuantum": o.time_quantum,
+                            "keys": o.keys,
+                            "noStandardView": o.no_standard_view,
+                        },
+                    }
+                )
+            out.append(
+                {
+                    "name": idx.name,
+                    "options": {"keys": idx.keys, "trackExistence": idx.track_existence},
+                    "fields": fields,
+                }
+            )
+        return out

@@ -5,7 +5,7 @@ All() read). The port of pilosa_tpu/core/index.py, in memory."""
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Set
+from typing import Dict, List, Optional, Set
 
 import numpy as np
 import torch
@@ -53,8 +53,38 @@ class Index:
             f = self._fields[name] = self._new_field(name, options or FieldOptions())
             return f
 
+    def create_field_if_not_exists(self, name: str, options: Optional[FieldOptions] = None) -> Field:
+        with self._mu:
+            if name in self._fields:
+                return self._fields[name]
+            return self.create_field(name, options)
+
     def field(self, name: str) -> Optional[Field]:
         return self._fields.get(name)
+
+    def fields(self, include_hidden: bool = False) -> List[Field]:
+        """Fields sorted by name; `_`-prefixed internal fields only when
+        include_hidden."""
+        with self._mu:
+            return [
+                f
+                for n, f in sorted(self._fields.items())
+                if include_hidden or not n.startswith("_")
+            ]
+
+    def delete_field(self, name: str) -> None:
+        with self._mu:
+            f = self._fields.pop(name, None)
+            if f is None:
+                raise KeyError(f"field not found: {name}")
+        f.close()
+
+    def close(self) -> None:
+        """Drop every device tensor the index's fields cached."""
+        with self._mu:
+            fields = list(self._fields.values())
+        for f in fields:
+            f.close()
 
     def existence_field(self) -> Optional[Field]:
         return self._fields.get(EXISTENCE_FIELD_NAME) if self.track_existence else None

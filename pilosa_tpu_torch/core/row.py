@@ -14,7 +14,7 @@ import torch
 
 from pilosa_tpu_torch.ops import bitmap as ob
 from pilosa_tpu_torch.ops import kernels
-from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
 
 class Row:
@@ -39,13 +39,21 @@ class Row:
         return any(bool(ob.any_set(w)) for w in self.segments.values())
 
     def columns(self) -> np.ndarray:
-        """Sorted absolute column ids (host)."""
-        cols = []
-        for shard in sorted(self.segments):
-            pos = ob.unpack_positions(ob.to_host(self.segments[shard]))
-            if len(pos):
-                cols.append(pos + np.uint64(shard) * np.uint64(SHARD_WIDTH))
-        return np.concatenate(cols) if cols else np.empty(0, np.uint64)
+        """Sorted absolute column ids (host). The set bits are found on the
+        row's device, 64 segments at a time (at most 256 MiB of scratch);
+        only the column ids come to the host."""
+        shards = sorted(self.segments)
+        out = [np.empty(0, np.uint64)]
+        for i in range(0, len(shards), 64):
+            chunk = shards[i : i + 64]
+            words = torch.stack([self.segments[s] for s in chunk]).reshape(-1)
+            nz = torch.nonzero(words).reshape(-1)
+            bit = torch.arange(32, dtype=torch.int32, device=words.device)
+            word_i, bit_i = torch.nonzero((words[nz].unsqueeze(1) >> bit) & 1, as_tuple=True)
+            w = nz[word_i]
+            base = torch.tensor(chunk, dtype=torch.int64, device=words.device)[w // WORDS_PER_ROW] * SHARD_WIDTH
+            out.append((base + (w % WORDS_PER_ROW) * 32 + bit_i).cpu().numpy().astype(np.uint64))
+        return np.concatenate(out)
 
     def shards(self) -> List[int]:
         return sorted(self.segments)

@@ -63,11 +63,9 @@ class RowBits:
                 self.dense = None
 
     def _to_dense(self) -> np.ndarray:
-        words = np.zeros(self.n_words, dtype=np.uint32)
-        if len(self.positions):
-            p = self.positions
-            np.bitwise_or.at(words, p >> 5, np.uint32(1) << (p & np.uint32(31)))
-        return words
+        bits = np.zeros(self.n_bits, dtype=bool)
+        bits[self.positions] = True
+        return np.packbits(bits, bitorder="little").view(np.uint32)
 
     # -- reads -------------------------------------------------------------
 
@@ -148,6 +146,18 @@ class RowBits:
         added = self._n - before
         self._maybe_sparsify()
         return added
+
+    def assign_mask(self, mask: np.ndarray) -> None:
+        """Set the row to the columns of a bool [n_bits] mask, sparse or
+        dense by its count as the crossover rule says."""
+        n = int(np.count_nonzero(mask))
+        if n > self.n_words:
+            self.dense = np.packbits(mask, bitorder="little").view(np.uint32)
+            self.positions = None
+            self._n = n
+        else:
+            self.positions = np.flatnonzero(mask).astype(np.uint32)
+            self.dense = None
 
     def assign_words(self, mask: np.ndarray, words: np.ndarray) -> None:
         """Overwrite the bits under a dense word mask with `words` (a

@@ -73,6 +73,15 @@ class View:
     def _on_fragment_mutate(self) -> None:
         self.dcache.invalidate_owner(self._stack_token)
 
+    def close(self) -> None:
+        """Drop every device tensor this view and its fragments cached: a
+        deleted field's stacks must not wait for LRU pressure to leave."""
+        with self._mu:
+            tokens = [self._stack_token]
+            for frag in self.fragments.values():
+                tokens += [frag._token, frag._stack_token]
+        self.dcache.invalidate_owners(tokens)
+
     def fragment_if_exists(self, shard: int) -> Optional[Fragment]:
         return self.fragments.get(shard)
 

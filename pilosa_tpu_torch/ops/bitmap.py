@@ -57,9 +57,10 @@ def pack_positions(positions, n_bits: int = SHARD_WIDTH) -> np.ndarray:
 
 def unpack_positions(words: np.ndarray) -> np.ndarray:
     """Inverse of pack_positions: dense words -> sorted uint64 positions."""
-    w = np.ascontiguousarray(np.asarray(words, dtype=np.uint32))
-    bits = np.unpackbits(w.view(np.uint8), bitorder="little")
-    return np.nonzero(bits)[0].astype(np.uint64)
+    w = np.ascontiguousarray(np.asarray(words, dtype=np.uint32)).ravel()
+    nz = np.flatnonzero(w)  # only words with a bit set are unpacked
+    word_i, bit_i = np.nonzero(np.unpackbits(w[nz].view(np.uint8), bitorder="little").reshape(-1, 32))
+    return (nz[word_i].astype(np.uint64) << np.uint64(5)) | bit_i.astype(np.uint64)
 
 
 def empty_row(n_words: int = WORDS_PER_ROW) -> np.ndarray:

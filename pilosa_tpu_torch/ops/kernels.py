@@ -119,9 +119,13 @@ _lib = None
 _lib_mu = threading.Lock()
 
 
+_LAUNCHES_MU = threading.Lock()
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_MU:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +218,8 @@ def _stream(t: torch.Tensor) -> int:
 def _launched(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    with _LAUNCHES_MU:  # HTTP handler threads launch concurrently
+        LAUNCHES[name] += 1
 
 
 def _words(t: torch.Tensor, what: str) -> None:

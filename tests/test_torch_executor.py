@@ -320,7 +320,10 @@ def test_wide_and_deep_trees_match_reference():
 
 
 def test_import_leaves_jax_out():
-    code = "import sys, pilosa_tpu_torch, pilosa_tpu_torch.compat; print('jax' in sys.modules)"
+    code = (
+        "import sys, pilosa_tpu_torch, pilosa_tpu_torch.compat, pilosa_tpu_torch.server, "
+        "pilosa_tpu_torch.cli; print('jax' in sys.modules)"
+    )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, check=True
     )

@@ -96,15 +96,28 @@ def _same(ref, port, rows):
     np.testing.assert_array_equal(port.row_counts_host(list(rows)), ref.row_counts_host(list(rows)))
 
 
-def test_fragment_writes_match_reference():
+@pytest.mark.parametrize("burst", [3000, 120_000])  # sort merge; column-mask merge (large bursts)
+def test_fragment_writes_match_reference(burst):
     rng = np.random.default_rng(5)
     ref, port = _pair()
     rows = list(range(6))
     for _ in range(3):  # staged bursts merge at the next read barrier
-        pos = rng.integers(0, 6, 3000).astype(np.uint64) * np.uint64(SHARD_WIDTH) + rng.integers(
-            0, SHARD_WIDTH, 3000
+        pos = rng.integers(0, 6, burst).astype(np.uint64) * np.uint64(SHARD_WIDTH) + rng.integers(
+            0, SHARD_WIDTH, burst
         ).astype(np.uint64)
         assert port.stage_positions(pos) == ref.stage_positions(pos)
+    _same(ref, port, rows)
+    # a small burst makes sparse rows 8 and 9, a large one merges into them
+    for size in (burst // 100, burst):
+        pos = rng.integers(8, 10, size).astype(np.uint64) * np.uint64(SHARD_WIDTH) + rng.integers(
+            0, SHARD_WIDTH, size
+        ).astype(np.uint64)
+        assert port.stage_positions(pos) == ref.stage_positions(pos)
+        _same(ref, port, [8, 9])
+    # sorted batches (a roaring body's positions) into new and existing rows
+    pos = np.unique(rng.integers(4 * SHARD_WIDTH, 12 * SHARD_WIDTH, burst).astype(np.uint64))
+    assert port.import_positions(pos, None) == ref.import_positions(pos, None)
+    rows = list(range(12))
     _same(ref, port, rows)
     dense = rng.integers(0, 2**32, WORDS_PER_ROW, dtype=np.uint32)
     assert port.import_row_words(1, dense) == ref.import_row_words(1, dense)
