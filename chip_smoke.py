@@ -46,20 +46,39 @@ Phases, each fatal on any mismatch or exception:
    that its entries touch, and it is timed again over Zipf-skewed segment
    lengths with the same number of entries;
 5. serve: the port's NodeServer on the card, driven only over HTTP on one
-   kept-alive connection. Index `s` over the same 2^30 columns: set field
+   kept-alive connection, on a data dir (WAL, snapshots, group commit:
+   the deployment users run) under the default temp dir, whose
+   filesystem and free bytes are printed first (at least 2 GiB free, or
+   the phase fails). Index `s` over the same 2^30 columns: set field
    `f` (2 dense, 4 sparse rows) through one import-roaring POST per shard,
    set field `g` (2 sparse rows) through /import JSON in batches of 5000,
-   int field `amount` in 16 shards through import-value; export-roaring of
-   4 shards reads back exactly what went in, and a Set/Clear changes the
-   next Count by exactly its effect. Then 11 queries (Counts, Row, TopN
-   with and without a filter, Sum/Min/Max, a condition count), each held
-   to numpy and to Executor.execute on the server's holder; launch counts
-   are reset before the served query set and read after it, and six
-   kernels must have launched. GroupBy answers 400, an unknown index 404;
-   8 clients x 5 rounds must get the serial answers; served and
-   in-process p50s per query and the HTTP ingest rates are printed. The
-   CLI (`python -m pilosa_tpu_torch.cli server`) must serve on the card
-   and exit 0 on SIGTERM, and exit non-zero with CUDA_VISIBLE_DEVICES="".
+   int field `amount` in 16 shards through import-value; every import
+   returns once its writes are fsynced, so the ingest rates are durable
+   rates. Export-roaring of 4 shards reads back exactly what went in, and
+   a Set/Clear changes the next Count by exactly its effect. Then 11
+   queries (Counts, Row, TopN with and without a filter, Sum/Min/Max, a
+   condition count), each held to numpy and to Executor.execute on the
+   server's holder; launch counts are reset before the served query set
+   and read after it, and six kernels must have launched. GroupBy answers
+   400, an unknown index 404; 8 clients x 5 rounds must get the serial
+   answers; served and in-process p50s per query and the HTTP ingest
+   rates are printed. The CLI (`python -m pilosa_tpu_torch.cli server`)
+   must serve on the card and exit 0 on SIGTERM, and exit non-zero with
+   CUDA_VISIBLE_DEVICES="";
+6. durable: the serve phase's node is stopped and the card's cache
+   emptied; a second NodeServer opens the same data dir, timed from
+   construction to its first 200 on /status (recovery). The 11 queries'
+   first pass and warm p50s follow: every body must equal the one served
+   before the restart byte for byte (and numpy's answer), and the six
+   kernels must launch again (counts reset just before). `inspect` and
+   `check` of the stopped dir must exit 0, `check` with no bad file. Then
+   kill -9: a CLI server on a fresh dir at 8 shards takes /import,
+   import-value and PQL Set/Clear writes (the last ones in the WAL, after
+   the last snapshot), is SIGKILLed after the last acknowledgement and
+   restarted: every acknowledged bit and value must read back
+   (export-roaring of every shard of both views, Count, Sum). Again with
+   --wal-sync-interval 0.2: the writes lost are counted, and none
+   acknowledged before the last interval may be.
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with a row per kernel; the last line is
@@ -1271,6 +1290,7 @@ def serve_path(args):
             [np.flatnonzero(_bits(R("f", r)[s])).astype(np.uint64) + np.uint64(r * SHARD_WIDTH) for r in f_ids]
         )
 
+    data_dir = durable_dir()
     with ThreadPoolExecutor(max_workers=8) as pool:
         bodies = list(pool.map(lambda s: roaring_io.encode(shard_positions(s)), range(S)))
     f_shard_bits = sum(_LUT[R("f", r).view(np.uint8)].reshape(S, -1).sum(axis=1, dtype=np.int64) for r in f_ids)
@@ -1281,10 +1301,10 @@ def serve_path(args):
     n_body = sum(map(len, bodies))
     print(f"serve: generated the data and {S} roaring bodies ({n_body} B) in {time.perf_counter() - t0:.1f} s")
 
-    srv = NodeServer(None, "smoke", bind="127.0.0.1:0", max_writes_per_request=0).start()
+    srv = NodeServer(data_dir, "smoke", bind="127.0.0.1:0", max_writes_per_request=0).start()
     http = _Http(srv.node.uri)
     try:
-        print(f"serve: NodeServer {srv.node.uri} on {srv.holder.device}")
+        print(f"serve: NodeServer {srv.node.uri} on {srv.holder.device}, data dir {data_dir}")
         http.json("POST", "/index/s", {"options": {"trackExistence": True}})
         http.json("POST", "/index/s/field/f", {})
         http.json("POST", "/index/s/field/g", {})
@@ -1332,7 +1352,7 @@ def serve_path(args):
         }
         ingest["ingest_s"] = roaring_s + import_s + value_s
         print(
-            f"serve: ingest {ingest['ingest_s']:.1f} s over HTTP: import-roaring {S} POSTs, {n_body / 2**20:.1f} MiB, "
+            f"serve: durable ingest {ingest['ingest_s']:.1f} s over HTTP: import-roaring {S} POSTs, {n_body / 2**20:.1f} MiB, "
             f"{ingest['roaring_bits']} bits in {roaring_s:.1f} s ({ingest['roaring_mib_per_s']:.2f} MiB/s, "
             f"{ingest['roaring_bits_per_s']:.0f} bits/s); /import {n_requests} POSTs, {n_import} bits in {import_s:.1f} s "
             f"({ingest['import_bits_per_s']:.0f} bits/s); import-value {n_val} POSTs, {n_values} values in {value_s:.1f} s "
@@ -1452,7 +1472,8 @@ def serve_path(args):
         srv.stop()
     t0 = time.perf_counter()
     cli_check()
-    return {
+    recovered = {"data_dir": data_dir, "served": served, "want": want, "row_g0": row_g0, "n_val": n_val}
+    return recovered, {
         "launches": launches,
         "query_p50_ms": lat,
         "first_query_ms": first_ms[SERVE_QUERIES[0]],
@@ -1463,6 +1484,323 @@ def serve_path(args):
         "device_cache_bytes": resident,
         "concurrent_s": concurrent_s,
         "cli_s": time.perf_counter() - t0,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 6: durable storage — restart, offline tools and kill -9
+# ---------------------------------------------------------------------------
+
+MIN_FREE_BYTES = 2 << 30  # the serve phase's data dir holds about 0.5 GiB
+KILL_SHARDS = 8  # the kill -9 node's index
+KILL_BIG = 20_000  # bits per shard of its first /import requests (past max_op_n: snapshots)
+KILL_BATCH = 5000  # writes per request: the CLI server's default max-writes-per-request
+
+
+def _filesystem(path: str) -> str:
+    """The mount point and type of the filesystem holding `path`."""
+    import os
+
+    path = os.path.realpath(path)
+    best = ("/", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt = parts[1]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) and len(mnt) >= len(best[0]):
+                best = (mnt, parts[2])
+    return f"{best[0]} ({best[1]})"
+
+
+def durable_dir() -> str:
+    """A fresh data dir under the default temp dir; fails when its
+    filesystem has less than MIN_FREE_BYTES free."""
+    import os
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    free = shutil.disk_usage(d).free
+    print(f"durable: data dir {d} on {_filesystem(d)}, {free} bytes free")
+    check(free >= MIN_FREE_BYTES, f"data dir {d} on {_filesystem(d)} has {free} bytes free; the run needs {MIN_FREE_BYTES}")
+    return d
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, n)) for d, _, names in os.walk(path) for n in names)
+
+
+def _cli_server(data_dir: str, sync_interval: float):
+    """`python -m pilosa_tpu_torch.cli server` on a data dir and a free
+    port: (process, uri)."""
+    import select
+
+    p = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--data-dir", data_dir,
+         "--bind", "127.0.0.1:0", "--wal-sync-interval", str(sync_interval)],
+        stderr=subprocess.PIPE, text=True,
+    )
+    ready, _, _ = select.select([p.stderr], [], [], 180)
+    if not ready:
+        p.kill()
+        p.wait()
+        fail(f"CLI server on {data_dir} printed nothing in 180 s")
+    line = p.stderr.readline()
+    m = re.search(r"listening on (http://\S+)", line)
+    if m is None:
+        p.kill()
+        p.wait()
+        fail(f"CLI server on {data_dir} said {line!r}")
+    return p, m.group(1)
+
+
+def _kill_state(http, S: int, depth_rows: int):
+    """(f's bits as {(row, column)}, v's values as {column: value}) read
+    back through export-roaring of every shard of both views."""
+    from pilosa_tpu_torch.core import roaring_io
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    bits, values = set(), {}
+    for s in range(S):
+        status, raw = http.raw("GET", f"/index/k/field/f/export-roaring/{s}")
+        check(status == 200, f"export-roaring f shard {s}: HTTP {status}")
+        pos = roaring_io.decode(raw)
+        bits |= set(zip((pos // SHARD_WIDTH).tolist(), (pos % SHARD_WIDTH + s * SHARD_WIDTH).tolist()))
+        status, raw = http.raw("GET", f"/index/k/field/v/export-roaring/{s}?view=bsig_v")
+        check(status == 200, f"export-roaring bsig_v shard {s}: HTTP {status}")
+        pos = roaring_io.decode(raw)
+        rows, cols = (pos // SHARD_WIDTH).astype(np.int64), (pos % SHARD_WIDTH).astype(np.int64)
+        mag = np.zeros(SHARD_WIDTH, np.int64)
+        for r in range(2, 2 + depth_rows):
+            mag[cols[rows == r]] |= 1 << (r - 2)
+        mag[cols[rows == 1]] *= -1
+        for c in cols[rows == 0].tolist():
+            values[c + s * SHARD_WIDTH] = int(mag[c])
+    return bits, values
+
+
+def kill9_check(seed: int, sync_interval: float) -> dict:
+    """A CLI server on a fresh data dir takes /import, import-value and
+    PQL Set/Clear writes (the last ones after the last snapshot, so the
+    WAL holds them), is SIGKILLed right after the last acknowledgement,
+    and restarts: every acknowledged bit and value must read back
+    (export-roaring of every shard, Count, Sum). With sync_interval > 0,
+    writes acknowledged within the last interval may be lost; the count
+    lost is printed, and every earlier one must be there."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    S = KILL_SHARDS
+
+    def kq(http, query: str):
+        return http.json("POST", "/index/k/query", query.encode(), "text/plain")["results"]
+
+    rng = np.random.default_rng([seed, 6, int(sync_interval * 1000)])
+    d = tempfile.mkdtemp(prefix="chip_smoke_kill_")
+    p, uri = _cli_server(d, sync_interval)
+    acked = []  # (monotonic time of the acknowledgement, write)
+    try:
+        http = _Http(uri)
+        http.json("POST", "/index/k", {})
+        http.json("POST", "/index/k/field/f", {})
+        http.json("POST", "/index/k/field/v", {"options": {"type": "int", "min": -1_000_000, "max": 1_000_000}})
+
+        def bits_write(rows, cols):
+            out = http.json("POST", "/index/k/field/f/import", {"rows": rows.tolist(), "cols": cols.tolist()})
+            check(out["errors"] == [], f"kill -9 /import: {out}")
+            acked.append((time.monotonic(), ("bits", rows.tolist(), cols.tolist())))
+
+        def values_write(cols, vals):
+            out = http.json("POST", "/index/k/field/v/import-value", {"cols": cols.tolist(), "values": vals.tolist()})
+            check(out["errors"] == [], f"kill -9 import-value: {out}")
+            acked.append((time.monotonic(), ("values", cols.tolist(), vals.tolist())))
+
+        for s in range(S):  # big: each shard passes max_op_n, so its fragments snapshot
+            for _ in range(KILL_BIG // KILL_BATCH):
+                bits_write(rng.integers(0, 4, KILL_BATCH), rng.integers(0, SHARD_WIDTH, KILL_BATCH) + s * SHARD_WIDTH)
+            vcols = np.unique(rng.integers(0, SHARD_WIDTH, KILL_BATCH) + s * SHARD_WIDTH)
+            values_write(vcols, rng.integers(-1_000_000, 1_000_001, len(vcols)))
+        for k in range(40):  # small: these stay in the WAL
+            if k % 4 == 0:
+                bits_write(rng.integers(0, 4, 50), rng.integers(0, S * SHARD_WIDTH, 50))
+            elif k % 4 == 1:
+                vcols = np.unique(rng.integers(0, S * SHARD_WIDTH, 20))
+                values_write(vcols, rng.integers(-999, 1000, len(vcols)))
+            elif k % 4 == 2:
+                r, c = int(rng.integers(0, 4)), int(rng.integers(0, S * SHARD_WIDTH))
+                check(kq(http, f"Set({c}, f={r})") in ([True], [False]), "kill -9 Set")
+                acked.append((time.monotonic(), ("set", r, c)))
+            else:
+                w = acked[int(rng.integers(0, len(acked)))][1]
+                if w[0] == "bits":
+                    r, c = w[1][0], w[2][0]
+                    check(kq(http, f"Clear({c}, f={r})") in ([True], [False]), "kill -9 Clear")
+                    acked.append((time.monotonic(), ("clear", r, c)))
+        t_kill = time.monotonic()
+        os.kill(p.pid, signal.SIGKILL)
+        p.wait()
+        http.close()
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        p.stderr.close()
+    wal_bytes = sum(
+        os.path.getsize(os.path.join(r, n)) for r, _, ns in os.walk(d) for n in ns if n.endswith(".wal")
+    )
+    n_snaps = sum(n.endswith(".snap") for _, _, ns in os.walk(d) for n in ns)
+    check(wal_bytes > 0 and n_snaps > 0, f"kill -9: {n_snaps} snapshots and {wal_bytes} WAL bytes before the kill")
+
+    def expect(writes):
+        bits, values = set(), {}
+        for w in writes:
+            if w[0] == "bits":
+                bits |= set(zip(w[1], w[2]))
+            elif w[0] == "values":
+                values.update(zip(w[1], w[2]))
+            elif w[0] == "set":
+                bits.add((w[1], w[2]))
+            else:
+                bits.discard((w[1], w[2]))
+        return bits, values
+
+    t0 = time.perf_counter()
+    p, uri = _cli_server(d, sync_interval)
+    recovery_s = time.perf_counter() - t0
+    try:
+        http = _Http(uri)
+        got_bits, got_values = _kill_state(http, S, 21)
+        writes = [w for _, w in acked]
+        n_ok = len(writes)
+        while n_ok >= 0 and expect(writes[:n_ok]) != (got_bits, got_values):
+            n_ok -= 1
+        check(n_ok >= 0, "kill -9: the restarted node's state is no prefix of the acknowledged writes")
+        lost = len(writes) - n_ok
+        if sync_interval == 0:
+            check(lost == 0, f"kill -9: {lost} acknowledged writes lost in strict mode")
+        else:
+            early = [t for t, _ in acked[n_ok:] if t < t_kill - sync_interval]
+            check(not early, f"kill -9: {len(early)} writes acknowledged before the last sync interval were lost")
+        bits, values = expect(writes[:n_ok])
+        for r in range(4):
+            check(kq(http, f"Count(Row(f={r}))") == [sum(1 for b in bits if b[0] == r)], f"kill -9: Count(Row(f={r}))")
+        vals = list(values.values())
+        check(kq(http, "Sum(field=v)") == [{"value": int(sum(vals)), "count": len(vals)}], "kill -9: Sum(field=v)")
+        http.close()
+        p.send_signal(signal.SIGTERM)
+        rc = p.wait(timeout=60)
+        check(rc == 0, f"kill -9: the restarted CLI server exited {rc} on SIGTERM")
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        p.stderr.close()
+    shutil.rmtree(d, ignore_errors=True)
+    print(
+        f"durable: kill -9 (wal-sync-interval {sync_interval}): {len(acked)} acknowledged writes "
+        f"({len(bits)} bits, {len(values)} values), {n_snaps} snapshots and {wal_bytes} WAL bytes at the kill; "
+        f"restart {recovery_s:.2f} s; {lost} lost; every acknowledged bit and value read back"
+    )
+    return {"sync_interval": sync_interval, "acked": len(acked), "lost": lost, "recovery_s": recovery_s,
+            "wal_bytes": wal_bytes, "snapshots": n_snaps}
+
+
+def durable_path(args, st) -> dict:
+    """Phase 6 on the serve phase's stopped data dir: a second NodeServer
+    recovers it (timed to its first 200 on /status) and must give every
+    served answer again, byte for byte, through the six kernels; then
+    `inspect` and `check`; then kill -9 of CLI servers."""
+    import os
+    import shutil
+
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.server import NodeServer, wire
+
+    d = st["data_dir"]
+    torch.cuda.empty_cache()  # the first node is stopped: its memory goes back
+    dir_bytes = _dir_bytes(d)
+    n_files = sum(len(ns) for _, _, ns in os.walk(d))
+    print(f"durable: data dir {dir_bytes} bytes in {n_files} files")
+
+    # (a) recovery: construction to a 200 on /status
+    t0 = time.perf_counter()
+    srv = NodeServer(d, "smoke2", bind="127.0.0.1:0", max_writes_per_request=0).start()
+    http = _Http(srv.node.uri)
+    try:
+        status = http.json("GET", "/status")
+        recovery_s = time.perf_counter() - t0
+        check(status["state"] == "NORMAL", f"recovered node: /status {status}")
+        print(f"durable: recovery {recovery_s:.2f} s (NodeServer on {srv.holder.device} to a 200 on /status)")
+
+        # (b) the served query set, first pass, launches counted for it alone
+        torch.cuda.synchronize()
+        K.reset_launches()
+        first_ms = {}
+        for q in SERVE_QUERIES:
+            tq = time.perf_counter()
+            status, raw = http.raw("POST", "/index/s/query", q.encode(), "text/plain")
+            first_ms[q] = (time.perf_counter() - tq) * 1e3
+            check(status == 200, f"recovered {q}: HTTP {status}: {raw[:300]!r}")
+            check(raw == st["served"][q], f"recovered {q}: {raw[:300]!r}, before the restart {st['served'][q][:300]!r}")
+            check(json.loads(raw)["results"] == st["want"][q], f"recovered {q} differs from numpy")
+            print(f"durable: first pass {first_ms[q]:.1f} ms  {q}")
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        for name in SERVE_KERNELS:
+            check(launches[name] > 0, f"the recovered queries never launched {name}: {launches}")
+        for q in SERVE_QUERIES:
+            local = [wire.result_to_public_json(r) for r in srv.executor.execute("s", q)]
+            check(json.loads(st["served"][q])["results"] == local, f"recovered {q}: Executor.execute differs")
+        lat = {}
+        for q in SERVE_QUERIES:
+            body = q.encode()
+            served_ms = host_p50_ms(lambda: http.raw("POST", "/index/s/query", body, "text/plain"))
+            local_ms = host_p50_ms(lambda: srv.executor.execute("s", q))
+            lat[q] = {"served_ms": served_ms, "in_process_ms": local_ms}
+            print(f"durable p50 {served_ms:.3f} ms served, {local_ms:.3f} ms in process  {q}")
+        print(
+            f"durable: {len(SERVE_QUERIES)} recovered answers equal the pre-restart bodies and numpy; first pass "
+            f"{sum(first_ms.values()) / 1e3:.2f} s; launches {launches}"
+        )
+    finally:
+        http.close()
+        srv.stop()
+    torch.cuda.empty_cache()
+
+    # (c) the offline tools on the stopped dir
+    tools = {}
+    for cmd in (["inspect", d], ["check", d]):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "pilosa_tpu_torch.cli", *cmd], capture_output=True, text=True, timeout=900)
+        lines = out.stdout.splitlines()
+        check(out.returncode == 0, f"{cmd[0]}: exit {out.returncode}: {out.stderr[-2000:]}")
+        if cmd[0] == "check":
+            bad = [line for line in lines if "CORRUPT" in line]
+            check(not bad, f"check reports bad files: {bad[:5]}")
+        tools[cmd[0]] = {"s": time.perf_counter() - t0, "lines": len(lines)}
+        print(f"durable: {cmd[0]} exit 0, {len(lines)} lines in {tools[cmd[0]]['s']:.1f} s; last: {lines[-1] if lines else ''}")
+    shutil.rmtree(d, ignore_errors=True)
+
+    # (d) kill -9, strict and with a sync interval
+    kills = [kill9_check(args.seed, si) for si in (0.0, 0.2)]
+    return {
+        "recovery_s": recovery_s,
+        "first_pass_ms": first_ms,
+        "first_pass_s": sum(first_ms.values()) / 1e3,
+        "query_p50_ms": lat,
+        "launches": launches,
+        "data_dir_bytes": dir_bytes,
+        "data_dir_files": n_files,
+        "tools": tools,
+        "kill9": kills,
     }
 
 
@@ -1552,10 +1890,23 @@ def main() -> int:
     del holder, ex
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    serve = serve_path(args)
+    recovered, serve = serve_path(args)
     phase_s["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    durable = durable_path(args, recovered)
+    phase_s["durable"] = time.perf_counter() - t0
     for name, row in rows.items():
         row["launches_served"] = serve["launches"].get(name, 0)
+        row["launches_recovered"] = durable["launches"].get(name, 0)
+    ing = serve["ingest"]
+    print(
+        f"durable summary ({smi}): recovery {durable['recovery_s']:.2f} s, first pass {durable['first_pass_s']:.2f} s, "
+        f"warm served p50 {min(v['served_ms'] for v in durable['query_p50_ms'].values()):.3f}-"
+        f"{max(v['served_ms'] for v in durable['query_p50_ms'].values()):.3f} ms; durable ingest: import-roaring "
+        f"{ing['roaring_mib_per_s']:.2f} MiB/s, /import {ing['import_bits_per_s']:.0f} bits/s, import-value "
+        f"{ing['import_value_values_per_s']:.0f} values/s; data dir {durable['data_dir_bytes']} bytes; kill -9 lost "
+        + ", ".join(f"{k['lost']} (interval {k['sync_interval']})" for k in durable["kill9"])
+    )
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     print(smi)
@@ -1572,6 +1923,7 @@ def main() -> int:
         "ingest_s": ingest_s,
         "device_cache_bytes": resident,
         "serve": serve,
+        "durable": durable,
         "shards": args.shards,
         "build_s": build_s,
         "phase_s": phase_s,

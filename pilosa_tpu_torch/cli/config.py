@@ -2,11 +2,11 @@
 
 A copy of pilosa_tpu/cli/config.py (the reference's server/config.go:48-157
 TOML schema and cmd/root.go:94-131 precedence): flags > env (PILOSA_TPU_*)
-> TOML file > defaults. The port's `server` command serves one node in
-memory and refuses every knob whose feature is not ported yet when it is
-set away from its default here (pilosa_tpu_torch/cli/main.py). The TOML
-dump and the cluster-hosts parser come with the subcommands that use
-them."""
+> TOML file > defaults. The port's `server` command serves one node and
+refuses every knob whose feature is not ported yet when it is set away
+from its default here (pilosa_tpu_torch/cli/main.py). `config` dumps the
+effective TOML and `generate-config` the defaults, as the reference's
+do. The cluster-hosts parser comes with the cluster."""
 
 from __future__ import annotations
 
@@ -321,6 +321,54 @@ class Config:
             except AttributeError:
                 continue
 
+    # -- dump --------------------------------------------------------------
+
+    def to_toml(self) -> str:
+        out = []
+        flat = {
+            "data-dir": self.data_dir,
+            "bind": self.bind,
+            "node-id": self.node_id,
+            "log-path": self.log_path,
+            "verbose": self.verbose,
+            "long-query-time": self.long_query_time,
+            "max-writes-per-request": self.max_writes_per_request,
+            "import-concurrency": self.import_concurrency,
+        }
+        for k, v in flat.items():
+            out.append(f"{k} = {_toml_value(v)}")
+        for sect_name, sect in (
+            ("cluster", self.cluster),
+            ("sched", self.sched),
+            ("tenants", self.tenants),
+            ("hbm", self.hbm),
+            ("bsi", self.bsi),
+            ("ingest", self.ingest),
+            ("wal", self.wal),
+            ("mesh", self.mesh),
+            ("cache", self.cache),
+            ("coherence", self.coherence),
+            ("resize", self.resize),
+            ("tier", self.tier),
+            ("anti-entropy", self.anti_entropy),
+            ("metric", self.metric),
+            ("tracing", self.tracing),
+            ("telemetry", self.telemetry),
+            ("tls", self.tls),
+        ):
+            out.append(f"\n[{sect_name}]")
+            for f_ in dataclasses.fields(sect):
+                val = getattr(sect, f_.name)
+                if val is None:
+                    # TOML has no null: an unset knob (e.g. the AUTO
+                    # merge-device-threshold) is expressed by omission
+                    continue
+                out.append(
+                    f"{f_.name.replace('_', '-')} = {_toml_value(val)}"
+                )
+        return "\n".join(out) + "\n"
+
+
 
 def _coerce(current, value):
     if isinstance(current, bool):
@@ -336,3 +384,13 @@ def _coerce(current, value):
             return [x.strip() for x in value.split(",") if x.strip()]
         return list(value)
     return value
+
+
+def _toml_value(v) -> str:
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, (int, float)):
+        return str(v)
+    if isinstance(v, list):
+        return "[" + ", ".join(_toml_value(x) for x in v) + "]"
+    return f'"{v}"'

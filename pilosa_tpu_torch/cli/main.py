@@ -1,24 +1,33 @@
-"""CLI of the port: the `server` subcommand for one node.
+"""CLI of the port: server / import / export / inspect / check / config.
 
-    python -m pilosa_tpu_torch.cli server --data-dir '' --bind localhost:10101
+    python -m pilosa_tpu_torch.cli server --data-dir /tmp/p0 --bind localhost:10101
     python -m pilosa_tpu_torch.cli server --data-dir '' --device cpu
+    python -m pilosa_tpu_torch.cli inspect /tmp/p0
+    python -m pilosa_tpu_torch.cli check /tmp/p0
 
-The port's slice of pilosa_tpu/cli/main.py. It takes the reference's
-server flags, TOML file and PILOSA_TPU_* environment, and serves one node
-from memory on the CUDA card (`--device cpu` asks for the CPU). Every
-knob whose feature the port lacks (durable data dirs, clusters and
-`--join`, TLS, admission and tenants, HBM paging, the result cache,
-tiered storage, mesh groups, coherence, tracing, metrics) must stay at
-its default: a run that sets one exits non-zero naming it. The other
-subcommands exit non-zero as not yet ported.
+The port's slice of pilosa_tpu/cli/main.py. `server` takes the
+reference's flags, TOML file and PILOSA_TPU_* environment, and serves one
+node on the CUDA card (`--device cpu` asks for the CPU) from its data
+dir (the default `~/.pilosa-tpu`; an empty one serves from memory), with
+`--wal-sync-interval` as the group commit's cadence. Every knob whose
+feature the port lacks (clusters and `--join`, TLS, admission and
+tenants, HBM paging, the result cache, tiered storage, mesh groups,
+coherence, tracing, metrics) must stay at its default: a run that sets
+one exits non-zero naming it. `import` and `export` talk to a server over
+HTTP; `inspect` opens a data dir and `check` reads its files offline;
+`config` and `generate-config` print TOML. Each prints what the
+reference's does.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import signal
 import sys
 import threading
+import urllib.request
 from typing import List, Optional
 
 from pilosa_tpu_torch.cli.config import Config
@@ -95,13 +104,18 @@ _FLAG_KNOBS = {
     "tls_ca_certificate": ("tls", "ca_certificate"),
 }
 
-# the knobs a one-node in-memory server honours (data_dir only when empty)
-_PORTED_KNOBS = {"data_dir", "bind", "node_id", "log_path", "max_writes_per_request"}
+# the (section, knob)s a one-node server honours
+_PORTED_KNOBS = {
+    (None, "data_dir"),
+    (None, "bind"),
+    (None, "node_id"),
+    (None, "log_path"),
+    (None, "max_writes_per_request"),
+    ("wal", "sync_interval"),
+}
 
 # flags taking a list (the reference's nargs="*" flags)
 _LIST_FLAGS = {"tenants_overrides", "tier_overrides"}
-
-_OTHER_COMMANDS = ("import", "export", "inspect", "check", "config", "generate-config")
 
 
 def _bool_flag(v: str) -> bool:
@@ -148,8 +162,36 @@ def _build_parser() -> argparse.ArgumentParser:
             sp.add_argument(flag, type=float if isinstance(default, float) else int)
         else:
             sp.add_argument(flag)
-    for name in _OTHER_COMMANDS:
-        sub.add_parser(name, help="not yet ported")
+
+    ip = sub.add_parser("import", help="bulk-import CSV rows (row,col[,ts])")
+    ip.add_argument("--host", default="http://localhost:10101")
+    ip.add_argument("--index", "-i", required=True)
+    ip.add_argument("--field", "-f", required=True)
+    ip.add_argument("--batch-size", type=int, default=100_000)
+    ip.add_argument("--clear", action="store_true")
+    ip.add_argument("--create", action="store_true", help="create index/field")
+    ip.add_argument("--field-type", default="set")
+    ip.add_argument("--field-keys", action="store_true")
+    ip.add_argument("--index-keys", action="store_true")
+    ip.add_argument("paths", nargs="*", help="CSV files ('-' or empty = stdin)")
+
+    ep = sub.add_parser("export", help="export a field as CSV")
+    ep.add_argument("--host", default="http://localhost:10101")
+    ep.add_argument("--index", "-i", required=True)
+    ep.add_argument("--field", "-f", required=True)
+    ep.add_argument("--output", "-o", help="output path (default stdout)")
+
+    np_ = sub.add_parser("inspect", help="dump fragment info from a data dir")
+    np_.add_argument("data_dir")
+    np_.add_argument("--index")
+    np_.add_argument("--field")
+    np_.add_argument("--device", help="torch device the holder opens on (default: the CUDA card)")
+
+    cp = sub.add_parser("check", help="offline integrity check of data files")
+    cp.add_argument("paths", nargs="+", help=".snap / .wal files or data dirs")
+
+    sub.add_parser("config", help="print the effective configuration")
+    sub.add_parser("generate-config", help="print default configuration")
     return p
 
 
@@ -172,7 +214,7 @@ def _unported_settings(cfg: Config, join: Optional[str]) -> List[str]:
     out = []
     defaults = Config()
     for dest, (section, knob) in _FLAG_KNOBS.items():
-        if knob in _PORTED_KNOBS and section is None:
+        if (section, knob) in _PORTED_KNOBS:
             continue
         if _knob(cfg, section, knob) != _knob(defaults, section, knob):
             out.append(f"--{dest.replace('_', '-')}")
@@ -185,16 +227,11 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None) -
     """Serve until SIGINT or SIGTERM, then stop the node and return."""
     from pilosa_tpu_torch.server.node import NodeServer
 
-    if cfg.data_dir:
-        raise SystemExit(
-            f"pilosa_tpu_torch server: --data-dir {cfg.data_dir!r}: durable storage is not "
-            "yet ported; pass --data-dir '' to serve from memory"
-        )
     unported = _unported_settings(cfg, join)
     if unported:
         raise SystemExit(
             f"pilosa_tpu_torch server: {', '.join(unported)}: not yet ported (the port serves "
-            "one node from memory); leave these options at their defaults"
+            "one node); leave these options at their defaults"
         )
     log_stream = open(cfg.log_path, "a") if cfg.log_path else sys.stderr
 
@@ -203,11 +240,12 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None) -
 
     try:
         srv = NodeServer(
-            None,
+            cfg.data_dir,
             cfg.node_id or cfg.bind.replace(":", "-"),
             bind=cfg.bind,
             device=device,
             max_writes_per_request=cfg.max_writes_per_request,
+            wal_sync_interval=cfg.wal.sync_interval,
             logger=logger,
         )
     except RuntimeError as e:  # no CUDA device and no --device cpu
@@ -231,6 +269,169 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None) -
             log_stream.close()
 
 
+def _iter_csv_rows(paths: List[str]):
+    files = paths or ["-"]
+    for path in files:
+        fh = sys.stdin if path == "-" else open(path)
+        try:
+            for line in fh:
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                parts = line.split(",")
+                if len(parts) < 2:
+                    raise ValueError(f"bad csv line: {line!r}")
+                yield parts[0], parts[1], (parts[2] if len(parts) > 2 else None)
+        finally:
+            if path != "-":
+                fh.close()
+
+
+def _post_json(url: str, body: dict) -> dict:
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json"},
+    )
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        raw = resp.read()
+    return json.loads(raw) if raw else {}
+
+
+def cmd_import(args) -> int:
+    def maybe_int(s):
+        try:
+            return int(s)
+        except ValueError:
+            return s  # string key
+
+    if args.create:
+        _post_json(
+            f"{args.host}/index/{args.index}",
+            {"options": {"keys": args.index_keys}},
+        )
+        _post_json(
+            f"{args.host}/index/{args.index}/field/{args.field}",
+            {"options": {"type": args.field_type, "keys": args.field_keys}},
+        )
+    batch_rows, batch_cols, batch_ts, n = [], [], [], 0
+    is_value = args.field_type == "int"
+
+    def flush():
+        nonlocal batch_rows, batch_cols, batch_ts
+        if not batch_cols:
+            return
+        if is_value:
+            _post_json(
+                f"{args.host}/index/{args.index}/field/{args.field}/import-value",
+                {"cols": batch_cols, "values": [int(r) for r in batch_rows]},
+            )
+        else:
+            body = {"rows": batch_rows, "cols": batch_cols}
+            if any(t is not None for t in batch_ts):
+                body["timestamps"] = batch_ts
+            if args.clear:
+                body["clear"] = True
+            _post_json(
+                f"{args.host}/index/{args.index}/field/{args.field}/import", body
+            )
+        batch_rows, batch_cols, batch_ts = [], [], []
+
+    for row, col, ts in _iter_csv_rows(args.paths):
+        batch_rows.append(maybe_int(row))
+        batch_cols.append(maybe_int(col))
+        batch_ts.append(ts)
+        n += 1
+        if len(batch_cols) >= args.batch_size:
+            flush()
+    flush()
+    print(f"imported {n} records", file=sys.stderr)
+    return 0
+
+
+def cmd_export(args) -> int:
+    url = f"{args.host}/export?index={args.index}&field={args.field}"
+    with urllib.request.urlopen(url, timeout=120) as resp:
+        data = resp.read()
+    if args.output:
+        with open(args.output, "wb") as f:
+            f.write(data)
+    else:
+        sys.stdout.write(data.decode())
+    return 0
+
+
+def cmd_inspect(args) -> int:
+    from pilosa_tpu_torch.core.holder import Holder
+
+    h = Holder(args.data_dir, device=args.device).open()
+    try:
+        for idx in h.indexes():
+            if args.index and idx.name != args.index:
+                continue
+            for f in idx.fields(include_hidden=True):
+                if args.field and f.name != args.field:
+                    continue
+                for vname, v in f.views.items():
+                    for shard in sorted(v.fragments):
+                        frag = v.fragments[shard]
+                        rows, _ = frag.pairs()
+                        n_rows = len(frag.row_ids())
+                        print(
+                            f"{idx.name}/{f.name}/{vname}/shard={shard}: "
+                            f"rows={n_rows} bits={len(rows)} op_n={frag._op_n}"
+                        )
+    finally:
+        h.close()
+    return 0
+
+
+def cmd_check(paths: List[str]) -> int:
+    """Offline integrity check (reference: ctl/check.go:47-133): exit 1
+    if any file is corrupt."""
+    from pilosa_tpu_torch.core import wal as walmod
+
+    failed = 0
+    todo: List[str] = []
+    for p in paths:
+        if os.path.isdir(p):
+            for root, _, files in os.walk(p):
+                todo.extend(
+                    os.path.join(root, fn)
+                    for fn in files
+                    if fn.endswith((".snap", ".wal", ".bitmap", ".roaring"))
+                )
+        else:
+            todo.append(p)
+    for p in todo:
+        try:
+            if p.endswith(".snap"):
+                shard, n_bits, rows = walmod.read_snapshot(p)
+                total = sum(rb.count() for rb in rows.values())
+                print(f"{p}: ok shard={shard} rows={len(rows)} bits={total}")
+            elif p.endswith(".wal"):
+                n_ops, status, detail = walmod.check_wal(p)
+                if status == "corrupt":
+                    raise ValueError(f"{detail} (after {n_ops} valid ops)")
+                note = f" ({detail}, discarded on replay)" if status == "torn" else ""
+                print(f"{p}: ok ops={n_ops}{note}")
+            elif p.endswith((".bitmap", ".roaring")):
+                # reference-format roaring files (ctl/check.go checks .bitmap)
+                from pilosa_tpu_torch.core import roaring_io
+
+                with open(p, "rb") as fh:
+                    info = roaring_io.inspect(fh.read())
+                print(
+                    f"{p}: ok dialect={info['dialect']} bits={info['bit_count']} "
+                    f"max={info['max_position']}"
+                )
+            else:
+                print(f"{p}: skipped (unknown extension)")
+        except Exception as e:
+            print(f"{p}: CORRUPT: {e}")
+            failed += 1
+    return 1 if failed else 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = _build_parser()
     args = parser.parse_args(argv)
@@ -240,8 +441,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.command == "server":
         cmd_server(_load_config(args), args.device, join=args.join)
         return 0
-    print(f"pilosa_tpu_torch {args.command}: not yet ported", file=sys.stderr)
-    return 2
+    if args.command == "import":
+        return cmd_import(args)
+    if args.command == "export":
+        return cmd_export(args)
+    if args.command == "inspect":
+        return cmd_inspect(args)
+    if args.command == "check":
+        return cmd_check(args.paths)
+    if args.command == "config":
+        sys.stdout.write(_load_config(args).to_toml())
+        return 0
+    sys.stdout.write(Config().to_toml())  # generate-config
+    return 0
 
 
 if __name__ == "__main__":

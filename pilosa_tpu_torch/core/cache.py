@@ -2,8 +2,9 @@
 
 Reference: cache.go — `ranked` (sorted bitmapPairs, bounded at cacheSize,
 recalculated after a threshold of updates, cache.go:136-300), `lru`
-(groupcache fork, cache.go:58-130), `none`. The port's copy keeps them in
-memory only.
+(groupcache fork, cache.go:58-130), `none`; a durable fragment keeps
+its cache in a `.cache` sidecar of the reference's format
+(`write_cache`/`read_cache`).
 
 TPU-first shift: the reference's caches hold *approximate* counts refreshed
 from fragment scans. Here row cardinalities are already exact host metadata
@@ -16,6 +17,8 @@ tallies only the cache's candidate rows on device.
 
 from __future__ import annotations
 
+import os
+import struct
 from typing import Dict, List, Optional, Tuple
 
 CACHE_TYPE_RANKED = "ranked"
@@ -28,6 +31,8 @@ DEFAULT_CACHE_SIZE = 50_000  # reference: field.go:48 DefaultCacheSize
 # (reference: cache.go thresholdFactor)
 _RECALC_FACTOR = 0.1
 
+# sidecar magic; the byte after it is the pruned flag
+_MAGIC = b"PTCACHE2"
 
 
 class RankCache:
@@ -193,3 +198,40 @@ def make_cache(cache_type: str, size: int = DEFAULT_CACHE_SIZE):
     if cache_type == CACHE_TYPE_NONE:
         return NoCache()
     raise ValueError(f"unknown cache type: {cache_type!r}")
+
+
+# -- persistence (.cache sidecar; reference cache.go:291 WriteTo) -----------
+
+
+def write_cache(path: str, cache) -> None:
+    """Write the cache's (row, count) pairs in rank order with its pruned
+    flag: a pruned cache reloaded as complete would answer 0 for the rows
+    it dropped."""
+    pairs = cache.top()
+    tmp = path + ".temp"
+    with open(tmp, "wb") as f:
+        f.write(_MAGIC)
+        f.write(struct.pack("<BI", 1 if cache.pruned else 0, len(pairs)))
+        for row_id, count in pairs:
+            f.write(struct.pack("<QQ", row_id, count))
+    os.replace(tmp, path)
+
+
+def read_cache(path: str, cache) -> bool:
+    """Load a sidecar into `cache`; False if it is absent or unreadable
+    (the caller then rebuilds from exact counts)."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return False
+    if len(data) < 13 or data[:8] != _MAGIC:
+        return False
+    pruned, n = struct.unpack_from("<BI", data, 8)
+    if len(data) < 13 + 16 * n:
+        return False
+    cache.clear()
+    cache.bulk_add(struct.iter_unpack("<QQ", data[13 : 13 + 16 * n]))
+    if pruned:
+        cache.pruned = True
+    return True

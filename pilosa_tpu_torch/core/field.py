@@ -1,8 +1,10 @@
 """Field: typed container of views.
 
-The port of pilosa_tpu/core/field.py for set, mutex and int (BSI) fields,
-in memory. Time and bool fields come in later slices and raise at
-creation.
+The port of pilosa_tpu/core/field.py for set, mutex and int (BSI) fields.
+Time and bool fields come in later slices and raise at creation. A
+durable field keeps its options in `<path>/.meta.json` (the reference's
+`asdict(FieldOptions)`, rewritten when an int field's bit depth grows)
+and its views under `<path>/views/<view>`.
 
 An int field stores `value - base` in sign + magnitude bit planes in its
 BSI view (`bsig_<name>`): row 0 marks columns that hold a value, row 1
@@ -11,9 +13,11 @@ the sign, rows 2.. the magnitude bits (core/fragment.py BSI_*_BIT).
 
 from __future__ import annotations
 
+import json
+import os
 import re
 import threading
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import Dict, Optional, Set, Tuple
 
 import numpy as np
@@ -25,6 +29,7 @@ from pilosa_tpu_torch.core.cache import (
     CACHE_TYPE_RANKED,
     DEFAULT_CACHE_SIZE,
 )
+from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core.devcache import DeviceCache
 from pilosa_tpu_torch.core.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXPONENT
@@ -87,6 +92,7 @@ class Field:
         *,
         device: torch.device,
         dcache: DeviceCache,
+        path: Optional[str] = None,
     ):
         # leading-underscore names are the index's internal fields (_exists)
         if not name.startswith("_"):
@@ -103,6 +109,7 @@ class Field:
             raise ValueError(f"invalid cache type {options.cache_type!r}")
         if options.type == FIELD_TYPE_INT:
             _init_int_options(options)
+        self.path = path  # None: in memory
         self.index = index
         self.name = name
         self.options = options
@@ -110,6 +117,50 @@ class Field:
         self.dcache = dcache
         self._mu = threading.RLock()
         self.views: Dict[str, View] = {}
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+
+    @property
+    def meta_path(self) -> Optional[str]:
+        return None if self.path is None else os.path.join(self.path, ".meta.json")
+
+    @staticmethod
+    def load_options(path: str) -> FieldOptions:
+        """The options a field directory's .meta.json holds."""
+        with open(os.path.join(path, ".meta.json")) as f:
+            return FieldOptions(**json.load(f))
+
+    def open(self) -> "Field":
+        """Write .meta.json if it is missing, then open every view under
+        views/. Anything the port cannot serve yet (row attributes, time
+        views) raises NotImplementedError naming it."""
+        if self.path is None:
+            return self
+        os.makedirs(self.path, exist_ok=True)
+        for fn in (".row_attrs.json", ".row_attrs.json.log"):
+            if os.path.exists(os.path.join(self.path, fn)):
+                raise NotImplementedError(f"{os.path.join(self.path, fn)}: not yet ported")
+        if not os.path.exists(self.meta_path):
+            self.save_meta()
+        views_dir = os.path.join(self.path, "views")
+        if os.path.isdir(views_dir):
+            for vname in sorted(os.listdir(views_dir)):
+                if vname not in (VIEW_STANDARD, self.bsi_view_name()):
+                    raise NotImplementedError(
+                        f"{os.path.join(views_dir, vname)}: view {vname!r} (time views are not yet ported)"
+                    )
+                self._view_create(vname)
+        return self
+
+    def save_meta(self) -> None:
+        if self.path is None:
+            return
+        tmp = self.meta_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(asdict(self.options), f)
+        os.replace(tmp, self.meta_path)
 
     def _view_create(self, name: str) -> View:
         with self._mu:
@@ -129,7 +180,8 @@ class Field:
                         else self.options.cache_type
                     ),
                     cache_size=self.options.cache_size,
-                )
+                    path=None if self.path is None else os.path.join(self.path, "views", name),
+                ).open()
                 self.views[name] = v
             return v
 
@@ -137,7 +189,7 @@ class Field:
         return self.views.get(name)
 
     def close(self) -> None:
-        """Drop every device tensor the field's views and fragments cached."""
+        """Close every view: WALs and cache sidecars, device tensors."""
         with self._mu:
             for v in self.views.values():
                 v.close()
@@ -186,6 +238,7 @@ class Field:
         if required > self.options.bit_depth:
             with self._mu:
                 self.options.bit_depth = max(self.options.bit_depth, required)
+                self.save_meta()
 
     def set_value(self, col: int, value: int) -> bool:
         """Write one int value (the BSI view), growing the bit depth when
@@ -216,8 +269,9 @@ class Field:
         base_values = values - self.options.base
         self._grow_bit_depth(int(np.abs(base_values).max()))
         v = self._view_create(self.bsi_view_name())
-        for shard, m in group_slices(cols // np.uint64(SHARD_WIDTH)):
-            v.fragment(int(shard)).import_values(cols[m], base_values[m], self.options.bit_depth)
+        with walmod.GROUP_COMMIT.barrier():  # one group commit for every shard
+            for shard, m in group_slices(cols // np.uint64(SHARD_WIDTH)):
+                v.fragment(int(shard)).import_values(cols[m], base_values[m], self.options.bit_depth)
 
     def import_bits(self, row_ids: np.ndarray, cols: np.ndarray, clear: bool = False) -> None:
         """Bulk import grouped by shard. Set-field SET imports take the
@@ -234,8 +288,9 @@ class Field:
             )
             std.stage_bulk(shards, positions)
             return
-        for shard, sl in group_slices(shards):
-            std.fragment(int(shard)).bulk_import(row_ids[sl], cols[sl], clear=clear)
+        with walmod.GROUP_COMMIT.barrier():  # one group commit for every shard
+            for shard, sl in group_slices(shards):
+                std.fragment(int(shard)).bulk_import(row_ids[sl], cols[sl], clear=clear)
 
     def import_row_words(self, row_id: int, shard: int, words: np.ndarray) -> int:
         """Word-level bulk union of one row of one shard (standard view).

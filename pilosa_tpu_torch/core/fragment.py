@@ -1,24 +1,34 @@
 """Fragment: one (index, field, view, shard) slab of bits.
 
-The port of pilosa_tpu/core/fragment.py, in memory only. The host store
-keeps each row as sparse positions or dense words (core/rowstore.py), the
-mutex vector for mutex fields, and the exact rank cache that unfiltered
-TopN reads. Device copies of rows live in the holder's DeviceCache and are
-dropped on mutation. Staged ingest (`stage_positions`) appends positions
-to a pending buffer that every host read merges first (`_sync_locked`).
+The port of pilosa_tpu/core/fragment.py. The host store keeps each row
+as sparse positions or dense words (core/rowstore.py), the mutex vector
+for mutex fields, and the exact rank cache that unfiltered TopN reads.
+Device copies of rows live in the holder's DeviceCache and are dropped on
+mutation. Staged ingest (`stage_positions`) appends positions to a
+pending buffer that every host read merges first (`_sync_locked`).
+
+A fragment with a `path` is durable, in the reference's on-disk format
+(core/wal.py): `<path>.snap` holds a snapshot, `<path>.wal` every write
+since, `<path>.cache` the rank cache. Every mutation funnel logs its
+records before it applies them, and waits for the group commit after it
+has released the fragment lock, so no reader waits on an fsync. Past
+`max_op_n` changed bits a write snapshots and truncates the WAL. `open`
+indexes the snapshot's rows and reads each on demand (`_LazyRows`), then
+replays the WAL.
 
 Int (BSI) fragments keep sign + magnitude bit planes as ordinary rows
 (BSI_EXISTS_BIT, BSI_SIGN_BIT, then BSI_OFFSET_BIT + i for magnitude bit
 i); writes and point reads are host work here, and the aggregates run on
-the stacked path (exec/bsistream.py, plan range nodes). Not ported: the
-WAL, snapshots, transfer capture and the per-fragment BSI aggregates,
-which raise.
+the stacked path (exec/bsistream.py, plan range nodes). Not ported:
+transfer capture and the per-fragment BSI aggregates, which raise.
 
 Position convention: pos = row_id * SHARD_WIDTH + (col % SHARD_WIDTH).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import threading
 from itertools import repeat
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -27,12 +37,17 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.core import cache as cachemod
+from pilosa_tpu_torch.core import rowstore
+from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core.devcache import DeviceCache, new_owner_token
 from pilosa_tpu_torch.core.rowstore import RowBits
 from pilosa_tpu_torch.ops import bitmap as ob
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 from pilosa_tpu_torch.utils.arrays import group_slices
+
+# changed bits between snapshots (the reference's fragment.go:84 MaxOpN)
+DEFAULT_MAX_OP_N = 10_000
 
 # BSI plane rows
 BSI_EXISTS_BIT = 0
@@ -63,6 +78,124 @@ def _unique(a: np.ndarray) -> np.ndarray:
     return a[keep]
 
 
+class _LazyRows:
+    """Row store over a snapshot file: rows are indexed from the file's
+    headers at open and read on demand. Rows a write touched live in
+    `_mat` and take precedence. Reads go through `peek`, which builds a
+    row from the file without keeping it, so staging the rows of a
+    reopened fragment onto the device does not double the host's memory
+    (the page cache keeps repeated reads cheap). Writes go through
+    `get`/`[]`, which keep the row in `_mat`. No fd is held between reads.
+    After `snapshot()` rewrites the file, `rebase` re-indexes it."""
+
+    __slots__ = ("n_bits", "path", "_mat", "_index", "_bulk_f")
+
+    def __init__(self, path: str, expect_n_bits: int):
+        _, n_bits, index = walmod.read_snapshot_index(path)
+        if n_bits != expect_n_bits:
+            raise ValueError(f"{path}: snapshot width {n_bits} != configured SHARD_WIDTH {expect_n_bits}")
+        self.n_bits = n_bits
+        self.path = path
+        self._mat: Dict[int, RowBits] = {}
+        self._index = index
+        self._bulk_f = None  # one fd shared over a bulk() scan
+
+    @contextlib.contextmanager
+    def bulk(self):
+        """Hold one fd across a scan of many rows (snapshot writes, cache
+        rebuilds)."""
+        if self._bulk_f is not None:
+            yield
+            return
+        with open(self.path, "rb") as f:
+            self._bulk_f = f
+            try:
+                yield
+            finally:
+                self._bulk_f = None
+
+    def _read_payload(self, off: int, n: int) -> np.ndarray:
+        f = self._bulk_f
+        if f is not None:
+            f.seek(off)
+            data = f.read(n * 4)
+        else:
+            with open(self.path, "rb") as f2:
+                f2.seek(off)
+                data = f2.read(n * 4)
+        if len(data) != n * 4:
+            raise ValueError(f"{self.path}: truncated payload at {off}")
+        return np.frombuffer(data, dtype="<u4")
+
+    def peek(self, row_id: int) -> Optional[RowBits]:
+        """The row for a read, not kept (None if absent)."""
+        rb = self._mat.get(row_id)
+        if rb is None:
+            meta = self._index.get(row_id)
+            if meta is None:
+                return None
+            rep, off, n = meta
+            rb = RowBits.from_payload(self.n_bits, rep, self._read_payload(off, n))
+        return rb
+
+    def __getitem__(self, row_id: int) -> RowBits:
+        rb = self._mat.get(row_id)
+        if rb is None:
+            rb = self.peek(row_id)
+            if rb is None:
+                raise KeyError(row_id)
+            self._mat[row_id] = rb
+        return rb
+
+    def get(self, row_id: int, default=None):
+        if row_id in self._mat or row_id in self._index:
+            return self[row_id]
+        return default
+
+    def __setitem__(self, row_id: int, rb: RowBits) -> None:
+        self._mat[row_id] = rb
+
+    def keys(self):
+        return self._mat.keys() | self._index.keys()
+
+    def __iter__(self):
+        return iter(self.keys())
+
+    def __len__(self) -> int:
+        return len(self.keys())
+
+    def __bool__(self) -> bool:
+        return bool(self._mat) or bool(self._index)
+
+    def count_of(self, row_id: int) -> int:
+        """A row's cardinality without materializing it: an array row's
+        from its header, a dense row's by popcount of its payload."""
+        rb = self._mat.get(row_id)
+        if rb is not None:
+            return rb.count()
+        meta = self._index.get(row_id)
+        if meta is None:
+            return 0
+        rep, off, n = meta
+        if rep == rowstore.ARRAY_REP:
+            return n
+        return rowstore._popcount_words(self._read_payload(off, n))
+
+    def rep_payload(self, row_id: int) -> Tuple[int, np.ndarray]:
+        """(rep, payload) for a snapshot write, without materializing."""
+        rb = self._mat.get(row_id)
+        if rb is not None:
+            return rb.rep(), rb.payload()
+        rep, off, n = self._index[row_id]
+        return rep, self._read_payload(off, n)
+
+    def rebase(self, path: str) -> None:
+        """Point unmaterialized rows at a freshly written snapshot (rows in
+        `_mat` are what was just written, so they stay)."""
+        self.path = path
+        _, _, self._index = walmod.read_snapshot_index(path)
+
+
 class Fragment:
     """One shard of one view of one field. A re-entrant lock guards the
     host structures."""
@@ -79,7 +212,11 @@ class Fragment:
         mutex: bool = False,
         cache_type: str = cachemod.CACHE_TYPE_RANKED,
         cache_size: int = cachemod.DEFAULT_CACHE_SIZE,
+        path: Optional[str] = None,
+        max_op_n: int = DEFAULT_MAX_OP_N,
     ):
+        self.path = path  # None: in memory
+        self.max_op_n = max_op_n
         self.index = index
         self.field = field
         self.view = view
@@ -103,6 +240,154 @@ class Fragment:
         self._mutex_map: Optional[Dict[int, int]] = {} if mutex else None
         # owner hook fired after any mutation (the View drops its stacks)
         self.on_mutate = None
+        self._wal: Optional[walmod.WalWriter] = None
+        self._op_n = 0  # changed bits since the last snapshot
+
+    # ------------------------------------------------------------------
+    # lifecycle
+    # ------------------------------------------------------------------
+
+    @property
+    def snap_path(self) -> Optional[str]:
+        return None if self.path is None else self.path + ".snap"
+
+    @property
+    def wal_path(self) -> Optional[str]:
+        return None if self.path is None else self.path + ".wal"
+
+    @property
+    def cache_path(self) -> Optional[str]:
+        return None if self.path is None else self.path + ".cache"
+
+    def open(self) -> "Fragment":
+        """Load a durable fragment: index its snapshot (mutex fragments
+        load it whole, since the mutex vector needs every bit), replay the
+        WAL in order, then rebuild the mutex vector and the rank cache.
+        Replay keeps the reference's order: staged sets go back into the
+        pending buffer, a clear first merges the pending prefix, a row's
+        words commute with staged sets, and open ends with one merge. The
+        cache sidecar is trusted only when nothing was replayed."""
+        with self._mu:
+            if self.path is None or self._wal is not None:
+                return self
+            os.makedirs(os.path.dirname(self.path), exist_ok=True)
+            if os.path.exists(self.snap_path):
+                if self._mutex_map is None:
+                    self._rows = _LazyRows(self.snap_path, SHARD_WIDTH)
+                else:
+                    _, n_bits, rows = walmod.read_snapshot(self.snap_path)
+                    if n_bits != SHARD_WIDTH:
+                        raise ValueError(
+                            f"{self.snap_path}: snapshot width {n_bits} != configured SHARD_WIDTH {SHARD_WIDTH}"
+                        )
+                    self._rows = rows
+            replayed = 0
+            for op, positions in walmod.replay_wal(self.wal_path):
+                if op == walmod.OP_ROW_WORDS:
+                    self._apply_row_words(int(positions[0]), np.ascontiguousarray(positions[1:]).view(np.uint32))
+                elif op == walmod.OP_SET and self._mutex_map is None:
+                    self._pending.append(positions)
+                    self._pending_n += len(positions)
+                    self.version += 1
+                else:
+                    self._sync_locked()
+                    empty = np.empty(0, np.uint64)
+                    self._apply_positions(
+                        positions if op == walmod.OP_SET else empty,
+                        positions if op == walmod.OP_CLEAR else empty,
+                    )
+                self._op_n += len(positions)
+                replayed += 1
+            self._sync_locked()
+            self._wal = walmod.WalWriter(self.wal_path)
+            if self._mutex_map is not None:
+                self._mutex_map = {}
+                for row_id, rb in self._rows.items():
+                    self._mutex_map.update(zip(rb.to_positions().tolist(), repeat(row_id)))
+            if self.cache.cache_type != cachemod.CACHE_TYPE_NONE:
+                loaded = replayed == 0 and cachemod.read_cache(self.cache_path, self.cache)
+                if not loaded and self._rows:
+                    self.recalculate_cache()
+            return self
+
+    def close(self) -> None:
+        """Close the WAL, write the cache sidecar and drop the fragment's
+        device entries."""
+        with self._mu:
+            if self._wal is not None:
+                self._wal.close()
+                self._wal = None
+            self.flush_cache()
+            self.dcache.invalidate_owners((self._token, self._stack_token))
+
+    def flush_cache(self) -> None:
+        """Write the rank cache's sidecar (the reference's flush ticker,
+        holder.go:506)."""
+        if self.cache_path is None or self.cache.cache_type == cachemod.CACHE_TYPE_NONE:
+            return
+        with self._mu:
+            self._sync_locked()
+            cachemod.write_cache(self.cache_path, self.cache)
+
+    def recalculate_cache(self) -> None:
+        """Rebuild the rank cache from exact row counts (a lazy store
+        counts from its headers and payloads without materializing)."""
+        with self._mu:
+            self._sync_locked()
+            self.cache.clear()
+            count_of = getattr(self._rows, "count_of", None)
+            if count_of is None:
+                self.cache.bulk_add((rid, rb.count()) for rid, rb in self._rows.items())
+                return
+            with self._bulk():
+                self.cache.bulk_add((rid, count_of(rid)) for rid in self._rows)
+
+    def snapshot(self) -> None:
+        """Write a full snapshot, then the cache sidecar, then truncate the
+        WAL (the reference's order, fragment.go:2337: a crash before the
+        truncate replays the WAL over the new snapshot, and a replayed
+        WAL means the sidecar is not trusted). An in-memory fragment has
+        nothing to write."""
+        with self._mu:
+            if self._wal is None:
+                return
+            self._sync_locked()  # truncate() drops the pending records
+            walmod.write_snapshot(self.snap_path, self.shard, SHARD_WIDTH, self._rows)
+            if isinstance(self._rows, _LazyRows):
+                self._rows.rebase(self.snap_path)
+            self.flush_cache()
+            walmod.fault_point("snapshot.pre_truncate", self.snap_path)
+            self._wal.truncate()
+            self._op_n = 0
+
+    def _bulk(self):
+        """A context holding a lazy store's snapshot file open across many
+        row reads (a no-op for an in-memory store)."""
+        bulk = getattr(self._rows, "bulk", None)
+        return bulk() if bulk is not None else contextlib.nullcontext()
+
+    def _peek(self, row_id: int) -> Optional[RowBits]:
+        """A row for a read; a lazy store does not keep it."""
+        peek = getattr(self._rows, "peek", None)
+        return peek(row_id) if peek is not None else self._rows.get(row_id)
+
+    def _log(self, records) -> Optional[int]:
+        """Append write records to the WAL (under _mu): the commit token
+        to wait on once the lock is released, or None."""
+        return self._wal.append_many(records) if self._wal is not None else None
+
+    def _after_write(self, n_changed: int, tok: Optional[int]) -> Optional[int]:
+        """Count a durable fragment's changed bits (under _mu) and
+        snapshot past max_op_n; a snapshot is fsynced, so it leaves
+        nothing to wait for. In memory, staged writes stay deferred to
+        the next read barrier."""
+        if self._wal is None:
+            return tok
+        self._op_n += n_changed
+        if self._op_n > self.max_op_n:
+            self.snapshot()
+            return None
+        return tok
 
     # ------------------------------------------------------------------
     # reads (host metadata)
@@ -112,25 +397,30 @@ class Fragment:
         """Host dense uint32 words for one row (zeros if absent)."""
         with self._mu:
             self._sync_locked()
-            rb = self._rows.get(row_id)
+            rb = self._peek(row_id)
             return rb.to_words() if rb is not None else ob.empty_row()
 
     def row_positions(self, row_id: int) -> np.ndarray:
         with self._mu:
             self._sync_locked()
-            rb = self._rows.get(row_id)
+            rb = self._peek(row_id)
             return rb.to_positions() if rb is not None else np.empty(0, np.uint32)
+
+    def row_ids(self) -> List[int]:
+        with self._mu:
+            self._sync_locked()
+            return sorted(self._rows)
 
     def rows_sparse_concat(self, row_ids) -> Tuple[np.ndarray, np.ndarray]:
         """One-lock bulk sparse read for the TopN tally: concatenated
         sorted bit positions of the listed rows plus per-row lengths;
         length -1 marks a dense-rep row (routed through the plane path)."""
-        with self._mu:
+        with self._mu, self._bulk():
             self._sync_locked()
             parts = []
             lens = np.empty(len(row_ids), np.int64)
             for i, rid in enumerate(row_ids):
-                rb = self._rows.get(rid)
+                rb = self._peek(rid)
                 if rb is None:
                     lens[i] = 0
                 elif rb.dense is not None:
@@ -143,30 +433,36 @@ class Fragment:
             cat = np.concatenate(parts) if parts else np.empty(0, np.uint32)
             return cat, lens
 
+    def rows_words(self, row_ids) -> np.ndarray:
+        """Host uint32[k, W] words of the listed rows (zeros where absent),
+        read under one lock and, from a snapshot, one open file."""
+        out = np.zeros((len(row_ids), WORDS_PER_ROW), np.uint32)
+        with self._mu, self._bulk():
+            self._sync_locked()
+            for i, rid in enumerate(row_ids):
+                rb = self._peek(rid)
+                if rb is not None:
+                    out[i] = rb.to_words()
+        return out
+
     def rows_device(self, row_ids: Iterable[int]) -> torch.Tensor:
         """Stacked int32[k, W] device matrix for the given rows (one
         cached entry, one transfer)."""
         ids = tuple(row_ids)
         with self._mu:
             return self.dcache.get_or_build(
-                (self._stack_token, ids),
-                lambda: ob.from_host(
-                    np.stack([self.row_words(r) for r in ids])
-                    if ids
-                    else np.empty((0, WORDS_PER_ROW), np.uint32),
-                    self.device,
-                ),
+                (self._stack_token, ids), lambda: ob.from_host(self.rows_words(ids), self.device)
             )
 
     def pairs(self) -> Tuple[np.ndarray, np.ndarray]:
         """Bits as (row_ids, in-shard cols) uint64 arrays, row-major sorted
         (the exports read these)."""
-        with self._mu:
+        with self._mu, self._bulk():
             self._sync_locked()
             rows_out = []
             cols_out = []
             for row_id in sorted(self._rows):
-                pos = self._rows[row_id].to_positions()
+                pos = self._peek(row_id).to_positions()
                 if len(pos):
                     rows_out.append(np.full(len(pos), row_id, dtype=np.uint64))
                     cols_out.append(pos.astype(np.uint64))
@@ -177,6 +473,9 @@ class Fragment:
     def row_count(self, row_id: int) -> int:
         with self._mu:
             self._sync_locked()
+            count_of = getattr(self._rows, "count_of", None)
+            if count_of is not None:
+                return count_of(row_id)
             rb = self._rows.get(row_id)
             return rb.count() if rb is not None else 0
 
@@ -226,6 +525,9 @@ class Fragment:
         """Cardinalities of the listed rows as one uint64 vector."""
         with self._mu:
             self._sync_locked()
+            count_of = getattr(self._rows, "count_of", None)
+            if count_of is not None:
+                return np.fromiter((count_of(r) for r in row_ids), np.uint64, len(row_ids))
             rows = self._rows
             return np.fromiter(
                 (rb.count() if (rb := rows.get(r)) is not None else 0 for r in row_ids),
@@ -264,7 +566,8 @@ class Fragment:
         return cleared > 0
 
     def _set_bit_mutex(self, row_id: int, in_shard: int) -> bool:
-        with self._mu:
+        # the barrier moves import_positions' commit wait past the lock
+        with walmod.GROUP_COMMIT.barrier(), self._mu:
             existing = self._mutex_map.get(in_shard)
             if existing == row_id:
                 return False
@@ -281,20 +584,29 @@ class Fragment:
     ) -> Tuple[int, int]:
         """Batched exact bit mutation by fragment position; merges the
         pending staged delta first so the (n_set, n_clear) counts are
-        exact."""
+        exact. The set and clear records land in the WAL as one write; the
+        commit wait comes after the lock is released."""
         with self._mu:
             self._sync_locked()
-            return self._apply_positions(
+            records = [
+                (op, p) for op, p in ((walmod.OP_SET, to_set), (walmod.OP_CLEAR, to_clear)) if p is not None and len(p)
+            ]
+            tok = self._log(records)
+            n_set, n_clear = self._apply_positions(
                 to_set if to_set is not None else np.empty(0, np.uint64),
                 to_clear if to_clear is not None else np.empty(0, np.uint64),
             )
+            tok = self._after_write(n_set + n_clear, tok)
+        if tok is not None:
+            walmod.GROUP_COMMIT.wait_durable(tok)
+        return n_set, n_clear
 
     def stage_positions(self, positions: np.ndarray, *, notify: bool = True) -> int:
         """Bulk-ingest fast path: append SET positions to the pending
         buffer without merging; the merge is deferred to the next read
-        barrier. notify=False leaves the device-cache invalidation and the
-        on_mutate hook to the caller (View.stage_bulk batches them).
-        Not for mutex fields."""
+        barrier, the WAL record is not. notify=False leaves the
+        device-cache invalidation and the on_mutate hook to the caller
+        (View.stage_bulk batches them). Not for mutex fields."""
         positions = np.asarray(positions, dtype=np.uint64)
         n = len(positions)
         with self._mu:
@@ -302,6 +614,7 @@ class Fragment:
                 raise ValueError("stage_positions is not supported on mutex fields")
             if not n:
                 return 0
+            tok = self._log([(walmod.OP_SET, positions)])
             self._pending.append(positions)
             self._pending_n += n
             self.version += 1
@@ -309,6 +622,9 @@ class Fragment:
                 self.dcache.invalidate_owners((self._token, self._stack_token))
                 if self.on_mutate is not None:
                     self.on_mutate()
+            tok = self._after_write(n, tok)
+        if tok is not None:
+            walmod.GROUP_COMMIT.wait_durable(tok)
         return n
 
     def _sync_locked(self) -> None:
@@ -506,8 +822,8 @@ class Fragment:
         return n
 
     def import_row_words(self, row_id: int, words: np.ndarray) -> int:
-        """Word-level bulk union of dense uint32[W] words into one row.
-        Returns how many bits were newly set."""
+        """Word-level bulk union of dense uint32[W] words into one row
+        (one OP_ROW_WORDS record). Returns how many bits were newly set."""
         words = np.ascontiguousarray(words, dtype=np.uint32)
         if words.shape != (WORDS_PER_ROW,):
             raise ValueError(
@@ -517,18 +833,31 @@ class Fragment:
             if self._mutex_map is not None:
                 raise ValueError("word-level import is not supported on mutex fields")
             self._sync_locked()
-            rb = self._rows.get(row_id)
-            if rb is None:
-                rb = self._rows[row_id] = RowBits(SHARD_WIDTH)
-            added = rb.union_words(words)
-            if added:
-                self.cache.add(row_id, rb.count())
-                self.dcache.invalidate((self._token, row_id))
-                self.dcache.invalidate_owner(self._stack_token)
-                self.version += 1
-                if self.on_mutate is not None:
-                    self.on_mutate()
-            return added
+            tok = None
+            if self._wal is not None:
+                payload = np.empty(1 + words.nbytes // 8, np.uint64)
+                payload[0] = row_id
+                payload[1:] = words.view(np.uint64)
+                tok = self._log([(walmod.OP_ROW_WORDS, payload)])
+            added = self._apply_row_words(row_id, words)
+            tok = self._after_write(added, tok)
+        if tok is not None:
+            walmod.GROUP_COMMIT.wait_durable(tok)
+        return added
+
+    def _apply_row_words(self, row_id: int, words: np.ndarray) -> int:
+        rb = self._rows.get(row_id)
+        if rb is None:
+            rb = self._rows[row_id] = RowBits(SHARD_WIDTH)
+        added = rb.union_words(words)
+        if added:
+            self.cache.add(row_id, rb.count())
+            self.dcache.invalidate((self._token, row_id))
+            self.dcache.invalidate_owner(self._stack_token)
+            self.version += 1
+            if self.on_mutate is not None:
+                self.on_mutate()
+        return added
 
     def _pos(self, row_id: int, col: int) -> int:
         if col >= SHARD_WIDTH:
@@ -549,8 +878,9 @@ class Fragment:
         return self.import_positions(positions, None)[0]
 
     def _bulk_import_mutex(self, row_ids: np.ndarray, cols: np.ndarray) -> int:
-        """Mutex import: the last write per column wins."""
-        with self._mu:
+        """Mutex import: the last write per column wins. The barrier moves
+        the commit wait past the lock."""
+        with walmod.GROUP_COMMIT.barrier(), self._mu:
             _, last_idx = np.unique(cols[::-1], return_index=True)
             idx = len(cols) - 1 - last_idx
             to_set, to_clear, updates = [], [], {}
@@ -577,7 +907,7 @@ class Fragment:
     def contains(self, row_id: int, in_shard: int) -> bool:
         with self._mu:
             self._sync_locked()
-            rb = self._rows.get(row_id)
+            rb = self._peek(row_id)
             return rb is not None and rb.contains(in_shard)
 
     def set_value(self, col: int, bit_depth: int, value: int, clear: bool = False) -> bool:
@@ -602,36 +932,52 @@ class Fragment:
     def import_values(self, cols: np.ndarray, values: np.ndarray, bit_depth: int) -> None:
         """Columnar write; the last write per column wins. Each plane row
         takes its new bits in one word-level pass over the written
-        columns (row = (row & ~written) | bits), never as positions."""
+        columns (row = (row & ~written) | bits), never as positions. The
+        WAL gets the reference's records for the same write (set and
+        clear positions of every plane), so either package replays it."""
         cols = np.asarray(cols, dtype=np.uint64) % SHARD_WIDTH
         values = np.asarray(values, dtype=np.int64)
         if not len(cols):
             return
         _, last_idx = np.unique(cols[::-1], return_index=True)
         idx = len(cols) - 1 - last_idx
-        cols, values = cols[idx].astype(np.int64), values[idx]
+        cols, values = cols[idx], values[idx]
+        icols = cols.astype(np.int64)
         mags = np.abs(values).astype(np.uint64)
+        neg = values < 0
 
         def words_of(sel: np.ndarray) -> np.ndarray:
             bits = np.zeros(SHARD_WIDTH, bool)
             bits[sel] = True
             return np.packbits(bits, bitorder="little").view(np.uint32)
 
-        written = words_of(cols)
-        new_rows = {BSI_EXISTS_BIT: written, BSI_SIGN_BIT: words_of(cols[values < 0])}
+        written = words_of(icols)
+        new_rows = {BSI_EXISTS_BIT: written, BSI_SIGN_BIT: words_of(icols[neg])}
+        has = []
         for i in range(bit_depth):
-            has = (mags >> np.uint64(i)) & np.uint64(1) != 0
-            new_rows[BSI_OFFSET_BIT + i] = words_of(cols[has])
+            has.append((mags >> np.uint64(i)) & np.uint64(1) != 0)
+            new_rows[BSI_OFFSET_BIT + i] = words_of(icols[has[i]])
         with self._mu:
             self._sync_locked()
+            tok = None
+            if self._wal is not None:
+                sw = np.uint64(SHARD_WIDTH)
+                to_set = [np.uint64(BSI_EXISTS_BIT) * sw + cols, np.uint64(BSI_SIGN_BIT) * sw + cols[neg]]
+                to_clear = [np.uint64(BSI_SIGN_BIT) * sw + cols[~neg]]
+                for i, h in enumerate(has):
+                    base = np.uint64(BSI_OFFSET_BIT + i) * sw
+                    to_set.append(base + cols[h])
+                    to_clear.append(base + cols[~h])
+                tok = self._log([(walmod.OP_SET, np.concatenate(to_set)), (walmod.OP_CLEAR, np.concatenate(to_clear))])
             touched = []
+            n_changed = 0
             for row_id, words in new_rows.items():
                 rb = self._rows.get(row_id)
                 if rb is None:
                     if not words.any():
                         continue  # clearing a row that does not exist
                     rb = self._rows[row_id] = RowBits(SHARD_WIDTH)
-                rb.assign_words(written, words)
+                n_changed += sum(rb.assign_words(written, words))
                 touched.append(row_id)
             rows_store = self._rows
             self.cache.add_many((rid, rows_store[rid].count()) for rid in touched)
@@ -640,6 +986,9 @@ class Fragment:
             self.version += 1
             if self.on_mutate is not None:
                 self.on_mutate()
+            tok = self._after_write(n_changed, tok)
+        if tok is not None:
+            walmod.GROUP_COMMIT.wait_durable(tok)
 
     def value(self, col: int, bit_depth: int) -> Tuple[int, bool]:
         """(stored value, exists) of one column (a host point read)."""

@@ -1,9 +1,14 @@
 """Index: per-index namespace of fields plus existence tracking (the
 `_exists` field whose row 0 marks every column ever set, which Not() and
-All() read). The port of pilosa_tpu/core/index.py, in memory."""
+All() read). The port of pilosa_tpu/core/index.py. A durable index keeps
+`{"keys", "track_existence"}` in `<path>/.meta.json` and one directory per
+field (`_exists` included)."""
 
 from __future__ import annotations
 
+import json
+import os
+import shutil
 import threading
 from typing import Dict, List, Optional, Set
 
@@ -25,10 +30,12 @@ class Index:
         dcache: DeviceCache,
         keys: bool = False,
         track_existence: bool = True,
+        path: Optional[str] = None,
     ):
         validate_name(name)
         if keys:
             raise NotImplementedError("key translation is not ported yet")
+        self.path = path  # None: in memory
         self.name = name
         self.keys = keys
         self.track_existence = track_existence
@@ -36,21 +43,62 @@ class Index:
         self.dcache = dcache
         self._mu = threading.RLock()
         self._fields: Dict[str, Field] = {}
-        if track_existence:
+
+    @property
+    def meta_path(self) -> Optional[str]:
+        return None if self.path is None else os.path.join(self.path, ".meta.json")
+
+    def open(self) -> "Index":
+        """Write .meta.json if it is missing, open every field directory
+        (one holding a .meta.json), then create `_exists` if it is
+        tracked and absent. Column attributes raise NotImplementedError
+        naming the file."""
+        if self.path is not None:
+            os.makedirs(self.path, exist_ok=True)
+            for fn in (".col_attrs.json", ".col_attrs.json.log"):
+                if os.path.exists(os.path.join(self.path, fn)):
+                    raise NotImplementedError(f"{os.path.join(self.path, fn)}: not yet ported")
+            if not os.path.exists(self.meta_path):
+                self.save_meta()
+            for fn in sorted(os.listdir(self.path)):
+                fdir = os.path.join(self.path, fn)
+                if os.path.isdir(fdir) and os.path.exists(os.path.join(fdir, ".meta.json")):
+                    try:
+                        options = Field.load_options(fdir)
+                        self._fields[fn] = self._new_field(fn, options).open()
+                    except NotImplementedError as e:
+                        raise NotImplementedError(f"field {fdir}: {e}") from None
+        if self.track_existence and EXISTENCE_FIELD_NAME not in self._fields:
             self._fields[EXISTENCE_FIELD_NAME] = self._new_field(
                 EXISTENCE_FIELD_NAME,
                 FieldOptions(type=FIELD_TYPE_SET, cache_type="none", cache_size=0),
-            )
+            ).open()
+        return self
+
+    def save_meta(self) -> None:
+        if self.path is None:
+            return
+        tmp = self.meta_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"keys": self.keys, "track_existence": self.track_existence}, f)
+        os.replace(tmp, self.meta_path)
 
     def _new_field(self, name: str, options: FieldOptions) -> Field:
-        return Field(self.name, name, options, device=self.device, dcache=self.dcache)
+        return Field(
+            self.name,
+            name,
+            options,
+            device=self.device,
+            dcache=self.dcache,
+            path=None if self.path is None else os.path.join(self.path, name),
+        )
 
     def create_field(self, name: str, options: Optional[FieldOptions] = None) -> Field:
         with self._mu:
             validate_name(name)
             if name in self._fields:
                 raise ValueError(f"field already exists: {name}")
-            f = self._fields[name] = self._new_field(name, options or FieldOptions())
+            f = self._fields[name] = self._new_field(name, options or FieldOptions()).open()
             return f
 
     def create_field_if_not_exists(self, name: str, options: Optional[FieldOptions] = None) -> Field:
@@ -73,14 +121,17 @@ class Index:
             ]
 
     def delete_field(self, name: str) -> None:
+        """Forget a field, close it and remove its directory."""
         with self._mu:
             f = self._fields.pop(name, None)
             if f is None:
                 raise KeyError(f"field not found: {name}")
-        f.close()
+            f.close()
+            if f.path is not None:
+                shutil.rmtree(f.path, ignore_errors=True)
 
     def close(self) -> None:
-        """Drop every device tensor the index's fields cached."""
+        """Close every field: WALs and cache sidecars, device tensors."""
         with self._mu:
             fields = list(self._fields.values())
         for f in fields:

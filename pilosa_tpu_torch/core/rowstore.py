@@ -11,9 +11,13 @@ compression never reaches the compute path.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
+
+# snapshot representation tags (core/wal.py writes them per row)
+ARRAY_REP = 0
+DENSE_REP = 1
 
 if hasattr(np, "bitwise_count"):  # numpy >= 2.0
 
@@ -159,17 +163,30 @@ class RowBits:
             self.positions = np.flatnonzero(mask).astype(np.uint32)
             self.dense = None
 
-    def assign_words(self, mask: np.ndarray, words: np.ndarray) -> None:
+    def assign_words(self, mask: np.ndarray, words: np.ndarray) -> Tuple[int, int]:
         """Overwrite the bits under a dense word mask with `words` (a
         subset of it): row = (row & ~mask) | words. The word-level path
-        of columnar int imports."""
-        if self.dense is None:
-            self.dense = self._to_dense()
-            self.positions = None
-        np.bitwise_and(self.dense, np.bitwise_not(mask), out=self.dense)
-        np.bitwise_or(self.dense, words, out=self.dense)
-        self._n = _popcount_words(self.dense)
+        of columnar int imports. Returns (bits newly set, bits cleared).
+
+        The row ends in the representation the reference's set-then-clear
+        of the same bits leaves (pilosa_tpu Fragment.import_values), so
+        snapshots of either package are byte-identical: a sparse row
+        densifies only if its union with `words` passes n_words, and a
+        dense row sparsifies below n_words // 2."""
+        old = self.dense if self.dense is not None else self._to_dense()
+        new = (old & np.bitwise_not(mask)) | words
+        n_set = _popcount_words(words & np.bitwise_not(old))
+        n_clear = _popcount_words(old & mask & np.bitwise_not(words))
+        if self.dense is None and _popcount_words(old | words) <= self.n_words:
+            self.positions = np.flatnonzero(
+                np.unpackbits(new.view(np.uint8), bitorder="little")
+            ).astype(np.uint32)
+            return n_set, n_clear
+        self.dense = new
+        self.positions = None
+        self._n = _popcount_words(new)
         self._maybe_sparsify()
+        return n_set, n_clear
 
     def discard(self, gone: np.ndarray) -> int:
         """Clear the given positions; returns how many were actually cleared."""
@@ -190,3 +207,22 @@ class RowBits:
         changed = len(self.positions) - len(kept)
         self.positions = kept.astype(np.uint32)
         return changed
+
+    # -- serialization (snapshot payload) ----------------------------------
+
+    def rep(self) -> int:
+        return DENSE_REP if self.dense is not None else ARRAY_REP
+
+    def payload(self) -> np.ndarray:
+        return self.dense if self.dense is not None else self.positions
+
+    @classmethod
+    def from_payload(cls, n_bits: int, rep: int, payload: np.ndarray) -> "RowBits":
+        rb = cls(n_bits)
+        if rep == DENSE_REP:
+            rb.dense = payload.astype(np.uint32, copy=True)
+            rb.positions = None
+            rb._n = _popcount_words(rb.dense)
+        else:
+            rb.positions = payload.astype(np.uint32, copy=True)
+        return rb

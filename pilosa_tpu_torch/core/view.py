@@ -1,22 +1,26 @@
 """View: groups fragments by shard for one view of a field.
 
-The port of pilosa_tpu/core/view.py, in memory: fragment lookup, the read
-barrier over staged writes, the staged bulk-ingest router, and the row and
-plane stacks the stacked query path stages on the device. The WAL, the
-coherence hub, the result cache and extent patching are not ported; a
-mutation drops the view's device stacks wholesale.
+The port of pilosa_tpu/core/view.py: fragment lookup, the read barrier
+over staged writes, the staged bulk-ingest router, and the row and plane
+stacks the stacked query path stages on the device. A durable view keeps
+its fragments under `<path>/fragments/<shard>` (.snap, .wal, .cache) and
+opens every fragment found there. The coherence hub, the result cache and
+extent patching are not ported; a mutation drops the view's device stacks
+wholesale.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core.devcache import DeviceCache, new_owner_token
-from pilosa_tpu_torch.core.fragment import Fragment
+from pilosa_tpu_torch.core.fragment import DEFAULT_MAX_OP_N, Fragment
 from pilosa_tpu_torch.hbm import residency
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
@@ -36,7 +40,11 @@ class View:
         mutex: bool = False,
         cache_type: str = "ranked",
         cache_size: int = 50_000,
+        path: Optional[str] = None,
+        max_op_n: int = DEFAULT_MAX_OP_N,
     ):
+        self.path = path  # the directory holding fragments/; None: in memory
+        self.max_op_n = max_op_n
         self.name = name
         self.index = index
         self.field = field
@@ -50,8 +58,21 @@ class View:
         # owner token for this view's stacks and TopN tally bundles
         self._stack_token = new_owner_token()
 
+    def open(self) -> "View":
+        """Open every fragment of the view's directory (a shard with a
+        .snap or a .wal file)."""
+        if self.path is not None:
+            frag_dir = os.path.join(self.path, "fragments")
+            if os.path.isdir(frag_dir):
+                for fn in sorted(os.listdir(frag_dir)):
+                    if fn.endswith((".snap", ".wal")):
+                        shard_s = fn.rsplit(".", 1)[0]
+                        if shard_s.isdigit():
+                            self.fragment(int(shard_s))
+        return self
+
     def fragment(self, shard: int) -> Fragment:
-        """Get-or-create the fragment for a shard."""
+        """Get-or-create (and open) the fragment for a shard."""
         with self._mu:
             frag = self.fragments.get(shard)
             if frag is None:
@@ -65,7 +86,9 @@ class View:
                     mutex=self.mutex,
                     cache_type=self.cache_type,
                     cache_size=self.cache_size,
-                )
+                    path=None if self.path is None else os.path.join(self.path, "fragments", str(shard)),
+                    max_op_n=self.max_op_n,
+                ).open()
                 frag.on_mutate = self._on_fragment_mutate
                 self.fragments[shard] = frag
             return frag
@@ -74,13 +97,13 @@ class View:
         self.dcache.invalidate_owner(self._stack_token)
 
     def close(self) -> None:
-        """Drop every device tensor this view and its fragments cached: a
-        deleted field's stacks must not wait for LRU pressure to leave."""
+        """Close every fragment (WAL, cache sidecar) and drop every device
+        tensor this view cached: a deleted field's stacks must not wait
+        for LRU pressure to leave."""
         with self._mu:
-            tokens = [self._stack_token]
             for frag in self.fragments.values():
-                tokens += [frag._token, frag._stack_token]
-        self.dcache.invalidate_owners(tokens)
+                frag.close()
+            self.dcache.invalidate_owner(self._stack_token)
 
     def fragment_if_exists(self, shard: int) -> Optional[Fragment]:
         return self.fragments.get(shard)
@@ -149,8 +172,7 @@ class View:
             out = np.zeros((len(row_ids), len(frags), WORDS_PER_ROW), np.uint32)
             for j, f in enumerate(frags):
                 if f is not None:
-                    for i, r in enumerate(row_ids):
-                        out[i, j] = f.row_words(r)
+                    out[:, j] = f.rows_words(row_ids)
             return out
 
         return residency.stage_plane_stack(
@@ -173,11 +195,13 @@ class View:
         bounds = np.flatnonzero(sh[1:] != sh[:-1]) + 1
         starts = np.concatenate(([0], bounds)).astype(np.int64)
         tokens = [self._stack_token]
-        for shard, chunk in zip(sh[starts].tolist(), np.split(pos, bounds)):
-            frag = self.fragment(int(shard))
-            frag.stage_positions(chunk, notify=False)
-            tokens.append(frag._token)
-            tokens.append(frag._stack_token)
+        # one group commit for the whole batch, at the barrier's exit
+        with walmod.GROUP_COMMIT.barrier():
+            for shard, chunk in zip(sh[starts].tolist(), np.split(pos, bounds)):
+                frag = self.fragment(int(shard))
+                frag.stage_positions(chunk, notify=False)
+                tokens.append(frag._token)
+                tokens.append(frag._stack_token)
         self.dcache.invalidate_owners(tokens)
 
     def set_bit(self, row_id: int, col: int) -> bool:

@@ -3,9 +3,11 @@
 The port's single-node slice of pilosa_tpu/server/api.py: query (parse,
 then execute), schema DDL, the imports (bits, values, roaring), the
 exports and the status reads, bound to the port's Holder and Executor.
-Admission, tracing, statistics, the Count batcher, key translation,
-durability and every multi-node branch come in later slices; a request
-that needs one of them is an ApiError naming what is missing (HTTP 400).
+On a durable holder an import returns once one group commit made all of
+its writes durable, and a delete removes the index's or field's files.
+Admission, tracing, statistics, the Count batcher, key translation and
+every multi-node branch come in later slices; a request that needs one of
+them is an ApiError naming what is missing (HTTP 400).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 
 from pilosa_tpu_torch import __version__
 from pilosa_tpu_torch.core import roaring_io
+from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core.field import FIELD_TYPE_SET, FieldOptions
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
@@ -163,8 +166,9 @@ class API:
             raise ApiError("timestamps need time fields, which are not yet ported")
         rows = _ids(rows, "row keys on an unkeyed field")
         cols = _ids(cols, "column keys on an unkeyed index")
-        f.import_bits(rows, cols, clear=clear)
-        idx.track_columns(cols)
+        with walmod.GROUP_COMMIT.barrier():
+            f.import_bits(rows, cols, clear=clear)
+            idx.track_columns(cols)
         n = len(np.unique(cols >> np.uint64(SHARD_WIDTH_EXPONENT)))
         return {"applied": n, "expected": n, "errors": []}
 
@@ -172,8 +176,9 @@ class API:
         self._check_write_count(len(cols))
         idx, f = self._index_field(index, field)
         cols = _ids(cols, "column keys on an unkeyed index")
-        f.import_values(cols, np.asarray(values, dtype=np.int64))
-        idx.track_columns(cols)
+        with walmod.GROUP_COMMIT.barrier():
+            f.import_values(cols, np.asarray(values, dtype=np.int64))
+            idx.track_columns(cols)
         n = len(np.unique(cols >> np.uint64(SHARD_WIDTH_EXPONENT)))
         return {"applied": n, "expected": n, "errors": []}
 
@@ -198,14 +203,15 @@ class API:
         _validate_view_name(view)
         positions = roaring_io.decode(data)
         frag = f._view_create(view).fragment(shard)
-        if clear:
-            _, changed = frag.import_positions(None, positions)
-        else:
-            changed, _ = frag.import_positions(positions, None)
-            if len(positions):
-                seen = np.zeros(SHARD_WIDTH, bool)
-                seen[positions % np.uint64(SHARD_WIDTH)] = True
-                idx.track_columns(np.flatnonzero(seen).astype(np.uint64) + np.uint64(shard * SHARD_WIDTH))
+        with walmod.GROUP_COMMIT.barrier():
+            if clear:
+                _, changed = frag.import_positions(None, positions)
+            else:
+                changed, _ = frag.import_positions(positions, None)
+                if len(positions):
+                    seen = np.zeros(SHARD_WIDTH, bool)
+                    seen[positions % np.uint64(SHARD_WIDTH)] = True
+                    idx.track_columns(np.flatnonzero(seen).astype(np.uint64) + np.uint64(shard * SHARD_WIDTH))
         return changed
 
     # -- exports -------------------------------------------------------------
