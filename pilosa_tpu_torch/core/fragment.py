@@ -79,32 +79,39 @@ def _unique(a: np.ndarray) -> np.ndarray:
 
 
 class _LazyRows:
-    """Row store over a snapshot file: rows are indexed from the file's
-    headers at open and read on demand. Rows a write touched live in
-    `_mat` and take precedence. Reads go through `peek`, which builds a
-    row from the file without keeping it, so staging the rows of a
+    """A fragment's row store: rows a write touched live in `_mat`, and
+    rows of the fragment's snapshot file (none in memory) are indexed from
+    the file's headers and read on demand. Reads go through `peek`, which
+    builds a snapshot row without keeping it, so staging the rows of a
     reopened fragment onto the device does not double the host's memory
     (the page cache keeps repeated reads cheap). Writes go through
     `get`/`[]`, which keep the row in `_mat`. No fd is held between reads.
-    After `snapshot()` rewrites the file, `rebase` re-indexes it."""
+    `rebase` indexes the snapshot file at open and again after
+    `snapshot()` rewrites it."""
 
     __slots__ = ("n_bits", "path", "_mat", "_index", "_bulk_f")
 
-    def __init__(self, path: str, expect_n_bits: int):
-        _, n_bits, index = walmod.read_snapshot_index(path)
-        if n_bits != expect_n_bits:
-            raise ValueError(f"{path}: snapshot width {n_bits} != configured SHARD_WIDTH {expect_n_bits}")
+    def __init__(self, n_bits: int):
         self.n_bits = n_bits
-        self.path = path
+        self.path: Optional[str] = None  # the snapshot file, once indexed
         self._mat: Dict[int, RowBits] = {}
-        self._index = index
+        self._index: Dict[int, Tuple[int, int, int]] = {}
         self._bulk_f = None  # one fd shared over a bulk() scan
+
+    def rebase(self, path: str) -> None:
+        """Index the rows of a snapshot file (rows in `_mat` take
+        precedence; after a snapshot they are what was just written)."""
+        _, n_bits, index = walmod.read_snapshot_index(path)
+        if n_bits != self.n_bits:
+            raise ValueError(f"{path}: snapshot width {n_bits} != configured SHARD_WIDTH {self.n_bits}")
+        self.path = path
+        self._index = index
 
     @contextlib.contextmanager
     def bulk(self):
         """Hold one fd across a scan of many rows (snapshot writes, cache
-        rebuilds)."""
-        if self._bulk_f is not None:
+        rebuilds); a no-op without snapshot rows."""
+        if self._bulk_f is not None or not self._index:
             yield
             return
         with open(self.path, "rb") as f:
@@ -148,15 +155,16 @@ class _LazyRows:
         return rb
 
     def get(self, row_id: int, default=None):
-        if row_id in self._mat or row_id in self._index:
-            return self[row_id]
-        return default
+        rb = self._mat.get(row_id)
+        if rb is not None:
+            return rb
+        return self[row_id] if row_id in self._index else default
 
     def __setitem__(self, row_id: int, rb: RowBits) -> None:
         self._mat[row_id] = rb
 
     def keys(self):
-        return self._mat.keys() | self._index.keys()
+        return self._mat.keys() | self._index.keys() if self._index else self._mat.keys()
 
     def __iter__(self):
         return iter(self.keys())
@@ -166,6 +174,12 @@ class _LazyRows:
 
     def __bool__(self) -> bool:
         return bool(self._mat) or bool(self._index)
+
+    def items(self):
+        """(row_id, row) for every row, read as `peek` reads."""
+        with self.bulk():
+            for row_id in self.keys():
+                yield row_id, self.peek(row_id)
 
     def count_of(self, row_id: int) -> int:
         """A row's cardinality without materializing it: an array row's
@@ -188,12 +202,6 @@ class _LazyRows:
             return rb.rep(), rb.payload()
         rep, off, n = self._index[row_id]
         return rep, self._read_payload(off, n)
-
-    def rebase(self, path: str) -> None:
-        """Point unmaterialized rows at a freshly written snapshot (rows in
-        `_mat` are what was just written, so they stay)."""
-        self.path = path
-        _, _, self._index = walmod.read_snapshot_index(path)
 
 
 class Fragment:
@@ -227,7 +235,7 @@ class Fragment:
         self._cache_top_arrays = None  # memoized (top, rids, cnts)
         self._cache_id_arrays = None  # memoized id-sorted (top, rids, cnts)
         self._mu = threading.RLock()
-        self._rows: Dict[int, RowBits] = {}
+        self._rows = _LazyRows(SHARD_WIDTH)
         # staged SET positions not yet merged into _rows (stage_positions)
         self._pending: List[np.ndarray] = []
         self._pending_n = 0
@@ -272,15 +280,7 @@ class Fragment:
                 return self
             os.makedirs(os.path.dirname(self.path), exist_ok=True)
             if os.path.exists(self.snap_path):
-                if self._mutex_map is None:
-                    self._rows = _LazyRows(self.snap_path, SHARD_WIDTH)
-                else:
-                    _, n_bits, rows = walmod.read_snapshot(self.snap_path)
-                    if n_bits != SHARD_WIDTH:
-                        raise ValueError(
-                            f"{self.snap_path}: snapshot width {n_bits} != configured SHARD_WIDTH {SHARD_WIDTH}"
-                        )
-                    self._rows = rows
+                self._rows.rebase(self.snap_path)
             replayed = 0
             for op, positions in walmod.replay_wal(self.wal_path):
                 if op == walmod.OP_ROW_WORDS:
@@ -330,17 +330,12 @@ class Fragment:
             cachemod.write_cache(self.cache_path, self.cache)
 
     def recalculate_cache(self) -> None:
-        """Rebuild the rank cache from exact row counts (a lazy store
-        counts from its headers and payloads without materializing)."""
-        with self._mu:
+        """Rebuild the rank cache from exact row counts (snapshot rows
+        count from their headers and payloads without materializing)."""
+        with self._mu, self._rows.bulk():
             self._sync_locked()
             self.cache.clear()
-            count_of = getattr(self._rows, "count_of", None)
-            if count_of is None:
-                self.cache.bulk_add((rid, rb.count()) for rid, rb in self._rows.items())
-                return
-            with self._bulk():
-                self.cache.bulk_add((rid, count_of(rid)) for rid in self._rows)
+            self.cache.bulk_add((rid, self._rows.count_of(rid)) for rid in self._rows)
 
     def snapshot(self) -> None:
         """Write a full snapshot, then the cache sidecar, then truncate the
@@ -353,23 +348,11 @@ class Fragment:
                 return
             self._sync_locked()  # truncate() drops the pending records
             walmod.write_snapshot(self.snap_path, self.shard, SHARD_WIDTH, self._rows)
-            if isinstance(self._rows, _LazyRows):
-                self._rows.rebase(self.snap_path)
+            self._rows.rebase(self.snap_path)
             self.flush_cache()
             walmod.fault_point("snapshot.pre_truncate", self.snap_path)
             self._wal.truncate()
             self._op_n = 0
-
-    def _bulk(self):
-        """A context holding a lazy store's snapshot file open across many
-        row reads (a no-op for an in-memory store)."""
-        bulk = getattr(self._rows, "bulk", None)
-        return bulk() if bulk is not None else contextlib.nullcontext()
-
-    def _peek(self, row_id: int) -> Optional[RowBits]:
-        """A row for a read; a lazy store does not keep it."""
-        peek = getattr(self._rows, "peek", None)
-        return peek(row_id) if peek is not None else self._rows.get(row_id)
 
     def _log(self, records) -> Optional[int]:
         """Append write records to the WAL (under _mu): the commit token
@@ -397,13 +380,13 @@ class Fragment:
         """Host dense uint32 words for one row (zeros if absent)."""
         with self._mu:
             self._sync_locked()
-            rb = self._peek(row_id)
+            rb = self._rows.peek(row_id)
             return rb.to_words() if rb is not None else ob.empty_row()
 
     def row_positions(self, row_id: int) -> np.ndarray:
         with self._mu:
             self._sync_locked()
-            rb = self._peek(row_id)
+            rb = self._rows.peek(row_id)
             return rb.to_positions() if rb is not None else np.empty(0, np.uint32)
 
     def row_ids(self) -> List[int]:
@@ -415,12 +398,12 @@ class Fragment:
         """One-lock bulk sparse read for the TopN tally: concatenated
         sorted bit positions of the listed rows plus per-row lengths;
         length -1 marks a dense-rep row (routed through the plane path)."""
-        with self._mu, self._bulk():
+        with self._mu, self._rows.bulk():
             self._sync_locked()
             parts = []
             lens = np.empty(len(row_ids), np.int64)
             for i, rid in enumerate(row_ids):
-                rb = self._peek(rid)
+                rb = self._rows.peek(rid)
                 if rb is None:
                     lens[i] = 0
                 elif rb.dense is not None:
@@ -433,36 +416,39 @@ class Fragment:
             cat = np.concatenate(parts) if parts else np.empty(0, np.uint32)
             return cat, lens
 
-    def rows_words(self, row_ids) -> np.ndarray:
-        """Host uint32[k, W] words of the listed rows (zeros where absent),
-        read under one lock and, from a snapshot, one open file."""
-        out = np.zeros((len(row_ids), WORDS_PER_ROW), np.uint32)
-        with self._mu, self._bulk():
+    def rows_words_into(self, row_ids, out: np.ndarray) -> None:
+        """Write the listed rows' words into `out` (uint32[k, W], zeroed by
+        the caller, which leaves absent rows zero), read under one lock
+        and, from a snapshot, one open file."""
+        with self._mu, self._rows.bulk():
             self._sync_locked()
             for i, rid in enumerate(row_ids):
-                rb = self._peek(rid)
+                rb = self._rows.peek(rid)
                 if rb is not None:
                     out[i] = rb.to_words()
-        return out
 
     def rows_device(self, row_ids: Iterable[int]) -> torch.Tensor:
         """Stacked int32[k, W] device matrix for the given rows (one
         cached entry, one transfer)."""
         ids = tuple(row_ids)
+
+        def build() -> torch.Tensor:
+            words = np.zeros((len(ids), WORDS_PER_ROW), np.uint32)
+            self.rows_words_into(ids, words)
+            return ob.from_host(words, self.device)
+
         with self._mu:
-            return self.dcache.get_or_build(
-                (self._stack_token, ids), lambda: ob.from_host(self.rows_words(ids), self.device)
-            )
+            return self.dcache.get_or_build((self._stack_token, ids), build)
 
     def pairs(self) -> Tuple[np.ndarray, np.ndarray]:
         """Bits as (row_ids, in-shard cols) uint64 arrays, row-major sorted
         (the exports read these)."""
-        with self._mu, self._bulk():
+        with self._mu, self._rows.bulk():
             self._sync_locked()
             rows_out = []
             cols_out = []
             for row_id in sorted(self._rows):
-                pos = self._peek(row_id).to_positions()
+                pos = self._rows.peek(row_id).to_positions()
                 if len(pos):
                     rows_out.append(np.full(len(pos), row_id, dtype=np.uint64))
                     cols_out.append(pos.astype(np.uint64))
@@ -473,11 +459,7 @@ class Fragment:
     def row_count(self, row_id: int) -> int:
         with self._mu:
             self._sync_locked()
-            count_of = getattr(self._rows, "count_of", None)
-            if count_of is not None:
-                return count_of(row_id)
-            rb = self._rows.get(row_id)
-            return rb.count() if rb is not None else 0
+            return self._rows.count_of(row_id)
 
     def cache_top(self):
         with self._mu:
@@ -525,15 +507,8 @@ class Fragment:
         """Cardinalities of the listed rows as one uint64 vector."""
         with self._mu:
             self._sync_locked()
-            count_of = getattr(self._rows, "count_of", None)
-            if count_of is not None:
-                return np.fromiter((count_of(r) for r in row_ids), np.uint64, len(row_ids))
-            rows = self._rows
-            return np.fromiter(
-                (rb.count() if (rb := rows.get(r)) is not None else 0 for r in row_ids),
-                np.uint64,
-                len(row_ids),
-            )
+            count_of = self._rows.count_of
+            return np.fromiter((count_of(r) for r in row_ids), np.uint64, len(row_ids))
 
     def row_counts(
         self, row_ids: List[int], filter_words=None, chunk: int = 256
@@ -907,7 +882,7 @@ class Fragment:
     def contains(self, row_id: int, in_shard: int) -> bool:
         with self._mu:
             self._sync_locked()
-            rb = self._peek(row_id)
+            rb = self._rows.peek(row_id)
             return rb is not None and rb.contains(in_shard)
 
     def set_value(self, col: int, bit_depth: int, value: int, clear: bool = False) -> bool:
@@ -977,7 +952,7 @@ class Fragment:
                     if not words.any():
                         continue  # clearing a row that does not exist
                     rb = self._rows[row_id] = RowBits(SHARD_WIDTH)
-                n_changed += sum(rb.assign_words(written, words))
+                n_changed += rb.assign_words(written, words)
                 touched.append(row_id)
             rows_store = self._rows
             self.cache.add_many((rid, rows_store[rid].count()) for rid in touched)

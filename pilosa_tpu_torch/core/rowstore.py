@@ -11,7 +11,7 @@ compression never reaches the compute path.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 
@@ -163,30 +163,34 @@ class RowBits:
             self.positions = np.flatnonzero(mask).astype(np.uint32)
             self.dense = None
 
-    def assign_words(self, mask: np.ndarray, words: np.ndarray) -> Tuple[int, int]:
+    def assign_words(self, mask: np.ndarray, words: np.ndarray) -> int:
         """Overwrite the bits under a dense word mask with `words` (a
         subset of it): row = (row & ~mask) | words. The word-level path
-        of columnar int imports. Returns (bits newly set, bits cleared).
+        of columnar int imports. Returns how many bits changed.
 
         The row ends in the representation the reference's set-then-clear
         of the same bits leaves (pilosa_tpu Fragment.import_values), so
         snapshots of either package are byte-identical: a sparse row
         densifies only if its union with `words` passes n_words, and a
         dense row sparsifies below n_words // 2."""
-        old = self.dense if self.dense is not None else self._to_dense()
+        if self.dense is not None:
+            changed = _popcount_words((self.dense & mask) ^ words)
+            np.bitwise_and(self.dense, np.bitwise_not(mask), out=self.dense)
+            np.bitwise_or(self.dense, words, out=self.dense)
+            self._n = _popcount_words(self.dense)
+            self._maybe_sparsify()
+            return changed
+        old = self._to_dense()
+        changed = _popcount_words((old & mask) ^ words)
         new = (old & np.bitwise_not(mask)) | words
-        n_set = _popcount_words(words & np.bitwise_not(old))
-        n_clear = _popcount_words(old & mask & np.bitwise_not(words))
-        if self.dense is None and _popcount_words(old | words) <= self.n_words:
-            self.positions = np.flatnonzero(
-                np.unpackbits(new.view(np.uint8), bitorder="little")
-            ).astype(np.uint32)
-            return n_set, n_clear
+        if _popcount_words(old | words) <= self.n_words:
+            self.positions = np.flatnonzero(np.unpackbits(new.view(np.uint8), bitorder="little")).astype(np.uint32)
+            return changed
         self.dense = new
         self.positions = None
         self._n = _popcount_words(new)
         self._maybe_sparsify()
-        return n_set, n_clear
+        return changed
 
     def discard(self, gone: np.ndarray) -> int:
         """Clear the given positions; returns how many were actually cleared."""

@@ -41,10 +41,9 @@ class View:
         cache_type: str = "ranked",
         cache_size: int = 50_000,
         path: Optional[str] = None,
-        max_op_n: int = DEFAULT_MAX_OP_N,
     ):
         self.path = path  # the directory holding fragments/; None: in memory
-        self.max_op_n = max_op_n
+        self.max_op_n = DEFAULT_MAX_OP_N  # passed to each new fragment
         self.name = name
         self.index = index
         self.field = field
@@ -172,7 +171,7 @@ class View:
             out = np.zeros((len(row_ids), len(frags), WORDS_PER_ROW), np.uint32)
             for j, f in enumerate(frags):
                 if f is not None:
-                    out[:, j] = f.rows_words(row_ids)
+                    f.rows_words_into(row_ids, out[:, j])
             return out
 
         return residency.stage_plane_stack(

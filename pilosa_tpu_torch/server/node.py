@@ -7,7 +7,7 @@ its own coordinator in a one-member cluster in state NORMAL. With a data
 directory the holder is durable: it opens what the directory holds, logs
 every acknowledged write to the WAL (group commit at `wal_sync_interval`,
 0 = each write fsynced before it is acknowledged) and writes its rank
-caches every `cache_flush_interval` seconds and at stop. An empty or None
+caches every CACHE_FLUSH_INTERVAL seconds and at stop. An empty or None
 `data_dir` serves from memory.
 """
 
@@ -23,6 +23,8 @@ from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.exec.executor import Executor
 from pilosa_tpu_torch.server.api import API
 
+CACHE_FLUSH_INTERVAL = 60.0  # s between rank-cache sidecar writes (the reference's default)
+
 
 class NodeServer:
     def __init__(
@@ -34,7 +36,6 @@ class NodeServer:
         device=None,
         max_writes_per_request: int = 5000,  # bits/values per import; 0 = no cap
         wal_sync_interval: float = 0.0,  # 0 strict; > 0 background fsync cadence, s
-        cache_flush_interval: float = 60.0,  # 0 = write rank caches at stop only
         logger: Optional[Callable[[str], None]] = None,
     ):
         self.data_dir = os.path.expanduser(data_dir) if data_dir else None
@@ -44,7 +45,6 @@ class NodeServer:
         self.cluster_name = "cluster0"  # the reference's default; one cluster
         self.state = STATE_NORMAL
         self.max_writes_per_request = max_writes_per_request
-        self.cache_flush_interval = cache_flush_interval
         self.logger = logger or (lambda msg: None)
         self.holder = Holder(self.data_dir, device=device)
         walmod.GROUP_COMMIT.configure(sync_interval=wal_sync_interval)
@@ -68,7 +68,7 @@ class NodeServer:
             target=self._httpd.serve_forever, name=f"http-{self.node.id}", daemon=True
         )
         self._http_thread.start()
-        if self.data_dir is not None and self.cache_flush_interval > 0:
+        if self.data_dir is not None:
             self._cache_thread = threading.Thread(target=self._cache_flush_loop, name="cache-flush", daemon=True)
             self._cache_thread.start()
         return self
@@ -76,7 +76,7 @@ class NodeServer:
     def _cache_flush_loop(self) -> None:
         """Write the rank-cache sidecars periodically (the reference's
         holder.go:506 monitorCacheFlush)."""
-        while not self._closing.wait(self.cache_flush_interval):
+        while not self._closing.wait(CACHE_FLUSH_INTERVAL):
             try:
                 self.holder.flush_caches()
             except Exception as e:  # noqa: BLE001 - keep the ticker alive
