@@ -16,9 +16,11 @@ Phases, each fatal on any mismatch or exception:
    40-deep nest, the full stack depth and a table too large for shared
    memory, gather_tally on shard-major rows sharing words, a 10^5-entry
    segment, entries in no segment, src's last word, unaligned views and
-   1024 shards x 8 rows with uniform and Zipf-skewed segment lengths, and,
+   1024 shards x 8 rows with uniform and Zipf-skewed segment lengths,
    for the BSI kernels, depths 1..32, signed and unsigned fields, filters,
-   every range kind and edge predicates;
+   every range kind and edge predicates, and for GroupBy's kernels
+   counts_cross at every prefix-chunk size (G = 1..40) and gather_and on
+   aligned and unaligned slabs;
 3. main path: a 2^30-column index (1024 shards x 2^20 columns) with
    dense and sparse rows of a set field `f` and dense rows of `g`, loaded
    through Field.import_row_words / Field.import_bits / Set(), then the
@@ -27,7 +29,11 @@ Phases, each fatal on any mismatch or exception:
    launch counts are reset just before this phase and read just after it;
    every kernel of the path must have launched, Row(f=1).count() over
    every shard's segment must make exactly one count2 launch, and
-   TopN(f, Row(g=0), n=10) exactly one gather_tally launch;
+   TopN(f, Row(g=0), n=10) exactly one gather_tally launch. Rows (with
+   previous, limit, column) and GroupBy (one child; two children, with a
+   filter, with limit and offset) follow, held to numpy; at 1024 shards
+   the two-child GroupBys take the pruned descent and must launch
+   counts_cross, gather_and and count2 or rows_counts;
 3b. BSI path: two int fields on the same index, `amount` (signed,
    [-1e6, 1e6], about 90% of columns) and `age` (unsigned, [0, 120], every
    existing column), loaded through Field.import_values (16 shards) and
@@ -44,7 +50,9 @@ Phases, each fatal on any mismatch or exception:
    call with the card idle (median of 20); each query's warm p50 latency
    over 20 runs. gather_tally's bound counts the 32-byte sectors of src
    that its entries touch, and it is timed again over Zipf-skewed segment
-   lengths with the same number of entries;
+   lengths with the same number of entries; counts_cross and gather_and
+   at the main path's GroupBy shapes, and counts_cross again at a
+   one-shot shape (16 prefixes x 8 rows over 64 shards);
 5. serve: the port's NodeServer on the card, driven only over HTTP on one
    kept-alive connection, on a data dir (WAL, snapshots, group commit:
    the deployment users run) under the default temp dir, whose
@@ -59,24 +67,38 @@ Phases, each fatal on any mismatch or exception:
    queries (Counts, Row, TopN with and without a filter, Sum/Min/Max, a
    condition count), each held to numpy and to Executor.execute on the
    server's holder; launch counts are reset before the served query set
-   and read after it, and six kernels must have launched. GroupBy answers
-   400, an unknown index 404; 8 clients x 5 rounds must get the serial
-   answers; served and in-process p50s per query and the HTTP ingest
-   rates are printed. The CLI (`python -m pilosa_tpu_torch.cli server`)
-   must serve on the card and exit 0 on SIGTERM, and exit non-zero with
-   CUDA_VISIBLE_DEVICES="";
+   and read after it, and six kernels must have launched. Rows(f) and
+   GroupBy(Rows(f), Rows(g)) are served too, held to numpy and to the
+   executor (counts_cross launches). MinRow answers 400, an unknown index
+   404; 8 clients x 5 rounds must get the serial answers; served and
+   in-process p50s per query and the HTTP ingest rates are printed. The
+   CLI (`python -m pilosa_tpu_torch.cli server`) must serve on the card
+   and exit 0 on SIGTERM, and exit non-zero with CUDA_VISIBLE_DEVICES="";
+5b. keyed: on the same node, after those measurements, index `k` with
+   keys: 2^22 column keys in a seeded random arrival order, a keyed set
+   field `segment` (32 keys, 1-3 per column, Zipf), a keyed mutex field
+   `country` (64 ISO codes, Zipf), an unkeyed set field `plan` and an int
+   field `spend`, loaded through /import with rowKeys/colKeys and
+   import-value with colKeys in batches of 100,000 (keys/s and bits/s
+   printed); a keyed Set of new keys, a Count of a key never seen, then
+   12 keyed queries (Counts, a keyed Row, TopN, Rows, GroupBys one-shot
+   and by descent, the previous=[...] cursor, Sum), each held to a numpy
+   + dict model and to the executor, with served and in-process p50s;
 6. durable: the serve phase's node is stopped and the card's cache
    emptied; a second NodeServer opens the same data dir, timed from
    construction to its first 200 on /status (recovery). The 11 queries'
    first pass and warm p50s follow: every body must equal the one served
-   before the restart byte for byte (and numpy's answer), and the six
-   kernels must launch again (counts reset just before). `inspect` and
+   before the restart byte for byte (and numpy's answer), as must the
+   Rows/GroupBy and every keyed body, and the six kernels must launch
+   again (counts reset just before). `inspect` and
    `check` of the stopped dir must exit 0, `check` with no bad file. Then
    kill -9: a CLI server on a fresh dir at 8 shards takes /import,
    import-value and PQL Set/Clear writes (the last ones in the WAL, after
    the last snapshot), is SIGKILLed after the last acknowledgement and
    restarted: every acknowledged bit and value must read back
-   (export-roaring of every shard of both views, Count, Sum). Again with
+   (export-roaring of every shard of both views, Count, Sum), and every
+   acknowledged pair of a keyed index (keyed /import, then keyed PQL Sets
+   in the WAL) through its CSV export. Again with
    --wal-sync-interval 0.2: the writes lost are counted, and none
    acknowledged before the last interval may be.
 
@@ -109,7 +131,41 @@ _LUT = np.array([bin(i).count("1") for i in range(256)], np.uint8)
 
 
 def np_popcount(words: np.ndarray) -> int:
+    """Set bits of uint32 words: numpy's bitwise_count where numpy has it
+    (2.0 on), else the byte table."""
+    if hasattr(np, "bitwise_count"):
+        return int(np.bitwise_count(words).sum(dtype=np.int64))
     return int(_LUT[np.ascontiguousarray(words).view(np.uint8)].sum(dtype=np.int64))
+
+
+def np_groups(rows_a, rows_b, filt=None):
+    """{(i, j): popcount(a_i & b_j [& filt])} over the non-zero pairs of
+    two lists of [S, W] word arrays: the numpy answer of a two-child
+    GroupBy over row ids 0.., 0.."""
+    out = {}
+    for i, a in enumerate(rows_a):
+        if filt is not None:
+            a = a & filt
+        for j, b in enumerate(rows_b):
+            n = np_popcount(a & b)
+            if n:
+                out[(i, j)] = n
+    return out
+
+
+def group_json(fields, groups, keys=None):
+    """The public JSON of a GroupBy answer from {(row ids...): count},
+    sorted by row ids; keys[k] maps child k's row ids to row keys."""
+    out = []
+    for ids in sorted(groups):
+        group = []
+        for k, (fname, rid) in enumerate(zip(fields, ids)):
+            if keys is not None and keys[k] is not None:
+                group.append({"field": fname, "rowKey": keys[k][rid]})
+            else:
+                group.append({"field": fname, "rowID": int(rid)})
+        out.append({"group": group, "count": int(groups[ids])})
+    return out
 
 
 def fail(msg: str) -> None:
@@ -465,6 +521,32 @@ def kernel_phase(rng, dev, errs):
         "kind/sel/predicate/mode cases"
     )
 
+    # GroupBy kernels (their own generator, so the main path's data stay
+    # the same): counts_cross at every prefix-chunk size (G = 1, 2, 3, 8,
+    # 16, 17, 40), plane rows past one 64-row round, W not a multiple of 4
+    # or of a tile, unaligned views; gather_and over aligned and unaligned
+    # slabs, a filter broadcast and repeated indices
+    grng = np.random.default_rng(7)
+
+    def gwords(*shape):
+        return torch.from_numpy(grng.integers(0, 2**32, size=shape, dtype=np.uint32).view(np.int32)).to(dev)
+
+    for g, r, s, w in ((1, 3, 5, 32768), (2, 70, 3, 4100), (3, 4, 2, 1001), (8, 5, 4, 32768),
+                       (16, 8, 2, 32768), (17, 2, 3, 4096), (40, 3, 1, 33)):
+        acc, planes = gwords(g, s, w), gwords(r, s, w)
+        same("counts_cross", K.counts_cross(acc, planes), K.counts_cross_plain(cpu(acc), cpu(planes)))
+    buf = gwords(2 * 3 * 1001 + 1)
+    acc = buf[1:].reshape(2, 3, 1001)  # 4 bytes past a 16-byte boundary
+    planes = gwords(4, 3, 1001)
+    same("counts_cross", K.counts_cross(acc, planes), K.counts_cross_plain(cpu(acc), cpu(planes)))
+    for na, nb, s, w, ia, ib in ((5, 2, 3, 4096, [4, 0, 2, 2], [1, 1, 0, 1]), (3, 3, 1, 1003, [2, 0], [1, 1]),
+                                 (6, 1, 8, 32768, [5, 1, 1, 0], [0, 0, 0, 0])):
+        a, b = gwords(na, s, w), gwords(nb, s, w)
+        same("gather_and", K.gather_and(a, ia, b, ib), K.gather_and_plain(cpu(a), ia, cpu(b), ib))
+    torch.cuda.synchronize()
+    print("kernels: counts_cross equal to its twin at G = 1..40, R up to 70, W = 33..32768, unaligned; "
+          "gather_and equal on aligned and unaligned slabs and a filter broadcast")
+
 
 # ---------------------------------------------------------------------------
 # phase 3: the main path over 2^30 columns
@@ -476,6 +558,7 @@ def main_path(args, rng):
 
     from pilosa_tpu_torch import Executor, Holder
     from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.server import wire
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
     S, W = args.shards, WORDS_PER_ROW
@@ -611,10 +694,44 @@ def main_path(args, rng):
     launched = K.LAUNCHES["gather_tally"] - before
     check(got == top_f, f"TopN(f, Row(g=0), n=10): got {got}, numpy says {top_f}")
     check(launched == 1, f"TopN(f, Row(g=0), n=10) made {launched} gather_tally launches, not 1")
+    # Rows and GroupBy: at S = 1024 a prefix tile holds 2 rows, so the
+    # two-child GroupBys descend (counts_cross over chunks of 2 prefixes;
+    # gather_and for the filtered selections)
+    wire_of = lambda pql: [wire.result_to_public_json(r) for r in ex.execute("smoke", pql)]  # noqa: E731
+    f_rows = [R("f", r) for r in range(n_dense + n_sparse)]
+    g_rows = [R("g", r) for r in range(n_g)]
+    gset = np.flatnonzero(_bits(R("g", 2)))
+    g_col = int(gset[len(gset) // 2])
+    groups_fg = np_groups(f_rows, g_rows)
+    groups_fg_f1 = np_groups(f_rows, g_rows, R("f", 1))
+    all_fg = group_json(("f", "g"), groups_fg)
+    group_checks = [
+        ("Rows(f)", [list(range(n_dense + n_sparse))]),
+        (f"Rows(g, column={g_col})", [[r for r in range(n_g) if (int(R("g", r).reshape(-1)[g_col >> 5]) >> (g_col & 31)) & 1]]),
+        ("Rows(f, previous=3, limit=4)", [[4, 5, 6, 7]]),
+        ("GroupBy(Rows(f))", [group_json(("f",), {(r,): totals[r] for r in range(n_dense + n_sparse) if totals[r]})]),
+        ("GroupBy(Rows(f), Rows(g))", [all_fg]),
+        ("GroupBy(Rows(f), Rows(g), filter=Row(f=1))", [group_json(("f", "g"), groups_fg_f1)]),
+        ("GroupBy(Rows(f), Rows(g), limit=5, offset=2)", [all_fg[2:7]]),
+    ]
+    base_launches = dict(K.LAUNCHES)
+    for pql, want in group_checks:
+        got = wire_of(pql)
+        check(got == want, f"{pql}: got {str(got)[:300]}, numpy says {str(want)[:300]}")
+    gb_launches = {k: K.LAUNCHES[k] - base_launches[k] for k in K.LAUNCHES}
+    check(
+        gb_launches["counts_cross"] > 0 and gb_launches["gather_and"] > 0
+        and gb_launches["count2"] + gb_launches["rows_counts"] > 0,
+        f"the GroupBys did not launch counts_cross, gather_and and count2 or rows_counts: {gb_launches}",
+    )
+    print(
+        f"main: Rows and GroupBy equal numpy ({len(groups_fg)} groups of f x g, {len(groups_fg_f1)} filtered); "
+        f"launches {gb_launches}"
+    )
     torch.cuda.synchronize()
     first_query_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    for name in ("count2", "rows_counts", "plan_count", "gather_tally"):
+    for name in ("count2", "rows_counts", "plan_count", "gather_tally", "counts_cross", "gather_and"):
         check(launches[name] > 0, f"main path never launched {name}: {launches}")
     print(
         f"main: {S} shards x {SHARD_WIDTH} columns = {S * SHARD_WIDTH} columns; "
@@ -632,6 +749,7 @@ def main_path(args, rng):
     # warm per-query latency
     lat = {}
     timed = [q for q, _ in queries] + ["Row(f=1)", "TopN(f, n=10)", "TopN(f, Row(g=0), n=10)"]
+    timed += [q for q, _ in group_checks]
     for pql in timed:
         wide_name = f"Count(Difference(Row(g=0), Union(<{len(wide_rows_pql)} rows, 6 of them shifted>)))"
         name = wide_name if pql == wide_pql else pql
@@ -1122,6 +1240,51 @@ def kernel_timing(holder, ex, launches, errs):
         f"rows mode {extra['bsi_range_age_rows']:.4f} ms (bound {extra['bsi_range_age_rows_bound']:.4f} ms); "
         f"bsi_sum filtered {extra['bsi_sum_amount_filtered']:.4f} ms (bound {extra['bsi_sum_amount_filtered_bound']:.4f} ms)"
     )
+    # GroupBy kernels at the main path's shapes: GroupBy(Rows(f), Rows(g))
+    # descends in chunks of gmax(S, W) = 2 prefixes, each a counts_cross of
+    # a [2, S, W] accumulator against g's [4, S, W] planes; the filtered
+    # GroupBy's selections are gather_and of 2 rows of f's [16, S, W]
+    # planes with the [S, W] filter Row(f=1)
+    from pilosa_tpu_torch.exec import groupby as gbmod
+
+    gm = min(gbmod.gmax(s_all, w), N_DENSE + N_SPARSE)
+    acc = view_f.plane_stack(tuple(range(gm)), shards)
+    planes_g = view_g.plane_stack(tuple(range(N_G)), shards)
+    gb_out = gm * N_G * s_all * 4
+    row(
+        "counts_cross", src, "pilosa_tpu/exec/groupby.py:68",
+        lambda: K.counts_cross(acc, planes_g), lambda: K.counts_cross_plain(acc, planes_g),
+        (gm + N_G) * s_all * w * 4 + gb_out,
+    )
+    f_all = view_f.plane_stack(tuple(range(N_DENSE + N_SPARSE)), shards)
+    sel = list(range(gm))
+    row(
+        "gather_and", src, "pilosa_tpu/exec/groupby.py:97",
+        lambda: K.gather_and(f_all, sel, a[None], [0] * gm),
+        lambda: K.gather_and_plain(f_all, sel, a[None], [0] * gm),
+        3 * gm * s_all * w * 4,
+    )
+    # counts_cross once more at a one-shot shape: G = 16 prefixes x R = 8
+    # rows over 64 shards (the one-shot path's last level)
+    s64 = shards[: min(64, s_all)]
+    acc16 = view_f.plane_stack(tuple(range(16)), s64)
+    planes8 = view_f.plane_stack(tuple(range(8)), s64)
+    check(torch.equal(K.counts_cross(acc16, planes8).cpu(), K.counts_cross_plain(acc16, planes8).cpu()),
+          "counts_cross at G = 16, R = 8 differs from its twin")
+    one_bytes = (16 + 8) * len(s64) * w * 4 + 16 * 8 * len(s64) * 4
+    extra |= {
+        "counts_cross_oneshot_G16_R8_S64": cuda_time_ms(lambda: K.counts_cross(acc16, planes8)),
+        "counts_cross_oneshot_dispatch": dispatch_ms(lambda: K.counts_cross(acc16, planes8)),
+        "counts_cross_oneshot_plain": cuda_time_ms(lambda: K.counts_cross_plain(acc16, planes8)),
+        "counts_cross_oneshot_bound": one_bytes / HBM_BYTES_PER_S * 1e3,
+    }
+    extra["counts_cross_oneshot_share"] = extra["counts_cross_oneshot_bound"] / extra["counts_cross_oneshot_G16_R8_S64"]
+    print(
+        f"kernel counts_cross one-shot (G 16, R 8, S {len(s64)}): device {extra['counts_cross_oneshot_G16_R8_S64']:.4f} ms, "
+        f"dispatch {extra['counts_cross_oneshot_dispatch']:.4f} ms, twin {extra['counts_cross_oneshot_plain']:.4f} ms, "
+        f"bound {extra['counts_cross_oneshot_bound']:.4f} ms ({extra['counts_cross_oneshot_share']:.1%} of it)"
+    )
+    del acc, planes_g, f_all, acc16, planes8
     print(
         f"kernel plan_count, 28 leaves: device {extra['plan_count_28_leaves']:.4f} ms "
         f"(dispatch {extra['plan_count_28_leaves_dispatch']:.4f} ms, twin {extra['plan_count_28_leaves_plain']:.4f} ms, "
@@ -1154,6 +1317,11 @@ SERVE_QUERIES = [
     "Count(Row(amount > 500000))",
 ]
 SERVE_KERNELS = ("plan_count", "rows_counts", "gather_tally", "bsi_sum", "bsi_min_max", "bsi_range")
+# Rows and GroupBy on index s (held to numpy and Executor.execute, and after
+# the restart to the bodies served before it); the GroupBy launches
+# counts_cross, and count2 too where it descends (6 rows of f over gmax =
+# 2 prefixes at 1024 shards)
+SERVE_GROUP_QUERIES = ["GroupBy(Rows(f), Rows(g))", "Rows(f)"]
 
 
 class _Http:
@@ -1388,23 +1556,32 @@ def serve_path(args):
             [int((vals > 500_000).sum())],
         ]))
 
-        # the query set over HTTP; launches counted for it alone
+        f_list = [R("f", r) for r in f_ids]
+        g_list = [R("g", r) for r in range(N_SERVE_G)]
+        want["GroupBy(Rows(f), Rows(g))"] = [group_json(("f", "g"), np_groups(f_list, g_list))]
+        want["Rows(f)"] = [list(f_ids)]
+
+        # the query set over HTTP (then Rows and GroupBy); launches counted
+        # for them alone
         torch.cuda.synchronize()
         K.reset_launches()
         served, first_ms = {}, {}
-        for q in SERVE_QUERIES:
+        for q in SERVE_QUERIES + SERVE_GROUP_QUERIES:
             tq = time.perf_counter()
             status, served[q] = http.raw("POST", "/index/s/query", q.encode(), "text/plain")
             first_ms[q] = (time.perf_counter() - tq) * 1e3
             check(status == 200, f"{q}: HTTP {status}: {served[q][:300]!r}")
             print(f"serve: first pass {first_ms[q]:.1f} ms  {q}")
-        first_pass_s = sum(first_ms.values()) / 1e3
+        first_pass_s = sum(first_ms[q] for q in SERVE_QUERIES) / 1e3
         torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
-        for name in SERVE_KERNELS:
+        from pilosa_tpu_torch.exec.groupby import gmax
+
+        descends = len(f_ids) > gmax(S, W)
+        for name in SERVE_KERNELS + ("counts_cross",) + (("count2",) if descends else ()):
             check(launches[name] > 0, f"the served queries never launched {name}: {launches}")
         resident = srv.holder.dcache.bytes_used
-        for q in SERVE_QUERIES:
+        for q in SERVE_QUERIES + SERVE_GROUP_QUERIES:
             got = json.loads(served[q])["results"]
             check(got == want[q], f"served {q}: {str(got)[:300]}, numpy says {str(want[q])[:300]}")
             local = [wire.result_to_public_json(r) for r in srv.executor.execute("s", q)]
@@ -1416,8 +1593,8 @@ def serve_path(args):
         )
 
         # errors
-        status, raw = http.raw("POST", "/index/s/query", b"GroupBy(Rows(f))", "text/plain")
-        check(status == 400 and b"not yet ported" in raw, f"GroupBy: HTTP {status} {raw!r}")
+        status, raw = http.raw("POST", "/index/s/query", b"MinRow(field=f)", "text/plain")
+        check(status == 400 and b"not yet ported" in raw, f"MinRow: HTTP {status} {raw!r}")
         status, raw = http.raw("POST", "/index/nope/query", b"Count(Row(f=0))", "text/plain")
         check(status == 404, f"unknown index: HTTP {status} {raw!r}")
 
@@ -1435,7 +1612,7 @@ def serve_path(args):
 
         # warm p50s: served (HTTP round trip) and in process (Executor.execute)
         lat = {}
-        for q in SERVE_QUERIES:
+        for q in SERVE_QUERIES + SERVE_GROUP_QUERIES:
             body = q.encode()
             served_ms = host_p50_ms(lambda: http.raw("POST", "/index/s/query", body, "text/plain"))
             local_ms = host_p50_ms(lambda: srv.executor.execute("s", q))
@@ -1467,13 +1644,21 @@ def serve_path(args):
         check(not errors, f"{len(errors)} concurrent answers differ from the serial ones: {errors[:3]}")
         concurrent_s = time.perf_counter() - t0
         print(f"serve: 8 clients x 5 rounds x {len(SERVE_QUERIES)} queries in {concurrent_s:.1f} s, every answer equal to the serial one")
+
+        # the keyed index on the same durable node, after the measurements
+        # above (which stay comparable with earlier runs)
+        t0 = time.perf_counter()
+        keyed = keyed_path(args, http, srv)
+        keyed["phase_s"] = time.perf_counter() - t0
     finally:
         http.close()
         srv.stop()
     t0 = time.perf_counter()
     cli_check()
-    recovered = {"data_dir": data_dir, "served": served, "want": want, "row_g0": row_g0, "n_val": n_val}
+    recovered = {"data_dir": data_dir, "served": served, "want": want, "row_g0": row_g0, "n_val": n_val,
+                 "keyed_served": keyed.pop("served")}
     return recovered, {
+        "keyed": keyed,
         "launches": launches,
         "query_p50_ms": lat,
         "first_query_ms": first_ms[SERVE_QUERIES[0]],
@@ -1485,6 +1670,226 @@ def serve_path(args):
         "concurrent_s": concurrent_s,
         "cli_s": time.perf_counter() - t0,
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: a keyed index on the served node
+# ---------------------------------------------------------------------------
+
+KEYED_COLUMNS = 1 << 22  # column keys "u%010d": 4 shards of ids (ids start at 1)
+KEYED_BATCH = 100_000  # pairs or values per keyed /import or import-value request
+KEYED_SEGMENTS = [f"seg-{k:02d}" for k in range(32)]
+# 64 two-letter ISO 3166 codes, in Zipf rank order
+COUNTRY_CODES = (
+    "US DE JP GB FR IN BR CA IT ES AU KR MX NL SE CH PL BE TR ID AR NO AT DK IE FI SG IL NZ PT CZ GR "
+    "ZA TH MY PH VN CL CO PE RO HU UA EG NG KE MA SA AE QA PK BD LK NP HK TW IS LU EE LV LT SI"
+).split()
+KEYED_PLANS = 4
+KEYED_QUERIES = [
+    'Count(Row(segment="seg-00"))',
+    'Count(Intersect(Row(segment="seg-01"), Row(country="US")))',
+    "Row(country=RAREST)",
+    "TopN(segment, n=5)",
+    'TopN(segment, Row(country="US"), n=5)',
+    "Rows(segment)",
+    'Rows(country, previous="DE", limit=10)',
+    'Rows(segment, column="u0000001234")',
+    "GroupBy(Rows(segment), Rows(country))",
+    "GroupBy(Rows(segment), Rows(country), Rows(plan), filter=Row(plan=1), limit=100)",
+    'GroupBy(Rows(segment), Rows(country), previous=["seg-05", "JP"], limit=10)',
+    'Sum(Row(segment="seg-03"), field=spend)',
+]
+
+
+def _zipf_p(n: int, a: float) -> np.ndarray:
+    p = 1.0 / np.arange(1, n + 1) ** a
+    return p / p.sum()
+
+
+def keyed_path(args, http, srv) -> dict:
+    """Index `k` (keys, existence tracked) on the serve phase's durable
+    node: KEYED_COLUMNS column keys in a seeded random arrival order (ids
+    follow arrival, not key order); keyed set field `segment` (32 keys,
+    each column in 1-3 segments of Zipf sizes), keyed mutex field
+    `country` (64 ISO codes, Zipf), unkeyed set field `plan` (4 rows), int
+    field `spend` in [0, 10^6]. Loaded through /import with rowKeys and
+    colKeys and import-value with colKeys in batches of KEYED_BATCH; then
+    a write, the keyed queries, each held to a numpy + dict model built
+    while generating and to Executor.execute on the node's holder, and
+    their served and in-process p50s."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.server import wire
+
+    n = KEYED_COLUMNS
+    rng = np.random.default_rng([args.seed, 8])
+    t0 = time.perf_counter()
+    users = rng.permutation(n)  # arrival order
+    col_keys = [f"u{x:010d}" for x in users.tolist()]
+    id_of_user = np.empty(n, np.int64)
+    id_of_user[users] = np.arange(1, n + 1)
+    # segments: 1-3 Zipf draws per column, user-major, so column ids follow
+    # the arrival order; a draw repeated within a column is one bit
+    n_seg = rng.integers(1, 4, n)
+    draws = rng.choice(len(KEYED_SEGMENTS), size=(n, 3), p=_zipf_p(len(KEYED_SEGMENTS), 1.1))
+    take = np.arange(3)[None, :] < n_seg[:, None]
+    seg_idx = draws[take]
+    seg_col = np.nonzero(take)[0]  # arrival index of each pair
+    _, first = np.unique(seg_idx, return_index=True)
+    seg_id = np.zeros(len(KEYED_SEGMENTS), np.int64)  # key index -> row id (first appearance)
+    seg_id[np.unique(seg_idx)[np.argsort(first)]] = np.arange(1, len(first) + 1)
+    cty = rng.choice(len(COUNTRY_CODES), size=n, p=_zipf_p(len(COUNTRY_CODES), 1.2))
+    _, first = np.unique(cty, return_index=True)
+    cty_id = np.zeros(len(COUNTRY_CODES), np.int64)
+    cty_id[np.unique(cty)[np.argsort(first)]] = np.arange(1, len(first) + 1)
+    plan = rng.integers(0, KEYED_PLANS, n)
+    spend = rng.integers(0, 10**6 + 1, n)
+    # the model, by column id (0 unused; id n + 1 is the PQL Set below)
+    mem = np.zeros((len(KEYED_SEGMENTS) + 2, n + 2), bool)  # by segment row id
+    mem[seg_id[seg_idx], seg_col + 1] = True
+    cty_of = np.zeros(n + 2, np.int64)  # country row id per column (0: none)
+    cty_of[1 : n + 1] = cty_id[cty]
+    plan_of = np.full(n + 2, -1, np.int64)
+    plan_of[1 : n + 1] = plan
+    spend_of = np.zeros(n + 2, np.int64)
+    spend_of[1 : n + 1] = spend
+    seg_key = {int(seg_id[k]): key for k, key in enumerate(KEYED_SEGMENTS) if seg_id[k]}
+    cty_key = {int(cty_id[k]): code for k, code in enumerate(COUNTRY_CODES) if cty_id[k]}
+    seg_pairs = [KEYED_SEGMENTS[k] for k in seg_idx.tolist()]
+    seg_cols = [col_keys[i] for i in seg_col.tolist()]
+    gen_s = time.perf_counter() - t0
+    print(f"keyed: generated {n} column keys, {len(seg_idx)} segment pairs in {gen_s:.1f} s")
+
+    http.json("POST", "/index/k", {"options": {"keys": True, "trackExistence": True}})
+    http.json("POST", "/index/k/field/segment", {"options": {"keys": True}})
+    http.json("POST", "/index/k/field/country", {"options": {"type": "mutex", "keys": True}})
+    http.json("POST", "/index/k/field/plan", {})
+    http.json("POST", "/index/k/field/spend", {"options": {"type": "int", "min": 0, "max": 10**6}})
+
+    def load(path, bodies):
+        t = time.perf_counter()
+        n_req = n_keys = n_bits = 0
+        for body in bodies:
+            out = http.json("POST", path, body)
+            check(out["errors"] == [] and out["applied"] == out["expected"] > 0, f"{path}: {out}")
+            n_req += 1
+            n_keys += len(body.get("rowKeys", ())) + len(body.get("colKeys", ()))
+            n_bits += len(body.get("colKeys", ()))
+        dt = time.perf_counter() - t
+        return {"s": dt, "requests": n_req, "keys": n_keys, "keys_per_s": n_keys / dt, "bits": n_bits, "bits_per_s": n_bits / dt}
+
+    B = KEYED_BATCH
+    ingest = {
+        "segment": load("/index/k/field/segment/import", (
+            {"rowKeys": seg_pairs[i : i + B], "colKeys": seg_cols[i : i + B]} for i in range(0, len(seg_pairs), B))),
+        "country": load("/index/k/field/country/import", (
+            {"rowKeys": [COUNTRY_CODES[c] for c in cty[i : i + B].tolist()], "colKeys": col_keys[i : i + B]}
+            for i in range(0, n, B))),
+        "plan": load("/index/k/field/plan/import", (
+            {"rows": plan[i : i + B].tolist(), "colKeys": col_keys[i : i + B]} for i in range(0, n, B))),
+        "spend": load("/index/k/field/spend/import-value", (
+            {"colKeys": col_keys[i : i + B], "values": spend[i : i + B].tolist()} for i in range(0, n, B))),
+    }
+    del seg_pairs, seg_cols
+    total_s = sum(v["s"] for v in ingest.values())
+    for name, v in ingest.items():
+        print(
+            f"keyed: ingest {name}: {v['requests']} POSTs, {v['bits']} {'values' if name == 'spend' else 'bits'} "
+            f"and {v['keys']} keys in {v['s']:.1f} s ({v['bits_per_s']:.0f} {'values' if name == 'spend' else 'bits'}/s, "
+            f"{v['keys_per_s']:.0f} keys/s)"
+        )
+
+    def kq(q):
+        status, raw = http.raw("POST", "/index/k/query", q.encode(), "text/plain")
+        check(status == 200, f"keyed {q}: HTTP {status}: {raw[:300]!r}")
+        return raw
+
+    # writes, and reads of keys never seen
+    check(json.loads(kq('Set("u-new-1", segment="seg-new")'))["results"] == [True], "keyed Set of a new key pair")
+    new_seg = len(KEYED_SEGMENTS) + 1
+    mem[new_seg, n + 1] = True
+    seg_key[new_seg] = "seg-new"
+    check(json.loads(kq('Count(Row(segment="seg-new"))'))["results"] == [1], "keyed Count(Row(segment=\"seg-new\"))")
+    check(json.loads(kq('Count(Row(segment="never-seen"))'))["results"] == [0], "keyed Count of a key never seen")
+
+    # the model's answers
+    sid = {key: i for i, key in seg_key.items()}
+    cid = {key: i for i, key in cty_key.items()}
+    key_of_id = lambda ids: [col_keys[i - 1] if i <= n else "u-new-1" for i in ids]  # noqa: E731
+    cty_counts = np.bincount(cty_of, minlength=len(COUNTRY_CODES) + 1)
+    rare = min((c, i) for i, c in enumerate(cty_counts) if i and c)[1]
+    rare_cols = np.flatnonzero(cty_of == rare)
+    seg_totals = {i: int(mem[i].sum()) for i in seg_key}
+    us = cty_of == cid["US"]
+    seg_us = {i: int((mem[i] & us).sum()) for i in seg_key}
+    top = lambda counts: [{"id": i, "count": c, "key": seg_key[i]}  # noqa: E731
+                          for i, c in sorted(((i, c) for i, c in counts.items() if c), key=lambda kv: (-kv[1], kv[0]))[:5]]
+    seg_ids_sorted = sorted(i for i in seg_key if seg_totals[i])
+    cty_ids_sorted = sorted(i for i in cty_key if cty_counts[i])
+    u1234 = int(id_of_user[1234])
+    pair_s, pair_c = np.nonzero(mem[:, 1 : n + 1])
+    pair_c += 1
+    ks = len(COUNTRY_CODES) + 1
+    gb2 = np.bincount(pair_s * ks + cty_of[pair_c], minlength=(len(KEYED_SEGMENTS) + 2) * ks)
+    groups2 = {(int(k // ks), int(k % ks)): int(v) for k, v in zip(np.flatnonzero(gb2), gb2[gb2 > 0]) if k % ks}
+    p1 = plan_of[pair_c] == 1
+    gb3 = np.bincount(pair_s[p1] * ks + cty_of[pair_c[p1]], minlength=(len(KEYED_SEGMENTS) + 2) * ks)
+    groups3 = {(int(k // ks), int(k % ks), 1): int(v) for k, v in zip(np.flatnonzero(gb3), gb3[gb3 > 0]) if k % ks}
+    anchor = (sid["seg-05"], cid["JP"] + 1)
+    keys3 = (seg_key, cty_key, None)
+    s3 = mem[sid["seg-03"]]
+    want = dict(zip(KEYED_QUERIES, [
+        [seg_totals[sid["seg-00"]]],
+        [seg_us[sid["seg-01"]]],
+        [{"attrs": {}, "columns": rare_cols.tolist(), "keys": key_of_id(rare_cols.tolist())}],
+        [top(seg_totals)],
+        [top(seg_us)],
+        [[seg_key[i] for i in seg_ids_sorted]],
+        [[cty_key[i] for i in cty_ids_sorted if i > cid["DE"]][:10]],
+        [[seg_key[i] for i in seg_ids_sorted if mem[i, u1234]]],
+        [group_json(("segment", "country"), groups2, keys3[:2])],
+        [group_json(("segment", "country", "plan"), groups3, keys3)[:100]],
+        [group_json(("segment", "country"), {k: v for k, v in groups2.items() if k >= anchor}, keys3[:2])[:10]],
+        [{"value": int(spend_of[s3].sum()), "count": int(s3.sum())}],
+    ]))
+    queries = [q.replace("RAREST", f'"{cty_key[rare]}"') for q in KEYED_QUERIES]
+    want = {q: want[kq_] for q, kq_ in zip(queries, KEYED_QUERIES)}
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    served, first_ms = {}, {}
+    for q in queries:
+        tq = time.perf_counter()
+        served[q] = kq(q)
+        first_ms[q] = (time.perf_counter() - tq) * 1e3
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    # the three-child GroupBy descends where 32 x 64 prefixes pass the tile
+    # (at 4M columns: 5 shards, gmax 409), its depth 0 on rows_counts
+    from pilosa_tpu_torch.exec.groupby import gmax
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
+
+    descends = len(KEYED_SEGMENTS) * len(COUNTRY_CODES) > gmax((n + 1) // SHARD_WIDTH + 1, WORDS_PER_ROW)
+    for name in ("counts_cross", "gather_and", "plan_count", "bsi_sum") + (("rows_counts",) if descends else ()):
+        check(launches[name] > 0, f"the keyed queries never launched {name}: {launches}")
+    lat = {}
+    for q in queries:
+        got = json.loads(served[q])["results"]
+        check(got == want[q], f"keyed {q}: {str(got)[:300]}, the model says {str(want[q])[:300]}")
+        local = [wire.result_to_public_json(r) for r in srv.executor.execute("k", q)]
+        check(got == local, f"keyed {q} differs from Executor.execute on the server's holder")
+        body = q.encode()
+        served_ms = host_p50_ms(lambda: http.raw("POST", "/index/k/query", body, "text/plain"))
+        local_ms = host_p50_ms(lambda: srv.executor.execute("k", q))
+        lat[q] = {"served_ms": served_ms, "in_process_ms": local_ms, "first_ms": first_ms[q]}
+        print(f"keyed p50 {served_ms:.3f} ms served, {local_ms:.3f} ms in process, first {first_ms[q]:.1f} ms  {q}")
+    print(
+        f"keyed: {len(queries)} queries over {n} column keys equal the model and Executor.execute; ingest "
+        f"{total_s:.1f} s; {len(groups2)} segment x country groups; launches {launches}"
+    )
+    return {"columns": n, "gen_s": gen_s, "ingest": ingest, "ingest_s": total_s, "query_p50_ms": lat,
+            "launches": launches, "served": served}
 
 
 # ---------------------------------------------------------------------------
@@ -1557,8 +1962,10 @@ def _cli_server(data_dir: str, sync_interval: float):
 
 
 def _kill_state(http, S: int, depth_rows: int):
-    """(f's bits as {(row, column)}, v's values as {column: value}) read
-    back through export-roaring of every shard of both views."""
+    """(f's bits as {(row, column)}, v's values as {column: value}, the
+    keyed index kk's pairs as {(row key, column key)}) read back through
+    export-roaring of every shard of both views and the CSV export of
+    kk."""
     from pilosa_tpu_torch.core import roaring_io
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
@@ -1578,7 +1985,10 @@ def _kill_state(http, S: int, depth_rows: int):
         mag[cols[rows == 1]] *= -1
         for c in cols[rows == 0].tolist():
             values[c + s * SHARD_WIDTH] = int(mag[c])
-    return bits, values
+    status, raw = http.raw("GET", "/export?index=kk&field=f")
+    check(status == 200, f"export kk/f: HTTP {status}")
+    pairs = {tuple(line.split(",")) for line in raw.decode().splitlines() if line}
+    return bits, values, pairs
 
 
 def kill9_check(seed: int, sync_interval: float) -> dict:
@@ -1610,6 +2020,8 @@ def kill9_check(seed: int, sync_interval: float) -> dict:
         http.json("POST", "/index/k", {})
         http.json("POST", "/index/k/field/f", {})
         http.json("POST", "/index/k/field/v", {"options": {"type": "int", "min": -1_000_000, "max": 1_000_000}})
+        http.json("POST", "/index/kk", {"options": {"keys": True}})
+        http.json("POST", "/index/kk/field/f", {"options": {"keys": True}})
 
         def bits_write(rows, cols):
             out = http.json("POST", "/index/k/field/f/import", {"rows": rows.tolist(), "cols": cols.tolist()})
@@ -1621,6 +2033,17 @@ def kill9_check(seed: int, sync_interval: float) -> dict:
             check(out["errors"] == [], f"kill -9 import-value: {out}")
             acked.append((time.monotonic(), ("values", cols.tolist(), vals.tolist())))
 
+        def keyed_write(rkeys, ckeys):
+            out = http.json("POST", "/index/kk/field/f/import", {"rowKeys": rkeys, "colKeys": ckeys})
+            check(out["errors"] == [], f"kill -9 keyed /import: {out}")
+            acked.append((time.monotonic(), ("kbits", list(zip(rkeys, ckeys)))))
+
+        def rand_keys(n_pairs):
+            return ([f"rk{int(x)}" for x in rng.integers(0, 8, n_pairs)],
+                    [f"ck{int(x):06d}" for x in rng.integers(0, 40_000, n_pairs)])
+
+        for _ in range(KILL_BIG // KILL_BATCH):  # keyed: its shard passes max_op_n too
+            keyed_write(*rand_keys(KILL_BATCH))
         for s in range(S):  # big: each shard passes max_op_n, so its fragments snapshot
             for _ in range(KILL_BIG // KILL_BATCH):
                 bits_write(rng.integers(0, 4, KILL_BATCH), rng.integers(0, SHARD_WIDTH, KILL_BATCH) + s * SHARD_WIDTH)
@@ -1636,6 +2059,10 @@ def kill9_check(seed: int, sync_interval: float) -> dict:
                 r, c = int(rng.integers(0, 4)), int(rng.integers(0, S * SHARD_WIDTH))
                 check(kq(http, f"Set({c}, f={r})") in ([True], [False]), "kill -9 Set")
                 acked.append((time.monotonic(), ("set", r, c)))
+                (rk,), (ck,) = rand_keys(1) if k % 8 == 2 else ([f"rk-new-{k}"], [f"ck-new-{k}"])
+                out = http.json("POST", "/index/kk/query", f'Set("{ck}", f="{rk}")'.encode(), "text/plain")
+                check(out["results"] in ([True], [False]), f"kill -9 keyed Set: {out}")
+                acked.append((time.monotonic(), ("kbits", [(rk, ck)])))
             else:
                 w = acked[int(rng.integers(0, len(acked)))][1]
                 if w[0] == "bits":
@@ -1658,7 +2085,7 @@ def kill9_check(seed: int, sync_interval: float) -> dict:
     check(wal_bytes > 0 and n_snaps > 0, f"kill -9: {n_snaps} snapshots and {wal_bytes} WAL bytes before the kill")
 
     def expect(writes):
-        bits, values = set(), {}
+        bits, values, pairs = set(), {}, set()
         for w in writes:
             if w[0] == "bits":
                 bits |= set(zip(w[1], w[2]))
@@ -1666,19 +2093,21 @@ def kill9_check(seed: int, sync_interval: float) -> dict:
                 values.update(zip(w[1], w[2]))
             elif w[0] == "set":
                 bits.add((w[1], w[2]))
+            elif w[0] == "kbits":
+                pairs |= set(w[1])
             else:
                 bits.discard((w[1], w[2]))
-        return bits, values
+        return bits, values, pairs
 
     t0 = time.perf_counter()
     p, uri = _cli_server(d, sync_interval)
     recovery_s = time.perf_counter() - t0
     try:
         http = _Http(uri)
-        got_bits, got_values = _kill_state(http, S, 21)
+        got = _kill_state(http, S, 21)
         writes = [w for _, w in acked]
         n_ok = len(writes)
-        while n_ok >= 0 and expect(writes[:n_ok]) != (got_bits, got_values):
+        while n_ok >= 0 and expect(writes[:n_ok]) != got:
             n_ok -= 1
         check(n_ok >= 0, "kill -9: the restarted node's state is no prefix of the acknowledged writes")
         lost = len(writes) - n_ok
@@ -1687,7 +2116,7 @@ def kill9_check(seed: int, sync_interval: float) -> dict:
         else:
             early = [t for t, _ in acked[n_ok:] if t < t_kill - sync_interval]
             check(not early, f"kill -9: {len(early)} writes acknowledged before the last sync interval were lost")
-        bits, values = expect(writes[:n_ok])
+        bits, values, pairs = expect(writes[:n_ok])
         for r in range(4):
             check(kq(http, f"Count(Row(f={r}))") == [sum(1 for b in bits if b[0] == r)], f"kill -9: Count(Row(f={r}))")
         vals = list(values.values())
@@ -1704,8 +2133,9 @@ def kill9_check(seed: int, sync_interval: float) -> dict:
     shutil.rmtree(d, ignore_errors=True)
     print(
         f"durable: kill -9 (wal-sync-interval {sync_interval}): {len(acked)} acknowledged writes "
-        f"({len(bits)} bits, {len(values)} values), {n_snaps} snapshots and {wal_bytes} WAL bytes at the kill; "
-        f"restart {recovery_s:.2f} s; {lost} lost; every acknowledged bit and value read back"
+        f"({len(bits)} bits, {len(values)} values, {len(pairs)} keyed pairs), {n_snaps} snapshots and {wal_bytes} "
+        f"WAL bytes at the kill; restart {recovery_s:.2f} s; {lost} lost; every acknowledged bit, value and "
+        "keyed pair read back"
     )
     return {"sync_interval": sync_interval, "acked": len(acked), "lost": lost, "recovery_s": recovery_s,
             "wal_bytes": wal_bytes, "snapshots": n_snaps}
@@ -1752,6 +2182,14 @@ def durable_path(args, st) -> dict:
             check(raw == st["served"][q], f"recovered {q}: {raw[:300]!r}, before the restart {st['served'][q][:300]!r}")
             check(json.loads(raw)["results"] == st["want"][q], f"recovered {q} differs from numpy")
             print(f"durable: first pass {first_ms[q]:.1f} ms  {q}")
+        # Rows, GroupBy and every keyed body: byte for byte the pre-restart ones
+        for index, bodies in (("s", {q: st["served"][q] for q in SERVE_GROUP_QUERIES}), ("k", st["keyed_served"])):
+            for q, before in bodies.items():
+                tq = time.perf_counter()
+                status, raw = http.raw("POST", f"/index/{index}/query", q.encode(), "text/plain")
+                first_ms[q] = (time.perf_counter() - tq) * 1e3
+                check(status == 200 and raw == before, f"recovered {index} {q}: {raw[:300]!r}, before {before[:300]!r}")
+        print(f"durable: {len(SERVE_GROUP_QUERIES)} Rows/GroupBy and {len(st['keyed_served'])} keyed bodies equal the pre-restart ones")
         torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
         for name in SERVE_KERNELS:
@@ -1768,7 +2206,7 @@ def durable_path(args, st) -> dict:
             print(f"durable p50 {served_ms:.3f} ms served, {local_ms:.3f} ms in process  {q}")
         print(
             f"durable: {len(SERVE_QUERIES)} recovered answers equal the pre-restart bodies and numpy; first pass "
-            f"{sum(first_ms.values()) / 1e3:.2f} s; launches {launches}"
+            f"{sum(first_ms[q] for q in SERVE_QUERIES) / 1e3:.2f} s; launches {launches}"
         )
     finally:
         http.close()
@@ -1794,7 +2232,7 @@ def durable_path(args, st) -> dict:
     return {
         "recovery_s": recovery_s,
         "first_pass_ms": first_ms,
-        "first_pass_s": sum(first_ms.values()) / 1e3,
+        "first_pass_s": sum(first_ms[q] for q in SERVE_QUERIES) / 1e3,
         "query_p50_ms": lat,
         "launches": launches,
         "data_dir_bytes": dir_bytes,
@@ -1891,13 +2329,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     recovered, serve = serve_path(args)
-    phase_s["serve"] = time.perf_counter() - t0
+    phase_s["serve"] = time.perf_counter() - t0 - serve["keyed"]["phase_s"]
     t0 = time.perf_counter()
     durable = durable_path(args, recovered)
     phase_s["durable"] = time.perf_counter() - t0
     for name, row in rows.items():
         row["launches_served"] = serve["launches"].get(name, 0)
         row["launches_recovered"] = durable["launches"].get(name, 0)
+        row["launches_keyed"] = serve["keyed"]["launches"].get(name, 0)
+    keyed = serve["keyed"]
+    phase_s["keyed (in serve)"] = keyed["phase_s"]
+    print(
+        f"keyed summary ({smi}): {keyed['columns']} column keys, phase {keyed['phase_s']:.1f} s, ingest "
+        f"{keyed['ingest_s']:.1f} s ("
+        + ", ".join(f"{k} {v['keys_per_s']:.0f} keys/s, {v['bits_per_s']:.0f} {'values' if k == 'spend' else 'bits'}/s"
+                    for k, v in keyed["ingest"].items())
+        + "); served p50 "
+        + ", ".join(f"{v['served_ms']:.3f}" for v in keyed["query_p50_ms"].values())
+        + " ms"
+    )
     ing = serve["ingest"]
     print(
         f"durable summary ({smi}): recovery {durable['recovery_s']:.2f} s, first pass {durable['first_pass_s']:.2f} s, "
@@ -1913,7 +2363,8 @@ def main() -> int:
     print(json.dumps({
         "kernels": [
             rows[k]
-            for k in ("plan_count", "gather_tally", "rows_counts", "count2", "bsi_sum", "bsi_min_max", "bsi_range")
+            for k in ("plan_count", "gather_tally", "rows_counts", "count2", "bsi_sum", "bsi_min_max", "bsi_range",
+                      "counts_cross", "gather_and")
         ],
         "extra_ms": extra,
         "query_p50_ms": lat,

@@ -5,13 +5,19 @@ package:
 
     {index_name: {
         "track_existence": bool,
+        "keys": bool, "translate": (ids, keys),           # optional
         "fields": {field_name: {
             "type": "set" | "mutex" | "int",
             "cache_type": str, "cache_size": int,
             "min": int, "max": int, "base": int, "bit_depth": int,  # int only
+            "keys": bool, "translate": (ids, keys),       # optional
             "views": {view_name: {shard: {row_id: (rep, array)}}},
         }},
     }}
+
+`translate` carries a keyed index's column keys or a keyed field's row
+keys as an integer id array and the list of their keys, in any order;
+the port's stores then map the same keys to the same ids.
 
 `rep` is "dense" (array = uint32[WORDS_PER_ROW] words) or "sparse"
 (array = sorted uint32 in-shard positions), the row's host representation
@@ -39,7 +45,12 @@ from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 def holder_from_numpy(state: Dict[str, Dict[str, Any]], device=None) -> Holder:
     holder = Holder(None, device=device)
     for index_name, ispec in state.items():
-        idx = holder.create_index(index_name, track_existence=ispec.get("track_existence", True))
+        idx = holder.create_index(
+            index_name,
+            keys=ispec.get("keys", False),
+            track_existence=ispec.get("track_existence", True),
+        )
+        _load_keys(idx.translate_store, ispec)
         for field_name, fspec in ispec["fields"].items():
             if field_name == EXISTENCE_FIELD_NAME:
                 f = idx.existence_field()
@@ -50,6 +61,7 @@ def holder_from_numpy(state: Dict[str, Dict[str, Any]], device=None) -> Holder:
                     type=fspec.get("type", "set"),
                     cache_type=fspec.get("cache_type", "ranked"),
                     cache_size=fspec.get("cache_size", 50_000),
+                    keys=fspec.get("keys", False),
                 )
                 if opts.type == FIELD_TYPE_INT:
                     opts.min, opts.max = int(fspec["min"]), int(fspec["max"])
@@ -60,6 +72,7 @@ def holder_from_numpy(state: Dict[str, Dict[str, Any]], device=None) -> Holder:
                         f"{index_name}.{field_name}: base {fspec['base']} differs from the "
                         f"base {f.options.base} of range [{opts.min}, {opts.max}]"
                     )
+                _load_keys(f.translate_store, fspec)
             for view_name, shards in fspec["views"].items():
                 view = f._view_create(view_name)
                 for shard, rows in shards.items():
@@ -77,3 +90,9 @@ def holder_from_numpy(state: Dict[str, Dict[str, Any]], device=None) -> Holder:
                         else:
                             frag.import_positions(keys, None)
     return holder
+
+
+def _load_keys(store, spec: Dict[str, Any]) -> None:
+    if "translate" in spec:
+        ids, keys = spec["translate"]
+        store.apply_entries(zip(np.asarray(ids, np.uint64).tolist(), keys))

@@ -3,8 +3,9 @@
 The port of pilosa_tpu/core/field.py for set, mutex and int (BSI) fields.
 Time and bool fields come in later slices and raise at creation. A
 durable field keeps its options in `<path>/.meta.json` (the reference's
-`asdict(FieldOptions)`, rewritten when an int field's bit depth grows)
-and its views under `<path>/views/<view>`.
+`asdict(FieldOptions)`, rewritten when an int field's bit depth grows),
+its views under `<path>/views/<view>` and, when keyed, its row keys in
+`<path>/.keys.translate` (core/translate.py).
 
 An int field stores `value - base` in sign + magnitude bit planes in its
 BSI view (`bsig_<name>`): row 0 marks columns that hold a value, row 1
@@ -31,6 +32,7 @@ from pilosa_tpu_torch.core.cache import (
 )
 from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core.devcache import DeviceCache
+from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.core.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXPONENT
 from pilosa_tpu_torch.utils.arrays import group_slices
@@ -77,7 +79,8 @@ class FieldOptions:
     max: int = 0
     base: int = 0
     bit_depth: int = 0
-    # carried for the schema; keyed fields and time views raise at creation
+    # keys: row keys translate through the field's TranslateStore;
+    # time views are carried for the schema and raise at creation
     time_quantum: str = ""
     keys: bool = False
     no_standard_view: bool = False
@@ -101,8 +104,6 @@ class Field:
             raise ValueError(f"invalid field type {options.type!r}")
         if options.type not in PORTED_TYPES:
             raise NotImplementedError(f"{options.type} fields are not ported yet")
-        if options.keys:
-            raise NotImplementedError("key translation is not ported yet")
         if options.time_quantum or options.no_standard_view:
             raise NotImplementedError("time views are not ported yet")
         if options.cache_type not in CACHE_TYPES:
@@ -117,6 +118,10 @@ class Field:
         self.dcache = dcache
         self._mu = threading.RLock()
         self.views: Dict[str, View] = {}
+        # row keys (used only when options.keys is set)
+        self.translate_store = TranslateStore(
+            None if path is None else os.path.join(path, ".keys.translate")
+        )
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -134,8 +139,11 @@ class Field:
 
     def open(self) -> "Field":
         """Write .meta.json if it is missing, then open every view under
-        views/. Anything the port cannot serve yet (row attributes, time
-        views) raises NotImplementedError naming it."""
+        views/ and, for a keyed field, the row key store. Anything the
+        port cannot serve yet (row attributes, time views) raises
+        NotImplementedError naming it."""
+        if self.options.keys:
+            self.translate_store.open()
         if self.path is None:
             return self
         os.makedirs(self.path, exist_ok=True)
@@ -189,10 +197,12 @@ class Field:
         return self.views.get(name)
 
     def close(self) -> None:
-        """Close every view: WALs and cache sidecars, device tensors."""
+        """Close every view (WALs and cache sidecars, device tensors) and
+        the row key store."""
         with self._mu:
             for v in self.views.values():
                 v.close()
+            self.translate_store.close()
 
     def bsi_view_name(self) -> str:
         return VIEW_BSI_PREFIX + self.name

@@ -6,8 +6,8 @@ device="cpu" for the plain-PyTorch path. The holder owns the device cache
 its fragments and views stage tensors in. With a `path` (a data
 directory) it is durable, in the reference's on-disk format: one
 directory per index holding a .meta.json, opened by `open()`; a directory
-holding something the port cannot serve yet (keyed indexes or fields,
-attributes, time views) raises NotImplementedError naming it.
+holding something the port cannot serve yet (attributes, time views)
+raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -41,10 +41,10 @@ class Holder:
                     continue
                 with open(meta) as f:
                     opts = json.load(f)
-                if opts.get("keys", False):
-                    raise NotImplementedError(f"index {idx_dir}: keyed indexes are not yet ported")
                 self._indexes[name] = self._new_index(
-                    name, track_existence=opts.get("track_existence", True)
+                    name,
+                    keys=opts.get("keys", False),
+                    track_existence=opts.get("track_existence", True),
                 ).open()
         return self
 

@@ -1,8 +1,9 @@
 """Index: per-index namespace of fields plus existence tracking (the
 `_exists` field whose row 0 marks every column ever set, which Not() and
 All() read). The port of pilosa_tpu/core/index.py. A durable index keeps
-`{"keys", "track_existence"}` in `<path>/.meta.json` and one directory per
-field (`_exists` included)."""
+`{"keys", "track_existence"}` in `<path>/.meta.json`, one directory per
+field (`_exists` included) and, when keyed, its column keys in
+`<path>/.keys.translate` (core/translate.py)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from pilosa_tpu_torch.core.devcache import DeviceCache
 from pilosa_tpu_torch.core.field import FIELD_TYPE_SET, Field, FieldOptions, validate_name
+from pilosa_tpu_torch.core.translate import TranslateStore
 
 EXISTENCE_FIELD_NAME = "_exists"
 
@@ -33,8 +35,6 @@ class Index:
         path: Optional[str] = None,
     ):
         validate_name(name)
-        if keys:
-            raise NotImplementedError("key translation is not ported yet")
         self.path = path  # None: in memory
         self.name = name
         self.keys = keys
@@ -43,6 +43,10 @@ class Index:
         self.dcache = dcache
         self._mu = threading.RLock()
         self._fields: Dict[str, Field] = {}
+        # column keys (used only when keys is set)
+        self.translate_store = TranslateStore(
+            None if path is None else os.path.join(path, ".keys.translate")
+        )
 
     @property
     def meta_path(self) -> Optional[str]:
@@ -51,8 +55,9 @@ class Index:
     def open(self) -> "Index":
         """Write .meta.json if it is missing, open every field directory
         (one holding a .meta.json), then create `_exists` if it is
-        tracked and absent. Column attributes raise NotImplementedError
-        naming the file."""
+        tracked and absent, and open the column key store of a keyed
+        index. Column attributes raise NotImplementedError naming the
+        file."""
         if self.path is not None:
             os.makedirs(self.path, exist_ok=True)
             for fn in (".col_attrs.json", ".col_attrs.json.log"):
@@ -73,6 +78,8 @@ class Index:
                 EXISTENCE_FIELD_NAME,
                 FieldOptions(type=FIELD_TYPE_SET, cache_type="none", cache_size=0),
             ).open()
+        if self.keys:
+            self.translate_store.open()
         return self
 
     def save_meta(self) -> None:
@@ -131,11 +138,13 @@ class Index:
                 shutil.rmtree(f.path, ignore_errors=True)
 
     def close(self) -> None:
-        """Close every field: WALs and cache sidecars, device tensors."""
+        """Close every field (WALs and cache sidecars, device tensors) and
+        the column key store."""
         with self._mu:
             fields = list(self._fields.values())
         for f in fields:
             f.close()
+        self.translate_store.close()
 
     def existence_field(self) -> Optional[Field]:
         return self._fields.get(EXISTENCE_FIELD_NAME) if self.track_existence else None

@@ -9,7 +9,11 @@ runs the bsi_range kernel in count mode (exec/bsistream.py); Sum, Min and
 Max over int fields run the bsi_sum and bsi_min_max kernels; Set and Clear
 write bits and int values; TopN answers unfiltered queries from the rank
 caches and filtered ones from one plan plus a device tally (rows_counts
-for dense candidates, gather_tally for sparse ones).
+for dense candidates, gather_tally for sparse ones); Rows lists a field's
+row ids from the host row stores, and GroupBy tallies the cross-product
+of its children's rows on the card (exec/groupby.py: counts_cross,
+gather_and). String keys are translated to ids before execution and ids
+back to keys after it (exec/translation.py).
 
 Every other call raises ExecError("<Call> not yet ported"). There is no
 per-shard fallback: a tree the stacked lowering cannot express is an
@@ -35,6 +39,7 @@ from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.exec import bsistream
 from pilosa_tpu_torch.exec import groupby as gb
 from pilosa_tpu_torch.exec import plan as planmod
+from pilosa_tpu_torch.exec import translation
 from pilosa_tpu_torch.exec.plan import (
     BudgetExceeded,
     MultiCountPlan,
@@ -52,7 +57,7 @@ from pilosa_tpu_torch.exec.plan import (
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.pql import Call, Query, parse
 from pilosa_tpu_torch.pql.ast import BETWEEN, GT, GTE, LT, LTE, NEQ
-from pilosa_tpu_torch.shardwidth import WORDS_PER_ROW
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
 DEFAULT_MIN_THRESHOLD = 1
 
@@ -60,7 +65,7 @@ DEFAULT_MIN_THRESHOLD = 1
 _NOT_PORTED = frozenset(
     {
         "MinRow", "MaxRow", "ClearRow", "Store",
-        "SetRowAttrs", "SetColumnAttrs", "Rows", "GroupBy", "Options",
+        "SetRowAttrs", "SetColumnAttrs", "Options",
     }
 )
 
@@ -97,13 +102,43 @@ class ValCount:
 
 @dataclass
 class Pair:
-    """TopN result entry."""
+    """TopN result entry; `key` is set for a keyed field."""
 
     id: int
     count: int
+    key: Optional[str] = None
 
     def to_json(self):
-        return {"id": self.id, "count": self.count}
+        d = {"id": self.id, "count": self.count}
+        if self.key is not None:
+            d["key"] = self.key
+        return d
+
+
+@dataclass
+class FieldRow:
+    """One child's row of a GroupBy group; `row_key` for a keyed field."""
+
+    field: str
+    row_id: int
+    row_key: Optional[str] = None
+
+    def to_json(self):
+        if self.row_key:
+            return {"field": self.field, "rowKey": self.row_key}
+        return {"field": self.field, "rowID": self.row_id}
+
+
+@dataclass
+class GroupCount:
+    group: List[FieldRow]
+    count: int
+
+    def to_json(self):
+        return {"group": [g.to_json() for g in self.group], "count": self.count}
+
+    def compare_key(self):
+        return tuple(g.row_id for g in self.group)
 
 
 @dataclass
@@ -471,6 +506,7 @@ class Executor:
             raise ExecError("too many writes in a single request")
         if shards is None:
             shards = opt.shards
+        translation.translate_query(idx, query)
         results: List[Any] = []
         calls = query.calls
         i = 0
@@ -488,7 +524,7 @@ class Executor:
                 continue
             results.append(self._execute_call(idx, calls[i], shards))
             i += 1
-        return QueryResponse(results=results)
+        return QueryResponse(results=translation.translate_results(idx, query, results))
 
     def _shards_for(self, idx: Index, shards, call: Optional[Call] = None) -> List[int]:
         s = list(shards) if shards is not None else (sorted(idx.available_shards()) or [0])
@@ -520,6 +556,10 @@ class Executor:
             return self._execute_bsi_aggregate(idx, c, shards, "min")
         if name == "Max":
             return self._execute_bsi_aggregate(idx, c, shards, "max")
+        if name == "Rows":
+            return self._execute_rows(idx, c, shards)
+        if name == "GroupBy":
+            return self._execute_group_by(idx, c, shards)
         if name in _NOT_PORTED:
             raise ExecError(f"{name} not yet ported")
         return self._execute_bitmap_call(idx, c, shards)
@@ -1039,7 +1079,7 @@ class Executor:
                 ids = bundle.dense_rows[i : i + r_c]
                 planes = view.plane_stack(ids, pshards)
                 TOPN_STATS["tally_evals"] += 1
-                counts = gb.counts_cross(src_stack[: planes.shape[1]], planes)
+                counts = gb.counts_cross(src_stack[None, : planes.shape[1]], planes)[0]
                 parts.append(counts[:, :n_present])
                 order.extend(ids)
             if bundle.sparse_rows:
@@ -1119,3 +1159,162 @@ class Executor:
                     for a in (idx, masks.view(np.int32), starts, ends)
                 )
         return _TallyBundle(dense_rows, sparse_rows, dev)
+
+    # ------------------------------------------------------------------
+    # Rows / GroupBy
+    # ------------------------------------------------------------------
+
+    def _execute_rows(self, idx: Index, c: Call, shards) -> List[int]:
+        """The sorted ids of the field's rows that hold a bit (in `column`
+        when given) in any listed shard, after `previous`, at most
+        `limit`. Read from the host row stores: no device work."""
+        field_name = c.string_arg("field") or c.args.get("_field")
+        if not field_name:
+            raise ExecError("Rows() field required")
+        col = c.uint_arg("column")
+        if col is not None:
+            shards = [col // SHARD_WIDTH]
+        limit = c.uint_arg("limit")
+        f = self._field_of(idx, field_name)
+        v = f.view(VIEW_STANDARD)
+        merged: set = set()
+        for shard in self._shards_for(idx, shards):
+            frag = v.fragment_if_exists(shard) if v is not None else None
+            if frag is None:
+                continue
+            ids = frag.row_ids()
+            if col is not None:
+                merged.update(r for r in ids if frag.contains(r, col % SHARD_WIDTH))
+            elif ids:
+                counts = frag.row_counts_host(ids)
+                merged.update(r for r, n in zip(ids, counts) if n)
+        out = sorted(merged)
+        prev = c.uint_arg("previous")
+        if prev is not None:
+            out = [r for r in out if r > prev]
+        if limit is not None:
+            out = out[:limit]
+        return out
+
+    def _execute_group_by(self, idx: Index, c: Call, shards) -> List[GroupCount]:
+        if not c.children:
+            raise ExecError("need at least one child call")
+        for child in c.children:
+            if child.name != "Rows":
+                raise ExecError(
+                    f"'{child.name}' is not a valid child query for GroupBy, must be 'Rows'"
+                )
+        limit = c.uint_arg("limit")
+        filter_call = c.args.get("filter")
+        if filter_call is not None and not isinstance(filter_call, Call):
+            raise ExecError("GroupBy filter must be a query")
+
+        # The cursor: per-child Rows(previous=) plus the list form
+        # previous=[...]; both resume the sorted cross-product after the
+        # previous group (a lexicographic >= against the anchor below).
+        prevs: List[Optional[int]] = [ch.uint_arg("previous") for ch in c.children]
+        gprev = c.args.get("previous")
+        if gprev is not None:
+            # translate_call reports shape errors first; this guards
+            # direct calls with an untranslated tree
+            if not isinstance(gprev, list) or len(gprev) != len(c.children):
+                raise ExecError("GroupBy previous must be a list with one entry per child")
+            for i, pv in enumerate(gprev):
+                if prevs[i] is None:
+                    prevs[i] = int(pv)
+
+        # Each child's row universe. Without a child limit or column, its
+        # previous must not prune the list (a non-last child's previous
+        # row still heads later groups); with one, Rows applies previous
+        # before limit and the pruned list is the universe.
+        child_fields = []
+        child_rows: List[List[int]] = []
+        for child in c.children:
+            child_fields.append(child.string_arg("field") or child.args.get("_field"))
+            saved_prev = None
+            if "limit" not in child.args and "column" not in child.args:
+                saved_prev = child.args.pop("previous", None)
+            try:
+                child_rows.append(self._execute_rows(idx, child, shards))
+            finally:
+                if saved_prev is not None:
+                    child.args["previous"] = saved_prev
+            if not child_rows[-1]:
+                return []
+
+        anchor: Optional[Tuple[int, ...]] = None
+        if any(p is not None for p in prevs):
+            # children without a previous anchor at their first row, the
+            # last child one past its previous; groups >= the anchor stay
+            last = len(c.children) - 1
+            anchor = tuple(
+                (prevs[i] + (1 if i == last else 0)) if prevs[i] is not None else child_rows[i][0]
+                for i in range(len(c.children))
+            )
+            # first rows below anchor[0] head only groups below it
+            child_rows[0] = [r for r in child_rows[0] if r >= anchor[0]]
+            if not child_rows[0]:
+                return []
+
+        merged = self._group_by_stacked(
+            idx, child_fields, child_rows, filter_call, self._shards_for(idx, shards)
+        )
+        if anchor is not None:
+            merged = {k: v for k, v in merged.items() if k >= anchor}
+        out = [
+            GroupCount(
+                group=[FieldRow(field=fn, row_id=rid) for fn, rid in zip(child_fields, key)],
+                count=cnt,
+            )
+            for key, cnt in merged.items()
+            if cnt > 0
+        ]
+        out.sort(key=lambda g: g.compare_key())
+        offset = c.uint_arg("offset")
+        if offset:
+            out = out[offset:]
+        if limit is not None:
+            out = out[:limit]
+        return out
+
+    def _group_by_stacked(
+        self, idx: Index, child_fields, child_rows, filter_call, shard_list
+    ) -> Dict[Tuple[int, ...], int]:
+        """The GroupBy tally over stacked [R, S, W] child planes and the
+        filter's [S, W] rows (the rows plan, Shift included), on the
+        shards where every child has a fragment (only there can a group
+        hold a bit). Stacks over the device budget split the shard list;
+        group counts add across the pieces."""
+        child_views = []
+        for fname in child_fields:
+            v = self._field_of(idx, fname).view(VIEW_STANDARD)
+            if v is None:
+                return {}
+            child_views.append(v)
+        gb_shards = [
+            s for s in shard_list if all(v.fragment_if_exists(s) is not None for v in child_views)
+        ]
+        budget = idx.dcache.budget_bytes // 4
+
+        def one(chunk) -> List[Dict[Tuple[int, ...], int]]:
+            filt = None
+            if filter_call is not None:
+                lowered = self._lower_roots(idx, [filter_call], chunk)
+                if lowered is self._EMPTY:
+                    return []  # the filter matches nothing here
+                roots, low, n_out, out_shards = lowered
+                filt = StackedPlan(roots[0], low.operands, n_out, out_shards).rows()
+                chunk = out_shards  # compaction dropped shards without filter bits
+            planes_list = []
+            for v, rows in zip(child_views, child_rows):
+                if len(chunk) * WORDS_PER_ROW * 4 * len(rows) > budget:
+                    raise BudgetExceeded("GroupBy plane stack exceeds the device budget")
+                planes_list.append(v.plane_stack(rows, chunk))
+            with planmod.dispatch_mutex():
+                return [gb.group_by_device(planes_list, child_rows, filt)]
+
+        merged: Dict[Tuple[int, ...], int] = {}
+        for part in self._chunk_by_budget(gb_shards, one):
+            for key, cnt in part.items():
+                merged[key] = merged.get(key, 0) + cnt
+        return merged

@@ -239,3 +239,25 @@ def shift_bits(words, n: int = 1):
 def any_set(words) -> torch.Tensor:
     """True if any bit is set (bool scalar)."""
     return torch.any(words != 0)
+
+
+# ---------------------------------------------------------------------------
+# GroupBy cross tally (twins of the counts_cross and gather_and kernels)
+# ---------------------------------------------------------------------------
+
+
+def counts_cross(acc: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """acc int32[G, S, W] x planes int32[R, S, W] -> int32[G, R, S] of
+    popcount(acc[g, s] & planes[r, s]) (pilosa_tpu/exec/groupby.py
+    _counts_cross), one [G, S, W] intermediate per plane row."""
+    g, s, _ = acc.shape
+    out = torch.empty((g, planes.shape[0], s), dtype=torch.int32, device=acc.device)
+    for r in range(planes.shape[0]):
+        out[:, r] = popcount_words(acc & planes[r]).sum(dim=-1, dtype=torch.int64).to(torch.int32)
+    return out
+
+
+def gather_and(a: torch.Tensor, ia: torch.Tensor, b: torch.Tensor, ib: torch.Tensor) -> torch.Tensor:
+    """out[i] = a[ia[i]] & b[ib[i]] over the leading axis (groupby.py
+    _select_rows_filtered, _select_pairs and _cross_expand)."""
+    return a[ia.long()] & b[ib.long()]

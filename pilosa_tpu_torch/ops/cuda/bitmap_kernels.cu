@@ -2,9 +2,11 @@
 //
 // Words are 32-bit little-endian bitmap words (bit b of word w = in-shard
 // column 32w + b). PyTorch holds them as int32; the kernels read them as
-// uint32. Every kernel here is a popcount reduction that reads each input
-// word once (gather_tally: each word idx points at), so all four are bound
-// by device-memory bytes, not operations:
+// uint32. Every kernel here but gather_and is a popcount reduction that
+// reads each input word once (gather_tally: each word idx points at;
+// counts_cross: each plane word once per chunk of 16 prefixes), and
+// gather_and is one AND per word read, so all six are bound by
+// device-memory bytes, not operations:
 // loads are 128-bit (uint4) where the pointers and the row width allow it,
 // popcount is one __popc per word, and partial sums stay in registers and
 // shared memory (nothing intermediate is written to device memory).
@@ -16,6 +18,10 @@
 //                      _root_out ("count" mode), an XLA program
 //   gather_tally_kernel pilosa_tpu/ops/bitmap.py gather_tally_sorted, an
 //                      XLA program (bound by the 32-byte sectors it gathers)
+//   counts_cross_kernel pilosa_tpu/exec/groupby.py _counts_cross, an XLA
+//                      program (GroupBy's per-shard cross tally)
+//   gather_and_kernel  pilosa_tpu/exec/groupby.py _select_rows_filtered,
+//                      _select_pairs and _cross_expand, XLA programs
 //
 // Each C entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() as an int. count2 and
@@ -797,5 +803,189 @@ PT_EXPORT int pt_gather_tally(const void* src, int64_t n_src, const void* idx, c
       static_cast<const uint32_t*>(src), n_src, static_cast<const int32_t*>(idx),
       static_cast<const uint32_t*>(mask), (int32_t)n_ent, static_cast<const int32_t*>(starts),
       static_cast<const int32_t*>(ends), (int32_t)n_seg, static_cast<unsigned int*>(out));
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// GroupBy's cross tally (pilosa_tpu/exec/groupby.py, XLA programs there):
+//   counts_cross_kernel  _counts_cross: out[g, r, s] = popcount(acc[g, s] &
+//                        planes[r, s]) for every live prefix g and candidate
+//                        row r, int32 (a shard holds at most 2^20 bits)
+//   gather_and_kernel    _select_rows_filtered, _select_pairs and
+//                        _cross_expand: out[i] = A[ia[i]] & B[ib[i]] over
+//                        whole [S, W] slabs
+// Both are bound by device-memory bytes: counts_cross reads each acc word
+// once per chunk of GC prefixes and each plane word once per chunk (one
+// chunk when G <= 16), gather_and reads two slabs and writes one, where
+// eager PyTorch writes both gathered slabs before the AND.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// plane rows whose per-(g, r) counts a block gathers in shared memory before
+// it adds them to the output
+constexpr int kCcRows = 64;
+
+// This thread's WPT words of the tile starting at word `base` of a W-word
+// row: uint4 q = base / 4 + k * kThreads + tid for k < WPT / 4 (VEC), else
+// word base + k * kThreads + tid; zero past the row's end.
+template <int WPT, int VEC>
+__device__ __forceinline__ void tile_words(const uint32_t* __restrict__ row, int64_t base,
+                                           int64_t W, uint32_t (&out)[WPT]) {
+  if constexpr (VEC) {
+    const uint4* row4 = reinterpret_cast<const uint4*>(row);
+    const int64_t w4 = W / 4;
+#pragma unroll
+    for (int k = 0; k < WPT / 4; ++k) {
+      const int64_t q = base / 4 + (int64_t)k * kThreads + threadIdx.x;
+      const uint4 v = q < w4 ? row4[q] : make_uint4(0u, 0u, 0u, 0u);
+      out[4 * k] = v.x;
+      out[4 * k + 1] = v.y;
+      out[4 * k + 2] = v.z;
+      out[4 * k + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < WPT; ++k) {
+      const int64_t i = base + (int64_t)k * kThreads + threadIdx.x;
+      out[k] = i < W ? row[i] : 0u;
+    }
+  }
+}
+
+// One block per (shard s, tile of kThreads * WPT words, chunk of GC
+// prefixes). The chunk's acc words stay in registers (GC * WPT of them);
+// each plane row's tile is read once and meets every prefix of the chunk;
+// a warp sums each (g, r) with one __reduce_add_sync, lane 0 adds it to the
+// block's shared counter, and the block adds each non-zero (g, r) counter to
+// out[g, r, s] with one atomic (out zeroed by the entry point).
+template <int GC, int WPT, int VEC>
+__global__ void __launch_bounds__(kThreads)
+counts_cross_kernel(const uint32_t* __restrict__ acc, const uint32_t* __restrict__ planes,
+                    int64_t G, int64_t R, int64_t S, int64_t W, int64_t tiles,
+                    unsigned int* __restrict__ out) {
+  __shared__ unsigned int cnt[GC * kCcRows];
+  const int64_t s = blockIdx.x / tiles;
+  const int64_t base = (blockIdx.x % tiles) * (int64_t)(kThreads * WPT);
+  const int64_t g0 = (int64_t)blockIdx.y * GC;
+  const int lane = threadIdx.x & 31;
+  uint32_t a[GC][WPT];
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    if (g0 + g < G) {
+      tile_words<WPT, VEC>(acc + ((g0 + g) * S + s) * W, base, W, a[g]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < WPT; ++k) a[g][k] = 0u;
+    }
+  }
+  for (int64_t r0 = 0; r0 < R; r0 += kCcRows) {
+    const int nr = (int)(R - r0 < kCcRows ? R - r0 : kCcRows);
+    for (int i = threadIdx.x; i < GC * kCcRows; i += kThreads) cnt[i] = 0u;
+    __syncthreads();
+    for (int j = 0; j < nr; ++j) {
+      uint32_t p[WPT];
+      tile_words<WPT, VEC>(planes + ((r0 + j) * S + s) * W, base, W, p);
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+        uint32_t c = 0u;
+#pragma unroll
+        for (int k = 0; k < WPT; ++k) c += __popc(a[g][k] & p[k]);
+        c = __reduce_add_sync(0xffffffffu, c);
+        if (lane == 0 && c != 0u) atomicAdd(&cnt[g * kCcRows + j], c);
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < GC * nr; i += kThreads) {
+      const int g = i / nr;
+      const int j = i - g * nr;
+      const unsigned int v = cnt[g * kCcRows + j];
+      if (v != 0u && g0 + g < G) atomicAdd(out + ((g0 + g) * R + r0 + j) * S + s, v);
+    }
+    __syncthreads();  // the counters are zeroed for the next rows
+  }
+}
+
+template <int GC, int WPT>
+int launch_counts_cross(const uint32_t* acc, const uint32_t* planes, int64_t g, int64_t r,
+                        int64_t s, int64_t w, int vec, unsigned int* out, cudaStream_t st) {
+  const int64_t tiles = (w + kThreads * WPT - 1) / (kThreads * WPT);
+  const int64_t chunks = (g + GC - 1) / GC;
+  if (s * tiles > INT32_MAX || chunks > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned int)(s * tiles), (unsigned int)chunks);
+  if (vec) {
+    counts_cross_kernel<GC, WPT, 1><<<grid, kThreads, 0, st>>>(acc, planes, g, r, s, w, tiles, out);
+  } else {
+    counts_cross_kernel<GC, WPT, 0><<<grid, kThreads, 0, st>>>(acc, planes, g, r, s, w, tiles, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// out[i] = a[ia[i]] & b[ib[i]] over slabs of `len` words: blockIdx.y walks
+// the output slabs, blockIdx.x and the threads stride over the words.
+__global__ void __launch_bounds__(kThreads)
+gather_and_kernel(const uint32_t* __restrict__ a, const int32_t* __restrict__ ia,
+                  const uint32_t* __restrict__ b, const int32_t* __restrict__ ib, int64_t n,
+                  int64_t len, int vec, uint32_t* __restrict__ out) {
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  for (int64_t i = blockIdx.y; i < n; i += gridDim.y) {
+    const uint32_t* x = a + (int64_t)__ldg(ia + i) * len;
+    const uint32_t* y = b + (int64_t)__ldg(ib + i) * len;
+    uint32_t* o = out + i * len;
+    if (vec) {
+      const uint4* x4 = reinterpret_cast<const uint4*>(x);
+      const uint4* y4 = reinterpret_cast<const uint4*>(y);
+      uint4* o4 = reinterpret_cast<uint4*>(o);
+      const int64_t n4 = len / 4;
+      for (int64_t q = (int64_t)blockIdx.x * kThreads + threadIdx.x; q < n4; q += stride) {
+        const uint4 u = x4[q];
+        const uint4 v = y4[q];
+        o4[q] = make_uint4(u.x & v.x, u.y & v.y, u.z & v.z, u.w & v.w);
+      }
+    } else {
+      for (int64_t q = (int64_t)blockIdx.x * kThreads + threadIdx.x; q < len; q += stride) {
+        o[q] = x[q] & y[q];
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// acc[g, s, w] x planes[r, s, w] -> out int32[g, r, s] (zeroed here). vec:
+// w % 4 == 0 and both stacks 16-byte aligned.
+PT_EXPORT int pt_counts_cross(const void* acc, int64_t g, const void* planes, int64_t r,
+                              int64_t s, int64_t w, int vec, void* out, void* stream) {
+  if (g < 1 || r < 1 || s < 1 || w < 1 || (vec && w % 4 != 0)) return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = cudaMemsetAsync(out, 0, (size_t)(g * r * s) * sizeof(int32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  auto* x = static_cast<const uint32_t*>(acc);
+  auto* p = static_cast<const uint32_t*>(planes);
+  auto* o = static_cast<unsigned int*>(out);
+  // GC * WPT = 64 words of acc per thread at every chunk size
+  if (g == 1) return launch_counts_cross<1, 16>(x, p, g, r, s, w, vec, o, st);
+  if (g == 2) return launch_counts_cross<2, 16>(x, p, g, r, s, w, vec, o, st);
+  if (g <= 4) return launch_counts_cross<4, 16>(x, p, g, r, s, w, vec, o, st);
+  if (g <= 8) return launch_counts_cross<8, 8>(x, p, g, r, s, w, vec, o, st);
+  return launch_counts_cross<16, 4>(x, p, g, r, s, w, vec, o, st);
+}
+
+// out[i] = a[ia[i]] & b[ib[i]] for i < n, each a slab of `len` words; ia
+// and ib (int32, on the card) index within a and b (checked by the caller).
+// vec: len % 4 == 0 and a, b and out 16-byte aligned.
+PT_EXPORT int pt_gather_and(const void* a, const void* ia, const void* b, const void* ib,
+                            int64_t n, int64_t len, int vec, void* out, void* stream) {
+  if (n < 1 || len < 1 || (vec && len % 4 != 0)) return (int)cudaErrorInvalidValue;
+  const int64_t items = vec ? len / 4 : len;
+  // about 4 items a thread, at most 65535 blocks across and 65535 down
+  int64_t gx = (items + kThreads * 4 - 1) / (kThreads * 4);
+  if (gx > 65535) gx = 65535;
+  const int64_t gy = n < 65535 ? n : 65535;
+  gather_and_kernel<<<dim3((unsigned int)gx, (unsigned int)gy), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const int32_t*>(ia),
+      static_cast<const uint32_t*>(b), static_cast<const int32_t*>(ib), n, len, vec,
+      static_cast<uint32_t*>(out));
   return (int)cudaGetLastError();
 }

@@ -16,13 +16,17 @@ these functions, and a failed build or launch raises.
 | `rows_counts`     | pallas_kernels.py `_rows_counts`                    |
 | `plan_count`      | exec/plan.py `_eval_jit`/`_root_out` (XLA program)  |
 | `gather_tally`    | ops/bitmap.py `gather_tally_sorted` (XLA program)   |
+| `counts_cross`    | exec/groupby.py `_counts_cross` (XLA program)       |
+| `gather_and`      | exec/groupby.py `_select_rows_filtered`,            |
+|                   | `_select_pairs`, `_cross_expand` (XLA programs)     |
 | `bsi_sum`         | pallas_kernels.py `sum_counts` (`_bsi_sum_kernel`)  |
 | `bsi_min_max`     | ops/bsi.py `min_max_stream` (XLA program)           |
 | `bsi_range`       | ops/bsi.py `range_*_unsigned`, `range_stream_single` |
 
-All of them read every input word once and do a few bitwise operations
-and popcounts per word, so on the card they are bound by device-memory
-bytes.
+All of them read every input word once (counts_cross: once per chunk of
+16 prefixes) and do a few bitwise operations and popcounts per word, so
+on the card they are bound by device-memory bytes. The twins of
+counts_cross and gather_and live in ops/bitmap.py.
 
 Each `.cu` source is compiled lazily, at the first CUDA launch, with its
 own `nvcc` process (all started together) into `ops/_build/`, under a
@@ -54,6 +58,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.ops import bitmap as ob
 from pilosa_tpu_torch.ops import bsi as obsi
 from pilosa_tpu_torch.ops.bitmap import MASK32, popcount_words
 
@@ -77,6 +82,8 @@ LAUNCHES = {
     "rows_counts": 0,
     "plan_count": 0,
     "gather_tally": 0,
+    "counts_cross": 0,
+    "gather_and": 0,
     "bsi_sum": 0,
     "bsi_min_max": 0,
     "bsi_range": 0,
@@ -189,6 +196,8 @@ class _Library:
             "pt_rows_counts": [p, i64, i64, p, i64, i32, p, p],
             "pt_plan_count": [p, i64, p, i64, i64, i64, i64, i64, p],
             "pt_gather_tally": [p, i64, p, p, i64, p, p, i64, p, p],
+            "pt_counts_cross": [p, i64, p, i64, i64, i64, i32, p, p],
+            "pt_gather_and": [p, p, p, p, i64, i64, i32, p, p],
             "pt_bsi_sum": [p, p, p, p, i32, i64, i32, i32, p, p],
             "pt_bsi_min_max": [p, p, p, p, i32, i64, i32, i32, i32, p, p, p, p],
             "pt_bsi_range": [p, p, p, i32, i64, i64, i32, i32, i32, u32, u32, i32, i32, p, p],
@@ -624,6 +633,97 @@ def gather_tally(
         _stream(src),
     )
     _launched("gather_tally", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# counts_cross / gather_and  (exec/groupby.py _counts_cross and the row
+# selections, XLA programs). Stacks are int32[n, S, W].
+# ---------------------------------------------------------------------------
+
+counts_cross_plain = ob.counts_cross
+
+
+def _stack3(t: torch.Tensor, what: str) -> None:
+    _words(t, what)
+    if t.dim() != 3:
+        raise ValueError(f"{what}: want [n, S, W], got {tuple(t.shape)}")
+
+
+def counts_cross(acc: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """Per-shard counts of popcount(acc[g, s] & planes[r, s]) for every
+    prefix g of acc[G, S, W] and row r of planes[R, S, W]: int32[G, R, S]
+    (a shard holds at most 2^20 bits, so no count wraps)."""
+    _stack3(acc, "counts_cross acc")
+    _stack3(planes, "counts_cross planes")
+    if acc.shape[1:] != planes.shape[1:]:
+        raise ValueError(f"counts_cross: acc {tuple(acc.shape)} vs planes {tuple(planes.shape)}")
+    if _route(acc, planes) == "cpu":
+        return counts_cross_plain(acc, planes)
+    g, s, w = acc.shape
+    r = planes.shape[0]
+    out = torch.empty((g, r, s), dtype=torch.int32, device=acc.device)
+    if out.numel() == 0 or w == 0:  # nothing to count: nothing to launch
+        return out.zero_()
+    rc = library().pt_counts_cross(
+        acc.data_ptr(),
+        g,
+        planes.data_ptr(),
+        r,
+        s,
+        w,
+        int(w % 4 == 0 and _aligned(acc, planes)),
+        out.data_ptr(),
+        _stream(acc),
+    )
+    _launched("counts_cross", rc)
+    return out
+
+
+def _host_index(idx, n: int, what: str) -> np.ndarray:
+    idx = np.asarray(idx, dtype=np.int64).reshape(-1)
+    if len(idx) and (idx.min() < 0 or idx.max() >= n):
+        raise IndexError(f"gather_and: {what} index outside [0, {n})")
+    return idx
+
+
+def gather_and_plain(a, ia, b, ib) -> torch.Tensor:
+    return ob.gather_and(a, torch.as_tensor(ia), b, torch.as_tensor(ib))
+
+
+def gather_and(a: torch.Tensor, ia, b: torch.Tensor, ib) -> torch.Tensor:
+    """out[i] = a[ia[i]] & b[ib[i]]: int32[n, S, W] from a[A, S, W] and
+    b[B, S, W] and host index sequences ia, ib of one length n. A filter
+    broadcast is b = filter[None] with ib all zero."""
+    _stack3(a, "gather_and a")
+    _stack3(b, "gather_and b")
+    if a.shape[1:] != b.shape[1:]:
+        raise ValueError(f"gather_and: a {tuple(a.shape)} vs b {tuple(b.shape)}")
+    ia = _host_index(ia, a.shape[0], "a")
+    ib = _host_index(ib, b.shape[0], "b")
+    if len(ia) != len(ib):
+        raise ValueError(f"gather_and: {len(ia)} a indices vs {len(ib)} b indices")
+    if _route(a, b) == "cpu":
+        return gather_and_plain(a, torch.from_numpy(ia), b, torch.from_numpy(ib))
+    n = len(ia)
+    _, s, w = a.shape
+    out = torch.empty((n, s, w), dtype=torch.int32, device=a.device)
+    if n == 0 or s * w == 0:  # nothing to write: nothing to launch
+        return out
+    # both index vectors in one upload
+    idx = torch.from_numpy(np.concatenate([ia, ib]).astype(np.int32)).to(a.device, non_blocking=False)
+    rc = library().pt_gather_and(
+        a.data_ptr(),
+        idx.data_ptr(),
+        b.data_ptr(),
+        idx.data_ptr() + 4 * n,
+        n,
+        s * w,
+        int((s * w) % 4 == 0 and _aligned(a, b, out)),
+        out.data_ptr(),
+        _stream(a),
+    )
+    _launched("gather_and", rc)
     return out
 
 

@@ -5,9 +5,11 @@ then execute), schema DDL, the imports (bits, values, roaring), the
 exports and the status reads, bound to the port's Holder and Executor.
 On a durable holder an import returns once one group commit made all of
 its writes durable, and a delete removes the index's or field's files.
-Admission, tracing, statistics, the Count batcher, key translation and
-every multi-node branch come in later slices; a request that needs one of
-them is an ApiError naming what is missing (HTTP 400).
+String row and column keys in imports translate through the field's and
+the index's key stores, and the CSV export writes keys where there are
+some. Admission, tracing, statistics, the Count batcher and every
+multi-node branch come in later slices; a request that needs one of them
+is an ApiError naming what is missing (HTTP 400).
 """
 
 from __future__ import annotations
@@ -28,9 +30,6 @@ from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.exec.executor import NotFoundError, QueryResponse
 from pilosa_tpu_torch.pql import parse
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXPONENT
-
-_KEYS_NOT_PORTED = "keys need key translation, which is not yet ported"
-
 
 class ApiError(Exception):
     pass
@@ -106,9 +105,7 @@ class API:
     # -- schema DDL ----------------------------------------------------------
 
     def create_index(self, name: str, keys: bool = False, track_existence: bool = True):
-        if keys:
-            raise ApiError(f"index {name!r}: {_KEYS_NOT_PORTED}")
-        return self.holder.create_index_if_not_exists(name, track_existence=track_existence)
+        return self.holder.create_index_if_not_exists(name, keys=keys, track_existence=track_existence)
 
     def delete_index(self, name: str) -> None:
         try:
@@ -164,8 +161,7 @@ class API:
         idx, f = self._index_field(index, field)
         if timestamps is not None and any(t is not None for t in timestamps):
             raise ApiError("timestamps need time fields, which are not yet ported")
-        rows = _ids(rows, "row keys on an unkeyed field")
-        cols = _ids(cols, "column keys on an unkeyed index")
+        rows, cols = _translate_import(idx, f, rows, cols)
         with walmod.GROUP_COMMIT.barrier():
             f.import_bits(rows, cols, clear=clear)
             idx.track_columns(cols)
@@ -175,7 +171,7 @@ class API:
     def import_values(self, index: str, field: str, cols: Sequence, values: Sequence[int]) -> dict:
         self._check_write_count(len(cols))
         idx, f = self._index_field(index, field)
-        cols = _ids(cols, "column keys on an unkeyed index")
+        _, cols = _translate_import(idx, f, None, cols)
         with walmod.GROUP_COMMIT.barrier():
             f.import_values(cols, np.asarray(values, dtype=np.int64))
             idx.track_columns(cols)
@@ -230,8 +226,10 @@ class API:
         return roaring_io.encode(rows * np.uint64(SHARD_WIDTH) + cols)
 
     def export_csv(self, index: str, field: str, shard: Optional[int] = None) -> str:
-        """"row,column" lines of the standard view, shard by shard."""
-        _, f = self._index_field(index, field)
+        """"row,column" lines of the standard view, shard by shard; a
+        keyed field writes row keys, a keyed index column keys (the id
+        where an id has no key)."""
+        idx, f = self._index_field(index, field)
         v = f.view(VIEW_STANDARD)
         if v is None:
             return ""
@@ -241,8 +239,12 @@ class API:
             if frag is None:
                 continue
             rows, cols = frag.pairs()
-            for r, c in zip(rows.tolist(), (cols + np.uint64(s * SHARD_WIDTH)).tolist()):
-                out.write(f"{r},{c}\n")
+            rows = rows.tolist()
+            cols = (cols + np.uint64(s * SHARD_WIDTH)).tolist()
+            rkeys = f.translate_store.keys_for_ids(rows) if f.options.keys else [None] * len(rows)
+            ckeys = idx.translate_store.keys_for_ids(cols) if idx.keys else [None] * len(cols)
+            for r, c, rk, ck in zip(rows, cols, rkeys, ckeys):
+                out.write(f"{rk if rk is not None else r},{ck if ck is not None else c}\n")
         return out.getvalue()
 
     # -- node info -----------------------------------------------------------
@@ -308,17 +310,25 @@ class API:
         return out
 
 
-def _ids(values: Sequence[Any], key_error: str) -> np.ndarray:
-    """Row or column ids as uint64; string keys need key translation."""
-    if len(values) and isinstance(values[0], str):
-        raise ApiError(f"{key_error}: {_KEYS_NOT_PORTED}")
-    return np.asarray(values, dtype=np.uint64)
+def _translate_import(idx, f, rows: Optional[Sequence[Any]], cols: Sequence[Any]):
+    """Row and column ids as uint64 arrays: string keys (judged by the
+    first entry) translate through the field's or the index's key store,
+    allocating ids for new keys."""
+    if rows is not None:
+        if len(rows) and isinstance(rows[0], str):
+            if not f.options.keys:
+                raise ApiError("row keys on an unkeyed field")
+            rows = f.translate_store.translate_keys(list(rows))
+        rows = np.asarray(rows, dtype=np.uint64)
+    if len(cols) and isinstance(cols[0], str):
+        if not idx.keys:
+            raise ApiError("column keys on an unkeyed index")
+        cols = idx.translate_store.translate_keys(list(cols))
+    return rows, np.asarray(cols, dtype=np.uint64)
 
 
 def _ported_options(name: str, options: FieldOptions) -> FieldOptions:
     """The options, or an ApiError naming what the port lacks for them."""
-    if options.keys:
-        raise ApiError(f"field {name!r}: {_KEYS_NOT_PORTED}")
     if options.type in ("time", "bool"):
         raise ApiError(f"field {name!r}: {options.type} fields are not yet ported")
     if options.time_quantum or options.no_standard_view:

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.core.row import Row
-from pilosa_tpu_torch.exec.executor import Pair, ValCount
+from pilosa_tpu_torch.exec.executor import GroupCount, Pair, ValCount
 
 
 def _number(x: Any):
@@ -28,17 +28,27 @@ def _number(x: Any):
 
 def result_to_public_json(r: Any) -> Any:
     """One call's result as the reference's handler writes it: a Row as
-    {"attrs": {...}, "columns": [...]}, a Count or Set/Clear as a number
-    or bool, Sum/Min/Max as {"value", "count"}, TopN as a list of
-    {"id", "count"}."""
+    {"attrs": {...}, "columns": [...]} plus "keys" on a keyed index, a
+    Count or Set/Clear as a number or bool, Sum/Min/Max as {"value",
+    "count"}, TopN as a list of {"id", "count"} plus "key" on a keyed
+    field, GroupBy as a list of {"group": [{"field", "rowID" or
+    "rowKey"}], "count"}, Rows as a list of row ids or row keys."""
     if isinstance(r, Row):
-        return {"attrs": r.attrs or {}, "columns": r.columns().tolist()}
+        out = {"attrs": r.attrs or {}, "columns": r.columns().tolist()}
+        if r.keys is not None:
+            out["keys"] = r.keys
+        return out
     if isinstance(r, ValCount):
         return {"value": _number(r.value), "count": _number(r.count)}
     if isinstance(r, Pair):
-        return {"id": _number(r.id), "count": _number(r.count)}
+        out = {"id": _number(r.id), "count": _number(r.count)}
+        if r.key is not None:
+            out["key"] = r.key
+        return out
+    if isinstance(r, GroupCount):
+        return r.to_json()  # Python ints throughout (exec/executor.py)
     if isinstance(r, list):
         return [result_to_public_json(x) for x in r]
-    if r is None:
-        return None
+    if r is None or isinstance(r, str):
+        return r
     return _number(r)

@@ -111,3 +111,34 @@ def test_import_and_export_over_http(tmp_path, capsys):
     finally:
         srv.stop()
     assert os.path.exists(tmp_path / "d" / "i" / "v" / ".meta.json")
+
+
+def test_import_with_keys_and_inspect_keyed_dir(tmp_path, capsys):
+    """`import --index-keys --field-keys` loads row and column keys; the
+    export writes them back; `inspect` and `check` of the keyed data dir
+    print what the reference's print."""
+    d = tmp_path / "d"
+    srv = NodeServer(str(d), "n0", bind="localhost:0", device="cpu").start()
+    try:
+        uri = srv.node.uri
+        csv = tmp_path / "keys.csv"
+        csv.write_text("seg-a,user-1\nseg-b,user-2\nseg-a,user-3\n")
+        argv = ["import", "--host", uri, "-i", "k", "-f", "seg", "--create", "--index-keys", "--field-keys", str(csv)]
+        assert tmain(argv) == 0
+        plan = tmp_path / "plan.csv"
+        plan.write_text("2,user-2\n0,user-9\n")
+        assert tmain(["import", "--host", uri, "-i", "k", "-f", "plan", "--create", "--index-keys", str(plan)]) == 0
+        assert "imported 2 records" in capsys.readouterr().err
+        assert tmain(["export", "--host", uri, "-i", "k", "-f", "seg"]) == 0
+        assert capsys.readouterr().out == "seg-a,user-1\nseg-a,user-3\nseg-b,user-2\n"
+        assert tmain(["export", "--host", uri, "-i", "k", "-f", "plan"]) == 0
+        assert capsys.readouterr().out == "0,user-9\n2,user-2\n"
+        res = srv.executor.execute("k", 'Count(Row(seg="seg-a")) Rows(seg) Row(plan=2)')
+        assert res[:2] == [2, ["seg-a", "seg-b"]] and res[2].keys == ["user-2"]
+    finally:
+        srv.stop()
+    assert (d / "k" / ".keys.translate").exists() and (d / "k" / "seg" / ".keys.translate").exists()
+    rc, out = _both(capsys, ["inspect", str(d)], ["inspect", str(d), "--device", "cpu"])
+    assert rc == 0 and "k/seg/standard/shard=0: rows=2 bits=3" in out
+    rc, _ = _both(capsys, ["check", str(d)], ["check", str(d)])
+    assert rc == 0

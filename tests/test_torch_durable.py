@@ -7,7 +7,9 @@ on its own data dir. After close and reopen both hold the same rows,
 values, rank caches and schema, their .snap, .cache, .meta.json and .wal
 files are byte-identical, and each package opens the other's dir with
 the same answers. max_op_n is small (snapshots) or huge (everything
-replays from the WAL).
+replays from the WAL). Keyed indexes and fields likewise: the same keyed
+writes leave identical files, `.keys.translate` logs included, and each
+package opens the other's keyed dir with the same keyed answers.
 
 The kill matrix runs this file as a worker (`python
 tests/test_torch_durable.py --worker DIR POINT NTH SYNC_INTERVAL`): the
@@ -18,6 +20,7 @@ write in it.
 """
 
 import os
+import shutil
 import signal
 import sys
 import time
@@ -323,7 +326,7 @@ def test_reopen_serves_staged_and_lazy_rows(tmp_path):
 @pytest.mark.parametrize(
     "make,named",
     [
-        (lambda h: h.create_index("k", keys=True), "keyed"),
+        (lambda h: h.create_index("i").create_field("b", JFieldOptions(type="bool")), "bool"),
         (lambda h: h.create_index("i").create_field("t", JFieldOptions(type="time", time_quantum="YMD")), "time"),
         (lambda h: h.create_index("i").column_attr_store.set_attrs(1, {"a": 1}), ".col_attrs"),
         (lambda h: h.create_index("i").create_field("f").row_attr_store.set_attrs(1, {"a": 1}), ".row_attrs"),
@@ -336,6 +339,94 @@ def test_unported_contents_raise_by_name(tmp_path, make, named):
     with pytest.raises(NotImplementedError, match=named) as ei:
         tholder(tmp_path)
     assert str(tmp_path) in str(ei.value)
+
+
+def keyed_sequence(holder, executor, fo) -> None:
+    """The same keyed writes through either package: a keyed index with a
+    keyed set field, a keyed mutex field and an int field, written through
+    row and column keys (PQL and key-translated imports); a keyed field on
+    an unkeyed index."""
+    rng = np.random.default_rng(4)
+    k = holder.create_index("k", keys=True)
+    seg = k.create_field("seg", fo(keys=True))
+    k.create_field("cty", fo(type="mutex", keys=True))
+    k.create_field("spend", fo(type="int", min=0, max=1000))
+    users = [f"user-{int(x)}" for x in rng.permutation(3000)]
+    cols = np.asarray(k.translate_store.translate_keys(users), np.uint64)
+    rows = np.asarray(seg.translate_store.translate_keys([f"s{int(x) % 5}" for x in rng.zipf(1.5, len(users))]), np.uint64)
+    seg.import_bits(rows, cols)
+    k.track_columns(cols)
+    for j, u in enumerate(users[:40]):
+        executor.execute("k", f'Set("{u}", cty="{["US", "DE", "JP"][j % 3]}") Set("{u}", spend={j * 7})')
+    executor.execute("k", 'Clear("user-5", seg="s0") Set("late", seg="s9")')
+    plain = holder.create_index("p")
+    plain.create_field("kf", fo(keys=True))
+    executor.execute("p", 'Set(3, kf="x") Set(1048580, kf="y")')
+
+
+KEYED_READS = [
+    ("k", 'Row(seg="s1")'),
+    ("k", "TopN(seg, n=3)"),
+    ("k", 'TopN(seg, Row(cty="US"))'),
+    ("k", "Rows(seg)"),
+    ("k", 'Rows(cty, previous="DE")'),
+    ("k", "GroupBy(Rows(seg), Rows(cty))"),
+    ("k", 'Sum(Row(seg="s2"), field=spend)'),
+    ("p", "Rows(kf)"),
+    ("p", 'Row(kf="y")'),
+]
+
+
+def keyed_answers(executor_cls, holder):
+    ex = executor_cls(holder)
+    out = []
+    for index, q in KEYED_READS:
+        for r in ex.execute(index, q):
+            if hasattr(r, "columns"):
+                out.append(([int(c) for c in r.columns()], r.keys))
+            elif isinstance(r, list) and r and hasattr(r[0], "group"):
+                out.append([([(fr.field, fr.row_id, fr.row_key) for fr in g.group], g.count) for g in r])
+            elif isinstance(r, list) and r and hasattr(r[0], "key"):
+                out.append([(p.id, p.count, p.key) for p in r])
+            elif isinstance(r, list):
+                out.append(list(r))
+            else:
+                out.append(norm(r))
+    return out
+
+
+def test_keyed_dirs_match_and_cross_open(tmp_path):
+    """The same keyed writes through both packages leave byte-identical
+    files (.keys.translate logs included), and each package opens its own
+    keyed dir and the other's with the same keyed answers; a key written
+    after the reopen gets the same next id in both."""
+    jd, td = tmp_path / "ref", tmp_path / "port"
+    ref, port = jholder(jd), tholder(td)
+    keyed_sequence(ref, JExecutor(ref), JFieldOptions)
+    keyed_sequence(port, TExecutor(port), TFieldOptions)
+    want = keyed_answers(JExecutor, ref)
+    assert keyed_answers(TExecutor, port) == want
+    assert want[0][1] and want[5]  # keyed columns and groups
+    ref.close()
+    port.close()
+    jf, tf = files(jd), files(td)
+    assert sorted(tf) == sorted(jf)
+    logs = [p for p in tf if p.endswith(".keys.translate")]
+    assert sorted(logs) == ["k/.keys.translate", "k/cty/.keys.translate", "k/seg/.keys.translate", "p/kf/.keys.translate"]
+    for p in tf:
+        assert tf[p] == jf[p], p
+    for k, (holder_of, ex_cls, src) in enumerate(
+        ((tholder, TExecutor, jd), (jholder, JExecutor, td), (tholder, TExecutor, td))
+    ):
+        d = tmp_path / f"open{k}"  # each reopen writes: a copy each
+        shutil.copytree(src, d)
+        h = holder_of(d)
+        try:
+            assert keyed_answers(ex_cls, h) == want, (holder_of.__name__, src.name)
+            assert ex_cls(h).execute("k", 'Set("after", seg="s1")') == [True]
+            assert h.index("k").translate_store.find_key("after") == 3002
+        finally:
+            h.close()
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from pilosa_tpu_torch import Holder as THolder
 from pilosa_tpu_torch.compat import holder_from_numpy
 from pilosa_tpu_torch.core.field import FieldOptions as TFieldOptions
 from pilosa_tpu_torch.core.row import Row as TRow
+from pilosa_tpu_torch.exec.translation import TranslationError as TTranslationError
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -216,19 +217,29 @@ ERRORS = [
 @pytest.mark.parametrize("pql", ERRORS)
 def test_errors_match_reference(loaded, pql):
     ref_ex, port_ex = loaded
-    # string keys fail translation in the reference; the port has no
-    # translation yet and fails them in lowering
-    with pytest.raises((JExecError, TranslationError)):
+    # string keys on unkeyed fields fail translation in both packages,
+    # with the same error type and message
+    with pytest.raises((JExecError, TranslationError)) as want:
         ref_ex.execute("i", pql)
-    with pytest.raises(TExecError):
+    with pytest.raises((TExecError, TTranslationError)) as got:
         port_ex.execute("i", pql)
+    if isinstance(want.value, TranslationError):
+        assert isinstance(got.value, TTranslationError) and str(got.value) == str(want.value)
 
 
 def test_unported_calls_raise(loaded):
-    _, port_ex = loaded
-    for pql in ["MinRow(field=f)", "GroupBy(Rows(f))", "Rows(f)", "ClearRow(f=1)"]:
+    ref_ex, port_ex = loaded
+    for pql in ["MinRow(field=f)", "ClearRow(f=1)"]:
         with pytest.raises(TExecError, match="not yet ported"):
             port_ex.execute("i", pql)
+    # Rows and GroupBy are ported: the reference's answers
+    for pql in ["GroupBy(Rows(f))", "Rows(f)"]:
+        want = ref_ex.execute("i", pql)[0]
+        got = port_ex.execute("i", pql)[0]
+        if pql.startswith("GroupBy"):
+            want = [([(fr.field, fr.row_id) for fr in g.group], g.count) for g in want]
+            got = [([(fr.field, fr.row_id) for fr in g.group], g.count) for g in got]
+        assert got == want and len(got) > 5, pql
 
 
 WRITES = [
@@ -453,8 +464,9 @@ def test_row_count_matches_reference(loaded, pql, shards, monkeypatch):
 
 
 def test_counts_cross_matches_reference(loaded):
-    """The filtered-TopN dense tally (exec/groupby.counts_cross, rows_counts
-    kernel) against the reference _counts_cross on the same stacks."""
+    """The filtered-TopN dense tally (exec/groupby.counts_cross with one
+    prefix, the rows_counts kernel) against the reference _counts_cross
+    on the same stacks."""
     import jax.numpy as jnp
 
     from pilosa_tpu.exec import groupby as jgb
@@ -468,7 +480,7 @@ def test_counts_cross_matches_reference(loaded):
     want = jgb._counts_cross(
         jnp.asarray(src.numpy().view(np.uint32))[None], jv.plane_stack((0, 2, 5), shards)
     )[0]
-    got = tgb.counts_cross(src, tv.plane_stack((0, 2, 5), shards))
+    got = tgb.counts_cross(src[None], tv.plane_stack((0, 2, 5), shards))[0]
     np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int32))
 
 
