@@ -19,8 +19,9 @@ Phases, each fatal on any mismatch or exception:
    1024 shards x 8 rows with uniform and Zipf-skewed segment lengths,
    for the BSI kernels, depths 1..32, signed and unsigned fields, filters,
    every range kind and edge predicates, and for GroupBy's kernels
-   counts_cross at every prefix-chunk size (G = 1..40) and gather_and on
-   aligned and unaligned slabs;
+   counts_cross at every prefix-chunk size (G = 2..40; G = 1 goes to
+   rows_counts) and gather_and on aligned and unaligned slabs, a filter
+   broadcast and a cross expansion past one 16-output chunk;
 3. main path: a 2^30-column index (1024 shards x 2^20 columns) with
    dense and sparse rows of a set field `f` and dense rows of `g`, loaded
    through Field.import_row_words / Field.import_bits / Set(), then the
@@ -522,10 +523,11 @@ def kernel_phase(rng, dev, errs):
     )
 
     # GroupBy kernels (their own generator, so the main path's data stay
-    # the same): counts_cross at every prefix-chunk size (G = 1, 2, 3, 8,
-    # 16, 17, 40), plane rows past one 64-row round, W not a multiple of 4
-    # or of a tile, unaligned views; gather_and over aligned and unaligned
-    # slabs, a filter broadcast and repeated indices
+    # the same): counts_cross at every prefix-chunk size (G = 2, 3, 8, 16,
+    # 17, 40; G = 1 runs on rows_counts), plane rows past one 64-row round,
+    # W not a multiple of 4 or of a tile, unaligned views; gather_and over
+    # aligned and unaligned slabs, a filter broadcast, repeated indices and
+    # a cross expansion over three 16-output chunks
     grng = np.random.default_rng(7)
 
     def gwords(*shape):
@@ -540,12 +542,13 @@ def kernel_phase(rng, dev, errs):
     planes = gwords(4, 3, 1001)
     same("counts_cross", K.counts_cross(acc, planes), K.counts_cross_plain(cpu(acc), cpu(planes)))
     for na, nb, s, w, ia, ib in ((5, 2, 3, 4096, [4, 0, 2, 2], [1, 1, 0, 1]), (3, 3, 1, 1003, [2, 0], [1, 1]),
-                                 (6, 1, 8, 32768, [5, 1, 1, 0], [0, 0, 0, 0])):
+                                 (6, 1, 8, 32768, [5, 1, 1, 0], [0, 0, 0, 0]),
+                                 (5, 7, 2, 8200, np.repeat(np.arange(5), 7), np.tile(np.arange(7), 5))):
         a, b = gwords(na, s, w), gwords(nb, s, w)
         same("gather_and", K.gather_and(a, ia, b, ib), K.gather_and_plain(cpu(a), ia, cpu(b), ib))
     torch.cuda.synchronize()
     print("kernels: counts_cross equal to its twin at G = 1..40, R up to 70, W = 33..32768, unaligned; "
-          "gather_and equal on aligned and unaligned slabs and a filter broadcast")
+          "gather_and equal on aligned and unaligned slabs, a filter broadcast and a 35-output cross expansion")
 
 
 # ---------------------------------------------------------------------------
@@ -1257,12 +1260,14 @@ def kernel_timing(holder, ex, launches, errs):
         (gm + N_G) * s_all * w * 4 + gb_out,
     )
     f_all = view_f.plane_stack(tuple(range(N_DENSE + N_SPARSE)), shards)
-    sel = list(range(gm))
+    sel, zeros = list(range(gm)), [0] * gm
+    # the bound reads each distinct operand slab once: gm rows of f, the
+    # one filter slab, and writes gm slabs
     row(
         "gather_and", src, "pilosa_tpu/exec/groupby.py:97",
-        lambda: K.gather_and(f_all, sel, a[None], [0] * gm),
-        lambda: K.gather_and_plain(f_all, sel, a[None], [0] * gm),
-        3 * gm * s_all * w * 4,
+        lambda: K.gather_and(f_all, sel, a[None], zeros),
+        lambda: K.gather_and_plain(f_all, sel, a[None], zeros),
+        (len(set(sel)) + len(set(zeros)) + gm) * s_all * w * 4,
     )
     # counts_cross once more at a one-shot shape: G = 16 prefixes x R = 8
     # rows over 64 shards (the one-shot path's last level)

@@ -94,5 +94,7 @@ def holder_from_numpy(state: Dict[str, Dict[str, Any]], device=None) -> Holder:
 
 def _load_keys(store, spec: Dict[str, Any]) -> None:
     if "translate" in spec:
+        if store is None:
+            raise ValueError("translate entries without keys")
         ids, keys = spec["translate"]
         store.apply_entries(zip(np.asarray(ids, np.uint64).tolist(), keys))

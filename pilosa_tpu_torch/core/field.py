@@ -118,10 +118,10 @@ class Field:
         self.dcache = dcache
         self._mu = threading.RLock()
         self.views: Dict[str, View] = {}
-        # row keys (used only when options.keys is set)
-        self.translate_store = TranslateStore(
-            None if path is None else os.path.join(path, ".keys.translate")
-        )
+        # row keys of a keyed field
+        self.translate_store: Optional[TranslateStore] = None
+        if options.keys:
+            self.translate_store = TranslateStore(None if path is None else os.path.join(path, ".keys.translate"))
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -142,7 +142,7 @@ class Field:
         views/ and, for a keyed field, the row key store. Anything the
         port cannot serve yet (row attributes, time views) raises
         NotImplementedError naming it."""
-        if self.options.keys:
+        if self.translate_store is not None:
             self.translate_store.open()
         if self.path is None:
             return self
@@ -202,7 +202,8 @@ class Field:
         with self._mu:
             for v in self.views.values():
                 v.close()
-            self.translate_store.close()
+            if self.translate_store is not None:
+                self.translate_store.close()
 
     def bsi_view_name(self) -> str:
         return VIEW_BSI_PREFIX + self.name

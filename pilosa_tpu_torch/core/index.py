@@ -43,10 +43,10 @@ class Index:
         self.dcache = dcache
         self._mu = threading.RLock()
         self._fields: Dict[str, Field] = {}
-        # column keys (used only when keys is set)
-        self.translate_store = TranslateStore(
-            None if path is None else os.path.join(path, ".keys.translate")
-        )
+        # column keys of a keyed index
+        self.translate_store: Optional[TranslateStore] = None
+        if keys:
+            self.translate_store = TranslateStore(None if path is None else os.path.join(path, ".keys.translate"))
 
     @property
     def meta_path(self) -> Optional[str]:
@@ -78,7 +78,7 @@ class Index:
                 EXISTENCE_FIELD_NAME,
                 FieldOptions(type=FIELD_TYPE_SET, cache_type="none", cache_size=0),
             ).open()
-        if self.keys:
+        if self.translate_store is not None:
             self.translate_store.open()
         return self
 
@@ -144,7 +144,8 @@ class Index:
             fields = list(self._fields.values())
         for f in fields:
             f.close()
-        self.translate_store.close()
+        if self.translate_store is not None:
+            self.translate_store.close()
 
     def existence_field(self) -> Optional[Field]:
         return self._fields.get(EXISTENCE_FIELD_NAME) if self.track_existence else None

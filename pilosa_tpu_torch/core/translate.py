@@ -136,10 +136,6 @@ class TranslateStore:
 
     # -- reads -------------------------------------------------------------
 
-    def find_key(self, key: str) -> Optional[int]:
-        """The id of key, or None; never allocates."""
-        return self._by_key.get(key)
-
     def key_for_id(self, id_: int) -> Optional[str]:
         return self._by_id.get(id_)
 
@@ -147,9 +143,3 @@ class TranslateStore:
         """The key of every id (None where there is none), in one pass."""
         get = self._by_id.get
         return [get(i) for i in np.asarray(ids, np.uint64).tolist()]
-
-    def max_id(self) -> int:
-        return self._next_id - 1
-
-    def __len__(self) -> int:
-        return len(self._by_key)

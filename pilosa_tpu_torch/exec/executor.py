@@ -1079,7 +1079,7 @@ class Executor:
                 ids = bundle.dense_rows[i : i + r_c]
                 planes = view.plane_stack(ids, pshards)
                 TOPN_STATS["tally_evals"] += 1
-                counts = gb.counts_cross(src_stack[None, : planes.shape[1]], planes)[0]
+                counts = kernels.counts_cross(src_stack[None, : planes.shape[1]], planes)[0]
                 parts.append(counts[:, :n_present])
                 order.extend(ids)
             if bundle.sparse_rows:

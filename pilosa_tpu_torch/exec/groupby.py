@@ -43,20 +43,6 @@ def gmax(s: int, w: int) -> int:
     return max(1, TILE_BYTES // (s * w * 4))
 
 
-def counts_cross(acc: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
-    """acc int32[G, S, W] x planes int32[R, S, W] -> per-shard counts
-    int32[G, R, S] of popcount(acc[g, s] & planes[r, s]). One prefix (a
-    filter stack) runs on the rows_counts kernel, the [R, S, W] stack
-    viewed as R*S rows of which row r*S + s meets acc row s; more run on
-    counts_cross."""
-    if acc.shape[0] == 1:
-        r, s, w = planes.shape
-        if acc.shape[1:] != (s, w):
-            raise ValueError(f"counts_cross: acc {tuple(acc.shape)} vs planes {tuple(planes.shape)}")
-        return kernels.rows_counts(planes.reshape(r * s, w), acc[0]).reshape(1, r, s)
-    return kernels.counts_cross(acc, planes)
-
-
 def _totals(counts: torch.Tensor) -> np.ndarray:
     """Per-shard int32 counts summed over the last axis in int64, read."""
     return counts.sum(dim=-1, dtype=torch.int64).cpu().numpy()
@@ -99,7 +85,7 @@ def group_by_device(
 
     # depth 0: every candidate row of the first child
     first = planes_list[0]
-    h = _totals(counts_cross(filt[None], first))[0] if filt is not None else _row_totals(first)
+    h = _totals(kernels.counts_cross(filt[None], first))[0] if filt is not None else _row_totals(first)
     live = np.flatnonzero(h)
     if len(planes_list) == 1:
         for i in live:
@@ -135,7 +121,7 @@ def _group_by_oneshot(
                 merged[keys[i]] = int(cnt)
         return merged
     last_rows = row_lists[-1]
-    h = _totals(counts_cross(acc, planes_list[-1]))  # [G, R_last]
+    h = _totals(kernels.counts_cross(acc, planes_list[-1]))  # [G, R_last]
     for g, r in zip(*np.nonzero(h)):
         merged[keys[g] + (int(last_rows[r]),)] = int(h[g, r])
     return merged
@@ -151,7 +137,7 @@ def _descend(
     g_max: int,
 ) -> None:
     planes = planes_list[depth]
-    h = _totals(counts_cross(acc, planes))
+    h = _totals(kernels.counts_cross(acc, planes))
     gs, rs = np.nonzero(h)
     if depth == len(planes_list) - 1:
         for g, r in zip(gs, rs):

@@ -5,7 +5,7 @@
 // uint32. Every kernel here but gather_and is a popcount reduction that
 // reads each input word once (gather_tally: each word idx points at;
 // counts_cross: each plane word once per chunk of 16 prefixes), and
-// gather_and is one AND per word read, so all six are bound by
+// gather_and is one AND per distinct slab word read, so all six are bound by
 // device-memory bytes, not operations:
 // loads are 128-bit (uint4) where the pointers and the row width allow it,
 // popcount is one __popc per word, and partial sums stay in registers and
@@ -816,8 +816,9 @@ PT_EXPORT int pt_gather_tally(const void* src, int64_t n_src, const void* idx, c
 //                        whole [S, W] slabs
 // Both are bound by device-memory bytes: counts_cross reads each acc word
 // once per chunk of GC prefixes and each plane word once per chunk (one
-// chunk when G <= 16), gather_and reads two slabs and writes one, where
-// eager PyTorch writes both gathered slabs before the AND.
+// chunk when G <= 16), gather_and reads each distinct operand slab once
+// and writes each output slab once, where eager PyTorch writes both
+// gathered slabs (repeats included) before the AND.
 // ---------------------------------------------------------------------------
 
 namespace {
@@ -921,32 +922,63 @@ int launch_counts_cross(const uint32_t* acc, const uint32_t* planes, int64_t g, 
   return (int)cudaGetLastError();
 }
 
-// out[i] = a[ia[i]] & b[ib[i]] over slabs of `len` words: blockIdx.y walks
-// the output slabs, blockIdx.x and the threads stride over the words.
+// Store this thread's WPT words of the tile starting at word `base` of a
+// W-word row, in tile_words' layout; words past the row's end are dropped.
+template <int WPT, int VEC>
+__device__ __forceinline__ void tile_store(uint32_t* __restrict__ row, int64_t base, int64_t W,
+                                           const uint32_t (&v)[WPT]) {
+  if constexpr (VEC) {
+    uint4* row4 = reinterpret_cast<uint4*>(row);
+    const int64_t w4 = W / 4;
+#pragma unroll
+    for (int k = 0; k < WPT / 4; ++k) {
+      const int64_t q = base / 4 + (int64_t)k * kThreads + threadIdx.x;
+      if (q < w4) row4[q] = make_uint4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < WPT; ++k) {
+      const int64_t i = base + (int64_t)k * kThreads + threadIdx.x;
+      if (i < W) row[i] = v[k];
+    }
+  }
+}
+
+// gather_and: outputs a block writes in turn, and words per thread
+constexpr int kGaOuts = 16;
+constexpr int kGaWords = 16;
+
+// out[i] = a[ia[i]] & b[ib[i]] over slabs of `len` words. Block x covers
+// word tile x / chunks (kThreads * kGaWords words) of the kGaOuts outputs
+// of chunk x % chunks, in order. An operand whose index repeats the
+// previous output's stays in registers, so a filter broadcast, or a run of
+// pairs with one prefix, reads that operand once per tile and chunk; the
+// chunks of one tile are neighbouring blocks, so an operand repeated
+// across chunks (the plane rows of a cross expansion) comes again from L2.
+template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 gather_and_kernel(const uint32_t* __restrict__ a, const int32_t* __restrict__ ia,
                   const uint32_t* __restrict__ b, const int32_t* __restrict__ ib, int64_t n,
-                  int64_t len, int vec, uint32_t* __restrict__ out) {
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
-  for (int64_t i = blockIdx.y; i < n; i += gridDim.y) {
-    const uint32_t* x = a + (int64_t)__ldg(ia + i) * len;
-    const uint32_t* y = b + (int64_t)__ldg(ib + i) * len;
-    uint32_t* o = out + i * len;
-    if (vec) {
-      const uint4* x4 = reinterpret_cast<const uint4*>(x);
-      const uint4* y4 = reinterpret_cast<const uint4*>(y);
-      uint4* o4 = reinterpret_cast<uint4*>(o);
-      const int64_t n4 = len / 4;
-      for (int64_t q = (int64_t)blockIdx.x * kThreads + threadIdx.x; q < n4; q += stride) {
-        const uint4 u = x4[q];
-        const uint4 v = y4[q];
-        o4[q] = make_uint4(u.x & v.x, u.y & v.y, u.z & v.z, u.w & v.w);
-      }
-    } else {
-      for (int64_t q = (int64_t)blockIdx.x * kThreads + threadIdx.x; q < len; q += stride) {
-        o[q] = x[q] & y[q];
-      }
+                  int64_t len, int64_t chunks, uint32_t* __restrict__ out) {
+  const int64_t chunk = blockIdx.x % chunks;
+  const int64_t base = (blockIdx.x / chunks) * (int64_t)(kThreads * kGaWords);
+  const int64_t end = (chunk + 1) * kGaOuts < n ? (chunk + 1) * kGaOuts : n;
+  uint32_t x[kGaWords], y[kGaWords], o[kGaWords];
+  int32_t ja = -1, jb = -1;
+  for (int64_t i = chunk * kGaOuts; i < end; ++i) {
+    const int32_t na = __ldg(ia + i);
+    const int32_t nb = __ldg(ib + i);
+    if (na != ja) {
+      tile_words<kGaWords, VEC>(a + (int64_t)na * len, base, len, x);
+      ja = na;
     }
+    if (nb != jb) {
+      tile_words<kGaWords, VEC>(b + (int64_t)nb * len, base, len, y);
+      jb = nb;
+    }
+#pragma unroll
+    for (int k = 0; k < kGaWords; ++k) o[k] = x[k] & y[k];
+    tile_store<kGaWords, VEC>(out + i * len, base, len, o);
   }
 }
 
@@ -963,9 +995,9 @@ PT_EXPORT int pt_counts_cross(const void* acc, int64_t g, const void* planes, in
   auto* x = static_cast<const uint32_t*>(acc);
   auto* p = static_cast<const uint32_t*>(planes);
   auto* o = static_cast<unsigned int*>(out);
-  // GC * WPT = 64 words of acc per thread at every chunk size
-  if (g == 1) return launch_counts_cross<1, 16>(x, p, g, r, s, w, vec, o, st);
-  if (g == 2) return launch_counts_cross<2, 16>(x, p, g, r, s, w, vec, o, st);
+  // GC * WPT = 64 words of acc per thread at every chunk size (one prefix
+  // runs on rows_counts: the wrapper routes it there)
+  if (g <= 2) return launch_counts_cross<2, 16>(x, p, g, r, s, w, vec, o, st);
   if (g <= 4) return launch_counts_cross<4, 16>(x, p, g, r, s, w, vec, o, st);
   if (g <= 8) return launch_counts_cross<8, 8>(x, p, g, r, s, w, vec, o, st);
   return launch_counts_cross<16, 4>(x, p, g, r, s, w, vec, o, st);
@@ -977,15 +1009,20 @@ PT_EXPORT int pt_counts_cross(const void* acc, int64_t g, const void* planes, in
 PT_EXPORT int pt_gather_and(const void* a, const void* ia, const void* b, const void* ib,
                             int64_t n, int64_t len, int vec, void* out, void* stream) {
   if (n < 1 || len < 1 || (vec && len % 4 != 0)) return (int)cudaErrorInvalidValue;
-  const int64_t items = vec ? len / 4 : len;
-  // about 4 items a thread, at most 65535 blocks across and 65535 down
-  int64_t gx = (items + kThreads * 4 - 1) / (kThreads * 4);
-  if (gx > 65535) gx = 65535;
-  const int64_t gy = n < 65535 ? n : 65535;
-  gather_and_kernel<<<dim3((unsigned int)gx, (unsigned int)gy), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const int32_t*>(ia),
-      static_cast<const uint32_t*>(b), static_cast<const int32_t*>(ib), n, len, vec,
-      static_cast<uint32_t*>(out));
+  const int64_t chunks = (n + kGaOuts - 1) / kGaOuts;
+  const int64_t tiles = (len + kThreads * kGaWords - 1) / (kThreads * kGaWords);
+  if (chunks * tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* x = static_cast<const uint32_t*>(a);
+  auto* y = static_cast<const uint32_t*>(b);
+  auto* jx = static_cast<const int32_t*>(ia);
+  auto* jy = static_cast<const int32_t*>(ib);
+  auto* o = static_cast<uint32_t*>(out);
+  const unsigned int grid = (unsigned int)(chunks * tiles);
+  if (vec) {
+    gather_and_kernel<1><<<grid, kThreads, 0, st>>>(x, jx, y, jy, n, len, chunks, o);
+  } else {
+    gather_and_kernel<0><<<grid, kThreads, 0, st>>>(x, jx, y, jy, n, len, chunks, o);
+  }
   return (int)cudaGetLastError();
 }

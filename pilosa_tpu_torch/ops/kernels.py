@@ -653,11 +653,16 @@ def _stack3(t: torch.Tensor, what: str) -> None:
 def counts_cross(acc: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     """Per-shard counts of popcount(acc[g, s] & planes[r, s]) for every
     prefix g of acc[G, S, W] and row r of planes[R, S, W]: int32[G, R, S]
-    (a shard holds at most 2^20 bits, so no count wraps)."""
+    (a shard holds at most 2^20 bits, so no count wraps). One prefix (a
+    filter stack) runs on rows_counts, the [R, S, W] stack viewed as R*S
+    rows of which row r*S + s meets acc row s; more run on counts_cross."""
     _stack3(acc, "counts_cross acc")
     _stack3(planes, "counts_cross planes")
     if acc.shape[1:] != planes.shape[1:]:
         raise ValueError(f"counts_cross: acc {tuple(acc.shape)} vs planes {tuple(planes.shape)}")
+    if acc.shape[0] == 1:
+        r, s, w = planes.shape
+        return rows_counts(planes.reshape(r * s, w), acc[0]).reshape(1, r, s)
     if _route(acc, planes) == "cpu":
         return counts_cross_plain(acc, planes)
     g, s, w = acc.shape

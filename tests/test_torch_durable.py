@@ -424,7 +424,7 @@ def test_keyed_dirs_match_and_cross_open(tmp_path):
         try:
             assert keyed_answers(ex_cls, h) == want, (holder_of.__name__, src.name)
             assert ex_cls(h).execute("k", 'Set("after", seg="s1")') == [True]
-            assert h.index("k").translate_store.find_key("after") == 3002
+            assert h.index("k").translate_store._by_key.get("after") == 3002
         finally:
             h.close()
 

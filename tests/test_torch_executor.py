@@ -464,13 +464,13 @@ def test_row_count_matches_reference(loaded, pql, shards, monkeypatch):
 
 
 def test_counts_cross_matches_reference(loaded):
-    """The filtered-TopN dense tally (exec/groupby.counts_cross with one
+    """The filtered-TopN dense tally (kernels.counts_cross with one
     prefix, the rows_counts kernel) against the reference _counts_cross
     on the same stacks."""
     import jax.numpy as jnp
 
     from pilosa_tpu.exec import groupby as jgb
-    from pilosa_tpu_torch.exec import groupby as tgb
+    from pilosa_tpu_torch.ops import kernels
 
     ref_ex, port_ex = loaded
     shards = tuple(range(N_SHARDS))
@@ -480,7 +480,7 @@ def test_counts_cross_matches_reference(loaded):
     want = jgb._counts_cross(
         jnp.asarray(src.numpy().view(np.uint32))[None], jv.plane_stack((0, 2, 5), shards)
     )[0]
-    got = tgb.counts_cross(src[None], tv.plane_stack((0, 2, 5), shards))[0]
+    got = kernels.counts_cross(src[None], tv.plane_stack((0, 2, 5), shards))[0]
     np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int32))
 
 

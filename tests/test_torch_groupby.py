@@ -266,7 +266,8 @@ def test_counts_cross_twin_matches_reference(g, r, s, w):
     want = np.asarray(jgb._counts_cross(jnp.asarray(acc), jnp.asarray(planes))).astype(np.int32)
     got = K.counts_cross(torch.from_numpy(acc.view(np.int32)), torch.from_numpy(planes.view(np.int32)))
     np.testing.assert_array_equal(got.numpy(), want)
-    got = tgb.counts_cross(torch.from_numpy(acc.view(np.int32)), torch.from_numpy(planes.view(np.int32)))
+    # the twin itself (K.counts_cross sends one prefix to rows_counts)
+    got = K.counts_cross_plain(torch.from_numpy(acc.view(np.int32)), torch.from_numpy(planes.view(np.int32)))
     np.testing.assert_array_equal(got.numpy(), want)
 
 
@@ -303,19 +304,21 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_group_by_kernels_match_twins(cuda_device):
-    """counts_cross at every chunk size (G = 1, 2, 3, 8, 16, 17, 40),
-    rows past one 64-row block round, W not a multiple of 4 or of a tile;
-    gather_and on aligned and unaligned slabs."""
+    """counts_cross at every chunk size (G = 2, 3, 8, 16, 17, 40; G = 1
+    on rows_counts), rows past one 64-row block round, W not a multiple of
+    4 or of a tile; gather_and on aligned and unaligned slabs, repeated
+    indices and runs of outputs past one 16-output chunk."""
     rng = np.random.default_rng(77)
     dev = cuda_device
     t = lambda x: torch.from_numpy(x.view(np.int32))  # noqa: E731
     for g, r, s, w in [(1, 3, 5, 32768), (2, 70, 3, 4100), (3, 4, 2, 1001), (8, 5, 4, 32768),
                        (16, 8, 2, 32768), (17, 2, 3, 4096), (40, 3, 1, 33)]:
         acc, planes = t(_words(rng, g, s, w)), t(_words(rng, r, s, w))
-        before = K.LAUNCHES["counts_cross"]
+        name = "counts_cross" if g > 1 else "rows_counts"
+        before = K.LAUNCHES[name]
         got = K.counts_cross(acc.to(dev), planes.to(dev)).cpu()
-        assert K.LAUNCHES["counts_cross"] == before + 1
-        assert torch.equal(got, K.counts_cross(acc, planes))
+        assert K.LAUNCHES[name] == before + 1
+        assert torch.equal(got, K.counts_cross_plain(acc, planes))
     a, b = t(_words(rng, 5, 3, 4096)), t(_words(rng, 2, 3, 4096))
     ia, ib = [4, 0, 2, 2], [1, 1, 0, 1]
     got = K.gather_and(a.to(dev), ia, b.to(dev), ib).cpu()
@@ -323,3 +326,8 @@ def test_cuda_group_by_kernels_match_twins(cuda_device):
     a, b = t(_words(rng, 3, 1, 1003)), t(_words(rng, 3, 1, 1003))
     got = K.gather_and(a.to(dev), [2, 0], b.to(dev), [1, 1]).cpu()
     assert torch.equal(got, K.gather_and(a, [2, 0], b, [1, 1]))
+    # a cross expansion over two 16-output chunks and a filter broadcast
+    a, b = t(_words(rng, 5, 2, 2048)), t(_words(rng, 7, 2, 2048))
+    for ia, ib in ((np.repeat(np.arange(5), 7), np.tile(np.arange(7), 5)), (np.arange(5)[::-1], np.zeros(5, int))):
+        got = K.gather_and(a.to(dev), ia, b.to(dev), ib).cpu()
+        assert torch.equal(got, K.gather_and(a, ia, b, ib))

@@ -50,8 +50,8 @@ def test_store_ids_and_log_match_reference(tmp_path):
         assert ts.translate_keys(batch) == js.translate_keys(batch)
         k = batch[0]
         assert ts.translate_key(k) == js.translate_key(k)
-    assert ts.find_key("nope") is None and js.find_key("nope") is None
-    assert ts.max_id() == js.max_id() and len(ts) == len(js)
+    assert "nope" not in ts._by_key and js.find_key("nope") is None
+    assert ts._next_id - 1 == js.max_id() and len(ts._by_key) == len(js)
     ids = list(range(0, js.max_id() + 3))
     assert ts.keys_for_ids(ids) == js.keys_for_ids(ids)
     assert [ts.key_for_id(i) for i in ids] == [js.key_for_id(i) for i in ids]
@@ -63,7 +63,7 @@ def test_store_ids_and_log_match_reference(tmp_path):
         for path in (jp, tp):
             s = store_cls(path).open()
             assert s.keys_for_ids(ids) == ts.keys_for_ids(ids)
-            assert s.translate_key("new-key") == ts.max_id() + 1
+            assert s.translate_key("new-key") == ts._next_id
             s.close()
             with open(path, "r+b") as f:  # undo the append for the next reader
                 f.truncate(os.path.getsize(path) - (12 + len("new-key")))
@@ -306,4 +306,4 @@ def test_keyed_ids_are_arrival_order():
     ex.execute("k", 'Set("zz", f=1) Set("aa", f=1)')
     row = ex.execute("k", "Row(f=1)")[0]
     assert row.columns().tolist() == [1, 2] and row.keys == ["zz", "aa"]
-    assert h.index("k").translate_store.find_key("aa") == 2
+    assert h.index("k").translate_store._by_key["aa"] == 2
