@@ -21,7 +21,12 @@ Phases, each fatal on any mismatch or exception:
    every range kind and edge predicates, and for GroupBy's kernels
    counts_cross at every prefix-chunk size (G = 2..40; G = 1 goes to
    rows_counts) and gather_and on aligned and unaligned slabs, a filter
-   broadcast and a cross expansion past one 16-output chunk;
+   broadcast and a cross expansion past one 16-output chunk; for the
+   merge barrier's kernels, or_words with 0, 1 and 10^7 pairs (the first
+   and the last word; a strided view refused) and merge_mark on empty
+   input, one key, all keys equal, sorted runs, keys near 2^63 - 1 and
+   2^24 keys with duplicates, and the whole device merge against the
+   host merge;
 3. main path: a 2^30-column index (1024 shards x 2^20 columns) with
    dense and sparse rows of a set field `f` and dense rows of `g`, loaded
    through Field.import_row_words / Field.import_bits / Set(), then the
@@ -54,6 +59,24 @@ Phases, each fatal on any mismatch or exception:
    lengths with the same number of entries; counts_cross and gather_and
    at the main path's GroupBy shapes, and counts_cross again at a
    one-shot shape (16 prefixes x 8 rows over 64 shards);
+4b. residency, on the main path's holder (extent_rows 256: 4 extents a
+   1024-shard stack), launch counts reset before and read after: the
+   query set Count(Intersect(Row(f=0), Row(g=0))), Count(Union(Row(f=0),
+   Row(f=1), Row(g=1))), Count(Not(Row(f=1))), TopN(f, Row(g=0), n=10),
+   Sum(Row(g=0), field=amount) and Row(f=0) + .count(), every answer held
+   to numpy on the words as they stand after each write. (a) twice warm:
+   the second pass re-stages 0 bytes; (b) a staged burst of 2^21 columns
+   into f row 0 and 2^21 into g row 0 (_exists tracked), then the set:
+   one device merge per staged view (f, g, _exists), entries patched in
+   place, 0 bytes re-staged by the first Count; again with the host
+   barrier (merge device_threshold -1), barrier ms side by side; (c) one
+   PQL Set into f row 0: the next Count re-stages exactly one extent
+   (32 MiB); or_words, merge_mark, the device merge and the assembly of 4
+   extents timed at these shapes; (d) paging: the budget set one extent
+   below the set's working set, 5 cycles with extents and 5 with whole
+   stacks, extents re-staging less in every cycle after the first, no pin
+   left between queries; (e) a fresh 8-shard index under a budget below
+   4 x one shard's stack answers a two-leaf Count and a filtered TopN;
 5. serve: the port's NodeServer on the card, driven only over HTTP on one
    kept-alive connection, on a data dir (WAL, snapshots, group commit:
    the deployment users run) under the default temp dir, whose
@@ -307,6 +330,9 @@ def kernel_phase(rng, dev, errs):
         ).to(dev)
 
     def same(name, got, want):
+        if not got.numel():  # an empty result: only its shape can differ
+            check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)}, twin {tuple(want.shape)}")
+            return
         diff = int((got.cpu().to(torch.int64) - want.cpu().to(torch.int64)).abs().max().item())
         errs[name] = max(errs.get(name, 0), diff)
         check(diff == 0, f"{name}: kernel differs from its twin by {diff}")
@@ -550,6 +576,57 @@ def kernel_phase(rng, dev, errs):
     print("kernels: counts_cross equal to its twin at G = 1..40, R up to 70, W = 33..32768, unaligned; "
           "gather_and equal on aligned and unaligned slabs, a filter broadcast and a 35-output cross expansion")
 
+    # the merge barrier's kernels (their own generator too): or_words with
+    # 0, 1 and 10^7 pairs into a 2-extent entry, offsets at word 0 and at
+    # the last word; a strided view is refused. merge_mark on empty input,
+    # one key, all keys equal, sorted runs, keys near 2^63 - 1 and 2^24
+    # keys with duplicates; the whole device merge against the host merge
+    from pilosa_tpu_torch.ops import merge as opm
+
+    mrng = np.random.default_rng(8)
+    entry = torch.from_numpy(mrng.integers(0, 2**32, size=(512, 32768), dtype=np.uint32).view(np.int32)).to(dev)
+    n_words = entry.numel()
+    for k in (0, 1, 10**7):
+        # unique offsets (the kernel's contract): the inner words drawn
+        # without replacement, then the last word and word 0
+        off = (1 + mrng.permutation(n_words - 2)[:k]).astype(np.int64)
+        if k:
+            off[0] = n_words - 1
+        if k > 1:
+            off[1] = 0
+        val = torch.from_numpy(mrng.integers(0, 2**32, size=k, dtype=np.uint32).view(np.int32))
+        off_t = torch.from_numpy(off)
+        want = opm.or_words_plain(entry.cpu(), off_t, val)
+        got = opm.or_words(entry.clone(), off_t.to(dev), val.to(dev))
+        same("or_words", got, want)
+    try:
+        opm.or_words(entry[:, ::2], torch.zeros(1, dtype=torch.int64, device=dev), torch.ones(1, dtype=torch.int32, device=dev))
+        fail("or_words took a strided view")
+    except ValueError:
+        pass
+    del entry
+    near = (1 << 63) - 1
+    cases = [
+        np.empty(0, np.int64), np.array([12345], np.int64), np.full(1000, 77, np.int64),
+        np.repeat(np.arange(0, 5000, 3, dtype=np.int64), 2),
+        np.array([near - 40, near - 33, near - 33, near - 1, near, near], np.int64),
+        np.cumsum(mrng.integers(0, 3, 1 << 24)),  # sorted, a step of 0 repeats a key
+    ]
+    for keys in cases:
+        kt = torch.from_numpy(keys)
+        keep, bit = opm.merge_mark(kt.to(dev))
+        keep_p, bit_p = opm.merge_mark_plain(kt)
+        same("merge_mark", keep.to(torch.int32), keep_p.to(torch.int32))
+        same("merge_mark", bit, bit_p)
+    big = cases[-1].view(np.uint64)
+    mh, ch = opm.merge_keys_host(big)
+    md, cd = opm.merge_keys_device(big, dev)
+    check(np.array_equal(md, mh) and np.array_equal(cd, ch), "merge_keys_device differs from merge_keys_host at 2^24 keys")
+    torch.cuda.synchronize()
+    print("kernels: or_words equal to its twin at 0, 1 and 10^7 pairs (first and last word), strided view refused; "
+          "merge_mark equal on empty, one key, all equal, sorted runs, keys near 2^63 - 1 and 2^24 keys; "
+          "the device merge equals the host merge")
+
 
 # ---------------------------------------------------------------------------
 # phase 3: the main path over 2^30 columns
@@ -747,7 +824,11 @@ def main_path(args, rng):
         f"main: device cache resident {resident} B; torch allocated "
         f"{torch.cuda.memory_allocated()} B, peak {torch.cuda.max_memory_allocated()} B"
     )
-    state = {"f1": R("f", 1), "g0": R("g", 0), "exists": all_cols}
+    state = {
+        "f1": R("f", 1), "g0": R("g", 0), "exists": all_cols,
+        # phase 4b holds its answers to these, updated with its writes
+        "f_rows": [R("f", r) for r in range(n_dense + n_sparse)], "g1": R("g", 1),
+    }
 
     # warm per-query latency
     lat = {}
@@ -843,9 +924,15 @@ def bsi_shard(seed: int, s: int, state, writes, sample: bool):
     f1, g0 = _bits(state["f1"][s]), _bits(state["g0"][s])
     a = amt[has_a]
     old = has_a & has_g & (age > 65)
+    # amount at the columns phase 4b's bursts add to g row 0
+    gb = state["g_burst"]
+    lo, hi = np.searchsorted(gb, [s * SHARD_WIDTH, (s + 1) * SHARD_WIDTH])
+    pos = (gb[lo:hi] - np.uint64(s * SHARD_WIDTH)).astype(np.int64)
+    out["probe"] = (gb[lo:hi], np.where(has_a[pos], amt[pos], 0), has_a[pos])
     out["ans"] = {
         "sum": (int(a.sum()), len(a)),
         "sum_f1": (int(amt[has_a & f1].sum()), int((has_a & f1).sum())),
+        "sum_g0": (int(amt[has_a & g0].sum()), int((has_a & g0).sum())),
         "sum_old": (int(amt[old].sum()), int(old.sum())),
         "min": _extreme(a, True),
         "max": _extreme(a, False),
@@ -895,11 +982,12 @@ def bsi_path(args, holder, ex, state):
         (amount.options.base, amount.options.bit_depth, age.options.base, age.options.bit_depth) == (0, 20, 0, 7),
         f"int field options: amount {amount.options}, age {age.options}",
     )
-    ans, age42 = {}, {}
+    ans, age42, probes = {}, {}, []
     gen_s = import_s = values_s = 0.0
     n_values = 0
 
     def fold(out):
+        probes.append(out["probe"])
         for k, v in out["ans"].items():
             if k in ("min", "max", "max_age_g0"):
                 ans[k] = _merge_extreme(ans.get(k), v, k == "min")
@@ -939,6 +1027,8 @@ def bsi_path(args, holder, ex, state):
         pql = f"Clear({col}, {field}=0)" if value is None else f"Set({col}, {field}={value})"
         got += ex.execute("smoke", pql)
     check(got == [True] * len(writes), f"BSI writes returned {got}")
+    state["sum_g0"] = ans["sum_g0"]
+    state["probe"] = tuple(np.concatenate(p) for p in zip(*probes))
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
     values_per_s = n_values / values_s
@@ -1297,6 +1387,382 @@ def kernel_timing(holder, ex, launches, errs):
         f"{extra['plan_count_28_leaves_bound'] / extra['plan_count_28_leaves']:.1%} of it)"
     )
     return rows, extra
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: residency — extents, the merge barrier and in-place patches
+# ---------------------------------------------------------------------------
+
+BURST = 1 << 21  # columns of one staged burst into f row 0, and into g row 0
+RES_CYCLES = 5  # paging cycles of the query set, with extents and whole stacks
+RES_QUERIES = [
+    "Count(Intersect(Row(f=0), Row(g=0)))",
+    "Count(Union(Row(f=0), Row(f=1), Row(g=1)))",
+    "Count(Not(Row(f=1)))",
+    "TopN(f, Row(g=0), n=10)",
+    "Sum(Row(g=0), field=amount)",
+    "Row(f=0)",
+]
+
+
+def residency_bursts(seed: int, S: int) -> dict:
+    """The columns of phase 4b's two staged bursts (f row 0 and g row 0
+    each), drawn before the BSI phase, which records `amount` at the g
+    columns for the filtered Sum's numpy answer."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng([seed, 4])
+    out = {k: rng.integers(0, S * SHARD_WIDTH, BURST).astype(np.uint64) for k in ("f1", "g1", "f2", "g2")}
+    out["g_burst"] = np.unique(np.concatenate([out["g1"], out["g2"]]))
+    return out
+
+
+def time_row(name, source, replaces, fn, plain, nbytes, launches, errs, bound_by="bytes"):
+    """A `kernels` row: the kernel held to its twin once more, then its
+    device, dispatch and twin times (phase 4's method) and its bound."""
+    import torch
+
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    diff = max(int((a.cpu().to(torch.int64) - b.cpu().to(torch.int64)).abs().max().item()) if a.numel() else 0
+               for a, b in zip(got, want))
+    check(diff == 0, f"{name}: kernel differs from its twin by {diff} at its path's shape")
+    errs[name] = max(errs.get(name, 0), diff)
+    ms, disp, plain_ms = cuda_time_ms(fn), dispatch_ms(fn), cuda_time_ms(plain)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+        "max_abs_err": errs.get(name, 0), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": bound_by, "library_ms": None, "dispatch_ms": disp, "share_of_bound": bound / ms,
+        "bytes": nbytes,
+    }
+    print(
+        f"kernel {name}: device {ms:.4f} ms, dispatch {disp:.4f} ms (host, per call), twin {plain_ms:.4f} ms, "
+        f"{nbytes} B moved, bound {bound:.4f} ms ({bound / ms:.1%} of it), {launches} launches on the residency path"
+    )
+    return row
+
+
+def residency_path(args, holder, ex, state, errs, smi):
+    """Phase 4b on the main path's holder: warm passes, two staged bursts
+    (device and host barrier), one exact Set, paging with extents against
+    whole stacks, and a budget below one shard's stacks on a fresh index.
+    Returns (kernel rows, info)."""
+    import torch
+
+    from pilosa_tpu_torch import Executor, Holder
+    from pilosa_tpu_torch.core import merge as merge_mod
+    from pilosa_tpu_torch.hbm import residency as res
+    from pilosa_tpu_torch.hbm.residency import ExtentTable
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.ops import merge as opm
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
+
+    S, W, SW = args.shards, WORDS_PER_ROW, SHARD_WIDTH
+    idx = holder.index("smoke")
+    f, g = idx.field("f"), idx.field("g")
+    cache = holder.dcache
+    dev = holder.device
+    ext = res.extent_rows()
+    check(ext == res.DEFAULT_EXTENT_ROWS, f"extent_rows is {ext}, not the default {res.DEFAULT_EXTENT_ROWS}")
+    ext_bytes = min(ext, S) * W * 4
+    bursts = state["bursts"]
+    f_rows, g0, g1, exists = state["f_rows"], state["g0"], state["g1"], state["exists"]
+    f0, f1 = f_rows[0], f_rows[1]
+    probe_cols, probe_amt, probe_has = state["probe"]
+    sum_g0 = list(state["sum_g0"])  # (value, count) of Sum(Row(g=0), field=amount)
+    pc = np_popcount
+    sample = sorted({0, S // 3, S - 1})
+
+    def set_bits(words, cols):
+        """OR columns into [S, W] words; the columns that were clear."""
+        cols = np.unique(np.asarray(cols, np.uint64))
+        flat = words.reshape(-1)
+        wi = (cols >> np.uint64(5)).astype(np.int64)
+        bit = np.uint32(1) << (cols & np.uint64(31)).astype(np.uint32)
+        new = (flat[wi] & bit) == 0
+        np.bitwise_or.at(flat, wi, bit)
+        return cols[new]
+
+    def answers():
+        ic = [pc(w & g0) for w in f_rows]
+        top = sorted(((r, c) for r, c in enumerate(ic) if c), key=lambda kv: (-kv[1], kv[0]))[:10]
+        return {
+            RES_QUERIES[0]: [ic[0]],
+            RES_QUERIES[1]: [pc(f0 | f1 | g1)],
+            RES_QUERIES[2]: [pc(exists & ~f1)],
+            RES_QUERIES[3]: [top],
+            RES_QUERIES[4]: [tuple(sum_g0)],
+            RES_QUERIES[5]: pc(f0),
+        }
+
+    def norm(pql, got):
+        if pql.startswith("TopN"):
+            return [[(p.id, p.count) for p in got[0]]]
+        if pql.startswith("Sum"):
+            return [(got[0].value, got[0].count)]
+        return got
+
+    def run_q(want, label):
+        """One pass of the query set, each answer held to numpy: per query
+        the first-pass ms, the bytes re-staged through the extent layer,
+        the bytes of other entries built (TopN tally bundles) and the peak
+        device memory above what was allocated before it."""
+        out = {}
+        for pql in RES_QUERIES:
+            r0, b0 = res.stats_snapshot()["restage_bytes"], cache.built_bytes
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = ex.execute("smoke", pql)
+            n = got[0].count() if pql == "Row(f=0)" else None
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if n is not None:
+                check(n == want[pql], f"{label}: Row(f=0).count() {n}, numpy says {want[pql]}")
+                for s in sample:
+                    seg = got[0].segment(s)
+                    check(seg is not None and np.array_equal(seg.cpu().numpy().view(np.uint32), f0[s]),
+                          f"{label}: Row(f=0) shard {s} differs from numpy")
+            else:
+                check(norm(pql, got) == want[pql], f"{label}: {pql}: got {norm(pql, got)}, numpy says {want[pql]}")
+            restaged = res.stats_snapshot()["restage_bytes"] - r0
+            out[pql] = {
+                "ms": ms, "restage_bytes": restaged, "other_built_bytes": cache.built_bytes - b0 - restaged,
+                "peak_bytes": torch.cuda.max_memory_allocated() - base,
+            }
+            check(cache.pinned_bytes == 0, f"{label}: {cache.pinned_bytes} B still pinned after {pql}")
+        return out
+
+    def show(label, out):
+        print(f"residency {label} ({smi}): " + "; ".join(
+            f"{q} {v['ms']:.1f} ms, re-staged {v['restage_bytes']} B, other {v['other_built_bytes']} B"
+            for q, v in out.items()))
+
+    def burst(fc, gc):
+        f.import_bits(np.zeros(len(fc), np.uint64), fc)
+        idx.track_columns(fc)
+        g.import_bits(np.zeros(len(gc), np.uint64), gc)
+        idx.track_columns(gc)
+        set_bits(f0, fc)
+        set_bits(exists, np.concatenate([fc, gc]))
+        new = set_bits(g0, gc)
+        i = np.searchsorted(probe_cols, new)
+        check(np.array_equal(probe_cols[i], new), "a new g row 0 column has no amount probe")
+        sum_g0[0] += int(probe_amt[i].sum())
+        sum_g0[1] += int(probe_has[i].sum())
+        return answers()
+
+    t_phase = time.perf_counter()
+    K.reset_launches()
+    opm.reset_stats()
+    merge_mod.reset_stats()
+    res.reset_stats()
+    info = {"extent_rows": ext, "extent_bytes": ext_bytes}
+
+    # (a) warm: the second pass re-stages nothing
+    want = answers()
+    info["warm"] = [run_q(want, "warm 1"), run_q(want, "warm 2")]
+    warm2 = sum(v["restage_bytes"] for v in info["warm"][1].values())
+    check(warm2 == 0, f"the second warm pass re-staged {warm2} B")
+    show("(a) warm pass 2", info["warm"][1])
+
+    # (b) a staged burst, merged by the device barrier and patched in place
+    def staged(label, fc, gc, device: bool):
+        t0 = time.perf_counter()
+        want = burst(fc, gc)
+        import_s = time.perf_counter() - t0
+        r0, m0, ms0, k0 = res.stats_snapshot(), merge_mod.stats_snapshot(), dict(opm.MERGE_STATS), dict(K.LAUNCHES)
+        out = run_q(want, label)
+        r1, m1 = res.stats_snapshot(), merge_mod.stats_snapshot()
+        merges = {
+            "device_launches": opm.MERGE_STATS["device_launches"] - ms0["device_launches"],
+            "host_merges": opm.MERGE_STATS["host_merges"] - ms0["host_merges"],
+            "barriers": m1["barriers"] - m0["barriers"],
+            "barrier_ms": m1["barrier_ms"] - m0["barrier_ms"],
+            "merge_ms": m1["merge_ms"] - m0["merge_ms"],
+            "merge_mark_launches": K.LAUNCHES["merge_mark"] - k0["merge_mark"],
+            "or_words_launches": K.LAUNCHES["or_words"] - k0["or_words"],
+        }
+        patches = {k: r1[k] - r0[k] for k in ("extent_patches", "extent_patch_batches", "patch_upload_bytes")}
+        want_merges = (3, 0, 3) if device else (0, 3, 0)
+        check((merges["device_launches"], merges["host_merges"], merges["merge_mark_launches"]) == want_merges,
+              f"{label}: merges {merges}: want one {'device' if device else 'host'} merge per staged view (f, g, _exists)")
+        check(merges["barriers"] == 3, f"{label}: {merges['barriers']} barriers merged, not 3 (f, g, _exists)")
+        check(patches["extent_patches"] > 0, f"{label}: no extent was patched")
+        first = out[RES_QUERIES[0]]["restage_bytes"]
+        check(first == 0, f"{label}: the first Count after the burst re-staged {first} B, not 0")
+        show(f"(b) {label}", out)
+        print(
+            f"residency (b) {label} ({smi}): staged {len(fc)} + {len(gc)} columns (and _exists) in {import_s:.2f} s; "
+            f"barriers {merges['barriers']} in {merges['barrier_ms']:.1f} ms, {merges['merge_ms']:.1f} ms of it in the key "
+            f"merges ({merges['device_launches']} device, "
+            f"{merges['host_merges']} host merges); {patches['extent_patches']} entries patched with "
+            f"{patches['extent_patch_batches']} or_words launches, {patches['patch_upload_bytes']} B of pairs uploaded; "
+            f"peak device memory over the first query {out[RES_QUERIES[0]]['peak_bytes']} B"
+        )
+        return {"import_s": import_s, "queries": out, "merges": merges, "patches": patches}
+
+    info["burst_device"] = staged("burst 1, device barrier", bursts["f1"], bursts["g1"], True)
+    saved = merge_mod._device_threshold
+    merge_mod.configure(device_threshold=-1)
+    try:
+        info["burst_host"] = staged("burst 2, host barrier", bursts["f2"], bursts["g2"], False)
+    finally:
+        merge_mod.configure(device_threshold=saved)
+    print(
+        f"residency (b) barrier ({smi}): device {info['burst_device']['merges']['barrier_ms']:.1f} ms, "
+        f"host {info['burst_host']['merges']['barrier_ms']:.1f} ms, for the same burst size"
+    )
+
+    # (c) one exact Set into f row 0 re-stages exactly one extent of it
+    s_c = S // 2
+    clear = np.flatnonzero(~_bits(f0[s_c]))
+    col = s_c * SW + int(clear[len(clear) // 2])
+    check(ex.execute("smoke", f"Set({col}, f=0)") == [True], f"Set({col}, f=0) changed nothing")
+    set_bits(f0, [col])
+    set_bits(exists, [col])
+    out = run_q(answers(), "after one Set")
+    restaged = out[RES_QUERIES[0]]["restage_bytes"]
+    check(restaged == ext_bytes, f"after one Set the Count re-staged {restaged} B, not one extent ({ext_bytes} B)")
+    info["set"] = out
+    print(f"residency (c) ({smi}): after Set({col}, f=0) the first Count re-staged {restaged} B (one extent)")
+
+    # the barrier's kernels, the device merge and the assembly, at this path's shapes
+    launches = {k: K.LAUNCHES[k] for k in ("or_words", "merge_mark")}
+    for k, n in launches.items():
+        check(n > 0, f"the residency path never launched {k}: {dict(K.LAUNCHES)}")
+    src = "pilosa_tpu_torch/ops/cuda/merge_kernels.cu"
+    view_f = f.view()
+    shards = tuple(range(S))
+    table = ExtentTable(cache)
+    view_f.row_stack(0, shards, extents=table)
+    parts = [cache.get(k) for k in table.keys]
+    rows = {}
+    # or_words: one extent of Row(f=0) (shards [0, ext)) taking burst 1's
+    # bits as (word offset, OR value) pairs; the first extent starts at
+    # shard 0, so a column's word offset in it is col >> 5
+    fc = np.unique(bursts["f1"][bursts["f1"] < np.uint64(min(ext, S) * SW)])
+    wi = (fc >> np.uint64(5)).astype(np.int64)
+    starts = np.concatenate(([0], np.flatnonzero(wi[1:] != wi[:-1]) + 1))
+    vals = np.bitwise_or.reduceat(np.uint32(1) << (fc & np.uint64(31)).astype(np.uint32), starts)
+    off_t = torch.from_numpy(wi[starts]).to(dev)
+    val_t = torch.from_numpy(vals.view(np.int32)).to(dev)
+    target, target_plain = parts[0].clone(), parts[0].clone()
+    n_pairs = off_t.numel()
+    sectors = int(np.unique(wi[starts] >> 3).size)
+    rows["or_words"] = time_row(
+        "or_words", src, "pilosa_tpu/core/view.py:544",
+        lambda: opm.or_words(target, off_t, val_t), lambda: opm.or_words_plain(target_plain, off_t, val_t),
+        12 * n_pairs + 64 * sectors, launches["or_words"], errs, "bytes (pairs, 32-byte sectors read and written)",
+    )
+    keys = bursts["f1"]  # a row-0 burst over every shard packs to its columns
+    keys_dev = torch.from_numpy(keys.view(np.int64)).to(dev)
+    sorted_dev = torch.sort(keys_dev).values
+    n_keys = keys_dev.numel()
+    rows["merge_mark"] = time_row(
+        "merge_mark", src, "pilosa_tpu/ops/merge.py:76",
+        lambda: opm.merge_mark(sorted_dev), lambda: opm.merge_mark_plain(sorted_dev),
+        13 * n_keys, launches["merge_mark"], errs,
+    )
+    n_unique = int(np.unique(keys).size)
+    merge_bytes = 8 * n_keys + 16 * n_unique
+    assembled = torch.cat(parts, 0)
+    extra = {
+        "merge_device_ms": cuda_time_ms(lambda: opm.merge_keys_on(keys_dev)),
+        "merge_device_dispatch_ms": dispatch_ms(lambda: opm.merge_keys_on(keys_dev)),
+        "merge_device_bound_ms": merge_bytes / HBM_BYTES_PER_S * 1e3,
+        "merge_sort_ms": cuda_time_ms(lambda: torch.sort(keys_dev)),
+        "merge_host_ms": host_p50_ms(lambda: opm.merge_keys_host(keys), reps=5),
+        "merge_keys": n_keys,
+        "merge_unique_keys": n_unique,
+        "assembly_ms": cuda_time_ms(lambda: torch.cat(parts, 0)),
+        "assembly_dispatch_ms": dispatch_ms(lambda: torch.cat(parts, 0)),
+        "assembly_bound_ms": 2 * assembled.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        "assembly_extents": len(parts),
+        "assemblies": res.stats_snapshot()["assemblies"],
+    }
+    table.release()
+    del target, target_plain, assembled, parts, keys_dev, sorted_dev
+    extra["merge_device_share"] = extra["merge_device_bound_ms"] / extra["merge_device_ms"]
+    extra["assembly_share"] = extra["assembly_bound_ms"] / extra["assembly_ms"]
+    info["timing"] = extra
+    print(
+        f"residency timing ({smi}): device merge of {n_keys} keys ({n_unique} unique) {extra['merge_device_ms']:.4f} ms "
+        f"(sort alone {extra['merge_sort_ms']:.4f} ms, dispatch {extra['merge_device_dispatch_ms']:.4f} ms; the host "
+        f"merge of the same keys {extra['merge_host_ms']:.1f} ms, host clock; bound "
+        f"{extra['merge_device_bound_ms']:.4f} ms, {extra['merge_device_share']:.1%}, "
+        f"{info['burst_device']['merges']['device_launches']} launches on the burst); assembly of {len(table.keys)} "
+        f"extents into a {S}-shard operand {extra['assembly_ms']:.4f} ms (dispatch {extra['assembly_dispatch_ms']:.4f} "
+        f"ms, bound {extra['assembly_bound_ms']:.4f} ms, {extra['assembly_share']:.1%}, plain PyTorch; "
+        f"{extra['assemblies']} assemblies on the path)"
+    )
+
+    # (d) paging: a budget one extent short of the query set's working set
+    want = answers()
+
+    def paging(rows_per_extent):
+        res.configure(extent_rows=rows_per_extent)
+        cache.clear()
+        run_q(want, f"paging warm (extent_rows {rows_per_extent})")
+        ws = cache.bytes_used
+        budget0 = cache.budget_bytes
+        cache.budget_bytes = ws - ext_bytes
+        cycles = []
+        try:
+            for c in range(RES_CYCLES):
+                out = run_q(want, f"paging cycle {c} (extent_rows {rows_per_extent})")
+                cycles.append(sum(v["restage_bytes"] for v in out.values()))
+        finally:
+            cache.budget_bytes = budget0
+        return {"working_set_bytes": ws, "restage_bytes_per_cycle": cycles}
+
+    try:
+        info["paging_extents"] = paging(ext)
+        info["paging_whole"] = paging(0)
+    finally:
+        res.configure(extent_rows=ext)
+    pe, pw = info["paging_extents"]["restage_bytes_per_cycle"], info["paging_whole"]["restage_bytes_per_cycle"]
+    for c in range(1, RES_CYCLES):
+        check(pe[c] < pw[c], f"paging cycle {c}: extents re-staged {pe[c]} B, whole stacks {pw[c]} B")
+    print(
+        f"residency (d) paging ({smi}): working set {info['paging_extents']['working_set_bytes']} B with extents, "
+        f"{info['paging_whole']['working_set_bytes']} B whole; budget one extent ({ext_bytes} B) short; re-staged "
+        f"per cycle: extents {pe}, whole stacks {pw}"
+    )
+
+    # (e) a budget under 4 x one shard's stack on a fresh 8-shard index:
+    # each shard is lowered alone, over the budget, and nothing raises
+    h2 = Holder()
+    try:
+        i2 = h2.create_index("tiny", track_existence=True)
+        a, b = i2.create_field("a"), i2.create_field("b")
+        trng = np.random.default_rng([args.seed, 5])
+        aw = [trng.integers(0, 2**32, size=(8, W), dtype=np.uint32) for _ in range(3)]
+        bw = trng.integers(0, 2**32, size=(8, W), dtype=np.uint32)
+        for s_ in range(8):
+            for r in range(3):
+                a.import_row_words(r, s_, aw[r][s_])
+            b.import_row_words(0, s_, bw[s_])
+            i2.existence_field().import_row_words(0, s_, aw[0][s_] | aw[1][s_] | aw[2][s_] | bw[s_])
+        h2.dcache.budget_bytes = 2 * W * 4
+        ex2 = Executor(h2)
+        got = ex2.execute("tiny", "Count(Intersect(Row(a=0), Row(b=0)))")
+        check(got == [pc(aw[0] & bw)], f"(e) two-leaf Count {got}, numpy says {pc(aw[0] & bw)}")
+        top = sorted(((r, pc(aw[r] & bw)) for r in range(3)), key=lambda kv: (-kv[1], kv[0]))
+        got = [(p.id, p.count) for p in ex2.execute("tiny", "TopN(a, Row(b=0), n=3)")[0]]
+        check(got == top, f"(e) filtered TopN {got}, numpy says {top}")
+        check(h2.dcache.pinned_bytes == 0, "(e) pins left behind")
+    finally:
+        h2.close()
+    print(f"residency (e): an 8-shard index under a {2 * W * 4}-B budget answers a two-leaf Count and a filtered TopN")
+
+    info["phase_s"] = time.perf_counter() - t_phase
+    info["launches"] = dict(K.LAUNCHES)
+    return rows, info
 
 
 # ---------------------------------------------------------------------------
@@ -2320,15 +2786,21 @@ def main() -> int:
     t0 = time.perf_counter()
     holder, ex, launches, lat, ingest_s, resident, state = main_path(args, rng)
     phase_s["main"] = time.perf_counter() - t0
+    state["bursts"] = residency_bursts(args.seed, args.shards)
+    state["g_burst"] = state["bursts"]["g_burst"]
     t0 = time.perf_counter()
     bsi_launches, bsi_lat, bsi_info = bsi_path(args, holder, ex, state)
     phase_s["bsi"] = time.perf_counter() - t0
-    del state
     for name in ("bsi_sum", "bsi_min_max", "bsi_range"):
         launches[name] = bsi_launches[name]
     t0 = time.perf_counter()
     rows, extra = kernel_timing(holder, ex, launches, errs)
     phase_s["timing"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_rows, residency = residency_path(args, holder, ex, state, errs, smi)
+    rows.update(res_rows)
+    phase_s["residency"] = time.perf_counter() - t0
+    del state
     holder.close()  # the served node gets the card's memory to itself
     del holder, ex
     torch.cuda.empty_cache()
@@ -2369,13 +2841,14 @@ def main() -> int:
         "kernels": [
             rows[k]
             for k in ("plan_count", "gather_tally", "rows_counts", "count2", "bsi_sum", "bsi_min_max", "bsi_range",
-                      "counts_cross", "gather_and")
+                      "counts_cross", "gather_and", "or_words", "merge_mark")
         ],
         "extra_ms": extra,
         "query_p50_ms": lat,
         "bsi_query_p50_ms": bsi_lat,
         "bsi": bsi_info,
         "bsi_launches": bsi_launches,
+        "residency": residency,
         "ingest_s": ingest_s,
         "device_cache_bytes": resident,
         "serve": serve,

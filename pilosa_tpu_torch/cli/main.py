@@ -112,6 +112,9 @@ _PORTED_KNOBS = {
     (None, "log_path"),
     (None, "max_writes_per_request"),
     ("wal", "sync_interval"),
+    ("hbm", "extent_rows"),
+    ("hbm", "pin_timeout"),
+    ("ingest", "merge_device_threshold"),
 }
 
 # flags taking a list (the reference's nargs="*" flags)
@@ -246,6 +249,9 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None) -
             device=device,
             max_writes_per_request=cfg.max_writes_per_request,
             wal_sync_interval=cfg.wal.sync_interval,
+            hbm_extent_rows=cfg.hbm.extent_rows,
+            hbm_pin_timeout=cfg.hbm.pin_timeout,
+            merge_device_threshold=cfg.ingest.merge_device_threshold,
             logger=logger,
         )
     except RuntimeError as e:  # no CUDA device and no --device cpu

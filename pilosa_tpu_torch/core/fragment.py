@@ -5,7 +5,13 @@ as sparse positions or dense words (core/rowstore.py), the mutex vector
 for mutex fields, and the exact rank cache that unfiltered TopN reads.
 Device copies of rows live in the holder's DeviceCache and are dropped on
 mutation. Staged ingest (`stage_positions`) appends positions to a
-pending buffer that every host read merges first (`_sync_locked`).
+pending buffer that every host read merges first (`_sync_locked`). The
+view's merge barrier (core/merge.py) merges the buffers of many
+fragments in one pass instead: `pending_snapshot` captures them without
+popping, `apply_merged_delta` trims them and parks the merged slice as a
+delta layer (unless `_pending_gen` moved, meaning a host read merged
+them meanwhile), and `_sync_locked` folds parked layers into the row
+store at the next host read.
 
 A fragment with a `path` is durable, in the reference's on-disk format
 (core/wal.py): `<path>.snap` holds a snapshot, `<path>.wal` every write
@@ -37,6 +43,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.core import cache as cachemod
+from pilosa_tpu_torch.core import merge as merge_mod
 from pilosa_tpu_torch.core import rowstore
 from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core.devcache import DeviceCache, new_owner_token
@@ -239,6 +246,18 @@ class Fragment:
         # staged SET positions not yet merged into _rows (stage_positions)
         self._pending: List[np.ndarray] = []
         self._pending_n = 0
+        # merge handshake (core/merge.py): _pending_gen moves whenever
+        # pending parts are consumed, so a barrier that captured them can
+        # tell a reader merged them first; _staged_base_version is the
+        # version just before the first unmerged staged batch (each batch
+        # bumps the version by one), the version an extent must be keyed
+        # at for the barrier's in-place patch to be exact
+        self._pending_gen = 0
+        self._staged_base_version = 0
+        # barrier outcomes not yet in _rows: sorted unique position keys,
+        # folded in by the next host read (bounded by _LAYER_CAP)
+        self._premerged: List[np.ndarray] = []
+        self._premerged_n = 0
         # device rows under _token, multi-row stacks under _stack_token
         self._token = new_owner_token()
         self._stack_token = new_owner_token()
@@ -246,7 +265,8 @@ class Fragment:
         self.version = 0
         # mutex fields: col -> owning row
         self._mutex_map: Optional[Dict[int, int]] = {} if mutex else None
-        # owner hook fired after any mutation (the View drops its stacks)
+        # owner hook fired after any mutation (the View drops the stack
+        # entries covering this shard)
         self.on_mutate = None
         self._wal: Optional[walmod.WalWriter] = None
         self._op_n = 0  # changed bits since the last snapshot
@@ -286,6 +306,10 @@ class Fragment:
                 if op == walmod.OP_ROW_WORDS:
                     self._apply_row_words(int(positions[0]), np.ascontiguousarray(positions[1:]).view(np.uint32))
                 elif op == walmod.OP_SET and self._mutex_map is None:
+                    # staged sets go back to the pending buffer and land
+                    # through one deferred merge at the end of open
+                    if not self._pending:
+                        self._staged_base_version = self.version
                     self._pending.append(positions)
                     self._pending_n += len(positions)
                     self.version += 1
@@ -590,6 +614,8 @@ class Fragment:
             if not n:
                 return 0
             tok = self._log([(walmod.OP_SET, positions)])
+            if not self._pending:
+                self._staged_base_version = self.version
             self._pending.append(positions)
             self._pending_n += n
             self.version += 1
@@ -603,13 +629,21 @@ class Fragment:
         return n
 
     def _sync_locked(self) -> None:
-        """Merge the pending staged delta into the row store (under _mu).
-        Versions and device invalidation were handled at stage time."""
-        if not self._pending_n:
+        """Merge the pending staged delta and the parked barrier layers
+        into the row store (under _mu), in one pass: both are position
+        keys. Versions and device invalidation were handled at stage
+        time."""
+        if not self._pending_n and not self._premerged:
             return
-        parts = self._pending
+        if self._pending:
+            # parked layers were booked at their barrier
+            merge_mod.note_host_sync(len(self._pending))
+        parts = self._premerged + self._pending
+        self._premerged = []
+        self._premerged_n = 0
         self._pending = []
         self._pending_n = 0
+        self._pending_gen += 1  # a barrier's capture of the parts is stale
         inc = parts[0] if len(parts) == 1 else np.concatenate(parts)
         touched: set = set()
         self._bulk_set_sparse(inc, touched)
@@ -622,6 +656,40 @@ class Fragment:
     def sync_pending_now(self) -> None:
         with self._mu:
             self._sync_locked()
+
+    def pending_snapshot(self):
+        """Barrier phase 1: (parts, n_parts, gen, base_version) of the
+        current pending delta, or None when nothing is staged. `parts` is
+        a copy of the list (the arrays are shared and never written);
+        nothing is popped."""
+        with self._mu:
+            if not self._pending:
+                return None
+            return list(self._pending), len(self._pending), self._pending_gen, self._staged_base_version
+
+    # parked layers past this many keys fold into the row store at the
+    # barrier: a fragment nobody host-reads must not pile them up
+    _LAYER_CAP = 1 << 20
+
+    def apply_merged_delta(self, keys_local: np.ndarray, n_parts: int, captured_n: int, gen: int) -> Optional[int]:
+        """Barrier phase 2: park `keys_local` (this fragment's slice of the
+        merged burst, position keys) in place of the first `n_parts`
+        pending batches. Returns the fragment's version, or None when
+        `gen` is stale (a host read merged the captured parts first). The
+        WAL still holds the staged frames: a crash replays them."""
+        with self._mu:
+            if gen != self._pending_gen:
+                return None
+            walmod.fault_point("merge.install", self.path or "")
+            del self._pending[:n_parts]
+            self._pending_n -= captured_n
+            self._pending_gen += 1
+            self._staged_base_version += n_parts
+            self._premerged.append(keys_local)
+            self._premerged_n += len(keys_local)
+            if self._premerged_n > self._LAYER_CAP:
+                self._sync_locked()
+            return self.version
 
     def _apply_positions(self, to_set: np.ndarray, to_clear: np.ndarray) -> Tuple[int, int]:
         """The exact mutation funnel (under _mu): row store, mutex vector,

@@ -1,12 +1,25 @@
 """View: groups fragments by shard for one view of a field.
 
-The port of pilosa_tpu/core/view.py: fragment lookup, the read barrier
-over staged writes, the staged bulk-ingest router, and the row and plane
-stacks the stacked query path stages on the device. A durable view keeps
-its fragments under `<path>/fragments/<shard>` (.snap, .wal, .cache) and
-opens every fragment found there. The coherence hub, the result cache and
-extent patching are not ported; a mutation drops the view's device stacks
-wholesale.
+The port of pilosa_tpu/core/view.py: fragment lookup, the staged
+bulk-ingest router, the read barrier over staged writes, and the row and
+plane stacks the stacked query path stages on the device (through
+hbm/residency.py, as shard-major extents keyed by their fragments'
+versions). A durable view keeps its fragments under
+`<path>/fragments/<shard>` (.snap, .wal, .cache) and opens every
+fragment found there.
+
+Writes and the device: an exact write to a shard drops only the stack
+entries covering that shard (`invalidate_owner_shard`). A staged write
+(`stage_bulk`) drops nothing covered: it marks its shards dirty, and the
+read barrier (`sync_pending`) merges every staged fragment the read
+touches in one pass (core/merge.py), then patches each resident entry
+covering a merged shard in place, old words | merged delta, re-keyed to
+the new versions; an entry it cannot patch exactly is dropped. A patch
+uploads the delta as sparse (flat word offset, OR value) pairs and
+applies them with the or_words kernel on the launch stream, so a plan
+launched before it reads the old words; an entry pinned by a plan not yet
+launched is cloned first and the clone patched. The coherence hub and the
+result cache are not ported.
 """
 
 from __future__ import annotations
@@ -18,10 +31,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.core import merge as merge_mod
 from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core.devcache import DeviceCache, new_owner_token
 from pilosa_tpu_torch.core.fragment import DEFAULT_MAX_OP_N, Fragment
 from pilosa_tpu_torch.hbm import residency
+from pilosa_tpu_torch.ops import merge as ops_merge
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
 VIEW_STANDARD = "standard"
@@ -56,6 +71,10 @@ class View:
         self.fragments: Dict[int, Fragment] = {}
         # owner token for this view's stacks and TopN tally bundles
         self._stack_token = new_owner_token()
+        # shards with staged writes whose covering stack entries were not
+        # dropped at stage time (they are keyed by version, so never
+        # served stale): the barrier patches or drops them
+        self._dirty_staged: set = set()
 
     def open(self) -> "View":
         """Open every fragment of the view's directory (a shard with a
@@ -88,12 +107,12 @@ class View:
                     path=None if self.path is None else os.path.join(self.path, "fragments", str(shard)),
                     max_op_n=self.max_op_n,
                 ).open()
-                frag.on_mutate = self._on_fragment_mutate
+                frag.on_mutate = lambda s=shard: self._on_fragment_mutate(s)
                 self.fragments[shard] = frag
             return frag
 
-    def _on_fragment_mutate(self) -> None:
-        self.dcache.invalidate_owner(self._stack_token)
+    def _on_fragment_mutate(self, shard: int) -> None:
+        self.dcache.invalidate_owner_shard(self._stack_token, shard)
 
     def close(self) -> None:
         """Close every fragment (WAL, cache sidecar) and drop every device
@@ -103,6 +122,7 @@ class View:
             for frag in self.fragments.values():
                 frag.close()
             self.dcache.invalidate_owner(self._stack_token)
+            self._dirty_staged.clear()
 
     def fragment_if_exists(self, shard: int) -> Optional[Fragment]:
         return self.fragments.get(shard)
@@ -116,60 +136,193 @@ class View:
             return [self.fragments.get(s) for s in shards]
 
     def _stack_key(self, kind: str, ident, shards: tuple) -> tuple:
+        # no versions here: staging appends each extent's own slice
         return (self._stack_token, kind, ident, shards)
 
     @staticmethod
     def _frag_versions(frags) -> tuple:
         return tuple(f.version if f is not None else -1 for f in frags)
 
+    # -- the read barrier --------------------------------------------------
+
     def sync_pending(self, shards=None, frags=None) -> None:
         """Read barrier: merge every listed (default: every) fragment's
-        staged delta into its row store."""
+        staged delta in one batched pass, then patch or drop the resident
+        stack entries covering the merged shards. Only the shards this
+        barrier covered are reconciled: other dirty shards stay patchable
+        until their own barrier."""
         if frags is None:
             with self._mu:
                 if shards is None:
                     frags = list(self.fragments.values())
                 else:
                     frags = [self.fragments.get(s) for s in shards]
-        for f in frags:
-            if f is not None:
-                f.sync_pending_now()
+        merges = merge_mod.merge_barrier(frags)
+        synced = {f.shard for f in frags if f is not None}
+        with self._mu:
+            dirty = self._dirty_staged & synced
+        if merges or dirty:
+            self._reconcile_extents(merges, dirty)
 
-    def row_stack(self, row_id: int, shards) -> Optional[torch.Tensor]:
+    def _reconcile_extents(self, merges, dirty: set) -> None:
+        """Patch or drop every stack entry covering a shard whose staged
+        delta just merged (or merged earlier in a per-fragment read:
+        `dirty` remembers those). An entry is patched only when every
+        affected fragment was `clean` and the entry is keyed at its
+        `base_version`; otherwise it is dropped, unless it is keyed at
+        the fragments' current versions already."""
+        patches = {m.shard: m for m in merges if m.clean}
+        affected = dirty | {m.shard for m in merges}
+        stale = affected - set(patches)
+        if not affected:
+            return
+        for key, cover, is_extent in self.dcache.owner_entries(self._stack_token):
+            if cover is None:
+                self.dcache.invalidate(key)  # not keyed by version
+                continue
+            hit = cover & affected
+            if not hit:
+                continue
+            if ((hit & stale) or not self._patch_entry(key, hit, patches, is_extent)) and not self._entry_current(
+                key, hit
+            ):
+                self.dcache.invalidate(key)
+        with self._mu:
+            self._dirty_staged -= affected
+
+    @staticmethod
+    def _key_span(key):
+        """(shard position of the entry's first shard, its versions, the
+        tail kind) of a staged entry's key, or None."""
+        tail = key[4:]
+        if len(tail) == 4 and tail[0] == "ext":
+            return tail[2] * tail[1], tail[3], "ext"
+        if len(tail) == 2 and tail[0] == "mono":
+            return 0, tail[1], "mono"
+        return None
+
+    def _entry_current(self, key, hit: set) -> bool:
+        """Whether the entry is keyed at every hit shard's current
+        version (a concurrent barrier may have patched it already). The
+        version reads take no lock: a racing write makes the key stale
+        anyway and marks the shard again."""
+        if key[0] != self._stack_token or len(key) < 5:
+            return False
+        span_of = self._key_span(key)
+        if span_of is None:
+            return False
+        lo, versions, _ = span_of
+        for p, s in enumerate(key[3][lo : lo + len(versions)]):
+            if s in hit:
+                frag = self.fragments.get(s)
+                if frag is None or versions[p] != frag.version:
+                    return False
+        return True
+
+    def _patch_entry(self, key, hit: set, patches, is_extent: bool) -> bool:
+        """Patch one resident stack entry to (old words | merged delta) and
+        re-key it at the post-merge versions. True: reconciled (patched,
+        or no longer resident); False: the caller drops it. Exact only
+        when the entry is keyed at each patched fragment's base version
+        and the fragment was clean."""
+        if key[0] != self._stack_token or len(key) < 5:
+            return False
+        kind, ident, shards_t = key[1], key[2], key[3]
+        if kind == "row":
+            row_ids = [ident]
+        elif kind == "planes":
+            row_ids = list(ident)
+        else:
+            return False
+        span_of = self._key_span(key)
+        if span_of is None:
+            return False
+        lo, versions, tail_kind = span_of
+        span = shards_t[lo : lo + len(versions)]
+        upd = list(versions)
+        deltas = []
+        for p, s in enumerate(span):
+            if s not in hit:
+                continue
+            m = patches.get(s)
+            if m is None or versions[p] != m.base_version:
+                return False
+            upd[p] = m.new_version
+            deltas.append((p, m))
+        if not deltas:
+            return False
+        arr, pinned = self.dcache.take(key)
+        if arr is None:
+            return True  # evicted meanwhile: nothing resident to go stale
+        n = len(span)
+        offs, vals = [], []
+        for p, m in deltas:
+            for d, rid in enumerate(row_ids):
+                if rid not in m.rows:
+                    continue  # a row the delta did not touch: re-key only
+                widx, wvals = m.word_delta(rid)
+                if len(widx):
+                    offs.append(widx + (d * n + p) * WORDS_PER_ROW)
+                    vals.append(wvals)
+        if pinned:
+            arr = arr.clone()  # a plan not yet launched holds the old words
+        n_batches = upload = 0
+        if offs:
+            off = np.concatenate(offs)
+            val = np.concatenate(vals).view(np.int32)
+            upload = off.nbytes + val.nbytes
+            ops_merge.or_words(arr, _to_device(off, arr.device), _to_device(val, arr.device))
+            n_batches = 1
+        new_tail = ("ext", key[5], key[6], tuple(upd)) if tail_kind == "ext" else ("mono", tuple(upd))
+        self.dcache.put(key[:4] + new_tail, arr, extent=is_extent, shards=span)
+        residency.note_extent_patch(n_batches, upload)
+        return True
+
+    # -- stacked operands --------------------------------------------------
+
+    def row_stack(self, row_id: int, shards, extents=None) -> Optional[torch.Tensor]:
         """int32[S, W] device stack of one row over `shards`, or None when
-        no listed shard has a fragment."""
+        no listed shard has a fragment. `extents` (hbm.ExtentTable)
+        receives the pins on the staged entries."""
         shards = tuple(shards)
         frags = self._frags_for(shards)
         if all(f is None for f in frags):
             return None
+        # merge and patch first: the keys below read the merged versions
         self.sync_pending(frags=frags)
         zeros = np.zeros(WORDS_PER_ROW, np.uint32)
 
-        def build() -> np.ndarray:
-            return np.stack([f.row_words(row_id) if f is not None else zeros for f in frags])
+        def build_slice(lo: int, hi: int) -> np.ndarray:
+            return np.stack([f.row_words(row_id) if f is not None else zeros for f in frags[lo:hi]])
 
         return residency.stage_row_stack(
             self.dcache,
             self._stack_key("row", row_id, shards),
-            self._frag_versions(frags),
-            build,
+            len(shards),
+            build_slice,
             self.device,
+            table=extents,
+            versions=self._frag_versions(frags),
+            shards=shards,
         )
 
-    def plane_stack(self, row_ids, shards) -> Optional[torch.Tensor]:
+    def plane_stack(self, row_ids, shards, extents=None) -> Optional[torch.Tensor]:
         """int32[D, S, W] device stack (rows x shards), or None when no
         listed shard has a fragment. A row a fragment lacks reads as zero
         words (an int field's high plane that older shards never wrote
-        after its bit depth grew)."""
+        after its bit depth grew). Extents cut the shard axis and carry
+        all D rows."""
         row_ids = tuple(row_ids)
         shards = tuple(shards)
         frags = self._frags_for(shards)
         if all(f is None for f in frags):
             return None
         self.sync_pending(frags=frags)
-        def build() -> np.ndarray:
-            out = np.zeros((len(row_ids), len(frags), WORDS_PER_ROW), np.uint32)
-            for j, f in enumerate(frags):
+
+        def build_slice(lo: int, hi: int) -> np.ndarray:
+            part = frags[lo:hi]
+            out = np.zeros((len(row_ids), len(part), WORDS_PER_ROW), np.uint32)
+            for j, f in enumerate(part):
                 if f is not None:
                     f.rows_words_into(row_ids, out[:, j])
             return out
@@ -177,15 +330,20 @@ class View:
         return residency.stage_plane_stack(
             self.dcache,
             self._stack_key("planes", row_ids, shards),
-            self._frag_versions(frags),
-            build,
+            len(shards),
+            build_slice,
             self.device,
+            table=extents,
+            versions=self._frag_versions(frags),
+            shards=shards,
         )
 
     def stage_bulk(self, shards: np.ndarray, positions: np.ndarray) -> None:
         """Bulk-ingest router: one argsort splits the batch into per-shard
-        chunks, each staged on its fragment; the device-cache invalidation
-        every write owes runs once for the whole batch."""
+        chunks, each staged on its fragment. Then, once for the batch:
+        the fragments' own device rows and the view's uncovered entries
+        (TopN tally bundles) drop, and the shards are marked dirty for
+        the barrier, which patches the covered entries."""
         if not len(shards):
             return
         order = np.argsort(shards)
@@ -193,7 +351,8 @@ class View:
         pos = positions[order]
         bounds = np.flatnonzero(sh[1:] != sh[:-1]) + 1
         starts = np.concatenate(([0], bounds)).astype(np.int64)
-        tokens = [self._stack_token]
+        tokens = []
+        dirty = []
         # one group commit for the whole batch, at the barrier's exit
         with walmod.GROUP_COMMIT.barrier():
             for shard, chunk in zip(sh[starts].tolist(), np.split(pos, bounds)):
@@ -201,7 +360,11 @@ class View:
                 frag.stage_positions(chunk, notify=False)
                 tokens.append(frag._token)
                 tokens.append(frag._stack_token)
+                dirty.append(int(shard))
         self.dcache.invalidate_owners(tokens)
+        self.dcache.invalidate_owner_uncovered(self._stack_token)
+        with self._mu:
+            self._dirty_staged.update(dirty)
 
     def set_bit(self, row_id: int, col: int) -> bool:
         return self.fragment(col // SHARD_WIDTH).set_bit(row_id, col)
@@ -218,3 +381,11 @@ class View:
         if frag is None:
             return 0, False
         return frag.value(col, bit_depth)
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Upload host words from pinned memory on the launch stream."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)

@@ -16,7 +16,9 @@ whole stack and one small host read:
 The kernels read every plane word once per word group, so the reference's
 slab streaming (carried-state step/finish programs, the bsi-slab-planes
 knob) is not ported. The shard axis is still chunked under the device
-budget: (D + 3) x S x W x 4 bytes must fit a quarter of it.
+budget: (D + 3) x S x W x 4 bytes must fit a quarter of it. A chunk's
+stacks are staged as extents in one deferred-eviction session, pinned
+until its launches are queued.
 
 Fields whose range cannot store negatives (min >= base) skip the sign row
 entirely. A filter containing Shift, a non-call filter argument, and a
@@ -31,7 +33,9 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT, BSI_SIGN_BIT
+from pilosa_tpu_torch.exec import plan as planmod
 from pilosa_tpu_torch.exec.plan import BudgetExceeded, PZero, StackedPlan
+from pilosa_tpu_torch.hbm.residency import ExtentTable
 from pilosa_tpu_torch.ops import bsi as obsi
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.pql.ast import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ
@@ -57,7 +61,7 @@ def _chunk_guard(idx, n_shards: int, depth: int) -> None:
     """The whole-stack budget guard: the planes plus the word rows
     (exists, sign, filter) must fit a quarter of the device budget, or
     the caller halves the shard axis."""
-    if (depth + 3) * n_shards * WORDS_PER_ROW * 4 > idx.dcache.budget_bytes // 4:
+    if (depth + 3) * n_shards * WORDS_PER_ROW * 4 > planmod.stack_budget(idx.dcache):
         raise BudgetExceeded("BSI stack exceeds the device budget")
 
 
@@ -68,18 +72,18 @@ def _signed_field(f) -> bool:
     return f.options.min < f.options.base
 
 
-def _field_rows(bsiv, shards, signed_: bool):
+def _field_rows(bsiv, shards, signed_: bool, table: ExtentTable):
     """(exists, sign) [S, W] stacks for one shard chunk; sign is None for
     unsigned fields."""
-    exists = bsiv.row_stack(BSI_EXISTS_BIT, shards)
+    exists = bsiv.row_stack(BSI_EXISTS_BIT, shards, extents=table)
     if exists is None:
         return None, None
-    sign = bsiv.row_stack(BSI_SIGN_BIT, shards) if signed_ else None
+    sign = bsiv.row_stack(BSI_SIGN_BIT, shards, extents=table) if signed_ else None
     return exists, sign
 
 
-def _planes(bsiv, depth: int, shards) -> torch.Tensor:
-    return bsiv.plane_stack(range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + depth), shards)
+def _planes(bsiv, depth: int, shards, table: ExtentTable) -> torch.Tensor:
+    return bsiv.plane_stack(range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + depth), shards, extents=table)
 
 
 def _filter_stack(ex, idx, filter_call, shards):
@@ -88,10 +92,11 @@ def _filter_stack(ex, idx, filter_call, shards):
     from pilosa_tpu_torch.exec.executor import _StackedLowering
 
     low = _StackedLowering(ex, idx, list(shards), no_sparse_guard=True)
-    root = low.lower(filter_call)
+    root = ex._lower_all(low, [filter_call])[0]
     if isinstance(root, PZero) or not low.operands:
+        low.extents.release()
         return _EMPTY
-    return StackedPlan(root, low.operands, len(shards)).rows_full()
+    return StackedPlan(root, low.operands, len(shards), extents=low.extents).rows_full()
 
 
 # ---------------------------------------------------------------------------
@@ -156,15 +161,24 @@ def aggregate(ex, idx, c, f, shard_list: Sequence[int], kind: str):
 def _aggregate_chunk(ex, idx, bsiv, filter_call, chunk, kind: str, depth: int, signed_: bool):
     """One shard chunk: (count, signed magnitude sum) for sum, (value,
     count) for min/max, or _EMPTY."""
-    exists, sign = _field_rows(bsiv, chunk, signed_)
-    if exists is None:
-        return _EMPTY
-    filt = None
-    if filter_call is not None:
-        filt = _filter_stack(ex, idx, filter_call, chunk)
-        if filt is _EMPTY:
-            return _EMPTY
-    planes = _planes(bsiv, depth, chunk)
+    table = ExtentTable(idx.dcache)
+    try:
+        with idx.dcache.deferred_eviction():
+            exists, sign = _field_rows(bsiv, chunk, signed_, table)
+            if exists is None:
+                return _EMPTY
+            filt = None
+            if filter_call is not None:
+                filt = _filter_stack(ex, idx, filter_call, chunk)
+                if filt is _EMPTY:
+                    return _EMPTY
+            planes = _planes(bsiv, depth, chunk, table)
+        return _aggregate_launch(planes, exists, sign, filt, kind, depth, signed_)
+    finally:
+        table.release()
+
+
+def _aggregate_launch(planes, exists, sign, filt, kind: str, depth: int, signed_: bool):
     if kind == "sum":
         return obsi.combine_sum(kernels.bsi_sum(planes, exists, sign, filt).cpu().tolist())
     is_min = kind == "min"
@@ -305,12 +319,21 @@ def _count_chunk(bsiv, chunk, depth: int, signed_: bool, jobs, preds, job_weight
     plan_count launch per mask term, one host read, exact +/- combine."""
     if not jobs and not extras:
         return 0
-    exists, sign = _field_rows(bsiv, chunk, signed_)
-    if exists is None:
-        return 0
+    table = ExtentTable(bsiv.dcache)
+    try:
+        with bsiv.dcache.deferred_eviction():
+            exists, sign = _field_rows(bsiv, chunk, signed_, table)
+            if exists is None:
+                return 0
+            planes = _planes(bsiv, depth, chunk, table) if jobs else None
+        return _count_launch(planes, exists, sign, len(chunk), jobs, preds, job_weights, extras)
+    finally:
+        table.release()
+
+
+def _count_launch(planes, exists, sign, n_shards: int, jobs, preds, job_weights, extras) -> int:
     terms = []
     if jobs:
-        planes = _planes(bsiv, depth, chunk)
         off = 0
         for kind, sel, allow_eq in jobs:
             npred = 2 if kind == "between" else 1
@@ -321,7 +344,7 @@ def _count_chunk(bsiv, chunk, depth: int, signed_: bool, jobs, preds, job_weight
             )
     leaves = [exists] if sign is None else [exists, sign]
     for sel, _ in extras:
-        terms.append(kernels.plan_count(leaves, _MASK_PROGRAMS[sel], len(chunk)))
+        terms.append(kernels.plan_count(leaves, _MASK_PROGRAMS[sel], n_shards))
     host = torch.stack(terms).sum(dim=1).cpu().tolist()
     weights = list(job_weights) + [w for _, w in extras]
     return sum(w * int(t) for w, t in zip(weights, host))

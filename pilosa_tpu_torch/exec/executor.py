@@ -17,7 +17,15 @@ back to keys after it (exec/translation.py).
 
 Every other call raises ExecError("<Call> not yet ported"). There is no
 per-shard fallback: a tree the stacked lowering cannot express is an
-error here, never a slower path.
+error here, never a slower path. Stacks over a quarter of the device
+budget halve the shard list; below 16 shards each shard is lowered on
+its own and admitted over the budget, where the reference answers
+through its per-shard loop.
+
+Lowering stages a query's operands as extents (hbm/residency.py) under
+one deferred-eviction session of the holder's device cache, pinned in
+the lowering's ExtentTable; the plan releases the pins once its kernels
+are queued, and every error path releases them too.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from pilosa_tpu_torch.exec.plan import (
     SparseView,
     StackedPlan,
 )
+from pilosa_tpu_torch.hbm.residency import ExtentTable
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.pql import Call, Query, parse
 from pilosa_tpu_torch.pql.ast import BETWEEN, GT, GTE, LT, LTE, NEQ
@@ -196,6 +205,8 @@ class _StackedLowering:
         self.collect = collect
         self.no_sparse_guard = no_sparse_guard
         self.views: Dict[int, Any] = {}
+        # pins on the staged operands' extents, released by the plan
+        self.extents = ExtentTable(idx.dcache)
 
     def _stack_guard(self, view, mult: int = 1) -> None:
         n = len(self.shards)
@@ -203,7 +214,7 @@ class _StackedLowering:
             present = sum(1 for s in self.shards if view.fragment_if_exists(s) is not None)
             if present and present * 8 < n:
                 raise SparseView("sparse view: stacked form would densify")
-        if n * WORDS_PER_ROW * 4 * mult > self.idx.dcache.budget_bytes // 4:
+        if n * WORDS_PER_ROW * 4 * mult > planmod.stack_budget(self.idx.dcache):
             raise BudgetExceeded("stack exceeds device budget")
 
     def _view_leaf(self, view, row_id: int) -> PNode:
@@ -215,7 +226,7 @@ class _StackedLowering:
                 node = PLeaf(0)
             else:
                 self._stack_guard(view)
-                arr = view.row_stack(row_id, self.shards)
+                arr = view.row_stack(row_id, self.shards, extents=self.extents)
                 if arr is None:
                     node = PZero()
                 else:
@@ -235,7 +246,7 @@ class _StackedLowering:
             else:
                 self._stack_guard(view, mult=bit_depth)
                 arr = view.plane_stack(
-                    range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + bit_depth), self.shards
+                    range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + bit_depth), self.shards, extents=self.extents
                 )
                 if arr is None:
                     self._leaf_memo[key] = None
@@ -574,6 +585,18 @@ class Executor:
         n += sum(self._count_shifts(v) for v in c.args.values() if isinstance(v, Call))
         return n
 
+    @staticmethod
+    def _lower_all(low: "_StackedLowering", calls: List[Call]) -> List[PNode]:
+        """Lower the trees in one deferred-eviction session (staging
+        operand k must not evict operand k + 1's extents); on any error
+        the lowering's pins are released."""
+        try:
+            with low.idx.dcache.deferred_eviction():
+                return [low.lower(c) for c in calls]
+        except BaseException:
+            low.extents.release()
+            raise
+
     def _lower_roots(self, idx: Index, calls: List[Call], shard_list):
         """Lower call trees over ONE shared operand set. Returns (roots,
         lowering, n_out, out_shards) or the _EMPTY sentinel when no operand
@@ -594,10 +617,11 @@ class Executor:
             aug = shard_list + sorted(extra)
         low = _StackedLowering(self, idx, aug)
         try:
-            roots = [low.lower(c) for c in calls]
+            roots = self._lower_all(low, calls)
         except SparseView:
             return self._lower_roots_compacted(idx, calls, shard_list, aug, k)
         if not low.operands:
+            low.extents.release()
             return self._EMPTY
         return roots, low, len(shard_list), shard_list
 
@@ -621,8 +645,9 @@ class Executor:
         req = set(shard_list)
         n_out = sum(1 for s in compact if s in req)
         low = _StackedLowering(self, idx, compact, no_sparse_guard=True)
-        roots = [low.lower(c) for c in calls]
+        roots = self._lower_all(low, calls)
         if not low.operands:
+            low.extents.release()
             return self._EMPTY
         # requested shards precede the extras in `compact`
         return roots, low, n_out, compact[:n_out]
@@ -636,23 +661,51 @@ class Executor:
             if lowered is self._EMPTY:
                 return []
             roots, low, n_out, out_shards = lowered
-            return [StackedPlan(roots[0], low.operands, n_out, out_shards)]
+            return [StackedPlan(roots[0], low.operands, n_out, out_shards, extents=low.extents)]
 
         return self._chunk_by_budget(list(shard_list), one)
 
+    # below this many shards, budget halving gives way to one shard at a
+    # time (the reference's per-shard loop takes over there)
+    _MIN_CHUNK = 16
+
+    @staticmethod
+    def _release_chunk_extents(items) -> None:
+        """Unpin the extents of lowered chunk results never dispatched."""
+        for it in items or ():
+            rel = getattr(it, "release_extents", None)
+            if rel is not None:
+                rel()
+
     @staticmethod
     def _chunk_by_budget(shard_list, lower_one):
+        """lower_one(chunk) -> a list of per-chunk results; BudgetExceeded
+        halves the shard list, and below _MIN_CHUNK shards each shard is
+        lowered alone with its stacks admitted over the budget. A failing
+        half releases the other half's pins."""
         if not shard_list:
             return []
         try:
             return lower_one(shard_list)
         except BudgetExceeded:
-            if len(shard_list) < 2:
-                raise ExecError("one shard's stack exceeds the device budget") from None
-            mid = len(shard_list) // 2
-            return Executor._chunk_by_budget(
-                shard_list[:mid], lower_one
-            ) + Executor._chunk_by_budget(shard_list[mid:], lower_one)
+            pass
+        if len(shard_list) < Executor._MIN_CHUNK:
+            out: List[Any] = []
+            try:
+                with planmod.over_budget():
+                    for s in shard_list:
+                        out.extend(lower_one([s]))
+            except BaseException:
+                Executor._release_chunk_extents(out)
+                raise
+            return out
+        mid = len(shard_list) // 2
+        left = Executor._chunk_by_budget(shard_list[:mid], lower_one)
+        try:
+            return left + Executor._chunk_by_budget(shard_list[mid:], lower_one)
+        except BaseException:
+            Executor._release_chunk_extents(left)
+            raise
 
     # ------------------------------------------------------------------
     # bitmap calls
@@ -704,7 +757,7 @@ class Executor:
         if lowered is self._EMPTY:
             return [0] * len(calls)
         roots, low, n_out, out_shards = lowered
-        return MultiCountPlan(roots, low.operands, n_out, out_shards).counts()
+        return MultiCountPlan(roots, low.operands, n_out, out_shards, extents=low.extents).counts()
 
     def _execute_count(self, idx: Index, c: Call, shards) -> int:
         if len(c.children) != 1:
@@ -1048,11 +1101,15 @@ class Executor:
         try:
             lowered = self._lower_roots(idx, [filter_call], pshards)
         except BudgetExceeded:
-            raise ExecError("TopN filter stack exceeds the device budget") from None
+            if len(pshards) >= self._MIN_CHUNK:
+                raise ExecError("TopN filter stack exceeds the device budget") from None
+            # a few shards: admit the filter's stacks over the budget
+            with planmod.over_budget():
+                lowered = self._lower_roots(idx, [filter_call], pshards)
         if lowered is self._EMPTY:
             return [], None
         roots, low, n_out, out_shards = lowered
-        sp = StackedPlan(roots[0], low.operands, n_out, out_shards)
+        sp = StackedPlan(roots[0], low.operands, n_out, out_shards, extents=low.extents)
         if sp.out_shards != pshards:
             outs = set(sp.out_shards)
             present = [(s, frag) for s, frag in present if s in outs]
@@ -1077,9 +1134,13 @@ class Executor:
             r_c = gb.gmax(s_full, w)
             for i in range(0, len(bundle.dense_rows), r_c):
                 ids = bundle.dense_rows[i : i + r_c]
-                planes = view.plane_stack(ids, pshards)
-                TOPN_STATS["tally_evals"] += 1
-                counts = kernels.counts_cross(src_stack[None, : planes.shape[1]], planes)[0]
+                table = ExtentTable(view.dcache)
+                try:
+                    planes = view.plane_stack(ids, pshards, extents=table)
+                    TOPN_STATS["tally_evals"] += 1
+                    counts = kernels.counts_cross(src_stack[None, : planes.shape[1]], planes)[0]
+                finally:
+                    table.release()
                 parts.append(counts[:, :n_present])
                 order.extend(ids)
             if bundle.sparse_rows:
@@ -1294,24 +1355,29 @@ class Executor:
         gb_shards = [
             s for s in shard_list if all(v.fragment_if_exists(s) is not None for v in child_views)
         ]
-        budget = idx.dcache.budget_bytes // 4
 
         def one(chunk) -> List[Dict[Tuple[int, ...], int]]:
+            budget = planmod.stack_budget(idx.dcache)
             filt = None
             if filter_call is not None:
                 lowered = self._lower_roots(idx, [filter_call], chunk)
                 if lowered is self._EMPTY:
                     return []  # the filter matches nothing here
                 roots, low, n_out, out_shards = lowered
-                filt = StackedPlan(roots[0], low.operands, n_out, out_shards).rows()
+                filt = StackedPlan(roots[0], low.operands, n_out, out_shards, extents=low.extents).rows()
                 chunk = out_shards  # compaction dropped shards without filter bits
-            planes_list = []
-            for v, rows in zip(child_views, child_rows):
-                if len(chunk) * WORDS_PER_ROW * 4 * len(rows) > budget:
-                    raise BudgetExceeded("GroupBy plane stack exceeds the device budget")
-                planes_list.append(v.plane_stack(rows, chunk))
-            with planmod.dispatch_mutex():
-                return [gb.group_by_device(planes_list, child_rows, filt)]
+            table = ExtentTable(idx.dcache)
+            try:
+                planes_list = []
+                with idx.dcache.deferred_eviction():
+                    for v, rows in zip(child_views, child_rows):
+                        if len(chunk) * WORDS_PER_ROW * 4 * len(rows) > budget:
+                            raise BudgetExceeded("GroupBy plane stack exceeds the device budget")
+                        planes_list.append(v.plane_stack(rows, chunk, extents=table))
+                with planmod.dispatch_mutex():
+                    return [gb.group_by_device(planes_list, child_rows, filt)]
+            finally:
+                table.release()
 
         merged: Dict[Tuple[int, ...], int] = {}
         for part in self._chunk_by_budget(gb_shards, one):

@@ -20,11 +20,17 @@ evaluates it:
 
 STATS counts dispatches (`evals`) and blocking device->host reads
 (`host_reads`); one dispatch lock serializes them.
+
+A plan carries the ExtentTable (hbm/residency.py) of the pins its
+lowering took on its operands' extents and releases it in each dispatch
+method's `finally`, once its kernels are queued (release is idempotent;
+a released plan still runs, since it holds its operand tensors).
 """
 
 from __future__ import annotations
 
 import threading
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -55,6 +61,30 @@ class Unsupported(Exception):
 class BudgetExceeded(Unsupported):
     """The stacks for this shard list would exceed the device budget; the
     executor splits the shard axis and evaluates chunked plans."""
+
+
+_tls = threading.local()
+
+
+def stack_budget(cache) -> int:
+    """The bytes one query's stacks over one shard chunk may take: a
+    quarter of the device budget, unbounded inside `over_budget()`."""
+    if getattr(_tls, "over_budget", False):
+        return 1 << 62
+    return cache.budget_bytes // 4
+
+
+@contextmanager
+def over_budget():
+    """Admit stacks over the budget guard: the executor lowers one shard
+    at a time in here once halving the shard list reaches one shard's
+    stacks (the device cache admits a single entry over budget)."""
+    prev = getattr(_tls, "over_budget", False)
+    _tls.over_budget = True
+    try:
+        yield
+    finally:
+        _tls.over_budget = prev
 
 
 class SparseView(Unsupported):
@@ -288,24 +318,40 @@ def _root_counts(root: PNode, operands, n_shards: int) -> torch.Tensor:
     return kernels.plan_count(leaves, prog, n_shards)
 
 
-class StackedPlan:
+class _Pinned:
+    """The extent release every plan shares."""
+
+    __slots__ = ()
+
+    def release_extents(self) -> None:
+        """Unpin this plan's operand extents (idempotent); the executor's
+        error paths call it too, so a plan never dispatched leaks none."""
+        if self.extents is not None:
+            self.extents.release()
+
+
+class StackedPlan(_Pinned):
     """A lowered plan plus its operand stacks, ready to evaluate.
 
     `out_shards` maps output stack positions 0..n_shards-1 back to shard
     ids (compacted lowering covers only present shards); stack rows past
     n_shards are Shift predecessors the output excludes."""
 
-    __slots__ = ("root", "operands", "n_shards", "out_shards")
+    __slots__ = ("root", "operands", "n_shards", "out_shards", "extents")
 
-    def __init__(self, root, operands, n_shards, out_shards=None):
+    def __init__(self, root, operands, n_shards, out_shards=None, extents=None):
         self.root = root
         self.operands = operands
         self.n_shards = n_shards
         self.out_shards = out_shards
+        self.extents = extents
 
     def _counts(self) -> torch.Tensor:
         STATS["evals"] += 1
-        return _root_counts(self.root, self.operands, self.n_shards)
+        try:
+            return _root_counts(self.root, self.operands, self.n_shards)
+        finally:
+            self.release_extents()
 
     def count(self) -> int:
         """Total count: one dispatch + one [S] host read, summed exactly."""
@@ -331,29 +377,36 @@ class StackedPlan:
         """Materialized result stack, Shift predecessor rows included."""
         with _DISPATCH_MU:
             STATS["evals"] += 1
-            return _eval_rows(self.root, self.operands, {})
+            try:
+                return _eval_rows(self.root, self.operands, {})
+            finally:
+                self.release_extents()
 
     def rows(self) -> torch.Tensor:
         """Materialized [n_shards, W] result stack."""
         return self.rows_full()[: self.n_shards]
 
 
-class MultiCountPlan:
+class MultiCountPlan(_Pinned):
     """Several lowered roots over one shared operand set: a multi-Count
     query as one dispatch (one kernel launch per root) and one [N, S] host
     read."""
 
-    __slots__ = ("roots", "operands", "n_shards", "out_shards")
+    __slots__ = ("roots", "operands", "n_shards", "out_shards", "extents")
 
-    def __init__(self, roots, operands, n_shards, out_shards=None):
+    def __init__(self, roots, operands, n_shards, out_shards=None, extents=None):
         self.roots = list(roots)
         self.operands = operands
         self.n_shards = n_shards
         self.out_shards = out_shards
+        self.extents = extents
 
     def _counts(self) -> torch.Tensor:
         STATS["evals"] += 1
-        return torch.stack([_root_counts(r, self.operands, self.n_shards) for r in self.roots])
+        try:
+            return torch.stack([_root_counts(r, self.operands, self.n_shards) for r in self.roots])
+        finally:
+            self.release_extents()
 
     def counts(self) -> List[int]:
         with _DISPATCH_MU:

@@ -3,10 +3,11 @@ their plain-PyTorch twins.
 
 Each kernel function below takes int32 word tensors (the bits of the
 reference's uint32 words). On a CUDA tensor it launches its kernel from
-`cuda/bitmap_kernels.cu` or `cuda/bsi_kernels.cu`; on a CPU tensor it runs
-its twin, which has the same contract and is the oracle the kernel is held
-to. There is no other route: a CUDA tensor never reaches a twin through
-these functions, and a failed build or launch raises.
+`cuda/bitmap_kernels.cu`, `cuda/bsi_kernels.cu` or
+`cuda/merge_kernels.cu`; on a CPU tensor it runs its twin, which has the
+same contract and is the oracle the kernel is held to. There is no other
+route: a CUDA tensor never reaches a twin through these functions, and a
+failed build or launch raises.
 
 | function          | replaces (TPU side)                                 |
 |-------------------|-----------------------------------------------------|
@@ -22,6 +23,10 @@ these functions, and a failed build or launch raises.
 | `bsi_sum`         | pallas_kernels.py `sum_counts` (`_bsi_sum_kernel`)  |
 | `bsi_min_max`     | ops/bsi.py `min_max_stream` (XLA program)           |
 | `bsi_range`       | ops/bsi.py `range_*_unsigned`, `range_stream_single` |
+| `or_words`        | core/view.py `_patch_entry`'s gather/OR/scatter;    |
+|                   | wrapper and twin in ops/merge.py                    |
+| `merge_mark`      | ops/merge.py `_merge_sorted_u64` after its sort;    |
+|                   | wrapper and twin in ops/merge.py                    |
 
 All of them read every input word once (counts_cross: once per chunk of
 16 prefixes) and do a few bitwise operations and popcounts per word, so
@@ -87,6 +92,8 @@ LAUNCHES = {
     "bsi_sum": 0,
     "bsi_min_max": 0,
     "bsi_range": 0,
+    "or_words": 0,
+    "merge_mark": 0,
 }
 
 # nvcc's stderr of the builds this process ran (ptxas register/spill
@@ -201,6 +208,8 @@ class _Library:
             "pt_bsi_sum": [p, p, p, p, i32, i64, i32, i32, p, p],
             "pt_bsi_min_max": [p, p, p, p, i32, i64, i32, i32, i32, p, p, p, p],
             "pt_bsi_range": [p, p, p, i32, i64, i64, i32, i32, i32, u32, u32, i32, i32, p, p],
+            "pt_merge_mark": [p, i64, p, p, p],
+            "pt_or_words": [p, i64, p, p, i64, p],
         }
         for name, types in argtypes.items():
             fn = next((getattr(lib, name) for lib in libs if hasattr(lib, name)), None)

@@ -9,6 +9,11 @@ every acknowledged write to the WAL (group commit at `wal_sync_interval`,
 0 = each write fsynced before it is acknowledged) and writes its rank
 caches every CACHE_FLUSH_INTERVAL seconds and at stop. An empty or None
 `data_dir` serves from memory.
+
+The `[hbm]` knobs (extent rows, pin timeout) and the `[ingest]` merge
+crossover are process-wide, as in the reference: the node installs them
+through `hbm.residency.configure` and `core.merge.configure`, so the last
+node constructed in a process sets them for all.
 """
 
 from __future__ import annotations
@@ -18,9 +23,11 @@ import threading
 from typing import Callable, Optional
 
 from pilosa_tpu_torch.cluster.topology import STATE_NORMAL, Cluster, Node
+from pilosa_tpu_torch.core import merge as merge_mod
 from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.exec.executor import Executor
+from pilosa_tpu_torch.hbm import residency
 from pilosa_tpu_torch.server.api import API
 
 CACHE_FLUSH_INTERVAL = 60.0  # s between rank-cache sidecar writes (the reference's default)
@@ -36,6 +43,9 @@ class NodeServer:
         device=None,
         max_writes_per_request: int = 5000,  # bits/values per import; 0 = no cap
         wal_sync_interval: float = 0.0,  # 0 strict; > 0 background fsync cadence, s
+        hbm_extent_rows: int = residency.DEFAULT_EXTENT_ROWS,  # shards per extent; 0 = whole stacks
+        hbm_pin_timeout: float = 60.0,  # stale-pin valve, s; 0 = off
+        merge_device_threshold: Optional[int] = None,  # None AUTO, < 0 host only, 0 always device
         logger: Optional[Callable[[str], None]] = None,
     ):
         self.data_dir = os.path.expanduser(data_dir) if data_dir else None
@@ -48,6 +58,8 @@ class NodeServer:
         self.logger = logger or (lambda msg: None)
         self.holder = Holder(self.data_dir, device=device)
         walmod.GROUP_COMMIT.configure(sync_interval=wal_sync_interval)
+        residency.configure(extent_rows=hbm_extent_rows, pin_timeout=hbm_pin_timeout)
+        merge_mod.configure(device_threshold=merge_device_threshold)
         self.executor = Executor(self.holder)
         self.api = API(self)
         self._httpd = None

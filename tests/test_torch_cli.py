@@ -4,10 +4,18 @@
 snapshots, WAL tails, a torn WAL, a corrupt snapshot and a roaring file),
 `config` (TOML file plus environment) and `generate-config` must print
 what the reference's print and exit with the same codes. `import` and
-`export` talk HTTP to a port server on a data dir.
+`export` talk HTTP to a port server on a data dir. The server honours
+`--hbm-extent-rows`, `--hbm-pin-timeout` and `--merge-device-threshold`
+(they reach hbm.residency and core.merge) and still refuses
+`--hbm-prefetch-depth` by name.
 """
 
 import os
+import re
+import signal
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,9 +25,15 @@ from pilosa_tpu.core import roaring_io as jroaring
 from pilosa_tpu_torch import Executor as TExecutor
 from pilosa_tpu_torch import Holder as THolder
 from pilosa_tpu_torch.cli.main import main as tmain
+from pilosa_tpu_torch.core import devcache as tdevcache
+from pilosa_tpu_torch.core import merge as tmerge
 from pilosa_tpu_torch.core.field import FieldOptions
+from pilosa_tpu_torch.hbm import residency as tres
 from pilosa_tpu_torch.server import NodeServer
+from pilosa_tpu_torch.server import node as tnode
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def _both(capsys, argv_ref, argv_port):
@@ -142,3 +156,79 @@ def test_import_with_keys_and_inspect_keyed_dir(tmp_path, capsys):
     assert rc == 0 and "k/seg/standard/shard=0: rows=2 bits=3" in out
     rc, _ = _both(capsys, ["check", str(d)], ["check", str(d)])
     assert rc == 0
+
+
+@pytest.fixture
+def knobs():
+    """Restore the process-wide knobs the server installs."""
+    saved = (tres.extent_rows(), tdevcache.default_pin_timeout(), tmerge._device_threshold)
+    yield
+    tres.configure(extent_rows=saved[0], pin_timeout=saved[1])
+    tmerge.configure(device_threshold=saved[2])
+
+
+def test_server_knobs_reach_residency_and_merge(knobs, monkeypatch):
+    """The three flags pass through the CLI into NodeServer, which
+    installs them process-wide."""
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    class FakeNode(NodeServer):
+        def __init__(self, *a, **kw):
+            seen.update(kw)
+            super().__init__(*a, **kw)
+
+        def start(self):
+            raise Stop
+
+    monkeypatch.setattr(tnode, "NodeServer", FakeNode)
+    argv = ["server", "--data-dir", "", "--device", "cpu", "--hbm-extent-rows", "8",
+            "--hbm-pin-timeout", "2.5", "--merge-device-threshold", "123"]
+    with pytest.raises(Stop):
+        tmain(argv)
+    assert (seen["hbm_extent_rows"], seen["hbm_pin_timeout"], seen["merge_device_threshold"]) == (8, 2.5, 123)
+    assert (tres.extent_rows(), tdevcache.default_pin_timeout(), tmerge.device_threshold()) == (8, 2.5, 123)
+    with pytest.raises(Stop):
+        tmain(["server", "--data-dir", "", "--device", "cpu"])
+    assert (tres.extent_rows(), tdevcache.default_pin_timeout()) == (256, 60.0)
+    assert tmerge._device_threshold is None
+
+
+def test_server_refuses_prefetch_depth_by_name():
+    with pytest.raises(SystemExit) as ei:
+        tmain(["server", "--data-dir", "", "--device", "cpu", "--hbm-extent-rows", "8", "--hbm-prefetch-depth", "4"])
+    msg = str(ei.value)
+    assert "--hbm-prefetch-depth" in msg and "not yet ported" in msg and "--hbm-extent-rows" not in msg
+
+
+def test_server_subprocess_serves_with_the_knobs():
+    """The CLI server with the three options serves a query and exits 0
+    on SIGTERM."""
+    p = subprocess.Popen(
+        [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--data-dir", "", "--bind", "127.0.0.1:0",
+         "--device", "cpu", "--hbm-extent-rows", "0", "--hbm-pin-timeout", "1", "--merge-device-threshold", "-1"],
+        cwd=REPO, stderr=subprocess.PIPE, text=True,
+    )
+    try:
+        line = p.stderr.readline()
+        m = re.search(r"listening on http://([^:]+):(\d+)", line)
+        assert m, line
+        import http.client
+
+        conn = http.client.HTTPConnection(m.group(1), int(m.group(2)), timeout=30)
+        for path, body in (("/index/i", b"{}"), ("/index/i/field/f", b"{}"), ("/index/i/query", b"Set(3, f=1) Count(Row(f=1))")):
+            conn.request("POST", path, body)
+            resp = conn.getresponse()
+            out = resp.read()
+            assert resp.status == 200, out
+        assert b'"results": [true, 1]' in out or b'"results":[true,1]' in out, out
+        conn.close()
+        p.send_signal(signal.SIGTERM)
+        assert p.wait(timeout=30) == 0
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=30)
+        p.stderr.close()
