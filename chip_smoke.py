@@ -23,7 +23,8 @@ Phases, each fatal on any mismatch or exception:
    rows_counts) and gather_and on aligned and unaligned slabs, a filter
    broadcast and a cross expansion past one 16-output chunk; for the
    merge barrier's kernels, or_words with 0, 1 and 10^7 pairs (the first
-   and the last word; a strided view refused) and merge_mark on empty
+   and the last word; a strided view and offsets outside the entry
+   refused) and merge_mark on empty
    input, one key, all keys equal, sorted runs, keys near 2^63 - 1 and
    2^24 keys with duplicates, and the whole device merge against the
    host merge;
@@ -72,7 +73,11 @@ Phases, each fatal on any mismatch or exception:
    barrier (merge device_threshold -1), barrier ms side by side; (c) one
    PQL Set into f row 0: the next Count re-stages exactly one extent
    (32 MiB); or_words, merge_mark, the device merge and the assembly of 4
-   extents timed at these shapes; (d) paging: the budget set one extent
+   extents timed at these shapes, the first three rotating over 8 data
+   sets that together exceed the L2 (each extent of Row(f=0) and
+   Row(g=0) with its burst pairs; 8 bursts of keys), and the host and
+   device merge routes timed whole at 2^12..2^21 keys around the AUTO
+   threshold, with numpy's version and np.unique alone; (d) paging: the budget set one extent
    below the set's working set, 5 cycles with extents and 5 with whole
    stacks, extents re-staging less in every cycle after the first, no pin
    left between queries; (e) a fresh 8-shard index under a budget below
@@ -146,6 +151,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published device-memory rate
+L2_BYTES = 50 * 2**20  # H100 SXM L2 cache
 REPS = 20
 # the set-field phase's depth: dense and sparse rows of `f`, rows of `g`
 # (8 dense rows since the BSI phase joined the run; 16 before)
@@ -597,14 +603,23 @@ def kernel_phase(rng, dev, errs):
         val = torch.from_numpy(mrng.integers(0, 2**32, size=k, dtype=np.uint32).view(np.int32))
         off_t = torch.from_numpy(off)
         want = opm.or_words_plain(entry.cpu(), off_t, val)
-        got = opm.or_words(entry.clone(), off_t.to(dev), val.to(dev))
+        got = opm.or_words(entry.clone(), off_t, val)
         same("or_words", got, want)
     try:
-        opm.or_words(entry[:, ::2], torch.zeros(1, dtype=torch.int64, device=dev), torch.ones(1, dtype=torch.int32, device=dev))
+        opm.or_words(entry[:, ::2], torch.zeros(1, dtype=torch.int64), torch.ones(1, dtype=torch.int32))
         fail("or_words took a strided view")
     except ValueError:
         pass
-    del entry
+    # an offset outside the entry raises on the host, before any launch
+    before = entry.clone()
+    for bad in (-1, n_words):
+        try:
+            opm.or_words(entry, torch.tensor([0, bad], dtype=torch.int64), torch.ones(2, dtype=torch.int32))
+            fail(f"or_words took offset {bad} into an entry of {n_words} words")
+        except IndexError:
+            pass
+    check(torch.equal(entry, before), "a refused or_words call changed the entry")
+    del entry, before
     near = (1 << 63) - 1
     cases = [
         np.empty(0, np.int64), np.array([12345], np.int64), np.full(1000, 77, np.int64),
@@ -623,7 +638,8 @@ def kernel_phase(rng, dev, errs):
     md, cd = opm.merge_keys_device(big, dev)
     check(np.array_equal(md, mh) and np.array_equal(cd, ch), "merge_keys_device differs from merge_keys_host at 2^24 keys")
     torch.cuda.synchronize()
-    print("kernels: or_words equal to its twin at 0, 1 and 10^7 pairs (first and last word), strided view refused; "
+    print("kernels: or_words equal to its twin at 0, 1 and 10^7 pairs (first and last word), strided view and "
+          "offsets -1 and past the last word refused; "
           "merge_mark equal on empty, one key, all equal, sorted runs, keys near 2^63 - 1 and 2^24 keys; "
           "the device merge equals the host merge")
 
@@ -1417,30 +1433,52 @@ def residency_bursts(seed: int, S: int) -> dict:
     return out
 
 
-def time_row(name, source, replaces, fn, plain, nbytes, launches, errs, bound_by="bytes"):
-    """A `kernels` row: the kernel held to its twin once more, then its
-    device, dispatch and twin times (phase 4's method) and its bound."""
+def rotating(fns):
+    """One callable running fns[0], fns[1], ... in turn. Timed back to
+    back over sets whose data together exceeds the L2 (L2_BYTES), each
+    call finds its data gone from the L2, as a patch or a merge on the
+    path finds its entry or its burst."""
+    turn = [0]
+
+    def call():
+        fn = fns[turn[0] % len(fns)]
+        turn[0] += 1
+        return fn()
+
+    return call
+
+
+def time_row(name, source, replaces, fns, plains, nbytes, launches, errs, bound_by="bytes"):
+    """A `kernels` row: the kernel held to its twin on every data set,
+    then its device, dispatch and twin times (phase 4's method) rotating
+    over the sets, and its bound: the mean of the sets' bytes (`nbytes`,
+    one per set) at the HBM rate."""
     import torch
 
-    got, want = fn(), plain()
-    torch.cuda.synchronize()
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
-    diff = max(int((a.cpu().to(torch.int64) - b.cpu().to(torch.int64)).abs().max().item()) if a.numel() else 0
-               for a, b in zip(got, want))
+    diff = 0
+    for fn, plain in zip(fns, plains):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        diff = max([diff] + [int((a.cpu().to(torch.int64) - b.cpu().to(torch.int64)).abs().max().item())
+                             if a.numel() else 0 for a, b in zip(got, want)])
     check(diff == 0, f"{name}: kernel differs from its twin by {diff} at its path's shape")
     errs[name] = max(errs.get(name, 0), diff)
+    fn, plain = rotating(fns), rotating(plains)
     ms, disp, plain_ms = cuda_time_ms(fn), dispatch_ms(fn), cuda_time_ms(plain)
-    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    per_call = sum(nbytes) / len(nbytes)
+    bound = per_call / HBM_BYTES_PER_S * 1e3
     row = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
         "max_abs_err": errs.get(name, 0), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": bound_by, "library_ms": None, "dispatch_ms": disp, "share_of_bound": bound / ms,
-        "bytes": nbytes,
+        "bytes": per_call, "data_sets": len(fns), "rotated_bytes": sum(nbytes),
     }
     print(
         f"kernel {name}: device {ms:.4f} ms, dispatch {disp:.4f} ms (host, per call), twin {plain_ms:.4f} ms, "
-        f"{nbytes} B moved, bound {bound:.4f} ms ({bound / ms:.1%} of it), {launches} launches on the residency path"
+        f"{per_call:.0f} B moved per call, rotating over {len(fns)} sets ({sum(nbytes)} B, the L2 holds "
+        f"{L2_BYTES}), bound {bound:.4f} ms ({bound / ms:.1%} of it), {launches} launches on the residency path"
     )
     return row
 
@@ -1631,74 +1669,119 @@ def residency_path(args, holder, ex, state, errs, smi):
     info["set"] = out
     print(f"residency (c) ({smi}): after Set({col}, f=0) the first Count re-staged {restaged} B (one extent)")
 
-    # the barrier's kernels, the device merge and the assembly, at this path's shapes
+    # the barrier's kernels, the device merge and the assembly, at this
+    # path's shapes, each rotating over 8 data sets larger than the L2
+    # together, so no timed call finds its data left there by the last
     launches = {k: K.LAUNCHES[k] for k in ("or_words", "merge_mark")}
     for k, n in launches.items():
         check(n > 0, f"the residency path never launched {k}: {dict(K.LAUNCHES)}")
     src = "pilosa_tpu_torch/ops/cuda/merge_kernels.cu"
-    view_f = f.view()
     shards = tuple(range(S))
-    table = ExtentTable(cache)
-    view_f.row_stack(0, shards, extents=table)
-    parts = [cache.get(k) for k in table.keys]
+    tables = (ExtentTable(cache), ExtentTable(cache))
+    f.view().row_stack(0, shards, extents=tables[0])
+    g.view().row_stack(0, shards, extents=tables[1])
+    parts = [cache.get(k) for t in tables for k in sorted(t.keys, key=lambda k: k[6] if k[4] == "ext" else 0)]
+    n_ext = len(parts) // 2
     rows = {}
-    # or_words: one extent of Row(f=0) (shards [0, ext)) taking burst 1's
-    # bits as (word offset, OR value) pairs; the first extent starts at
-    # shard 0, so a column's word offset in it is col >> 5
-    fc = np.unique(bursts["f1"][bursts["f1"] < np.uint64(min(ext, S) * SW)])
-    wi = (fc >> np.uint64(5)).astype(np.int64)
-    starts = np.concatenate(([0], np.flatnonzero(wi[1:] != wi[:-1]) + 1))
-    vals = np.bitwise_or.reduceat(np.uint32(1) << (fc & np.uint64(31)).astype(np.uint32), starts)
-    off_t = torch.from_numpy(wi[starts]).to(dev)
-    val_t = torch.from_numpy(vals.view(np.int32)).to(dev)
-    target, target_plain = parts[0].clone(), parts[0].clone()
-    n_pairs = off_t.numel()
-    sectors = int(np.unique(wi[starts] >> 3).size)
+    # or_words: each extent of Row(f=0) and of Row(g=0) taking burst 1's
+    # bits in its shards as (word offset, OR value) pairs, as the patch
+    # pass gives them (a column's offset in extent e is col - e * ext *
+    # SW, over 32)
+    sets = []
+    for e, part in enumerate(parts):
+        cols = bursts["f1"] if e < n_ext else bursts["g1"]
+        lo = (e % n_ext) * min(ext, S) * SW
+        fc = np.unique(cols[(cols >= np.uint64(lo)) & (cols < np.uint64(lo + part.shape[0] * SW))]) - np.uint64(lo)
+        wi = (fc >> np.uint64(5)).astype(np.int64)
+        starts = np.concatenate(([0], np.flatnonzero(wi[1:] != wi[:-1]) + 1))
+        vals = np.bitwise_or.reduceat(np.uint32(1) << (fc & np.uint64(31)).astype(np.uint32), starts)
+        off_h, val_h = torch.from_numpy(wi[starts]), torch.from_numpy(vals.view(np.int32))
+        sets.append({
+            "target": part.clone(), "plain": part.clone(), "off": off_h.to(dev), "val": val_h.to(dev),
+            "off_h": off_h, "val_h": val_h, "bytes": 12 * len(starts) + 64 * int(np.unique(wi[starts] >> 3).size),
+        })
     rows["or_words"] = time_row(
         "or_words", src, "pilosa_tpu/core/view.py:544",
-        lambda: opm.or_words(target, off_t, val_t), lambda: opm.or_words_plain(target_plain, off_t, val_t),
-        12 * n_pairs + 64 * sectors, launches["or_words"], errs, "bytes (pairs, 32-byte sectors read and written)",
+        [lambda t=t: opm.or_words_device(t["target"], t["off"], t["val"]) for t in sets],
+        [lambda t=t: opm.or_words_plain(t["plain"], t["off"], t["val"]) for t in sets],
+        [t["bytes"] for t in sets], launches["or_words"], errs, "bytes (pairs, 32-byte sectors read and written)",
     )
-    keys = bursts["f1"]  # a row-0 burst over every shard packs to its columns
-    keys_dev = torch.from_numpy(keys.view(np.int64)).to(dev)
-    sorted_dev = torch.sort(keys_dev).values
-    n_keys = keys_dev.numel()
+    rows["or_words"]["pairs_per_call"] = sum(t["off"].numel() for t in sets) / len(sets)
+    # the path's wrapper: offsets checked on the host, pairs pinned and
+    # uploaded, then the launch (the host's cost of one patch)
+    first = sets[0]
+    rows["or_words"]["wrapper_dispatch_ms"] = dispatch_ms(
+        lambda: opm.or_words(first["target"], first["off_h"], first["val_h"]))
+    # merge_mark on 2^21 sorted keys: the path's four bursts and four
+    # more drawn alike
+    krng = np.random.default_rng([args.seed, 6])
+    key_sets = [bursts[k] for k in ("f1", "g1", "f2", "g2")]
+    key_sets += [krng.integers(0, S * SW, BURST).astype(np.uint64) for _ in range(4)]
+    keys_dev = [torch.from_numpy(k.view(np.int64)).to(dev) for k in key_sets]
+    sorted_dev = [torch.sort(k).values for k in keys_dev]
     rows["merge_mark"] = time_row(
         "merge_mark", src, "pilosa_tpu/ops/merge.py:76",
-        lambda: opm.merge_mark(sorted_dev), lambda: opm.merge_mark_plain(sorted_dev),
-        13 * n_keys, launches["merge_mark"], errs,
+        [lambda k=k: opm.merge_mark(k) for k in sorted_dev], [lambda k=k: opm.merge_mark_plain(k) for k in sorted_dev],
+        [13 * k.numel() for k in sorted_dev], launches["merge_mark"], errs,
     )
-    n_unique = int(np.unique(keys).size)
+    n_keys = keys_dev[0].numel()
+    n_unique = int(np.unique(key_sets[0]).size)
     merge_bytes = 8 * n_keys + 16 * n_unique
-    assembled = torch.cat(parts, 0)
+    assembled = torch.cat(parts[:n_ext], 0)
     extra = {
-        "merge_device_ms": cuda_time_ms(lambda: opm.merge_keys_on(keys_dev)),
-        "merge_device_dispatch_ms": dispatch_ms(lambda: opm.merge_keys_on(keys_dev)),
+        "merge_device_ms": cuda_time_ms(rotating([lambda k=k: opm.merge_keys_on(k) for k in keys_dev])),
+        "merge_device_dispatch_ms": dispatch_ms(lambda: opm.merge_keys_on(keys_dev[0])),
         "merge_device_bound_ms": merge_bytes / HBM_BYTES_PER_S * 1e3,
-        "merge_sort_ms": cuda_time_ms(lambda: torch.sort(keys_dev)),
-        "merge_host_ms": host_p50_ms(lambda: opm.merge_keys_host(keys), reps=5),
+        "merge_sort_ms": cuda_time_ms(rotating([lambda k=k: torch.sort(k) for k in keys_dev])),
         "merge_keys": n_keys,
         "merge_unique_keys": n_unique,
-        "assembly_ms": cuda_time_ms(lambda: torch.cat(parts, 0)),
-        "assembly_dispatch_ms": dispatch_ms(lambda: torch.cat(parts, 0)),
+        "assembly_ms": cuda_time_ms(lambda: torch.cat(parts[:n_ext], 0)),
+        "assembly_dispatch_ms": dispatch_ms(lambda: torch.cat(parts[:n_ext], 0)),
         "assembly_bound_ms": 2 * assembled.numel() * 4 / HBM_BYTES_PER_S * 1e3,
-        "assembly_extents": len(parts),
+        "assembly_extents": n_ext,
         "assemblies": res.stats_snapshot()["assemblies"],
     }
-    table.release()
-    del target, target_plain, assembled, parts, keys_dev, sorted_dev
+    for t in tables:
+        t.release()
+    del sets, assembled, parts, keys_dev, sorted_dev
     extra["merge_device_share"] = extra["merge_device_bound_ms"] / extra["merge_device_ms"]
     extra["assembly_share"] = extra["assembly_bound_ms"] / extra["assembly_ms"]
+    # the barrier's two routes by burst size, host clock, each whole:
+    # merge_keys_host (a sort and a mask) against merge_keys_device
+    # (upload, sort, merge_mark, scan, compaction, read back), around the
+    # AUTO crossover (merge.ACCEL_DEVICE_THRESHOLD keys); np.unique alone
+    # at 2^21 keys, since numpy 2.3 finds unique integers by hashing
+    sweep = []
+    for n in (1 << 12, 1 << 14, 1 << 16, 1 << 18, 1 << 20, BURST):
+        k = key_sets[4][:n]
+        reps = 9 if n <= 1 << 18 else 5
+        sweep.append({
+            "keys": n, "host_ms": host_p50_ms(lambda: opm.merge_keys_host(k), reps=reps),
+            "device_ms": host_p50_ms(lambda: opm.merge_keys_device(k, dev), reps=reps),
+        })
+    extra["route_sweep"] = sweep
+    extra["numpy"] = np.__version__
+    extra["np_unique_ms"] = host_p50_ms(lambda: np.unique(key_sets[4]), reps=3)
+    extra["merge_host_ms"] = sweep[-1]["host_ms"]
+    cross = [p["keys"] for p in sweep if p["device_ms"] < p["host_ms"]]
+    extra["device_wins_from"] = cross[0] if cross else None
     info["timing"] = extra
     print(
         f"residency timing ({smi}): device merge of {n_keys} keys ({n_unique} unique) {extra['merge_device_ms']:.4f} ms "
-        f"(sort alone {extra['merge_sort_ms']:.4f} ms, dispatch {extra['merge_device_dispatch_ms']:.4f} ms; the host "
-        f"merge of the same keys {extra['merge_host_ms']:.1f} ms, host clock; bound "
+        f"(sort alone {extra['merge_sort_ms']:.4f} ms, dispatch {extra['merge_device_dispatch_ms']:.4f} ms; bound "
         f"{extra['merge_device_bound_ms']:.4f} ms, {extra['merge_device_share']:.1%}, "
-        f"{info['burst_device']['merges']['device_launches']} launches on the burst); assembly of {len(table.keys)} "
+        f"{info['burst_device']['merges']['device_launches']} launches on the burst); assembly of {n_ext} "
         f"extents into a {S}-shard operand {extra['assembly_ms']:.4f} ms (dispatch {extra['assembly_dispatch_ms']:.4f} "
         f"ms, bound {extra['assembly_bound_ms']:.4f} ms, {extra['assembly_share']:.1%}, plain PyTorch; "
-        f"{extra['assemblies']} assemblies on the path)"
+        f"{extra['assemblies']} assemblies on the path); or_words wrapper with host pairs (check, pin, upload, "
+        f"launch) {rows['or_words']['wrapper_dispatch_ms']:.4f} ms host"
+    )
+    print(
+        f"residency routes ({smi}; host clock, p50 of a whole merge): numpy {np.__version__}, "
+        f"AUTO threshold {merge_mod.ACCEL_DEVICE_THRESHOLD} keys; "
+        + "; ".join(f"{p['keys']} keys host {p['host_ms']:.3f} ms, device {p['device_ms']:.3f} ms" for p in sweep)
+        + f"; the device route is faster from {extra['device_wins_from']} keys; np.unique alone at {BURST} keys "
+        f"{extra['np_unique_ms']:.1f} ms"
     )
 
     # (d) paging: a budget one extent short of the query set's working set

@@ -271,7 +271,7 @@ class View:
             off = np.concatenate(offs)
             val = np.concatenate(vals).view(np.int32)
             upload = off.nbytes + val.nbytes
-            ops_merge.or_words(arr, _to_device(off, arr.device), _to_device(val, arr.device))
+            ops_merge.or_words(arr, torch.from_numpy(off), torch.from_numpy(val))
             n_batches = 1
         new_tail = ("ext", key[5], key[6], tuple(upd)) if tail_kind == "ext" else ("mono", tuple(upd))
         self.dcache.put(key[:4] + new_tail, arr, extent=is_extent, shards=span)
@@ -381,11 +381,3 @@ class View:
         if frag is None:
             return 0, False
         return frag.value(col, bit_depth)
-
-
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Upload host words from pinned memory on the launch stream."""
-    t = torch.from_numpy(a)
-    if device.type == "cuda":
-        t = t.pin_memory()
-    return t.to(device, non_blocking=True)

@@ -57,11 +57,11 @@ _MASK_PROGRAMS = {
 }
 
 
-def _chunk_guard(idx, n_shards: int, depth: int) -> None:
+def _chunk_guard(idx, n_shards: int, depth: int, over_budget: bool) -> None:
     """The whole-stack budget guard: the planes plus the word rows
     (exists, sign, filter) must fit a quarter of the device budget, or
-    the caller halves the shard axis."""
-    if (depth + 3) * n_shards * WORDS_PER_ROW * 4 > planmod.stack_budget(idx.dcache):
+    the caller halves the shard axis (the per-shard pass skips it)."""
+    if not over_budget and (depth + 3) * n_shards * WORDS_PER_ROW * 4 > planmod.stack_budget(idx.dcache):
         raise BudgetExceeded("BSI stack exceeds the device budget")
 
 
@@ -86,12 +86,12 @@ def _planes(bsiv, depth: int, shards, table: ExtentTable) -> torch.Tensor:
     return bsiv.plane_stack(range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + depth), shards, extents=table)
 
 
-def _filter_stack(ex, idx, filter_call, shards):
+def _filter_stack(ex, idx, filter_call, shards, over_budget: bool):
     """An aggregate's filter bitmap as an [S, W] stack over `shards`, or
     _EMPTY when it matches nothing."""
     from pilosa_tpu_torch.exec.executor import _StackedLowering
 
-    low = _StackedLowering(ex, idx, list(shards), no_sparse_guard=True)
+    low = _StackedLowering(ex, idx, list(shards), no_sparse_guard=True, over_budget=over_budget)
     root = ex._lower_all(low, [filter_call])[0]
     if isinstance(root, PZero) or not low.operands:
         low.extents.release()
@@ -131,9 +131,9 @@ def aggregate(ex, idx, c, f, shard_list: Sequence[int], kind: str):
     if not bsi_shards:
         return exmod.ValCount(0, 0)
 
-    def one(chunk):
-        _chunk_guard(idx, len(chunk), depth)
-        return [_aggregate_chunk(ex, idx, bsiv, filter_call, chunk, kind, depth, signed_)]
+    def one(chunk, over_budget):
+        _chunk_guard(idx, len(chunk), depth, over_budget)
+        return [_aggregate_chunk(ex, idx, bsiv, filter_call, chunk, kind, depth, signed_, over_budget)]
 
     parts = ex._chunk_by_budget(list(bsi_shards), one)
     count = 0
@@ -158,7 +158,7 @@ def aggregate(ex, idx, c, f, shard_list: Sequence[int], kind: str):
     return exmod.ValCount(value=best[0] + f.options.base, count=best[1])
 
 
-def _aggregate_chunk(ex, idx, bsiv, filter_call, chunk, kind: str, depth: int, signed_: bool):
+def _aggregate_chunk(ex, idx, bsiv, filter_call, chunk, kind: str, depth: int, signed_: bool, over_budget: bool):
     """One shard chunk: (count, signed magnitude sum) for sum, (value,
     count) for min/max, or _EMPTY."""
     table = ExtentTable(idx.dcache)
@@ -169,7 +169,7 @@ def _aggregate_chunk(ex, idx, bsiv, filter_call, chunk, kind: str, depth: int, s
                 return _EMPTY
             filt = None
             if filter_call is not None:
-                filt = _filter_stack(ex, idx, filter_call, chunk)
+                filt = _filter_stack(ex, idx, filter_call, chunk, over_budget)
                 if filt is _EMPTY:
                     return _EMPTY
             planes = _planes(bsiv, depth, chunk, table)
@@ -226,8 +226,8 @@ def count_range(ex, idx, c, shard_list: Sequence[int]) -> Optional[int]:
     if not bsi_shards:
         return 0
 
-    def one(chunk):
-        _chunk_guard(idx, len(chunk), depth if jobs else 1)
+    def one(chunk, over_budget):
+        _chunk_guard(idx, len(chunk), depth if jobs else 1, over_budget)
         return [_count_chunk(bsiv, chunk, depth, signed_, jobs, preds, job_weights, extras)]
 
     return sum(ex._chunk_by_budget(list(bsi_shards), one))

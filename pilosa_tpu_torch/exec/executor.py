@@ -195,6 +195,7 @@ class _StackedLowering:
         shards: List[int],
         collect: bool = False,
         no_sparse_guard: bool = False,
+        over_budget: bool = False,
     ):
         self.ex = ex
         self.idx = idx
@@ -204,6 +205,8 @@ class _StackedLowering:
         self._leaf_memo: Dict[Tuple, PNode] = {}
         self.collect = collect
         self.no_sparse_guard = no_sparse_guard
+        # stage over the budget guard (the executor's per-shard pass)
+        self.over_budget = over_budget
         self.views: Dict[int, Any] = {}
         # pins on the staged operands' extents, released by the plan
         self.extents = ExtentTable(idx.dcache)
@@ -214,7 +217,7 @@ class _StackedLowering:
             present = sum(1 for s in self.shards if view.fragment_if_exists(s) is not None)
             if present and present * 8 < n:
                 raise SparseView("sparse view: stacked form would densify")
-        if n * WORDS_PER_ROW * 4 * mult > planmod.stack_budget(self.idx.dcache):
+        if not self.over_budget and n * WORDS_PER_ROW * 4 * mult > planmod.stack_budget(self.idx.dcache):
             raise BudgetExceeded("stack exceeds device budget")
 
     def _view_leaf(self, view, row_id: int) -> PNode:
@@ -597,10 +600,11 @@ class Executor:
             low.extents.release()
             raise
 
-    def _lower_roots(self, idx: Index, calls: List[Call], shard_list):
+    def _lower_roots(self, idx: Index, calls: List[Call], shard_list, over_budget: bool = False):
         """Lower call trees over ONE shared operand set. Returns (roots,
         lowering, n_out, out_shards) or the _EMPTY sentinel when no operand
-        is materialized anywhere; BudgetExceeded propagates."""
+        is materialized anywhere; BudgetExceeded propagates unless
+        `over_budget` admits the stacks over the budget guard."""
         shard_list = list(shard_list)
         # Shift reads the previous shard's bits for its carry: stack the
         # predecessors of an explicit shard subset too (output excludes them)
@@ -615,17 +619,17 @@ class Executor:
                         present.add(p)
                         extra.append(p)
             aug = shard_list + sorted(extra)
-        low = _StackedLowering(self, idx, aug)
+        low = _StackedLowering(self, idx, aug, over_budget=over_budget)
         try:
             roots = self._lower_all(low, calls)
         except SparseView:
-            return self._lower_roots_compacted(idx, calls, shard_list, aug, k)
+            return self._lower_roots_compacted(idx, calls, shard_list, aug, k, over_budget)
         if not low.operands:
             low.extents.release()
             return self._EMPTY
         return roots, low, len(shard_list), shard_list
 
-    def _lower_roots_compacted(self, idx: Index, calls: List[Call], shard_list, aug, k: int):
+    def _lower_roots_compacted(self, idx: Index, calls: List[Call], shard_list, aug, k: int, over_budget: bool):
         """SparseView recovery: keep only shards where a touched view is
         materialized (plus up to k Shift relay successors) and re-lower."""
         collect = _StackedLowering(self, idx, aug, collect=True)
@@ -644,7 +648,7 @@ class Executor:
             return self._EMPTY
         req = set(shard_list)
         n_out = sum(1 for s in compact if s in req)
-        low = _StackedLowering(self, idx, compact, no_sparse_guard=True)
+        low = _StackedLowering(self, idx, compact, no_sparse_guard=True, over_budget=over_budget)
         roots = self._lower_all(low, calls)
         if not low.operands:
             low.extents.release()
@@ -656,8 +660,8 @@ class Executor:
         """One stacked plan when the operands fit the device budget; a
         handful of shard-axis chunks when they do not; [] when empty."""
 
-        def one(chunk):
-            lowered = self._lower_roots(idx, [c], chunk)
+        def one(chunk, over_budget):
+            lowered = self._lower_roots(idx, [c], chunk, over_budget)
             if lowered is self._EMPTY:
                 return []
             roots, low, n_out, out_shards = lowered
@@ -679,22 +683,22 @@ class Executor:
 
     @staticmethod
     def _chunk_by_budget(shard_list, lower_one):
-        """lower_one(chunk) -> a list of per-chunk results; BudgetExceeded
-        halves the shard list, and below _MIN_CHUNK shards each shard is
-        lowered alone with its stacks admitted over the budget. A failing
-        half releases the other half's pins."""
+        """lower_one(chunk, over_budget) -> a list of per-chunk results;
+        BudgetExceeded halves the shard list, and below _MIN_CHUNK shards
+        each shard is lowered alone with `over_budget` True: its guards
+        admit the stacks over the budget. A failing half releases the
+        other half's pins."""
         if not shard_list:
             return []
         try:
-            return lower_one(shard_list)
+            return lower_one(shard_list, False)
         except BudgetExceeded:
             pass
         if len(shard_list) < Executor._MIN_CHUNK:
             out: List[Any] = []
             try:
-                with planmod.over_budget():
-                    for s in shard_list:
-                        out.extend(lower_one([s]))
+                for s in shard_list:
+                    out.extend(lower_one([s], True))
             except BaseException:
                 Executor._release_chunk_extents(out)
                 raise
@@ -1104,8 +1108,7 @@ class Executor:
             if len(pshards) >= self._MIN_CHUNK:
                 raise ExecError("TopN filter stack exceeds the device budget") from None
             # a few shards: admit the filter's stacks over the budget
-            with planmod.over_budget():
-                lowered = self._lower_roots(idx, [filter_call], pshards)
+            lowered = self._lower_roots(idx, [filter_call], pshards, over_budget=True)
         if lowered is self._EMPTY:
             return [], None
         roots, low, n_out, out_shards = lowered
@@ -1356,11 +1359,11 @@ class Executor:
             s for s in shard_list if all(v.fragment_if_exists(s) is not None for v in child_views)
         ]
 
-        def one(chunk) -> List[Dict[Tuple[int, ...], int]]:
-            budget = planmod.stack_budget(idx.dcache)
+        def one(chunk, over_budget) -> List[Dict[Tuple[int, ...], int]]:
+            budget = None if over_budget else planmod.stack_budget(idx.dcache)
             filt = None
             if filter_call is not None:
-                lowered = self._lower_roots(idx, [filter_call], chunk)
+                lowered = self._lower_roots(idx, [filter_call], chunk, over_budget)
                 if lowered is self._EMPTY:
                     return []  # the filter matches nothing here
                 roots, low, n_out, out_shards = lowered
@@ -1371,7 +1374,7 @@ class Executor:
                 planes_list = []
                 with idx.dcache.deferred_eviction():
                     for v, rows in zip(child_views, child_rows):
-                        if len(chunk) * WORDS_PER_ROW * 4 * len(rows) > budget:
+                        if budget is not None and len(chunk) * WORDS_PER_ROW * 4 * len(rows) > budget:
                             raise BudgetExceeded("GroupBy plane stack exceeds the device budget")
                         planes_list.append(v.plane_stack(rows, chunk, extents=table))
                 with planmod.dispatch_mutex():

@@ -24,13 +24,14 @@ STATS counts dispatches (`evals`) and blocking device->host reads
 A plan carries the ExtentTable (hbm/residency.py) of the pins its
 lowering took on its operands' extents and releases it in each dispatch
 method's `finally`, once its kernels are queued (release is idempotent;
-a released plan still runs, since it holds its operand tensors).
+a released plan still runs, since it holds its operand tensors). Row
+mode copies a result that is a cached entry itself, which the caller
+would otherwise read unpinned.
 """
 
 from __future__ import annotations
 
 import threading
-from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -63,28 +64,12 @@ class BudgetExceeded(Unsupported):
     executor splits the shard axis and evaluates chunked plans."""
 
 
-_tls = threading.local()
-
-
 def stack_budget(cache) -> int:
     """The bytes one query's stacks over one shard chunk may take: a
-    quarter of the device budget, unbounded inside `over_budget()`."""
-    if getattr(_tls, "over_budget", False):
-        return 1 << 62
+    quarter of the device budget. The executor's per-shard pass (below
+    16 shards) lowers with its guards off instead (`over_budget`): the
+    device cache admits a single entry over budget."""
     return cache.budget_bytes // 4
-
-
-@contextmanager
-def over_budget():
-    """Admit stacks over the budget guard: the executor lowers one shard
-    at a time in here once halving the shard list reaches one shard's
-    stacks (the device cache admits a single entry over budget)."""
-    prev = getattr(_tls, "over_budget", False)
-    _tls.over_budget = True
-    try:
-        yield
-    finally:
-        _tls.over_budget = prev
 
 
 class SparseView(Unsupported):
@@ -374,11 +359,17 @@ class StackedPlan(_Pinned):
             return counts.cpu().numpy()
 
     def rows_full(self) -> torch.Tensor:
-        """Materialized result stack, Shift predecessor rows included."""
+        """Materialized result stack, Shift predecessor rows included. A
+        result that is an operand cached whole (a bare Row over one
+        extent) is copied before the pins go: the caller launches more
+        kernels on it, and a barrier patches an unpinned entry in place."""
         with _DISPATCH_MU:
             STATS["evals"] += 1
             try:
-                return _eval_rows(self.root, self.operands, {})
+                out = _eval_rows(self.root, self.operands, {})
+                if self.extents is not None and self.extents.is_shared(out):
+                    out = out.clone()
+                return out
             finally:
                 self.release_extents()
 

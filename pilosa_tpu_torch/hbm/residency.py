@@ -23,7 +23,9 @@ also on an exception.
 
 Assembly: the extents are joined with one `torch.cat` on the device into
 an operand the cache does not keep (keeping it would double residency);
-a one-extent stack is the cached entry itself. The counters `assemblies`
+a one-extent stack is the cached entry itself, which the table notes
+(`ExtentTable.is_shared`) so that no result outlives its pin aliased to
+an entry a barrier may patch in place. The counters `assemblies`
 and `assembly_bytes` count the joins. Kernels that read extents through
 pointer tables, with no join, are later work. Prefetch is not ported:
 it is fed by an admission queue the port does not have yet.
@@ -104,13 +106,19 @@ def note_extent_patch(batches: int, upload_bytes: int) -> None:
 
 class ExtentTable:
     """The extents one lowered plan's operands are pinned on. One pin per
-    key moves here from staging; `release` (idempotent) unpins them."""
+    key moves here from staging; `release` (idempotent) unpins them.
 
-    __slots__ = ("cache", "_keys", "_released")
+    It also remembers the operands that are cache entries themselves (a
+    one-extent stack): once unpinned, such an entry may be patched in
+    place by a merge barrier, so a plan copies a result that is one of
+    them before it releases the table (`is_shared`)."""
+
+    __slots__ = ("cache", "_keys", "_shared", "_released")
 
     def __init__(self, cache: DeviceCache) -> None:
         self.cache = cache
         self._keys: List[Tuple] = []
+        self._shared: List[torch.Tensor] = []
         self._released = False
 
     def add(self, keys: List[Tuple]) -> None:
@@ -119,10 +127,17 @@ class ExtentTable:
             return
         self._keys.extend(keys)
 
+    def note_shared(self, arr: torch.Tensor) -> None:
+        self._shared.append(arr)
+
+    def is_shared(self, t: torch.Tensor) -> bool:
+        return any(t is a for a in self._shared)
+
     def release(self) -> None:
         if self._released:
             return
         self._released = True
+        self._shared = []
         self.cache.unpin_all(self._keys)
 
     def __len__(self) -> int:
@@ -159,6 +174,7 @@ def _stage(
         arr = cache.get_or_build(key, lambda: built(0, n_shards), extent=True, pin=True, shards=shards)
         if table is not None:
             table.add([key])
+            table.note_shared(arr)
         else:
             cache.unpin(key)
         return arr
@@ -197,6 +213,8 @@ def _stage(
         held = []
     try:
         if len(parts) == 1:
+            if table is not None:
+                table.note_shared(parts[0])
             return parts[0]
         out = torch.cat(parts, dim=shard_axis)
         _bump("assemblies")

@@ -21,8 +21,10 @@
 // reads 8 + 4 bytes per pair and reads and writes the 32-byte sector of its
 // target word: K x (12 + 64) B. The offsets are unique (the merge
 // deduplicated the bits and word_or_from_sorted folded them per word), so
-// no two threads touch one word and no atomics are needed. One thread per
-// element, grid-stride, 64-bit indices.
+// no two threads touch one word and no atomics are needed; they lie in
+// [0, n_words), which the wrapper (ops/merge.py or_words) checks on the
+// host copy of the pairs before it uploads them. One thread per element,
+// grid-stride, 64-bit indices.
 //
 // Each C entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() as an int.
@@ -49,14 +51,11 @@ __global__ void merge_mark_kernel(const long long* __restrict__ s, int64_t n,
   }
 }
 
-__global__ void or_words_kernel(uint32_t* __restrict__ entry, int64_t n_words,
-                                const long long* __restrict__ off,
+__global__ void or_words_kernel(uint32_t* __restrict__ entry, const long long* __restrict__ off,
                                 const uint32_t* __restrict__ val, int64_t k) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < k; i += stride) {
-    const long long o = __ldg(off + i);
-    if (o >= 0 && o < n_words) entry[o] |= __ldg(val + i);
-  }
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < k; i += stride)
+    entry[__ldg(off + i)] |= __ldg(val + i);
 }
 
 int64_t blocks_for(int64_t n) {
@@ -73,10 +72,9 @@ PT_EXPORT int pt_merge_mark(const void* s, int64_t n, void* keep, void* bit, voi
   return (int)cudaGetLastError();
 }
 
-PT_EXPORT int pt_or_words(void* entry, int64_t n_words, const void* off, const void* val, int64_t k,
-                          void* stream) {
+PT_EXPORT int pt_or_words(void* entry, const void* off, const void* val, int64_t k, void* stream) {
   if (k <= 0) return 0;
   or_words_kernel<<<(unsigned)blocks_for(k), kThreads, 0, (cudaStream_t)stream>>>(
-      (uint32_t*)entry, n_words, (const long long*)off, (const uint32_t*)val, k);
+      (uint32_t*)entry, (const long long*)off, (const uint32_t*)val, k);
   return (int)cudaGetLastError();
 }

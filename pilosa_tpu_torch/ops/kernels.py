@@ -209,7 +209,7 @@ class _Library:
             "pt_bsi_min_max": [p, p, p, p, i32, i64, i32, i32, i32, p, p, p, p],
             "pt_bsi_range": [p, p, p, i32, i64, i64, i32, i32, i32, u32, u32, i32, i32, p, p],
             "pt_merge_mark": [p, i64, p, p, p],
-            "pt_or_words": [p, i64, p, p, i64, p],
+            "pt_or_words": [p, p, p, i64, p],
         }
         for name, types in argtypes.items():
             fn = next((getattr(lib, name) for lib in libs if hasattr(lib, name)), None)

@@ -7,8 +7,10 @@ reference's extent patch (core/view.py `_patch_entry`). The barrier
 key array (segment in the high bits, row and column below) and merges it
 here in one pass:
 
-- `merge_keys_host`: np.unique plus the inclusive uint32 cumsum of each
-  kept key's bit `1 << (key & 31)`;
+- `merge_keys_host`: a sort and a first-occurrence mask (np.unique's
+  result: numpy 2.3's np.unique finds unique integers through a hash
+  table, about 50x slower than a sort at 2^21 keys) plus the inclusive
+  uint32 cumsum of each kept key's bit `1 << (key & 31)`;
 - `merge_keys_device`: the same contract on a device: `torch.sort` of
   the keys as int64 (the barrier keeps them below 2^63, so int64 order is
   uint64 order), then the `merge_mark` kernel (first-occurrence mask and
@@ -19,8 +21,9 @@ here in one pass:
 Within one word the kept bits are distinct powers of two, so OR equals
 sum, and the per-word differences of the wrapped cumsum are exact
 (`word_or_from_sorted`). `or_words` applies such (flat word offset, OR
-value) pairs to an entry in place; the offsets are unique, so the
-kernel needs no atomics.
+value) pairs to an entry in place; it checks the offsets on the host
+copy of the pairs, then uploads them, and the kernel trusts them. The
+offsets are unique, so the kernel needs no atomics.
 
 On a CUDA tensor `merge_mark` and `or_words` launch their kernels
 (cuda/merge_kernels.cu) and count them in `kernels.LAUNCHES`; on a CPU
@@ -102,17 +105,33 @@ def or_words_plain(entry: torch.Tensor, off: torch.Tensor, val: torch.Tensor) ->
 
 
 def or_words(entry: torch.Tensor, off: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    """entry.flat[off[k]] |= val[k] in place, for unique offsets in [0,
-    entry.numel()); returns `entry`. Every tensor contiguous on one
-    device (a strided view is refused)."""
+    """entry.flat[off[k]] |= val[k] in place, for unique offsets; returns
+    `entry`. `off` (int64) and `val` (int32) are host tensors: an offset
+    outside [0, entry.numel()) raises here. A CUDA entry gets them from
+    pinned memory on its launch stream, then `or_words_device`. Every
+    tensor contiguous (a strided view is refused)."""
+    _or_words_check(entry, off, val)
+    if off.device.type != "cpu" or val.device.type != "cpu":
+        raise ValueError(f"or_words: pairs must lie on the host, not {off.device} / {val.device}")
+    if off.numel() and (int(off.min()) < 0 or int(off.max()) >= entry.numel()):
+        raise IndexError(
+            f"or_words: offsets [{int(off.min())}, {int(off.max())}] outside an entry of {entry.numel()} words"
+        )
+    if kernels._route(entry) == "cpu":
+        return or_words_plain(entry, off, val)
+    dev = entry.device
+    return or_words_device(entry, off.pin_memory().to(dev, non_blocking=True), val.pin_memory().to(dev, non_blocking=True))
+
+
+def or_words_device(entry: torch.Tensor, off: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """The or_words kernel on pairs already on the entry's device, whose
+    offsets the caller checked (`or_words` does): the kernel does not."""
     _or_words_check(entry, off, val)
     if kernels._route(entry, off, val) == "cpu":
-        return or_words_plain(entry, off, val)
+        raise ValueError("or_words_device: the entry lies on the host; use or_words")
     k = off.numel()
     if k:
-        rc = kernels.library().pt_or_words(
-            entry.data_ptr(), entry.numel(), off.data_ptr(), val.data_ptr(), k, kernels._stream(entry)
-        )
+        rc = kernels.library().pt_or_words(entry.data_ptr(), off.data_ptr(), val.data_ptr(), k, kernels._stream(entry))
         kernels._launched("or_words", rc)
     return entry
 
@@ -124,9 +143,11 @@ def or_words(entry: torch.Tensor, off: torch.Tensor, val: torch.Tensor) -> torch
 
 def merge_keys_host(keys: np.ndarray):
     """(sorted unique uint64 keys, inclusive uint32 cumsum of their bits)
-    in one vectorized host pass."""
+    in one vectorized host pass: np.unique's keys, from a sort."""
     MERGE_STATS["host_merges"] += 1
-    merged = np.unique(np.asarray(keys, dtype=np.uint64))
+    merged = np.sort(np.asarray(keys, dtype=np.uint64))
+    if len(merged) > 1:
+        merged = merged[np.concatenate(([True], merged[1:] != merged[:-1]))]
     bits = np.uint32(1) << (merged & np.uint64(31)).astype(np.uint32)
     cum = np.cumsum(bits, dtype=np.uint32)
     return merged, cum

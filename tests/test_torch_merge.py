@@ -170,6 +170,18 @@ def test_or_words_twin_matches_numpy():
         tops.or_words(t[:, ::2], torch.from_numpy(off[:1]), torch.from_numpy(val[:1].view(np.int32)))
 
 
+@pytest.mark.parametrize("bad", [-1, 3 * 5 * 64])
+def test_or_words_refuses_offsets_outside_the_entry(bad):
+    """A wrong offset raises before anything is written, on every route
+    (the kernel trusts the offsets the wrapper checked)."""
+    entry = torch.arange(3 * 5 * 64, dtype=torch.int32).reshape(3, 5, 64)
+    before = entry.clone()
+    off = torch.tensor([0, bad, 7], dtype=torch.int64)
+    with pytest.raises(IndexError, match="outside an entry of 960 words"):
+        tops.or_words(entry, off, torch.ones(3, dtype=torch.int32))
+    assert torch.equal(entry, before)
+
+
 # ---------------------------------------------------------------------------
 # the barrier
 # ---------------------------------------------------------------------------
@@ -391,5 +403,11 @@ def test_cuda_merge_kernels_match_twins(cuda_device):
     entry = torch.from_numpy(rng.integers(0, 2**32, (4, 8, 1024), dtype=np.uint32).view(np.int32))
     off = torch.from_numpy(rng.choice(entry.numel(), 5000, replace=False).astype(np.int64))
     val = torch.from_numpy(rng.integers(0, 2**32, 5000, dtype=np.uint32).view(np.int32))
-    got = tops.or_words(entry.to(cuda_device), off.to(cuda_device), val.to(cuda_device)).cpu()
+    got = tops.or_words(entry.to(cuda_device), off, val).cpu()
     assert torch.equal(got, tops.or_words_plain(entry.clone(), off, val))
+    dev_entry = entry.to(cuda_device)
+    with pytest.raises(IndexError):
+        tops.or_words(dev_entry, torch.tensor([0, entry.numel()]), val[:2])
+    with pytest.raises(ValueError, match="on the host"):
+        tops.or_words(dev_entry, off.to(cuda_device), val.to(cuda_device))
+    assert torch.equal(dev_entry.cpu(), entry)

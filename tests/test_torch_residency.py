@@ -334,3 +334,51 @@ def test_budget_below_one_shard_answers_per_shard(env, pql):
     env.budget(ROW_BYTES // 2)  # a quarter of it is 1/8 of one shard's row
     env.query(pql)
     assert env.th.dcache.pinned_bytes == 0
+
+
+def test_filter_outlives_its_pins_under_a_concurrent_barrier(env, monkeypatch):
+    """A bare Row filter over one extent is the cached entry itself. The
+    filtered TopN launches its tally kernels on it after the filter plan
+    has released its pins; a barrier from another thread in that gap
+    patches the unpinned entry in place. The TopN must still count
+    against the filter as it was lowered: the reference's answer before
+    the write. The next query sees the write."""
+    import threading
+
+    shards = EXT  # one extent: Row(g=0) is the mono entry itself
+    rng = np.random.default_rng(12)
+    jf, tf = env.field("f")
+    jg, tg = env.field("g")
+    for r in range(3):
+        for s in range(shards):
+            w = rng.integers(0, 2**32, WORDS_PER_ROW).astype(np.uint32)
+            jf.import_row_words(r, s, w)
+            tf.import_row_words(r, s, w)
+    cols = rng.integers(0, shards * SHARD_WIDTH, 2000).astype(np.uint64)
+    import_bits(env, "g", np.zeros(len(cols)), cols)
+    q = "TopN(f, Row(g=0), n=3)"
+    want_before, _, _ = env.query(q)
+    burst = rng.integers(0, shards * SHARD_WIDTH, 4000).astype(np.uint64)
+    tview = tg.view("standard")
+    orig = TExecutor._topn_icounts_raw
+    seen = {}
+
+    def barrier_in_the_gap(self, view, cand, present, src_stack):
+        if not seen:
+            seen["patches"] = tres.stats_snapshot()["extent_patches"]
+            tg.import_bits(np.zeros(len(burst), np.uint64), burst)
+            t = threading.Thread(target=tview.sync_pending)
+            t.start()
+            t.join(30)
+            assert not t.is_alive()
+            seen["patches"] = tres.stats_snapshot()["extent_patches"] - seen["patches"]
+        return orig(self, view, cand, present, src_stack)
+
+    monkeypatch.setattr(TExecutor, "_topn_icounts_raw", barrier_in_the_gap)
+    got = [_norm(r) for r in env.tex.execute("i", q)]
+    assert seen["patches"] == 1  # the filter's entry was patched, not dropped
+    assert got == want_before
+    assert env.th.dcache.pinned_bytes == 0
+    jg.import_bits(np.zeros(len(burst), np.uint64), burst)
+    after, _, tr = env.query(q)
+    assert tr == 0 and after != want_before  # the patched entry serves the write
