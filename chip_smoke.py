@@ -22,9 +22,11 @@ Phases, each fatal on any mismatch or exception:
    counts_cross at every prefix-chunk size (G = 2..40; G = 1 goes to
    rows_counts) and gather_and on aligned and unaligned slabs, a filter
    broadcast and a cross expansion past one 16-output chunk; for the
-   merge barrier's kernels, or_words with 0, 1 and 10^7 pairs (the first
-   and the last word; a strided view and offsets outside the entry
-   refused) and merge_mark on empty
+   merge barrier's kernels, or_bits on an empty table, an empty segment,
+   one key, bit 31, the entry's last word, a word's run across the
+   kernel's chunk boundary, two rows of a planes entry and 10^7 keys
+   (tables outside the keys or the entry refused, the entry unchanged)
+   and merge_mark on empty
    input, one key, all keys equal, sorted runs, keys near 2^63 - 1 and
    2^24 keys with duplicates, and the whole device merge against the
    host merge;
@@ -69,13 +71,16 @@ Phases, each fatal on any mismatch or exception:
    the second pass re-stages 0 bytes; (b) a staged burst of 2^21 columns
    into f row 0 and 2^21 into g row 0 (_exists tracked), then the set:
    one device merge per staged view (f, g, _exists), entries patched in
-   place, 0 bytes re-staged by the first Count; again with the host
+   place by or_bits from the merged keys (on the device route only the
+   chunk tables go up: under 1/50 of 12 bytes a key applied), 0 bytes
+   re-staged by the first Count; again with the host
    barrier (merge device_threshold -1), barrier ms side by side; (c) one
    PQL Set into f row 0: the next Count re-stages exactly one extent
-   (32 MiB); or_words, merge_mark, the device merge and the assembly of 4
+   (32 MiB); or_bits, merge_mark, the device merge and the assembly of 4
    extents timed at these shapes, the first three rotating over 8 data
    sets that together exceed the L2 (each extent of Row(f=0) and
-   Row(g=0) with its burst pairs; 8 bursts of keys), and the host and
+   Row(g=0) with its burst keys, or_bits alone and with its table copy;
+   8 bursts of keys), and the host and
    device merge routes timed whole at 2^12..2^21 keys around the AUTO
    threshold, with numpy's version and np.unique alone; (d) paging: the budget set one extent
    below the set's working set, 5 cycles with extents and 5 with whole
@@ -104,7 +109,7 @@ Phases, each fatal on any mismatch or exception:
    CLI (`python -m pilosa_tpu_torch.cli server`) must serve on the card
    and exit 0 on SIGTERM, and exit non-zero with CUDA_VISIBLE_DEVICES="";
 5b. keyed: on the same node, after those measurements, index `k` with
-   keys: 2^22 column keys in a seeded random arrival order, a keyed set
+   keys: 2^21 column keys in a seeded random arrival order, a keyed set
    field `segment` (32 keys, 1-3 per column, Zipf), a keyed mutex field
    `country` (64 ISO codes, Zipf), an unkeyed set field `plan` and an int
    field `spend`, loaded through /import with rowKeys/colKeys and
@@ -166,6 +171,14 @@ def np_popcount(words: np.ndarray) -> int:
     if hasattr(np, "bitwise_count"):
         return int(np.bitwise_count(words).sum(dtype=np.int64))
     return int(_LUT[np.ascontiguousarray(words).view(np.uint8)].sum(dtype=np.int64))
+
+
+def sorted_unique(a) -> np.ndarray:
+    """np.unique's values of an integer array, from a sort: numpy 2.3's
+    np.unique finds unique integers through a hash table, about 50x slower
+    at 2^21 keys (the `residency routes` line times it)."""
+    a = np.sort(np.asarray(a).reshape(-1))
+    return a[np.concatenate(([True], a[1:] != a[:-1]))] if len(a) else a
 
 
 def np_groups(rows_a, rows_b, filt=None):
@@ -315,7 +328,7 @@ def sector_bytes(idx, n_seg: int) -> tuple:
     """gather_tally's least traffic: idx and mask (8 B per entry), starts,
     ends and out (12 B per segment), and 32 B per distinct 32-byte sector of
     src that idx touches (src is 256-byte aligned); also the sector count."""
-    sectors = int(np.unique(idx.cpu().numpy().astype(np.int64) >> 3).size)
+    sectors = len(sorted_unique(idx.cpu().numpy().astype(np.int64) >> 3))
     return 8 * idx.numel() + 12 * n_seg + 32 * sectors, sectors
 
 
@@ -582,44 +595,64 @@ def kernel_phase(rng, dev, errs):
     print("kernels: counts_cross equal to its twin at G = 1..40, R up to 70, W = 33..32768, unaligned; "
           "gather_and equal on aligned and unaligned slabs, a filter broadcast and a 35-output cross expansion")
 
-    # the merge barrier's kernels (their own generator too): or_words with
-    # 0, 1 and 10^7 pairs into a 2-extent entry, offsets at word 0 and at
-    # the last word; a strided view is refused. merge_mark on empty input,
-    # one key, all keys equal, sorted runs, keys near 2^63 - 1 and 2^24
-    # keys with duplicates; the whole device merge against the host merge
+    # the merge barrier's kernels (their own generator too): or_bits on an
+    # empty table, an empty segment, one key, bit 31, the entry's last
+    # word, a word's run across the kernel's chunk boundary, two rows of a
+    # planes entry and 10^7 keys over 512 shards; tables outside the entry
+    # refused and the entry unchanged. merge_mark on empty input, one key,
+    # all keys equal, sorted runs, keys near 2^63 - 1 and 2^24 keys with
+    # duplicates; the whole device merge against the host merge
     from pilosa_tpu_torch.ops import merge as opm
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
     mrng = np.random.default_rng(8)
-    entry = torch.from_numpy(mrng.integers(0, 2**32, size=(512, 32768), dtype=np.uint32).view(np.int32)).to(dev)
-    n_words = entry.numel()
-    for k in (0, 1, 10**7):
-        # unique offsets (the kernel's contract): the inner words drawn
-        # without replacement, then the last word and word 0
-        off = (1 + mrng.permutation(n_words - 2)[:k]).astype(np.int64)
-        if k:
-            off[0] = n_words - 1
-        if k > 1:
-            off[1] = 0
-        val = torch.from_numpy(mrng.integers(0, 2**32, size=k, dtype=np.uint32).view(np.int32))
-        off_t = torch.from_numpy(off)
-        want = opm.or_words_plain(entry.cpu(), off_t, val)
-        got = opm.or_words(entry.clone(), off_t, val)
-        same("or_words", got, want)
-    try:
-        opm.or_words(entry[:, ::2], torch.zeros(1, dtype=torch.int64), torch.ones(1, dtype=torch.int32))
-        fail("or_words took a strided view")
-    except ValueError:
-        pass
-    # an offset outside the entry raises on the host, before any launch
-    before = entry.clone()
-    for bad in (-1, n_words):
+    last = SHARD_WIDTH - 1
+    chunk = opm.OR_BITS_CHUNK
+    big_shards = 512
+    big = sorted_unique(np.concatenate([mrng.integers(0, big_shards * SHARD_WIDTH, 10**7), [0, big_shards * SHARD_WIDTH - 1]]))
+    cut = np.searchsorted(big, np.arange(big_shards + 1) * SHARD_WIDTH)
+    or_cases = {
+        "empty table": (1, 2, {}),
+        "empty segment": (1, 2, {(0, 0): [], (1, 0): [3, 40]}),
+        "one key": (1, 2, {(1, 0): [77]}),
+        "bit 31": (1, 2, {(0, 0): [31, 63, 95, 32 * 9 + 31, last]}),
+        "last word": (2, 3, {(2, 1): [last - 31, last - 1, last], (0, 0): [0]}),
+        "run across the chunk boundary": (1, 2, {(1, 0): np.arange(5, 5 + 3 * chunk)}),
+        "two rows of a planes entry": (
+            2, 3, {(p, d): mrng.integers(0, SHARD_WIDTH, 700) for p in range(3) for d in range(2)}),
+        "10^7 keys": (1, big_shards, {(p, 0): big[cut[p]:cut[p + 1]] & last for p in range(big_shards)}),
+    }
+    n_keys_max = 0
+    for D, n, segs in or_cases.values():
+        span = D * SHARD_WIDTH  # fragment p's rows 0..D-1, packed as the barrier packs
+        keys = sorted_unique(np.concatenate(
+            [np.empty(0, np.int64)]
+            + [p * span + d * SHARD_WIDTH + np.asarray(c, np.int64) for (p, d), c in segs.items()]))
+        bounds = [(p * span + d * SHARD_WIDTH, (d * n + p) * WORDS_PER_ROW) for (p, d) in sorted(segs)]
+        table = np.array([(*np.searchsorted(keys, [lo, lo + SHARD_WIDTH]), base) for lo, base in bounds],
+                         np.int64).reshape(-1, 3)
+        entry = torch.from_numpy(mrng.integers(0, 2**32, size=(D, n, WORDS_PER_ROW), dtype=np.uint32).view(np.int32))
+        keys_t = torch.from_numpy(keys)
+        want = opm.or_bits_plain(entry.clone(), keys_t, table)
+        got = entry.to(dev)
+        opm.or_bits(got, keys_t.to(dev), table)
+        same("or_bits", got, want)
+        n_keys_max = max(n_keys_max, len(keys))
+    check(n_keys_max >= 10**7 - 10**5, f"or_bits: the largest case held {n_keys_max} keys")
+    # a table row outside the keys or not naming a whole row of the entry
+    # raises on the host, before any launch
+    n_words = got.numel()
+    keys_d = keys_t.to(dev)
+    before = got.clone()
+    for bad in ((0, 1, 1), (0, 1, n_words), (0, 1, -WORDS_PER_ROW), (2, 1, 0), (-1, 1, 0), (0, len(keys) + 1, 0)):
         try:
-            opm.or_words(entry, torch.tensor([0, bad], dtype=torch.int64), torch.ones(2, dtype=torch.int32))
-            fail(f"or_words took offset {bad} into an entry of {n_words} words")
+            opm.or_bits(got, keys_d, np.array([(0, 8, 0), bad], np.int64))
+            fail(f"or_bits took table row {bad} with {len(keys)} keys into an entry of {n_words} words")
         except IndexError:
             pass
-    check(torch.equal(entry, before), "a refused or_words call changed the entry")
-    del entry, before
+    torch.cuda.synchronize()
+    check(torch.equal(got, before), "a refused or_bits call changed the entry")
+    del got, before, keys_d, big
     near = (1 << 63) - 1
     cases = [
         np.empty(0, np.int64), np.array([12345], np.int64), np.full(1000, 77, np.int64),
@@ -634,12 +667,13 @@ def kernel_phase(rng, dev, errs):
         same("merge_mark", keep.to(torch.int32), keep_p.to(torch.int32))
         same("merge_mark", bit, bit_p)
     big = cases[-1].view(np.uint64)
-    mh, ch = opm.merge_keys_host(big)
-    md, cd = opm.merge_keys_device(big, dev)
-    check(np.array_equal(md, mh) and np.array_equal(cd, ch), "merge_keys_device differs from merge_keys_host at 2^24 keys")
+    mh = opm.merge_keys_host(big)
+    md, dd = opm.merge_keys_device(big, dev)
+    check(np.array_equal(md, mh) and np.array_equal(dd.cpu().numpy().view(np.uint64), mh),
+          "merge_keys_device differs from merge_keys_host at 2^24 keys")
     torch.cuda.synchronize()
-    print("kernels: or_words equal to its twin at 0, 1 and 10^7 pairs (first and last word), strided view and "
-          "offsets -1 and past the last word refused; "
+    print("kernels: or_bits equal to its twin on " + ", ".join(or_cases) + f" ({n_keys_max} keys); six tables "
+          "outside the keys or the entry refused, the entry unchanged; "
           "merge_mark equal on empty, one key, all equal, sorted runs, keys near 2^63 - 1 and 2^24 keys; "
           "the device merge equals the host merge")
 
@@ -1429,7 +1463,7 @@ def residency_bursts(seed: int, S: int) -> dict:
 
     rng = np.random.default_rng([seed, 4])
     out = {k: rng.integers(0, S * SHARD_WIDTH, BURST).astype(np.uint64) for k in ("f1", "g1", "f2", "g2")}
-    out["g_burst"] = np.unique(np.concatenate([out["g1"], out["g2"]]))
+    out["g_burst"] = sorted_unique(np.concatenate([out["g1"], out["g2"]]))
     return out
 
 
@@ -1516,7 +1550,7 @@ def residency_path(args, holder, ex, state, errs, smi):
 
     def set_bits(words, cols):
         """OR columns into [S, W] words; the columns that were clear."""
-        cols = np.unique(np.asarray(cols, np.uint64))
+        cols = sorted_unique(np.asarray(cols, np.uint64))
         flat = words.reshape(-1)
         wi = (cols >> np.uint64(5)).astype(np.int64)
         bit = np.uint32(1) << (cols & np.uint64(31)).astype(np.uint32)
@@ -1623,14 +1657,23 @@ def residency_path(args, holder, ex, state, errs, smi):
             "barrier_ms": m1["barrier_ms"] - m0["barrier_ms"],
             "merge_ms": m1["merge_ms"] - m0["merge_ms"],
             "merge_mark_launches": K.LAUNCHES["merge_mark"] - k0["merge_mark"],
-            "or_words_launches": K.LAUNCHES["or_words"] - k0["or_words"],
+            "or_bits_launches": K.LAUNCHES["or_bits"] - k0["or_bits"],
         }
-        patches = {k: r1[k] - r0[k] for k in ("extent_patches", "extent_patch_batches", "patch_upload_bytes")}
+        patches = {k: r1[k] - r0[k]
+                   for k in ("extent_patches", "extent_patch_batches", "patch_upload_bytes", "patch_keys")}
         want_merges = (3, 0, 3) if device else (0, 3, 0)
         check((merges["device_launches"], merges["host_merges"], merges["merge_mark_launches"]) == want_merges,
               f"{label}: merges {merges}: want one {'device' if device else 'host'} merge per staged view (f, g, _exists)")
         check(merges["barriers"] == 3, f"{label}: {merges['barriers']} barriers merged, not 3 (f, g, _exists)")
         check(patches["extent_patches"] > 0, f"{label}: no extent was patched")
+        check(patches["extent_patch_batches"] == merges["or_bits_launches"],
+              f"{label}: {patches['extent_patch_batches']} patch launches booked, {merges['or_bits_launches']} "
+              "or_bits launches counted")
+        if device:
+            # the keys stay on the card: only the chunk tables go up, far
+            # less than 12 bytes of (offset, value) pair per key applied
+            check(50 * patches["patch_upload_bytes"] <= 12 * patches["patch_keys"],
+                  f"{label}: {patches['patch_upload_bytes']} B uploaded for {patches['patch_keys']} keys applied")
         first = out[RES_QUERIES[0]]["restage_bytes"]
         check(first == 0, f"{label}: the first Count after the burst re-staged {first} B, not 0")
         show(f"(b) {label}", out)
@@ -1639,7 +1682,9 @@ def residency_path(args, holder, ex, state, errs, smi):
             f"barriers {merges['barriers']} in {merges['barrier_ms']:.1f} ms, {merges['merge_ms']:.1f} ms of it in the key "
             f"merges ({merges['device_launches']} device, "
             f"{merges['host_merges']} host merges); {patches['extent_patches']} entries patched with "
-            f"{patches['extent_patch_batches']} or_words launches, {patches['patch_upload_bytes']} B of pairs uploaded; "
+            f"{patches['extent_patch_batches']} or_bits launches applying {patches['patch_keys']} keys, "
+            f"{patches['patch_upload_bytes']} B uploaded for the patches; "
+            f"first pass Count {out[RES_QUERIES[0]]['ms']:.1f} ms, filtered TopN {out[RES_QUERIES[3]]['ms']:.1f} ms; "
             f"peak device memory over the first query {out[RES_QUERIES[0]]['peak_bytes']} B"
         )
         return {"import_s": import_s, "queries": out, "merges": merges, "patches": patches}
@@ -1672,7 +1717,7 @@ def residency_path(args, holder, ex, state, errs, smi):
     # the barrier's kernels, the device merge and the assembly, at this
     # path's shapes, each rotating over 8 data sets larger than the L2
     # together, so no timed call finds its data left there by the last
-    launches = {k: K.LAUNCHES[k] for k in ("or_words", "merge_mark")}
+    launches = {k: K.LAUNCHES[k] for k in ("or_bits", "merge_mark")}
     for k, n in launches.items():
         check(n > 0, f"the residency path never launched {k}: {dict(K.LAUNCHES)}")
     src = "pilosa_tpu_torch/ops/cuda/merge_kernels.cu"
@@ -1683,35 +1728,104 @@ def residency_path(args, holder, ex, state, errs, smi):
     parts = [cache.get(k) for t in tables for k in sorted(t.keys, key=lambda k: k[6] if k[4] == "ext" else 0)]
     n_ext = len(parts) // 2
     rows = {}
-    # or_words: each extent of Row(f=0) and of Row(g=0) taking burst 1's
-    # bits in its shards as (word offset, OR value) pairs, as the patch
-    # pass gives them (a column's offset in extent e is col - e * ext *
-    # SW, over 32)
+    # or_bits: each extent of Row(f=0) and of Row(g=0) taking burst 1's
+    # keys in its shards as the patch pass gives them (a segment per
+    # shard, key p * SW + column for shard position p of the extent), the
+    # chunk table on the card first (the kernel alone), then as a patch
+    # launches it (table copied from the pinned slot with the launch)
+    def or_bits_set(target, keys):
+        """One timed or_bits call's data: keys p * SW + column for shard
+        position p of `target`, its segment table and chunk table, and
+        its bytes (keys, chunk table, each distinct 32-byte sector read
+        and written; and with 64-byte blocks instead of sectors)."""
+        n_pos = target.shape[0]
+        table = np.stack([np.searchsorted(keys, np.arange(n_pos) * SW),
+                          np.searchsorted(keys, np.arange(1, n_pos + 1) * SW),
+                          np.arange(n_pos) * W], axis=1).astype(np.int64)
+        chunks = np.concatenate(opm._or_bits_chunks(table))
+        word = keys // SW * W + ((keys & (SW - 1)) >> 5)  # flat word of each key in the entry
+        head = 8 * len(keys) + 8 * len(chunks)
+        return {
+            "target": target, "keys": torch.from_numpy(keys).to(dev), "table": table,
+            "chunks": torch.from_numpy(chunks).to(dev), "n_chunks": len(chunks) // 3,
+            "bytes": head + 64 * len(sorted_unique(word >> 3)), "block_bytes": head + 128 * len(sorted_unique(word >> 4)),
+        }
+
     sets = []
     for e, part in enumerate(parts):
         cols = bursts["f1"] if e < n_ext else bursts["g1"]
         lo = (e % n_ext) * min(ext, S) * SW
-        fc = np.unique(cols[(cols >= np.uint64(lo)) & (cols < np.uint64(lo + part.shape[0] * SW))]) - np.uint64(lo)
-        wi = (fc >> np.uint64(5)).astype(np.int64)
-        starts = np.concatenate(([0], np.flatnonzero(wi[1:] != wi[:-1]) + 1))
-        vals = np.bitwise_or.reduceat(np.uint32(1) << (fc & np.uint64(31)).astype(np.uint32), starts)
-        off_h, val_h = torch.from_numpy(wi[starts]), torch.from_numpy(vals.view(np.int32))
-        sets.append({
-            "target": part.clone(), "plain": part.clone(), "off": off_h.to(dev), "val": val_h.to(dev),
-            "off_h": off_h, "val_h": val_h, "bytes": 12 * len(starts) + 64 * int(np.unique(wi[starts] >> 3).size),
-        })
-    rows["or_words"] = time_row(
-        "or_words", src, "pilosa_tpu/core/view.py:544",
-        [lambda t=t: opm.or_words_device(t["target"], t["off"], t["val"]) for t in sets],
-        [lambda t=t: opm.or_words_plain(t["plain"], t["off"], t["val"]) for t in sets],
-        [t["bytes"] for t in sets], launches["or_words"], errs, "bytes (pairs, 32-byte sectors read and written)",
+        keys = sorted_unique(cols[(cols >= np.uint64(lo)) & (cols < np.uint64(lo + part.shape[0] * SW))]).astype(
+            np.int64) - lo
+        sets.append(dict(or_bits_set(part.clone(), keys), orig=part, plain=part.clone()))
+
+    def kernel_alone(t):
+        rc = K.library().pt_or_bits(None, 0, t["chunks"].data_ptr(), t["target"].data_ptr(), t["keys"].data_ptr(),
+                                    t["n_chunks"], SW - 1, K._stream(t["target"]))
+        check(rc == 0, f"or_bits launch failed: CUDA error {rc}")
+        return t["target"]
+
+    def as_patched(t):
+        opm.or_bits(t["target"], t["keys"], t["table"])
+        return t["target"]
+
+    rows["or_bits"] = time_row(
+        "or_bits", src, "pilosa_tpu/core/view.py:544",
+        [lambda t=t: kernel_alone(t) for t in sets],
+        [lambda t=t: opm.or_bits_plain(t["plain"], t["keys"], t["table"]) for t in sets],
+        [t["bytes"] for t in sets], launches["or_bits"], errs,
+        "bytes (keys, chunk table, 32-byte sectors read and written)",
     )
-    rows["or_words"]["pairs_per_call"] = sum(t["off"].numel() for t in sets) / len(sets)
-    # the path's wrapper: offsets checked on the host, pairs pinned and
-    # uploaded, then the launch (the host's cost of one patch)
-    first = sets[0]
-    rows["or_words"]["wrapper_dispatch_ms"] = dispatch_ms(
-        lambda: opm.or_words(first["target"], first["off_h"], first["val_h"]))
+    row = rows["or_bits"]
+    row["keys_per_call"] = sum(t["keys"].numel() for t in sets) / len(sets)
+    row["chunks_per_call"] = sum(t["n_chunks"] for t in sets) / len(sets)
+    # as a patch launches it: the wrapper's table check, chunk cut and
+    # pinned-slot copy with the launch; the device time with the copy,
+    # and the host time of one call (the host's cost of one patch)
+    for t in sets:
+        fresh = t["orig"].clone()
+        opm.or_bits(fresh, t["keys"], t["table"])
+        check(torch.equal(fresh, t["plain"]), "or_bits through its wrapper differs from its twin")
+    del fresh
+    row["with_table_copy_ms"] = cuda_time_ms(rotating([lambda t=t: as_patched(t) for t in sets]))
+    row["wrapper_dispatch_ms"] = dispatch_ms(lambda: as_patched(sets[0]))
+    row["l2_warm_ms"] = cuda_time_ms(lambda: kernel_alone(sets[0]))
+    row["bound_64b_ms"] = sum(t["block_bytes"] for t in sets) / len(sets) / HBM_BYTES_PER_S * 1e3
+    row["share_of_64b_bound"] = row["bound_64b_ms"] / row["ms"]
+    # what a cold patch pays for: the same number of keys spread one per
+    # 64-byte block, two per block (one in each 32-byte sector) and two per
+    # 32-byte sector, each timed cold over the 8 extents
+    brng = np.random.default_rng([args.seed, 9])
+    targets = [t["target"] for t in sets]
+    n_blocks = targets[0].numel() // 16
+    n_spread = min(1 << 18, n_blocks // 2)
+    spread = {}
+    for label in ("one key a 64-byte block", "two keys a block, one a sector", "two keys a 32-byte sector"):
+        half = n_spread // 2
+        if label.startswith("one"):
+            words = brng.choice(n_blocks, n_spread, replace=False) * 16 + brng.integers(0, 16, n_spread)
+        elif label.startswith("two keys a block"):
+            words = np.repeat(brng.choice(n_blocks, half, replace=False) * 16, 2) + np.tile([0, 8], half) \
+                + brng.integers(0, 8, 2 * half)
+        else:
+            words = np.repeat(brng.choice(n_blocks, half, replace=False) * 16 + brng.integers(0, 2, half) * 8, 2) \
+                + np.tile([1, 6], half)
+        keys = sorted_unique(words // W * SW + words % W * 32 + brng.integers(0, 32, len(words)))
+        data = [or_bits_set(tg, keys) for tg in targets]
+        spread[label] = {
+            "keys": len(keys), "ms": cuda_time_ms(rotating([lambda t=t: kernel_alone(t) for t in data])),
+            "bound_ms": data[0]["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_64b_ms": data[0]["block_bytes"] / HBM_BYTES_PER_S * 1e3,
+        }
+    row["spread"] = spread
+    print(
+        f"kernel or_bits ({smi}): {row['keys_per_call']:.0f} keys and {row['chunks_per_call']:.0f} chunks a call; "
+        f"L2-warm {row['l2_warm_ms']:.4f} ms; with its table copy {row['with_table_copy_ms']:.4f} ms; wrapper "
+        f"{row['wrapper_dispatch_ms']:.4f} ms host; bound counting 64-byte blocks (128 B each) {row['bound_64b_ms']:.4f} "
+        f"ms ({row['share_of_64b_bound']:.1%}); cold, the same keys spread: "
+        + "; ".join(f"{k} ({v['keys']} keys) {v['ms']:.4f} ms, sector bound {v['bound_ms']:.4f}, block bound "
+                    f"{v['bound_64b_ms']:.4f}" for k, v in spread.items())
+    )
+    del data
     # merge_mark on 2^21 sorted keys: the path's four bursts and four
     # more drawn alike
     krng = np.random.default_rng([args.seed, 6])
@@ -1725,7 +1839,7 @@ def residency_path(args, holder, ex, state, errs, smi):
         [13 * k.numel() for k in sorted_dev], launches["merge_mark"], errs,
     )
     n_keys = keys_dev[0].numel()
-    n_unique = int(np.unique(key_sets[0]).size)
+    n_unique = len(sorted_unique(key_sets[0]))
     merge_bytes = 8 * n_keys + 16 * n_unique
     assembled = torch.cat(parts[:n_ext], 0)
     extra = {
@@ -1773,8 +1887,9 @@ def residency_path(args, holder, ex, state, errs, smi):
         f"{info['burst_device']['merges']['device_launches']} launches on the burst); assembly of {n_ext} "
         f"extents into a {S}-shard operand {extra['assembly_ms']:.4f} ms (dispatch {extra['assembly_dispatch_ms']:.4f} "
         f"ms, bound {extra['assembly_bound_ms']:.4f} ms, {extra['assembly_share']:.1%}, plain PyTorch; "
-        f"{extra['assemblies']} assemblies on the path); or_words wrapper with host pairs (check, pin, upload, "
-        f"launch) {rows['or_words']['wrapper_dispatch_ms']:.4f} ms host"
+        f"{extra['assemblies']} assemblies on the path); or_bits as a patch launches it (table check, chunk cut, "
+        f"pinned-slot copy, launch) {rows['or_bits']['with_table_copy_ms']:.4f} ms device, "
+        f"{rows['or_bits']['wrapper_dispatch_ms']:.4f} ms host per entry"
     )
     print(
         f"residency routes ({smi}; host clock, p50 of a whole merge): numpy {np.__version__}, "
@@ -2095,7 +2210,7 @@ def serve_path(args):
         ic = ((r, pc(R("f", r) & R("g", 0))) for r in f_ids)
         top_g0 = sorted(((r, c) for r, c in ic if c), key=lambda kv: (-kv[1], kv[0]))[:5]
         lo, hi = _extreme(vals, True), _extreme(vals, False)
-        row_g0 = np.unique(g_cols[0])
+        row_g0 = sorted_unique(g_cols[0])
         want = dict(zip(SERVE_QUERIES, [
             [pc(R("f", 0) & R("g", 0))],
             [pc(R("f", 0) | R("f", 1) | R("g", 1))],
@@ -2230,7 +2345,7 @@ def serve_path(args):
 # phase 5b: a keyed index on the served node
 # ---------------------------------------------------------------------------
 
-KEYED_COLUMNS = 1 << 22  # column keys "u%010d": 4 shards of ids (ids start at 1)
+KEYED_COLUMNS = 1 << 21  # column keys "u%010d": 2 shards of ids (ids start at 1)
 KEYED_BATCH = 100_000  # pairs or values per keyed /import or import-value request
 KEYED_SEGMENTS = [f"seg-{k:02d}" for k in range(32)]
 # 64 two-letter ISO 3166 codes, in Zipf rank order
@@ -2924,7 +3039,7 @@ def main() -> int:
         "kernels": [
             rows[k]
             for k in ("plan_count", "gather_tally", "rows_counts", "count2", "bsi_sum", "bsi_min_max", "bsi_range",
-                      "counts_cross", "gather_and", "or_words", "merge_mark")
+                      "counts_cross", "gather_and", "or_bits", "merge_mark")
         ],
         "extra_ms": extra,
         "query_p50_ms": lat,
@@ -2943,7 +3058,7 @@ def main() -> int:
     }))
     print(json.dumps({
         "ok": True,
-        "device": {"platform": "gpu", "kind": kind, "count": 1},
+        "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},
     }))
     return 0
 

@@ -10,8 +10,9 @@ it in one pass (on the device at or above `device_threshold`, one
 vectorized host pass below it: ops/merge.py) and hands each fragment its
 merged slice back as a parked delta layer. The host row store takes the
 layer at the fragment's next host read; the device is kept exact at once
-by patching resident stack entries with the same merged word deltas
-(core/view.py).
+by ORing the same merged keys into the resident stack entries
+(core/view.py), from where they already are: the device route's merge
+leaves them on the card, the host route uploads each group's once.
 
 Handshake (no fragment lock is held across another's, and none during
 the merge): `pending_snapshot` records, under each fragment's lock, its
@@ -31,13 +32,13 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import merge as ops_merge
-from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXPONENT
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH_EXPONENT
 
 # AUTO crossover on a CUDA device: bursts of at least this many staged
 # positions merge on the card; on the CPU the host pass always wins
@@ -95,46 +96,87 @@ def stats_snapshot() -> Dict[str, float]:
         return dict(_counters)
 
 
+class GroupKeys:
+    """One barrier group's merged keys, sorted and unique, which every
+    FragMerge of the group indexes with its key ranges: the host array,
+    and the keys on the device the patches run on. The device route
+    keeps the tensor its merge made; the host route uploads once, from
+    pinned memory, when the first entry needs a patch. A stream other
+    than the one the keys were made on waits for them, and the tensor is
+    recorded on it, so the keys outlive every launch that reads them."""
+
+    __slots__ = ("host", "_dev", "_stream", "_ready")
+
+    def __init__(self, host: np.ndarray, dev: Optional[torch.Tensor] = None):
+        self.host = host
+        self._dev = dev
+        self._stream = self._ready = None
+        if dev is not None and dev.is_cuda:
+            self._mark(dev.device)
+
+    def _mark(self, device: torch.device) -> None:
+        self._stream = torch.cuda.current_stream(device)
+        self._ready = torch.cuda.Event()
+        self._ready.record(self._stream)
+
+    def on(self, device: torch.device):
+        """(the keys as int64 on `device`, the bytes this call uploaded)."""
+        uploaded = 0
+        if self._dev is None:
+            host = torch.from_numpy(self.host.view(np.int64))
+            if device.type == "cuda":
+                self._dev = host.pin_memory().to(device, non_blocking=True)
+                self._mark(device)
+                uploaded = self.host.nbytes
+            else:
+                self._dev = host
+        if self._stream is not None:
+            stream = torch.cuda.current_stream(device)
+            if stream != self._stream:
+                stream.wait_event(self._ready)
+                self._dev.record_stream(stream)
+        return self._dev, uploaded
+
+
 class FragMerge:
-    """One fragment's barrier outcome. `rows` are its touched row ids
-    (ascending); `starts`/`ends` index the group's merged `cols`/`cum`
-    arrays, shared by the group's FragMerges. `clean` means the fragment
-    moved from `base_version` to `new_version` by exactly the captured
-    staged batches, so an entry keyed at `base_version` can be patched
-    in place to `new_version`."""
+    """One fragment's barrier outcome: for each row id the merge touched,
+    the [start, end) range of its keys in the group's merged `keys`
+    (GroupKeys, shared by the group's FragMerges). `clean` means the
+    fragment moved from `base_version` to `new_version` by exactly the
+    captured staged batches, so an entry keyed at `base_version` can be
+    patched in place to `new_version`."""
 
     __slots__ = (
-        "frag", "shard", "applied", "clean", "base_version", "new_version",
-        "rows", "cols", "cum", "starts", "ends",
+        "frag", "shard", "applied", "clean", "base_version", "new_version", "keys", "_ranges",
     )
 
-    def __init__(self, frag, rows, cols, cum, starts, ends):
+    def __init__(self, frag, keys: GroupKeys, rows, starts, ends):
         self.frag = frag
         self.shard = frag.shard
         self.applied = False
         self.clean = False
         self.base_version = -1
         self.new_version = -1
-        self.rows = rows
-        self.cols = cols
-        self.cum = cum
-        self.starts = starts
-        self.ends = ends
+        self.keys = keys
+        self._ranges = dict(zip(rows, zip(starts, ends)))
 
-    def word_delta(self, row_id: int):
-        """(word_idx int64[], word_val uint32[]) of this row's merged
-        delta."""
-        i = self.rows.index(row_id)
-        s, e = self.starts[i], self.ends[i]
-        return ops_merge.word_or_from_sorted(self.cols[s:e], self.cum[s:e])
+    def key_range(self, row_id: int) -> Optional[Tuple[int, int]]:
+        """[start, end) of this row's merged keys in `keys`, or None when
+        the merge did not touch the row. Every key in it is
+        segment * span + row * SHARD_WIDTH + column, with a span that is
+        a SHARD_WIDTH multiple, so key & (SHARD_WIDTH - 1) is the column."""
+        return self._ranges.get(row_id)
 
 
 def _groups(caps, device: torch.device, use_device: bool) -> List[list]:
-    """Split the captures into groups whose keys fit one device merge."""
+    """Split the captures into groups whose keys fit one device merge,
+    beside the merged keys of every group, which stay on the device
+    (8 bytes a key) until the barrier's patches are enqueued."""
     if not use_device or device.type != "cuda":
         return [caps]
     free, _ = torch.cuda.mem_get_info(device)
-    cap_keys = max(1, free // _DEVICE_BYTES_PER_KEY)
+    kept = 8 * sum(len(p) for c in caps for p in c[1])
+    cap_keys = max(1, (free - kept) // _DEVICE_BYTES_PER_KEY)
     groups, cur, n = [], [], 0
     for c in caps:
         k = sum(len(p) for p in c[1])
@@ -218,16 +260,16 @@ def _merge_group(caps, device: torch.device, use_device: bool):
 
     t0 = time.perf_counter()
     if use_device:
-        merged, cum = ops_merge.merge_keys_device(combined, device)
+        keys = GroupKeys(*ops_merge.merge_keys_device(combined, device))
     else:
-        merged, cum = ops_merge.merge_keys_host(combined)
+        keys = GroupKeys(ops_merge.merge_keys_host(combined))
+    merged = keys.host
     merge_ms = (time.perf_counter() - t0) * 1000.0
     with _stats_mu:
         _counters["merge_ms"] += merge_ms
 
     seg_edges = np.searchsorted(merged, np.arange(len(caps) + 1, dtype=np.uint64) * np.uint64(row_span))
     local = merged - np.repeat(np.arange(len(caps), dtype=np.uint64) * np.uint64(row_span), np.diff(seg_edges))
-    cols_g = (merged & np.uint64(SHARD_WIDTH - 1)).astype(np.uint32)
     rowkeys = merged >> np.uint64(SHARD_WIDTH_EXPONENT)
     bounds = np.flatnonzero(rowkeys[1:] != rowkeys[:-1]) + 1
     starts_g = np.concatenate(([0], bounds)).astype(np.int64)
@@ -245,7 +287,7 @@ def _merge_group(caps, device: torch.device, use_device: bool):
         rlo, rhi = frag_edges[i], frag_edges[i + 1]
         if rlo == rhi:
             continue
-        fm = FragMerge(f, row_of[rlo:rhi], cols_g, cum, starts_l[rlo:rhi], ends_l[rlo:rhi])
+        fm = FragMerge(f, keys, row_of[rlo:rhi], starts_l[rlo:rhi], ends_l[rlo:rhi])
         fm.base_version = base_version
         # the layer is a copy: a view would pin the group's merged array
         res = f.apply_merged_delta(

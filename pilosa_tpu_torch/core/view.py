@@ -15,11 +15,12 @@ read barrier (`sync_pending`) merges every staged fragment the read
 touches in one pass (core/merge.py), then patches each resident entry
 covering a merged shard in place, old words | merged delta, re-keyed to
 the new versions; an entry it cannot patch exactly is dropped. A patch
-uploads the delta as sparse (flat word offset, OR value) pairs and
-applies them with the or_words kernel on the launch stream, so a plan
-launched before it reads the old words; an entry pinned by a plan not yet
-launched is cloned first and the clone patched. The coherence hub and the
-result cache are not ported.
+is one or_bits launch per entry on the launch stream: it ORs the
+barrier's merged keys, read where they already are (core/merge.py
+GroupKeys), through a segment table of one row per (dirty shard, touched
+row), so a plan launched before it reads the old words; an entry pinned
+by a plan not yet launched is cloned first and the clone patched. The
+coherence hub and the result cache are not ported.
 """
 
 from __future__ import annotations
@@ -255,27 +256,32 @@ class View:
         if arr is None:
             return True  # evicted meanwhile: nothing resident to go stale
         n = len(span)
-        offs, vals = [], []
+        # one segment table per merged key array (one per barrier group;
+        # a barrier makes more than one group only when device memory is
+        # short): a row per (dirty shard position p, touched row d)
+        tables: Dict[int, tuple] = {}
         for p, m in deltas:
+            _, ks, ke, base = tables.setdefault(id(m.keys), (m.keys, [], [], []))
             for d, rid in enumerate(row_ids):
-                if rid not in m.rows:
-                    continue  # a row the delta did not touch: re-key only
-                widx, wvals = m.word_delta(rid)
-                if len(widx):
-                    offs.append(widx + (d * n + p) * WORDS_PER_ROW)
-                    vals.append(wvals)
+                r = m.key_range(rid)
+                if r is not None:  # None: a row the delta did not touch, re-key only
+                    ks.append(r[0])
+                    ke.append(r[1])
+                    base.append((d * n + p) * WORDS_PER_ROW)
         if pinned:
             arr = arr.clone()  # a plan not yet launched holds the old words
-        n_batches = upload = 0
-        if offs:
-            off = np.concatenate(offs)
-            val = np.concatenate(vals).view(np.int32)
-            upload = off.nbytes + val.nbytes
-            ops_merge.or_words(arr, torch.from_numpy(off), torch.from_numpy(val))
-            n_batches = 1
+        launches = upload = n_keys = 0
+        for keys, ks, ke, base in tables.values():
+            if not ks:
+                continue
+            keys_t, up = keys.on(arr.device)
+            table = np.array([ks, ke, base], np.int64).T
+            upload += up + ops_merge.or_bits(arr, keys_t, table)
+            n_keys += int((table[:, 1] - table[:, 0]).sum())
+            launches += 1
         new_tail = ("ext", key[5], key[6], tuple(upd)) if tail_kind == "ext" else ("mono", tuple(upd))
         self.dcache.put(key[:4] + new_tail, arr, extent=is_extent, shards=span)
-        residency.note_extent_patch(n_batches, upload)
+        residency.note_extent_patch(launches, upload, n_keys)
         return True
 
     # -- stacked operands --------------------------------------------------

@@ -51,8 +51,9 @@ _stats_mu = threading.Lock()
 _counters: Dict[str, int] = {
     "restage_bytes": 0,  # host -> device bytes staged through this layer
     "extent_patches": 0,  # resident entries patched in place by a barrier
-    "extent_patch_batches": 0,  # or_words launches those patches made
-    "patch_upload_bytes": 0,  # host -> device bytes of the patch pairs
+    "extent_patch_batches": 0,  # or_bits launches those patches made
+    "patch_upload_bytes": 0,  # host -> device bytes of the patches: tables, host-route keys
+    "patch_keys": 0,  # merged keys those launches ORed into entries
     "assemblies": 0,  # torch.cat joins of extents into one operand
     "assembly_bytes": 0,  # bytes those joins wrote
 }
@@ -96,12 +97,13 @@ def stats_snapshot(cache: Optional[DeviceCache] = None) -> Dict[str, int]:
     return out
 
 
-def note_extent_patch(batches: int, upload_bytes: int) -> None:
+def note_extent_patch(batches: int, upload_bytes: int, keys: int) -> None:
     """Book one in-place patch of a resident entry (core/view.py)."""
     with _stats_mu:
         _counters["extent_patches"] += 1
         _counters["extent_patch_batches"] += batches
         _counters["patch_upload_bytes"] += upload_bytes
+        _counters["patch_keys"] += keys
 
 
 class ExtentTable:

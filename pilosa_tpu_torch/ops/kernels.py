@@ -23,8 +23,9 @@ failed build or launch raises.
 | `bsi_sum`         | pallas_kernels.py `sum_counts` (`_bsi_sum_kernel`)  |
 | `bsi_min_max`     | ops/bsi.py `min_max_stream` (XLA program)           |
 | `bsi_range`       | ops/bsi.py `range_*_unsigned`, `range_stream_single` |
-| `or_words`        | core/view.py `_patch_entry`'s gather/OR/scatter;    |
-|                   | wrapper and twin in ops/merge.py                    |
+| `or_bits`         | core/view.py `_patch_entry`'s gather/OR/scatter:    |
+|                   | the barrier's merged bit keys ORed into a resident  |
+|                   | entry; wrapper and twin in ops/merge.py             |
 | `merge_mark`      | ops/merge.py `_merge_sorted_u64` after its sort;    |
 |                   | wrapper and twin in ops/merge.py                    |
 
@@ -41,9 +42,9 @@ name keyed by a hash of the sources and flags, and loaded with ctypes
 and `popcount` launches count under `count2`: one kernel template serves
 them all); only the CUDA route counts.
 
-`count2_segments` and `plan_count` take a table built on the host for
-each launch (segment pointers and lengths; leaf pointers and the micro
-program). It goes through `_Staging`, a ring of pinned host slots: the C
+`count2_segments`, `plan_count` and `or_bits` take a table built on the
+host for each launch (segment pointers and lengths; leaf pointers and the
+micro program; key chunks). It goes through `_Staging`, a ring of pinned host slots: the C
 entry point copies the slot to the card asynchronously on the launch
 stream, zeros for the output included, so a launch makes no pageable
 copy and no separate memset.
@@ -92,7 +93,7 @@ LAUNCHES = {
     "bsi_sum": 0,
     "bsi_min_max": 0,
     "bsi_range": 0,
-    "or_words": 0,
+    "or_bits": 0,
     "merge_mark": 0,
 }
 
@@ -209,7 +210,7 @@ class _Library:
             "pt_bsi_min_max": [p, p, p, p, i32, i64, i32, i32, i32, p, p, p, p],
             "pt_bsi_range": [p, p, p, i32, i64, i64, i32, i32, i32, u32, u32, i32, i32, p, p],
             "pt_merge_mark": [p, i64, p, p, p],
-            "pt_or_words": [p, p, p, i64, p],
+            "pt_or_bits": [p, i64, p, p, p, i64, i64, p],
         }
         for name, types in argtypes.items():
             fn = next((getattr(lib, name) for lib in libs if hasattr(lib, name)), None)
@@ -263,8 +264,8 @@ def _aligned(*ts: torch.Tensor) -> bool:
 
 
 class _Staging:
-    """Pinned host slots for the tables that count2 and plan_count copy to
-    the card with each launch. The C entry point copies the slot to the
+    """Pinned host slots for the tables that count2, plan_count and or_bits
+    copy to the card with each launch. The C entry point copies the slot to the
     device table asynchronously on the launch stream, right before the
     kernel, so the host never waits on a pageable copy. An event recorded
     after the launch guards the slot: it is rewritten only once that event

@@ -1,5 +1,5 @@
-"""Sort, dedupe and word-OR of staged position keys, and the in-place OR
-of merged word deltas into resident device entries.
+"""Sort and dedupe of staged position keys, and the in-place OR of
+merged bit keys into resident device entries.
 
 The port of pilosa_tpu/ops/merge.py plus the device half of the
 reference's extent patch (core/view.py `_patch_entry`). The barrier
@@ -9,23 +9,22 @@ here in one pass:
 
 - `merge_keys_host`: a sort and a first-occurrence mask (np.unique's
   result: numpy 2.3's np.unique finds unique integers through a hash
-  table, about 50x slower than a sort at 2^21 keys) plus the inclusive
-  uint32 cumsum of each kept key's bit `1 << (key & 31)`;
-- `merge_keys_device`: the same contract on a device: `torch.sort` of
-  the keys as int64 (the barrier keeps them below 2^63, so int64 order is
-  uint64 order), then the `merge_mark` kernel (first-occurrence mask and
-  bit in one pass), `torch.cumsum` in int64 masked to 32 bits (the
-  uint32 wrap), and compaction by the mask. Keys go up from pinned host
-  memory without blocking; results come back in one read.
+  table, about 50x slower than a sort at 2^21 keys);
+- `merge_keys_device`: the same keys computed on a device: `torch.sort`
+  of the keys as int64 (the barrier keeps them below 2^63, so int64 order
+  is uint64 order), then the `merge_mark` kernel (first-occurrence mask
+  and word bit in one pass) and compaction by the mask. Keys go up from
+  pinned host memory without blocking; the merged keys come back in one
+  read and also stay on the device, where the patches read them.
 
-Within one word the kept bits are distinct powers of two, so OR equals
-sum, and the per-word differences of the wrapped cumsum are exact
-(`word_or_from_sorted`). `or_words` applies such (flat word offset, OR
-value) pairs to an entry in place; it checks the offsets on the host
-copy of the pairs, then uploads them, and the kernel trusts them. The
-offsets are unique, so the kernel needs no atomics.
+`or_bits` ORs a merged key range per (shard, row) into a resident entry
+in place: bit `k & (SHARD_WIDTH - 1)` of the row that a segment table
+row names. The reference's patch uploads dense 128 KiB delta blocks
+built from the keys' wrapped uint32 bit cumsum (`word_or_from_sorted`);
+`bit_cumsum` and `word_or_from_sorted` stay here as the tests' oracle of
+that form, and no path builds per-word deltas on the host any more.
 
-On a CUDA tensor `merge_mark` and `or_words` launch their kernels
+On a CUDA tensor `merge_mark` and `or_bits` launch their kernels
 (cuda/merge_kernels.cu) and count them in `kernels.LAUNCHES`; on a CPU
 tensor they run their plain twins below. `MERGE_STATS` counts merges by
 route (`device_launches`: device merges, one per barrier burst).
@@ -37,6 +36,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import kernels
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
 MERGE_STATS = {"device_launches": 0, "host_merges": 0}
 
@@ -85,55 +85,115 @@ def merge_mark(s: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# or_words  (core/view.py _patch_entry, device part)
+# or_bits  (core/view.py _patch_entry, device part)
 # ---------------------------------------------------------------------------
 
-
-def _or_words_check(entry: torch.Tensor, off: torch.Tensor, val: torch.Tensor) -> None:
-    kernels._words(entry, "or_words entry")
-    kernels._words(val, "or_words val")
-    if off.dtype != torch.int64 or not off.is_contiguous():
-        raise TypeError("or_words: offsets must be a contiguous int64 tensor")
-    if off.dim() != 1 or off.shape != val.shape:
-        raise ValueError(f"or_words: offsets {tuple(off.shape)} and values {tuple(val.shape)} differ")
+# keys per CTA of the or_bits kernel (kOrBitsChunk in cuda/merge_kernels.cu)
+OR_BITS_CHUNK = 1024
 
 
-def or_words_plain(entry: torch.Tensor, off: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    flat = entry.view(-1)
-    flat[off] = flat[off] | val
-    return entry
-
-
-def or_words(entry: torch.Tensor, off: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    """entry.flat[off[k]] |= val[k] in place, for unique offsets; returns
-    `entry`. `off` (int64) and `val` (int32) are host tensors: an offset
-    outside [0, entry.numel()) raises here. A CUDA entry gets them from
-    pinned memory on its launch stream, then `or_words_device`. Every
-    tensor contiguous (a strided view is refused)."""
-    _or_words_check(entry, off, val)
-    if off.device.type != "cpu" or val.device.type != "cpu":
-        raise ValueError(f"or_words: pairs must lie on the host, not {off.device} / {val.device}")
-    if off.numel() and (int(off.min()) < 0 or int(off.max()) >= entry.numel()):
+def _or_bits_args(entry: torch.Tensor, keys: torch.Tensor, table) -> np.ndarray:
+    """The checked host segment table as int64[T, 3]; raises before any
+    write. Each row (key_start, key_end, dst_word_base) must take keys
+    inside `keys` and name a whole row of the entry."""
+    kernels._words(entry, "or_bits entry")
+    if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
+        raise TypeError(f"or_bits: keys must be a contiguous 1-d int64 tensor, got {keys.dtype} {tuple(keys.shape)}")
+    kernels._route(entry, keys)
+    t = _table(table)
+    ks, ke, base = t.T
+    bad = (ks < 0) | (ks > ke) | (ke > keys.numel()) | (base < 0) | (base % WORDS_PER_ROW != 0) | (
+        base > entry.numel() - WORDS_PER_ROW
+    )
+    if bad.any():
+        i = int(bad.argmax())
+        if ks[i] < 0 or ks[i] > ke[i] or ke[i] > keys.numel():
+            raise IndexError(f"or_bits: table row {i} takes keys [{ks[i]}, {ke[i]}) of {keys.numel()}")
         raise IndexError(
-            f"or_words: offsets [{int(off.min())}, {int(off.max())}] outside an entry of {entry.numel()} words"
+            f"or_bits: table row {i} writes words [{base[i]}, {base[i] + WORDS_PER_ROW}), not a whole row "
+            f"of an entry of {entry.numel()} words"
         )
-    if kernels._route(entry) == "cpu":
-        return or_words_plain(entry, off, val)
+    return t
+
+
+def _table(table) -> np.ndarray:
+    t = np.asarray(table, dtype=np.int64)
+    if t.size == 0:
+        return t.reshape(0, 3)
+    if t.ndim != 2 or t.shape[1] != 3:
+        raise ValueError(f"or_bits: the segment table must be [T, 3], got {t.shape}")
+    return t
+
+
+def _key_index(t: np.ndarray) -> tuple:
+    """(the key positions every table row takes, in order; each one's
+    row of the table)."""
+    lens = t[:, 1] - t[:, 0]
+    row = np.repeat(np.arange(len(t)), lens)
+    first = np.cumsum(lens) - lens
+    return t[row, 0] + np.arange(int(lens.sum())) - first[row], row
+
+
+def or_bits_plain(entry: torch.Tensor, keys: torch.Tensor, table) -> torch.Tensor:
+    """or_bits' contract in PyTorch: the bits of a row's unique keys are
+    distinct powers of two within a word, so their int64 sum into a zero
+    delta is their OR; the sum wraps to 32 bits (bit 31 kept) before it
+    is ORed into the int32 words."""
+    t = _table(table)
+    idx, row = _key_index(t)
+    if not len(idx):
+        return entry
     dev = entry.device
-    return or_words_device(entry, off.pin_memory().to(dev, non_blocking=True), val.pin_memory().to(dev, non_blocking=True))
-
-
-def or_words_device(entry: torch.Tensor, off: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    """The or_words kernel on pairs already on the entry's device, whose
-    offsets the caller checked (`or_words` does): the kernel does not."""
-    _or_words_check(entry, off, val)
-    if kernels._route(entry, off, val) == "cpu":
-        raise ValueError("or_words_device: the entry lies on the host; use or_words")
-    k = off.numel()
-    if k:
-        rc = kernels.library().pt_or_words(entry.data_ptr(), off.data_ptr(), val.data_ptr(), k, kernels._stream(entry))
-        kernels._launched("or_words", rc)
+    k = keys[torch.from_numpy(idx).to(dev)]
+    col = k & (SHARD_WIDTH - 1)
+    word = torch.from_numpy(t[row, 2]).to(dev) + (col >> 5)
+    delta = torch.zeros(entry.numel(), dtype=torch.int64, device=dev)
+    delta.index_add_(0, word, torch.ones_like(col) << (col & 31))
+    flat = entry.view(-1)
+    flat |= (((delta + (1 << 31)) & _MASK32) - (1 << 31)).to(torch.int32)
     return entry
+
+
+def _or_bits_chunks(t: np.ndarray) -> tuple:
+    """The kernel's chunk table as three int64 columns (key_start,
+    key_end, dst_word_base), each segment cut into runs of at most
+    OR_BITS_CHUNK keys; empty segments give none."""
+    ks, ke, base = t.T
+    n = (ke - ks + (OR_BITS_CHUNK - 1)) // OR_BITS_CHUNK
+    seg = np.repeat(np.arange(len(t)), n)
+    start = ks[seg] + OR_BITS_CHUNK * (np.arange(len(seg)) - np.repeat(np.cumsum(n) - n, n))
+    return start, np.minimum(start + OR_BITS_CHUNK, ke[seg]), base[seg]
+
+
+def or_bits(entry: torch.Tensor, keys: torch.Tensor, table) -> int:
+    """For each row (key_start, key_end, dst_word_base) of `table` and each
+    key k in keys[key_start:key_end]: entry.flat[dst_word_base + (c >> 5)]
+    |= 1 << (c & 31), c = k & (SHARD_WIDTH - 1), in place. `keys` are a
+    barrier group's sorted unique merged keys (int64, on the entry's
+    device), each table row's range inside one shard row of the packing;
+    `table` is int64[T, 3] on the host, checked here (a row outside the
+    keys or not naming a whole row of the entry raises IndexError before
+    any write). A CUDA
+    entry takes one launch, its chunk table copied from a pinned slot on
+    the launch stream. Returns the bytes copied to the card (0 on the
+    CPU)."""
+    t = _or_bits_args(entry, keys, table)
+    if kernels._route(entry) == "cpu":
+        or_bits_plain(entry, keys, t)
+        return 0
+    start, end, base = _or_bits_chunks(t)
+    n = len(start)
+    if not n:
+        return 0
+    _, rc = kernels._STAGING.launch(
+        entry.device,
+        (start, end, base),
+        lambda host, nbytes, tab, stream: kernels.library().pt_or_bits(
+            host, nbytes, tab, entry.data_ptr(), keys.data_ptr(), n, SHARD_WIDTH - 1, stream
+        ),
+    )
+    kernels._launched("or_bits", rc)
+    return 24 * n
 
 
 # ---------------------------------------------------------------------------
@@ -141,30 +201,28 @@ def or_words_device(entry: torch.Tensor, off: torch.Tensor, val: torch.Tensor) -
 # ---------------------------------------------------------------------------
 
 
-def merge_keys_host(keys: np.ndarray):
-    """(sorted unique uint64 keys, inclusive uint32 cumsum of their bits)
-    in one vectorized host pass: np.unique's keys, from a sort."""
+def merge_keys_host(keys: np.ndarray) -> np.ndarray:
+    """Sorted unique uint64 keys in one vectorized host pass: np.unique's
+    keys, from a sort."""
     MERGE_STATS["host_merges"] += 1
     merged = np.sort(np.asarray(keys, dtype=np.uint64))
     if len(merged) > 1:
         merged = merged[np.concatenate(([True], merged[1:] != merged[:-1]))]
-    bits = np.uint32(1) << (merged & np.uint64(31)).astype(np.uint32)
-    cum = np.cumsum(bits, dtype=np.uint32)
-    return merged, cum
+    return merged
 
 
-def merge_keys_on(s: torch.Tensor):
-    """The device merge of int64 keys already on `s.device`: (sorted
-    unique keys, int64 cumsum masked to 32 bits), both on the device."""
+def merge_keys_on(s: torch.Tensor) -> torch.Tensor:
+    """The device merge of int64 keys already on `s.device`: the sorted
+    unique keys, on the device."""
     s = torch.sort(s).values
-    keep, bit = merge_mark(s)
-    cum = torch.cumsum(bit, 0, dtype=torch.int64) & _MASK32
-    return s[keep], cum[keep]
+    keep, _ = merge_mark(s)
+    return s[keep]
 
 
 def merge_keys_device(keys: np.ndarray, device: torch.device):
-    """merge_keys_host's result, computed on `device` (one upload, one
-    sort, one merge_mark launch, one scan, one read back). Keys must lie
+    """merge_keys_host's keys, computed on `device` (one upload, one sort,
+    one merge_mark launch, one compaction, one read back): (uint64 numpy
+    keys, the same keys as an int64 tensor on `device`). Keys must lie
     below 2^63."""
     keys = np.ascontiguousarray(keys, dtype=np.uint64)
     if len(keys) and int(keys.max()) >= KEY_LIMIT:
@@ -172,12 +230,17 @@ def merge_keys_device(keys: np.ndarray, device: torch.device):
     host = torch.from_numpy(keys.view(np.int64))
     if device.type == "cuda":
         host = host.pin_memory()
-    merged, cum = merge_keys_on(host.to(device, non_blocking=True))
+    merged = merge_keys_on(host.to(device, non_blocking=True))
     MERGE_STATS["device_launches"] += 1
-    return (
-        merged.cpu().numpy().view(np.uint64),
-        cum.to(torch.int32).cpu().numpy().view(np.uint32),
-    )
+    return merged.cpu().numpy().view(np.uint64), merged
+
+
+def bit_cumsum(merged: np.ndarray) -> np.ndarray:
+    """The inclusive uint32 cumsum of each sorted unique key's bit
+    `1 << (key & 31)`: the second output of the reference's merge, which
+    `word_or_from_sorted` turns into per-word deltas."""
+    bits = np.uint32(1) << (np.asarray(merged, np.uint64) & np.uint64(31)).astype(np.uint32)
+    return np.cumsum(bits, dtype=np.uint32)
 
 
 def word_or_from_sorted(pos: np.ndarray, cum: np.ndarray):

@@ -3,12 +3,12 @@
 Mirrors tests/test_merge.py on the port:
 
 - the key merges: the port's `merge_keys_host` and its device route
-  (`merge_keys_device` on a CPU tensor, where `merge_mark` runs its twin)
-  must give the reference `merge_keys_host`'s sorted unique keys and
-  wrapped uint32 cumsums exactly, and `word_or_from_sorted` its word
-  deltas (and the naive per-bit OR). The reference is held through
-  `merge_keys_host`, never `merge_keys_device`, which needs an
-  accelerator backend;
+  (`merge_keys_device` on a CPU tensor, where `merge_mark` runs its twin;
+  its device tensor too) must give the reference `merge_keys_host`'s
+  sorted unique keys exactly, `bit_cumsum` its wrapped uint32 cumsums,
+  and `word_or_from_sorted` its word deltas (and the naive per-bit OR).
+  The reference is held through `merge_keys_host`, never
+  `merge_keys_device`, which needs an accelerator backend;
 - the barrier, differential: the same staged bursts (duplicates, empty
   and one-key bursts, interleaved set/clear batches) through the port at
   threshold 0 (device route) and -1 (host) and through the reference at
@@ -16,8 +16,13 @@ Mirrors tests/test_merge.py on the port:
   writes; 120 fragments merge in one device launch; the crossover on
   both sides of the threshold; a reader racing the barrier;
 - WAL replay: staged frames reopen through one deferred merge;
-- the `or_words` and `merge_mark` twins against numpy; the `cuda`-marked
-  test holds their kernels to the twins on a card and skips without one.
+- the `or_bits` twin three ways (numpy, the reference's
+  `word_or_from_sorted` applied as dense delta blocks, the naive model)
+  on an empty table, an empty segment, one key, bit 31, the entry's last
+  word, a word's run across the kernel's chunk boundary and two rows of
+  a planes entry; tables outside the entry are refused before any
+  write; the `merge_mark` twin against numpy; the `cuda`-marked test
+  holds both kernels to their twins on a card and skips without one.
 """
 
 import threading
@@ -29,6 +34,7 @@ import torch
 from pilosa_tpu.core import merge as jmerge
 from pilosa_tpu.core.field import FieldOptions as JFieldOptions
 from pilosa_tpu.core.holder import Holder as JHolder
+from pilosa_tpu.core.naive import NaiveBitmap
 from pilosa_tpu.ops import merge as jops
 from pilosa_tpu_torch import Holder as THolder
 from pilosa_tpu_torch.core import merge as tmerge
@@ -36,7 +42,7 @@ from pilosa_tpu_torch.core.devcache import DeviceCache
 from pilosa_tpu_torch.core.fragment import Fragment as TFragment
 from pilosa_tpu_torch.ops import kernels as K
 from pilosa_tpu_torch.ops import merge as tops
-from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
 CPU = torch.device("cpu")
 
@@ -105,11 +111,18 @@ def _dup_heavy(seed: int, n: int, hi: int) -> np.ndarray:
     ids=["dup-heavy", "dense-words", "empty", "one", "all-equal", "near-2^63"],
 )
 def test_merge_keys_match_reference(keys):
+    """Both routes give the reference's keys; the device route's tensor
+    holds the same keys; `bit_cumsum` gives the reference's cumsum."""
     mj, cj = jops.merge_keys_host(keys)
-    for mt, ct in (tops.merge_keys_host(keys), tops.merge_keys_device(keys, CPU)):
-        assert mt.dtype == np.uint64 and ct.dtype == np.uint32
+    md, dt = tops.merge_keys_device(keys, CPU)
+    for mt in (tops.merge_keys_host(keys), md):
+        assert mt.dtype == np.uint64
         np.testing.assert_array_equal(mt, mj)
-        np.testing.assert_array_equal(ct, cj)
+    assert dt.dtype == torch.int64 and dt.device == CPU
+    np.testing.assert_array_equal(dt.numpy().view(np.uint64), mj)
+    ct = tops.bit_cumsum(md)
+    assert ct.dtype == np.uint32
+    np.testing.assert_array_equal(ct, cj)
 
 
 def test_merge_keys_device_refuses_keys_past_2_63():
@@ -121,7 +134,8 @@ def test_merge_keys_device_refuses_keys_past_2_63():
 def test_word_or_matches_reference_and_naive(lo_frac):
     rng = np.random.default_rng(4 + lo_frac)
     pos = np.unique(rng.integers(0, SHARD_WIDTH, 4000).astype(np.uint64))
-    merged, cum = tops.merge_keys_host(pos)
+    merged = tops.merge_keys_host(pos)
+    cum = tops.bit_cumsum(merged)
     lo = len(merged) // lo_frac if lo_frac else 0
     widx, wvals = tops.word_or_from_sorted(merged[lo:], cum[lo:])
     jidx, jvals = jops.word_or_from_sorted(merged[lo:], cum[lo:])
@@ -153,33 +167,130 @@ def test_merge_mark_twin_matches_numpy():
     assert keep.numel() == 0 and bit.numel() == 0
 
 
-def test_or_words_twin_matches_numpy():
-    rng = np.random.default_rng(7)
-    entry = rng.integers(0, 2**32, (3, 5, 64), dtype=np.uint32)
-    off = rng.choice(entry.size, 200, replace=False).astype(np.int64)
-    off[:2] = (0, entry.size - 1)  # the first and the last word
-    val = rng.integers(0, 2**32, 200, dtype=np.uint32)
-    want = entry.copy().reshape(-1)
-    want[off] |= val
+# or_bits cases: (entry planes D, shards n, {(shard position p, row d):
+# columns}); the keys pack each fragment p as segment p of R = D rows
+_W = WORDS_PER_ROW
+_LAST = SHARD_WIDTH - 1
+
+
+def _straddling_run():
+    """One segment whose word runs straddle warps (32 keys), rounds (256)
+    and the kernel's chunk boundary (tops.OR_BITS_CHUNK): the columns
+    5..5 + 3 x chunk, every bit, so key i sits in word (i + 5) >> 5."""
+    return {(1, 0): np.arange(5, 5 + 3 * tops.OR_BITS_CHUNK)}
+
+
+def _random_segments(seed):
+    rng = np.random.default_rng(seed)
+    return {(p, d): rng.integers(0, SHARD_WIDTH, 700) for p in range(3) for d in range(2)}
+
+
+OR_BITS_CASES = {
+    "empty-table": (1, 2, {}),
+    "empty-segment": (1, 2, {(0, 0): [], (1, 0): [3, 40]}),
+    "one-key": (1, 2, {(1, 0): [77]}),
+    "bit-31": (1, 2, {(0, 0): [31, 63, 95, 32 * 9 + 31, _LAST]}),
+    "last-word": (2, 3, {(2, 1): [_LAST - 31, _LAST - 1, _LAST], (0, 0): [0]}),
+    "chunk-boundary-run": (1, 2, _straddling_run()),
+    "planes-two-rows": (2, 3, _random_segments(40)),
+}
+
+
+def _or_bits_case(D, n, segs, seed=41):
+    """(entry uint32[D, n, W] with sparse seeded bits, sorted unique int64
+    keys, int64[T, 3] table, the entry's bits as a NaiveBitmap of flat bit
+    positions) of a case, packed as the barrier packs a group and tabled
+    as View._patch_entry tables an entry."""
+    rng = np.random.default_rng(seed)
+    init = NaiveBitmap(rng.integers(0, D * n * SHARD_WIDTH, 3000).tolist())
+    entry = np.zeros(D * n * _W, np.uint32)
+    pos = np.array(init.slice(), np.int64)
+    np.bitwise_or.at(entry, pos >> 5, (np.uint32(1) << (pos & 31).astype(np.uint32)))
+    span = D * SHARD_WIDTH  # a fragment's rows 0..D-1
+    keys = np.unique(np.concatenate(
+        [np.empty(0, np.int64)]
+        + [p * span + d * SHARD_WIDTH + np.asarray(c, np.int64) for (p, d), c in segs.items()]
+    ))
+    table = []
+    for (p, d), c in sorted(segs.items()):
+        lo = p * span + d * SHARD_WIDTH
+        ks, ke = np.searchsorted(keys, [lo, lo + SHARD_WIDTH])
+        table.append((ks, ke, (d * n + p) * _W))
+    return entry.reshape(D, n, _W), keys, np.array(table, np.int64).reshape(-1, 3), init
+
+
+@pytest.mark.parametrize("case", list(OR_BITS_CASES))
+def test_or_bits_twin_matches_numpy_reference_and_naive(case):
+    entry, keys, table, init = _or_bits_case(*OR_BITS_CASES[case])
     t = torch.from_numpy(entry.view(np.int32).copy())
-    out = tops.or_words(t, torch.from_numpy(off), torch.from_numpy(val.view(np.int32)))
-    assert out is t
-    np.testing.assert_array_equal(t.numpy().view(np.uint32).reshape(-1), want)
-    tops.or_words(t, torch.empty(0, dtype=torch.int64), torch.empty(0, dtype=torch.int32))
-    with pytest.raises(ValueError, match="contiguous"):
-        tops.or_words(t[:, ::2], torch.from_numpy(off[:1]), torch.from_numpy(val[:1].view(np.int32)))
+    kt = torch.from_numpy(keys)
+    assert tops.or_bits(t, kt, table) == 0  # nothing crosses to a card
+    got = t.numpy().view(np.uint32).reshape(-1)
+    # numpy: every key's bit ORed into its row's words
+    want = entry.copy().reshape(-1)
+    for ks, ke, base in table.tolist():
+        col = keys[ks:ke] & _LAST
+        np.bitwise_or.at(want, base + (col >> 5), np.uint32(1) << (col & 31).astype(np.uint32))
+    np.testing.assert_array_equal(got, want)
+    # the reference's patch: a dense delta block per (shard, row) from
+    # word_or_from_sorted over the group's wrapped bit cumsum
+    _, cum = jops.merge_keys_host(keys.view(np.uint64))
+    ref = entry.copy().reshape(-1, _W)
+    for ks, ke, base in table.tolist():
+        if ke > ks:
+            widx, wvals = jops.word_or_from_sorted(keys[ks:ke].view(np.uint64) & np.uint64(_LAST), cum[ks:ke])
+            delta = np.zeros(_W, np.uint32)
+            delta[widx] = wvals
+            ref[base // _W] |= delta
+    np.testing.assert_array_equal(got, ref.reshape(-1))
+    # the naive model: the entry's bits plus one bit per key
+    naive = NaiveBitmap(init.slice())
+    for ks, ke, base in table.tolist():
+        naive.add(*(base * 32 + (keys[ks:ke] & _LAST)).tolist())
+    bits = np.flatnonzero(np.unpackbits(got.view(np.uint8), bitorder="little"))
+    assert bits.tolist() == naive.slice()
+    # the plain twin agrees with the wrapper
+    again = torch.from_numpy(entry.view(np.int32).copy())
+    assert tops.or_bits_plain(again, kt, table) is again
+    assert torch.equal(again, t)
 
 
-@pytest.mark.parametrize("bad", [-1, 3 * 5 * 64])
-def test_or_words_refuses_offsets_outside_the_entry(bad):
-    """A wrong offset raises before anything is written, on every route
-    (the kernel trusts the offsets the wrapper checked)."""
-    entry = torch.arange(3 * 5 * 64, dtype=torch.int32).reshape(3, 5, 64)
+def test_or_bits_chunks_cut_segments_at_the_kernel_chunk():
+    c = tops.OR_BITS_CHUNK
+    t = np.array([(0, 0, 0), (0, 2 * c + 1, _W), (5, 6, 0)], np.int64)
+    start, end, base = tops._or_bits_chunks(t)
+    assert start.tolist() == [0, c, 2 * c, 5]
+    assert end.tolist() == [c, 2 * c, 2 * c + 1, 6]
+    assert base.tolist() == [_W, _W, _W, 0]
+
+
+@pytest.mark.parametrize(
+    "row",
+    [(0, 1, 1), (0, 1, 2 * _W), (0, 1, -_W), (2, 1, 0), (-1, 1, 0), (0, 9, 0)],
+    ids=["unaligned-base", "past-the-entry", "negative-base", "start-after-end", "negative-start", "past-the-keys"],
+)
+def test_or_bits_refuses_tables_outside_the_entry(row):
+    """A table row outside the keys or not naming a whole row of the
+    entry raises before anything is written (the kernel trusts the
+    table the wrapper checked)."""
+    entry = torch.arange(2 * _W, dtype=torch.int32).reshape(2, _W)
     before = entry.clone()
-    off = torch.tensor([0, bad, 7], dtype=torch.int64)
-    with pytest.raises(IndexError, match="outside an entry of 960 words"):
-        tops.or_words(entry, off, torch.ones(3, dtype=torch.int32))
+    keys = torch.arange(0, 8 * 37, 37, dtype=torch.int64)
+    with pytest.raises(IndexError, match="or_bits: table row 1"):
+        tops.or_bits(entry, keys, np.array([(0, 8, _W), row], np.int64))
     assert torch.equal(entry, before)
+
+
+def test_or_bits_refuses_bad_arguments():
+    entry = torch.zeros(2, _W, dtype=torch.int32)
+    keys = torch.arange(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="contiguous"):
+        tops.or_bits(entry[:, ::2], keys, np.zeros((0, 3), np.int64))
+    with pytest.raises(TypeError, match="int64"):
+        tops.or_bits(entry, keys.to(torch.int32), np.zeros((0, 3), np.int64))
+    with pytest.raises(ValueError, match=r"\[T, 3\]"):
+        tops.or_bits(entry, keys, np.zeros((2, 2), np.int64))
+    assert not entry.any()
 
 
 # ---------------------------------------------------------------------------
@@ -396,18 +507,29 @@ def cuda_device():
 def test_cuda_merge_kernels_match_twins(cuda_device):
     rng = np.random.default_rng(30)
     for keys in (_dup_heavy(3, 100_000, 1 << 40), np.empty(0, np.uint64), np.array([5], np.uint64)):
-        got = tops.merge_keys_device(keys, cuda_device)
-        want = jops.merge_keys_host(keys)
-        np.testing.assert_array_equal(got[0], want[0])
-        np.testing.assert_array_equal(got[1], want[1])
-    entry = torch.from_numpy(rng.integers(0, 2**32, (4, 8, 1024), dtype=np.uint32).view(np.int32))
-    off = torch.from_numpy(rng.choice(entry.numel(), 5000, replace=False).astype(np.int64))
-    val = torch.from_numpy(rng.integers(0, 2**32, 5000, dtype=np.uint32).view(np.int32))
-    got = tops.or_words(entry.to(cuda_device), off, val).cpu()
-    assert torch.equal(got, tops.or_words_plain(entry.clone(), off, val))
-    dev_entry = entry.to(cuda_device)
+        got, dt = tops.merge_keys_device(keys, cuda_device)
+        want = jops.merge_keys_host(keys)[0]
+        np.testing.assert_array_equal(got, want)
+        assert dt.device == cuda_device
+        np.testing.assert_array_equal(dt.cpu().numpy().view(np.uint64), want)
+    for case in OR_BITS_CASES:
+        entry, keys, table, _ = _or_bits_case(*OR_BITS_CASES[case])
+        t = torch.from_numpy(entry.view(np.int32))
+        got = t.to(cuda_device)
+        kd = torch.from_numpy(keys).to(cuda_device)
+        tops.or_bits(got, kd, table)
+        assert torch.equal(got.cpu(), tops.or_bits_plain(t.clone(), torch.from_numpy(keys), table)), case
+    # 10^6 random keys over a [4, 8, W] entry, 32 segments
+    segs = {(p, d): rng.integers(0, SHARD_WIDTH, 31250) for p in range(8) for d in range(4)}
+    entry, keys, table, _ = _or_bits_case(4, 8, segs)
+    t = torch.from_numpy(entry.view(np.int32))
+    dev_entry = t.to(cuda_device)
+    kd = torch.from_numpy(keys).to(cuda_device)
+    assert tops.or_bits(dev_entry, kd, table) == 24 * len(tops._or_bits_chunks(table)[0])
+    assert torch.equal(dev_entry.cpu(), tops.or_bits_plain(t.clone(), torch.from_numpy(keys), table))
+    before = dev_entry.clone()
     with pytest.raises(IndexError):
-        tops.or_words(dev_entry, torch.tensor([0, entry.numel()]), val[:2])
-    with pytest.raises(ValueError, match="on the host"):
-        tops.or_words(dev_entry, off.to(cuda_device), val.to(cuda_device))
-    assert torch.equal(dev_entry.cpu(), entry)
+        tops.or_bits(dev_entry, kd, np.array([(0, 1, dev_entry.numel())], np.int64))
+    with pytest.raises(ValueError, match="different devices"):
+        tops.or_bits(dev_entry, kd.cpu(), table)
+    assert torch.equal(dev_entry, before)

@@ -19,6 +19,12 @@ be equal:
   staging builds;
 - a barrier over a subset of shards leaves the other dirty shards
   patchable;
+- both barrier routes of the port (merge-device-threshold 0: the merged
+  keys stay on the device, here the CPU, and or_bits runs its twin; -1:
+  the host merge) against the reference's host route: the same answers,
+  re-staged bytes and patched entries over several bursts into the
+  operand rows, every merged key applied once, and patched row and
+  planes entries equal to a fresh staging;
 - copy-on-write: a pinned entry keeps its words while the barrier
   patches a clone; an unpinned one is patched in place;
 - under a budget below one shard's stack the port answers shard by
@@ -29,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from pilosa_tpu.core import merge as jmerge
 from pilosa_tpu.core.devcache import DEVICE_CACHE
 from pilosa_tpu.core.field import FieldOptions as JFieldOptions
 from pilosa_tpu.core.holder import Holder as JHolder
@@ -39,6 +46,7 @@ from pilosa_tpu.hbm import residency as jres
 from pilosa_tpu.parallel import mesh as pmesh
 from pilosa_tpu_torch import Executor as TExecutor
 from pilosa_tpu_torch import Holder as THolder
+from pilosa_tpu_torch.core import merge as tmerge
 from pilosa_tpu_torch.core.field import FieldOptions as TFieldOptions
 from pilosa_tpu_torch.core.row import Row as TRow
 from pilosa_tpu_torch.exec.executor import ValCount as TValCount
@@ -236,10 +244,12 @@ def test_staged_import_into_operand_row_is_patched(env):
     p1 = env.patches()
     assert p1[0] - p0[0] == p1[1] - p0[1] == 8  # both rows' 4 extents
     st = tres.stats_snapshot()
-    # the port uploads only (offset, value) pairs: 12 bytes a dirty word,
-    # where the reference uploads a dense 128 KiB block per dirty shard
-    assert 0 < st["patch_upload_bytes"] <= 12 * len(cols)
-    assert st["extent_patch_batches"] == 4  # one or_words launch per row-0 extent
+    # the port ORs the merged keys themselves, where the reference uploads
+    # a dense 128 KiB block per dirty shard: each distinct column once,
+    # and on a CPU holder nothing crosses to a card
+    assert st["patch_keys"] == len(np.unique(cols))
+    assert st["patch_upload_bytes"] == 0
+    assert st["extent_patch_batches"] == 4  # one or_bits launch per row-0 extent
     v = tf.view("standard")
     patched = v.row_stack(0, tuple(range(S))).clone()
     env.th.dcache.clear()
@@ -263,6 +273,68 @@ def test_subset_barrier_keeps_other_shards_patchable(env):
     assert jr == tr == 0
     p1 = env.patches()
     assert p1[0] - p0[0] == p1[1] - p0[1] == 2
+
+
+@pytest.fixture
+def route(request):
+    """The port's barrier route (threshold 0 or -1) against the
+    reference's host route; both packages' thresholds restored."""
+    jold, told = jmerge._device_threshold, tmerge._device_threshold
+    jmerge.configure(device_threshold=-1)
+    tmerge.configure(device_threshold=request.param)
+    yield request.param
+    jmerge.configure(device_threshold=jold)
+    tmerge.configure(device_threshold=told)
+
+
+@pytest.mark.parametrize("route", [0, -1], ids=["device-route", "host-route"], indirect=True)
+def test_patch_routes_match_reference(env, route):
+    populate(env, 2)
+    q = "Count(Row(f=0))Count(Intersect(Row(f=0), Row(f=1)))Count(Union(Row(f=0), Row(f=1)))"
+    env.query(q)
+    rng = np.random.default_rng(31)
+    applied = 0
+    for burst in range(3):
+        rows = rng.integers(0, 3, 4000)  # row 2 is in no resident entry
+        cols = rng.integers(0, S * SHARD_WIDTH, 4000)
+        # bit 31 of a word, the first and the last column, duplicates
+        edge = np.array([31, 0, S * SHARD_WIDTH - 1, 5 * SHARD_WIDTH + 63, 31])
+        rows = np.concatenate([rows, np.full(len(edge), burst % 2)])
+        cols = np.concatenate([cols, edge])
+        import_bits(env, "f", rows, cols)
+        p0, k0 = env.patches(), tres.stats_snapshot()["patch_keys"]
+        _, jr, tr = env.query(q)
+        assert jr == tr == 0, burst
+        p1 = env.patches()
+        assert p1[0] - p0[0] == p1[1] - p0[1] == 8, burst  # both rows' 4 extents
+        keys = tres.stats_snapshot()["patch_keys"] - k0
+        assert keys == len({(r, c) for r, c in zip(rows.tolist(), cols.tolist()) if r < 2}), burst
+        applied += keys
+    st = tres.stats_snapshot()
+    assert st["patch_keys"] == applied and st["patch_upload_bytes"] == 0
+    tf = env.tidx.field("f")
+    v = tf.view("standard")
+    shards = tuple(range(S))
+    patched = [v.row_stack(r, shards).clone() for r in (0, 1)]
+    env.th.dcache.clear()
+    for r in (0, 1):
+        assert torch.equal(patched[r], v.row_stack(r, shards)), r
+    # a planes entry of rows 0 and 1 beside the two row stacks: one
+    # or_bits launch per extent of each, both planes patched
+    planes = v.plane_stack((0, 1), shards)
+    before = tres.stats_snapshot()
+    cols = rng.integers(0, S * SHARD_WIDTH, 3000)
+    import_bits(env, "f", rng.integers(0, 2, len(cols)), cols)
+    patched = v.plane_stack((0, 1), shards)
+    after = tres.stats_snapshot()
+    assert after["restage_bytes"] == before["restage_bytes"]
+    launches = after["extent_patch_batches"] - before["extent_patch_batches"]
+    assert after["extent_patches"] - before["extent_patches"] == launches == 3 * S // EXT
+    assert not torch.equal(planes, patched)
+    env.th.dcache.clear()
+    assert torch.equal(patched, v.plane_stack((0, 1), shards))
+    env.clear()
+    env.query(q)
 
 
 @pytest.mark.parametrize("pinned", [False, True])
