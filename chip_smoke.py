@@ -29,14 +29,18 @@ Phases, each fatal on any mismatch or exception:
    and merge_mark on empty
    input, one key, all keys equal, sorted runs, keys near 2^63 - 1 and
    2^24 keys with duplicates, and the whole device merge against the
-   host merge;
+   host merge; plan_rows on random depth-3 trees with Shift nodes (n = 1,
+   31, 32, 33, 2^20 - 1, 2^20; predecessor tables with gaps and -1s) at
+   S = 1 and 13, hand-built programs at tile-edge widths and W % 4 != 0,
+   unaligned views and a shard chunk;
 3. main path: a 2^30-column index (1024 shards x 2^20 columns) with
    dense and sparse rows of a set field `f` and dense rows of `g`, loaded
    through Field.import_row_words / Field.import_bits / Set(), then the
    query set through Executor.execute, each answer held to an independent
    numpy computation on the generated words (byte-LUT popcount). Kernel
    launch counts are reset just before this phase and read just after it;
-   every kernel of the path must have launched, Row(f=1).count() over
+   every kernel of the path (plan_rows for Row and Shift results) must
+   have launched, Row(f=1).count() over
    every shard's segment must make exactly one count2 launch, and
    TopN(f, Row(g=0), n=10) exactly one gather_tally launch. Rows (with
    previous, limit, column) and GroupBy (one child; two children, with a
@@ -61,7 +65,10 @@ Phases, each fatal on any mismatch or exception:
    that its entries touch, and it is timed again over Zipf-skewed segment
    lengths with the same number of entries; counts_cross and gather_and
    at the main path's GroupBy shapes, and counts_cross again at a
-   one-shot shape (16 prefixes x 8 rows over 64 shards);
+   one-shot shape (16 prefixes x 8 rows over 64 shards); plan_rows at 2
+   leaves, at the 28-leaf tree and for a Shift over one leaf; the
+   in-process p50s of Row(f=1), Count(Shift(Row(f=6), n=1)) and the
+   6-Shift-twin Count printed beside their figures before plan_rows;
 4b. residency, on the main path's holder (extent_rows 256: 4 extents a
    1024-shard stack), launch counts reset before and read after: the
    query set Count(Intersect(Row(f=0), Row(g=0))), Count(Union(Row(f=0),
@@ -83,18 +90,32 @@ Phases, each fatal on any mismatch or exception:
    8 bursts of keys), and the host and
    device merge routes timed whole at 2^12..2^21 keys around the AUTO
    threshold, with numpy's version and np.unique alone; (d) paging: the budget set one extent
-   below the set's working set, 5 cycles with extents and 5 with whole
+   below the set's working set, 3 cycles with extents and 3 with whole
    stacks, extents re-staging less in every cycle after the first, no pin
    left between queries; (e) a fresh 8-shard index under a budget below
    4 x one shard's stack answers a two-leaf Count and a filtered TopN;
+4c. time, on the main path's holder, launch counts reset before and read
+   after: a YMDH time field t (2 rows, 32 random columns per shard, hour
+   and row over 240 hours from 2024-01-01: 7,864,320 bits a row, each in
+   its Y, M, D and H views and the standard view) through one
+   Field.import_bits per row with a datetime64 timestamp array, and a
+   bool field b over the columns row 0's events touch; the 47-view range
+   2024-01-02T03:00..2024-01-08T21:00 in Count, Row, an Intersect, an open
+   bound, Count(Shift(n=1)), Shift(n=33), a filtered TopN, Rows, GroupBy,
+   MinRow/MaxRow (filtered and not) and bool Counts, each held to a numpy
+   model of the raw events; a burst of 2^20 timestamped columns into the
+   resident hour view 2024-01-08T20 (patched in place: 0 bytes re-staged);
+   p50s; the 47-leaf Row's and the Shift Row's device times against their
+   bounds; then Store of the range, ClearRow and a bool flip;
 5. serve: the port's NodeServer on the card, driven only over HTTP on one
    kept-alive connection, on a data dir (WAL, snapshots, group commit:
    the deployment users run) under the default temp dir, whose
    filesystem and free bytes are printed first (at least 2 GiB free, or
-   the phase fails). Index `s` over the same 2^30 columns: set field
+   the phase fails). Index `s` over 2^29 columns (512 shards: cut to keep
+   the script inside its time): set field
    `f` (2 dense, 4 sparse rows) through one import-roaring POST per shard,
    set field `g` (2 sparse rows) through /import JSON in batches of 5000,
-   int field `amount` in 16 shards through import-value; every import
+   int field `amount` in 8 shards through import-value; every import
    returns once its writes are fsynced, so the ingest rates are durable
    rates. Export-roaring of 4 shards reads back exactly what went in, and
    a Set/Clear changes the next Count by exactly its effect. Then 11
@@ -103,13 +124,13 @@ Phases, each fatal on any mismatch or exception:
    server's holder; launch counts are reset before the served query set
    and read after it, and six kernels must have launched. Rows(f) and
    GroupBy(Rows(f), Rows(g)) are served too, held to numpy and to the
-   executor (counts_cross launches). MinRow answers 400, an unknown index
-   404; 8 clients x 5 rounds must get the serial answers; served and
+   executor (counts_cross launches). Options answers 400, an unknown index
+   404; 8 clients x 2 rounds must get the serial answers; served and
    in-process p50s per query and the HTTP ingest rates are printed. The
    CLI (`python -m pilosa_tpu_torch.cli server`) must serve on the card
    and exit 0 on SIGTERM, and exit non-zero with CUDA_VISIBLE_DEVICES="";
 5b. keyed: on the same node, after those measurements, index `k` with
-   keys: 2^21 column keys in a seeded random arrival order, a keyed set
+   keys: 2^20 column keys in a seeded random arrival order, a keyed set
    field `segment` (32 keys, 1-3 per column, Zipf), a keyed mutex field
    `country` (64 ISO codes, Zipf), an unkeyed set field `plan` and an int
    field `spend`, loaded through /import with rowKeys/colKeys and
@@ -118,12 +139,18 @@ Phases, each fatal on any mismatch or exception:
    12 keyed queries (Counts, a keyed Row, TopN, Rows, GroupBys one-shot
    and by descent, the previous=[...] cursor, Sum), each held to a numpy
    + dict model and to the executor, with served and in-process p50s;
+5c. time served: a YMDH time field and a bool field on index `s` through
+   HTTP DDL, 100,000 timestamped /import bits over 48 hours on existing
+   columns of its first 16 shards; time-range
+   Count, Row and Rows bodies and bool Counts held to numpy and to the
+   executor;
 6. durable: the serve phase's node is stopped and the card's cache
    emptied; a second NodeServer opens the same data dir, timed from
    construction to its first 200 on /status (recovery). The 11 queries'
    first pass and warm p50s follow: every body must equal the one served
    before the restart byte for byte (and numpy's answer), as must the
-   Rows/GroupBy and every keyed body, and the six kernels must launch
+   Rows/GroupBy, every keyed and every time body (the time views reopened
+   from the data dir), and the six kernels must launch
    again (counts reset just before). `inspect` and
    `check` of the stopped dir must exit 0, `check` with no bad file. Then
    kill -9: a CLI server on a fresh dir at 8 shards takes /import,
@@ -429,7 +456,7 @@ def kernel_phase(rng, dev, errs):
 
     for _ in range(24):
         root = tree(3)
-        leaves, prog = planmod._compile(root, operands)
+        leaves, _, prog = planmod._compile(root, operands, {})
         if not leaves:
             continue
         for n in (s, s - 4):
@@ -462,7 +489,7 @@ def kernel_phase(rng, dev, errs):
         nest,
         planmod.PNary("xor", tuple(leaf(i % 48) for i in range(1200))),
     ]
-    progs = [planmod._compile(r, wide) for r in roots]
+    progs = [planmod._compile(r, wide, {})[::2] for r in roots]  # (leaves, program)
     check(K.BINOPS["rev_andnot"] in progs[1][1], "wide andnot did not compile to rev_andnot")
     codes, pushes, _ = K.plan_micro_program(progs[3][1])
     table_bytes = 8 * (len(codes) + len(pushes))
@@ -476,6 +503,8 @@ def kernel_phase(rng, dev, errs):
         "kernels: plan_count equal to twin on 24 random depth-3 trees, tile-edge widths "
         "(W = 4, 1000, 1024, 32772), S = 1, one leaf, PUSH_ZERO alone, and 5 wide/deep/long programs"
     )
+
+    plan_rows_checks(rng, dev, same, rand_words)
 
     # gather_tally: random lengths with empty segments; 8 row segments per
     # shard sharing words; Zipf lengths with one segment of 10^5 entries;
@@ -683,6 +712,88 @@ def kernel_phase(rng, dev, errs):
 # ---------------------------------------------------------------------------
 
 
+def plan_rows_checks(rng, dev, same, rand_words):
+    """plan_rows against its twin, exactly: random depth-3 trees with Shift
+    nodes (n in 1, 31, 32, 33, 2^20 - 1, 2^20 at W = 32768) whose
+    predecessor tables have gaps and -1s, at S = 1 and 13, through the
+    plan (one launch per root, one more per Shift over a subtree); then
+    hand-built programs at tile-edge widths and W % 4 != 0, leaves that
+    are unaligned views, and the predecessor rows of a shard chunk. Its
+    own generator, so the main path's data stay the same."""
+    import torch
+
+    from pilosa_tpu_torch.exec import plan as planmod
+    from pilosa_tpu_torch.ops import kernels as K
+
+    prng = np.random.default_rng(int(rng.integers(2**31)))
+    w = 32768
+    shifts_n = (1, 31, 32, 33, (1 << 20) - 1, 1 << 20)
+    n_trees = 0
+    for s in (1, 13):
+        operands = [rand_words(s, w) for _ in range(5)]
+        host = [t.cpu() for t in operands]
+
+        def prev_table():
+            p = prng.integers(-1, s, s)
+            p[prng.random(s) < 0.3] = -1
+            return tuple(int(x) for x in p)
+
+        def tree(depth):
+            if depth == 0:
+                return planmod.PLeaf(int(prng.integers(5)))
+            kind = prng.random()
+            if kind < 0.3:
+                return planmod.PShift(tree(depth - 1), int(prng.choice(shifts_n)), prev_table())
+            op = str(prng.choice(["and", "or", "xor", "andnot"]))
+            return planmod.PNary(op, tuple(tree(depth - 1) for _ in range(int(prng.integers(2, 4)))))
+
+        for _ in range(16):
+            root = tree(3)
+            if not isinstance(root, planmod.PShift):
+                root = planmod.PShift(root, int(prng.choice(shifts_n)), prev_table())
+            got = planmod._rows(root, operands, {})
+            want = planmod._rows(root, host, {})
+            same("plan_rows", got[0], want[0])
+            same("plan_rows", got[1], want[1])
+            n_trees += 1
+    # hand-built programs: widths at the 1024-word tile's edges, below one
+    # tile and W % 4 != 0, S = 1 and 13; shifted and plain pushes of the
+    # same leaf; a stacked operand; unaligned views (data_ptr 4 bytes past
+    # a 16-byte boundary)
+    progs = [
+        [0],
+        [0, 1, K.BINOPS["or"]],
+        [0, 1, 2, K.BINOPS["xor"], K.BINOPS["rev_andnot"]],
+        [2, 0, 1, K.BINOPS["and"], K.BINOPS["andnot"], K.PUSH_ZERO, K.BINOPS["or"]],
+    ]
+    n_cases = 0
+    for es, ew in ((1, 32768), (13, 1024), (13, 1025), (3, 1023), (2, 4), (5, 1001), (1, 2048)):
+        for aligned in (True, False):
+            if aligned:
+                lv = [rand_words(es, ew) for _ in range(2)]
+            else:
+                lv = [rand_words(es * ew + 1)[1:].view(es, ew) for _ in range(2)]
+            lv.append(lv[0])
+            for n in (1, 31, 32, 33, ew * 32 - 1, ew * 32):
+                p = [int(x) for x in prng.integers(-1, es, es)]
+                sh = [None, (n, tuple(p)), (n // 2, tuple(reversed(p)))]
+                for prog in progs:
+                    got = K.plan_rows(lv, sh, prog)
+                    want = K.plan_rows_plain([t.cpu() for t in lv], sh, prog)
+                    same("plan_rows", got[0], want[0])
+                    same("plan_rows", got[1], want[1])
+                    n_cases += 1
+    # a shard chunk: 7 output rows and 3 predecessor rows after them
+    chunk = [rand_words(10, w) for _ in range(2)]
+    prev = (7, 0, 1, -1, 3, 8, 5, 9, -1, -1)
+    root = planmod.PNary("or", (planmod.PShift(planmod.PLeaf(0), 33, prev), planmod.PLeaf(1)))
+    got, want = planmod._rows(root, chunk, {}), planmod._rows(root, [t.cpu() for t in chunk], {})
+    same("plan_rows", got[0], want[0])
+    same("plan_rows", got[1], want[1])
+    print(f"kernels: plan_rows equal to twin on {n_trees} random depth-3 trees with Shift (S = 1, 13), "
+          f"{n_cases} hand-built programs (W = 4..32768, W % 4 != 0, unaligned views), a shard chunk")
+
+
 def main_path(args, rng):
     import torch
 
@@ -861,7 +972,7 @@ def main_path(args, rng):
     torch.cuda.synchronize()
     first_query_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    for name in ("count2", "rows_counts", "plan_count", "gather_tally", "counts_cross", "gather_and"):
+    for name in ("count2", "rows_counts", "plan_count", "plan_rows", "gather_tally", "counts_cross", "gather_and"):
         check(launches[name] > 0, f"main path never launched {name}: {launches}")
     print(
         f"main: {S} shards x {SHARD_WIDTH} columns = {S * SHARD_WIDTH} columns; "
@@ -878,6 +989,7 @@ def main_path(args, rng):
         "f1": R("f", 1), "g0": R("g", 0), "exists": all_cols,
         # phase 4b holds its answers to these, updated with its writes
         "f_rows": [R("f", r) for r in range(n_dense + n_sparse)], "g1": R("g", 1),
+        "g_rows": [R("g", r) for r in range(n_g)],  # the same arrays as g0 and g1
     }
 
     # warm per-query latency
@@ -891,6 +1003,12 @@ def main_path(args, rng):
     lat["Row(f=1) + .count()"] = host_p50_ms(lambda: ex.execute("smoke", "Row(f=1)")[0].count())
     for pql, ms in lat.items():
         print(f"query p50 {ms:.3f} ms  {pql}")
+    wide_name = f"Count(Difference(Row(g=0), Union(<{len(wide_rows_pql)} rows, 6 of them shifted>)))"
+    print(
+        f"re-timed in process (row mode on plan_rows): Row(f=1) {lat['Row(f=1)']:.3f} ms (ROADMAP before: 9.9), "
+        f"Count(Shift(Row(f=6), n=1)) {lat['Count(Shift(Row(f=6), n=1))']:.3f} ms (3.93), "
+        f"the 6-Shift-twin Count {lat[wide_name]:.3f} ms (25.6)"
+    )
     return holder, ex, launches, lat, ingest_s, resident, state
 
 
@@ -1308,13 +1426,38 @@ def kernel_timing(holder, ex, launches, errs):
     wide_root = planmod.PNary(
         "andnot", (planmod.PLeaf(n_f), planmod.PNary("or", tuple(planmod.PLeaf(i) for i in range(28) if i != n_f)))
     )
-    wl, wp = planmod._compile(wide_root, stacks)
+    wl, _, wp = planmod._compile(wide_root, stacks, {})
     check(len(wl) == 28, f"wide plan has {len(wl)} leaves")
     check(torch.equal(K.plan_count(wl, wp, s_all).cpu(), K.plan_count_plain(wl, wp, s_all).cpu()), "wide plan_count differs from twin")
     extra["plan_count_28_leaves"] = cuda_time_ms(lambda: K.plan_count(wl, wp, s_all))
     extra["plan_count_28_leaves_dispatch"] = dispatch_ms(lambda: K.plan_count(wl, wp, s_all))
     extra["plan_count_28_leaves_plain"] = cuda_time_ms(lambda: K.plan_count_plain(wl, wp, s_all))
     extra["plan_count_28_leaves_bound"] = (28 * a.numel() * 4 + s_all * 8) / HBM_BYTES_PER_S * 1e3
+    # plan_rows (row mode) at the same shapes: the 28-leaf tree's result
+    # words, 2 leaves (Intersect(Row(f=1), Row(g=0))) and a Shift over one
+    # leaf (Shift(Row(f=1), n=1): each shard's predecessor is the stack row
+    # before it); each bound reads every leaf once and writes the result
+    rl, rs, rp = planmod._compile(wide_root, stacks, {}, rows_mode=True)
+    prev = tuple(range(-1, s_all - 1))
+    for key, (lv, sh, pr) in {
+        "plan_rows_2_leaves": ([a, b], [None, None], prog),
+        "plan_rows_28_leaves": (rl, rs, rp),
+        "plan_rows_shift_leaf": ([a], [(1, prev)], [0]),
+    }.items():
+        got, want = K.plan_rows(lv, sh, pr), K.plan_rows_plain(lv, sh, pr)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), f"{key}: plan_rows differs from twin")
+        nbytes = (len(lv) + 1) * a.numel() * 4 + s_all * 8
+        extra[key] = cuda_time_ms(lambda lv=lv, sh=sh, pr=pr: K.plan_rows(lv, sh, pr))
+        extra[key + "_dispatch"] = dispatch_ms(lambda lv=lv, sh=sh, pr=pr: K.plan_rows(lv, sh, pr))
+        extra[key + "_plain"] = cuda_time_ms(lambda lv=lv, sh=sh, pr=pr: K.plan_rows_plain(lv, sh, pr))
+        extra[key + "_bound"] = nbytes / HBM_BYTES_PER_S * 1e3
+        extra[key + "_share"] = extra[key + "_bound"] / extra[key]
+        print(
+            f"kernel {key}: device {extra[key]:.4f} ms, dispatch {extra[key + '_dispatch']:.4f} ms, twin "
+            f"{extra[key + '_plain']:.4f} ms, bound {extra[key + '_bound']:.4f} ms ({extra[key + '_share']:.1%} of it)"
+        )
+        del got, want
+    del rl, rs, rp
     # what replaced the per-launch pageable table copy: the host side of
     # staging the 2-leaf table in a pinned slot, and the device side of
     # its asynchronous copy (zeros for the [S] output included)
@@ -1444,7 +1587,7 @@ def kernel_timing(holder, ex, launches, errs):
 # ---------------------------------------------------------------------------
 
 BURST = 1 << 21  # columns of one staged burst into f row 0, and into g row 0
-RES_CYCLES = 5  # paging cycles of the query set, with extents and whole stacks
+RES_CYCLES = 3  # paging cycles of the query set, with extents and whole stacks
 RES_QUERIES = [
     "Count(Intersect(Row(f=0), Row(g=0)))",
     "Count(Union(Row(f=0), Row(f=1), Row(g=1)))",
@@ -1964,14 +2107,339 @@ def residency_path(args, holder, ex, state, errs, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: time and bool fields on the main path's holder
+# ---------------------------------------------------------------------------
+
+# Pilosa's documented time quantum "YMDH" (one view per year, month, day
+# and hour): 2 rows of field t, 32 random columns per shard, hour and row
+# over 10 days; the 47-view range of the queries below
+TIME_QUANTUM = "YMDH"
+TIME_START = np.datetime64("2024-01-01T00", "h")
+TIME_HOURS = 240
+TIME_PER_HOUR = 32
+TIME_RANGE = "from='2024-01-02T03:00', to='2024-01-08T21:00'"
+TIME_RANGE_HOURS = (27, 189)  # the range's hours since TIME_START
+TIME_OPEN = "from='2024-01-05T00:00'"  # to the field's last hour
+TIME_OPEN_HOURS = (96, TIME_HOURS)
+TIME_BURST = 1 << 20  # columns of one timestamped burst into t row 0, all in hour 2024-01-08T20
+TIME_BURST_HOUR = 188
+TIME_REPS = 10  # runs per p50 (REPS elsewhere): Rows and GroupBy read 47 views x 1024 fragments on the host
+
+
+def _shift_np(words: np.ndarray, n: int) -> np.ndarray:
+    """[S + 1, W] words of an [S, W] row shifted up n columns across shards
+    (the last shard's top bits carry into shard S), n < 32 * W."""
+    s, w = words.shape
+    flat = np.concatenate([words.reshape(-1), np.zeros(w, np.uint32)])
+    q, r = divmod(n, 32)
+    lo = np.concatenate([np.zeros(q, np.uint32), flat[: len(flat) - q]])
+    if r:
+        prev = np.concatenate([[np.uint32(0)], lo[:-1]])
+        lo = (lo << np.uint32(r)) | (prev >> np.uint32(32 - r))
+    return lo.reshape(s + 1, w)
+
+
+def time_path(args, holder, ex, state, errs, smi):
+    """Phase 4c on the main path's holder (2^30 columns): a YMDH time field
+    t and a bool field b, loaded through Field.import_bits with a datetime64
+    timestamp array (b through import_bits too); the time queries held to a
+    numpy model of the raw (row, column, hour) events; a timestamped burst
+    into a resident hour view; p50s, the 47-leaf Row's and the Shift Row's
+    device times and bounds. Launch counts are reset before and read after.
+    Returns (the kernels row of plan_rows at the 47-leaf range, info)."""
+    import torch
+
+    from pilosa_tpu_torch.core.field import FieldOptions
+    from pilosa_tpu_torch.exec import plan as planmod
+    from pilosa_tpu_torch.hbm import residency as res
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.pql import parse
+    from pilosa_tpu_torch.server import wire
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
+
+    S, W, SW = args.shards, WORDS_PER_ROW, SHARD_WIDTH
+    t_phase = time.perf_counter()
+    idx = holder.index("smoke")
+    f_rows, g_rows = state["f_rows"], state["g_rows"]
+    pc = np_popcount
+    sample = sorted({0, 1, S // 2, S - 1})
+    rng = np.random.default_rng([args.seed, 10])
+    base = (np.arange(S, dtype=np.uint64) * np.uint64(SW))[None, :, None]
+    events = [
+        (rng.integers(0, SW, size=(TIME_HOURS, S, TIME_PER_HOUR), dtype=np.uint64) + base).reshape(-1)
+        for _ in range(2)
+    ]
+    hour_of = np.repeat(np.arange(TIME_HOURS), S * TIME_PER_HOUR)
+    # b: every column a row-0 event touched, true or false with equal odds
+    b_cols = sorted_unique(events[0])
+    b_val = rng.integers(0, 2, len(b_cols)).astype(np.uint64)
+    burst = rng.integers(0, S * SW, TIME_BURST).astype(np.uint64)
+
+    def pack(cols):
+        words = np.zeros(S * W, np.uint32)
+        np.bitwise_or.at(words, (cols >> np.uint64(5)).astype(np.int64), np.uint32(1) << (cols & np.uint64(31)).astype(np.uint32))
+        return words.reshape(S, W)
+
+    def hours_words(r, lo, hi):
+        return pack(events[r][(hour_of >= lo) & (hour_of < hi)])
+
+    t_std = [pack(e) for e in events]
+    b_true, b_false = pack(b_cols[b_val == 1]), pack(b_cols[b_val == 0])
+    t_range = [hours_words(r, *TIME_RANGE_HOURS) for r in range(2)]
+    t0_open = hours_words(0, *TIME_OPEN_HOURS)
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    snap0 = res.stats_snapshot(holder.dcache)
+    t0 = time.perf_counter()
+    t = idx.create_field("t", FieldOptions(type="time", time_quantum=TIME_QUANTUM))
+    b = idx.create_field("b", FieldOptions(type="bool"))
+    stamps = TIME_START + hour_of.astype("timedelta64[h]")
+    for r in range(2):
+        t.import_bits(np.full(len(events[r]), r, np.uint64), events[r], timestamps=stamps)
+        idx.track_columns(events[r])
+    b.import_bits(b_val, b_cols)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    n_views = len(t.views)
+    print(
+        f"time: field t ({TIME_QUANTUM}) {n_views} views, {len(events[0])} bits a row over {TIME_HOURS} hours "
+        f"(each in Y, M, D, H and standard), bool field b over the {len(b_cols)} columns row 0 touches; "
+        f"ingest {ingest_s:.1f} s"
+    )
+
+    def run(pql):
+        return ex.execute("smoke", pql)
+
+    def check_row(pql, words, got=None):
+        """A Row answer against [S', W] numpy words: its shards, count and
+        sample shards' words."""
+        got = run(pql)[0] if got is None else got
+        nz = [s for s in range(words.shape[0]) if words[s].any()]
+        check(sorted(got.segments) == nz, f"{pql}: {len(got.segments)} shards, numpy has {len(nz)}")
+        check(got.count() == pc(words), f"{pql}: count {got.count()}, numpy {pc(words)}")
+        for s in sample:
+            seg = got.segment(s)
+            have = np.zeros(W, np.uint32) if seg is None else seg.cpu().numpy().view(np.uint32)
+            check(np.array_equal(have, words[s]), f"{pql}: shard {s} differs from numpy")
+
+    def launched(fn):
+        before = dict(K.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES if K.LAUNCHES[k] != before[k]}
+
+    rng_row = f"Row(t=0, {TIME_RANGE})"
+    f_ic = [pc(fr & t_range[1]) for fr in f_rows]
+    top = sorted(((r, c) for r, c in enumerate(f_ic) if c), key=lambda kv: (-kv[1], kv[0]))[:5]
+    f0_ic = [pc(fr & t_range[0]) for fr in f_rows]
+    min_f = next(r for r, c in enumerate(f0_ic) if c)
+    max_f = max(r for r, c in enumerate(f0_ic) if c)
+    shift1 = _shift_np(t_range[1], 1)
+    shift33 = _shift_np(t_range[1], 33)
+    reads = [
+        (f"Count({rng_row})", [pc(t_range[0])]),
+        (rng_row, t_range[0]),
+        (f"Count(Intersect({rng_row}, Row(f=0)))", [pc(t_range[0] & f_rows[0])]),
+        (f"Row(t=0, {TIME_OPEN})", t0_open),
+        (f"Count(Shift(Row(t=1, {TIME_RANGE}), n=1))", [pc(shift1)]),
+        (f"Shift(Row(t=1, {TIME_RANGE}), n=33)", shift33),
+        (f"TopN(f, Row(t=1, {TIME_RANGE}), n=5)", [[{"id": r, "count": c} for r, c in top]]),
+        (f"Rows(t, {TIME_RANGE})", [[0, 1]]),
+        (f"GroupBy(Rows(t, {TIME_RANGE}), Rows(g))", [group_json(("t", "g"), np_groups(t_std, g_rows))]),
+        ("MinRow(field=f) MaxRow(field=f)", [{"id": 0, "count": 1}, {"id": len(f_rows) - 1, "count": 1}]),
+        (f"MinRow({rng_row}, field=f) MaxRow({rng_row}, field=f)",
+         [{"id": min_f, "count": f0_ic[min_f]}, {"id": max_f, "count": f0_ic[max_f]}]),
+        ("Count(Row(b=true)) Count(Row(b=false))", [pc(b_true), pc(b_false)]),
+    ]
+    t0 = time.perf_counter()
+    query_launches, query_restage = {}, {}
+    for pql, want in reads:
+        before = res.stats_snapshot(holder.dcache)["restage_bytes"]
+        got, query_launches[pql] = launched(lambda: run(pql))
+        query_restage[pql] = res.stats_snapshot(holder.dcache)["restage_bytes"] - before
+        if isinstance(want, np.ndarray):
+            check_row(pql, want, got[0])
+            check(query_launches[pql].get("plan_rows", 0) >= 1, f"{pql} made no plan_rows launch: {query_launches[pql]}")
+        else:
+            got = [wire.result_to_public_json(x) for x in got]
+            check(got == want, f"{pql}: got {str(got)[:300]}, numpy says {str(want)[:300]}")
+    check(query_launches[reads[4][0]].get("plan_rows", 0) == 2 and query_launches[reads[4][0]].get("plan_count", 0) == 0,
+          f"Count(Shift(<47-leaf range>)) launches {query_launches[reads[4][0]]}, not 2 plan_rows and no plan_count")
+    first_pass_s = time.perf_counter() - t0
+    print(f"time: {len(reads)} read queries equal numpy (first pass {first_pass_s:.2f} s, staging included)")
+    for pql, _ in reads:
+        print(f"time: first pass re-staged {query_restage[pql]} B, launches {query_launches[pql]}  {pql}")
+
+    # a timestamped burst into t row 0, all in the hour 2024-01-08T20 whose
+    # view (one of the 47) is resident: merged at apply time by the view's
+    # barrier and patched in place, so nothing is re-staged
+    snap1 = res.stats_snapshot(holder.dcache)
+    tb = time.perf_counter()
+    _, burst_launches = launched(lambda: t.import_bits(
+        np.zeros(TIME_BURST, np.uint64), burst,
+        timestamps=np.full(TIME_BURST, TIME_START + np.timedelta64(TIME_BURST_HOUR, "h")),
+    ))
+    burst_s = time.perf_counter() - tb
+    bw = pack(burst)
+    t_range[0] |= bw
+    t_std[0] |= bw
+    snap2 = res.stats_snapshot(holder.dcache)
+    got = run(f"Count({rng_row})")
+    check(got == [pc(t_range[0])], f"Count of the range after the burst: {got}, numpy {pc(t_range[0])}")
+    snap3 = res.stats_snapshot(holder.dcache)
+    burst_info = {
+        "columns": TIME_BURST,
+        "s": burst_s,
+        "launches": burst_launches,
+        "restage_bytes_burst": snap2["restage_bytes"] - snap1["restage_bytes"],
+        "restage_bytes_query": snap3["restage_bytes"] - snap2["restage_bytes"],
+        "extent_patches": snap2["extent_patches"] - snap1["extent_patches"],
+    }
+    check(burst_info["restage_bytes_burst"] == 0 and burst_info["restage_bytes_query"] == 0,
+          f"the burst into resident time views re-staged bytes: {burst_info}")
+    check(burst_info["extent_patches"] > 0 and burst_launches.get("or_bits", 0) > 0,
+          f"the burst patched no resident extent: {burst_info}")
+    print(
+        f"time: burst of {TIME_BURST} columns into hour view standard_2024010820 in {burst_s:.2f} s; "
+        f"{burst_info['extent_patches']} extents patched in place; re-staged {burst_info['restage_bytes_burst']} B "
+        f"by the burst, {burst_info['restage_bytes_query']} B by the next Count of the range; launches {burst_launches}"
+    )
+
+    # warm p50s of the reads
+    lat = {}
+    for pql, _ in reads:
+        before = res.stats_snapshot(holder.dcache)["restage_bytes"]
+        lat[pql] = host_p50_ms(lambda pql=pql: run(pql), reps=TIME_REPS)
+        again = res.stats_snapshot(holder.dcache)["restage_bytes"] - before
+        print(f"time p50 {lat[pql]:.3f} ms, re-staged {again} B over the {TIME_REPS} runs  {pql}")
+
+    # device time of the 47-leaf Row (one plan_rows launch) and the Shift
+    # Row (the union materialized, then shifted: two launches) against
+    # their bound: every distinct leaf read once, the result written once.
+    # The launches of this timing are taken off the phase's counts below:
+    # they are not the main path's.
+    timing_from = dict(K.LAUNCHES)
+    kernel_rows = {}
+    for name, pql in (("plan_rows", rng_row), ("plan_rows_shift_row", f"Shift(Row(t=1, {TIME_RANGE}), n=33)")):
+        c = parse(pql).calls[0]
+        (sp,) = ex._lower_plans(idx, c, ex._shards_for(idx, None, c))
+        sp.release_extents()  # the timing below holds the operand tensors
+        leaves, shifts, prog = planmod._compile(sp.root, sp.operands, {}, rows_mode=True)
+        n_leaves = len(sp.operands)
+        rows_s = sp.operands[0].shape[0]
+        def fn(sp=sp):
+            return planmod._rows(sp.root, sp.operands, {})
+
+        def plain(leaves=leaves, shifts=shifts, prog=prog):
+            # the twin of the root's launch on the card's tensors (a Shift
+            # over the union: the union's result, then the shifted leaf)
+            return K.plan_rows_plain(leaves, shifts, prog)
+
+        got, want = fn(), plain()
+        diff = int((got[0] != want[0]).sum().item()) + int((got[1] != want[1]).sum().item())
+        errs["plan_rows"] = max(errs.get("plan_rows", 0), diff)
+        check(diff == 0, f"{pql}: plan_rows differs from its twin in {diff} words")
+        ms = cuda_time_ms(fn)
+        disp = dispatch_ms(fn)
+        plain_ms = cuda_time_ms(plain)
+        nbytes = (n_leaves + 1) * rows_s * W * 4 + rows_s * 8
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        kernel_rows[name] = {
+            "name": "plan_rows",
+            "route": "cuda",
+            "source": "pilosa_tpu_torch/ops/cuda/bitmap_kernels.cu",
+            "replaces": "pilosa_tpu/exec/plan.py:340",
+            "launches": 0,
+            "max_abs_err": errs.get("plan_rows", 0),
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes",
+            "library_ms": None,
+            "dispatch_ms": disp,
+            "share_of_bound": bound / ms,
+            "bytes": nbytes,
+            "leaves": n_leaves,
+            "query": pql,
+        }
+        print(
+            f"time: {pql}: {n_leaves} leaves x {rows_s} shards, device {ms:.4f} ms ({smi}), dispatch {disp:.4f} ms, "
+            f"twin {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.1%} of it)"
+        )
+        del sp, leaves, got, want
+    torch.cuda.synchronize()
+    timing_launches = {k: K.LAUNCHES[k] - timing_from[k] for k in K.LAUNCHES if K.LAUNCHES[k] != timing_from[k]}
+    print(f"time: launches of the device timing above (not counted as the main path's): {timing_launches}")
+
+    # writes: Store the range into f row 100, ClearRow t row 1 (every view),
+    # flip one bool column
+    col = int(np.flatnonzero(_bits(b_true[S // 2]))[0]) + (S // 2) * SW
+    writes = [
+        (f"Store({rng_row}, f=100)", [True]),
+        ("Count(Row(f=100))", [pc(t_range[0])]),
+        ("ClearRow(t=1)", [True]),
+        (f"Count(Row(t=1, {TIME_RANGE})) Count(Row(t=1))", [0, 0]),
+        (f"Set({col}, b=false)", [True]),
+        ("Count(Row(b=true)) Count(Row(b=false))", [pc(b_true) - 1, pc(b_false) + 1]),
+    ]
+    t0 = time.perf_counter()
+    write_launches = {}
+    for pql, want in writes:
+        got, write_launches[pql] = launched(lambda: [wire.result_to_public_json(x) for x in run(pql)])
+        check(got == want, f"{pql}: got {got}, numpy says {want}")
+    writes_s = time.perf_counter() - t0
+    check(write_launches[writes[0][0]].get("plan_rows", 0) >= 1, f"Store made no plan_rows launch: {write_launches}")
+    print(f"time: Store, ClearRow and a bool flip equal numpy in {writes_s:.2f} s; launches {write_launches}")
+
+    torch.cuda.synchronize()
+    launches = {k: n - timing_launches.get(k, 0) for k, n in K.LAUNCHES.items()}
+    for name in ("plan_rows", "plan_count", "rows_counts", "gather_tally", "count2", "or_bits"):
+        check(launches[name] > 0, f"the time phase never launched {name}: {launches}")
+    resident = holder.dcache.bytes_used
+    snap = res.stats_snapshot(holder.dcache)
+    print(f"time: launches {launches}")
+    print(
+        f"time summary ({smi}): ingest {ingest_s:.1f} s, first pass {first_pass_s:.2f} s, p50 "
+        f"{lat[reads[0][0]]:.3f} ms Count(<47-leaf range>), {lat[rng_row]:.3f} ms Row(<47-leaf range>); "
+        f"47-leaf Row device {kernel_rows['plan_rows']['ms']:.4f} ms (bound {kernel_rows['plan_rows']['bound_ms']:.4f}), "
+        f"Shift Row {kernel_rows['plan_rows_shift_row']['ms']:.4f} ms (bound "
+        f"{kernel_rows['plan_rows_shift_row']['bound_ms']:.4f}); burst re-staged {burst_info['restage_bytes_burst']} B; "
+        f"device cache resident {resident} B; restage total {snap['restage_bytes'] - snap0['restage_bytes']} B"
+    )
+    info = {
+        "views": n_views,
+        "bits_per_row": len(events[0]),
+        "ingest_s": ingest_s,
+        "first_pass_s": first_pass_s,
+        "query_p50_ms": lat,
+        "query_launches": query_launches,
+        "first_pass_restage_bytes": query_restage,
+        "burst": burst_info,
+        "writes_s": writes_s,
+        "write_launches": write_launches,
+        "launches": launches,
+        "timing_launches": timing_launches,
+        "device_cache_bytes": resident,
+        "shift_row": kernel_rows["plan_rows_shift_row"],
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    return kernel_rows["plan_rows"], info
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the port served over HTTP
 # ---------------------------------------------------------------------------
 
 # f's dense rows: bit densities 2^-1 and 2^-3 (the AND of 1 and 3 draws)
 SERVE_DENSE_DRAWS = (1, 3)
 N_SERVE_SPARSE_F, N_SERVE_G = 4, 2  # sparse rows of f and g, ~1000 bits per shard each
-N_SERVE_VALUES = 16  # shards of `amount` loaded through import-value
+N_SERVE_VALUES = 8  # shards of `amount` loaded through import-value
 IMPORT_BATCH = 5000  # writes per /import request: the default max-writes-per-request
+# the serve phase's depth, cut to keep the script inside its time: index s
+# over 512 shards (2^29 columns), 2 rounds of the query set per client
+SERVE_SHARDS = 512
+CONCURRENT_ROUNDS = 2
 SERVE_QUERIES = [
     "Count(Intersect(Row(f=0), Row(g=0)))",
     "Count(Union(Row(f=0), Row(f=1), Row(g=1)))",
@@ -2083,12 +2551,12 @@ def serve_path(args):
     from pilosa_tpu_torch.server import NodeServer, wire
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
-    S, W = args.shards, WORDS_PER_ROW
+    S, W = min(args.shards, SERVE_SHARDS), WORDS_PER_ROW
     n_val = min(S, N_SERVE_VALUES)
     rng = np.random.default_rng([args.seed, 5])
     print(
-        f"serve: cut: int field amount in {n_val} of {S} shards (import-value JSON carries ~15M values; "
-        "the BSI phase drives the int path over every shard)"
+        f"serve: cut: index s over {S} of {args.shards} shards; int field amount in "
+        f"{n_val} of them (import-value JSON carries ~15M values; the BSI phase drives the int path over every shard)"
     )
 
     # data from the seed: f = dense rows, then sparse rows (one roaring body
@@ -2261,9 +2729,9 @@ def serve_path(args):
             f"device cache {resident} B; Row(g=0) has {len(row_g0)} columns"
         )
 
-        # errors
-        status, raw = http.raw("POST", "/index/s/query", b"MinRow(field=f)", "text/plain")
-        check(status == 400 and b"not yet ported" in raw, f"MinRow: HTTP {status} {raw!r}")
+        # errors: an unported call, an unknown index
+        status, raw = http.raw("POST", "/index/s/query", b"Options(Row(f=0), shards=[0])", "text/plain")
+        check(status == 400 and b"not yet ported" in raw, f"Options: HTTP {status} {raw!r}")
         status, raw = http.raw("POST", "/index/nope/query", b"Count(Row(f=0))", "text/plain")
         check(status == 404, f"unknown index: HTTP {status} {raw!r}")
 
@@ -2288,13 +2756,13 @@ def serve_path(args):
             lat[q] = {"served_ms": served_ms, "in_process_ms": local_ms, "front_end_ms": served_ms - local_ms}
             print(f"serve p50 {served_ms:.3f} ms served, {local_ms:.3f} ms in process, front end {served_ms - local_ms:.3f} ms  {q}")
 
-        # 8 clients at once, 5 rounds of the query set each
+        # 8 clients at once, CONCURRENT_ROUNDS rounds of the query set each
         errors = []
 
         def client(k):
             c = _Http(srv.node.uri)
             try:
-                for rnd in range(5):
+                for rnd in range(CONCURRENT_ROUNDS):
                     for j in np.random.default_rng([k, rnd]).permutation(len(SERVE_QUERIES)).tolist():
                         q = SERVE_QUERIES[j]
                         status, raw = c.raw("POST", "/index/s/query", q.encode(), "text/plain")
@@ -2312,22 +2780,30 @@ def serve_path(args):
         check(not any(t.is_alive() for t in threads), "concurrent clients did not finish in 900 s")
         check(not errors, f"{len(errors)} concurrent answers differ from the serial ones: {errors[:3]}")
         concurrent_s = time.perf_counter() - t0
-        print(f"serve: 8 clients x 5 rounds x {len(SERVE_QUERIES)} queries in {concurrent_s:.1f} s, every answer equal to the serial one")
+        print(
+            f"serve: 8 clients x {CONCURRENT_ROUNDS} rounds x {len(SERVE_QUERIES)} queries in {concurrent_s:.1f} s, "
+            "every answer equal to the serial one"
+        )
 
         # the keyed index on the same durable node, after the measurements
         # above (which stay comparable with earlier runs)
         t0 = time.perf_counter()
         keyed = keyed_path(args, http, srv)
         keyed["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_ts = min(S, SERVE_TIME_SHARDS)
+        time_served = serve_time(args, http, srv, np.flatnonzero(_bits(exists[:n_ts])).astype(np.uint64))
+        time_served["phase_s"] = time.perf_counter() - t0
     finally:
         http.close()
         srv.stop()
     t0 = time.perf_counter()
     cli_check()
     recovered = {"data_dir": data_dir, "served": served, "want": want, "row_g0": row_g0, "n_val": n_val,
-                 "keyed_served": keyed.pop("served")}
+                 "keyed_served": keyed.pop("served"), "time_served": time_served.pop("served")}
     return recovered, {
         "keyed": keyed,
+        "time": time_served,
         "launches": launches,
         "query_p50_ms": lat,
         "first_query_ms": first_ms[SERVE_QUERIES[0]],
@@ -2342,10 +2818,91 @@ def serve_path(args):
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: time and bool fields on the served node
+# ---------------------------------------------------------------------------
+
+SERVE_TIME_BITS = 100_000  # timestamped /import bits of field st, over 48 hours
+SERVE_TIME_SHARDS = 16  # ... in the first 16 shards: every (unit view, shard) is a fragment, files on disk
+SERVE_TIME_START = 1704067200  # 2024-01-01T00:00 UTC, unix seconds
+SERVE_TIME_RANGE = "from='2024-01-01T05:00', to='2024-01-02T19:00'"
+SERVE_TIME_QUERIES = [
+    f"Count(Row(st=0, {SERVE_TIME_RANGE}))",
+    f"Row(st=1, {SERVE_TIME_RANGE})",
+    f"Rows(st, {SERVE_TIME_RANGE})",
+    "Count(Row(st=2, from='2024-01-02T00:00'))",
+    "Count(Row(sb=true)) Count(Row(sb=false))",
+]
+
+
+def serve_time(args, http, srv, existing) -> dict:
+    """A YMDH time field `st` and a bool field `sb` on index `s` through
+    HTTP DDL, SERVE_TIME_BITS timestamped /import bits (unix seconds) over
+    48 hours in batches of 5000, bool /import, all on columns of index s
+    that exist already (`existing`: those of its first SERVE_TIME_SHARDS
+    shards), so the answers served before stay what they were; the
+    time-range Count, Row and Rows bodies must equal numpy's and
+    Executor.execute's. Returns the bodies for the durable phase's
+    restart."""
+    from pilosa_tpu_torch.server import wire
+
+    rng = np.random.default_rng([args.seed, 11])
+    n = SERVE_TIME_BITS
+    http.json("POST", "/index/s/field/st", {"options": {"type": "time", "timeQuantum": TIME_QUANTUM}})
+    http.json("POST", "/index/s/field/sb", {"options": {"type": "bool"}})
+    cols = rng.choice(existing, n).astype(np.int64)
+    rows = rng.integers(0, 3, n)
+    secs = SERVE_TIME_START + rng.integers(0, 48 * 3600, n)
+    bools = rng.integers(0, 2, n)
+    t0 = time.perf_counter()
+    for i in range(0, n, IMPORT_BATCH):
+        sl = slice(i, i + IMPORT_BATCH)
+        body = {"rows": rows[sl].tolist(), "cols": cols[sl].tolist(), "timestamps": secs[sl].tolist()}
+        out = http.json("POST", "/index/s/field/st/import", body)
+        check(out["errors"] == [] and out["applied"] == out["expected"] > 0, f"timestamped /import: {out}")
+        out = http.json("POST", "/index/s/field/sb/import", {"rows": bools[sl].tolist(), "cols": cols[sl].tolist()})
+        check(out["errors"] == [], f"bool /import: {out}")
+    import_s = time.perf_counter() - t0
+    hours = (secs - SERVE_TIME_START) // 3600
+
+    def columns(sel):
+        return sorted_unique(cols[sel].astype(np.uint64)).tolist()
+
+    # bool: the last write of a column wins (mutex)
+    last = {}
+    for c, v in zip(cols.tolist(), bools.tolist()):
+        last[c] = v
+    n_true = sum(last.values())
+    in_range = (hours >= 5) & (hours < 43)
+    want = {
+        SERVE_TIME_QUERIES[0]: [len(columns(in_range & (rows == 0)))],
+        SERVE_TIME_QUERIES[1]: [{"attrs": {}, "columns": columns(in_range & (rows == 1))}],
+        SERVE_TIME_QUERIES[2]: [sorted({int(r) for r in rows[in_range]})],
+        SERVE_TIME_QUERIES[3]: [len(columns((hours >= 24) & (rows == 2)))],
+        SERVE_TIME_QUERIES[4]: [n_true, len(last) - n_true],
+    }
+    served, lat = {}, {}
+    for q in SERVE_TIME_QUERIES:
+        status, served[q] = http.raw("POST", "/index/s/query", q.encode(), "text/plain")
+        check(status == 200, f"{q}: HTTP {status}: {served[q][:300]!r}")
+        got = json.loads(served[q])["results"]
+        check(got == want[q], f"served {q}: {str(got)[:300]}, numpy says {str(want[q])[:300]}")
+        local = [wire.result_to_public_json(r) for r in srv.executor.execute("s", q)]
+        check(got == local, f"served {q} differs from Executor.execute on the server's holder")
+        lat[q] = host_p50_ms(lambda q=q: http.raw("POST", "/index/s/query", q.encode(), "text/plain"))
+        print(f"serve time p50 {lat[q]:.3f} ms served  {q}")
+    print(
+        f"serve time: fields st ({TIME_QUANTUM}) and sb over HTTP DDL; {n} timestamped bits over 48 hours in "
+        f"{n // IMPORT_BATCH} /import POSTs ({import_s:.1f} s, {n / import_s:.0f} bits/s); {len(SERVE_TIME_QUERIES)} "
+        "bodies equal numpy and Executor.execute"
+    )
+    return {"served": served, "import_s": import_s, "bits_per_s": n / import_s, "query_p50_ms": lat}
+
+
+# ---------------------------------------------------------------------------
 # phase 5b: a keyed index on the served node
 # ---------------------------------------------------------------------------
 
-KEYED_COLUMNS = 1 << 21  # column keys "u%010d": 2 shards of ids (ids start at 1)
+KEYED_COLUMNS = 1 << 20  # column keys "u%010d" (ids start at 1); cut to keep the script inside its time
 KEYED_BATCH = 100_000  # pairs or values per keyed /import or import-value request
 KEYED_SEGMENTS = [f"seg-{k:02d}" for k in range(32)]
 # 64 two-letter ISO 3166 codes, in Zipf rank order
@@ -2852,13 +3409,18 @@ def durable_path(args, st) -> dict:
             check(json.loads(raw)["results"] == st["want"][q], f"recovered {q} differs from numpy")
             print(f"durable: first pass {first_ms[q]:.1f} ms  {q}")
         # Rows, GroupBy and every keyed body: byte for byte the pre-restart ones
-        for index, bodies in (("s", {q: st["served"][q] for q in SERVE_GROUP_QUERIES}), ("k", st["keyed_served"])):
+        for index, bodies in (
+            ("s", {q: st["served"][q] for q in SERVE_GROUP_QUERIES}), ("k", st["keyed_served"]), ("s", st["time_served"]),
+        ):
             for q, before in bodies.items():
                 tq = time.perf_counter()
                 status, raw = http.raw("POST", f"/index/{index}/query", q.encode(), "text/plain")
                 first_ms[q] = (time.perf_counter() - tq) * 1e3
                 check(status == 200 and raw == before, f"recovered {index} {q}: {raw[:300]!r}, before {before[:300]!r}")
-        print(f"durable: {len(SERVE_GROUP_QUERIES)} Rows/GroupBy and {len(st['keyed_served'])} keyed bodies equal the pre-restart ones")
+        print(
+            f"durable: {len(SERVE_GROUP_QUERIES)} Rows/GroupBy, {len(st['keyed_served'])} keyed and "
+            f"{len(st['time_served'])} time bodies (time views reopened from the data dir) equal the pre-restart ones"
+        )
         torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
         for name in SERVE_KERNELS:
@@ -2998,6 +3560,12 @@ def main() -> int:
     res_rows, residency = residency_path(args, holder, ex, state, errs, smi)
     rows.update(res_rows)
     phase_s["residency"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows["plan_rows"], time_info = time_path(args, holder, ex, state, errs, smi)
+    rows["plan_rows"]["launches"] = launches["plan_rows"] + time_info["launches"]["plan_rows"]
+    for key in ("plan_rows_2_leaves", "plan_rows_28_leaves", "plan_rows_shift_leaf"):
+        rows["plan_rows"][key] = {k.removeprefix(key).lstrip("_") or "ms": v for k, v in extra.items() if k.startswith(key)}
+    phase_s["time"] = time.perf_counter() - t0
     del state
     holder.close()  # the served node gets the card's memory to itself
     del holder, ex
@@ -3038,8 +3606,8 @@ def main() -> int:
     print(json.dumps({
         "kernels": [
             rows[k]
-            for k in ("plan_count", "gather_tally", "rows_counts", "count2", "bsi_sum", "bsi_min_max", "bsi_range",
-                      "counts_cross", "gather_and", "or_bits", "merge_mark")
+            for k in ("plan_count", "plan_rows", "gather_tally", "rows_counts", "count2", "bsi_sum", "bsi_min_max",
+                      "bsi_range", "counts_cross", "gather_and", "or_bits", "merge_mark")
         ],
         "extra_ms": extra,
         "query_p50_ms": lat,
@@ -3047,6 +3615,7 @@ def main() -> int:
         "bsi": bsi_info,
         "bsi_launches": bsi_launches,
         "residency": residency,
+        "time": time_info,
         "ingest_s": ingest_s,
         "device_cache_bytes": resident,
         "serve": serve,

@@ -1,7 +1,11 @@
 """Field: typed container of views.
 
-The port of pilosa_tpu/core/field.py for set, mutex and int (BSI) fields.
-Time and bool fields come in later slices and raise at creation. A
+The port of pilosa_tpu/core/field.py for set, mutex, bool, time and int
+(BSI) fields. A bool field is a mutex field over rows 0 (false) and 1
+(true). A time field writes its standard view (unless
+`no_standard_view`) and, for a timestamped bit, one view per unit of its
+quantum (`standard_2024`, `standard_202401`, `standard_20240102`,
+`standard_2024010203`; core/timeq.py). A
 durable field keeps its options in `<path>/.meta.json` (the reference's
 `asdict(FieldOptions)`, rewritten when an int field's bit depth grows),
 its views under `<path>/views/<view>` and, when keyed, its row keys in
@@ -19,7 +23,8 @@ import os
 import re
 import threading
 from dataclasses import asdict, dataclass
-from typing import Dict, Optional, Set, Tuple
+from datetime import datetime
+from typing import Dict, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,6 +35,7 @@ from pilosa_tpu_torch.core.cache import (
     CACHE_TYPE_RANKED,
     DEFAULT_CACHE_SIZE,
 )
+from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core.devcache import DeviceCache
 from pilosa_tpu_torch.core.translate import TranslateStore
@@ -43,7 +49,6 @@ FIELD_TYPE_TIME = "time"
 FIELD_TYPE_MUTEX = "mutex"
 FIELD_TYPE_BOOL = "bool"
 
-PORTED_TYPES = (FIELD_TYPE_SET, FIELD_TYPE_MUTEX, FIELD_TYPE_INT)
 FIELD_TYPES = (FIELD_TYPE_SET, FIELD_TYPE_INT, FIELD_TYPE_TIME, FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL)
 CACHE_TYPES = (CACHE_TYPE_RANKED, CACHE_TYPE_LRU, CACHE_TYPE_NONE)
 
@@ -79,8 +84,7 @@ class FieldOptions:
     max: int = 0
     base: int = 0
     bit_depth: int = 0
-    # keys: row keys translate through the field's TranslateStore;
-    # time views are carried for the schema and raise at creation
+    # keys: row keys translate through the field's TranslateStore
     time_quantum: str = ""
     keys: bool = False
     no_standard_view: bool = False
@@ -102,14 +106,12 @@ class Field:
             validate_name(name)
         if options.type not in FIELD_TYPES:
             raise ValueError(f"invalid field type {options.type!r}")
-        if options.type not in PORTED_TYPES:
-            raise NotImplementedError(f"{options.type} fields are not ported yet")
-        if options.time_quantum or options.no_standard_view:
-            raise NotImplementedError("time views are not ported yet")
         if options.cache_type not in CACHE_TYPES:
             raise ValueError(f"invalid cache type {options.cache_type!r}")
         if options.type == FIELD_TYPE_INT:
             _init_int_options(options)
+        if options.type == FIELD_TYPE_TIME:
+            timeq.validate_quantum(options.time_quantum)
         self.path = path  # None: in memory
         self.index = index
         self.name = name
@@ -139,9 +141,9 @@ class Field:
 
     def open(self) -> "Field":
         """Write .meta.json if it is missing, then open every view under
-        views/ and, for a keyed field, the row key store. Anything the
-        port cannot serve yet (row attributes, time views) raises
-        NotImplementedError naming it."""
+        views/ (time views included) and, for a keyed field, the row key
+        store. Row attributes, which the port cannot serve yet, raise
+        NotImplementedError naming the file."""
         if self.translate_store is not None:
             self.translate_store.open()
         if self.path is None:
@@ -155,10 +157,6 @@ class Field:
         views_dir = os.path.join(self.path, "views")
         if os.path.isdir(views_dir):
             for vname in sorted(os.listdir(views_dir)):
-                if vname not in (VIEW_STANDARD, self.bsi_view_name()):
-                    raise NotImplementedError(
-                        f"{os.path.join(views_dir, vname)}: view {vname!r} (time views are not yet ported)"
-                    )
                 self._view_create(vname)
         return self
 
@@ -180,7 +178,7 @@ class Field:
                     self.name,
                     device=self.device,
                     dcache=self.dcache,
-                    mutex=self.options.type == FIELD_TYPE_MUTEX,
+                    mutex=self.options.type in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL),
                     # BSI views hold bit planes, not rankable rows
                     cache_type=(
                         CACHE_TYPE_NONE
@@ -219,10 +217,18 @@ class Field:
     # writes
     # ------------------------------------------------------------------
 
-    def set_bit(self, row_id: int, col: int, ts=None) -> bool:
+    def set_bit(self, row_id: int, col: int, ts: Optional[datetime] = None) -> bool:
+        """Set a bit in the standard view (unless `no_standard_view`) and,
+        when timestamped, in each unit view of the quantum."""
+        changed = False
+        if not self.options.no_standard_view:
+            changed |= self._view_create(VIEW_STANDARD).set_bit(row_id, col)
         if ts is not None:
-            raise ValueError(f"field {self.name} is not a time field")
-        return self._view_create(VIEW_STANDARD).set_bit(row_id, col)
+            if self.options.type != FIELD_TYPE_TIME:
+                raise ValueError(f"field {self.name} is not a time field")
+            for vname in timeq.views_by_time(VIEW_STANDARD, ts, self.options.time_quantum):
+                changed |= self._view_create(vname).set_bit(row_id, col)
+        return changed
 
     def clear_bit(self, row_id: int, col: int) -> bool:
         with self._mu:
@@ -284,29 +290,68 @@ class Field:
             for shard, m in group_slices(cols // np.uint64(SHARD_WIDTH)):
                 v.fragment(int(shard)).import_values(cols[m], base_values[m], self.options.bit_depth)
 
-    def import_bits(self, row_ids: np.ndarray, cols: np.ndarray, clear: bool = False) -> None:
-        """Bulk import grouped by shard. Set-field SET imports take the
-        staged path (View.stage_bulk: merge deferred to the next read
-        barrier); clears and mutex fields take the exact per-fragment
-        path (last-write-wins needs the merge at apply time)."""
+    def import_bits(
+        self,
+        row_ids: np.ndarray,
+        cols: np.ndarray,
+        timestamps: Optional[Union[Sequence[Optional[datetime]], np.ndarray]] = None,
+        clear: bool = False,
+    ) -> None:
+        """Bulk import grouped by view and shard, under one group commit.
+        SET imports into a view that is not mutex take the staged path
+        (View.stage_bulk: merge deferred to the next read barrier); clears
+        and mutex/bool fields take the exact per-fragment path
+        (last-write-wins needs the merge at apply time). The timestamped
+        bits of a time field also go to their unit views, grouped with
+        numpy by hour: each hour of the batch names its views once. They
+        are merged at apply time, as the reference's exact path merges
+        them: staged, then one read barrier per unit view, which patches
+        the view's resident extents in place."""
         row_ids = np.asarray(row_ids, dtype=np.uint64)
         cols = np.asarray(cols, dtype=np.uint64)
         shards = cols >> np.uint64(SHARD_WIDTH_EXPONENT)
-        std = self._view_create(VIEW_STANDARD)
-        if not clear and self.options.type != FIELD_TYPE_MUTEX:
-            positions = (row_ids << np.uint64(SHARD_WIDTH_EXPONENT)) | (
-                cols & np.uint64(SHARD_WIDTH - 1)
-            )
-            std.stage_bulk(shards, positions)
-            return
-        with walmod.GROUP_COMMIT.barrier():  # one group commit for every shard
+        staged = not clear and self.options.type not in (FIELD_TYPE_MUTEX, FIELD_TYPE_BOOL)
+        with walmod.GROUP_COMMIT.barrier():  # one group commit for every view and shard
+            if not self.options.no_standard_view:
+                self._import_view(VIEW_STANDARD, row_ids, cols, shards, staged, clear)
+            if timestamps is not None and self.options.time_quantum:
+                views = [
+                    self._import_view(vname, row_ids[sel], cols[sel], shards[sel], staged, clear)
+                    for vname, sel in self._time_view_groups(timestamps)
+                ]
+                if staged:
+                    for v in views:
+                        v.sync_pending()
+
+    def _import_view(self, vname: str, row_ids, cols, shards, staged: bool, clear: bool) -> View:
+        v = self._view_create(vname)
+        if staged:
+            positions = (row_ids << np.uint64(SHARD_WIDTH_EXPONENT)) | (cols & np.uint64(SHARD_WIDTH - 1))
+            v.stage_bulk(shards, positions)
+        else:
             for shard, sl in group_slices(shards):
-                std.fragment(int(shard)).bulk_import(row_ids[sl], cols[sl], clear=clear)
+                v.fragment(int(shard)).bulk_import(row_ids[sl], cols[sl], clear=clear)
+        return v
+
+    def _time_view_groups(self, timestamps):
+        """(unit view name, indices of the bits that land in it) for every
+        unit view a batch's timestamps reach: datetimes, or a numpy
+        datetime64 array; None (NaT) reaches none."""
+        hours = np.asarray(timestamps, dtype="datetime64[h]")
+        idx = np.flatnonzero(~np.isnat(hours))
+        if not len(idx):
+            return
+        uniq, inv = np.unique(hours[idx], return_inverse=True)
+        names = [timeq.views_by_time(VIEW_STANDARD, h.item(), self.options.time_quantum) for h in uniq]
+        for unit in range(len(names[0])):
+            vnames, view_of = np.unique([n[unit] for n in names], return_inverse=True)
+            for k, sel in group_slices(view_of[inv]):
+                yield str(vnames[k]), idx[sel]
 
     def import_row_words(self, row_id: int, shard: int, words: np.ndarray) -> int:
         """Word-level bulk union of one row of one shard (standard view).
         Returns the newly-set bit count."""
-        if self.options.type != FIELD_TYPE_SET:
+        if self.options.type not in (FIELD_TYPE_SET, FIELD_TYPE_TIME, FIELD_TYPE_BOOL):
             raise ValueError(f"word-level import not supported on {self.options.type} fields")
         return self._view_create(VIEW_STANDARD).fragment(int(shard)).import_row_words(
             row_id, words

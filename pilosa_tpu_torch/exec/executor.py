@@ -42,6 +42,7 @@ from pilosa_tpu_torch.core.field import FIELD_TYPE_BOOL, FIELD_TYPE_INT, FIELD_T
 from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT, BSI_SIGN_BIT
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import Index
+from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.exec import bsistream
@@ -70,13 +71,8 @@ from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
 DEFAULT_MIN_THRESHOLD = 1
 
-# calls of the reference executor that later slices port
-_NOT_PORTED = frozenset(
-    {
-        "MinRow", "MaxRow", "ClearRow", "Store",
-        "SetRowAttrs", "SetColumnAttrs", "Options",
-    }
-)
+# calls of the reference executor that later slices port (attributes)
+_NOT_PORTED = frozenset({"SetRowAttrs", "SetColumnAttrs", "Options"})
 
 
 class ExecError(Exception):
@@ -343,17 +339,42 @@ class _StackedLowering:
         if isinstance(row_id, bool):
             if f.options.type != FIELD_TYPE_BOOL:
                 raise ExecError("Row() bool value requires a bool field")
+            row_id = 1 if row_id else 0
         if not isinstance(row_id, int):
             if isinstance(row_id, str):
                 raise ExecError(f"string row key {row_id!r} requires field keys (translation)")
             raise ExecError("Row() must specify a row")
-        if c.args.get("from") is not None or c.args.get("to") is not None:
-            if f.options.type != FIELD_TYPE_TIME:
-                raise ExecError(f"field {field_name} is not a time field")
-        v = f.view(VIEW_STANDARD)
-        if v is None:
+        if f.options.type == FIELD_TYPE_BOOL and row_id not in (0, 1):
+            raise ExecError("Row() bool field expects row 0 or 1")
+        from_arg, to_arg = c.args.get("from"), c.args.get("to")
+        if from_arg is None and to_arg is None:
+            v = f.view(VIEW_STANDARD)
+            if v is None:
+                return PZero()
+            return self._view_leaf(v, row_id)
+        # a time range: the union of the row over the minimal covering set
+        # of the quantum's views (an open bound takes the field's span)
+        if f.options.type != FIELD_TYPE_TIME:
+            raise ExecError(f"field {field_name} is not a time field")
+        from_t = timeq.parse_time(from_arg) if from_arg is not None else None
+        to_t = timeq.parse_time(to_arg) if to_arg is not None else None
+        if from_t is None or to_t is None:
+            lo, hi = ex._field_time_bounds(f)
+            if lo is None:
+                return PZero()
+            from_t = from_t or lo
+            to_t = to_t or hi
+        leaves = []
+        for vname in timeq.views_by_time_range(VIEW_STANDARD, from_t, to_t, f.options.time_quantum):
+            v = f.view(vname)
+            if v is None:
+                continue
+            leaf = self._view_leaf(v, row_id)
+            if not isinstance(leaf, PZero):
+                leaves.append(leaf)
+        if not leaves:
             return PZero()
-        return self._view_leaf(v, row_id)
+        return leaves[0] if len(leaves) == 1 else PNary("or", tuple(leaves))
 
     # -- BSI condition rows --------------------------------------------------
 
@@ -574,6 +595,14 @@ class Executor:
             return self._execute_rows(idx, c, shards)
         if name == "GroupBy":
             return self._execute_group_by(idx, c, shards)
+        if name == "MinRow":
+            return self._execute_min_max_row(idx, c, shards, is_min=True)
+        if name == "MaxRow":
+            return self._execute_min_max_row(idx, c, shards, is_min=False)
+        if name == "ClearRow":
+            return self._execute_clear_row(idx, c, shards)
+        if name == "Store":
+            return self._execute_store(idx, c, shards)
         if name in _NOT_PORTED:
             raise ExecError(f"{name} not yet ported")
         return self._execute_bitmap_call(idx, c, shards)
@@ -716,14 +745,27 @@ class Executor:
     # ------------------------------------------------------------------
 
     def _execute_bitmap_call(self, idx: Index, c: Call, shards) -> Row:
+        """One plan_rows launch per shard chunk gives the result words and
+        each shard's count; the non-empty shards' rows of that fresh stack
+        are the Row's segments. They are views of the stack, so a Row
+        keeps its chunk's whole stack (Shift predecessor rows included)
+        alive on the card, outside the device cache's budget, for as long
+        as it is held; where fewer than half of the stack's rows are
+        non-empty, one index_select copies them into a stack of their own
+        first, so a Row never holds more than twice its words."""
         shard_list = self._shards_for(idx, shards)
         segments = {}
         for sp in self._lower_plans(idx, c, shard_list):
-            stack = sp.rows()
-            nonzero = stack.ne(0).any(dim=1).cpu().tolist()
-            for i, shard in enumerate(sp.out_shards):
-                if nonzero[i]:
-                    segments[shard] = stack[i].clone()
+            stack, counts = sp.rows_counted()
+            counts = counts[: sp.n_shards].cpu().tolist()
+            planmod.STATS["host_reads"] += 1
+            keep = [i for i in range(sp.n_shards) if counts[i]]
+            pos = keep
+            if 2 * len(keep) < stack.shape[0]:
+                stack = stack.index_select(0, torch.tensor(keep, dtype=torch.int64, device=stack.device))
+                pos = range(len(keep))
+            for i, j in zip(keep, pos):
+                segments[sp.out_shards[i]] = stack[j]
         return Row(segments)
 
     def _field_of(self, idx: Index, name: str) -> Field:
@@ -731,6 +773,12 @@ class Executor:
         if f is None:
             raise NotFoundError(f"field not found: {name}")
         return f
+
+    @staticmethod
+    def _field_time_bounds(f: Field):
+        """The span the field's time views cover: (start, end) or (None,
+        None) without time views."""
+        return timeq.min_max_view_times(f.views.keys(), f.options.time_quantum)
 
     def _field_arg_name(self, c: Call) -> str:
         for k in c.args:
@@ -805,9 +853,14 @@ class Executor:
             changed = f.set_value(col, value)
         else:
             row_id = c.args.get(field_name)
+            if f.options.type == FIELD_TYPE_BOOL:
+                if not isinstance(row_id, bool):
+                    raise ExecError("Set() bool field requires true/false")
+                row_id = 1 if row_id else 0
             if not isinstance(row_id, int):
                 raise ExecError("Set() row argument required")
-            changed = f.set_bit(row_id, col, c.args.get("_timestamp"))
+            ts = c.args.get("_timestamp")
+            changed = f.set_bit(row_id, col, timeq.parse_time(ts) if ts is not None else None)
         idx.track_columns(np.array([col], np.uint64))
         return changed
 
@@ -820,9 +873,166 @@ class Executor:
         if f.options.type == FIELD_TYPE_INT:
             return f.clear_value(col)
         row_id = c.args.get(field_name)
+        if f.options.type == FIELD_TYPE_BOOL and isinstance(row_id, bool):
+            row_id = 1 if row_id else 0
         if not isinstance(row_id, int):
             raise ExecError("Clear() row argument required")
         return f.clear_bit(row_id, col)
+
+    def _execute_clear_row(self, idx: Index, c: Call, shards) -> bool:
+        """Clear one row in every view of a set, time, mutex or bool field
+        (each write drops the stacks covering its view and shard)."""
+        field_name = self._field_arg_name(c)
+        f = self._field_of(idx, field_name)
+        if f.options.type not in ("set", "time", "mutex", "bool"):
+            raise ExecError(f"ClearRow() is not supported on {f.options.type} fields")
+        row_id = c.args.get(field_name)
+        if f.options.type == FIELD_TYPE_BOOL and isinstance(row_id, bool):
+            row_id = 1 if row_id else 0
+        if not isinstance(row_id, int):
+            raise ExecError("ClearRow() row argument required")
+        changed = False
+        base = np.uint64(row_id) * np.uint64(SHARD_WIDTH)
+        shard_list = self._shards_for(idx, shards)
+        for v in list(f.views.values()):
+            for shard in shard_list:
+                frag = v.fragment_if_exists(shard)
+                if frag is None:
+                    continue
+                pos = frag.row_positions(row_id)
+                if len(pos):
+                    frag.import_positions(None, base + pos.astype(np.uint64))
+                    changed = True
+        return changed
+
+    def _execute_store(self, idx: Index, c: Call, shards) -> bool:
+        """Store(<bitmap>, f=row): overwrite a set field's row with the
+        bitmap, shard by shard (a fragment for every listed shard). The
+        bitmap comes from one plan_rows launch per shard chunk; only its
+        non-empty shards' words come to the host."""
+        if len(c.children) != 1:
+            raise ExecError("Store() requires a single bitmap input")
+        field_name = self._field_arg_name(c)
+        f = self._field_of(idx, field_name)
+        if f.options.type != "set":
+            # only set fields: a stored row would break the one-row-per-
+            # column rule of mutex and bool fields
+            raise ExecError("Store() is only supported on set fields")
+        row_id = c.args.get(field_name)
+        if not isinstance(row_id, int):
+            raise ExecError("Store() row argument required")
+        shard_list = self._shards_for(idx, shards)
+        words: Dict[int, np.ndarray] = {}
+        for sp in self._lower_plans(idx, c.children[0], shard_list):
+            stack, counts = sp.rows_counted()
+            live = [i for i, n in enumerate(counts[: sp.n_shards].cpu().tolist()) if n]
+            host = stack[live].cpu().numpy().view(np.uint32)
+            planmod.STATS["host_reads"] += 2
+            for k, i in enumerate(live):
+                words[sp.out_shards[i]] = host[k]
+        v = f._view_create(VIEW_STANDARD)
+        base = np.uint64(row_id) * np.uint64(SHARD_WIDTH)
+        changed = False
+        for shard in shard_list:
+            w = words.get(shard)
+            new_pos = np.empty(0, np.uint64)
+            if w is not None:
+                new_pos = np.flatnonzero(np.unpackbits(w.view(np.uint8), bitorder="little")).astype(np.uint64)
+            frag = v.fragment(shard)
+            old_pos = frag.row_positions(row_id).astype(np.uint64)
+            to_set = np.setdiff1d(new_pos, old_pos)
+            to_clear = np.setdiff1d(old_pos, new_pos)
+            if len(to_set) or len(to_clear):
+                frag.import_positions(
+                    base + to_set if len(to_set) else None,
+                    base + to_clear if len(to_clear) else None,
+                )
+                changed = True
+        return changed
+
+    # ------------------------------------------------------------------
+    # MinRow / MaxRow
+    # ------------------------------------------------------------------
+
+    def _execute_min_max_row(self, idx: Index, c: Call, shards, is_min: bool) -> dict:
+        """The lowest (highest) row of a field that holds a bit (within
+        the filter, when given). Unfiltered, it is read from the host row
+        stores with count 1; filtered, candidates are tallied against one
+        filter stack from the extreme end in windows, and the first row
+        with any filtered bit wins."""
+        field_name = c.string_arg("field") or c.string_arg("_field")
+        if field_name is None:
+            field_name = self._field_arg_name(c)
+        f = self._field_of(idx, field_name)
+        v = f.view(VIEW_STANDARD)
+        shard_list = self._shards_for(idx, shards)
+        if c.children and v is not None:
+            return self._min_max_row_filtered(idx, v, c.children[0], shard_list, is_min)
+        best_row = None
+        if v is not None:
+            for shard in shard_list:
+                frag = v.fragment_if_exists(shard)
+                ids = frag.row_ids() if frag is not None else None
+                if not ids:
+                    continue
+                rid = min(ids) if is_min else max(ids)
+                if best_row is None or (rid < best_row if is_min else rid > best_row):
+                    best_row = rid
+        return {"id": 0 if best_row is None else best_row, "count": 0 if best_row is None else 1}
+
+    def _min_max_row_filtered(self, idx: Index, view, filter_call: Call, shard_list, is_min: bool) -> dict:
+        """The filtered walk over shard chunks: a filter stack over the
+        budget splits the shard axis (_chunk_by_budget), each chunk walks
+        on its own, and the extreme row of the chunks wins with the count
+        of every chunk whose own extreme row it is (where it has filtered
+        bits, no row beyond it has any)."""
+        present = [(s, frag) for s in shard_list if (frag := view.fragment_if_exists(s)) is not None]
+        if not present:
+            return {"id": 0, "count": 0}
+        view.sync_pending(frags=[frag for _, frag in present])
+        frag_of = dict(present)
+
+        def walk(chunk, over_budget):
+            return [self._min_max_row_walk(idx, view, filter_call, [(s, frag_of[s]) for s in chunk], is_min, over_budget)]
+
+        bests = [b for b in self._chunk_by_budget(list(frag_of), walk) if b is not None]
+        if not bests:
+            return {"id": 0, "count": 0}
+        rid = (min if is_min else max)(r for r, _ in bests)
+        return {"id": rid, "count": sum(n for r, n in bests if r == rid)}
+
+    def _min_max_row_walk(self, idx: Index, view, filter_call: Call, present, is_min: bool, over_budget: bool):
+        """(row, count) of the extreme row with filtered bits in these
+        shards, or None: candidates are tallied against one filter stack
+        from the extreme end in windows, and the first row with any
+        filtered bit wins."""
+        present, sp = self._stacked_filter(idx, filter_call, present, over_budget)
+        if not present:
+            return None
+        src_stack, src_counts = sp.rows_counted()
+        if not int(src_counts.sum().item()):
+            return None  # the filter matches nothing
+        cand: set = set()
+        for _, frag in present:
+            cand.update(frag.row_ids())
+        ordered = sorted(cand, reverse=not is_min)
+        chunk = self._candidate_window(idx, len(present))
+        for i in range(0, len(ordered), chunk):
+            order, fused = self._topn_icounts_raw(view, ordered[i : i + chunk], present, src_stack)
+            totals = dict(zip(order, fused.sum(axis=1).tolist()))
+            for rid in ordered[i : i + chunk]:
+                if totals[rid]:
+                    return rid, int(totals[rid])
+        return None
+
+    @staticmethod
+    def _candidate_window(idx: Index, n_shards: int) -> int:
+        """Candidate rows per tally round of the MinRow/MaxRow walk: as
+        many [S, W] rows as a quarter of the device budget holds, between
+        16 and 4096."""
+        row_bytes = max(1, n_shards) * WORDS_PER_ROW * 4
+        cap = max(1, idx.dcache.budget_bytes // 4)
+        return int(min(4096, max(16, cap // row_bytes)))
 
     # ------------------------------------------------------------------
     # TopN (two-pass protocol)
@@ -1096,19 +1306,26 @@ class Executor:
         v.sync_pending(frags=[frag for _, frag in present])
         return v, present
 
-    def _stacked_filter(self, idx: Index, filter_call: Call, present):
+    def _stacked_filter(self, idx: Index, filter_call: Call, present, over_budget: Optional[bool] = None):
         """Lower a filter bitmap over the present fragments' shards.
         Returns (present, plan), `present` restricted to the plan's
         out_shards when compaction dropped shards (they hold no filter
-        bits); ([], None) when the filter is empty everywhere."""
+        bits); ([], None) when the filter is empty everywhere. A caller
+        that chunks the shard axis passes `over_budget` and gets
+        BudgetExceeded; otherwise (TopN) a filter over the budget raises
+        over _MIN_CHUNK shards or more, and is lowered with the guards
+        off below that."""
         pshards = [s for s, _ in present]
-        try:
-            lowered = self._lower_roots(idx, [filter_call], pshards)
-        except BudgetExceeded:
-            if len(pshards) >= self._MIN_CHUNK:
-                raise ExecError("TopN filter stack exceeds the device budget") from None
-            # a few shards: admit the filter's stacks over the budget
-            lowered = self._lower_roots(idx, [filter_call], pshards, over_budget=True)
+        if over_budget is not None:
+            lowered = self._lower_roots(idx, [filter_call], pshards, over_budget=over_budget)
+        else:
+            try:
+                lowered = self._lower_roots(idx, [filter_call], pshards)
+            except BudgetExceeded:
+                if len(pshards) >= self._MIN_CHUNK:
+                    raise ExecError("TopN filter stack exceeds the device budget") from None
+                # a few shards: admit the filter's stacks over the budget
+                lowered = self._lower_roots(idx, [filter_call], pshards, over_budget=True)
         if lowered is self._EMPTY:
             return [], None
         roots, low, n_out, out_shards = lowered
@@ -1240,18 +1457,19 @@ class Executor:
             shards = [col // SHARD_WIDTH]
         limit = c.uint_arg("limit")
         f = self._field_of(idx, field_name)
-        v = f.view(VIEW_STANDARD)
+        views = [v for vname in self._rows_views(f, c) if (v := f.view(vname)) is not None]
         merged: set = set()
         for shard in self._shards_for(idx, shards):
-            frag = v.fragment_if_exists(shard) if v is not None else None
-            if frag is None:
-                continue
-            ids = frag.row_ids()
-            if col is not None:
-                merged.update(r for r in ids if frag.contains(r, col % SHARD_WIDTH))
-            elif ids:
-                counts = frag.row_counts_host(ids)
-                merged.update(r for r, n in zip(ids, counts) if n)
+            for v in views:
+                frag = v.fragment_if_exists(shard)
+                if frag is None:
+                    continue
+                ids = frag.row_ids()
+                if col is not None:
+                    merged.update(r for r in ids if frag.contains(r, col % SHARD_WIDTH))
+                elif ids:
+                    counts = frag.row_counts_host(ids)
+                    merged.update(r for r, n in zip(ids, counts) if n)
         out = sorted(merged)
         prev = c.uint_arg("previous")
         if prev is not None:
@@ -1259,6 +1477,23 @@ class Executor:
         if limit is not None:
             out = out[:limit]
         return out
+
+    def _rows_views(self, f: Field, c: Call) -> List[str]:
+        """The views Rows lists: a time field's minimal covering set for
+        `from`/`to` (an open bound takes the field's span; every time view
+        without a standard view), else the standard view."""
+        from_arg, to_arg = c.args.get("from"), c.args.get("to")
+        o = f.options
+        if o.type != FIELD_TYPE_TIME or (from_arg is None and to_arg is None and not o.no_standard_view):
+            return [VIEW_STANDARD]
+        if not o.time_quantum:
+            return []
+        lo, hi = self._field_time_bounds(f)
+        if lo is None:
+            return []
+        from_t = timeq.parse_time(from_arg) if from_arg is not None else lo
+        to_t = timeq.parse_time(to_arg) if to_arg is not None else hi
+        return timeq.views_by_time_range(VIEW_STANDARD, from_t, to_t, o.time_quantum)
 
     def _execute_group_by(self, idx: Index, c: Call, shards) -> List[GroupCount]:
         if not c.children:

@@ -10,13 +10,18 @@ evaluates it:
   evaluated word by word on the card with nothing intermediate written to
   memory, giving exact int64 per-shard counts. `total` sums them on the
   device (exact, so the reference's halfword pair is not needed).
-- PShift subtrees are evaluated with ops.bitmap.shift_bits (plus the
-  cross-shard carry) and enter the kernel as materialized leaves.
+- row mode (rows / rows_counted / rows_full) runs the plan_rows kernel:
+  the same program, storing the result words and each row's count, with
+  a PShift over a leaf as a shifted leaf (its overflow carried into the
+  next shard's row); a PShift over any other subtree first materializes
+  that subtree with its own plan_rows launch. The result is always a
+  fresh tensor, never an operand, so no caller reads a cached entry
+  after its pins are gone.
+- in count mode a PShift enters plan_count as its plan_rows result; a
+  Shift root is counted by that plan_rows launch alone.
 - BSI condition rows (PRangeEQ / PRangeCmp / PRangeBetween) are
-  materialized by the bsi_range kernel in rows mode and enter the same
-  way.
-- row mode (rows / rows_full) evaluates with PyTorch bitwise ops, and
-  range nodes with bsi_range.
+  materialized by the bsi_range kernel in rows mode and enter either
+  kernel as leaves.
 
 STATS counts dispatches (`evals`) and blocking device->host reads
 (`host_reads`); one dispatch lock serializes them.
@@ -24,9 +29,7 @@ STATS counts dispatches (`evals`) and blocking device->host reads
 A plan carries the ExtentTable (hbm/residency.py) of the pins its
 lowering took on its operands' extents and releases it in each dispatch
 method's `finally`, once its kernels are queued (release is idempotent;
-a released plan still runs, since it holds its operand tensors). Row
-mode copies a result that is a cached entry itself, which the caller
-would otherwise read unpinned.
+a released plan still runs, since it holds its operand tensors).
 """
 
 from __future__ import annotations
@@ -39,7 +42,6 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import kernels
-from pilosa_tpu_torch.ops.bitmap import shift_bits
 
 STATS = {"evals": 0, "host_reads": 0}
 
@@ -168,57 +170,42 @@ class PZero(PNode):
 # Evaluation
 # ---------------------------------------------------------------------------
 
-_TORCH_OPS = {
-    "and": torch.bitwise_and,
-    "or": torch.bitwise_or,
-    "xor": torch.bitwise_xor,
-    "andnot": lambda a, b: a & ~b,
-}
-
 
 def _shape(operands: Sequence[torch.Tensor]) -> Tuple[int, int]:
     return tuple(operands[0].shape)
 
 
-def _eval_rows(node: PNode, operands, memo: Dict[int, torch.Tensor]) -> torch.Tensor:
-    """Row mode: the node's [S, W] result stack with PyTorch ops."""
-    hit = memo.get(id(node))
-    if hit is not None:
-        return hit
-    if isinstance(node, PLeaf):
-        val = operands[node.slot]
-    elif isinstance(node, PZero):
+def _rows(node: PNode, operands, memo: Dict[int, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row mode: the node's fresh [S, W] result words and per-row counts
+    from one plan_rows launch (none for an all-zero node)."""
+    leaves, shifts, prog = _compile(node, operands, memo, rows_mode=True)
+    if not leaves:
         s, w = _shape(operands)
-        val = torch.zeros((s, w), dtype=torch.int32, device=operands[0].device)
-    elif isinstance(node, PNary):
-        fn = _TORCH_OPS[node.op]
-        vals = [_eval_rows(c, operands, memo) for c in node.children]
-        val = vals[0]
-        for v in vals[1:]:
-            val = fn(val, v)
-    elif isinstance(node, PShift):
-        child = _eval_rows(node.child, operands, memo)
-        shifted, overflow = shift_bits(child, node.n)
-        prev = np.asarray(node.prev_idx, np.int64)
-        has_prev = prev >= 0
-        if has_prev.any():
-            dev = child.device
-            take = torch.from_numpy(np.where(has_prev, prev, 0)).to(dev)
-            keep = torch.from_numpy(has_prev).to(dev)[:, None]
-            shifted = shifted | torch.where(keep, overflow[take], torch.zeros_like(shifted))
-        val = shifted
-    elif isinstance(node, _RANGE_NODES):
-        val = _range_rows(node, operands, memo)
-    else:
-        raise AssertionError(type(node))
-    memo[id(node)] = val
-    return val
+        dev = operands[0].device
+        return torch.zeros((s, w), dtype=torch.int32, device=dev), torch.zeros(s, dtype=torch.int64, device=dev)
+    return kernels.plan_rows(leaves, shifts, prog)
+
+
+def _input(node: PNode, operands, memo: Dict[int, torch.Tensor]) -> torch.Tensor:
+    """The [S, W] words a node feeds a kernel as a leaf: an operand as it
+    is, a range node's bsi_range rows, any other node's plan_rows result
+    (each computed once per evaluation)."""
+    if isinstance(node, PLeaf):
+        return operands[node.slot]
+    hit = memo.get(id(node))
+    if hit is None:
+        if isinstance(node, _RANGE_NODES):
+            hit = _range_rows(node, operands, memo)
+        else:
+            hit = _rows(node, operands, memo)[0]
+        memo[id(node)] = hit
+    return hit
 
 
 def _range_rows(node: PNode, operands, memo) -> torch.Tensor:
     """A range node's [S, W] result words from one bsi_range launch."""
-    exists = _eval_rows(node.exists, operands, memo)
-    sign = None if node.sign is None else _eval_rows(node.sign, operands, memo)
+    exists = _input(node.exists, operands, memo)
+    sign = None if node.sign is None else _input(node.sign, operands, memo)
     planes = operands[node.planes]
     if isinstance(node, PRangeEQ):
         kind, allow_eq, p0, p1 = "eq", False, node.pred, 0
@@ -243,10 +230,13 @@ def _need(node: PNode, memo: Dict[int, int]) -> int:
     return hit
 
 
-def _compile(root: PNode, operands) -> Tuple[List[torch.Tensor], List[int]]:
-    """Postfix program for the plan_count kernel: (leaf stacks, program).
-    PShift subtrees and range nodes are materialized (row mode) into
-    leaves.
+def _compile(root: PNode, operands, memo: Dict[int, torch.Tensor], rows_mode: bool = False):
+    """Postfix program for the plan_count (rows_mode False) or plan_rows
+    kernel: (leaf stacks, their shifts, program). Range nodes enter as
+    their bsi_range rows. A PShift enters plan_rows as a shifted leaf:
+    its child's stack when the child is a leaf, else the child's plan_rows
+    result (a launch first); it enters plan_count as its own plan_rows
+    result.
 
     Each n-ary node folds its children into the value on top of the stack,
     deepest child first, so the stack depth grows with the log of the
@@ -255,16 +245,17 @@ def _compile(root: PNode, operands) -> Tuple[List[torch.Tensor], List[int]]:
     or-ed together, c0 then takes `rev_andnot` against that union, and
     the rest fold with `andnot`."""
     leaves: List[torch.Tensor] = []
+    shifts: List[Optional[Tuple[int, Tuple[int, ...]]]] = []
     leaf_of: Dict[Tuple[str, int], int] = {}
     prog: List[int] = []
-    memo: Dict[int, torch.Tensor] = {}
     need: Dict[int, int] = {}
 
-    def leaf(key: Tuple[str, int], make) -> None:
+    def leaf(key: Tuple[str, int], make, shift=None) -> None:
         i = leaf_of.get(key)
         if i is None:
             i = leaf_of[key] = len(leaves)
             leaves.append(make())
+            shifts.append(shift)
         prog.append(i)
 
     def emit(node: PNode) -> None:
@@ -286,18 +277,25 @@ def _compile(root: PNode, operands) -> Tuple[List[torch.Tensor], List[int]]:
                     op = "andnot" if head_seen else "or"
                 if k:
                     prog.append(kernels.BINOPS[op])
+        elif isinstance(node, PShift) and rows_mode:
+            kernels.check_shift(node.n, _shape(operands)[1])
+            leaf(("shift", id(node)), lambda: _input(node.child, operands, memo), (node.n, node.prev_idx))
         elif isinstance(node, (PShift,) + _RANGE_NODES):
-            leaf(("node", id(node)), lambda: _eval_rows(node, operands, memo))
+            leaf(("node", id(node)), lambda: _input(node, operands, memo))
         else:
             raise AssertionError(type(node))
 
     emit(root)
-    return leaves, prog
+    return leaves, shifts, prog
 
 
 def _root_counts(root: PNode, operands, n_shards: int) -> torch.Tensor:
-    """int64[n_shards] per-shard counts of one root, on the device."""
-    leaves, prog = _compile(root, operands)
+    """int64[n_shards] per-shard counts of one root, on the device. A
+    Shift root is counted by the plan_rows launch that shifts it: its
+    result's row counts, with no plan_count pass over that result."""
+    if isinstance(root, PShift):
+        return _rows(root, operands, {})[1][:n_shards]
+    leaves, _, prog = _compile(root, operands, {})
     if not leaves:  # the root is all-zero
         return torch.zeros(n_shards, dtype=torch.int64, device=operands[0].device)
     return kernels.plan_count(leaves, prog, n_shards)
@@ -358,20 +356,20 @@ class StackedPlan(_Pinned):
             STATS["host_reads"] += 1
             return counts.cpu().numpy()
 
-    def rows_full(self) -> torch.Tensor:
-        """Materialized result stack, Shift predecessor rows included. A
-        result that is an operand cached whole (a bare Row over one
-        extent) is copied before the pins go: the caller launches more
-        kernels on it, and a barrier patches an unpinned entry in place."""
+    def rows_counted(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The fresh result stack, Shift predecessor rows included, and
+        its per-row counts (int64, on the device): one plan_rows launch
+        for the root, after one per Shift over a subtree."""
         with _DISPATCH_MU:
             STATS["evals"] += 1
             try:
-                out = _eval_rows(self.root, self.operands, {})
-                if self.extents is not None and self.extents.is_shared(out):
-                    out = out.clone()
-                return out
+                return _rows(self.root, self.operands, {})
             finally:
                 self.release_extents()
+
+    def rows_full(self) -> torch.Tensor:
+        """Materialized result stack, Shift predecessor rows included."""
+        return self.rows_counted()[0]
 
     def rows(self) -> torch.Tensor:
         """Materialized [n_shards, W] result stack."""

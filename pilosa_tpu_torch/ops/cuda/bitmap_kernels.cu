@@ -2,11 +2,12 @@
 //
 // Words are 32-bit little-endian bitmap words (bit b of word w = in-shard
 // column 32w + b). PyTorch holds them as int32; the kernels read them as
-// uint32. Every kernel here but gather_and is a popcount reduction that
-// reads each input word once (gather_tally: each word idx points at;
-// counts_cross: each plane word once per chunk of 16 prefixes), and
-// gather_and is one AND per distinct slab word read, so all six are bound by
-// device-memory bytes, not operations:
+// uint32. Every kernel here but gather_and and plan_rows is a popcount
+// reduction that reads each input word once (gather_tally: each word idx
+// points at; counts_cross: each plane word once per chunk of 16 prefixes),
+// gather_and is one AND per distinct slab word read, and plan_rows a few
+// bitwise operations and one popcount per word read and written, so all
+// seven are bound by device-memory bytes, not operations:
 // loads are 128-bit (uint4) where the pointers and the row width allow it,
 // popcount is one __popc per word, and partial sums stay in registers and
 // shared memory (nothing intermediate is written to device memory).
@@ -16,6 +17,8 @@
 //   rows_counts_kernel pilosa_tpu/ops/pallas_kernels.py _rows_counts
 //   plan_count_kernel  pilosa_tpu/exec/plan.py _eval_jit/_eval_multi_jit +
 //                      _root_out ("count" mode), an XLA program
+//   plan_rows_kernel   pilosa_tpu/exec/plan.py _eval_jit ("row" mode) with
+//                      pilosa_tpu/ops/bitmap.py shift_bits, an XLA program
 //   gather_tally_kernel pilosa_tpu/ops/bitmap.py gather_tally_sorted, an
 //                      XLA program (bound by the 32-byte sectors it gathers)
 //   counts_cross_kernel pilosa_tpu/exec/groupby.py _counts_cross, an XLA
@@ -24,8 +27,8 @@
 //                      _select_pairs and _cross_expand, XLA programs
 //
 // Each C entry point launches on the caller's stream, does not synchronise,
-// allocates nothing, and returns cudaGetLastError() as an int. count2 and
-// plan_count take a table the wrapper staged in pinned host memory: the
+// allocates nothing, and returns cudaGetLastError() as an int. count2,
+// plan_count and plan_rows take a table the wrapper staged in pinned host memory: the
 // entry point copies it (one asynchronous copy on the same stream) into a
 // device buffer whose head is the kernel's output, so the same copy zeroes
 // the output and no memset or pageable copy precedes the launch.
@@ -495,6 +498,164 @@ plan_count_kernel(const int64_t* __restrict__ meta, int32_t n_push, int32_t n_co
 }
 
 // ---------------------------------------------------------------------------
+// plan_rows: the same postfix program, storing the result words of every
+// stack row and each row's popcount, with Shift as a kind of push.
+// ---------------------------------------------------------------------------
+//
+// Replaces pilosa_tpu/exec/plan.py _eval_jit(plan, "row", ...) with
+// pilosa_tpu/ops/bitmap.py shift_bits fused into it (an XLA program): a
+// plan tree's [S, W] result words, the n-ary and/or/xor/andnot of its leaf
+// stacks, and Shift carrying each row's high bits into the next shard's
+// row.
+//
+// Bound: bytes. Every distinct leaf is read once and the result written
+// once; a shifted leaf reads each word twice, the second time from L1.
+//
+// Design. The micro program and its folded pushes are plan_count's; each
+// push also carries a shift n (0: none) and, when shifted, the offset of its
+// predecessor table prev[S] (stack row of shard - 1, or -1). A shifted push
+// of stack row i reads word k as (E[k - q] << r) | (E[k - q - 1] >> (32 -
+// r)), q, r = divmod(n, 32), over the row's words extended downwards by its
+// predecessor's: E[j] = leaf[i][j] for j >= 0, leaf[prev[i]][W + j] for j <
+// 0 (0 where prev[i] < 0); n <= 32 W, so j never falls below -W. Only a leaf
+// can be shifted: a Shift over any other subtree is two launches, the first
+// materializing the subtree, the second shifting it as a leaf. Those reads
+// sit at any word offset, which TMA's 16-byte bulk copies cannot serve, so
+// this kernel reads words directly: an item is a tile of kPrTile words of
+// one row, thread t evaluating words t + j * kThreads (j < kPrWords), so
+// every load of a warp covers 128 consecutive bytes of a row, at any
+// alignment and any W. The stack below the top lives in shared memory
+// (kPrWords words per thread and entry). Blocks walk contiguous runs of
+// items (block_items) and add each row's count into counts[row] with one
+// 64-bit atomic per block and row.
+constexpr int kPrWords = 4;
+constexpr int64_t kPrTile = (int64_t)kThreads * kPrWords;  // 1024 words
+constexpr int kPrMaxDynSmem = (kMaxStack - 1) * kPrWords * kThreads * (int)sizeof(uint32_t);
+
+__device__ __forceinline__ uint32_t binop1(int op, uint32_t a, uint32_t b) {
+  switch (op) {
+    case 0:
+      return a & b;
+    case 1:
+      return a | b;
+    case 2:
+      return a ^ b;
+    case 3:
+      return a & ~b;
+    default:
+      return b & ~a;
+  }
+}
+
+// Word j of stack row `row` extended downwards by row `prev` (see above).
+__device__ __forceinline__ uint32_t extended_word(const uint32_t* __restrict__ leaf, int64_t row,
+                                                  int64_t prev, int64_t w, int64_t j) {
+  if (j >= 0) return __ldg(leaf + row * w + j);
+  if (prev < 0) return 0u;
+  return __ldg(leaf + prev * w + w + j);
+}
+
+// meta: the leaf pointer of each push in program order [n_push], its shift
+// n [n_push], its predecessor table's offset in prev_tab [n_push] (-1:
+// unshifted), then the micro program [n_code].
+__global__ void __launch_bounds__(kThreads)
+plan_rows_kernel(const int64_t* __restrict__ meta, const int64_t* __restrict__ prev_tab,
+                 int32_t n_push, int32_t n_code, int64_t w, int64_t tiles, int64_t n_items,
+                 uint32_t* __restrict__ out, unsigned long long* __restrict__ counts) {
+  extern __shared__ uint32_t stack[];  // [stack_slots][kPrWords][kThreads]
+  __shared__ unsigned long long partial[kWarps];
+  int64_t lo, hi;
+  block_items(n_items, &lo, &hi);
+  if (lo >= hi) return;
+  const int tid = threadIdx.x;
+  const int64_t* push_ptr = meta;
+  const int64_t* push_shift = meta + n_push;
+  const int64_t* push_prev = meta + 2 * (int64_t)n_push;
+  const int64_t* code = meta + 3 * (int64_t)n_push;
+  int64_t s = lo / tiles, t = lo % tiles, cur = s;
+  uint32_t acc = 0;
+  for (int64_t item = lo; item < hi; ++item) {
+    if (s != cur) {
+      flush_count(counts + cur, acc, partial);
+      acc = 0;
+      cur = s;
+    }
+    const int64_t k0 = t * kPrTile + tid;
+    uint32_t top[kPrWords];
+    int sp = 0, push = 0;
+    for (int pc = 0; pc < n_code; ++pc) {
+      const int c = (int)__ldg(code + pc);
+      const int kind = c >> 3, op = c & 7;
+      if (kind == M_STACK_OP) {
+        --sp;
+#pragma unroll
+        for (int j = 0; j < kPrWords; ++j) {
+          top[j] = binop1(op, stack[(sp * kPrWords + j) * kThreads + tid], top[j]);
+        }
+        continue;
+      }
+      uint32_t v[kPrWords];
+      if (kind == M_PUSH || kind == M_LEAF_OP) {
+        const uint32_t* leaf = reinterpret_cast<const uint32_t*>(__ldg(push_ptr + push));
+        const int64_t n = __ldg(push_shift + push);
+        if (n == 0) {
+#pragma unroll
+          for (int j = 0; j < kPrWords; ++j) {
+            const int64_t k = k0 + j * kThreads;
+            v[j] = k < w ? __ldg(leaf + s * w + k) : 0u;
+          }
+        } else {
+          const int64_t q = n >> 5;
+          const int r = (int)(n & 31);
+          const int64_t prev = __ldg(prev_tab + __ldg(push_prev + push) + s);
+#pragma unroll
+          for (int j = 0; j < kPrWords; ++j) {
+            const int64_t k = k0 + j * kThreads;
+            uint32_t x = 0u;
+            if (k < w) {
+              x = extended_word(leaf, s, prev, w, k - q);
+              if (r != 0) {
+                x = (x << r) | (extended_word(leaf, s, prev, w, k - q - 1) >> (32 - r));
+              }
+            }
+            v[j] = x;
+          }
+        }
+        ++push;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kPrWords; ++j) v[j] = 0u;
+      }
+      if (kind >= M_LEAF_OP) {
+#pragma unroll
+        for (int j = 0; j < kPrWords; ++j) top[j] = binop1(op, top[j], v[j]);
+      } else {
+        if (pc > 0) {  // every push but the first has a value under it
+#pragma unroll
+          for (int j = 0; j < kPrWords; ++j) stack[(sp * kPrWords + j) * kThreads + tid] = top[j];
+          ++sp;
+        }
+#pragma unroll
+        for (int j = 0; j < kPrWords; ++j) top[j] = v[j];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPrWords; ++j) {
+      const int64_t k = k0 + j * kThreads;
+      if (k < w) {
+        out[s * w + k] = top[j];
+        acc += __popc(top[j]);
+      }
+    }
+    if (++t == tiles) {
+      t = 0;
+      ++s;
+    }
+  }
+  flush_count(counts + cur, acc, partial);
+}
+
+// ---------------------------------------------------------------------------
 // gather_tally: out[g] = sum over k in [starts[g], ends[g]) of
 // popcount(src[idx[k]] & mask[k]), segments sorted and disjoint.
 // ---------------------------------------------------------------------------
@@ -781,6 +942,40 @@ PT_EXPORT int pt_plan_count(const void* host_table, int64_t table_bytes, void* d
     return launch_plan_count<2>(meta, shards, n_push, n_code, stack_slots, w, out, st);
   }
   return launch_plan_count<1>(meta, shards, n_push, n_code, stack_slots, w, out, st);
+}
+
+// `host_table` (pinned) holds `rows` zeros (the per-row counts), then per
+// push in program order its leaf pointer, its shift n (0: none) and the
+// offset of its predecessor table (-1: none), then the n_code micro program
+// entries, then the predecessor tables (`rows` entries each). The caller
+// has checked the program (stack_slots < kMaxStack), every leaf's shape
+// [rows, w], each shift 0 <= n <= 32 w and each table entry in [-1, rows).
+// out: [rows, w] words.
+PT_EXPORT int pt_plan_rows(const void* host_table, int64_t table_bytes, void* dev_table,
+                           int64_t rows, int64_t n_push, int64_t n_code, int64_t stack_slots,
+                           int64_t w, void* out, void* stream) {
+  if (rows < 1 || n_push < 1 || n_code < 1 || stack_slots < 0 || stack_slots >= kMaxStack ||
+      w < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      plan_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPrMaxDynSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cudaMemcpyAsync(dev_table, host_table, table_bytes, cudaMemcpyHostToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+  auto* counts = static_cast<unsigned long long*>(dev_table);
+  const int64_t* meta = static_cast<const int64_t*>(dev_table) + rows;
+  const int64_t* prev_tab = meta + 3 * n_push + n_code;
+  const int64_t tiles = (w + kPrTile - 1) / kPrTile;
+  const int64_t n_items = rows * tiles;
+  const size_t smem = (size_t)stack_slots * kPrWords * kThreads * sizeof(uint32_t);
+  const int grid = resident_grid(plan_rows_kernel, smem, n_items);
+  plan_rows_kernel<<<grid, kThreads, smem, st>>>(meta, prev_tab, (int32_t)n_push, (int32_t)n_code,
+                                                 w, tiles, n_items, static_cast<uint32_t*>(out),
+                                                 counts);
+  return (int)cudaGetLastError();
 }
 
 // n_src words of src; n_ent entries of idx and mask; n_seg segments of

@@ -16,6 +16,8 @@ failed build or launch raises.
 |                   | `popcount` are its one-segment case)                |
 | `rows_counts`     | pallas_kernels.py `_rows_counts`                    |
 | `plan_count`      | exec/plan.py `_eval_jit`/`_root_out` (XLA program)  |
+| `plan_rows`       | exec/plan.py `_eval_jit(plan, "row")` with          |
+|                   | ops/bitmap.py `shift_bits` (XLA program)            |
 | `gather_tally`    | ops/bitmap.py `gather_tally_sorted` (XLA program)   |
 | `counts_cross`    | exec/groupby.py `_counts_cross` (XLA program)       |
 | `gather_and`      | exec/groupby.py `_select_rows_filtered`,            |
@@ -42,7 +44,7 @@ name keyed by a hash of the sources and flags, and loaded with ctypes
 and `popcount` launches count under `count2`: one kernel template serves
 them all); only the CUDA route counts.
 
-`count2_segments`, `plan_count` and `or_bits` take a table built on the
+`count2_segments`, `plan_count`, `plan_rows` and `or_bits` take a table built on the
 host for each launch (segment pointers and lengths; leaf pointers and the
 micro program; key chunks). It goes through `_Staging`, a ring of pinned host slots: the C
 entry point copies the slot to the card asynchronously on the launch
@@ -87,6 +89,7 @@ LAUNCHES = {
     "count2": 0,
     "rows_counts": 0,
     "plan_count": 0,
+    "plan_rows": 0,
     "gather_tally": 0,
     "counts_cross": 0,
     "gather_and": 0,
@@ -203,6 +206,7 @@ class _Library:
             "pt_count2": [p, i64, p, i64, i64, i32, p],
             "pt_rows_counts": [p, i64, i64, p, i64, i32, p, p],
             "pt_plan_count": [p, i64, p, i64, i64, i64, i64, i64, p],
+            "pt_plan_rows": [p, i64, p, i64, i64, i64, i64, i64, p, p],
             "pt_gather_tally": [p, i64, p, p, i64, p, p, i64, p, p],
             "pt_counts_cross": [p, i64, p, i64, i64, i64, i32, p, p],
             "pt_gather_and": [p, p, p, p, i64, i64, i32, p, p],
@@ -264,7 +268,7 @@ def _aligned(*ts: torch.Tensor) -> bool:
 
 
 class _Staging:
-    """Pinned host slots for the tables that count2, plan_count and or_bits
+    """Pinned host slots for the tables that count2, plan_count, plan_rows and or_bits
     copy to the card with each launch. The C entry point copies the slot to the
     device table asynchronously on the launch stream, right before the
     kernel, so the host never waits on a pageable copy. An event recorded
@@ -589,6 +593,120 @@ def plan_count(
     )
     _launched("plan_count", rc)
     return table[:shards]
+
+
+# ---------------------------------------------------------------------------
+# plan_rows  (exec/plan.py _eval_jit(plan, "row") with ops/bitmap.py
+# shift_bits)
+# ---------------------------------------------------------------------------
+
+
+def check_shift(n: int, w: int) -> None:
+    """A Shift amount must keep its overflow within the next shard (the
+    reference's shift_bits error)."""
+    if not 0 <= n <= w * 32:
+        raise ValueError(
+            f"shift amount {n} out of range [0, {w * 32}]: overflow may only "
+            "carry into the immediately following shard"
+        )
+
+
+def _shifted_plain(leaf: torch.Tensor, n: int, prev: Sequence[int]) -> torch.Tensor:
+    """Stack row i shifted up by n bits, the top n bits of row prev[i]
+    carried in below (none where prev[i] < 0)."""
+    shifted, overflow = ob.shift_bits(leaf, n)
+    has_prev = np.asarray(prev, np.int64) >= 0
+    if not has_prev.any():
+        return shifted
+    dev = leaf.device
+    take = torch.from_numpy(np.where(has_prev, np.asarray(prev, np.int64), 0)).to(dev)
+    keep = torch.from_numpy(has_prev).to(dev)[:, None]
+    return shifted | torch.where(keep, overflow[take], torch.zeros_like(shifted))
+
+
+def plan_rows_plain(leaves, shifts, prog) -> Tuple[torch.Tensor, torch.Tensor]:
+    vals = [
+        leaf if sh is None or sh[0] == 0 else _shifted_plain(leaf, sh[0], sh[1])
+        for leaf, sh in zip(leaves, shifts)
+    ]
+    rows, w = leaves[0].shape
+    names = {v: k for k, v in BINOPS.items()}
+    st: List[torch.Tensor] = []
+    for ins in prog:
+        if ins >= 0:
+            st.append(vals[ins])
+        elif ins == PUSH_ZERO:
+            st.append(torch.zeros((rows, w), dtype=torch.int32, device=leaves[0].device))
+        else:
+            b = st.pop()
+            a = st.pop()
+            st.append(_apply_op(b, a, "andnot") if names[ins] == "rev_andnot" else _apply_op(a, b, names[ins]))
+    out = st[0]
+    if any(out is t for t in leaves):  # the result is always a fresh tensor
+        out = out.clone()
+    return out, popcount_words(out).sum(dim=-1, dtype=torch.int64)
+
+
+def plan_rows(
+    leaves: Sequence[torch.Tensor],
+    shifts: Sequence[Optional[Tuple[int, Sequence[int]]]],
+    prog: Sequence[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The result words of one plan root and their per-row popcounts: the
+    postfix program `prog` (plan_count's) over the [rows, W] leaf stacks,
+    where leaf i enters shifted when shifts[i] is (n, prev): stack row r
+    shifted up by n bits, the top n bits of row prev[r] carried in below
+    (none where prev[r] < 0). Returns a fresh int32[rows, W] and int64[rows]
+    on the leaves' device; the program has at least one leaf."""
+    if not leaves:
+        raise ValueError("plan_rows needs at least one leaf (it fixes the shape)")
+    if len(shifts) != len(leaves):
+        raise ValueError(f"plan_rows: {len(shifts)} shifts for {len(leaves)} leaves")
+    check_program(len(leaves), prog)
+    shape = tuple(leaves[0].shape)
+    if len(shape) != 2:
+        raise ValueError(f"plan_rows: leaf shape {shape}")
+    rows, w = shape
+    for t in leaves:
+        _words(t, "plan_rows leaf")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"plan_rows: leaf shape {tuple(t.shape)} vs {shape}")
+    for sh in shifts:
+        if sh is not None:
+            check_shift(sh[0], w)
+            if len(sh[1]) != rows or (len(sh[1]) and not -1 <= min(sh[1]) <= max(sh[1]) < rows):
+                raise ValueError(f"plan_rows: predecessor table of {len(sh[1])} entries for {rows} rows")
+    if _route(*leaves) == "cpu":
+        return plan_rows_plain(leaves, shifts, prog)
+    dev = leaves[0].device
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    codes, pushes, slots = plan_micro_program(prog)
+    if rows == 0 or w == 0 or not pushes:  # nothing to read: all zero
+        return out.zero_(), torch.zeros(rows, dtype=torch.int64, device=dev)
+    ptrs = [leaves[i].data_ptr() for i in pushes]
+    ns, offs, tabs, tab_of = [], [], [], {}
+    for i in pushes:
+        sh = shifts[i]
+        if sh is None or sh[0] == 0:
+            ns.append(0)
+            offs.append(-1)
+            continue
+        if i not in tab_of:
+            tab_of[i] = rows * len(tabs)
+            tabs.append(np.asarray(sh[1], np.int64))
+        ns.append(sh[0])
+        offs.append(tab_of[i])
+    # the table: zeros for the counts, per push its pointer, shift and
+    # predecessor offset, the codes, the predecessor tables
+    table, rc = _STAGING.launch(
+        dev,
+        (np.zeros(rows, np.int64), ptrs, ns, offs, codes, *tabs),
+        lambda host, nbytes, tab, stream: library().pt_plan_rows(
+            host, nbytes, tab, rows, len(pushes), len(codes), slots, w, out.data_ptr(), stream
+        ),
+    )
+    _launched("plan_rows", rc)
+    return out, table[:rows]
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,8 @@ import numpy as np
 from pilosa_tpu_torch import __version__
 from pilosa_tpu_torch.core import roaring_io
 from pilosa_tpu_torch.core import wal as walmod
-from pilosa_tpu_torch.core.field import FIELD_TYPE_SET, FieldOptions
+from pilosa_tpu_torch.core import timeq
+from pilosa_tpu_torch.core.field import FIELD_TYPE_SET, FIELD_TYPE_TIME, FieldOptions
 from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.exec.executor import NotFoundError, QueryResponse
@@ -117,7 +118,7 @@ class API:
         idx = self.holder.index(index)
         if idx is None:
             raise NotFoundError(f"index not found: {index}")
-        return idx.create_field_if_not_exists(name, _ported_options(name, FieldOptions(**(options or {}))))
+        return idx.create_field_if_not_exists(name, FieldOptions(**(options or {})))
 
     def delete_field(self, index: str, name: str) -> None:
         idx = self.holder.index(index)
@@ -142,7 +143,7 @@ class API:
             )
             for fd in ix.get("fields", []):
                 options = _field_options_from_json(fd.get("options", {}))
-                idx.create_field_if_not_exists(fd["name"], _ported_options(fd["name"], options))
+                idx.create_field_if_not_exists(fd["name"], options)
 
     # -- imports -------------------------------------------------------------
 
@@ -155,15 +156,16 @@ class API:
         clear: bool = False,
         timestamps: Optional[Sequence] = None,
     ) -> dict:
-        """Bulk set-bit import. Returns {"applied", "expected", "errors"}:
-        on one node every shard of the batch is applied once."""
+        """Bulk set-bit import; `timestamps` (strings or unix seconds, None
+        for none) fan a time field's bits into its unit views. Returns
+        {"applied", "expected", "errors"}: on one node every shard of the
+        batch is applied once."""
         self._check_write_count(len(cols))
         idx, f = self._index_field(index, field)
-        if timestamps is not None and any(t is not None for t in timestamps):
-            raise ApiError("timestamps need time fields, which are not yet ported")
         rows, cols = _translate_import(idx, f, rows, cols)
+        ts = None if timestamps is None else [None if t is None else timeq.parse_time(t) for t in timestamps]
         with walmod.GROUP_COMMIT.barrier():
-            f.import_bits(rows, cols, clear=clear)
+            f.import_bits(rows, cols, timestamps=ts, clear=clear)
             idx.track_columns(cols)
         n = len(np.unique(cols >> np.uint64(SHARD_WIDTH_EXPONENT)))
         return {"applied": n, "expected": n, "errors": []}
@@ -189,11 +191,12 @@ class API:
     ) -> int:
         """Bulk ingest of a serialized roaring bitmap (either dialect)
         whose positions are fragment positions row * SHARD_WIDTH + col %
-        SHARD_WIDTH, unioned (or cleared) in one batch. Set fields only:
-        the mutex and BSI layouts need the parsing imports. Returns the
-        number of bits that changed."""
+        SHARD_WIDTH, unioned (or cleared) in one batch, into the standard
+        view or a named (time) view. Set and time fields only: the mutex and
+        BSI layouts need the parsing imports. Returns the number of bits
+        that changed."""
         idx, f = self._index_field(index, field)
-        if f.options.type != FIELD_TYPE_SET:
+        if f.options.type not in (FIELD_TYPE_SET, FIELD_TYPE_TIME):
             raise ApiError(f"cannot import roaring into {f.options.type} field {field!r}")
         view = view or VIEW_STANDARD
         _validate_view_name(view)
@@ -325,15 +328,6 @@ def _translate_import(idx, f, rows: Optional[Sequence[Any]], cols: Sequence[Any]
             raise ApiError("column keys on an unkeyed index")
         cols = idx.translate_store.translate_keys(list(cols))
     return rows, np.asarray(cols, dtype=np.uint64)
-
-
-def _ported_options(name: str, options: FieldOptions) -> FieldOptions:
-    """The options, or an ApiError naming what the port lacks for them."""
-    if options.type in ("time", "bool"):
-        raise ApiError(f"field {name!r}: {options.type} fields are not yet ported")
-    if options.time_quantum or options.no_standard_view:
-        raise ApiError(f"field {name!r}: time views are not yet ported")
-    return options
 
 
 def _field_options_from_json(o: dict) -> FieldOptions:

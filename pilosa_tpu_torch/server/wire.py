@@ -32,7 +32,8 @@ def result_to_public_json(r: Any) -> Any:
     Count or Set/Clear as a number or bool, Sum/Min/Max as {"value",
     "count"}, TopN as a list of {"id", "count"} plus "key" on a keyed
     field, GroupBy as a list of {"group": [{"field", "rowID" or
-    "rowKey"}], "count"}, Rows as a list of row ids or row keys."""
+    "rowKey"}], "count"}, Rows as a list of row ids or row keys, MinRow
+    and MaxRow as {"id", "count"}."""
     if isinstance(r, Row):
         out = {"attrs": r.attrs or {}, "columns": r.columns().tolist()}
         if r.keys is not None:
@@ -49,6 +50,6 @@ def result_to_public_json(r: Any) -> Any:
         return r.to_json()  # Python ints throughout (exec/executor.py)
     if isinstance(r, list):
         return [result_to_public_json(x) for x in r]
-    if r is None or isinstance(r, str):
+    if r is None or isinstance(r, (str, dict)):  # MinRow/MaxRow: Python ints
         return r
     return _number(r)

@@ -165,7 +165,7 @@ def test_plan_count_matches_eval_jit(seed):
     jops = tuple(jnp.asarray(o) for o in ops)
     for _ in range(4):
         spec = random_tree(rng, 3, n_leaves)
-        leaves, prog = tplan._compile(build(spec, tplan), tops)
+        leaves, _, prog = tplan._compile(build(spec, tplan), tops, {})
         want = np.asarray(jplan._eval_jit(build(spec, jplan), "count", jops, ()))
         if not leaves:
             assert not want.any()
@@ -238,7 +238,7 @@ def test_plan_count_wide_and_deep_matches_eval_jit(shape):
             tuple(("and", (("xor", (leaf(4 * i), leaf(4 * i + 1))), ("andnot", (leaf(4 * i + 2), leaf(4 * i + 3))))) for i in range(16)),
         ),
     }[shape]
-    leaves, prog = tplan._compile(build(spec, tplan), [t(o) for o in ops])
+    leaves, _, prog = tplan._compile(build(spec, tplan), [t(o) for o in ops], {})
     assert max_depth(prog) <= 7
     if shape == "andnot_head_last":
         assert K.BINOPS["rev_andnot"] in prog
@@ -281,7 +281,7 @@ def test_plan_micro_program_matches_postfix(seed):
     ops = [words(rng, 2, 64) for _ in range(n_leaves)]
     specs = [random_tree(rng, 4, 6) for _ in range(12)]
     specs += [("or", tuple(("leaf", i) for i in range(48))), nested(40, n_leaves, rng), ("andnot", (("leaf", 0), ("zero",)))]
-    programs = [tplan._compile(build(spec, tplan), [t(o) for o in ops]) for spec in specs]
+    programs = [tplan._compile(build(spec, tplan), [t(o) for o in ops], {})[::2] for spec in specs]
     b = K.BINOPS
     programs += [
         (ops[:1], [K.PUSH_ZERO]),
@@ -443,7 +443,7 @@ def test_cuda_kernels_match_twins(cuda_device):
     specs = [random_tree(np.random.default_rng(seed), 3, 3) for seed in range(8)]
     specs += [("or", tuple(("leaf", i) for i in range(48))), nested(40, 48, rng)]
     for spec in specs:
-        leaves, prog = tplan._compile(build(spec, tplan), ops)
+        leaves, _, prog = tplan._compile(build(spec, tplan), ops, {})
         if leaves:
             got = K.plan_count([x.to(dev) for x in leaves], prog, 5).cpu()
             assert torch.equal(got, K.plan_count(leaves, prog, 5))

@@ -10,7 +10,9 @@ code and the same body; the only exceptions are the node URIs (each
 server binds its own port). Error cases are part of the session. Then a
 keyed index and a keyed field: DDL, imports with row and column keys,
 keyed queries, Rows and GroupBy, the keyed CSV exports and the key
-errors. The
+errors; time and bool fields (DDL, timestamped imports, a named time
+view, time ranges in Count/Row/Rows/GroupBy/TopN, bool rows, MinRow,
+MaxRow, Store, ClearRow and their errors). The
 session runs again on data dirs with two restarts: the answers of its
 reads after a restart must be the ones before it. Then port-only checks:
 unported calls and options, unknown routes, the CLI (on data dirs
@@ -27,6 +29,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -177,6 +180,7 @@ def build_session(seed: int = 0) -> list:
     add("POST", "/index/i/query", {"query": "Row(f=1)", "excludeRowAttrs": True})
 
     keyed_steps(rng, add)
+    time_steps(rng, add)
 
     # writes through PQL, then the Counts they change
     high = 1000 * SHARD_WIDTH
@@ -292,6 +296,69 @@ def keyed_steps(rng, add) -> None:
     add("POST", "/index/i/query", {"query": 'Row(f="a")'})
     add("POST", "/index/k/query", {"query": 'Set(5, seg="seg-00")'})
     add("POST", "/index/k/query", {"query": 'GroupBy(Rows(seg), previous=[1])'})
+
+
+def time_steps(rng, add) -> None:
+    """Time and bool fields on index `i`: DDL (a YMDH field, a YMD field
+    without a standard view, a bool field, a bad quantum), timestamped
+    /import with strings, unix seconds and nulls, import-roaring into a
+    named hour view, time-range Count, Row, Rows, GroupBy and TopN, bool
+    rows and the mutex flip, MinRow/MaxRow, Store and ClearRow, and their
+    errors."""
+    add("POST", "/index/i/field/t", {"options": {"type": "time", "timeQuantum": "YMDH"}})
+    add("POST", "/index/i/field/tn", {"options": {"type": "time", "timeQuantum": "YMD", "noStandardView": True}})
+    add("POST", "/index/i/field/b", {"options": {"type": "bool"}})
+    add("POST", "/index/i/field/bad", {"options": {"type": "time", "timeQuantum": "YQ"}})
+    base = 1708387200  # 2024-02-20T00:00 UTC
+    for r in range(3):
+        cols = _cols(rng, 300)
+        secs = base + rng.integers(0, 48 * 3600, len(cols))
+        stamps = [
+            None if k % 13 == 0 else (int(x) if k % 2 else _stamp(int(x))) for k, x in enumerate(secs)
+        ]
+        body = {"rows": [r] * len(cols), "cols": cols.tolist(), "timestamps": stamps}
+        add("POST", "/index/i/field/t/import", body)
+        add("POST", "/index/i/field/tn/import", body)
+    cols = _cols(rng, 200)
+    add("POST", "/index/i/field/b/import", {"rows": rng.integers(0, 2, len(cols)).tolist(), "cols": cols.tolist()})
+    pos = (3 * SHARD_WIDTH + rng.choice(SHARD_WIDTH, 500, replace=False)).astype(np.uint64)
+    add("POST", "/index/i/field/t/import-roaring/1?view=standard_2024022105", jroaring.encode(pos), "application/octet-stream")
+    add("POST", "/index/i/field/t/import", {"rows": [1], "cols": [1], "timestamps": ["not a time"]})
+    add("GET", "/index/i")
+    r1 = "from='2024-02-20T05:00', to='2024-02-21T19:00'"
+    for q in [
+        f"Count(Row(t=0, {r1}))",
+        f"Row(t=1, {r1})",
+        "Count(Row(t=3, from='2024-02-21T05:00', to='2024-02-21T06:00'))",
+        "Count(Row(t=2, from='2024-02-21T00:00')) Count(Row(t=2, to='2024-02-21T00:00')) Count(Row(t=2))",
+        f"Count(Intersect(Row(t=0, {r1}), Row(f=0)))",
+        f"Count(Shift(Row(t=1, {r1}), n=1)) Shift(Row(t=2, {r1}), n=33)",
+        f"TopN(f, Row(t=1, {r1}), n=3)",
+        f"Rows(t, {r1})",
+        "Rows(tn) Rows(t)",
+        f"GroupBy(Rows(t, {r1}), Rows(m))",
+        "Count(Row(tn=1, from='2024-02-21T00:00', to='2024-02-22T00:00'))",
+        "Count(Row(b=true)) Count(Row(b=false)) Row(b=true)",
+        "Set(7, b=true) Count(Row(b=true)) Set(7, b=false) Count(Row(b=true)) Count(Row(b=false))",
+        "Set(9, t=4, 2024-02-29T23:00) Count(Row(t=4, from='2024-02-29T00:00', to='2024-03-01T00:00'))",
+        "MinRow(field=f) MaxRow(field=t) MaxRow(Row(g=1), field=f) MinRow(Row(f=99), field=m)",
+        f"Store(Row(t=0, {r1}), f=40) Count(Row(f=40))",
+        "ClearRow(t=1) Count(Row(t=1)) ClearRow(b=false) Count(Row(b=false))",
+        f"Rows(t, {r1})",
+    ]:
+        add("POST", "/index/i/query", {"query": q})
+    for q in [
+        "Row(f=0, from='2024-02-20T00:00', to='2024-02-21T00:00')",
+        "Store(Row(f=0), m=1)",
+        "Set(1, b=1)",
+        "Row(b=3)",
+        "ClearRow(v=1)",
+    ]:
+        add("POST", "/index/i/query", {"query": q})
+
+
+def _stamp(secs: int) -> str:
+    return time.strftime("%Y-%m-%dT%H:%M", time.gmtime(secs))
 
 
 def _masked(path: str, body):
@@ -474,14 +541,16 @@ QUERIES = [
     ["GroupBy(Rows(f))", "Rows(f)", "MinRow(field=v)", "Options(Row(f=1), shards=[0])", "Store(Row(f=1), f=9)"],
 )
 def test_unported_calls_are_400(node, pql):
-    """The unported calls answer 400; Rows and GroupBy, ported since,
-    answer what the reference answers."""
+    """The unported calls answer 400; Rows, GroupBy, MinRow and Store,
+    ported since, answer what the reference answers."""
     _, c = node
     _load(c)
     status, body = c.req("POST", "/index/i/query", {"query": pql})
-    if pql in ("GroupBy(Rows(f))", "Rows(f)"):
+    if not pql.startswith("Options"):
         want = reference_replies(_load_steps() + [("POST", "/index/i/query", {"query": pql}, None)])[-1]
-        assert (status, body) == want and len(body["results"][0]) == 4, body
+        assert (status, body) == want and status == 200, body
+        if pql in ("GroupBy(Rows(f))", "Rows(f)"):
+            assert len(body["results"][0]) == 4, body
         return
     assert status == 400 and "not yet ported" in body["error"], body
 
@@ -496,20 +565,15 @@ def test_unported_calls_are_400(node, pql):
     ],
 )
 def test_unported_schema_is_400(node, path, body):
-    """Time and bool fields answer 400 and leave the schema as it was; a
-    keyed field and a keyed index, ported since, answer what the
-    reference answers, schema included."""
+    """Keyed fields and indexes, and time and bool fields, all ported
+    since, answer what the reference answers, schema included."""
     _, c = node
     c.req("POST", "/index/i", {})
     status, out = c.req("POST", path, body)
-    if body["options"].get("keys"):
-        steps = [("POST", "/index/i", {}, None), ("POST", path, body, None), ("GET", "/schema", None, None)]
-        want = reference_replies(steps)
-        assert [(status, out), c.req("GET", "/schema")] == want[1:]
-        assert want[2][1] != {"indexes": [{"name": "i", "options": {"keys": False, "trackExistence": True}, "fields": []}]}
-        return
-    assert status == 400 and "not yet ported" in out["error"], out
-    assert c.req("GET", "/schema")[1]["indexes"][0]["fields"] == []
+    steps = [("POST", "/index/i", {}, None), ("POST", path, body, None), ("GET", "/schema", None, None)]
+    want = reference_replies(steps)
+    assert [(status, out), c.req("GET", "/schema")] == want[1:]
+    assert want[2][1] != {"indexes": [{"name": "i", "options": {"keys": False, "trackExistence": True}, "fields": []}]}
 
 
 def test_keys_and_unported_flags_are_400(node):
@@ -521,8 +585,10 @@ def test_keys_and_unported_flags_are_400(node):
     want = reference_replies(steps)[-2:]
     got = [c.req("POST", "/index/i/field/f/import", b) for b in key_bodies]
     assert got == want and [s for s, _ in got] == [400, 400], got
-    status, out = c.req("POST", "/index/i/field/f/import", {"rows": [1], "cols": [1], "timestamps": ["2020-01-01T00:00"]})
-    assert status == 400 and "not yet ported" in out["error"], out
+    # timestamps on a set field without a quantum: the reference's answer
+    ts_body = {"rows": [1], "cols": [1], "timestamps": ["2020-01-01T00:00"]}
+    want = reference_replies(_load_steps() + [("POST", "/index/i/field/f/import", ts_body, None)])[-1]
+    assert c.req("POST", "/index/i/field/f/import", ts_body) == want and want[0] == 200, want
     for flag in ("columnAttrs", "profile"):
         status, out = c.req("POST", "/index/i/query", {"query": "Row(f=1)", flag: True})
         assert status == 400 and "not yet ported" in out["error"], out
