@@ -42,18 +42,23 @@ Phases, each fatal on any mismatch or exception:
    every kernel of the path (plan_rows for Row and Shift results) must
    have launched, Row(f=1).count() over
    every shard's segment must make exactly one count2 launch, and
-   TopN(f, Row(g=0), n=10) exactly one gather_tally launch. Rows (with
+   TopN(f, Row(g=0), n=10) exactly one gather_tally launch; a filtered
+   TopN under a device budget a quarter of which holds half the shards'
+   rows tallies its filter in 2 shard chunks, held to numpy. Rows (with
    previous, limit, column) and GroupBy (one child; two children, with a
    filter, with limit and offset) follow, held to numpy; at 1024 shards
    the two-child GroupBys take the pruned descent and must launch
    counts_cross, gather_and and count2 or rows_counts;
 3b. BSI path: two int fields on the same index, `amount` (signed,
    [-1e6, 1e6], about 90% of columns) and `age` (unsigned, [0, 120], every
-   existing column), loaded through Field.import_values (16 shards) and
+   existing column), loaded through Field.import_values (8 shards) and
    the BSI view's fragment word imports (the rest), plus PQL Set/Clear of
-   values; then Sum/Min/Max (filtered and not), condition-row counts and
-   condition rows in trees, each held to numpy answers built per shard
-   while generating. Launch counts are reset before and read after this
+   values, and `deep` (signed, 32 bits: values in +-(2^32 - 1) on 1 column
+   in 16, the density cut for ingest time) through fragment word imports;
+   then Sum/Min/Max (filtered and not, a Shift in the filter carried
+   across shards, a non-call filter=), condition-row counts and condition
+   rows in trees, each held to numpy answers built per shard while
+   generating. Launch counts are reset before and read after this
    phase too; bsi_sum, bsi_min_max and bsi_range must have launched;
 4. timing: each kernel at the shapes the main paths gave it (count2 at
    Row.count()'s 1024 segments) against its twin: device time as 20
@@ -68,7 +73,9 @@ Phases, each fatal on any mismatch or exception:
    one-shot shape (16 prefixes x 8 rows over 64 shards); plan_rows at 2
    leaves, at the 28-leaf tree and for a Shift over one leaf; the
    in-process p50s of Row(f=1), Count(Shift(Row(f=6), n=1)) and the
-   6-Shift-twin Count printed beside their figures before plan_rows;
+   6-Shift-twin Count printed beside their figures before plan_rows; the
+   three BSI kernels again over `deep` at depth 32 (their edge
+   predicates up to 2^32 - 1 held to the twin first);
 4b. residency, on the main path's holder (extent_rows 256: 4 extents a
    1024-shard stack), launch counts reset before and read after: the
    query set Count(Intersect(Row(f=0), Row(g=0))), Count(Union(Row(f=0),
@@ -96,7 +103,7 @@ Phases, each fatal on any mismatch or exception:
    4 x one shard's stack answers a two-leaf Count and a filtered TopN;
 4c. time, on the main path's holder, launch counts reset before and read
    after: a YMDH time field t (2 rows, 32 random columns per shard, hour
-   and row over 240 hours from 2024-01-01: 7,864,320 bits a row, each in
+   and row over 192 hours from 2024-01-01: 6,291,456 bits a row, each in
    its Y, M, D and H views and the standard view) through one
    Field.import_bits per row with a datetime64 timestamp array, and a
    bool field b over the columns row 0's events touch; the 47-view range
@@ -124,13 +131,12 @@ Phases, each fatal on any mismatch or exception:
    server's holder; launch counts are reset before the served query set
    and read after it, and six kernels must have launched. Rows(f) and
    GroupBy(Rows(f), Rows(g)) are served too, held to numpy and to the
-   executor (counts_cross launches). Options answers 400, an unknown index
-   404; 8 clients x 2 rounds must get the serial answers; served and
+   executor (counts_cross launches). An unknown index answers 404; 8 clients x 2 rounds must get the serial answers; served and
    in-process p50s per query and the HTTP ingest rates are printed. The
    CLI (`python -m pilosa_tpu_torch.cli server`) must serve on the card
    and exit 0 on SIGTERM, and exit non-zero with CUDA_VISIBLE_DEVICES="";
 5b. keyed: on the same node, after those measurements, index `k` with
-   keys: 2^20 column keys in a seeded random arrival order, a keyed set
+   keys: 2^19 column keys in a seeded random arrival order, a keyed set
    field `segment` (32 keys, 1-3 per column, Zipf), a keyed mutex field
    `country` (64 ISO codes, Zipf), an unkeyed set field `plan` and an int
    field `spend`, loaded through /import with rowKeys/colKeys and
@@ -144,13 +150,21 @@ Phases, each fatal on any mismatch or exception:
    columns of its first 16 shards; time-range
    Count, Row and Rows bodies and bool Counts held to numpy and to the
    executor;
+5d. attributes served: SetRowAttrs on every row of f and g, 10^5
+   SetColumnAttrs in batches of 1000 over columns of Row(g=0) and of a
+   sparse row of f; Row bodies with and without columnAttrs=true,
+   Options (excludeColumns, columnAttrs, shards) and TopN(attrName=,
+   attrValues=) with and without a filter, each held to a numpy + dict
+   model and to the executor, with served p50s; Row(g=0) with columnAttrs
+   in process must make no Row.columns() call;
 6. durable: the serve phase's node is stopped and the card's cache
    emptied; a second NodeServer opens the same data dir, timed from
    construction to its first 200 on /status (recovery). The 11 queries'
    first pass and warm p50s follow: every body must equal the one served
    before the restart byte for byte (and numpy's answer), as must the
-   Rows/GroupBy, every keyed and every time body (the time views reopened
-   from the data dir), and the six kernels must launch
+   Rows/GroupBy, every keyed, every time and every attribute body (the
+   time views reopened and the attribute logs replayed from the data
+   dir), and the six kernels must launch
    again (counts reset just before). `inspect` and
    `check` of the stopped dir must exit 0, `check` with no bad file. Then
    kill -9: a CLI server on a fresh dir at 8 shards takes /import,
@@ -935,6 +949,27 @@ def main_path(args, rng):
     launched = K.LAUNCHES["gather_tally"] - before
     check(got == top_f, f"TopN(f, Row(g=0), n=10): got {got}, numpy says {top_f}")
     check(launched == 1, f"TopN(f, Row(g=0), n=10) made {launched} gather_tally launches, not 1")
+    # a filtered TopN whose filter stack exceeds the budget: a quarter of
+    # it holds half the shards' rows, so the filter lowers in 2 chunks,
+    # each tallied on the card, the tallies merged on the host
+    from pilosa_tpu_torch.exec import executor as exmod
+
+    full_budget = holder.dcache.budget_bytes
+    holder.dcache.budget_bytes = 4 * (S // 2) * W * 4
+    ic2 = {r: pc(R("f", r) & R("g", 0) & R("g", 1)) for r in range(n_dense + n_sparse)}
+    top_2 = sorted(((r, c) for r, c in ic2.items() if c), key=lambda kv: (-kv[1], kv[0]))[:5]
+    chunks = exmod.TOPN_STATS["chunks"]
+    tq = time.perf_counter()
+    got = [(p.id, p.count) for p in ex.execute("smoke", "TopN(f, Intersect(Row(g=0), Row(g=1)), n=5)")[0]]
+    topn_budget_ms = (time.perf_counter() - tq) * 1e3
+    chunks = exmod.TOPN_STATS["chunks"] - chunks
+    holder.dcache.budget_bytes = full_budget
+    check(got == top_2, f"TopN(f, Intersect(Row(g=0), Row(g=1)), n=5) under the budget: got {got}, numpy says {top_2}")
+    check(chunks == 2, f"the filtered TopN under the budget walked {chunks} chunks, not 2")
+    print(
+        f"main: TopN(f, Intersect(Row(g=0), Row(g=1)), n=5) under a {4 * (S // 2) * W * 4} B "
+        f"budget: {chunks} filter chunks of {S // 2} shards, {topn_budget_ms:.1f} ms (staging included), equals numpy"
+    )
     # Rows and GroupBy: at S = 1024 a prefix tile holds 2 rows, so the
     # two-child GroupBys descend (counts_cross over chunks of 2 prefixes;
     # gather_and for the filtered selections)
@@ -1009,6 +1044,8 @@ def main_path(args, rng):
         f"Count(Shift(Row(f=6), n=1)) {lat['Count(Shift(Row(f=6), n=1))']:.3f} ms (3.93), "
         f"the 6-Shift-twin Count {lat[wide_name]:.3f} ms (25.6)"
     )
+    lat["TopN(f, Intersect(Row(g=0), Row(g=1)), n=5) under the budget, first pass"] = topn_budget_ms
+    state["topn_budget_chunks"] = chunks
     return holder, ex, launches, lat, ingest_s, resident, state
 
 
@@ -1018,7 +1055,13 @@ def main_path(args, rng):
 
 AMOUNT = (-1_000_000, 1_000_000)  # signed: base 0, 20 magnitude bits
 AGE = (0, 120)  # unsigned: base 0, 7 magnitude bits, no sign row
-N_VALUE_IMPORT = 16  # shards loaded through Field.import_values
+N_VALUE_IMPORT = 8  # shards loaded through Field.import_values (16 until PR 11: cut for the script's time)
+# signed, 32 magnitude bits: values in +-(2^32 - 1) on 1 column in 16 (cut
+# for ingest time), loaded as fragment words; the extremes at shard 0
+DEEP = (-(2**32 - 1), 2**32 - 1)
+DEEP_DENSITY = 1 / 16
+DEEP_LT = -(2**31)  # Count(Row(deep < DEEP_LT))
+DEEP_GT = 2**32 - 4096  # Count(Row(deep > DEEP_GT))
 
 
 def _bits(words: np.ndarray) -> np.ndarray:
@@ -1029,6 +1072,15 @@ def _bits(words: np.ndarray) -> np.ndarray:
 def _pack(bits: np.ndarray) -> np.ndarray:
     """bool [..., columns] -> uint32 words, the inverse of _bits."""
     return np.packbits(np.ascontiguousarray(bits), axis=-1, bitorder="little").view(np.uint32)
+
+
+def _pack_positions(pos: np.ndarray) -> np.ndarray:
+    """uint32 [W] words of one shard's set columns (sorted, unique)."""
+    from pilosa_tpu_torch.shardwidth import WORDS_PER_ROW
+
+    pos = pos.astype(np.int64)
+    bits = np.left_shift(1, pos & 31).astype(np.float64)
+    return np.bincount(pos >> 5, weights=bits, minlength=WORDS_PER_ROW).astype(np.uint32)
 
 
 def _planes(has: np.ndarray, vals: np.ndarray, depth: int) -> np.ndarray:
@@ -1090,6 +1142,12 @@ def bsi_shard(seed: int, s: int, state, writes, sample: bool):
         has[pos] = value is not None
         vals[pos] = 0 if value is None else value
     f1, g0 = _bits(state["f1"][s]), _bits(state["g0"][s])
+    # Shift(Row(g=0), n=1) and Shift(Row(f=1), n=2) over this shard: the
+    # last columns of shard s - 1 carry into its first
+    prev_g0 = _bits(state["g0"][s - 1][-1:])[-1:] if s else np.zeros(1, bool)
+    prev_f1 = _bits(state["f1"][s - 1][-1:])[-2:] if s else np.zeros(2, bool)
+    g0_sh1 = np.concatenate([prev_g0, g0[:-1]])
+    f1_sh2 = np.concatenate([prev_f1, f1[:-2]])
     a = amt[has_a]
     old = has_a & has_g & (age > 65)
     # amount at the columns phase 4b's bursts add to g row 0
@@ -1113,6 +1171,34 @@ def bsi_shard(seed: int, s: int, state, writes, sample: bool):
         "notnull": len(a),
         "adult_f1": int((has_g & (age >= 18) & f1).sum()),
         "young_or_old": int((has_g & ((age < 13) | (age > 65))).sum()),
+        "sum_g0_sh1": (int(amt[has_a & g0_sh1].sum()), int((has_a & g0_sh1).sum())),
+        "min_age_f1_sh2": _extreme(age[has_g & f1_sh2], True),
+    }
+    # the signed 32-bit-deep field, after the amount and age writes (it
+    # has none of its own)
+    # drawn and packed from its set columns only (sorted, unique)
+    pos = np.flatnonzero(rng.random(SHARD_WIDTH) < DEEP_DENSITY)
+    d = rng.integers(DEEP[0], DEEP[1] + 1, len(pos))
+    if s == 0:
+        pos = np.union1d(pos, [7, 8, 9])
+        d = rng.integers(DEEP[0], DEEP[1] + 1, len(pos))
+        d[np.searchsorted(pos, [7, 8, 9])] = [DEEP[0], DEEP[1], 0]
+    has_d = np.zeros(SHARD_WIDTH, bool)
+    has_d[pos] = True
+    deep = np.zeros(SHARD_WIDTH, np.int64)
+    deep[pos] = d
+    mag = np.abs(d).astype(np.uint64)
+    out["deep_words"] = (
+        _pack_positions(pos), _pack_positions(pos[d < 0]),
+        np.stack([_pack_positions(pos[(mag >> np.uint64(b)) & np.uint64(1) == 1]) for b in range(32)]),
+    )
+    out["ans"] |= {
+        "deep_sum": (int(d.sum()), len(d)),
+        "deep_min": _extreme(d, True),
+        "deep_max": _extreme(d, False),
+        "deep_lt": int((d < DEEP_LT).sum()),
+        "deep_gt": int((d > DEEP_GT).sum()),
+        "deep_sum_g0_sh1": (int(deep[has_d & g0_sh1].sum()), int((has_d & g0_sh1).sum())),
     }
     if sample:
         out["age42"] = _pack(has_g & (age == 42))
@@ -1146,9 +1232,11 @@ def bsi_path(args, holder, ex, state):
     t0 = time.perf_counter()
     amount = idx.create_field("amount", FieldOptions(type="int", min=AMOUNT[0], max=AMOUNT[1]))
     age = idx.create_field("age", FieldOptions(type="int", min=AGE[0], max=AGE[1]))
+    deep = idx.create_field("deep", FieldOptions(type="int", min=DEEP[0], max=DEEP[1]))
     check(
-        (amount.options.base, amount.options.bit_depth, age.options.base, age.options.bit_depth) == (0, 20, 0, 7),
-        f"int field options: amount {amount.options}, age {age.options}",
+        (amount.options.base, amount.options.bit_depth, age.options.base, age.options.bit_depth) == (0, 20, 0, 7)
+        and (deep.options.base, deep.options.bit_depth) == (0, 32),
+        f"int field options: amount {amount.options}, age {age.options}, deep {deep.options}",
     )
     ans, age42, probes = {}, {}, []
     gen_s = import_s = values_s = 0.0
@@ -1157,8 +1245,8 @@ def bsi_path(args, holder, ex, state):
     def fold(out):
         probes.append(out["probe"])
         for k, v in out["ans"].items():
-            if k in ("min", "max", "max_age_g0"):
-                ans[k] = _merge_extreme(ans.get(k), v, k == "min")
+            if k in ("min", "max", "max_age_g0", "min_age_f1_sh2", "deep_min", "deep_max"):
+                ans[k] = _merge_extreme(ans.get(k), v, k in ("min", "min_age_f1_sh2", "deep_min"))
             elif isinstance(v, tuple):
                 old = ans.get(k, (0, 0))
                 ans[k] = (old[0] + v[0], old[1] + v[1])
@@ -1187,6 +1275,12 @@ def bsi_path(args, holder, ex, state):
                         frag.import_row_words(BSI_SIGN_BIT, sign_w)
                     for d, pw in enumerate(planes_w):
                         frag.import_row_words(BSI_OFFSET_BIT + d, pw)
+            ex_w, sign_w, planes_w = out.pop("deep_words")
+            frag = deep._view_create(deep.bsi_view_name()).fragment(out["s"])
+            frag.import_row_words(BSI_EXISTS_BIT, ex_w)
+            frag.import_row_words(BSI_SIGN_BIT, sign_w)
+            for d, pw in enumerate(planes_w):
+                frag.import_row_words(BSI_OFFSET_BIT + d, pw)
             fold(out)
             import_s += time.perf_counter() - t_imp
             t_gen = time.perf_counter()
@@ -1221,17 +1315,36 @@ def bsi_path(args, holder, ex, state):
         ("Count(Row(amount != null))", [A["notnull"]], "plan_count"),
         ("Count(Intersect(Row(age >= 18), Row(f=1)))", [A["adult_f1"]], "bsi_range"),
         ("Count(Union(Row(age < 13), Row(age > 65)))", [A["young_or_old"]], "bsi_range"),
+        # a Shift in the filter (carried across shards), a non-call filter
+        ("Sum(field=amount, filter=Shift(Row(g=0), n=1))", [A["sum_g0_sh1"]], "bsi_sum"),
+        ("Min(Shift(Row(f=1), n=2), field=age)", [A["min_age_f1_sh2"]], "bsi_min_max"),
+        ("Sum(field=amount, filter=5)", [A["sum"]], "bsi_sum"),
+        # the signed field 32 bits deep
+        ("Sum(field=deep)", [A["deep_sum"]], "bsi_sum"),
+        ("Min(field=deep)", [A["deep_min"]], "bsi_min_max"),
+        ("Max(field=deep)", [A["deep_max"]], "bsi_min_max"),
+        (f"Count(Row(deep < {DEEP_LT}))", [A["deep_lt"]], "bsi_range"),
+        (f"Count(Row(deep > {DEEP_GT}))", [A["deep_gt"]], "bsi_range"),
+        ("Sum(Shift(Row(g=0), n=1), field=deep)", [A["deep_sum_g0_sh1"]], "bsi_sum"),
     ]
 
     def norm(r):
         return (r.value, r.count) if hasattr(r, "value") else r
 
     t0 = time.perf_counter()
+    deep_launches = {k: 0 for k in ("bsi_sum", "bsi_min_max", "bsi_range")}
     for pql, want, kernel in queries:
         before = dict(K.LAUNCHES)
         got = [norm(r) for r in ex.execute("smoke", pql)]
         check(got == want, f"{pql}: got {got}, numpy says {want}")
         check(K.LAUNCHES[kernel] > before[kernel], f"{pql} launched no {kernel}")
+        if "deep" in pql:
+            for k in deep_launches:
+                deep_launches[k] += K.LAUNCHES[k] - before[k]
+    print(
+        f"bsi: Shift filters, a non-call filter and the signed 32-bit-deep field (values in +-(2^32 - 1) on "
+        f"1/{int(1 / DEEP_DENSITY)} of the columns) equal numpy; the deep queries launched {deep_launches}"
+    )
     before = K.LAUNCHES["bsi_range"]
     row = ex.execute("smoke", "Row(age == 42)")[0]
     check(K.LAUNCHES["bsi_range"] > before, "Row(age == 42) launched no bsi_range")
@@ -1260,6 +1373,7 @@ def bsi_path(args, holder, ex, state):
         "first_pass_s": first_s,
         "import_values": n_values,
         "import_values_per_s": values_per_s,
+        "deep_launches": deep_launches,
     }
     return launches, lat, info
 
@@ -1526,6 +1640,45 @@ def kernel_timing(holder, ex, launches, errs):
         f"rows mode {extra['bsi_range_age_rows']:.4f} ms (bound {extra['bsi_range_age_rows_bound']:.4f} ms); "
         f"bsi_sum filtered {extra['bsi_sum_amount_filtered']:.4f} ms (bound {extra['bsi_sum_amount_filtered_bound']:.4f} ms)"
     )
+    # the three BSI kernels over the signed field 32 bits deep: [32, S, W]
+    # planes, its exists and sign rows; each bound reads 34 [S, W] rows
+    # once (and the range kernel's edge predicates up to 2^32 - 1 held to
+    # the twin first)
+    fd = idx.field("deep")
+    vd, dd = fd.view(fd.bsi_view_name()), fd.options.bit_depth
+    dp = vd.plane_stack(range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + dd), shards)
+    de, dsg = vd.row_stack(BSI_EXISTS_BIT, shards), vd.row_stack(BSI_SIGN_BIT, shards)
+    for sel, kind, p0, p1 in (("pos", "eq", 2**32 - 1, 0), ("neg", "eq", 2**32 - 1, 0), ("pos", "gt", 2**31, 0),
+                              ("neg", "lt", 2**32 - 2, 0), ("pos", "between", 2**31 - 1, 2**32 - 1)):
+        for allow_eq in (False, True):
+            got = K.bsi_range(dp, de, dsg, sel, kind, allow_eq, p0, p1, "count")
+            want = K.bsi_range_plain(dp, de, dsg, sel, kind, allow_eq, p0, p1, "count")
+            check(torch.equal(got.cpu(), want.cpu()), f"bsi_range at depth 32 ({sel} {kind} {p0} {p1} {allow_eq}) differs from its twin")
+    d32 = {
+        "bsi_sum": (lambda: K.bsi_sum(dp, de, dsg, None), lambda: K.bsi_sum_plain(dp, de, dsg, None), (1 + 2 * dd) * 8),
+        "bsi_min_max": (lambda: K.bsi_min_max(dp, de, dsg, None, True), lambda: K.bsi_min_max_plain(dp, de, dsg, None, True), 3 * 8),
+        "bsi_range": (lambda: K.bsi_range(dp, de, dsg, "neg", "lt", True, 2**31, 0, "count"),
+                      lambda: K.bsi_range_plain(dp, de, dsg, "neg", "lt", True, 2**31, 0, "count"), s_all * 8),
+    }
+    for name, (fn, plain, out_b) in d32.items():
+        got, want = fn(), plain()
+        diff = int((got.cpu().to(torch.int64) - want.cpu().to(torch.int64)).abs().max().item())
+        check(diff == 0, f"{name} at depth 32 (signed) differs from its twin by {diff}")
+        nbytes = (dd + 2) * stack_b + out_b
+        ms = cuda_time_ms(fn)
+        r = {
+            "ms": ms, "dispatch_ms": dispatch_ms(fn), "plain_ms": cuda_time_ms(plain, reps=3),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes, "max_abs_err": diff,
+            "launches": launches.get(name + "_deep", 0),
+        }
+        r["share_of_bound"] = r["bound_ms"] / ms
+        rows[name]["d32_signed"] = r
+        print(
+            f"kernel {name} at depth 32 (signed, [{dd}, {s_all}, {w}]): device {ms:.4f} ms, dispatch "
+            f"{r['dispatch_ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['share_of_bound']:.1%} of it), {r['launches']} launches on the deep queries"
+        )
+    del dp, de, dsg
     # GroupBy kernels at the main path's shapes: GroupBy(Rows(f), Rows(g))
     # descends in chunks of gmax(S, W) = 2 prefixes, each a counts_cross of
     # a [2, S, W] accumulator against g's [4, S, W] planes; the filtered
@@ -1587,7 +1740,7 @@ def kernel_timing(holder, ex, launches, errs):
 # ---------------------------------------------------------------------------
 
 BURST = 1 << 21  # columns of one staged burst into f row 0, and into g row 0
-RES_CYCLES = 3  # paging cycles of the query set, with extents and whole stacks
+RES_CYCLES = 2  # paging cycles of the query set, with extents and whole stacks (3 until PR 11)
 RES_QUERIES = [
     "Count(Intersect(Row(f=0), Row(g=0)))",
     "Count(Union(Row(f=0), Row(f=1), Row(g=1)))",
@@ -2112,10 +2265,10 @@ def residency_path(args, holder, ex, state, errs, smi):
 
 # Pilosa's documented time quantum "YMDH" (one view per year, month, day
 # and hour): 2 rows of field t, 32 random columns per shard, hour and row
-# over 10 days; the 47-view range of the queries below
+# over 8 days; the 47-view range of the queries below
 TIME_QUANTUM = "YMDH"
 TIME_START = np.datetime64("2024-01-01T00", "h")
-TIME_HOURS = 240
+TIME_HOURS = 192  # 240 until PR 11: cut for the script's time (the range's 47 views unchanged)
 TIME_PER_HOUR = 32
 TIME_RANGE = "from='2024-01-02T03:00', to='2024-01-08T21:00'"
 TIME_RANGE_HOURS = (27, 189)  # the range's hours since TIME_START
@@ -2123,7 +2276,7 @@ TIME_OPEN = "from='2024-01-05T00:00'"  # to the field's last hour
 TIME_OPEN_HOURS = (96, TIME_HOURS)
 TIME_BURST = 1 << 20  # columns of one timestamped burst into t row 0, all in hour 2024-01-08T20
 TIME_BURST_HOUR = 188
-TIME_REPS = 10  # runs per p50 (REPS elsewhere): Rows and GroupBy read 47 views x 1024 fragments on the host
+TIME_REPS = 6  # runs per p50 (REPS elsewhere): Rows and GroupBy read 47 views x 1024 fragments on the host (10 until PR 11)
 
 
 def _shift_np(words: np.ndarray, n: int) -> np.ndarray:
@@ -2729,9 +2882,7 @@ def serve_path(args):
             f"device cache {resident} B; Row(g=0) has {len(row_g0)} columns"
         )
 
-        # errors: an unported call, an unknown index
-        status, raw = http.raw("POST", "/index/s/query", b"Options(Row(f=0), shards=[0])", "text/plain")
-        check(status == 400 and b"not yet ported" in raw, f"Options: HTTP {status} {raw!r}")
+        # errors: an unknown index
         status, raw = http.raw("POST", "/index/nope/query", b"Count(Row(f=0))", "text/plain")
         check(status == 404, f"unknown index: HTTP {status} {raw!r}")
 
@@ -2794,16 +2945,21 @@ def serve_path(args):
         n_ts = min(S, SERVE_TIME_SHARDS)
         time_served = serve_time(args, http, srv, np.flatnonzero(_bits(exists[:n_ts])).astype(np.uint64))
         time_served["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        attrs_served = serve_attrs(args, http, srv, rows, row_g0, served, want)
+        attrs_served["phase_s"] = time.perf_counter() - t0
     finally:
         http.close()
         srv.stop()
     t0 = time.perf_counter()
     cli_check()
     recovered = {"data_dir": data_dir, "served": served, "want": want, "row_g0": row_g0, "n_val": n_val,
-                 "keyed_served": keyed.pop("served"), "time_served": time_served.pop("served")}
+                 "keyed_served": keyed.pop("served"), "time_served": time_served.pop("served"),
+                 "attrs_served": attrs_served.pop("served")}
     return recovered, {
         "keyed": keyed,
         "time": time_served,
+        "attrs": attrs_served,
         "launches": launches,
         "query_p50_ms": lat,
         "first_query_ms": first_ms[SERVE_QUERIES[0]],
@@ -2814,6 +2970,143 @@ def serve_path(args):
         "device_cache_bytes": resident,
         "concurrent_s": concurrent_s,
         "cli_s": time.perf_counter() - t0,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: row and column attributes and Options on the served node
+# ---------------------------------------------------------------------------
+
+SERVE_ATTR_COLUMNS = 100_000  # SetColumnAttrs calls: half on Row(g=0)'s columns, half on a sparse row of f
+SERVE_ATTR_BATCH = 1000  # SetColumnAttrs calls a query (max-writes-per-request is 5000)
+SERVE_ATTR_REPS = 5  # runs per p50: the Row bodies are 0.5-4 MB of JSON (cut for the script's time)
+
+
+def serve_attrs(args, http, srv, rows, row_g0, served, want) -> dict:
+    """Row attrs on every row of f and g (string, int, float and bool
+    values) through SetRowAttrs, SERVE_ATTR_COLUMNS SetColumnAttrs in
+    batches of SERVE_ATTR_BATCH over the columns of Row(g=0) and of a
+    sparse row of f; then Row bodies with and without columnAttrs,
+    Options (excludeColumns, columnAttrs, shards) and TopN(attrName=,
+    attrValues=), each held to a numpy + dict model and to
+    Executor.execute, with served p50s. Row(g=0)'s columnAttrs is built
+    from the store's ids, never from the row's columns: checked by
+    counting Row.columns() calls in process. `served` and `want` take the
+    new body of Row(g=0), which now carries g row 0's attrs. Returns the
+    bodies for the durable phase's restart."""
+    from pilosa_tpu_torch.core import row as rowmod
+    from pilosa_tpu_torch.exec.executor import ExecOptions
+    from pilosa_tpu_torch.server import wire
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng([args.seed, 13])
+    S = rows[("f", 0)].shape[0]
+    n_dense = len(SERVE_DENSE_DRAWS)
+    f_ids = range(n_dense + N_SERVE_SPARSE_F)
+    sparse_r = n_dense  # the first sparse row of f
+    row_attrs, q = {}, []
+    for fld, ids in (("f", f_ids), ("g", range(N_SERVE_G))):
+        for r in ids:
+            a = {"name": f"{fld}{r}", "kind": "dense" if fld == "f" and r < n_dense else "sparse",
+                 "weight": r / 4 + 0.5, "even": r % 2 == 0, "rank": 10 * r}
+            row_attrs[(fld, r)] = a
+            q.append(f'SetRowAttrs({fld}, {r}, name="{a["name"]}", kind="{a["kind"]}", weight={a["weight"]!r}, '
+                     f'even={"true" if a["even"] else "false"}, rank={a["rank"]})')
+    t0 = time.perf_counter()
+    check(http.pql(" ".join(q)) == [None] * len(q), "SetRowAttrs did not answer null")
+    row_attrs_s = time.perf_counter() - t0
+    f_cols = np.flatnonzero(_bits(rows[("f", sparse_r)].reshape(-1))).astype(np.int64)
+    n = min(SERVE_ATTR_COLUMNS // 2, len(row_g0), len(f_cols))
+    cols = np.unique(np.concatenate([rng.choice(row_g0.astype(np.int64), n, replace=False), rng.choice(f_cols, n, replace=False)]))
+    tiers = rng.integers(0, 7, len(cols))
+    col_attrs = {}
+    t0 = time.perf_counter()
+    for i in range(0, len(cols), SERVE_ATTR_BATCH):
+        calls = []
+        for c, t in zip(cols[i : i + SERVE_ATTR_BATCH].tolist(), tiers[i : i + SERVE_ATTR_BATCH].tolist()):
+            col_attrs[c] = {"tier": t, "label": f"c{c % 1000}", "hot": t == 0}
+            calls.append(f'SetColumnAttrs({c}, tier={t}, label="c{c % 1000}", hot={"true" if t == 0 else "false"})')
+        check(http.pql(" ".join(calls)) == [None] * len(calls), "SetColumnAttrs did not answer null")
+    col_attrs_s = time.perf_counter() - t0
+    print(
+        f"serve attrs: SetRowAttrs on {len(q)} rows of f and g in {row_attrs_s * 1e3:.1f} ms; {len(cols)} SetColumnAttrs "
+        f"in {len(cols) // SERVE_ATTR_BATCH + 1} queries, {col_attrs_s:.1f} s ({len(cols) / col_attrs_s:.0f} calls/s)"
+    )
+
+    # the numpy + dict model
+    def cas(columns):
+        return [{"attrs": col_attrs[c], "id": c} for c in np.intersect1d(cols, np.asarray(columns, np.int64)).tolist()]
+
+    pc = np_popcount
+    g0 = row_g0.astype(np.int64).tolist()
+    last = S - 1
+    f0_last = (np.flatnonzero(_bits(rows[("f", 0)][last])) + last * SHARD_WIDTH).tolist()
+    sparse = [r for r in f_ids if row_attrs[("f", r)]["kind"] == "sparse"]
+    top = sorted(((r, pc(rows[("f", r)])) for r in sparse), key=lambda kv: (-kv[1], kv[0]))[:5]
+    ic = ((r, pc(rows[("f", r)] & rows[("g", 0)])) for r in sparse)
+    top_g0 = sorted(((r, c) for r, c in ic if c), key=lambda kv: (-kv[1], kv[0]))[:5]
+    topn = 'attrName=kind, attrValues=["sparse"]'
+    attr_queries = [
+        ("", f"Row(f={sparse_r})", {"results": [{"attrs": row_attrs[("f", sparse_r)], "columns": f_cols.tolist()}]}),
+        ("?columnAttrs=true", f"Row(f={sparse_r})",
+         {"results": [{"attrs": row_attrs[("f", sparse_r)], "columns": f_cols.tolist()}], "columnAttrs": cas(f_cols)}),
+        ("?columnAttrs=true", "Row(g=0)", {"results": [{"attrs": row_attrs[("g", 0)], "columns": g0}], "columnAttrs": cas(g0)}),
+        ("", "Options(Row(g=0), excludeColumns=true, columnAttrs=true)",
+         {"results": [{"attrs": row_attrs[("g", 0)], "columns": []}], "columnAttrs": []}),
+        ("", f"Options(Row(f=0), shards=[{last}])", {"results": [{"attrs": row_attrs[("f", 0)], "columns": f0_last}]}),
+        ("", f"TopN(f, n=5, {topn})", {"results": [[{"id": r, "count": c} for r, c in top]]}),
+        ("", f"TopN(f, Row(g=0), n=5, {topn})", {"results": [[{"id": r, "count": c} for r, c in top_g0]]}),
+    ]
+    check(len(cas(g0)) > 1000 and len(cas(f_cols)) > 1000 and len(top) == len(sparse) and top_g0,
+          "the attribute queries' model answers are trivial")
+    out, lat = {}, {}
+    for qs, pql, model in attr_queries:
+        status, raw = http.raw("POST", "/index/s/query" + qs, pql.encode(), "text/plain")
+        check(status == 200, f"{pql}{qs}: HTTP {status}: {raw[:300]!r}")
+        got = json.loads(raw)
+        check(got == model, f"served {pql}{qs}: {str(got)[:300]}, the model says {str(model)[:300]}")
+        resp = srv.executor.execute_response("s", pql, opt=ExecOptions(column_attrs=bool(qs)))
+        local = {"results": [wire.result_to_public_json(r) for r in resp.results]}
+        if resp.column_attr_sets is not None:
+            local["columnAttrs"] = [c.to_json() for c in resp.column_attr_sets]
+        check(got == local, f"served {pql}{qs} differs from Executor.execute_response on the server's holder")
+        out[(qs, pql)] = raw
+        lat[pql + qs] = host_p50_ms(
+            lambda pql=pql, qs=qs: http.raw("POST", "/index/s/query" + qs, pql.encode(), "text/plain"), reps=SERVE_ATTR_REPS
+        )
+        print(f"serve attrs p50 {lat[pql + qs]:.3f} ms served  {pql}{qs}")
+    # Row(g=0)'s column attr sets come from the store's side: no
+    # Row.columns() call in process, and what they add to the query
+    calls = []
+    real = rowmod.Row.columns
+    rowmod.Row.columns = lambda self: calls.append(1) or real(self)
+    try:
+        resp = srv.executor.execute_response("s", "Row(g=0)", opt=ExecOptions(column_attrs=True))
+    finally:
+        rowmod.Row.columns = real
+    check(not calls and len(resp.column_attr_sets) == len(cas(g0)),
+          f"Row(g=0) with columnAttrs made {len(calls)} Row.columns() calls, {len(resp.column_attr_sets)} sets")
+    in_process = {
+        flag: host_p50_ms(
+            lambda flag=flag: srv.executor.execute_response("s", "Row(g=0)", opt=ExecOptions(column_attrs=flag)), reps=SERVE_ATTR_REPS
+        )
+        for flag in (False, True)
+    }
+    print(
+        f"serve attrs: Row(g=0) ({len(g0)} columns, {len(cas(g0))} with attrs) in process {in_process[False]:.3f} ms, "
+        f"with columnAttrs {in_process[True]:.3f} ms (no Row.columns() call: a gather of the store's ids on the card)"
+    )
+    # Row(g=0) of the served query set now carries its row attrs
+    status, served["Row(g=0)"] = http.raw("POST", "/index/s/query", b"Row(g=0)", "text/plain")
+    want["Row(g=0)"] = [{"attrs": row_attrs[("g", 0)], "columns": g0}]
+    check(status == 200 and json.loads(served["Row(g=0)"])["results"] == want["Row(g=0)"], "Row(g=0) after SetRowAttrs")
+    return {
+        "served": out,
+        "row_attrs_s": row_attrs_s,
+        "column_attrs": len(cols),
+        "column_attrs_s": col_attrs_s,
+        "query_p50_ms": lat,
+        "row_g0_in_process_ms": in_process,
     }
 
 
@@ -2902,7 +3195,7 @@ def serve_time(args, http, srv, existing) -> dict:
 # phase 5b: a keyed index on the served node
 # ---------------------------------------------------------------------------
 
-KEYED_COLUMNS = 1 << 20  # column keys "u%010d" (ids start at 1); cut to keep the script inside its time
+KEYED_COLUMNS = 1 << 19  # column keys "u%010d" (ids start at 1); cut to keep the script inside its time (2^20 until PR 11)
 KEYED_BATCH = 100_000  # pairs or values per keyed /import or import-value request
 KEYED_SEGMENTS = [f"seg-{k:02d}" for k in range(32)]
 # 64 two-letter ISO 3166 codes, in Zipf rank order
@@ -3417,9 +3710,13 @@ def durable_path(args, st) -> dict:
                 status, raw = http.raw("POST", f"/index/{index}/query", q.encode(), "text/plain")
                 first_ms[q] = (time.perf_counter() - tq) * 1e3
                 check(status == 200 and raw == before, f"recovered {index} {q}: {raw[:300]!r}, before {before[:300]!r}")
+        for (qs, q), before in st["attrs_served"].items():
+            status, raw = http.raw("POST", "/index/s/query" + qs, q.encode(), "text/plain")
+            check(status == 200 and raw == before, f"recovered s {q}{qs}: {raw[:300]!r}, before {before[:300]!r}")
         print(
-            f"durable: {len(SERVE_GROUP_QUERIES)} Rows/GroupBy, {len(st['keyed_served'])} keyed and "
-            f"{len(st['time_served'])} time bodies (time views reopened from the data dir) equal the pre-restart ones"
+            f"durable: {len(SERVE_GROUP_QUERIES)} Rows/GroupBy, {len(st['keyed_served'])} keyed, "
+            f"{len(st['time_served'])} time bodies (time views reopened from the data dir) and {len(st['attrs_served'])} "
+            "attribute bodies (the attribute logs replayed) equal the pre-restart ones"
         )
         torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
@@ -3553,6 +3850,7 @@ def main() -> int:
     phase_s["bsi"] = time.perf_counter() - t0
     for name in ("bsi_sum", "bsi_min_max", "bsi_range"):
         launches[name] = bsi_launches[name]
+        launches[name + "_deep"] = bsi_info["deep_launches"][name]
     t0 = time.perf_counter()
     rows, extra = kernel_timing(holder, ex, launches, errs)
     phase_s["timing"] = time.perf_counter() - t0

@@ -38,6 +38,7 @@ from pilosa_tpu_torch.core.cache import (
 from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core.devcache import DeviceCache
+from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.core.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXPONENT
@@ -120,6 +121,8 @@ class Field:
         self.dcache = dcache
         self._mu = threading.RLock()
         self.views: Dict[str, View] = {}
+        # row attributes: .row_attrs.json and its append log
+        self.row_attr_store = AttrStore(None if path is None else os.path.join(path, ".row_attrs.json"))
         # row keys of a keyed field
         self.translate_store: Optional[TranslateStore] = None
         if options.keys:
@@ -142,16 +145,12 @@ class Field:
     def open(self) -> "Field":
         """Write .meta.json if it is missing, then open every view under
         views/ (time views included) and, for a keyed field, the row key
-        store. Row attributes, which the port cannot serve yet, raise
-        NotImplementedError naming the file."""
+        store. The row attributes were read when the field was made."""
         if self.translate_store is not None:
             self.translate_store.open()
         if self.path is None:
             return self
         os.makedirs(self.path, exist_ok=True)
-        for fn in (".row_attrs.json", ".row_attrs.json.log"):
-            if os.path.exists(os.path.join(self.path, fn)):
-                raise NotImplementedError(f"{os.path.join(self.path, fn)}: not yet ported")
         if not os.path.exists(self.meta_path):
             self.save_meta()
         views_dir = os.path.join(self.path, "views")
@@ -195,13 +194,14 @@ class Field:
         return self.views.get(name)
 
     def close(self) -> None:
-        """Close every view (WALs and cache sidecars, device tensors) and
-        the row key store."""
+        """Close every view (WALs and cache sidecars, device tensors), the
+        row key store and the row attribute log."""
         with self._mu:
             for v in self.views.values():
                 v.close()
             if self.translate_store is not None:
                 self.translate_store.close()
+            self.row_attr_store.close()
 
     def bsi_view_name(self) -> str:
         return VIEW_BSI_PREFIX + self.name

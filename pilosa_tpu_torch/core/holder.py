@@ -5,9 +5,8 @@ runs on the CUDA card (device None) and raises if there is none; pass
 device="cpu" for the plain-PyTorch path. The holder owns the device cache
 its fragments and views stage tensors in. With a `path` (a data
 directory) it is durable, in the reference's on-disk format: one
-directory per index holding a .meta.json, opened by `open()`; a directory
-holding something the port cannot serve yet (attributes, time views)
-raises NotImplementedError naming it.
+directory per index holding a .meta.json, opened by `open()`, with its
+fields, views, key stores and attribute files.
 """
 
 from __future__ import annotations
@@ -61,6 +60,11 @@ class Holder:
         """Write every fragment's rank-cache sidecar (the server's ticker)."""
         for frag in self.fragments():
             frag.flush_cache()
+
+    def recalculate_caches(self) -> None:
+        """Rebuild every fragment's rank cache from exact row counts."""
+        for frag in self.fragments():
+            frag.recalculate_cache()
 
     def fragments(self):
         for idx in self.indexes():

@@ -16,6 +16,7 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.devcache import DeviceCache
 from pilosa_tpu_torch.core.field import FIELD_TYPE_SET, Field, FieldOptions, validate_name
 from pilosa_tpu_torch.core.translate import TranslateStore
@@ -43,6 +44,8 @@ class Index:
         self.dcache = dcache
         self._mu = threading.RLock()
         self._fields: Dict[str, Field] = {}
+        # column attributes: .col_attrs.json and its append log
+        self.column_attr_store = AttrStore(None if path is None else os.path.join(path, ".col_attrs.json"))
         # column keys of a keyed index
         self.translate_store: Optional[TranslateStore] = None
         if keys:
@@ -56,23 +59,15 @@ class Index:
         """Write .meta.json if it is missing, open every field directory
         (one holding a .meta.json), then create `_exists` if it is
         tracked and absent, and open the column key store of a keyed
-        index. Column attributes raise NotImplementedError naming the
-        file."""
+        index. The column attributes were read when the index was made."""
         if self.path is not None:
             os.makedirs(self.path, exist_ok=True)
-            for fn in (".col_attrs.json", ".col_attrs.json.log"):
-                if os.path.exists(os.path.join(self.path, fn)):
-                    raise NotImplementedError(f"{os.path.join(self.path, fn)}: not yet ported")
             if not os.path.exists(self.meta_path):
                 self.save_meta()
             for fn in sorted(os.listdir(self.path)):
                 fdir = os.path.join(self.path, fn)
                 if os.path.isdir(fdir) and os.path.exists(os.path.join(fdir, ".meta.json")):
-                    try:
-                        options = Field.load_options(fdir)
-                        self._fields[fn] = self._new_field(fn, options).open()
-                    except NotImplementedError as e:
-                        raise NotImplementedError(f"field {fdir}: {e}") from None
+                    self._fields[fn] = self._new_field(fn, Field.load_options(fdir)).open()
         if self.track_existence and EXISTENCE_FIELD_NAME not in self._fields:
             self._fields[EXISTENCE_FIELD_NAME] = self._new_field(
                 EXISTENCE_FIELD_NAME,
@@ -138,14 +133,15 @@ class Index:
                 shutil.rmtree(f.path, ignore_errors=True)
 
     def close(self) -> None:
-        """Close every field (WALs and cache sidecars, device tensors) and
-        the column key store."""
+        """Close every field (WALs and cache sidecars, device tensors), the
+        column key store and the column attribute log."""
         with self._mu:
             fields = list(self._fields.values())
         for f in fields:
             f.close()
         if self.translate_store is not None:
             self.translate_store.close()
+        self.column_attr_store.close()
 
     def existence_field(self) -> Optional[Field]:
         return self._fields.get(EXISTENCE_FIELD_NAME) if self.track_existence else None

@@ -55,6 +55,30 @@ class Row:
             out.append((base + (w % WORDS_PER_ROW) * 32 + bit_i).cpu().numpy().astype(np.uint64))
         return np.concatenate(out)
 
+    def includes_many(self, cols: np.ndarray) -> np.ndarray:
+        """bool[len(cols)]: which of the sorted uint64 column ids are set.
+        The words are gathered on the row's device, 256 segments at a
+        time (at most 32 MiB of scratch), one host read per chunk; the
+        cost follows len(cols), not the row's columns."""
+        out = np.zeros(len(cols), bool)
+        shard_of = (cols // np.uint64(SHARD_WIDTH)).astype(np.int64)
+        shards = [s for s in np.unique(shard_of).tolist() if s in self.segments]
+        for i in range(0, len(shards), 256):
+            chunk = shards[i : i + 256]
+            lo = np.searchsorted(shard_of, chunk[0], "left")
+            hi = np.searchsorted(shard_of, chunk[-1], "right")
+            pos_of = np.full(chunk[-1] - chunk[0] + 1, -1, np.int64)
+            pos_of[np.asarray(chunk) - chunk[0]] = np.arange(len(chunk))
+            slot = pos_of[shard_of[lo:hi] - chunk[0]]
+            sel = np.flatnonzero(slot >= 0)
+            bit = (cols[lo:hi][sel] % np.uint64(SHARD_WIDTH)).astype(np.int64)
+            words = torch.stack([self.segments[s] for s in chunk]).reshape(-1)
+            dev = words.device
+            w_idx = torch.from_numpy(slot[sel] * WORDS_PER_ROW + (bit >> 5)).to(dev)
+            got = (words[w_idx] >> torch.from_numpy(bit & 31).to(dev, torch.int32)) & 1
+            out[lo + sel] = got.cpu().numpy().astype(bool)
+        return out
+
     def shards(self) -> List[int]:
         return sorted(self.segments)
 

@@ -21,9 +21,13 @@ stacks are staged as extents in one deferred-eviction session, pinned
 until its launches are queued.
 
 Fields whose range cannot store negatives (min >= base) skip the sign row
-entirely. A filter containing Shift, a non-call filter argument, and a
-signed field 32 bits deep (the reference sends them to its per-shard
-loop) raise ExecError here.
+entirely; a signed field 32 bits deep keys Min/Max on 33 bits, which the
+kernel's 64-bit key holds. An aggregate's filter lowers through the
+executor's stacked lowering over the chunk's shards plus each one's
+Shift predecessors, so a Shift in the filter carries across shards (and
+across chunk boundaries: each chunk reads its predecessors from
+storage); a non-call `filter=` argument is no filter, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 
 from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT, BSI_SIGN_BIT
 from pilosa_tpu_torch.exec import plan as planmod
-from pilosa_tpu_torch.exec.plan import BudgetExceeded, PZero, StackedPlan
+from pilosa_tpu_torch.exec.plan import BudgetExceeded, StackedPlan
 from pilosa_tpu_torch.hbm.residency import ExtentTable
 from pilosa_tpu_torch.ops import bsi as obsi
 from pilosa_tpu_torch.ops import kernels
@@ -86,17 +90,16 @@ def _planes(bsiv, depth: int, shards, table: ExtentTable) -> torch.Tensor:
     return bsiv.plane_stack(range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + depth), shards, extents=table)
 
 
-def _filter_stack(ex, idx, filter_call, shards, over_budget: bool):
-    """An aggregate's filter bitmap as an [S, W] stack over `shards`, or
-    _EMPTY when it matches nothing."""
-    from pilosa_tpu_torch.exec.executor import _StackedLowering
-
-    low = _StackedLowering(ex, idx, list(shards), no_sparse_guard=True, over_budget=over_budget)
-    root = ex._lower_all(low, [filter_call])[0]
-    if isinstance(root, PZero) or not low.operands:
-        low.extents.release()
+def _filter_rows(ex, idx, filter_call, shards, over_budget: bool):
+    """An aggregate's filter bitmap over `shards`: (the shards where it
+    has bits, in order, and their [S', W] rows), or _EMPTY when it
+    matches nothing. The lowering stacks each shard's Shift predecessors
+    too (their rows carry into it) and drops shards without filter bits."""
+    lowered = ex._lower_roots(idx, [filter_call], list(shards), over_budget)
+    if lowered is ex._EMPTY:
         return _EMPTY
-    return StackedPlan(root, low.operands, len(shards), extents=low.extents).rows_full()
+    roots, low, n_out, out_shards = lowered
+    return out_shards, StackedPlan(roots[0], low.operands, n_out, out_shards, extents=low.extents).rows()
 
 
 # ---------------------------------------------------------------------------
@@ -110,29 +113,23 @@ def aggregate(ex, idx, c, f, shard_list: Sequence[int], kind: str):
 
     depth = f.options.bit_depth
     signed_ = _signed_field(f)
-    if depth <= 0 or depth > obsi.MAX_DEPTH or (signed_ and depth >= obsi.MAX_DEPTH):
-        raise exmod.ExecError(
-            f"{c.name}() over a signed field {depth} bits deep is not yet ported"
-        )
     bsiv = f.view(f.bsi_view_name())
-    if bsiv is None or not shard_list:
+    if bsiv is None or not shard_list or depth <= 0:
         return exmod.ValCount(0, 0)
     filter_call = None
     if len(c.children) == 1:
         filter_call = c.children[0]
-    elif c.args.get("filter") is not None:
+    elif isinstance(c.args.get("filter"), exmod.Call):
         filter_call = c.args["filter"]
-        if not isinstance(filter_call, exmod.Call):
-            raise exmod.ExecError(f"{c.name}() with a non-call filter is not yet ported")
-    if filter_call is not None and ex._count_shifts(filter_call):
-        raise exmod.ExecError(f"{c.name}() with Shift in its filter is not yet ported")
+    # each shard's filter rows may stack k Shift predecessors of their own
+    k = ex._count_shifts(filter_call) if filter_call is not None else 0
     # shards without a BSI fragment contribute nothing
     bsi_shards = [s for s in shard_list if bsiv.fragment_if_exists(s) is not None]
     if not bsi_shards:
         return exmod.ValCount(0, 0)
 
     def one(chunk, over_budget):
-        _chunk_guard(idx, len(chunk), depth, over_budget)
+        _chunk_guard(idx, len(chunk), depth + k, over_budget)
         return [_aggregate_chunk(ex, idx, bsiv, filter_call, chunk, kind, depth, signed_, over_budget)]
 
     parts = ex._chunk_by_budget(list(bsi_shards), one)
@@ -160,18 +157,20 @@ def aggregate(ex, idx, c, f, shard_list: Sequence[int], kind: str):
 
 def _aggregate_chunk(ex, idx, bsiv, filter_call, chunk, kind: str, depth: int, signed_: bool, over_budget: bool):
     """One shard chunk: (count, signed magnitude sum) for sum, (value,
-    count) for min/max, or _EMPTY."""
+    count) for min/max, or _EMPTY. The filter is evaluated first, and the
+    field's stacks cover only the shards where it has bits."""
+    filt = None
+    if filter_call is not None:
+        lowered = _filter_rows(ex, idx, filter_call, chunk, over_budget)
+        if lowered is _EMPTY:
+            return _EMPTY
+        chunk, filt = lowered
     table = ExtentTable(idx.dcache)
     try:
         with idx.dcache.deferred_eviction():
             exists, sign = _field_rows(bsiv, chunk, signed_, table)
             if exists is None:
                 return _EMPTY
-            filt = None
-            if filter_call is not None:
-                filt = _filter_stack(ex, idx, filter_call, chunk, over_budget)
-                if filt is _EMPTY:
-                    return _EMPTY
             planes = _planes(bsiv, depth, chunk, table)
         return _aggregate_launch(planes, exists, sign, filt, kind, depth, signed_)
     finally:

@@ -8,16 +8,21 @@ device row stacks (exec/plan.py); Count runs the plan_count kernel
 runs the bsi_range kernel in count mode (exec/bsistream.py); Sum, Min and
 Max over int fields run the bsi_sum and bsi_min_max kernels; Set and Clear
 write bits and int values; TopN answers unfiltered queries from the rank
-caches and filtered ones from one plan plus a device tally (rows_counts
-for dense candidates, gather_tally for sparse ones); Rows lists a field's
-row ids from the host row stores, and GroupBy tallies the cross-product
-of its children's rows on the card (exec/groupby.py: counts_cross,
-gather_and). String keys are translated to ids before execution and ids
-back to keys after it (exec/translation.py).
+caches and filtered ones from one plan plus a device tally per shard
+chunk (rows_counts or counts_cross for dense candidates, gather_tally for
+sparse ones), pruning candidates by row attrs on the host (attrName,
+attrValues); Rows lists a field's row ids from the host row stores, and
+GroupBy tallies the cross-product of its children's rows on the card
+(exec/groupby.py: counts_cross, gather_and). SetRowAttrs and
+SetColumnAttrs write the attribute stores (core/attrs.py); a plain Row
+carries its row's attrs, and Options sets excludeRowAttrs,
+excludeColumns, columnAttrs and shards for its child. String keys are
+translated to ids before execution and ids back to keys after it
+(exec/translation.py).
 
-Every other call raises ExecError("<Call> not yet ported"). There is no
-per-shard fallback: a tree the stacked lowering cannot express is an
-error here, never a slower path. Stacks over a quarter of the device
+An unknown call raises ExecError. There is no per-shard fallback: a tree
+the stacked lowering cannot express is an error here, never a slower
+path. Stacks over a quarter of the device
 budget halve the shard list; below 16 shards each shard is lowered on
 its own and admitted over the budget, where the reference answers
 through its per-shard loop.
@@ -71,9 +76,6 @@ from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
 DEFAULT_MIN_THRESHOLD = 1
 
-# calls of the reference executor that later slices port (attributes)
-_NOT_PORTED = frozenset({"SetRowAttrs", "SetColumnAttrs", "Options"})
-
 
 class ExecError(Exception):
     pass
@@ -85,13 +87,37 @@ class NotFoundError(ExecError):
 
 @dataclass
 class ExecOptions:
+    exclude_row_attrs: bool = False
+    exclude_columns: bool = False
+    column_attrs: bool = False
     shards: Optional[List[int]] = None
     max_writes: int = 5000
 
 
 @dataclass
+class ColumnAttrSet:
+    """One column's attributes on a response asked with columnAttrs=true:
+    `key` instead of `id` on a keyed index."""
+
+    id: int = 0
+    key: Optional[str] = None
+    attrs: Optional[Dict[str, Any]] = None
+
+    def to_json(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"attrs": self.attrs or {}}
+        if self.key is not None:
+            out["key"] = self.key
+        else:
+            out["id"] = self.id
+        return out
+
+
+@dataclass
 class QueryResponse:
+    """Per-call results, and the column attr sets when columnAttrs=true."""
+
     results: List[Any]
+    column_attr_sets: Optional[List[ColumnAttrSet]] = None
 
 
 @dataclass
@@ -154,10 +180,13 @@ class _TopNSpec:
     threshold: int
     tanimoto: int
     src_call: Optional[Call]
+    attr_name: Optional[str] = None
+    filters: Optional[set] = None
 
 
 # TopN dispatch accounting: the batched path issues O(1) device tallies
-TOPN_STATS = {"batched": 0, "tally_evals": 0, "one_pass": 0}
+# per shard chunk; `chunks` counts the filter's budget-sized shard chunks
+TOPN_STATS = {"batched": 0, "tally_evals": 0, "one_pass": 0, "chunks": 0}
 
 
 class _TallyBundle:
@@ -311,8 +340,6 @@ class _StackedLowering:
             if isinstance(child, PZero):
                 return PZero()
             return PShift(child, n, self._prev_idx())
-        if name in _NOT_PORTED:
-            raise ExecError(f"{name} not yet ported")
         raise ExecError(f"unknown call: {name}")
 
     def _existence_leaf(self) -> PNode:
@@ -531,6 +558,8 @@ class Executor:
         shards: Optional[Sequence[int]] = None,
         opt: Optional[ExecOptions] = None,
     ) -> QueryResponse:
+        # a private copy: Options(columnAttrs=...) sets the query's
+        # columnAttrs, which must not leak to the caller's options
         opt = replace(opt) if opt is not None else ExecOptions()
         if isinstance(query, str):
             query = parse(query)
@@ -553,13 +582,37 @@ class Executor:
             if j - i >= 2:
                 batch = self._execute_count_batch(idx, calls[i:j], shards)
                 if batch is None:
-                    batch = [self._execute_call(idx, cc, shards) for cc in calls[i:j]]
+                    batch = [self._execute_call(idx, cc, shards, opt) for cc in calls[i:j]]
                 results.extend(batch)
                 i = j
                 continue
-            results.append(self._execute_call(idx, calls[i], shards))
+            results.append(self._execute_call(idx, calls[i], shards, opt))
             i += 1
-        return QueryResponse(results=translation.translate_results(idx, query, results))
+        resp = QueryResponse(results=results)
+        if opt.column_attrs:
+            resp.column_attr_sets = self._column_attr_sets(idx, results)
+        resp.results = translation.translate_results(idx, query, results)
+        return resp
+
+    @staticmethod
+    def _column_attr_sets(idx: Index, results) -> List[ColumnAttrSet]:
+        """The attrs of every column set in any Row result, in column
+        order. Built from the store's side: its sorted ids are looked up
+        in each Row's words on the Row's device (one gather), so the cost
+        follows the attributed columns, not the Row's columns. Columns
+        excluded by excludeColumns have no segments, hence no attrs."""
+        store = idx.column_attr_store
+        ids = store.ids_array()
+        hit = np.zeros(len(ids), bool)
+        if len(ids):
+            for r in results:
+                if isinstance(r, Row) and r.segments:
+                    hit |= r.includes_many(ids)
+        cols = ids[hit].tolist()
+        if idx.keys:
+            keys = idx.translate_store.keys_for_ids(cols)
+            return [ColumnAttrSet(key=k, attrs=a) for k, a in zip(keys, store.attrs_many(cols)) if a]
+        return [ColumnAttrSet(id=c, attrs=a) for c, a in zip(cols, store.attrs_many(cols)) if a]
 
     def _shards_for(self, idx: Index, shards, call: Optional[Call] = None) -> List[int]:
         s = list(shards) if shards is not None else (sorted(idx.available_shards()) or [0])
@@ -573,8 +626,14 @@ class Executor:
                 s = sorted(ext)
         return s
 
-    def _execute_call(self, idx: Index, c: Call, shards):
+    def _execute_call(self, idx: Index, c: Call, shards, opt: ExecOptions):
         name = c.name
+        if name == "Options":
+            return self._execute_options(idx, c, shards, opt)
+        if name == "SetRowAttrs":
+            return self._execute_set_row_attrs(idx, c)
+        if name == "SetColumnAttrs":
+            return self._execute_set_column_attrs(idx, c)
         if name not in ("Set", "Clear"):
             shards = self._shards_for(idx, shards, c)
         if name == "Count":
@@ -603,9 +662,7 @@ class Executor:
             return self._execute_clear_row(idx, c, shards)
         if name == "Store":
             return self._execute_store(idx, c, shards)
-        if name in _NOT_PORTED:
-            raise ExecError(f"{name} not yet ported")
-        return self._execute_bitmap_call(idx, c, shards)
+        return self._execute_bitmap_call(idx, c, shards, opt)
 
     # ------------------------------------------------------------------
     # lowering
@@ -744,7 +801,7 @@ class Executor:
     # bitmap calls
     # ------------------------------------------------------------------
 
-    def _execute_bitmap_call(self, idx: Index, c: Call, shards) -> Row:
+    def _execute_bitmap_call(self, idx: Index, c: Call, shards, opt: ExecOptions) -> Row:
         """One plan_rows launch per shard chunk gives the result words and
         each shard's count; the non-empty shards' rows of that fresh stack
         are the Row's segments. They are views of the stack, so a Row
@@ -766,7 +823,24 @@ class Executor:
                 pos = range(len(keep))
             for i, j in zip(keep, pos):
                 segments[sp.out_shards[i]] = stack[j]
-        return Row(segments)
+        return self._finish_bitmap_row(idx, c, Row(segments), opt)
+
+    def _finish_bitmap_row(self, idx: Index, c: Call, row: Row, opt: ExecOptions) -> Row:
+        """A plain Row() (no condition) carries its row's attrs, unless
+        excludeRowAttrs; excludeColumns drops every segment."""
+        if c.name == "Row" and not c.has_conditions():
+            if opt.exclude_row_attrs:
+                row.attrs = {}
+            else:
+                fname = next((k for k in c.args if not k.startswith("_") and k not in ("from", "to")), None)
+                f = idx.field(fname) if fname else None
+                if f is not None:
+                    rid = c.args.get(fname)
+                    if isinstance(rid, int) and not isinstance(rid, bool):
+                        row.attrs = f.row_attr_store.attrs(rid)
+        if opt.exclude_columns:
+            row.segments = {}
+        return row
 
     def _field_of(self, idx: Index, name: str) -> Field:
         f = idx.field(name)
@@ -951,6 +1025,45 @@ class Executor:
         return changed
 
     # ------------------------------------------------------------------
+    # attributes and Options
+    # ------------------------------------------------------------------
+
+    def _execute_set_row_attrs(self, idx: Index, c: Call) -> None:
+        f = self._field_of(idx, c.args.get("_field"))
+        row_id = c.args.get("_row")
+        if not isinstance(row_id, int):
+            raise ExecError("SetRowAttrs() row argument required")
+        f.row_attr_store.set_attrs(row_id, {k: v for k, v in c.args.items() if k not in ("_field", "_row")})
+        return None
+
+    def _execute_set_column_attrs(self, idx: Index, c: Call) -> None:
+        col = c.args.get("_col")
+        if not isinstance(col, int):
+            raise ExecError("SetColumnAttrs() column argument required")
+        idx.column_attr_store.set_attrs(col, {k: v for k, v in c.args.items() if k != "_col"})
+        return None
+
+    def _execute_options(self, idx: Index, c: Call, shards, opt: ExecOptions):
+        """Options(<call>, excludeRowAttrs=, excludeColumns=, columnAttrs=,
+        shards=[...]): the child runs under options of its own; its
+        columnAttrs holds for the whole response."""
+        if len(c.children) != 1:
+            raise ExecError("Options() requires a single child query")
+        new_opt = ExecOptions(
+            exclude_row_attrs=bool(c.args.get("excludeRowAttrs", opt.exclude_row_attrs)),
+            exclude_columns=bool(c.args.get("excludeColumns", opt.exclude_columns)),
+            column_attrs=bool(c.args.get("columnAttrs", opt.column_attrs)),
+            max_writes=opt.max_writes,
+        )
+        opt.column_attrs = new_opt.column_attrs
+        s = c.args.get("shards")
+        if s is not None:
+            if not isinstance(s, list):
+                raise ExecError("Options() shards must be a list")
+            shards = [int(x) for x in s]
+        return self._execute_call(idx, c.children[0], shards, new_opt)
+
+    # ------------------------------------------------------------------
     # MinRow / MaxRow
     # ------------------------------------------------------------------
 
@@ -1057,8 +1170,9 @@ class Executor:
         return trimmed[:n] if n else trimmed
 
     def _topn_local_full(self, idx: Index, c: Call, shards) -> Optional[List[Pair]]:
-        """Both TopN passes against ONE device tally (filtered queries
-        without Tanimoto); None sends the caller to the two-pass path."""
+        """Both TopN passes against ONE device tally per shard chunk
+        (filtered queries without Tanimoto); None sends the caller to the
+        two-pass path."""
         spec = self._topn_parse(idx, c)
         if spec.src_call is None or spec.tanimoto > 0:
             return None
@@ -1066,25 +1180,22 @@ class Executor:
         if vp is None:
             return []
         v, present = vp
-        present, sp = self._stacked_filter(idx, spec.src_call, present)
-        if not present:
-            return []
         TOPN_STATS["one_pass"] += 1
-        src_stack = sp.rows_full()
         thr = np.uint64(max(spec.threshold, 1))
-        # pass 1 survivors: threshold prune over the rank-cache arrays
+        # pass 1 survivors: threshold and attr prunes over the rank-cache
+        # arrays (a shard without filter bits tallies 0 for every row)
+        tops = [frag.cache_top_arrays() for _, frag in present]
+        allowed = self._topn_attr_mask(spec, [r for r, _ in tops])
         surv = []
-        for _, frag in present:
-            rids, cnts = frag.cache_top_arrays()
+        for rids, cnts in tops:
             m = cnts >= thr
+            if allowed is not None and m.any():
+                m &= allowed(rids)
             surv.append((rids[m], cnts[m]))
-        if not any(len(s[0]) for s in surv):
-            return []
         cand = np.unique(np.concatenate([s[0] for s in surv]))
-        order, fused = self._topn_icounts_raw(v, [int(x) for x in cand], present, src_stack)
-        pos_of = np.empty(len(order), np.int64)
-        pos_of[np.searchsorted(cand, np.asarray(order, np.uint64))] = np.arange(len(order))
-        ic_mat = fused[pos_of]  # uint64[R, S] in cand order
+        ic_mat = self._topn_filtered_counts(idx, v, spec.src_call, present, [int(x) for x in cand])
+        if not len(cand):
+            return []
         n1 = spec.n
         merged_mask = np.zeros(len(cand), bool)
         for j, (srids, scnts) in enumerate(surv):
@@ -1134,8 +1245,11 @@ class Executor:
             raise ExecError("Tanimoto Threshold is from 1 to 100 only")
         if len(c.children) > 1:
             raise ExecError("TopN() can only have one input bitmap")
-        if c.args.get("attrName") and c.args.get("attrValues"):
-            raise ExecError("TopN() attrName/attrValues not yet ported")
+        attr_name = c.args.get("attrName")
+        attr_values = c.args.get("attrValues")
+        filters = None
+        if attr_name and attr_values:
+            filters = {fv for fv in attr_values if fv is not None}
         return _TopNSpec(
             f=f,
             n=c.uint_arg("n") or 0,
@@ -1143,7 +1257,27 @@ class Executor:
             threshold=c.uint_arg("threshold") or DEFAULT_MIN_THRESHOLD,
             tanimoto=tanimoto,
             src_call=c.children[0] if c.children else None,
+            attr_name=attr_name,
+            filters=filters,
         )
+
+    @staticmethod
+    def _topn_attr_ok(spec: _TopNSpec, rid: int) -> bool:
+        """Whether row `rid`'s attr `attrName` is one of `attrValues`: the
+        host prune of candidates by row attrs."""
+        val = spec.f.row_attr_store.attrs(rid).get(spec.attr_name)
+        return val is not None and val in spec.filters
+
+    @staticmethod
+    def _topn_attr_mask(spec: _TopNSpec, row_arrays):
+        """None without an attr filter; else a function from a row-id
+        array (a subset of `row_arrays`' rows) to its allowed mask, each
+        distinct row looked up once."""
+        if spec.filters is None:
+            return None
+        uniq = np.unique(np.concatenate(row_arrays))
+        ok = np.fromiter((Executor._topn_attr_ok(spec, int(r)) for r in uniq), bool, len(uniq))
+        return lambda rids: ok[np.searchsorted(uniq, rids)]
 
     def _topn_pool(self, spec: _TopNSpec, frag) -> Tuple[int, list]:
         """One shard's candidate pool in rank order: explicit ids read
@@ -1171,6 +1305,8 @@ class Executor:
                 if not (min_tan < cnt < max_tan):
                     continue
             elif cnt < spec.threshold:
+                continue
+            if spec.filters is not None and not Executor._topn_attr_ok(spec, rid):
                 continue
             survivors.append((rid, cnt))
         return survivors
@@ -1212,9 +1348,10 @@ class Executor:
         return pairs
 
     def _topn_merged_batched(self, spec: _TopNSpec, idx: Index, shard_list) -> Dict[int, int]:
-        """All shards' TopN tallies in one batched pass: candidates from
-        the rank caches; a filter bitmap lowers to ONE plan and the
-        survivors' intersection counts come from one device tally."""
+        """All shards' TopN tallies, batched: candidates from the rank
+        caches; a filter bitmap lowers to one plan per budget-sized shard
+        chunk, and each chunk's survivors' intersection counts come from
+        one device tally (per-shard selections add across chunks)."""
         vp = self._topn_present(spec, shard_list)
         if vp is None:
             return {}
@@ -1222,10 +1359,14 @@ class Executor:
         TOPN_STATS["batched"] += 1
         if spec.src_call is None:
             return self._topn_merged_hostfast(spec, present)
-        present, sp = self._stacked_filter(idx, spec.src_call, present)
-        if not present:
-            return {}
-        src_stack = sp.rows_full()
+        merged: Dict[int, int] = {}
+        self._topn_filter_chunks(
+            idx, spec.src_call, present, lambda sub, src_stack: self._topn_merge_chunk(spec, v, sub, src_stack, merged)
+        )
+        return merged
+
+    def _topn_merge_chunk(self, spec: _TopNSpec, v, present, src_stack, merged: Dict[int, int]) -> None:
+        """Add one shard chunk's per-shard TopN selections to `merged`."""
         use_tan = spec.tanimoto > 0
         src_counts = None
         if use_tan:
@@ -1244,12 +1385,43 @@ class Executor:
         if cand_union:
             order, fused = self._topn_icounts_raw(v, sorted(cand_union), present, src_stack)
             ic_rows = {rid: fused[k] for k, rid in enumerate(order)}
-        merged: Dict[int, int] = {}
         for j, (n, survivors, sc) in enumerate(pools):
             icounts = {rid: int(ic_rows[rid][j]) for rid, _ in survivors}
             for count, rid in self._topn_select(spec, n, survivors, sc, icounts):
                 merged[rid] = merged.get(rid, 0) + count
-        return merged
+
+    def _topn_filter_chunks(self, idx: Index, filter_call: Call, present, tally) -> None:
+        """Lower the filter over the present shards in budget-sized chunks
+        (_chunk_by_budget: halves, then single shards over the budget, as
+        the reference's per-shard route answers) and call tally(sub,
+        src_stack) for each chunk with filter bits, `sub` its present
+        (shard, fragment) pairs; each chunk's stack is tallied before the
+        next is lowered."""
+        frag_of = dict(present)
+
+        def one(chunk, over_budget):
+            sub, sp = self._stacked_filter(idx, filter_call, [(s, frag_of[s]) for s in chunk], over_budget)
+            if sub:
+                tally(sub, sp.rows_full())
+            return [len(sub)]
+
+        TOPN_STATS["chunks"] += len(self._chunk_by_budget(list(frag_of), one))
+
+    def _topn_filtered_counts(self, idx: Index, view, filter_call: Call, present, cand: List[int]) -> np.ndarray:
+        """uint64[len(cand), len(present)]: each candidate row's count
+        within the filter in each present shard, the chunks' columns
+        merged on the host (0 where the filter is empty)."""
+        ic = np.zeros((len(cand), len(present)), np.uint64)
+        col_of = {s: j for j, (s, _) in enumerate(present)}
+        row_of = {rid: k for k, rid in enumerate(cand)}
+
+        def tally(sub, src_stack) -> None:
+            if cand:
+                order, fused = self._topn_icounts_raw(view, cand, sub, src_stack)
+                ic[np.ix_([row_of[r] for r in order], [col_of[s] for s, _ in sub])] = fused
+
+        self._topn_filter_chunks(idx, filter_call, present, tally)
+        return ic
 
     @staticmethod
     def _topn_merged_hostfast(spec: _TopNSpec, present) -> Dict[int, int]:
@@ -1259,6 +1431,11 @@ class Executor:
         if spec.ids:
             # explicit ids: no truncation; per shard, counts >= threshold
             ids = [int(i) for i in spec.ids]
+            allowed = Executor._topn_attr_mask(spec, [np.asarray(ids, np.uint64)])
+            if allowed is not None:
+                ids = [rid for rid, ok in zip(ids, allowed(np.asarray(ids, np.uint64))) if ok]
+            if not ids:
+                return merged
             ids_arr = np.asarray(ids, np.uint64)
             totals = np.zeros(len(ids), np.uint64)
             thr = np.uint64(spec.threshold)
@@ -1277,10 +1454,14 @@ class Executor:
         n = spec.n
         thr = np.uint64(max(spec.threshold, 1))
         sel_rids, sel_cnts = [], []
-        for _, frag in present:
-            rids, cnts = frag.cache_top_arrays()
+        tops = [frag.cache_top_arrays() for _, frag in present]
+        allowed = Executor._topn_attr_mask(spec, [r for r, _ in tops])
+        for rids, cnts in tops:
             end = int(np.searchsorted(-cnts.view(np.int64), -int(thr), "right"))
             rids, cnts = rids[:end], cnts[:end]
+            if allowed is not None and len(rids):
+                m = allowed(rids)
+                rids, cnts = rids[m], cnts[m]
             if n and len(rids) > n:
                 rids, cnts = rids[:n], cnts[:n]
             if len(rids):
@@ -1306,26 +1487,15 @@ class Executor:
         v.sync_pending(frags=[frag for _, frag in present])
         return v, present
 
-    def _stacked_filter(self, idx: Index, filter_call: Call, present, over_budget: Optional[bool] = None):
+    def _stacked_filter(self, idx: Index, filter_call: Call, present, over_budget: bool):
         """Lower a filter bitmap over the present fragments' shards.
         Returns (present, plan), `present` restricted to the plan's
         out_shards when compaction dropped shards (they hold no filter
-        bits); ([], None) when the filter is empty everywhere. A caller
-        that chunks the shard axis passes `over_budget` and gets
-        BudgetExceeded; otherwise (TopN) a filter over the budget raises
-        over _MIN_CHUNK shards or more, and is lowered with the guards
-        off below that."""
+        bits); ([], None) when the filter is empty everywhere. Stacks over
+        the budget raise BudgetExceeded unless `over_budget`: callers
+        walk _chunk_by_budget's shard chunks."""
         pshards = [s for s, _ in present]
-        if over_budget is not None:
-            lowered = self._lower_roots(idx, [filter_call], pshards, over_budget=over_budget)
-        else:
-            try:
-                lowered = self._lower_roots(idx, [filter_call], pshards)
-            except BudgetExceeded:
-                if len(pshards) >= self._MIN_CHUNK:
-                    raise ExecError("TopN filter stack exceeds the device budget") from None
-                # a few shards: admit the filter's stacks over the budget
-                lowered = self._lower_roots(idx, [filter_call], pshards, over_budget=True)
+        lowered = self._lower_roots(idx, [filter_call], pshards, over_budget=over_budget)
         if lowered is self._EMPTY:
             return [], None
         roots, low, n_out, out_shards = lowered

@@ -9,7 +9,8 @@ String row and column keys in imports translate through the field's and
 the index's key stores, and the CSV export writes keys where there are
 some. Admission, tracing, statistics, the Count batcher and every
 multi-node branch come in later slices; a request that needs one of them
-is an ApiError naming what is missing (HTTP 400).
+(the `profile` query option) is an ApiError naming what is missing (HTTP
+400).
 """
 
 from __future__ import annotations
@@ -26,9 +27,8 @@ from pilosa_tpu_torch.core import roaring_io
 from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.field import FIELD_TYPE_SET, FIELD_TYPE_TIME, FieldOptions
-from pilosa_tpu_torch.core.row import Row
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
-from pilosa_tpu_torch.exec.executor import NotFoundError, QueryResponse
+from pilosa_tpu_torch.exec.executor import ExecOptions, NotFoundError, QueryResponse
 from pilosa_tpu_torch.pql import parse
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXPONENT
 
@@ -89,19 +89,19 @@ class API:
         exclude_columns: bool = False,
         profile: bool = False,
     ) -> QueryResponse:
-        """Parse the PQL (a ParseError is a 400), then execute it.
-        `exclude_row_attrs` changes nothing here: row attributes are not
-        ported, so every Row's attrs are empty either way."""
-        if column_attrs:
-            raise ApiError("columnAttrs: column attributes are not yet ported")
+        """Parse the PQL (a ParseError is a 400), then execute it with the
+        query options: row attrs on Row results unless
+        `exclude_row_attrs`, no columns with `exclude_columns`, and the
+        response's column attr sets with `column_attrs`. `profile` is an
+        ApiError: query tracing is not ported."""
         if profile:
             raise ApiError("profile: query tracing is not yet ported")
-        resp = self.server.executor.execute_response(index, parse(query), shards=shards)
-        if exclude_columns:
-            for r in resp.results:
-                if isinstance(r, Row):
-                    r.segments = {}
-        return resp
+        opt = ExecOptions(
+            column_attrs=column_attrs,
+            exclude_row_attrs=exclude_row_attrs,
+            exclude_columns=exclude_columns,
+        )
+        return self.server.executor.execute_response(index, parse(query), shards=shards, opt=opt)
 
     # -- schema DDL ----------------------------------------------------------
 
@@ -250,6 +250,11 @@ class API:
                 out.write(f"{rk if rk is not None else r},{ck if ck is not None else c}\n")
         return out.getvalue()
 
+    def recalculate_caches(self) -> None:
+        """Rebuild every rank cache of the node (one node: nothing to
+        broadcast)."""
+        self.holder.recalculate_caches()
+
     # -- node info -----------------------------------------------------------
 
     def status(self) -> dict:
@@ -303,6 +308,11 @@ class API:
             "shardWidth": SHARD_WIDTH,
             "fields": [f.name for f in idx.fields()],
         }
+
+    def shard_nodes(self, index: str, shard: int) -> List[dict]:
+        """The nodes that own a shard of an index: on one node, the node
+        itself, for any index and shard."""
+        return [n.to_json() for n in self.cluster.nodes]
 
     def max_shards(self) -> Dict[str, int]:
         """Per index, one past its highest shard (0 when it has none)."""

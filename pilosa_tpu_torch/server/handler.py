@@ -277,7 +277,10 @@ class Handler(BaseHTTPRequestHandler):
             exclude_columns=flag("excludeColumns"),
             profile=flag("profile"),
         )
-        self._reply({"results": [wire.result_to_public_json(r) for r in resp.results]})
+        out = {"results": [wire.result_to_public_json(r) for r in resp.results]}
+        if resp.column_attr_sets is not None:
+            out["columnAttrs"] = [s.to_json() for s in resp.column_attr_sets]
+        self._reply(out)
 
     @route("POST", "/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import")
     def post_import(self, index: str, field: str):
@@ -317,6 +320,15 @@ class Handler(BaseHTTPRequestHandler):
             index, field, self._int_path("shard", shard), view=self.query.get("view")
         )
         self._reply(None, raw=data, content_type="application/octet-stream")
+
+    @route("POST", "/recalculate-caches")
+    def post_recalculate_caches(self):
+        self.api.recalculate_caches()
+        self._reply({})
+
+    @route("GET", "/index/(?P<index>[^/]+)/shard-nodes")
+    def get_shard_nodes(self, index: str):
+        self._reply(self.api.shard_nodes(index, self._int_param("shard")))
 
     @route("GET", "/export")
     def get_export(self):

@@ -439,24 +439,27 @@ def test_bsi_value_errors_match_reference():
 
 
 def test_unported_bsi_shapes_raise(both):
-    """The reference sends these to its per-shard loop; the port raises.
-    MinRow and MaxRow, ported since, give the reference's answers."""
+    """The shapes the reference sends to its per-shard loop or stacked
+    path (a Shift in the filter, a signed field 32 bits deep) and
+    MinRow/MaxRow, all ported since, give the reference's answers."""
     ref_ex, port_ex, _ = both
     for pql in [
         "Sum(field=amount, filter=Shift(Row(f=1), n=1))",
         "Min(Shift(Row(f=1), n=2), field=age)",
     ]:
-        with pytest.raises(TExecError, match="not yet ported"):
-            port_ex.execute("i", pql)
+        want = [(r.value, r.count) for r in ref_ex.execute("i", pql)]
+        assert [(r.value, r.count) for r in port_ex.execute("i", pql)] == want, pql
     for pql in ["MinRow(field=f)", "MaxRow(field=f)", "MinRow(field=amount)"]:
         assert port_ex.execute("i", pql) == ref_ex.execute("i", pql), pql
-    h = THolder(device="cpu")
-    idx = h.create_index("i")
-    idx.create_field("deep", TFieldOptions(type="int", min=-(2**32) + 1, max=0))
-    idx.field("deep").set_value(5, -(2**32) + 1)
-    with pytest.raises(TExecError, match="not yet ported"):
-        TExecutor(h).execute("i", "Max(field=deep)")
-    assert TExecutor(h).execute("i", "Count(Row(deep < -4294967290))") == [1]
+    answers = []
+    for H, FO, E in ((lambda: THolder(device="cpu"), TFieldOptions, TExecutor), (lambda: JHolder(None).open(), JFieldOptions, JExecutor)):
+        h = H()
+        idx = h.create_index("i")
+        idx.create_field("deep", FO(type="int", min=-(2**32) + 1, max=0))
+        idx.field("deep").set_value(5, -(2**32) + 1)
+        got = E(h).execute("i", "Max(field=deep) Min(field=deep) Sum(field=deep)")
+        answers.append([(r.value, r.count) for r in got] + E(h).execute("i", "Count(Row(deep < -4294967290))"))
+    assert answers[0] == answers[1] == [(-(2**32) + 1, 1)] * 3 + [1]
 
 
 # ---------------------------------------------------------------------------

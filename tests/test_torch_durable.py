@@ -333,8 +333,9 @@ def test_reopen_serves_staged_and_lazy_rows(tmp_path):
     ],
 )
 def test_unported_contents_raise_by_name(tmp_path, make, named):
-    """Attribute files raise naming the file; bool and time fields,
-    ported since, open with the reference's options."""
+    """Bool and time fields, and the attribute files, all ported since,
+    open with the reference's options and attrs; attrs the port adds then
+    open in the reference too, so both directions hold."""
     ref = jholder(tmp_path)
     make(ref)
     ref.close()
@@ -344,9 +345,84 @@ def test_unported_contents_raise_by_name(tmp_path, make, named):
         assert (o.type, o.time_quantum) == (named, "YMD" if named == "time" else "")
         h.close()
         return
-    with pytest.raises(NotImplementedError, match=named) as ei:
-        tholder(tmp_path)
-    assert str(tmp_path) in str(ei.value)
+
+    def store(h):
+        idx = h.index("i")
+        return idx.column_attr_store if named == ".col_attrs" else idx.field("f").row_attr_store
+
+    h = tholder(tmp_path)
+    assert store(h).attrs(1) == {"a": 1}
+    store(h).set_attrs(1, {"b": "x"})
+    store(h).set_attrs(2, {"c": 2.5})
+    h.close()
+    ref = jholder(tmp_path)
+    assert [store(ref).attrs(i) for i in (1, 2)] == [{"a": 1, "b": "x"}, {"c": 2.5}]
+    ref.close()
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+@pytest.mark.parametrize("kind", ["row", "column"])
+def test_attr_files_cross_open(tmp_path, writer, kind):
+    """Attribute files written through one package's executor open in the
+    other with the same attrs, blocks and answers; a log whose last line
+    was torn opens in both, truncated at the same offset, and the next
+    write starts a fresh line that both packages read back."""
+    from pilosa_tpu.server import wire as jwire
+    from pilosa_tpu_torch.server import wire as twire
+
+    d = str(tmp_path / "data")
+    pkgs = {
+        "reference": (lambda: JHolder(d).open(), JExecutor, JFieldOptions, jwire),
+        "port": (lambda: THolder(d, device="cpu").open(), TExecutor, TFieldOptions, twire),
+    }
+    open_w, ex_w, fo_w, _ = pkgs[writer]
+    h = open_w()
+    idx = h.create_index("i")
+    idx.create_field("f", fo_w())
+    q = ["Set(3, f=1)", "Set(2000000, f=1)"]
+    rng = np.random.default_rng(5)
+    for k in range(40):
+        if kind == "row":
+            q.append(f'SetRowAttrs(f, {k % 7}, n={int(rng.integers(0, 100))}, s="v{k}", ok={"true" if k % 2 else "false"})')
+        else:
+            q.append(f'SetColumnAttrs({int(rng.choice([3, 2000000, k]))}, n={k}, x={k / 4})')
+    q.append('SetRowAttrs(f, 1, s=null)' if kind == "row" else "SetColumnAttrs(3, n=null)")
+    ex_w(h).execute("i", " ".join(q))
+    h.close()
+    path = os.path.join(d, "i", ".col_attrs.json.log") if kind == "column" else os.path.join(d, "i", "f", ".row_attrs.json.log")
+    assert os.path.getsize(path) > 0
+    reads = "Options(Row(f=1), columnAttrs=true) TopN(f, attrName=ok, attrValues=[true])"
+    bodies, sizes = [], []
+    for name in ("reference", "port"):
+        with open(path, "ab") as fh:
+            fh.write(b'{"9": {"torn"')  # a torn last line
+        size = os.path.getsize(path)
+        open_h, ex_h, _, wire = pkgs[name]
+        h = open_h()
+        st = h.index("i").column_attr_store if kind == "column" else h.index("i").field("f").row_attr_store
+        sizes.append((size - len(b'{"9": {"torn"'), os.path.getsize(path)))
+        resp = ex_h(h).execute_response("i", reads)
+        bodies.append(
+            (
+                [wire.result_to_public_json(r) for r in resp.results],
+                [c.to_json() for c in resp.column_attr_sets or []],
+                {i: st.attrs(i) for i in st.ids()},
+                st.blocks(),
+            )
+        )
+        h.close()
+    assert sizes[0] == sizes[1] and sizes[0][0] == sizes[0][1]
+    assert bodies[0] == bodies[1]
+    assert bodies[0][2] and (kind == "row" or bodies[0][1])
+    # a write after the truncation starts a fresh line
+    h = pkgs[writer][0]()
+    pkgs[writer][1](h).execute("i", "SetRowAttrs(f, 9, z=1)" if kind == "row" else "SetColumnAttrs(9, z=1)")
+    h.close()
+    for name in ("reference", "port"):
+        h = pkgs[name][0]()
+        st = h.index("i").column_attr_store if kind == "column" else h.index("i").field("f").row_attr_store
+        assert st.attrs(9) == {"z": 1}
+        h.close()
 
 
 def keyed_sequence(holder, executor, fo) -> None:

@@ -228,13 +228,21 @@ def test_errors_match_reference(loaded, pql):
 
 
 def test_unported_calls_raise(loaded):
-    """The attribute calls raise "not yet ported"; MinRow, MaxRow and
-    ClearRow (on a row that holds no bit, so the shared holder stays as it
-    is), Rows and GroupBy, ported since, give the reference's answers."""
+    """The attribute calls and Options, MinRow, MaxRow and ClearRow (on a
+    row that holds no bit, so the shared holder's bits stay as they are),
+    Rows and GroupBy, all ported since, give the reference's answers: the
+    same results, the same row attrs and column attr sets in the JSON."""
+    from pilosa_tpu.server import wire as jwire
+    from pilosa_tpu_torch.server import wire as twire
+
     ref_ex, port_ex = loaded
     for pql in ["SetRowAttrs(f, 1, a=1)", "SetColumnAttrs(1, a=1)", "Options(Row(f=1), shards=[0])"]:
-        with pytest.raises(TExecError, match="not yet ported"):
-            port_ex.execute("i", pql)
+        want = ref_ex.execute_response("i", pql)
+        got = port_ex.execute_response("i", pql)
+        assert [twire.result_to_public_json(r) for r in got.results] == [
+            jwire.result_to_public_json(r) for r in want.results
+        ], pql
+        assert got.column_attr_sets == want.column_attr_sets is None
     for pql in ["MinRow(field=f)", "MaxRow(field=f)", "MaxRow(Row(g=0), field=f)", "ClearRow(f=99)"]:
         assert port_ex.execute("i", pql) == ref_ex.execute("i", pql), pql
     for pql in ["GroupBy(Rows(f))", "Rows(f)"]:

@@ -181,6 +181,7 @@ def build_session(seed: int = 0) -> list:
 
     keyed_steps(rng, add)
     time_steps(rng, add)
+    attr_steps(rng, add)
 
     # writes through PQL, then the Counts they change
     high = 1000 * SHARD_WIDTH
@@ -357,6 +358,57 @@ def time_steps(rng, add) -> None:
         add("POST", "/index/i/query", {"query": q})
 
 
+def attr_steps(rng, add) -> None:
+    """Row and column attributes and Options on the unkeyed index `i` and
+    the keyed `k`: SetRowAttrs (string, int, float and bool values, a null
+    delete), SetColumnAttrs on columns of Row(f=1), Row attrs, Options
+    (excludeRowAttrs, excludeColumns, columnAttrs, shards) and its
+    errors, TopN(attrName=, attrValues=) with and without a filter, and
+    the query options columnAttrs, excludeRowAttrs and excludeColumns as
+    body fields and URL parameters; then the rank-cache rebuild and the
+    shard-node routes."""
+    cols = [int(c) for c in _cols(rng, 10)]
+    q = [f"Set({c}, f=1)" for c in cols[::2]]
+    q += [
+        'SetRowAttrs(f, 0, name="zero", n=0, w=1.5, on=true)',
+        'SetRowAttrs(f, 1, name="one", n=-1, on=true)',
+        'SetRowAttrs(f, 2, name="two", on=false)',
+        "SetRowAttrs(f, 1, w=2.25, n=null)",
+        'SetRowAttrs(m, 3, name="three")',
+    ]
+    q += [f'SetColumnAttrs({c}, c={k}, tag="t{k % 3}", hot={"true" if k % 2 else "false"})' for k, c in enumerate(cols)]
+    add("POST", "/index/i/query", {"query": " ".join(q)})
+    for query in [
+        "Row(f=0)",
+        "Row(f=1) Row(m=3) Row(f=7)",
+        "Options(Row(f=1), columnAttrs=true)",
+        "Options(Row(f=0), excludeRowAttrs=true, excludeColumns=true)",
+        "Options(Count(Row(f=0)), shards=[0])",
+        "Options(Row(f=1), shards=[1, 1000], columnAttrs=true)",
+        'TopN(f, n=3, attrName=name, attrValues=["one", "two"])',
+        "TopN(f, Row(g=1), attrName=on, attrValues=[true])",
+        "TopN(f, attrName=nothing, attrValues=[1])",
+        "Options(Row(f=1), columnAttrs=true) Row(g=1) Count(Row(f=1))",
+        "Options(Row(f=0), shards=5)",
+        "Options(Row(f=0), Row(f=1))",
+        "SetRowAttrs(nofield, 1, a=1)",
+        'SetColumnAttrs("x", a=1)',
+    ]:
+        add("POST", "/index/i/query", {"query": query})
+    add("POST", "/index/i/query", {"query": "Row(f=1) Row(f=0)", "columnAttrs": True})
+    add("POST", "/index/i/query?columnAttrs=true&excludeRowAttrs=true", b"Row(f=1)", "text/plain")
+    add("POST", "/index/i/query", {"query": "Row(f=1)", "excludeColumns": True, "columnAttrs": True})
+    add("POST", "/index/k/query", {"query": 'SetRowAttrs(seg, "seg-00", size="big") SetRowAttrs(seg, "seg-03", size="big", rank=3) '
+                                            'SetColumnAttrs("u00007", vip=true) SetColumnAttrs("u01234", vip=false, note="n")'})
+    add("POST", "/index/k/query", {"query": 'Row(seg="seg-00") Options(Row(cty="US"), columnAttrs=true)', "columnAttrs": True})
+    add("POST", "/index/k/query", {"query": 'TopN(seg, n=4, attrName=size, attrValues=["big"]) TopN(seg, Row(plan=1), attrName=rank, attrValues=[3])'})
+    add("POST", "/recalculate-caches")
+    add("POST", "/index/i/query", {"query": "TopN(f, n=5) TopN(m, n=3) TopN(f, Row(g=0), n=4)"})
+    for q in ("shard=0", "shard=1000", "shard=x", ""):
+        add("GET", f"/index/i/shard-nodes?{q}" if q else "/index/i/shard-nodes")
+    add("GET", "/index/nope/shard-nodes?shard=3")
+
+
 def _stamp(secs: int) -> str:
     return time.strftime("%Y-%m-%dT%H:%M", time.gmtime(secs))
 
@@ -364,7 +416,7 @@ def _stamp(secs: int) -> str:
 def _masked(path: str, body):
     """The body with what differs between two servers by design (each
     binds its own port) blanked."""
-    if path in ("/status", "/hosts"):
+    if path in ("/status", "/hosts") or ("/shard-nodes?shard=" in path and isinstance(body, list)):
         nodes = body["nodes"] if path == "/status" else body
         for n in nodes:
             n["uri"] = "<uri>"
@@ -475,6 +527,12 @@ def test_session_matches_reference(servers):
     results = [b["results"] for (_, p, _, _), (_, b) in zip(steps, got) if p.startswith("/index/i/query") and isinstance(b, dict) and "results" in b]
     assert any(isinstance(r[0], int) and r[0] > 1000 for r in results)
     assert any(isinstance(r[0], list) and len(r[0]) >= 3 for r in results)
+    # the attribute steps attached row attrs and column attr sets, and the
+    # shard-node route answered with this node
+    bodies = [b for _, b in got if isinstance(b, dict)]
+    assert any(b.get("columnAttrs") for b in bodies)
+    assert any(isinstance(r, dict) and r.get("attrs") for b in bodies for r in b.get("results", []))
+    assert any(p.endswith("shard-nodes?shard=1000") and s == 200 and len(b) == 1 for (_, p, _, _), (s, b) in zip(steps, got))
 
 
 # ---------------------------------------------------------------------------
@@ -541,18 +599,17 @@ QUERIES = [
     ["GroupBy(Rows(f))", "Rows(f)", "MinRow(field=v)", "Options(Row(f=1), shards=[0])", "Store(Row(f=1), f=9)"],
 )
 def test_unported_calls_are_400(node, pql):
-    """The unported calls answer 400; Rows, GroupBy, MinRow and Store,
-    ported since, answer what the reference answers."""
+    """Rows, GroupBy, MinRow, Options and Store, all ported since, answer
+    what the reference answers."""
     _, c = node
     _load(c)
     status, body = c.req("POST", "/index/i/query", {"query": pql})
-    if not pql.startswith("Options"):
-        want = reference_replies(_load_steps() + [("POST", "/index/i/query", {"query": pql}, None)])[-1]
-        assert (status, body) == want and status == 200, body
-        if pql in ("GroupBy(Rows(f))", "Rows(f)"):
-            assert len(body["results"][0]) == 4, body
-        return
-    assert status == 400 and "not yet ported" in body["error"], body
+    want = reference_replies(_load_steps() + [("POST", "/index/i/query", {"query": pql}, None)])[-1]
+    assert (status, body) == want and status == 200, body
+    if pql in ("GroupBy(Rows(f))", "Rows(f)"):
+        assert len(body["results"][0]) == 4, body
+    if pql.startswith("Options"):
+        assert body["results"][0]["columns"] and all(col < SHARD_WIDTH for col in body["results"][0]["columns"])
 
 
 @pytest.mark.parametrize(
@@ -579,6 +636,12 @@ def test_unported_schema_is_400(node, path, body):
 def test_keys_and_unported_flags_are_400(node):
     _, c = node
     _load(c)
+    # columnAttrs, ported since, answers what the reference answers
+    col = _load_steps()[3][2]["cols"][0]
+    attrs = ("POST", "/index/i/query", {"query": f"SetColumnAttrs({col}, a=1) Row(f=0)", "columnAttrs": True}, None)
+    status, out = c.req(*attrs[:3])
+    assert (status, out) == reference_replies(_load_steps() + [attrs])[-1]
+    assert out["columnAttrs"] == [{"attrs": {"a": 1}, "id": col}]
     # key bodies on an unkeyed field and index: the reference's 400s
     key_bodies = [{"rowKeys": ["a"], "cols": [1]}, {"rows": [1], "colKeys": ["x"]}]
     steps = _load_steps() + [("POST", "/index/i/field/f/import", b, None) for b in key_bodies]
@@ -589,9 +652,9 @@ def test_keys_and_unported_flags_are_400(node):
     ts_body = {"rows": [1], "cols": [1], "timestamps": ["2020-01-01T00:00"]}
     want = reference_replies(_load_steps() + [("POST", "/index/i/field/f/import", ts_body, None)])[-1]
     assert c.req("POST", "/index/i/field/f/import", ts_body) == want and want[0] == 200, want
-    for flag in ("columnAttrs", "profile"):
-        status, out = c.req("POST", "/index/i/query", {"query": "Row(f=1)", flag: True})
-        assert status == 400 and "not yet ported" in out["error"], out
+    # profile (query tracing) is still a 400
+    status, out = c.req("POST", "/index/i/query", {"query": "Row(f=1)", "profile": True})
+    assert status == 400 and "not yet ported" in out["error"], out
     status, out = c.req("POST", "/index/i/query", {"query": "Row(f=1)", "excludeColumns": True})
     assert status == 200 and out["results"] == [{"attrs": {}, "columns": []}]
     for body in ({"query": 7}, {"query": "Count(Row(f=1))", "shards": "0,1"}, {"query": "Row(f=1)", "shards": [0, "1"]}):
