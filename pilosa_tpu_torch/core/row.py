@@ -67,10 +67,9 @@ class Row:
             chunk = shards[i : i + 256]
             lo = np.searchsorted(shard_of, chunk[0], "left")
             hi = np.searchsorted(shard_of, chunk[-1], "right")
-            pos_of = np.full(chunk[-1] - chunk[0] + 1, -1, np.int64)
-            pos_of[np.asarray(chunk) - chunk[0]] = np.arange(len(chunk))
-            slot = pos_of[shard_of[lo:hi] - chunk[0]]
-            sel = np.flatnonzero(slot >= 0)
+            ids = np.asarray(chunk, np.int64)
+            slot = np.minimum(np.searchsorted(ids, shard_of[lo:hi]), len(ids) - 1)
+            sel = np.flatnonzero(ids[slot] == shard_of[lo:hi])
             bit = (cols[lo:hi][sel] % np.uint64(SHARD_WIDTH)).astype(np.int64)
             words = torch.stack([self.segments[s] for s in chunk]).reshape(-1)
             dev = words.device

@@ -1193,9 +1193,9 @@ class Executor:
                 m &= allowed(rids)
             surv.append((rids[m], cnts[m]))
         cand = np.unique(np.concatenate([s[0] for s in surv]))
-        ic_mat = self._topn_filtered_counts(idx, v, spec.src_call, present, [int(x) for x in cand])
         if not len(cand):
             return []
+        ic_mat = self._topn_filtered_counts(idx, v, spec.src_call, present, [int(x) for x in cand])
         n1 = spec.n
         merged_mask = np.zeros(len(cand), bool)
         for j, (srids, scnts) in enumerate(surv):

@@ -15,6 +15,7 @@ on the same inputs.
 The port runs on the CPU here (its kernels' plain twins).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import http.client
 import json
 import os
@@ -314,6 +315,25 @@ def test_column_attrs_come_from_the_store_side():
         trow.Row.columns = real
     assert not calls
     assert [c.to_json() for c in resp.column_attr_sets] == [{"attrs": {"a": 1}, "id": 3}, {"attrs": {"b": True}, "id": 3145725}]
+
+
+def test_column_attrs_of_shards_far_apart_match_reference():
+    """A Row with columns in shard 0 and in shard 2^40: its column attr
+    sets are looked up per shard present, not over the span of shard
+    ids, and equal the reference's."""
+    big = 1 << 60
+    pql = f"Set(3, f=0) Set({big}, f=0) Set({big + 5}, f=0) SetColumnAttrs(3, a=1) SetColumnAttrs({big}, b=true) SetColumnAttrs({big + 9}, c=2)"
+    got = []
+    for holder, ex_cls, opt, wire in (
+        (JHolder(None).open(), JExecutor, JExecOptions, jwire),
+        (THolder(device="cpu"), TExecutor, TExecOptions, twire),
+    ):
+        holder.create_index("i").create_field("f")
+        ex = ex_cls(holder)
+        ex.execute("i", pql)
+        got.append(response(ex, wire, "Row(f=0)", opt(column_attrs=True)))
+    assert got[1] == got[0]
+    assert json.loads(got[0][1]) == [{"attrs": {"a": 1}, "id": 3}, {"attrs": {"b": True}, "id": big}]
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@ Words are made with numpy from a seed; the port sees them as int32, the
 reference as uint32, and results compare as unsigned integers.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -16,6 +16,7 @@
 The test marked `cuda` holds the CUDA kernels to their twins on the card.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ must be identical. The port runs
 on the CPU here (its kernels' plain twins).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import pytest
 
 from torch_bsi_cases import BOUNDARY, BUDGETS, SEEDS, TOP, pairs_of, run_case

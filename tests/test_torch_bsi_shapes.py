@@ -15,6 +15,7 @@ answers must be identical. The port runs on the CPU here (its kernels' plain
 twins).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import pytest
 
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH

@@ -10,6 +10,7 @@ what the reference's print and exit with the same codes. `import` and
 `--hbm-prefetch-depth` by name.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import os
 import re
 import signal

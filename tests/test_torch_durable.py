@@ -19,6 +19,7 @@ point. Both packages must then reopen the dir with every acknowledged
 write in it.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import os
 import shutil
 import signal

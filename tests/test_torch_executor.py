@@ -10,6 +10,7 @@ import_bits, word imports, mutex imports, PQL Set/Clear) and compares
 again. The port runs on the CPU here (its kernels' plain twins).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import pathlib
 import re
 import subprocess

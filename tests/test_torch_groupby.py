@@ -13,6 +13,7 @@ kernels' plain twins; the `cuda`-marked test holds the two kernels to
 their twins on a card and skips without one.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,7 @@ The tests marked `cuda` hold the CUDA kernels to their twins on the card;
 they skip where there is no CUDA device or no nvcc.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -25,6 +25,7 @@ Mirrors tests/test_merge.py on the port:
   holds both kernels to their twins on a card and skips without one.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import threading
 
 import numpy as np

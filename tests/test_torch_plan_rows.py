@@ -13,6 +13,7 @@ popcount of its words. The wrapper's checks and the twin's contract
 no CUDA device.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

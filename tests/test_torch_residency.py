@@ -31,6 +31,7 @@ be equal:
   shard, as the reference's per-shard loop does, instead of raising.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,7 @@ files of both cookies, and on the checked-in corpus of good and broken
 files.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import pathlib
 
 import numpy as np

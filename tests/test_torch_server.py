@@ -20,6 +20,7 @@ and in memory), JSON encoding of every result type, device-cache release
 on delete and concurrent clients.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import http.client
 import json
 import os

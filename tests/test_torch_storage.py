@@ -2,6 +2,7 @@
 contract, and fragments fed the same writes (staged, exact, word-level,
 mutex) reading back identical words, positions and rank caches."""
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import threading
 
 import numpy as np

@@ -18,6 +18,7 @@ against pilosa_tpu on the same inputs.
 The port runs on the CPU here (its kernels' plain twins).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 from datetime import datetime, timedelta
 
 import numpy as np

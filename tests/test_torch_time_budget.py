@@ -4,6 +4,7 @@ filtered TopNs over a set field under such a budget in both packages.
 The port runs on the CPU here (its kernels' plain twins).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import numpy as np
 import pytest
 
@@ -22,26 +23,24 @@ def ref_budget():
     DEVICE_CACHE.clear()
 
 
-def test_time_range_under_a_budget_that_splits_the_shards():
+def test_time_range_under_a_budget_that_splits_the_shards(ref_budget):
     """A tight device budget splits the 20 shards into chunks (and single
-    shards); every range, Shift, Store and filtered MinRow/MaxRow (walked
-    per chunk) still answers as the reference does, and so does every
-    filtered TopN at the two-chunk budget (its filter tallied per chunk)."""
+    shards); every range, Shift, Store, filtered MinRow/MaxRow (walked
+    per chunk) and filtered TopN (its filter tallied per chunk) still
+    answers as the reference does under the same budget."""
     ref_ex, port_ex = both(20, seed=9)
     for budget, n_plans in ((8 << 20, 2), (4 << 20, 20)):
         port_ex.holder.dcache.budget_bytes = budget
+        ref_budget(budget)
         plans = port_ex._lower_plans(port_ex.holder.index("i"), tparse(f"Row(t=0, {R1})").calls[0], list(range(20)))
         for sp in plans:
             sp.release_extents()
         assert len(plans) == n_plans
         chunks = texec.TOPN_STATS["chunks"]
         for pql in READS + [f"Store(Row(t=0, {R1}), f=50) Count(Row(f=50))"]:
-            # the filtered TopNs at the two-chunk budget (one shard a chunk:
-            # test_filtered_topn_under_a_budget_matches_reference)
-            if n_plans == 2 or not pql.startswith("TopN"):
-                run_both(ref_ex, port_ex, pql)
+            run_both(ref_ex, port_ex, pql)
         # the filtered TopNs walked the filter in shard chunks
-        assert texec.TOPN_STATS["chunks"] - chunks >= (n_plans if n_plans == 2 else 0)
+        assert texec.TOPN_STATS["chunks"] - chunks >= n_plans
 
 
 def topn_ingest(holder, fo, seed: int) -> None:

@@ -5,6 +5,7 @@ keyed time field on the same data; answers and error texts must be
 identical. The port runs on the CPU here (its kernels' plain twins).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 from datetime import datetime
 
 import pytest

@@ -4,6 +4,7 @@ answers and the stored bits identical. The port runs on the CPU here
 (its kernels' plain twins).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import pytest
 
 from torch_time_cases import WRITES, both, run_both, stored

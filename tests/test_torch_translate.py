@@ -13,6 +13,7 @@
   loaded from it answers with the same keys and ids.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import os
 
 import numpy as np

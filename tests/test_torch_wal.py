@@ -8,6 +8,7 @@ integrity check's verdicts, the rollback of a failed append) and the
 group commit (concurrent writers share fsync rounds).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
 import io
 import os
 import threading
