@@ -146,7 +146,7 @@ Phases, each fatal on any mismatch or exception:
    and by descent, the previous=[...] cursor, Sum), each held to a numpy
    + dict model and to the executor, with served and in-process p50s;
 5c. time served: a YMDH time field and a bool field on index `s` through
-   HTTP DDL, 100,000 timestamped /import bits over 48 hours on existing
+   HTTP DDL, 40,000 timestamped /import bits over 48 hours on existing
    columns of its first 16 shards; time-range
    Count, Row and Rows bodies and bool Counts held to numpy and to the
    executor;
@@ -166,7 +166,8 @@ Phases, each fatal on any mismatch or exception:
    time views reopened and the attribute logs replayed from the data
    dir), and the six kernels must launch
    again (counts reset just before). `inspect` and
-   `check` of the stopped dir must exit 0, `check` with no bad file. Then
+   `check` of the stopped dir, run at once, must exit 0, `check` with no
+   bad file. Then
    kill -9: a CLI server on a fresh dir at 8 shards takes /import,
    import-value and PQL Set/Clear writes (the last ones in the WAL, after
    the last snapshot), is SIGKILLed after the last acknowledgement and
@@ -2276,7 +2277,7 @@ TIME_OPEN = "from='2024-01-05T00:00'"  # to the field's last hour
 TIME_OPEN_HOURS = (96, TIME_HOURS)
 TIME_BURST = 1 << 20  # columns of one timestamped burst into t row 0, all in hour 2024-01-08T20
 TIME_BURST_HOUR = 188
-TIME_REPS = 6  # runs per p50 (REPS elsewhere): Rows and GroupBy read 47 views x 1024 fragments on the host (10 until PR 11)
+TIME_REPS = 4  # runs per p50 (REPS elsewhere): Rows and GroupBy read 47 views x 1024 fragments on the host (10, then 6, in PR 11)
 
 
 def _shift_np(words: np.ndarray, n: int) -> np.ndarray:
@@ -2979,7 +2980,7 @@ def serve_path(args):
 
 SERVE_ATTR_COLUMNS = 100_000  # SetColumnAttrs calls: half on Row(g=0)'s columns, half on a sparse row of f
 SERVE_ATTR_BATCH = 1000  # SetColumnAttrs calls a query (max-writes-per-request is 5000)
-SERVE_ATTR_REPS = 5  # runs per p50: the Row bodies are 0.5-4 MB of JSON (cut for the script's time)
+SERVE_ATTR_REPS = 3  # runs per p50: the Row bodies are 0.5-4 MB of JSON (cut for the script's time)
 
 
 def serve_attrs(args, http, srv, rows, row_g0, served, want) -> dict:
@@ -3114,7 +3115,7 @@ def serve_attrs(args, http, srv, rows, row_g0, served, want) -> dict:
 # phase 5c: time and bool fields on the served node
 # ---------------------------------------------------------------------------
 
-SERVE_TIME_BITS = 100_000  # timestamped /import bits of field st, over 48 hours
+SERVE_TIME_BITS = 40_000  # timestamped /import bits of field st, over 48 hours (100,000 until PR 11)
 SERVE_TIME_SHARDS = 16  # ... in the first 16 shards: every (unit view, shard) is a fragment, files on disk
 SERVE_TIME_START = 1704067200  # 2024-01-01T00:00 UTC, unix seconds
 SERVE_TIME_RANGE = "from='2024-01-01T05:00', to='2024-01-02T19:00'"
@@ -3741,18 +3742,29 @@ def durable_path(args, st) -> dict:
         srv.stop()
     torch.cuda.empty_cache()
 
-    # (c) the offline tools on the stopped dir
+    # (c) the offline tools on the stopped dir, both at once (they only
+    # read it; their times are each other's company)
     tools = {}
-    for cmd in (["inspect", d], ["check", d]):
-        t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-m", "pilosa_tpu_torch.cli", *cmd], capture_output=True, text=True, timeout=900)
-        lines = out.stdout.splitlines()
-        check(out.returncode == 0, f"{cmd[0]}: exit {out.returncode}: {out.stderr[-2000:]}")
-        if cmd[0] == "check":
-            bad = [line for line in lines if "CORRUPT" in line]
-            check(not bad, f"check reports bad files: {bad[:5]}")
-        tools[cmd[0]] = {"s": time.perf_counter() - t0, "lines": len(lines)}
-        print(f"durable: {cmd[0]} exit 0, {len(lines)} lines in {tools[cmd[0]]['s']:.1f} s; last: {lines[-1] if lines else ''}")
+    t0 = time.perf_counter()
+    procs = {
+        cmd: subprocess.Popen([sys.executable, "-m", "pilosa_tpu_torch.cli", cmd, d], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cmd in ("inspect", "check")
+    }
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=900)
+            lines = stdout.splitlines()
+            check(proc.returncode == 0, f"{name}: exit {proc.returncode}: {stderr[-2000:]}")
+            if name == "check":
+                bad = [line for line in lines if "CORRUPT" in line]
+                check(not bad, f"check reports bad files: {bad[:5]}")
+            tools[name] = {"s": time.perf_counter() - t0, "lines": len(lines)}
+            print(f"durable: {name} exit 0, {len(lines)} lines in {tools[name]['s']:.1f} s (both started at once); last: {lines[-1] if lines else ''}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     shutil.rmtree(d, ignore_errors=True)
 
     # (d) kill -9, strict and with a sync interval
