@@ -165,9 +165,8 @@ Phases, each fatal on any mismatch or exception:
    Rows/GroupBy, every keyed, every time and every attribute body (the
    time views reopened and the attribute logs replayed from the data
    dir), and the six kernels must launch
-   again (counts reset just before). `inspect` and
-   `check` of the stopped dir, run at once, must exit 0, `check` with no
-   bad file. Then
+   again (counts reset just before). `inspect` of its keyed index and
+   `check` of the stopped dir must exit 0, `check` with no bad file. Then
    kill -9: a CLI server on a fresh dir at 8 shards takes /import,
    import-value and PQL Set/Clear writes (the last ones in the WAL, after
    the last snapshot), is SIGKILLed after the last acknowledgement and
@@ -200,6 +199,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published device-memory rate
 L2_BYTES = 50 * 2**20  # H100 SXM L2 cache
 REPS = 20
+PLAIN_REPS = 5  # calls a twin's timing averages at the main path's shapes (20 until PR 11: the count2 twin takes 0.34 s a call)
 # the set-field phase's depth: dense and sparse rows of `f`, rows of `g`
 # (8 dense rows since the BSI phase joined the run; 16 before)
 N_DENSE, N_SPARSE, N_G = 8, 8, 4
@@ -1408,7 +1408,7 @@ def kernel_timing(holder, ex, launches, errs):
         errs[name] = max(errs.get(name, 0), diff)
         ms = cuda_time_ms(fn)
         disp = dispatch_ms(fn)
-        plain_ms = cuda_time_ms(plain)
+        plain_ms = cuda_time_ms(plain, reps=PLAIN_REPS)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         rows[name] = {
             "name": name,
@@ -2172,7 +2172,7 @@ def residency_path(args, holder, ex, state, errs, smi):
         })
     extra["route_sweep"] = sweep
     extra["numpy"] = np.__version__
-    extra["np_unique_ms"] = host_p50_ms(lambda: np.unique(key_sets[4]), reps=3)
+    extra["np_unique_ms"] = host_p50_ms(lambda: np.unique(key_sets[4]), reps=1)  # 1.7 s a call (3 runs until PR 11)
     extra["merge_host_ms"] = sweep[-1]["host_ms"]
     cross = [p["keys"] for p in sweep if p["device_ms"] < p["host_ms"]]
     extra["device_wins_from"] = cross[0] if cross else None
@@ -3742,29 +3742,21 @@ def durable_path(args, st) -> dict:
         srv.stop()
     torch.cuda.empty_cache()
 
-    # (c) the offline tools on the stopped dir, both at once (they only
-    # read it; their times are each other's company)
+    # (c) the offline tools on the stopped dir: `inspect` of the keyed
+    # index (every index until PR 11: it materializes every fragment's
+    # bits), `check` of every file
     tools = {}
-    t0 = time.perf_counter()
-    procs = {
-        cmd: subprocess.Popen([sys.executable, "-m", "pilosa_tpu_torch.cli", cmd, d], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for cmd in ("inspect", "check")
-    }
-    try:
-        for name, proc in procs.items():
-            stdout, stderr = proc.communicate(timeout=900)
-            lines = stdout.splitlines()
-            check(proc.returncode == 0, f"{name}: exit {proc.returncode}: {stderr[-2000:]}")
-            if name == "check":
-                bad = [line for line in lines if "CORRUPT" in line]
-                check(not bad, f"check reports bad files: {bad[:5]}")
-            tools[name] = {"s": time.perf_counter() - t0, "lines": len(lines)}
-            print(f"durable: {name} exit 0, {len(lines)} lines in {tools[name]['s']:.1f} s (both started at once); last: {lines[-1] if lines else ''}")
-    finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    for cmd in (["inspect", d, "--index", "k"], ["check", d]):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "pilosa_tpu_torch.cli", *cmd], capture_output=True, text=True, timeout=900)
+        lines = out.stdout.splitlines()
+        check(out.returncode == 0, f"{cmd[0]}: exit {out.returncode}: {out.stderr[-2000:]}")
+        check(len(lines) > 0, f"{cmd[0]} printed nothing")
+        if cmd[0] == "check":
+            bad = [line for line in lines if "CORRUPT" in line]
+            check(not bad, f"check reports bad files: {bad[:5]}")
+        tools[cmd[0]] = {"s": time.perf_counter() - t0, "lines": len(lines)}
+        print(f"durable: {cmd[0]} exit 0, {len(lines)} lines in {tools[cmd[0]]['s']:.1f} s; last: {lines[-1] if lines else ''}")
     shutil.rmtree(d, ignore_errors=True)
 
     # (d) kill -9, strict and with a sync interval
