@@ -175,7 +175,9 @@ Phases, each fatal on any mismatch or exception:
    acknowledged pair of a keyed index (keyed /import, then keyed PQL Sets
    in the WAL) through its CSV export. Again with
    --wal-sync-interval 0.2: the writes lost are counted, and none
-   acknowledged before the last interval may be.
+   acknowledged before the last interval may be. The two kill -9 nodes
+   run at once, each on its own dir, while the offline tools read the
+   stopped one.
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with a row per kernel; the last line is
@@ -3665,9 +3667,9 @@ def durable_path(args, st) -> dict:
     """Phase 6 on the serve phase's stopped data dir: a second NodeServer
     recovers it (timed to its first 200 on /status) and must give every
     served answer again, byte for byte, through the six kernels; then
-    `inspect` and `check`; then kill -9 of CLI servers."""
+    `inspect` and `check`, while two CLI servers take writes and are
+    killed -9 on dirs of their own."""
     import os
-    import shutil
 
     import torch
 
@@ -3744,7 +3746,31 @@ def durable_path(args, st) -> dict:
 
     # (c) the offline tools on the stopped dir: `inspect` of the keyed
     # index (every index until PR 11: it materializes every fragment's
-    # bits), `check` of every file
+    # bits), `check` of every file; (d) meanwhile kill -9, strict and with
+    # a sync interval, each node on a fresh dir of its own (the tools read
+    # the disk, the nodes mostly start processes and answer HTTP)
+    with ThreadPoolExecutor(2) as pool:
+        kill_runs = [pool.submit(kill9_check, args.seed, si) for si in (0.0, 0.2)]
+        tools = offline_tools(d)
+        kills = [k.result() for k in kill_runs]
+    return {
+        "recovery_s": recovery_s,
+        "first_pass_ms": first_ms,
+        "first_pass_s": sum(first_ms[q] for q in SERVE_QUERIES) / 1e3,
+        "query_p50_ms": lat,
+        "launches": launches,
+        "data_dir_bytes": dir_bytes,
+        "data_dir_files": n_files,
+        "tools": tools,
+        "kill9": kills,
+    }
+
+
+def offline_tools(d: str) -> dict:
+    """`inspect` and `check` on a stopped data dir, one after the other;
+    the dir is deleted after them."""
+    import shutil
+
     tools = {}
     for cmd in (["inspect", d, "--index", "k"], ["check", d]):
         t0 = time.perf_counter()
@@ -3758,20 +3784,7 @@ def durable_path(args, st) -> dict:
         tools[cmd[0]] = {"s": time.perf_counter() - t0, "lines": len(lines)}
         print(f"durable: {cmd[0]} exit 0, {len(lines)} lines in {tools[cmd[0]]['s']:.1f} s; last: {lines[-1] if lines else ''}")
     shutil.rmtree(d, ignore_errors=True)
-
-    # (d) kill -9, strict and with a sync interval
-    kills = [kill9_check(args.seed, si) for si in (0.0, 0.2)]
-    return {
-        "recovery_s": recovery_s,
-        "first_pass_ms": first_ms,
-        "first_pass_s": sum(first_ms[q] for q in SERVE_QUERIES) / 1e3,
-        "query_p50_ms": lat,
-        "launches": launches,
-        "data_dir_bytes": dir_bytes,
-        "data_dir_files": n_files,
-        "tools": tools,
-        "kill9": kills,
-    }
+    return tools
 
 
 def _kernel_name(mangled: str) -> str:
