@@ -32,7 +32,8 @@ Phases, each fatal on any mismatch or exception:
    host merge; plan_rows on random depth-3 trees with Shift nodes (n = 1,
    31, 32, 33, 2^20 - 1, 2^20; predecessor tables with gaps and -1s) at
    S = 1 and 13, hand-built programs at tile-edge widths and W % 4 != 0,
-   unaligned views and a shard chunk;
+   unaligned views and a shard chunk; plan_count_multi at S = 1024, W =
+   32768 for 2, 16 and 64 random roots over 4, 16 and 32 shared leaves;
 3. main path: a 2^30-column index (1024 shards x 2^20 columns) with
    dense and sparse rows of a set field `f` and dense rows of `g`, loaded
    through Field.import_row_words / Field.import_bits / Set(), then the
@@ -42,7 +43,8 @@ Phases, each fatal on any mismatch or exception:
    every kernel of the path (plan_rows for Row and Shift results) must
    have launched, Row(f=1).count() over
    every shard's segment must make exactly one count2 launch, and
-   TopN(f, Row(g=0), n=10) exactly one gather_tally launch; a filtered
+   TopN(f, Row(g=0), n=10) exactly one gather_tally launch, a 4-Count
+   request exactly one plan_count_multi launch and no other; a filtered
    TopN under a device budget a quarter of which holds half the shards'
    rows tallies its filter in 2 shard chunks, held to numpy. Rows (with
    previous, limit, column) and GroupBy (one child; two children, with a
@@ -157,6 +159,22 @@ Phases, each fatal on any mismatch or exception:
    attrValues=) with and without a filter, each held to a numpy + dict
    model and to the executor, with served p50s; Row(g=0) with columnAttrs
    in process must make no Row.columns() call;
+5e. front end: a second NodeServer, in memory, with the reference's
+   front-end defaults (16 concurrent queries, a queue of 128, a 64 MB
+   result cache with count repair, prefetch depth 4) on the serve
+   phase's f/g words (f rows 0-3, g rows 0-1, existence) over its 512
+   shards: with the cache budget at 0, 32 client threads x 20
+   single-Count requests over 8 distinct trees, every answer held to
+   numpy, the Count batcher must merge rounds and launch
+   plan_count_multi (requests/s and p50 at 1 and 32 clients, the batch
+   sizes and the prefetcher's warms printed); with the cache on, a
+   repeated Count is a hit with no launch and no host read, after a
+   staged /import of 1000 bits into its row it is repaired with no
+   plan_count* launch, after a Clear it is recomputed, each equal to
+   numpy; then a node of 8 shards with one slot and no queue answers 429
+   with Retry-After while the slot is held and 200 after. (Phase 5 and
+   the durable phase serve with the result cache off, so their p50s
+   time execution as before it was ported.)
 6. durable: the serve phase's node is stopped and the card's cache
    emptied; a second NodeServer opens the same data dir, timed from
    construction to its first 200 on /status (recovery). The 11 queries'
@@ -381,6 +399,35 @@ def sector_bytes(idx, n_seg: int) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+def multi_programs(rng, n_roots: int, n_leaves: int):
+    """Postfix programs of `n_roots` Count trees over `n_leaves` shared
+    leaves, as a batch of clients sends them: a Row, or an n-ary and, or,
+    xor or andnot of 2-4 distinct Rows, every leaf used at least once."""
+    from pilosa_tpu_torch.ops import kernels as K
+
+    ops = ("and", "or", "xor", "andnot")
+    progs = []
+    for r in range(n_roots):
+        k = int(rng.integers(1, 5))
+        ids = [r % n_leaves] + [int(i) for i in rng.choice(n_leaves, size=k - 1, replace=False) if i != r % n_leaves]
+        op = K.BINOPS[ops[int(rng.integers(len(ops)))]]
+        progs.append([ids[0]] + [x for i in ids[1:] for x in (i, op)])
+    return progs
+
+
+def chain_programs(rng, n_roots: int, n_leaves: int, length: int):
+    """Postfix programs of `n_roots` n-ary chains of `length` distinct
+    leaves each (and, or, xor, andnot mixed), root r starting at leaf r."""
+    from pilosa_tpu_torch.ops import kernels as K
+
+    ops = ("and", "or", "xor", "andnot")
+    progs = []
+    for r in range(n_roots):
+        ids = [r % n_leaves] + [int(i) for i in rng.permutation(n_leaves) if i != r % n_leaves][: length - 1]
+        progs.append([ids[0]] + [x for i in ids[1:] for x in (i, K.BINOPS[ops[int(rng.integers(len(ops)))]])])
+    return progs
+
+
 def kernel_phase(rng, dev, errs):
     import torch
 
@@ -519,6 +566,49 @@ def kernel_phase(rng, dev, errs):
     print(
         "kernels: plan_count equal to twin on 24 random depth-3 trees, tile-edge widths "
         "(W = 4, 1000, 1024, 32772), S = 1, one leaf, PUSH_ZERO alone, and 5 wide/deep/long programs"
+    )
+
+    # plan_count_multi at the main path's shape: N random roots over a
+    # shared leaf set, 4, 16 and 32 distinct leaves (the words made on the
+    # card: 32 leaves are 4 GiB); every count equal to the twin (per-root
+    # plan_count_plain on the same tensors)
+    S_M, W_M = 1024, 32768
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    multi_groups = []
+    for n_roots, n_leaves in ((2, 4), (16, 16), (64, 32)):
+        leaves = [torch.randint(-(2**31), 2**31, (S_M, W_M), dtype=torch.int32, device=dev, generator=gen)
+                  for _ in range(n_leaves)]
+        progs = multi_programs(rng, n_roots, n_leaves)
+        same("plan_count_multi", K.plan_count_multi(leaves, progs, S_M), K.plan_count_multi_plain(leaves, progs, S_M))
+        multi_groups.append(len(K.plan_count_multi_groups(progs)))
+        del leaves
+    # the wrapper's and the kernel's rarer branches: 100 roots (two
+    # launches by the 64-root cap), 120 distinct leaves (more than one
+    # launch's shared memory holds) and 64 chains of 40 leaves, whose
+    # table (2673 entries) is read from device memory, not shared memory
+    # (their own generator: the main path's data stay as they were)
+    srng = np.random.default_rng([int(rng.bit_generator.seed_seq.entropy or 0), 12])
+    for what, progs, n_leaves in (
+        ("100 roots over 32 leaves", multi_programs(srng, 100, 32), 32),
+        ("100 roots over 120 leaves", multi_programs(srng, 100, 120), 120),
+        ("64 chains of 40 over 48 leaves", chain_programs(srng, 64, 48, 40), 48),
+    ):
+        leaves = [torch.randint(-(2**31), 2**31, (S_M, W_M), dtype=torch.int32, device=dev, generator=gen)
+                  for _ in range(n_leaves)]
+        n_groups = len(K.plan_count_multi_groups(progs))
+        before = K.LAUNCHES["plan_count_multi"]
+        got = K.plan_count_multi(leaves, progs, S_M)
+        launched = K.LAUNCHES["plan_count_multi"] - before
+        same("plan_count_multi", got, K.plan_count_multi_plain(leaves, progs, S_M))
+        check(launched == n_groups, f"plan_count_multi, {what}: {launched} launches, {n_groups} groups")
+        n_meta = max(len(tb[1]) + len(tb[0]) + 1 + len(tb[3]) for tb in K.plan_count_multi_tables(progs))
+        multi_groups.append(n_groups)
+        print(f"kernels: plan_count_multi equal to twin, {what}: {n_groups} launches, table {n_meta} entries")
+        del leaves, got
+    torch.cuda.empty_cache()
+    print(
+        f"kernels: plan_count_multi equal to twin at S = {S_M}, W = {W_M} for 2, 16 and 64 random roots over 4, 16 "
+        f"and 32 shared leaves, 100 over 32 and 120, 64 chains over 48 ({multi_groups} launches)"
     )
 
     plan_rows_checks(rng, dev, same, rand_words)
@@ -931,6 +1021,15 @@ def main_path(args, rng):
     for pql, want in queries:
         got = ex.execute("smoke", pql)
         check(got == want, f"{pql}: got {got}, numpy says {want}")
+    # a 4-Count request: one plan_count_multi launch, no plan_count
+    four = "Count(Row(f=1)) Count(Intersect(Row(f=1), Row(g=0))) Count(Union(Row(f=2), Row(g=1))) Count(Not(Row(f=3)))"
+    want4 = [pc(R("f", 1)), pc(R("f", 1) & R("g", 0)), pc(R("f", 2) | R("g", 1)), pc(all_cols & ~R("f", 3))]
+    before = dict(K.LAUNCHES)
+    got = ex.execute("smoke", four)
+    launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES if K.LAUNCHES[k] != before[k]}
+    check(got == want4, f"{four}: got {got}, numpy says {want4}")
+    check(launched == {"plan_count_multi": 1}, f"the 4-Count request launched {launched}, not one plan_count_multi")
+    print(f"main: a 4-Count request equals numpy with launches {launched}")
     row_f1 = ex.execute("smoke", "Row(f=1)")[0]
     before = K.LAUNCHES["count2"]
     row_count = row_f1.count()
@@ -1010,7 +1109,8 @@ def main_path(args, rng):
     torch.cuda.synchronize()
     first_query_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    for name in ("count2", "rows_counts", "plan_count", "plan_rows", "gather_tally", "counts_cross", "gather_and"):
+    for name in ("count2", "rows_counts", "plan_count", "plan_count_multi", "plan_rows", "gather_tally", "counts_cross",
+                 "gather_and"):
         check(launches[name] > 0, f"main path never launched {name}: {launches}")
     print(
         f"main: {S} shards x {SHARD_WIDTH} columns = {S * SHARD_WIDTH} columns; "
@@ -1454,6 +1554,29 @@ def kernel_timing(holder, ex, launches, errs):
         lambda: K.plan_count_plain([a, b], prog, s_all),
         2 * a.numel() * 4 + s_all * 8,
     )
+    # plan_count_multi: 16 Count roots (1-4 Rows each) over 8 distinct
+    # main-path row stacks, as one batcher round sends them; "earlier" is
+    # the 16 plan_count launches the same roots took before
+    mleaves = [view_f.row_stack(r, shards) for r in range(6)] + [b, view_g.row_stack(1, shards)]
+    mprogs = multi_programs(np.random.default_rng(4), 16, len(mleaves))
+    used = len({i for p in mprogs for i in p if i >= 0})
+    row(
+        "plan_count_multi", src, "pilosa_tpu/exec/plan.py:316",
+        lambda: K.plan_count_multi(mleaves, mprogs, s_all),
+        lambda: K.plan_count_multi_plain(mleaves, mprogs, s_all),
+        used * a.numel() * 4 + len(mprogs) * s_all * 8,
+    )
+    multi_extra = {
+        "plan_count_multi_earlier": cuda_time_ms(lambda: [K.plan_count(mleaves, p, s_all) for p in mprogs]),
+        "plan_count_multi_earlier_dispatch": dispatch_ms(lambda: [K.plan_count(mleaves, p, s_all) for p in mprogs]),
+    }
+    rows["plan_count_multi"]["earlier_ms"] = multi_extra["plan_count_multi_earlier"]
+    print(
+        f"kernel plan_count_multi, 16 roots over {used} leaves: earlier (16 plan_count launches) "
+        f"{multi_extra['plan_count_multi_earlier']:.4f} ms device, "
+        f"{multi_extra['plan_count_multi_earlier_dispatch']:.4f} ms dispatch"
+    )
+    del mleaves
     # rows_counts: the filtered-TopN dense tally tile (2 rows x S shards)
     planes = view_f.plane_stack((0, 1), shards).reshape(-1, w)
     row(
@@ -1503,6 +1626,7 @@ def kernel_timing(holder, ex, launches, errs):
         "gather_tally_skewed_bound": z_bytes / HBM_BYTES_PER_S * 1e3,
     }
     extra["gather_tally_skewed_share"] = extra["gather_tally_skewed_bound"] / extra["gather_tally_skewed"]
+    extra |= multi_extra
     del rm_args, perm
     print(
         f"gather_tally: {n_ent} entries, {n_seg} segments, {g_sectors} sectors touched; old 4-byte-gather bound "
@@ -2762,7 +2886,9 @@ def serve_path(args):
     n_body = sum(map(len, bodies))
     print(f"serve: generated the data and {S} roaring bodies ({n_body} B) in {time.perf_counter() - t0:.1f} s")
 
-    srv = NodeServer(data_dir, "smoke", bind="127.0.0.1:0", max_writes_per_request=0).start()
+    # the result cache off: this phase's p50s time execution, as in the
+    # runs before the cache was ported (phase 5e drives the cache)
+    srv = NodeServer(data_dir, "smoke", bind="127.0.0.1:0", max_writes_per_request=0, cache_result_mb=0).start()
     http = _Http(srv.node.uri)
     try:
         print(f"serve: NodeServer {srv.node.uri} on {srv.holder.device}, data dir {data_dir}")
@@ -2954,12 +3080,18 @@ def serve_path(args):
     finally:
         http.close()
         srv.stop()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    front_end = front_end_path(args, rows, exists)
+    front_end["phase_s"] = time.perf_counter() - t0
+    print(f"front end: phase {front_end['phase_s']:.1f} s")
     t0 = time.perf_counter()
     cli_check()
     recovered = {"data_dir": data_dir, "served": served, "want": want, "row_g0": row_g0, "n_val": n_val,
                  "keyed_served": keyed.pop("served"), "time_served": time_served.pop("served"),
                  "attrs_served": attrs_served.pop("served")}
     return recovered, {
+        "front_end": front_end,
         "keyed": keyed,
         "time": time_served,
         "attrs": attrs_served,
@@ -2974,6 +3106,390 @@ def serve_path(args):
         "concurrent_s": concurrent_s,
         "cli_s": time.perf_counter() - t0,
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the served query front end (admission, the Count batcher, the
+# result cache, the prefetcher) on an in-memory node
+# ---------------------------------------------------------------------------
+
+FE_TREES = [
+    "Count(Row(f=0))",
+    "Count(Row(f=1))",
+    "Count(Intersect(Row(f=0), Row(g=0)))",
+    "Count(Union(Row(f=1), Row(g=1)))",
+    "Count(Difference(Row(f=2), Row(g=0)))",
+    "Count(Xor(Row(f=3), Row(g=1)))",
+    "Count(Intersect(Row(f=2), Row(f=3), Row(g=0)))",
+    "Count(Not(Row(f=0)))",
+]
+FE_CLIENTS = 32
+# the client process of phase 5e: argv uri, trees (JSON), clients, requests
+# a client, index; prints {"wall_s", "lat_ms", "answers": [[query, status, body]]}
+FE_CLIENT_CODE = """
+import http.client, json, sys, threading, time
+uri, trees, n_clients, n_req = sys.argv[1], json.loads(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4])
+path = "/index/" + sys.argv[5] + "/query"
+host, port = uri.removeprefix("http://").rsplit(":", 1)
+lat, answers, mu = [], [], threading.Lock()
+def client(k):
+    c = http.client.HTTPConnection(host, int(port), timeout=300)
+    try:
+        for j in range(n_req):
+            q = trees[(k + j) % len(trees)]
+            t0 = time.perf_counter()
+            c.request("POST", path, body=q.encode(), headers={"Content-Type": "text/plain"})
+            r = c.getresponse()
+            body = r.read().decode()
+            dt = (time.perf_counter() - t0) * 1e3
+            with mu:
+                lat.append(dt)
+                answers.append([q, r.status, body])
+    finally:
+        c.close()
+ts = [threading.Thread(target=client, args=(k,)) for k in range(n_clients)]
+t0 = time.perf_counter()
+for t in ts:
+    t.start()
+for t in ts:
+    t.join()
+print(json.dumps({"wall_s": time.perf_counter() - t0, "lat_ms": lat, "answers": answers}))
+"""
+FE_REQUESTS = 20  # single-Count requests a client
+FE_IMPORT = 1000  # bits /import-ed into f row 0 before the repaired Count
+# (d): rows of an index "p" that outgrow the device cache set for it
+FE_COLD_ROWS, FE_COLD_SHARDS, FE_COLD_BUDGET_ROWS = 16, 128, 6
+FE_COLD_REQUESTS = 10  # a client, each of (d)'s four runs
+
+
+def front_end_path(args, rows, exists) -> dict:
+    """A NodeServer in this process, in memory, with the reference's
+    front-end defaults (16 concurrent queries, a queue of 128, a 64 MB
+    result cache with count repair, prefetch depth 4), on the serve
+    phase's f/g words over its shards (loaded as fragment words):
+    (a) with the cache budget at 0, FE_CLIENTS threads x FE_REQUESTS
+    single-Count requests over 8 distinct trees, every answer held to
+    numpy, the Count batcher merging rounds on plan_count_multi;
+    requests/s and p50 at 1 and FE_CLIENTS clients, the batch-size
+    histogram, the prefetcher's warms; (b) with the cache on, a repeated
+    Count is a hit with no launch and no host read, a staged /import into
+    its row is repaired with no plan_count* launch, a Clear recomputes;
+    (c) a second node of 8 shards with one slot and no queue answers 429
+    with Retry-After while the slot is held, then 200; (d) the prefetcher
+    where queued queries read rows that are not resident: FE_COLD_ROWS
+    rows of an index p over FE_COLD_SHARDS shards under a device cache of
+    FE_COLD_BUDGET_ROWS of them, one Row a request, FE_COLD_REQUESTS a
+    client, cache off, the prefetcher attached and detached in turn (on,
+    off, off, on)."""
+    import threading
+
+    import torch
+
+    from pilosa_tpu_torch.core.resultcache import RESULT_CACHE
+    from pilosa_tpu_torch.exec import batcher as B
+    from pilosa_tpu_torch.exec import plan as P
+    from pilosa_tpu_torch.hbm import residency as res
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.server import NodeServer
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW as W_ROW
+
+    S = exists.shape[0]
+    pc = np_popcount
+    R = lambda fld, r: rows[(fld, r)]  # noqa: E731
+    want = {
+        FE_TREES[0]: pc(R("f", 0)),
+        FE_TREES[1]: pc(R("f", 1)),
+        FE_TREES[2]: pc(R("f", 0) & R("g", 0)),
+        FE_TREES[3]: pc(R("f", 1) | R("g", 1)),
+        FE_TREES[4]: pc(R("f", 2) & ~R("g", 0)),
+        FE_TREES[5]: pc(R("f", 3) ^ R("g", 1)),
+        FE_TREES[6]: pc(R("f", 2) & R("f", 3) & R("g", 0)),
+        FE_TREES[7]: pc(exists & ~R("f", 0)),
+    }
+    t0 = time.perf_counter()
+    srv = NodeServer(None, "fe", bind="127.0.0.1:0", max_writes_per_request=0, hbm_prefetch_depth=4).start()
+    out = {}
+    try:
+        idx = srv.holder.create_index("s", track_existence=True)
+        for fld, n in (("f", 4), ("g", 2)):
+            field = idx.create_field(fld)
+            for r in range(n):
+                for s in range(S):
+                    field.import_row_words(r, s, R(fld, r)[s])
+        ex_field = idx.existence_field()
+        for s in range(S):
+            ex_field.import_row_words(0, s, exists[s])
+        out["load_s"] = time.perf_counter() - t0
+        print(
+            f"front end: NodeServer {srv.node.uri} in memory, {S} shards ({S * SHARD_WIDTH} columns), f rows 0-3 and "
+            f"g rows 0-1 of the serve phase loaded in {out['load_s']:.1f} s; max_concurrent_queries "
+            f"{srv.scheduler.max_concurrent}, queue {srv.scheduler.max_queue_depth}, cache "
+            f"{RESULT_CACHE.budget_bytes >> 20} MB, repair {RESULT_CACHE.repair_enabled}, prefetch depth {srv.prefetcher.depth}"
+        )
+
+        # (a) the batcher, the cache off
+        RESULT_CACHE.configure(budget_bytes=0)
+        http = _Http(srv.node.uri)
+        try:
+            for q in FE_TREES:  # the first pass stages every operand
+                check(http.pql(q) == [want[q]], f"front end {q}: not {want[q]}")
+            solo = []
+            for k in range(FE_REQUESTS):
+                q = FE_TREES[k % len(FE_TREES)]
+                tq = time.perf_counter()
+                got = http.pql(q)
+                solo.append((time.perf_counter() - tq) * 1e3)
+                check(got == [want[q]], f"front end {q}: {got}, numpy says {want[q]}")
+        finally:
+            http.close()
+        solo_s = sum(solo) / 1e3
+        B.reset_stats()
+        K.reset_launches()
+        res.reset_stats()
+        lat, errors = [], []
+
+        def run_clients(trees=FE_TREES, index="s", want=want, n_req=FE_REQUESTS) -> float:
+            """FE_CLIENTS threads x FE_REQUESTS requests from a client
+            process of their own (this process's interpreter lock stays
+            the server's); answers checked here. Returns the wall s."""
+            errors.clear()
+            proc = subprocess.run(
+                [sys.executable, "-c", FE_CLIENT_CODE, srv.node.uri, json.dumps(trees), str(FE_CLIENTS), str(n_req), index],
+                capture_output=True, text=True, timeout=600,
+            )
+            check(proc.returncode == 0, f"front-end client process: {proc.returncode} {proc.stderr[-2000:]}")
+            res_c = json.loads(proc.stdout)
+            lat[:] = res_c["lat_ms"]
+            for q, status, body in res_c["answers"]:
+                got = json.loads(body).get("results") if status == 200 else None
+                if got != [want[q]]:
+                    errors.append((q, status, body[:200]))
+            check(len(res_c["answers"]) == FE_CLIENTS * n_req,
+                  f"front-end clients: {len(res_c['answers'])} answers of {FE_CLIENTS * n_req}: {proc.stderr[-1500:]}")
+            check(not errors, f"front end: {len(errors)} wrong answers, first {errors[:3]}")
+            return res_c["wall_s"]
+
+        # where a request's time goes: the executor (lowering, kernels, the
+        # host read) and the admission call (the cost estimate and any wait)
+        spent = {"execute": [0.0, 0], "admit": [0.0, 0]}
+        spent_mu = threading.Lock()
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    with spent_mu:
+                        spent[name][0] += time.perf_counter() - t
+                        spent[name][1] += 1
+            return run
+
+        real_exec, real_admit = srv.executor.execute_response, srv.api._admit
+        srv.executor.execute_response = timed("execute", real_exec)
+        srv.api._admit = timed("admit", real_admit)
+        try:
+            conc_s = run_clients()
+        finally:
+            srv.executor.execute_response, srv.api._admit = real_exec, real_admit
+        stats, launches = dict(B.STATS), {k: v for k, v in K.LAUNCHES.items() if v}
+        conc_lat = list(lat)
+        # the same load with the prefetcher detached, then with the Count
+        # batcher bypassed too: which layer moves requests/s and the tail
+        variants = {}
+        prefetcher, srv.scheduler.prefetcher = srv.scheduler.prefetcher, None
+        try:
+            dt = run_clients()
+            variants["no prefetcher"] = (dt, list(lat))
+            api_batched, srv.api._query_batched = srv.api._query_batched, lambda *a: None
+            try:
+                dt = run_clients()
+                variants["no prefetcher, no batcher"] = (dt, list(lat))
+            finally:
+                srv.api._query_batched = api_batched
+        finally:
+            srv.scheduler.prefetcher = prefetcher
+        dt = run_clients()  # as the first run, last: order effects show here
+        variants["as shipped, again"] = (dt, list(lat))
+        lat[:] = conc_lat
+        check(stats["merged_execs"] > 0, f"the batcher merged no round: {stats}")
+        # every merged round ran on one plan_count_multi launch (8 trees:
+        # one group), and none failed into the per-query re-run
+        check(stats["fallback_splits"] == 0, f"merged rounds split into per-query runs: {stats}")
+        check(launches.get("plan_count_multi", 0) == stats["merged_execs"],
+              f"{stats['merged_execs']} merged rounds, plan_count_multi launches {launches}")
+        hist = srv.count_batcher.batch_sizes
+        sizes = {f"<={b:g}": n for b, n in zip(hist_bounds(), hist.buckets) if n}
+        pre = res.stats_snapshot()
+        out["batcher"] = {
+            "requests": FE_CLIENTS * FE_REQUESTS,
+            "solo_requests_per_s": FE_REQUESTS / solo_s, "solo_p50_ms": statistics.median(solo),
+            "requests_per_s": FE_CLIENTS * FE_REQUESTS / conc_s, "p50_ms": statistics.median(lat),
+            "p99_ms": float(np.percentile(lat, 99)), "stats": stats, "launches": launches,
+            "batch_sizes": hist.snapshot(), "batch_size_buckets": sizes,
+            "prefetch": {"offered": srv.prefetcher.offered, "skipped": srv.prefetcher.skipped,
+                         "warmed": srv.prefetcher.warmed, "dropped": srv.prefetcher.dropped,
+                         "staged": pre["prefetch_staged"], "hits": pre["prefetch_hits"]},
+            "admission": srv.scheduler.snapshot(),
+            "spent_s": {k: v[0] for k, v in spent.items()}, "spent_calls": {k: v[1] for k, v in spent.items()},
+            "variants": {
+                k: {"requests_per_s": FE_CLIENTS * FE_REQUESTS / dt, "p50_ms": statistics.median(v),
+                    "p99_ms": float(np.percentile(v, 99))}
+                for k, (dt, v) in variants.items()
+            },
+        }
+        ob = out["batcher"]
+        print(
+            f"front end (a): 1 client {ob['solo_requests_per_s']:.1f} requests/s, p50 {ob['solo_p50_ms']:.3f} ms; "
+            f"{FE_CLIENTS} clients x {FE_REQUESTS} requests {ob['requests_per_s']:.1f} requests/s, p50 "
+            f"{ob['p50_ms']:.3f} ms, p99 {ob['p99_ms']:.3f} ms; every answer equals numpy; batcher {stats}; "
+            f"launches {launches}; batch sizes {sizes} (mean {ob['batch_sizes'].get('mean', 0):.2f}); prefetcher "
+            f"{ob['prefetch']}"
+        )
+        print(
+            f"front end (a): executor {spent['execute'][1]} calls, {spent['execute'][0]:.3f} s "
+            f"({spent['execute'][0] / max(1, spent['execute'][1]) * 1e3:.3f} ms each, {spent['execute'][0] / conc_s:.1%} "
+            f"of the {conc_s:.3f} s wall); admission {spent['admit'][1]} calls, {spent['admit'][0]:.3f} s summed over "
+            f"the request threads ({spent['admit'][0] / max(1, spent['admit'][1]) * 1e3:.3f} ms each, the queue wait included)"
+        )
+        for k, v in ob["variants"].items():
+            print(
+                f"front end (a), {k}: {FE_CLIENTS} clients {v['requests_per_s']:.1f} requests/s, p50 "
+                f"{v['p50_ms']:.3f} ms, p99 {v['p99_ms']:.3f} ms; every answer equals numpy"
+            )
+
+        # (b) the cache on: a hit, a repair, a recompute
+        RESULT_CACHE.configure(budget_bytes=64 << 20)
+        http = _Http(srv.node.uri)
+        try:
+            q = FE_TREES[0]
+            check(http.pql(q) == [want[q]], f"cached {q}: first answer")
+            c0 = RESULT_CACHE.stats_snapshot()
+            torch.cuda.synchronize()
+            K.reset_launches()
+            P.reset_stats()
+            check(http.pql(q) == [want[q]], f"cached {q}: repeat")
+            c1 = RESULT_CACHE.stats_snapshot()
+            hit_launches = {k: v for k, v in K.LAUNCHES.items() if v}
+            hit_reads = P.STATS["host_reads"]
+            check(c1["hits"] == c0["hits"] + 1 and not hit_launches and hit_reads == 0,
+                  f"repeat of {q}: hits {c0['hits']} -> {c1['hits']}, launches {hit_launches}, plan {P.STATS}")
+            rng = np.random.default_rng([args.seed, 11])
+            cols = rng.choice(S * SHARD_WIDTH, FE_IMPORT, replace=False).astype(np.uint64)
+            f0 = R("f", 0).copy().reshape(-1)
+            np.bitwise_or.at(f0, (cols >> np.uint64(5)).astype(np.int64), np.uint32(1) << (cols & np.uint64(31)).astype(np.uint32))
+            n_new = pc(f0)
+            res_out = http.json("POST", "/index/s/field/f/import", {"rows": [0] * len(cols), "cols": cols.tolist()})
+            check(res_out["errors"] == [], f"/import: {res_out}")
+            K.reset_launches()
+            got = http.pql(q)
+            c2 = RESULT_CACHE.stats_snapshot()
+            rep_launches = {k: v for k, v in K.LAUNCHES.items() if v}
+            check(got == [n_new], f"{q} after /import of {FE_IMPORT} bits: {got}, numpy says {n_new}")
+            # one repair a merged shard (the reference's counting)
+            check(c2["repairs"] > c1["repairs"] and c2["hits"] == c1["hits"] + 1
+                  and not any(k.startswith("plan_count") for k in rep_launches),
+                  f"{q} after /import: repairs {c1['repairs']} -> {c2['repairs']}, launches {rep_launches}")
+            col = int(cols[0])
+            check(http.pql(f"Clear({col}, f=0)") == [True], "Clear")
+            K.reset_launches()
+            got = http.pql(q)
+            c3 = RESULT_CACHE.stats_snapshot()
+            clr_launches = {k: v for k, v in K.LAUNCHES.items() if v}
+            check(got == [n_new - 1], f"{q} after Clear: {got}, numpy says {n_new - 1}")
+            check(c3["misses"] == c2["misses"] + 1 and clr_launches.get("plan_count", 0) == 1,
+                  f"{q} after Clear: misses {c2['misses']} -> {c3['misses']}, launches {clr_launches}")
+        finally:
+            http.close()
+        out["cache"] = {"hit_launches": hit_launches, "hit_host_reads": hit_reads, "repair_launches": rep_launches,
+                        "clear_launches": clr_launches,
+                        "counters": c3}
+        print(
+            f"front end (b): repeat of {q} a hit with launches {hit_launches} and {hit_reads} host reads; "
+            f"after /import of {FE_IMPORT} bits repaired to {n_new} with launches {rep_launches}; after a Clear "
+            f"recomputed to {n_new - 1} with launches {clr_launches}; cache {({k: c3[k] for k in ('hits', 'misses', 'repairs', 'stores')})}"
+        )
+
+        # (d) queued queries whose rows are not resident
+        RESULT_CACHE.configure(budget_bytes=0)
+        sp = min(S, FE_COLD_SHARDS)
+        crng = np.random.default_rng([args.seed, 13])
+        cold = srv.holder.create_index("p", track_existence=False).create_field("f")
+        cold_want = {}
+        for r in range(FE_COLD_ROWS):
+            words = crng.integers(0, 2**32, size=(sp, W_ROW), dtype=np.uint32)
+            for s in range(sp):
+                cold.import_row_words(r, s, words[s])
+            cold_want[f"Count(Row(f={r}))"] = pc(words)
+        cold_trees = list(cold_want)
+        dcache = srv.holder.dcache
+        budget = dcache.budget_bytes
+        dcache.budget_bytes = FE_COLD_BUDGET_ROWS * sp * W_ROW * 4
+        dcache.clear()
+        cold_runs = []
+        try:
+            for on in (True, False, False, True):
+                srv.scheduler.prefetcher = prefetcher if on else None
+                res.reset_stats()
+                o0, w0, k0 = prefetcher.offered, prefetcher.warmed, prefetcher.skipped
+                dt = run_clients(cold_trees, "p", cold_want, FE_COLD_REQUESTS)
+                st = res.stats_snapshot()
+                cold_runs.append({
+                    "prefetcher": on, "requests_per_s": FE_CLIENTS * FE_COLD_REQUESTS / dt,
+                    "p50_ms": statistics.median(lat), "p99_ms": float(np.percentile(lat, 99)),
+                    "offered": prefetcher.offered - o0, "warmed": prefetcher.warmed - w0,
+                    "skipped": prefetcher.skipped - k0,
+                    "prefetch_staged": st["prefetch_staged"], "prefetch_hits": st["prefetch_hits"],
+                    "restage_mib": st["restage_bytes"] / 2**20,
+                })
+        finally:
+            srv.scheduler.prefetcher = prefetcher
+            dcache.budget_bytes = budget
+        out["cold"] = cold_runs
+        for run in cold_runs:
+            print(
+                f"front end (d), rows not resident ({FE_COLD_ROWS} rows x {sp} shards, cache {FE_COLD_BUDGET_ROWS} rows), "
+                f"prefetcher {'on' if run['prefetcher'] else 'off'}: {FE_CLIENTS} clients {run['requests_per_s']:.1f} "
+                f"requests/s, p50 {run['p50_ms']:.3f} ms, p99 {run['p99_ms']:.3f} ms; every answer equals numpy; warms "
+                f"offered {run['offered']}, skipped {run['skipped']}, run {run['warmed']}; extents staged by warms "
+                f"{run['prefetch_staged']}, "
+                f"hit by queries {run['prefetch_hits']}; re-staged {run['restage_mib']:.0f} MiB"
+            )
+    finally:
+        srv.stop()
+
+    # (c) a 429 while the only slot is held, then a 200
+    srv2 = NodeServer(None, "fe2", bind="127.0.0.1:0", max_concurrent_queries=1, admission_queue_depth=0).start()
+    try:
+        http = _Http(srv2.node.uri)
+        try:
+            http.json("POST", "/index/s", {})
+            http.json("POST", "/index/s/field/f", {})
+            cols = list(range(0, 8 * SHARD_WIDTH, SHARD_WIDTH // 2))
+            http.json("POST", "/index/s/field/f/import", {"rows": [0] * len(cols), "cols": cols})
+            ticket = srv2.scheduler.admit()
+            try:
+                http.conn.request("POST", "/index/s/query", body=b"Count(Row(f=0))", headers={"Content-Type": "text/plain"})
+                r = http.conn.getresponse()
+                status, raw, retry = r.status, r.read(), r.getheader("Retry-After")
+            finally:
+                ticket.release()
+            check(status == 429 and retry == "1" and b"admission queue full" in raw,
+                  f"a query while the slot is held: {status}, Retry-After {retry!r}, {raw!r}")
+            check(http.pql("Count(Row(f=0))") == [len(cols)], "the query after the slot is free")
+        finally:
+            http.close()
+    finally:
+        srv2.stop()
+    out["shed"] = {"status": status, "retry_after": retry, "body": raw.decode()}
+    print(f"front end (c): one slot held: HTTP {status}, Retry-After {retry}, {raw.decode()}; released: 200 [{len(cols)}]")
+    return out
+
+
+def hist_bounds():
+    from pilosa_tpu_torch.utils.stats import HIST_BOUNDS
+
+    return list(HIST_BOUNDS) + [float("inf")]
 
 
 # ---------------------------------------------------------------------------
@@ -3684,7 +4200,7 @@ def durable_path(args, st) -> dict:
 
     # (a) recovery: construction to a 200 on /status
     t0 = time.perf_counter()
-    srv = NodeServer(d, "smoke2", bind="127.0.0.1:0", max_writes_per_request=0).start()
+    srv = NodeServer(d, "smoke2", bind="127.0.0.1:0", max_writes_per_request=0, cache_result_mb=0).start()
     http = _Http(srv.node.uri)
     try:
         status = http.json("GET", "/status")
@@ -3887,7 +4403,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     recovered, serve = serve_path(args)
-    phase_s["serve"] = time.perf_counter() - t0 - serve["keyed"]["phase_s"]
+    phase_s["serve"] = time.perf_counter() - t0 - serve["keyed"]["phase_s"] - serve["front_end"]["phase_s"]
     t0 = time.perf_counter()
     durable = durable_path(args, recovered)
     phase_s["durable"] = time.perf_counter() - t0
@@ -3895,8 +4411,10 @@ def main() -> int:
         row["launches_served"] = serve["launches"].get(name, 0)
         row["launches_recovered"] = durable["launches"].get(name, 0)
         row["launches_keyed"] = serve["keyed"]["launches"].get(name, 0)
+        row["launches_front_end"] = serve["front_end"]["batcher"]["launches"].get(name, 0)
     keyed = serve["keyed"]
     phase_s["keyed (in serve)"] = keyed["phase_s"]
+    phase_s["front end (in serve)"] = serve["front_end"]["phase_s"]
     print(
         f"keyed summary ({smi}): {keyed['columns']} column keys, phase {keyed['phase_s']:.1f} s, ingest "
         f"{keyed['ingest_s']:.1f} s ("
@@ -3921,7 +4439,7 @@ def main() -> int:
     print(json.dumps({
         "kernels": [
             rows[k]
-            for k in ("plan_count", "plan_rows", "gather_tally", "rows_counts", "count2", "bsi_sum", "bsi_min_max",
+            for k in ("plan_count", "plan_count_multi", "plan_rows", "gather_tally", "rows_counts", "count2", "bsi_sum", "bsi_min_max",
                       "bsi_range", "counts_cross", "gather_and", "or_bits", "merge_mark")
         ],
         "extra_ms": extra,

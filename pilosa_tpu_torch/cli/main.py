@@ -9,11 +9,13 @@ The port's slice of pilosa_tpu/cli/main.py. `server` takes the
 reference's flags, TOML file and PILOSA_TPU_* environment, and serves one
 node on the CUDA card (`--device cpu` asks for the CPU) from its data
 dir (the default `~/.pilosa-tpu`; an empty one serves from memory), with
-`--wal-sync-interval` as the group commit's cadence. Every knob whose
-feature the port lacks (clusters and `--join`, TLS, admission and
-tenants, HBM paging, the result cache, tiered storage, mesh groups,
-coherence, tracing, metrics) must stay at its default: a run that sets
-one exits non-zero naming it. `import` and `export` talk to a server over
+`--wal-sync-interval` as the group commit's cadence; the front-end
+knobs are honoured too: `--max-concurrent-queries`, `--admission-*`,
+`--tenants-*`, `--hbm-prefetch-depth`, `--cache-result-mb` and
+`--cache-count-repair`. Every knob whose feature the port lacks
+(clusters and `--join`, TLS, `--shed-retry-after`, tiered storage, mesh
+groups, coherence, tracing, metrics) must stay at its default: a run
+that sets one exits non-zero naming it. `import` and `export` talk to a server over
 HTTP; `inspect` opens a data dir and `check` reads its files offline;
 `config` and `generate-config` print TOML. Each prints what the
 reference's does.
@@ -115,6 +117,19 @@ _PORTED_KNOBS = {
     ("hbm", "extent_rows"),
     ("hbm", "pin_timeout"),
     ("ingest", "merge_device_threshold"),
+    ("sched", "max_concurrent_queries"),
+    ("sched", "admission_queue_depth"),
+    ("sched", "admission_byte_budget"),
+    ("sched", "admission_default_class"),
+    ("tenants", "default_qps"),
+    ("tenants", "default_bytes_per_s"),
+    ("tenants", "default_inflight_bytes"),
+    ("tenants", "default_hbm_bytes"),
+    ("tenants", "default_cache_bytes"),
+    ("tenants", "overrides"),
+    ("hbm", "prefetch_depth"),
+    ("cache", "result_mb"),
+    ("cache", "count_repair"),
 }
 
 # flags taking a list (the reference's nargs="*" flags)
@@ -252,6 +267,19 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None) -
             hbm_extent_rows=cfg.hbm.extent_rows,
             hbm_pin_timeout=cfg.hbm.pin_timeout,
             merge_device_threshold=cfg.ingest.merge_device_threshold,
+            max_concurrent_queries=cfg.sched.max_concurrent_queries,
+            admission_queue_depth=cfg.sched.admission_queue_depth,
+            admission_byte_budget=cfg.sched.admission_byte_budget,
+            admission_default_class=cfg.sched.admission_default_class,
+            tenant_default_qps=cfg.tenants.default_qps,
+            tenant_default_bytes_per_s=cfg.tenants.default_bytes_per_s,
+            tenant_default_inflight_bytes=cfg.tenants.default_inflight_bytes,
+            tenant_default_hbm_bytes=cfg.tenants.default_hbm_bytes,
+            tenant_default_cache_bytes=cfg.tenants.default_cache_bytes,
+            tenant_overrides=cfg.tenants.overrides,
+            hbm_prefetch_depth=cfg.hbm.prefetch_depth,
+            cache_result_mb=cfg.cache.result_mb,
+            cache_count_repair=cfg.cache.count_repair,
             logger=logger,
         )
     except RuntimeError as e:  # no CUDA device and no --device cpu
@@ -259,7 +287,11 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None) -
     stop = threading.Event()
     signal.signal(signal.SIGINT, lambda *a: stop.set())
     signal.signal(signal.SIGTERM, lambda *a: stop.set())
-    srv.start()
+    try:
+        srv.start()
+    except BaseException:
+        srv.stop()  # the holder closes, the result-cache budget goes back
+        raise
     print(
         f"pilosa_tpu_torch node {srv.node.id} listening on {srv.node.uri} "
         f"(device {srv.holder.device})",

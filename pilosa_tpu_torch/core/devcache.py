@@ -106,6 +106,9 @@ class DeviceCache:
         self._building: Set[Tuple] = set()
         self._entries: "OrderedDict[Tuple, object]" = OrderedDict()
         self._sizes: Dict[Tuple, int] = {}
+        # resident bytes per owner token, kept with _sizes (the admission
+        # discount reads it per query)
+        self._owner_bytes: Dict[Hashable, int] = {}
         self._by_owner: Dict[Hashable, Set[Tuple]] = {}
         self._bytes = 0
         self._pins: Dict[Tuple, int] = {}
@@ -120,6 +123,16 @@ class DeviceCache:
         self.evicted_extent_bytes = 0  # cumulative; paging checks diff it
         self.built_bytes = 0  # cumulative bytes of every get_or_build build
         self.stale_pin_reclaims = 0
+        # per-index (tenant) residency quotas, 0 / absent = unlimited
+        # (configure_quotas): eviction lands on an index over its quota,
+        # in its own LRU order, before the global pass, and holds it to
+        # the quota even when the budget has room. Bytes are attributed
+        # to an index through the owner token of each key (tag_owner).
+        self._owner_index: Dict[Hashable, str] = {}
+        self._index_quota_default = 0
+        self._index_quota: Dict[str, int] = {}
+        self._quota_evictions_index: Dict[str, int] = {}
+        self.quota_evictions = 0  # of evictions, by the quota pass
 
     # -- core --------------------------------------------------------------
 
@@ -192,6 +205,7 @@ class DeviceCache:
         nb = _nbytes(value)
         self._entries[key] = value
         self._sizes[key] = nb
+        self._owner_bytes[key[0]] = self._owner_bytes.get(key[0], 0) + nb
         self._by_owner.setdefault(key[0], set()).add(key)
         if extent:
             self._extent_keys.add(key)
@@ -213,12 +227,19 @@ class DeviceCache:
         self._cover.pop(key, None)
         keys = self._by_owner.get(key[0])
         if keys is not None:
+            if key in keys:
+                self._owner_bytes[key[0]] -= nb
             keys.discard(key)
             if not keys:
                 del self._by_owner[key[0]]
+                self._owner_bytes.pop(key[0], None)
 
     def _evict_locked(self, keep: Optional[Tuple]) -> None:
-        if self._defer_evict > 0 or self._bytes <= self.budget_bytes:
+        if self._defer_evict > 0:
+            return
+        if self._index_quota or self._index_quota_default > 0:
+            self._evict_over_quota_locked(keep)
+        if self._bytes <= self.budget_bytes:
             return
         for key in list(self._entries):
             if self._bytes <= self.budget_bytes or len(self._entries) <= 1:
@@ -229,6 +250,91 @@ class DeviceCache:
                 self.evicted_extent_bytes += self._sizes.get(key, 0)
             self._drop_locked(key)
             self.evictions += 1
+
+    def _quota_for_locked(self, index: str) -> int:
+        q = self._index_quota.get(index)
+        return q if q is not None else self._index_quota_default
+
+    def _evict_over_quota_locked(self, keep: Optional[Tuple]) -> None:
+        """The per-index quota pass, in LRU order. Bytes still held by
+        pins (zombies) count against their index, but only live unpinned
+        entries go, so pins overshoot a quota for a while as they do the
+        budget. An entry larger than its whole quota stays while it is
+        all its index holds (the query needs it), as the budget admits a
+        single entry over it."""
+        by_idx = self._index_bytes_locked()
+        for key in list(self._entries):
+            if len(self._entries) <= 1:
+                break
+            if key == keep:
+                continue
+            idx = self._owner_index.get(key[0], "-")
+            if idx == "-":
+                continue
+            quota = self._quota_for_locked(idx)
+            if quota <= 0:
+                continue
+            held = by_idx.get(idx, 0)
+            if held <= quota or self._pinned_locked(key):
+                continue
+            nb = self._sizes.get(key, 0)
+            if nb >= held and nb > quota:
+                continue
+            if key in self._extent_keys:
+                self.evicted_extent_bytes += nb
+            self._drop_locked(key)
+            by_idx[idx] = held - nb
+            self.evictions += 1
+            self.quota_evictions += 1
+            self._quota_evictions_index[idx] = self._quota_evictions_index.get(idx, 0) + 1
+
+    def _index_bytes_locked(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for sizes in (self._sizes, self._zombies):
+            for key, nb in sizes.items():
+                idx = self._owner_index.get(key[0], "-")
+                out[idx] = out.get(idx, 0) + nb
+        return out
+
+    def tag_owner(self, owner: Hashable, index: str) -> None:
+        """Attribute the entries of an owner token to an index (views and
+        fragments tag theirs when they are made)."""
+        with self._mu:
+            self._owner_index[owner] = index
+
+    def untag_owner(self, owner: Hashable) -> None:
+        with self._mu:
+            self._owner_index.pop(owner, None)
+
+    def configure_quotas(self, default_bytes: int = 0, overrides: Optional[Dict[str, int]] = None) -> None:
+        """Install per-index residency quotas (the [tenants] section; 0 =
+        unlimited) and settle at once: an index over its new quota sheds
+        its own LRU entries now."""
+        with self._mu:
+            self._index_quota_default = max(0, int(default_bytes))
+            self._index_quota = {k: max(0, int(v)) for k, v in (overrides or {}).items()}
+            self._evict_locked(keep=None)
+
+    def index_resident_bytes(self) -> Dict[str, int]:
+        """Resident bytes by owning index ("-": untagged owners)."""
+        with self._mu:
+            return self._index_bytes_locked()
+
+    def quota_evictions_by_index(self) -> Dict[str, int]:
+        with self._mu:
+            return dict(self._quota_evictions_index)
+
+    def drop_index_attribution(self, index: str) -> None:
+        """Forget a deleted index's quota evictions (its quota override
+        stays: operator config re-applies if the index is recreated)."""
+        with self._mu:
+            self._quota_evictions_index.pop(index, None)
+
+    def owner_resident_bytes(self, owner: Hashable) -> int:
+        """Resident bytes cached under one owner token (the admission cost
+        discount, sched/cost.py)."""
+        with self._mu:
+            return self._owner_bytes.get(owner, 0)
 
     # -- invalidation ------------------------------------------------------
 
@@ -295,6 +401,7 @@ class DeviceCache:
         with self._mu:
             self._entries.clear()
             self._sizes.clear()
+            self._owner_bytes.clear()
             self._by_owner.clear()
             self._extent_keys.clear()
             self._cover.clear()
@@ -318,6 +425,11 @@ class DeviceCache:
                 self._defer_evict -= 1
                 if self._defer_evict == 0:
                     self._evict_locked(keep=None)
+
+    def contains_all(self, keys: Iterable[Tuple]) -> bool:
+        """Whether every key is cached; touches no LRU order or pin."""
+        with self._mu:
+            return all(k in self._entries for k in keys)
 
     # -- pins --------------------------------------------------------------
 
@@ -400,4 +512,5 @@ class DeviceCache:
                 "evicted_extent_bytes": self.evicted_extent_bytes,
                 "built_bytes": self.built_bytes,
                 "stale_pin_reclaims": self.stale_pin_reclaims,
+                "quota_evictions": self.quota_evictions,
             }

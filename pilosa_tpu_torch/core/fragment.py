@@ -211,6 +211,23 @@ class _LazyRows:
         return rep, self._read_payload(off, n)
 
 
+class StagedTally:
+    """A view's running count of staged positions (pending and parked)
+    over its fragments, kept by each fragment as it stages, merges and
+    folds: admission prices a read barrier from it (sched/cost.py)
+    without walking the fragments."""
+
+    __slots__ = ("_mu", "n")
+
+    def __init__(self) -> None:
+        self._mu = threading.Lock()
+        self.n = 0
+
+    def add(self, delta: int) -> None:
+        with self._mu:  # fragments of one view stage concurrently
+            self.n += delta
+
+
 class Fragment:
     """One shard of one view of one field. A re-entrant lock guards the
     host structures."""
@@ -258,9 +275,14 @@ class Fragment:
         # folded in by the next host read (bounded by _LAYER_CAP)
         self._premerged: List[np.ndarray] = []
         self._premerged_n = 0
+        # the view's StagedTally, given once the fragment is open; every
+        # change of _pending_n + _premerged_n after that goes to it
+        self.staged_tally: Optional[StagedTally] = None
         # device rows under _token, multi-row stacks under _stack_token
         self._token = new_owner_token()
         self._stack_token = new_owner_token()
+        dcache.tag_owner(self._token, index)
+        dcache.tag_owner(self._stack_token, index)
         # monotonic mutation counter; view stack keys carry it
         self.version = 0
         # mutex fields: col -> owning row
@@ -406,6 +428,23 @@ class Fragment:
             self._sync_locked()
             rb = self._rows.peek(row_id)
             return rb.to_words() if rb is not None else ob.empty_row()
+
+    def premerge_row_words(self, row_id: int) -> np.ndarray:
+        """Host words of one row at the staged-base version: the row store
+        plus the parked barrier layers, pending batches left out, and no
+        read barrier run. The merge barrier reads it just before a burst's
+        layer parks, so the result cache's Count repair has the row's old
+        words (core/resultcache.py)."""
+        with self._mu:
+            rb = self._rows.peek(row_id)
+            words = np.array(rb.to_words() if rb is not None else ob.empty_row(), dtype=np.uint32, copy=True)
+            lo = np.uint64(row_id) * np.uint64(SHARD_WIDTH)
+            for layer in self._premerged:
+                s, e = np.searchsorted(layer, (lo, lo + np.uint64(SHARD_WIDTH)))
+                if e > s:
+                    cols = (layer[s:e] - lo).astype(np.uint32)
+                    np.bitwise_or.at(words, cols >> np.uint32(5), np.left_shift(np.uint32(1), cols & np.uint32(31)))
+            return words
 
     def row_positions(self, row_id: int) -> np.ndarray:
         with self._mu:
@@ -618,6 +657,7 @@ class Fragment:
                 self._staged_base_version = self.version
             self._pending.append(positions)
             self._pending_n += n
+            self._note_staged(n)
             self.version += 1
             if notify:
                 self.dcache.invalidate_owners((self._token, self._stack_token))
@@ -639,6 +679,7 @@ class Fragment:
             # parked layers were booked at their barrier
             merge_mod.note_host_sync(len(self._pending))
         parts = self._premerged + self._pending
+        self._note_staged(-(self._pending_n + self._premerged_n))
         self._premerged = []
         self._premerged_n = 0
         self._pending = []
@@ -652,6 +693,10 @@ class Fragment:
             (rid, rb.count() if (rb := rows_store.get(rid)) is not None else 0)
             for rid in touched
         )
+
+    def _note_staged(self, delta: int) -> None:
+        if self.staged_tally is not None and delta:
+            self.staged_tally.add(delta)
 
     def sync_pending_now(self) -> None:
         with self._mu:
@@ -687,6 +732,7 @@ class Fragment:
             self._staged_base_version += n_parts
             self._premerged.append(keys_local)
             self._premerged_n += len(keys_local)
+            self._note_staged(len(keys_local) - captured_n)
             if self._premerged_n > self._LAYER_CAP:
                 self._sync_locked()
             return self.version

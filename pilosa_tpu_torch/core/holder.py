@@ -62,9 +62,15 @@ class Holder:
             frag.flush_cache()
 
     def recalculate_caches(self) -> None:
-        """Rebuild every fragment's rank cache from exact row counts."""
+        """Rebuild every fragment's rank cache from exact row counts. A
+        rebuild can reorder TopN with no version change, so every index's
+        cached results are dropped (core/resultcache.py)."""
+        from pilosa_tpu_torch.core.resultcache import RESULT_CACHE
+
         for frag in self.fragments():
             frag.recalculate_cache()
+        for idx in self.indexes():
+            RESULT_CACHE.drop_scope(idx._cache_scope)
 
     def fragments(self):
         for idx in self.indexes():

@@ -17,9 +17,10 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.core.attrs import AttrStore
-from pilosa_tpu_torch.core.devcache import DeviceCache
+from pilosa_tpu_torch.core.devcache import DeviceCache, new_owner_token
 from pilosa_tpu_torch.core.field import FIELD_TYPE_SET, Field, FieldOptions, validate_name
 from pilosa_tpu_torch.core.translate import TranslateStore
+from pilosa_tpu_torch.core import view as viewmod
 
 EXISTENCE_FIELD_NAME = "_exists"
 
@@ -44,6 +45,12 @@ class Index:
         self.dcache = dcache
         self._mu = threading.RLock()
         self._fields: Dict[str, Field] = {}
+        # (view.SHARDS_EPOCH, sorted(available_shards())): shard_list's memo
+        self._shards_memo: tuple = (-1, [])
+        # the result cache's key scope (core/resultcache.py): unique to
+        # this Index object, so a recreated index or another node's
+        # same-named one never serves these entries
+        self._cache_scope = new_owner_token()
         # column attributes: .col_attrs.json and its append log
         self.column_attr_store = AttrStore(None if path is None else os.path.join(path, ".col_attrs.json"))
         # column keys of a keyed index
@@ -151,6 +158,22 @@ class Index:
         ef = self.existence_field()
         if ef is not None and len(cols):
             ef.import_bits(np.zeros(len(cols), np.uint64), cols)
+
+    def _shards_sorted(self) -> List[int]:
+        epoch = viewmod.SHARDS_EPOCH  # read before the walk: a later bump re-walks
+        memo = self._shards_memo
+        if memo[0] != epoch:
+            memo = self._shards_memo = (epoch, sorted(self.available_shards()))
+        return memo[1]
+
+    def shard_list(self) -> List[int]:
+        """sorted(available_shards()), walked again only after some view
+        created a fragment or closed (every query and every admission
+        estimate asks)."""
+        return list(self._shards_sorted())
+
+    def shard_count(self) -> int:
+        return len(self._shards_sorted())
 
     def available_shards(self) -> Set[int]:
         with self._mu:

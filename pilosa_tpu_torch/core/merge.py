@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch.ops import merge as ops_merge
-from pilosa_tpu_torch.shardwidth import SHARD_WIDTH_EXPONENT
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXPONENT
 
 # AUTO crossover on a CUDA device: bursts of at least this many staged
 # positions merge on the card; on the CPU the host pass always wins
@@ -147,7 +147,7 @@ class FragMerge:
     patched in place to `new_version`."""
 
     __slots__ = (
-        "frag", "shard", "applied", "clean", "base_version", "new_version", "keys", "_ranges",
+        "frag", "shard", "applied", "clean", "base_version", "new_version", "keys", "_ranges", "old_words",
     )
 
     def __init__(self, frag, keys: GroupKeys, rows, starts, ends):
@@ -159,6 +159,26 @@ class FragMerge:
         self.new_version = -1
         self.keys = keys
         self._ranges = dict(zip(rows, zip(starts, ends)))
+        # row id -> host words at base_version, taken before the layer
+        # parked, for the rows cached Counts watch (core/resultcache.py)
+        self.old_words: Dict[int, np.ndarray] = {}
+
+    @property
+    def rows(self) -> List[int]:
+        """The row ids the merge touched, ascending."""
+        return list(self._ranges)
+
+    def word_delta(self, row_id: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(word indexes, OR-ed bits) of this row's merged delta, from the
+        host copy of its merged keys (the Count repair's input)."""
+        s, e = self._ranges[row_id]
+        cols = (self.keys.host[s:e] & np.uint64(SHARD_WIDTH - 1)).astype(np.int64)
+        if not len(cols):
+            return np.empty(0, np.int64), np.empty(0, np.uint32)
+        widx = cols >> 5
+        bits = np.left_shift(np.uint32(1), (cols & 31).astype(np.uint32))
+        first = np.flatnonzero(np.concatenate(([True], widx[1:] != widx[:-1])))
+        return widx[first], np.bitwise_or.reduceat(bits, first)
 
     def key_range(self, row_id: int) -> Optional[Tuple[int, int]]:
         """[start, end) of this row's merged keys in `keys`, or None when
@@ -166,6 +186,14 @@ class FragMerge:
         segment * span + row * SHARD_WIDTH + column, with a span that is
         a SHARD_WIDTH multiple, so key & (SHARD_WIDTH - 1) is the column."""
         return self._ranges.get(row_id)
+
+
+def _repair_interest(frag) -> set:
+    """Rows of the fragment's (index, field, view) that repairable cached
+    Counts watch; with no such Count, one dict lookup and nothing read."""
+    from pilosa_tpu_torch.core.resultcache import RESULT_CACHE
+
+    return RESULT_CACHE.interest_rows(frag.index, frag.field, frag.view)
 
 
 def _groups(caps, device: torch.device, use_device: bool) -> List[list]:
@@ -289,6 +317,13 @@ def _merge_group(caps, device: torch.device, use_device: bool):
             continue
         fm = FragMerge(f, keys, row_of[rlo:rhi], starts_l[rlo:rhi], ends_l[rlo:rhi])
         fm.base_version = base_version
+        # Count repair: the host words at base_version of every row a
+        # cached Count watches (untouched ones too: a tree patch needs
+        # them from the same snapshot), read before the layer parks. A
+        # host read merging between here and the apply moves the
+        # generation and the capture goes with the failed FragMerge.
+        for rid in _repair_interest(f):
+            fm.old_words[rid] = f.premerge_row_words(rid)
         # the layer is a copy: a view would pin the group's merged array
         res = f.apply_merged_delta(
             local[seg_edges_l[i] : seg_edges_l[i + 1]].copy(), n_parts, sum(map(len, parts)), gen

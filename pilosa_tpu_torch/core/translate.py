@@ -136,6 +136,10 @@ class TranslateStore:
 
     # -- reads -------------------------------------------------------------
 
+    def find_key(self, key: str) -> Optional[int]:
+        """The id of key, or None: never allocates (a read path)."""
+        return self._by_key.get(key)
+
     def key_for_id(self, id_: int) -> Optional[str]:
         return self._by_id.get(id_)
 

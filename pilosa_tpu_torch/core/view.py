@@ -20,7 +20,14 @@ barrier's merged keys, read where they already are (core/merge.py
 GroupKeys), through a segment table of one row per (dirty shard, touched
 row), so a plan launched before it reads the old words; an entry pinned
 by a plan not yet launched is cloned first and the clone patched. The
-coherence hub and the result cache are not ported.
+coherence hub is not ported.
+
+The result cache (core/resultcache.py) rides the same funnels: each
+mutation reports its shard (`note_mutation(s)`), each barrier its merges
+(`note_merges`, which patch or re-key cached Counts), and `close` drops
+every entry that read the view. `mutation_clock` moves after every
+version bump of a fragment of the view, so one integer a view
+revalidates a warm cached result.
 """
 
 from __future__ import annotations
@@ -35,13 +42,26 @@ import torch
 from pilosa_tpu_torch.core import merge as merge_mod
 from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core.devcache import DeviceCache, new_owner_token
-from pilosa_tpu_torch.core.fragment import DEFAULT_MAX_OP_N, Fragment
+from pilosa_tpu_torch.core.fragment import DEFAULT_MAX_OP_N, Fragment, StagedTally
+from pilosa_tpu_torch.core.resultcache import RESULT_CACHE
 from pilosa_tpu_torch.hbm import residency
 from pilosa_tpu_torch.ops import merge as ops_merge
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
 VIEW_STANDARD = "standard"
 VIEW_BSI_PREFIX = "bsig_"
+
+
+# moves after a view creates a fragment or closes, the only times a
+# shard set of an index can change: Index.shard_list's memo is keyed on it
+SHARDS_EPOCH = 0
+_epoch_mu = threading.Lock()
+
+
+def bump_shards_epoch() -> None:
+    global SHARDS_EPOCH
+    with _epoch_mu:
+        SHARDS_EPOCH += 1
 
 
 class View:
@@ -70,8 +90,18 @@ class View:
         self.cache_size = cache_size
         self._mu = threading.RLock()
         self.fragments: Dict[int, Fragment] = {}
+        # staged positions over the fragments (kept by each fragment)
+        self.staged = StagedTally()
         # owner token for this view's stacks and TopN tally bundles
         self._stack_token = new_owner_token()
+        dcache.tag_owner(self._stack_token, index)
+        # bumped after every version bump of a fragment of this view (the
+        # mutation funnel and the staged router) and before the write
+        # returns: a clock read is never newer than a version vector read
+        # after it, which is what lets the result cache arm an entry with
+        # (clocks, vector). Its own lock: bumps run under fragment locks.
+        self._clock_mu = threading.Lock()
+        self.mutation_clock = 0
         # shards with staged writes whose covering stack entries were not
         # dropped at stage time (they are keyed by version, so never
         # served stale): the barrier patches or drops them
@@ -88,6 +118,8 @@ class View:
                         shard_s = fn.rsplit(".", 1)[0]
                         if shard_s.isdigit():
                             self.fragment(int(shard_s))
+        # the cache's deferred tree patches find the view by its token
+        RESULT_CACHE.register_view(self)
         return self
 
     def fragment(self, shard: int) -> Fragment:
@@ -109,11 +141,18 @@ class View:
                     max_op_n=self.max_op_n,
                 ).open()
                 frag.on_mutate = lambda s=shard: self._on_fragment_mutate(s)
+                with frag._mu:  # what open replayed, then every change
+                    self.staged.add(frag._pending_n + frag._premerged_n)
+                    frag.staged_tally = self.staged
                 self.fragments[shard] = frag
+                bump_shards_epoch()
             return frag
 
     def _on_fragment_mutate(self, shard: int) -> None:
+        with self._clock_mu:
+            self.mutation_clock += 1
         self.dcache.invalidate_owner_shard(self._stack_token, shard)
+        RESULT_CACHE.note_mutation(self._stack_token, shard)
 
     def close(self) -> None:
         """Close every fragment (WAL, cache sidecar) and drop every device
@@ -122,8 +161,13 @@ class View:
         with self._mu:
             for frag in self.fragments.values():
                 frag.close()
+                self.dcache.untag_owner(frag._token)
+                self.dcache.untag_owner(frag._stack_token)
             self.dcache.invalidate_owner(self._stack_token)
+            self.dcache.untag_owner(self._stack_token)
+            RESULT_CACHE.drop_view(self._stack_token)
             self._dirty_staged.clear()
+        bump_shards_epoch()
 
     def fragment_if_exists(self, shard: int) -> Optional[Fragment]:
         return self.fragments.get(shard)
@@ -159,6 +203,9 @@ class View:
                 else:
                     frags = [self.fragments.get(s) for s in shards]
         merges = merge_mod.merge_barrier(frags)
+        if merges:
+            # the same merged deltas patch or re-key cached Counts
+            RESULT_CACHE.note_merges(self._stack_token, merges)
         synced = {f.shard for f in frags if f is not None}
         with self._mu:
             dirty = self._dirty_staged & synced
@@ -312,6 +359,21 @@ class View:
             shards=shards,
         )
 
+    def row_resident(self, row_id: int, shards) -> bool:
+        """Whether row_stack(row_id, shards) would stage nothing: no listed
+        fragment has a staged write for the barrier to merge, and every
+        extent at the fragments' versions is cached (or no listed shard has
+        a fragment). Pins and copies nothing."""
+        shards = tuple(shards)
+        frags = self._frags_for(shards)
+        if all(f is None for f in frags):
+            return True
+        if any(f is not None and f._pending_n for f in frags):
+            return False
+        return residency.resident(
+            self.dcache, self._stack_key("row", row_id, shards), len(shards), self._frag_versions(frags)
+        )
+
     def plane_stack(self, row_ids, shards, extents=None) -> Optional[torch.Tensor]:
         """int32[D, S, W] device stack (rows x shards), or None when no
         listed shard has a fragment. A row a fragment lacks reads as zero
@@ -368,7 +430,12 @@ class View:
                 tokens.append(frag._stack_token)
                 dirty.append(int(shard))
         self.dcache.invalidate_owners(tokens)
+        with self._clock_mu:
+            self.mutation_clock += 1
         self.dcache.invalidate_owner_uncovered(self._stack_token)
+        # stage_positions ran notify=False: report the shards here (stale
+        # unrepairable results drop, repairable Counts wait for the barrier)
+        RESULT_CACHE.note_mutations(self._stack_token, dirty)
         with self._mu:
             self._dirty_staged.update(dirty)
 

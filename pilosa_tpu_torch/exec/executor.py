@@ -35,6 +35,7 @@ are queued, and every error path releases them too.
 
 from __future__ import annotations
 
+import copy
 import heapq
 import math
 from dataclasses import dataclass, replace
@@ -45,6 +46,7 @@ import torch
 
 from pilosa_tpu_torch.core.field import FIELD_TYPE_BOOL, FIELD_TYPE_INT, FIELD_TYPE_TIME, Field
 from pilosa_tpu_torch.core.fragment import BSI_EXISTS_BIT, BSI_OFFSET_BIT, BSI_SIGN_BIT
+from pilosa_tpu_torch.core import resultcache as rcache
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core import timeq
@@ -233,6 +235,9 @@ class _StackedLowering:
         # stage over the budget guard (the executor's per-shard pass)
         self.over_budget = over_budget
         self.views: Dict[int, Any] = {}
+        # collect mode: (view, row id) of each row operand, (view, None)
+        # of each plane stack
+        self.collected: List[Tuple[Any, Optional[int]]] = []
         # pins on the staged operands' extents, released by the plan
         self.extents = ExtentTable(idx.dcache)
 
@@ -251,6 +256,7 @@ class _StackedLowering:
         if node is None:
             self.views.setdefault(id(view), view)
             if self.collect:
+                self.collected.append((view, row_id))
                 node = PLeaf(0)
             else:
                 self._stack_guard(view)
@@ -270,6 +276,7 @@ class _StackedLowering:
         if key not in self._leaf_memo:
             self.views.setdefault(id(view), view)
             if self.collect:
+                self.collected.append((view, None))
                 self._leaf_memo[key] = 0
             else:
                 self._stack_guard(view, mult=bit_depth)
@@ -530,6 +537,49 @@ def _or(a: PNode, b: PNode) -> PNode:
     return PNary("or", (a, b))
 
 
+# ---------------------------------------------------------------------------
+# The versioned result cache (core/resultcache.py): which calls it takes.
+# A call is cacheable when the (field, view)s it reads are known without
+# reading data: a time range's views depend on the data's bounds and row
+# attrs carry no version, so either makes it ineligible. The rules are
+# the reference's, so both caches count the same hits, misses and repairs.
+# ---------------------------------------------------------------------------
+
+_CACHE_KINDS = {"Count": "count", "TopN": "topn", "GroupBy": "groupby"}
+# args that ask for time-view discovery
+_CACHE_TIME_ARGS = ("from", "to", "_start", "_end")
+# TopN attrName/attrValues/tanimotoThreshold read row attrs or source
+# counts outside the version vector
+_CACHE_TOPN_ARGS = frozenset({"_field", "n", "ids", "threshold"})
+_CACHE_GROUPBY_ARGS = frozenset({"filter", "limit", "offset", "previous"})
+_CACHE_ROWS_ARGS = frozenset({"_field", "field", "limit", "previous", "column"})
+
+
+class _CacheCtx:
+    """One call's cache context: its key, the views it reads and the
+    version vector read before it executes (None: not cacheable this
+    time)."""
+
+    __slots__ = (
+        "key", "kind", "views", "shard_list", "vector", "repair_spec",
+        "dep_rows", "text", "index_name", "clocks", "hit", "hit_result",
+    )
+
+    def __init__(self, key, kind, views, shard_list, text, index_name, repair_spec, dep_rows):
+        self.key = key
+        self.kind = kind
+        self.views = views  # sorted ((field, view), ...)
+        self.shard_list = shard_list
+        self.text = text
+        self.index_name = index_name
+        self.repair_spec = repair_spec
+        self.dep_rows = dep_rows
+        self.vector = None
+        self.clocks = None  # per-view mutation clocks, read before the vector
+        self.hit = False
+        self.hit_result = None
+
+
 class Executor:
     """Single-node executor over a port Holder."""
 
@@ -579,14 +629,38 @@ class Executor:
             j = i
             while j < len(calls) and calls[j].name == "Count" and len(calls[j].children) == 1:
                 j += 1
-            if j - i >= 2:
-                batch = self._execute_count_batch(idx, calls[i:j], shards)
-                if batch is None:
-                    batch = [self._execute_call(idx, cc, shards, opt) for cc in calls[i:j]]
-                results.extend(batch)
+            if j - i >= 2 and self._counts_batchable(opt):
+                # every member looks the cache up first; the hits are
+                # served from host memory and the misses stay batched
+                ctxs = [self._cache_lookup(idx, cc, shards) for cc in calls[i:j]]
+                hit = [cx is not None and cx.hit for cx in ctxs]
+                miss = [(cc, cx) for cc, cx, h in zip(calls[i:j], ctxs, hit) if not h]
+                batch = None
+                if len(miss) >= 2:
+                    batch = self._execute_count_batch(idx, [cc for cc, _ in miss], shards)
+                    if batch is not None:
+                        for (_, cx), r in zip(miss, batch):
+                            self._cache_store(idx, cx, r)
+                it = iter(batch or ())
+                for cc, cx, h in zip(calls[i:j], ctxs, hit):
+                    if h:
+                        results.append(cx.hit_result)
+                    elif batch is not None:
+                        results.append(next(it))
+                    else:
+                        # no stacked form for some child: each call alone
+                        r = self._execute_call(idx, cc, shards, opt)
+                        self._cache_store(idx, cx, r)
+                        results.append(r)
                 i = j
                 continue
-            results.append(self._execute_call(idx, calls[i], shards, opt))
+            cx = self._cache_lookup(idx, calls[i], shards)
+            if cx is not None and cx.hit:
+                results.append(cx.hit_result)
+            else:
+                r = self._execute_call(idx, calls[i], shards, opt)
+                self._cache_store(idx, cx, r)
+                results.append(r)
             i += 1
         resp = QueryResponse(results=results)
         if opt.column_attrs:
@@ -615,7 +689,7 @@ class Executor:
         return [ColumnAttrSet(id=c, attrs=a) for c, a in zip(cols, store.attrs_many(cols)) if a]
 
     def _shards_for(self, idx: Index, shards, call: Optional[Call] = None) -> List[int]:
-        s = list(shards) if shards is not None else (sorted(idx.available_shards()) or [0])
+        s = list(shards) if shards is not None else (idx.shard_list() or [0])
         if call is not None:
             # Shift carries bits into following shards: include them
             k = self._count_shifts(call)
@@ -663,6 +737,368 @@ class Executor:
         if name == "Store":
             return self._execute_store(idx, c, shards)
         return self._execute_bitmap_call(idx, c, shards, opt)
+
+    # ------------------------------------------------------------------
+    # the versioned result cache (core/resultcache.py)
+    # ------------------------------------------------------------------
+
+    def _cache_spec(self, idx: Index, c: Call, shards) -> Optional[_CacheCtx]:
+        """The cache context of one call, or None when it is ineligible.
+        The key is (index scope, post-translation text, shard list,
+        False): the reference's fourth element marks remote legs, which
+        one node never runs."""
+        kind = _CACHE_KINDS.get(c.name)
+        if kind is None or rcache.RESULT_CACHE.budget_bytes <= 0:
+            return None
+        views: List[Tuple[str, str]] = []
+        repair_spec = None
+        try:
+            if kind == "count":
+                if len(c.children) != 1 or c.args:
+                    return None
+                if not self._cache_views(idx, c.children[0], views):
+                    return None
+                repair_spec = self._cache_repair_spec(c.children[0])
+            elif kind == "topn":
+                if not set(c.args) <= _CACHE_TOPN_ARGS or len(c.children) > 1:
+                    return None
+                fname = c.args.get("_field")
+                if not isinstance(fname, str):
+                    return None
+                f = idx.field(fname)
+                if f is None or f.options.type == FIELD_TYPE_TIME:
+                    return None
+                views.append((fname, VIEW_STANDARD))
+                for child in c.children:
+                    if not self._cache_views(idx, child, views):
+                        return None
+            else:  # groupby
+                if not set(c.args) <= _CACHE_GROUPBY_ARGS or not c.children:
+                    return None
+                for child in c.children:
+                    if child.name != "Rows" or not set(child.args) <= _CACHE_ROWS_ARGS:
+                        return None
+                    fname = child.args.get("field") or child.args.get("_field")
+                    if not isinstance(fname, str):
+                        return None
+                    f = idx.field(fname)
+                    if f is None or f.options.type == FIELD_TYPE_TIME:
+                        return None
+                    views.append((fname, VIEW_STANDARD))
+                filt = c.args.get("filter")
+                if isinstance(filt, Call) and not self._cache_views(idx, filt, views):
+                    return None
+            shard_list = tuple(self._shards_for(idx, shards, c))
+        except Exception:  # noqa: BLE001 - eligibility is best effort
+            return None
+        uniq = tuple(sorted(set(views)))
+        if not uniq:
+            return None
+        text = str(c)
+        key = (idx._cache_scope, text, shard_list, False)
+        return _CacheCtx(key, kind, uniq, shard_list, text, idx.name, repair_spec, self._cache_dep_rows(idx, c, kind))
+
+    def _cache_views(self, idx: Index, c: Call, out: list) -> bool:
+        """Collect the (field, view)s a bitmap tree reads; False when they
+        are not known without the data (time ranges, time fields, other
+        call shapes)."""
+        if any(k in c.args for k in _CACHE_TIME_ARGS):
+            return False
+        name = c.name
+        if name in ("Union", "Intersect", "Difference", "Xor", "Shift"):
+            pass
+        elif name in ("Not", "All"):
+            ef = idx.existence_field()
+            if ef is None:
+                return False
+            out.append((ef.name, VIEW_STANDARD))
+        elif name in ("Row", "Range"):
+            conds = c.condition_args()
+            if conds:
+                if len(c.args) != 1 or len(conds) != 1 or c.children:
+                    return False
+                fname = next(iter(conds))
+                f = idx.field(fname)
+                if f is None or f.options.type == FIELD_TYPE_TIME:
+                    return False
+                out.append((fname, f.bsi_view_name()))
+                return True
+            args = [k for k in c.args if not k.startswith("_")]
+            if len(args) != 1 or c.children:
+                return False
+            fname = args[0]
+            rid = c.args[fname]
+            if isinstance(rid, bool) or not isinstance(rid, int):
+                return False
+            f = idx.field(fname)
+            if f is None or f.options.type == FIELD_TYPE_TIME:
+                return False
+            out.append((fname, VIEW_STANDARD))
+            return True
+        else:
+            return False
+        for child in c.children:
+            if not self._cache_views(idx, child, out):
+                return False
+        for v in c.args.values():
+            if isinstance(v, Call) and not self._cache_views(idx, v, out):
+                return False
+        return True
+
+    # the most leaves a repaired tree has: past a few, the host's popcounts
+    # over the patch words cost more than the recompute
+    _REPAIR_MAX_LEAVES = 8
+
+    @staticmethod
+    def _repair_leaf(c: Call) -> Optional[Tuple[str, str, int]]:
+        """A plain translated Row(field=rid), the one repairable leaf."""
+        if c.name != "Row" or c.children or c.condition_args():
+            return None
+        args = [k for k in c.args if not k.startswith("_")]
+        if len(args) != 1:
+            return None
+        rid = c.args[args[0]]
+        if isinstance(rid, bool) or not isinstance(rid, int):
+            return None
+        return (args[0], VIEW_STANDARD, rid)
+
+    @classmethod
+    def _cache_repair_spec(cls, c: Call):
+        """("and" | "or", leaves) for a Count over one plain Row or a pure
+        Intersect/Union of 2-8 of them: monotone under set-only bursts,
+        so the merged word delta patches the cached count."""
+        lf = cls._repair_leaf(c)
+        if lf is not None:
+            return ("and", (lf,))
+        if c.name not in ("Intersect", "Union") or c.args:
+            return None
+        if not 2 <= len(c.children) <= cls._REPAIR_MAX_LEAVES:
+            return None
+        leaves = []
+        for ch in c.children:
+            lf = cls._repair_leaf(ch)
+            if lf is None:
+                return None
+            leaves.append(lf)
+        return ("and" if c.name == "Intersect" else "or", tuple(leaves))
+
+    def _cache_dep_rows(self, idx: Index, c: Call, kind: str):
+        """{(field, view): frozenset(rows) | None}: the rows the result
+        depends on per view (None: every row). A burst that touched none
+        of them re-keys the entry without recompute."""
+        deps: Dict[Tuple[str, str], Optional[set]] = {}
+
+        def dep_all(fname, vname) -> None:
+            deps[(fname, vname)] = None
+
+        def dep_row(fname, vname, rid) -> None:
+            cur = deps.get((fname, vname), set())
+            if cur is not None:
+                cur.add(rid)
+                deps[(fname, vname)] = cur
+
+        def walk(call: Call) -> None:
+            lf = self._repair_leaf(call)
+            if lf is not None:
+                dep_row(*lf)
+                return
+            if call.name in ("Row", "Range"):
+                conds = call.condition_args()
+                fname = next(iter(conds)) if conds else None
+                f = idx.field(fname) if fname else None
+                dep_all(fname, f.bsi_view_name() if f is not None else "")
+                return
+            if call.name in ("Not", "All"):
+                ef = idx.existence_field()
+                dep_all(ef.name if ef is not None else "", VIEW_STANDARD)
+            for child in call.children:
+                walk(child)
+            for v in call.args.values():
+                if isinstance(v, Call):
+                    walk(v)
+
+        try:
+            if kind == "count":
+                walk(c.children[0])
+            elif kind == "topn":
+                dep_all(c.args["_field"], VIEW_STANDARD)  # the tally reads every row
+                for child in c.children:
+                    walk(child)
+            else:  # each Rows() enumerates every row of its field
+                for child in c.children:
+                    dep_all(child.args.get("field") or child.args.get("_field"), VIEW_STANDARD)
+                filt = c.args.get("filter")
+                if isinstance(filt, Call):
+                    walk(filt)
+        except Exception:  # noqa: BLE001 - the map is an optimization
+            return None
+        if not deps:
+            return None
+        return {k: (frozenset(v) if v is not None else None) for k, v in deps.items()}
+
+    def version_vector(self, idx: Index, views, shard_list) -> tuple:
+        """The fragment-version vector of `views` over `shard_list`: one
+        ("v", "", field, view, view token, shards, versions) element a
+        view, ("m", ...) for a missing field or view. Lock-free monotonic
+        reads: every mutation bumps its fragment's version."""
+        vec = []
+        for fname, vname in views:
+            f = idx.field(fname)
+            if f is None:
+                vec.append(("m", "", fname, ""))
+                continue
+            v = f.view(vname)
+            if v is None:
+                vec.append(("m", "", fname, vname))
+                continue
+            frags = v.fragments
+            versions = tuple(fr.version if (fr := frags.get(s)) is not None else -1 for s in shard_list)
+            vec.append(("v", "", fname, vname, v._stack_token, tuple(shard_list), versions))
+        return tuple(vec)
+
+    def clock_vector(self, idx: Index, views) -> tuple:
+        """One mutation clock a view: equal clocks imply equal versions,
+        so a warm repeat never walks the shard axis."""
+        vec = []
+        for fname, vname in views:
+            f = idx.field(fname)
+            if f is None:
+                vec.append(("m", "", fname, ""))
+                continue
+            v = f.view(vname)
+            if v is None:
+                vec.append(("m", "", fname, vname))
+                continue
+            vec.append(("c", v._stack_token, v.mutation_clock))
+        return tuple(vec)
+
+    def _cache_lookup(self, idx: Index, c: Call, shards) -> Optional[_CacheCtx]:
+        """Look one call up. None: ineligible; else a context whose `hit`
+        is set when the stored result revalidated, or was repaired or
+        re-keyed by the read barrier this lookup ran."""
+        ctx = self._cache_spec(idx, c, shards)
+        if ctx is None:
+            return None
+        RC = rcache.RESULT_CACHE
+        # clocks first: a write racing the reads leaves the fast path
+        # disarmed, never stale
+        clocks = ctx.clocks = self.clock_vector(idx, ctx.views)
+        found, res = RC.get_by_clock(ctx.key, clocks)
+        if found:
+            ctx.hit, ctx.hit_result = True, res
+            return ctx
+        ctx.vector = self.version_vector(idx, ctx.views, ctx.shard_list)
+        # a miss is counted at the end: a repaired serve is one hit
+        found, res = RC.get(ctx.key, ctx.vector, recount=False)
+        if found:
+            RC.refresh_clocks(ctx.key, clocks)
+        elif (ctx.repair_spec is not None or ctx.dep_rows is not None) and RC.repairable(ctx.key):
+            # the read barrier merges the staged bursts; note_merges then
+            # patches or re-keys the entry, served with no dispatch
+            clocks = ctx.clocks = self.clock_vector(idx, ctx.views)
+            self._cache_barrier(idx, ctx)
+            ctx.vector = self.version_vector(idx, ctx.views, ctx.shard_list)
+            found, res = RC.get(ctx.key, ctx.vector, recount=False)
+            if found:
+                RC.refresh_clocks(ctx.key, clocks)
+        if found:
+            ctx.hit, ctx.hit_result = True, res
+        else:
+            RC.count_miss()
+        return ctx
+
+    def _cache_barrier(self, idx: Index, ctx: _CacheCtx) -> None:
+        """The read barrier over the call's views (the one execution runs
+        first), so staged bursts merge and the repair hook fires."""
+        for fname, vname in ctx.views:
+            f = idx.field(fname)
+            v = f.view(vname) if f is not None else None
+            if v is not None:
+                try:
+                    v.sync_pending(shards=ctx.shard_list)
+                except Exception:  # noqa: BLE001 - best effort here
+                    return
+
+    def _cache_store(self, idx: Index, ctx: Optional[_CacheCtx], result) -> None:
+        """Store a computed result if the versions after execution equal
+        the ones before it (execution moves no version, so a difference
+        is a write that landed mid-query)."""
+        if ctx is None or ctx.vector is None or result is None:
+            return
+        if self.version_vector(idx, ctx.views, ctx.shard_list) != ctx.vector:
+            return
+        rcache.RESULT_CACHE.put(
+            ctx.key, ctx.kind, ctx.index_name, ctx.text, result, ctx.vector,
+            repair_spec=ctx.repair_spec, dep_rows=ctx.dep_rows, clocks=ctx.clocks,
+        )
+
+    def _counts_batchable(self, opt: ExecOptions) -> bool:
+        """Whether a run of adjacent Counts may evaluate as one multi-root
+        plan (always, on one node)."""
+        return True
+
+    def count_lowering_class(self, index_name: str, query) -> str:
+        """The lowering a pure-Count query's batch round rides, the Count
+        batcher's `classify` hook: "local" on one node (the reference also
+        tells mesh-group and fan-out Counts apart)."""
+        return "local"
+
+    # ------------------------------------------------------------------
+    # prefetch (hbm/prefetch.py)
+    # ------------------------------------------------------------------
+
+    _WARM_BITMAP = frozenset({"Row", "Range", "Union", "Intersect", "Difference", "Xor", "Not", "All", "Shift"})
+
+    def warm(self, index_name: str, query, shards=None) -> int:
+        """Stage a query's operand extents without dispatching: the
+        prefetcher runs it while another query's kernels hold the card.
+        A tree whose row operands are all resident, with no staged write
+        to merge, is skipped before lowering (a walk of the call tree and
+        the cache's keys: no pin, no copy). Its copies go on the device's
+        default stream, the one every kernel launches on, so a launch
+        that reads a warmed extent is ordered after the copy. Takes no
+        dispatch lock, pins nothing past its return and never raises.
+        Returns the call trees warmed."""
+        warmed = 0
+        try:
+            idx = self.holder.index(index_name)
+            if idx is None:
+                return 0
+            q = copy.deepcopy(query) if isinstance(query, Query) else parse(str(query))
+            translation.translate_query(idx, q)
+            for c in q.calls:
+                child = None
+                if c.name == "Count" and len(c.children) == 1:
+                    child = c.children[0]
+                elif c.name in self._WARM_BITMAP:
+                    child = c
+                if child is None:
+                    continue
+                try:
+                    shard_list = self._shards_for(idx, shards, child)
+                    if self._operands_resident(idx, child, shard_list):
+                        continue
+                    plans = self._lower_plans(idx, child, shard_list)
+                except Exception:  # noqa: BLE001 - warming is best effort
+                    continue
+                if plans:
+                    for sp in plans:
+                        sp.release_extents()
+                    warmed += 1
+        except Exception:  # noqa: BLE001 - warming never raises
+            pass
+        return warmed
+
+    def _operands_resident(self, idx: Index, call: Call, shard_list) -> bool:
+        """Whether every operand of the tree is a row whose extents are
+        cached with nothing staged to merge (View.row_resident). False
+        where unsure: a plane stack, or a tree the walk cannot take."""
+        try:
+            probe = _StackedLowering(self, idx, shard_list, collect=True)
+            probe.lower(call)
+        except Exception:  # noqa: BLE001 - the lowering will say
+            return False
+        return all(rid is not None and v.row_resident(rid, shard_list) for v, rid in probe.collected)
 
     # ------------------------------------------------------------------
     # lowering

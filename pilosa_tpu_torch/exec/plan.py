@@ -5,7 +5,8 @@ The port of pilosa_tpu/exec/plan.py. The executor lowers a bitmap call
 tree to a small static tree of plan nodes over operand stacks; this module
 evaluates it:
 
-- count / total / shard_counts run the plan_count kernel: the tree is
+- count / total / shard_counts run the plan_count kernel, and a
+  MultiCountPlan's roots one plan_count_multi launch: the tree is
   compiled to a postfix program over any number of leaf stacks and
   evaluated word by word on the card with nothing intermediate written to
   memory, giving exact int64 per-shard counts. `total` sums them on the
@@ -376,10 +377,55 @@ class StackedPlan(_Pinned):
         return self.rows_full()[: self.n_shards]
 
 
+def _multi_counts(roots: Sequence[PNode], operands, n_shards: int) -> torch.Tensor:
+    """int64[N, n_shards] per-shard counts of several roots, on the
+    device: every root but a Shift root in one plan_count_multi launch
+    (more only where the distinct leaves outgrow one launch's shared
+    memory), each leaf read once for all of them; range and Shift
+    subtrees are computed once for every root that holds them (one
+    memo). A Shift root is counted by its own plan_rows launch, and a
+    root that alone reads more leaves than a launch holds by its own
+    plan_count launch, as in _root_counts."""
+    memo: Dict[int, torch.Tensor] = {}
+    leaves: List[torch.Tensor] = []
+    slot_of: Dict[int, int] = {}
+    progs: List[List[int]] = []
+    which: List[int] = []
+    out: List[Optional[torch.Tensor]] = [None] * len(roots)
+    for r, root in enumerate(roots):
+        if isinstance(root, PShift):
+            out[r] = _rows(root, operands, memo)[1][:n_shards]
+            continue
+        own, _, prog = _compile(root, operands, memo)
+        if own and not kernels.fits_multi(prog):
+            out[r] = kernels.plan_count(own, prog, n_shards)
+            continue
+        remap = []
+        for t in own:
+            i = slot_of.get(id(t))
+            if i is None:
+                i = slot_of[id(t)] = len(leaves)
+                leaves.append(t)
+            remap.append(i)
+        progs.append([remap[i] if i >= 0 else i for i in prog])
+        which.append(r)
+    if progs:
+        if leaves:
+            counts = kernels.plan_count_multi(leaves, progs, n_shards)
+        else:  # every such root is all-zero
+            counts = torch.zeros((len(progs), n_shards), dtype=torch.int64, device=operands[0].device)
+        for k, r in enumerate(which):
+            out[r] = counts[k]
+    return torch.stack(out) if len(which) < len(roots) else counts
+
+
 class MultiCountPlan(_Pinned):
     """Several lowered roots over one shared operand set: a multi-Count
-    query as one dispatch (one kernel launch per root) and one [N, S] host
-    read."""
+    query as one dispatch (one plan_count_multi launch for all roots but
+    Shift roots) and one [N, S] host read. The reference pads a batch to
+    a power of two with all-zero roots so XLA compiles one program per
+    size family; a hand-written kernel has no compile cache to serve, so
+    the port runs exactly the roots it is given."""
 
     __slots__ = ("roots", "operands", "n_shards", "out_shards", "extents")
 
@@ -393,7 +439,7 @@ class MultiCountPlan(_Pinned):
     def _counts(self) -> torch.Tensor:
         STATS["evals"] += 1
         try:
-            return torch.stack([_root_counts(r, self.operands, self.n_shards) for r in self.roots])
+            return _multi_counts(self.roots, self.operands, self.n_shards)
         finally:
             self.release_extents()
 

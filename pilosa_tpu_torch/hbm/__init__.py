@@ -2,10 +2,11 @@
 
 The layer between core and exec: core/devcache.py is the byte ledger
 (LRU, pins, shard coverage); this package decides what it holds for the
-stacked query path. The reference's prefetcher is not ported yet: the
-admission queue that feeds it comes with the scheduler.
+stacked query path; hbm/prefetch.py stages queued queries' operands in
+the background (fed by sched/admission.py).
 """
 
+from pilosa_tpu_torch.hbm.prefetch import Prefetcher
 from pilosa_tpu_torch.hbm.residency import (
     ExtentTable,
     configure,
@@ -17,6 +18,7 @@ from pilosa_tpu_torch.hbm.residency import (
 
 __all__ = [
     "ExtentTable",
+    "Prefetcher",
     "configure",
     "extent_rows",
     "stage_plane_stack",

@@ -27,14 +27,17 @@ a one-extent stack is the cached entry itself. No query result aliases
 an operand (row-mode plans write a fresh stack, exec/plan.py), so none
 outlives its pin on an entry a barrier may patch in place. The counters `assemblies`
 and `assembly_bytes` count the joins. Kernels that read extents through
-pointer tables, with no join, are later work. Prefetch is not ported:
-it is fed by an admission queue the port does not have yet.
+pointer tables, with no join, are later work. The prefetcher
+(hbm/prefetch.py) stages a waiting query's extents through this layer
+under `prefetching()`: what it stages counts as `prefetch_staged`, and a
+query's later hit on such an extent as a `prefetch_hit`.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, List, Optional, Tuple
+from contextlib import contextmanager
+from typing import Callable, Dict, Iterator, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -56,7 +59,41 @@ _counters: Dict[str, int] = {
     "patch_keys": 0,  # merged keys those launches ORed into entries
     "assemblies": 0,  # torch.cat joins of extents into one operand
     "assembly_bytes": 0,  # bytes those joins wrote
+    "prefetch_staged": 0,  # extents the prefetcher staged
+    "prefetch_hits": 0,  # query stagings that found one of them resident
 }
+# extents the prefetcher staged that no query has hit yet
+_prefetched_keys: Set[Tuple] = set()
+_tls = threading.local()
+
+
+@contextmanager
+def prefetching() -> Iterator[None]:
+    """Mark this thread as the prefetch worker while the block runs."""
+    _tls.active = True
+    try:
+        yield
+    finally:
+        _tls.active = False
+
+
+def _in_prefetch() -> bool:
+    return getattr(_tls, "active", False)
+
+
+def _note_acquired(key: Tuple, built: bool) -> None:
+    """Book a prefetcher's staging, or a query's hit on one."""
+    if _in_prefetch():
+        if built:
+            with _stats_mu:
+                _counters["prefetch_staged"] += 1
+                _prefetched_keys.add(key)
+        return
+    if not built:
+        with _stats_mu:
+            if key in _prefetched_keys:
+                _prefetched_keys.discard(key)
+                _counters["prefetch_hits"] += 1
 
 
 def configure(extent_rows: Optional[int] = None, pin_timeout: Optional[float] = None) -> None:
@@ -83,6 +120,7 @@ def reset_stats() -> None:
     with _stats_mu:
         for k in _counters:
             _counters[k] = 0
+        _prefetched_keys.clear()
 
 
 def stats_snapshot(cache: Optional[DeviceCache] = None) -> Dict[str, int]:
@@ -152,15 +190,19 @@ def _stage(
     hi) gives the host words of shard positions [lo, hi). Every entry
     ends pinned once, the pin owned by `table` or released here."""
     rows = _extent_rows
+    keys = _extent_keys(key_base, n_shards, versions)
+    fresh: Set[Tuple] = set()
 
-    def built(lo: int, hi: int) -> torch.Tensor:
+    def built(lo: int, hi: int, key: Tuple) -> torch.Tensor:
         arr = from_host(build_slice(lo, hi), device)
         _bump("restage_bytes", arr.numel() * 4)
+        fresh.add(key)
         return arr
 
-    if rows <= 0 or n_shards <= rows:
-        key = key_base if versions is None else key_base + ("mono", versions)
-        arr = cache.get_or_build(key, lambda: built(0, n_shards), extent=True, pin=True, shards=shards)
+    if len(keys) == 1:
+        key = keys[0]
+        arr = cache.get_or_build(key, lambda: built(0, n_shards, key), extent=True, pin=True, shards=shards)
+        _note_acquired(key, key in fresh)
         if table is not None:
             table.add([key])
         else:
@@ -168,16 +210,12 @@ def _stage(
         return arr
 
     spans = [(lo, min(lo + rows, n_shards)) for lo in range(0, n_shards, rows)]
-    keys = [
-        key_base + ("ext", rows, i) + (() if versions is None else (versions[lo:hi],))
-        for i, (lo, hi) in enumerate(spans)
-    ]
     # pass 1: pin every resident extent before building a missing one
-    resident = [cache.pin_if_present(k) for k in keys]
-    held = [k for k, r in zip(keys, resident) if r]
+    pinned = [cache.pin_if_present(k) for k in keys]
+    held = [k for k, r in zip(keys, pinned) if r]
     parts: List[torch.Tensor] = []
     try:
-        for (lo, hi), key, was_resident in zip(spans, keys, resident):
+        for (lo, hi), key, was_resident in zip(spans, keys, pinned):
             arr = cache.get(key) if was_resident else None
             if was_resident and arr is None:
                 # invalidated between the pin and the get: rebuild
@@ -186,12 +224,13 @@ def _stage(
             if arr is None:
                 arr = cache.get_or_build(
                     key,
-                    lambda lo=lo, hi=hi: built(lo, hi),
+                    lambda lo=lo, hi=hi, key=key: built(lo, hi, key),
                     extent=True,
                     pin=True,
                     shards=None if shards is None else shards[lo:hi],
                 )
                 held.append(key)
+            _note_acquired(key, key in fresh)
             parts.append(arr)
     except BaseException:
         cache.unpin_all(held)
@@ -208,6 +247,24 @@ def _stage(
         return out
     finally:
         cache.unpin_all(held)
+
+
+def _extent_keys(key_base: Tuple, n_shards: int, versions: Optional[Tuple[int, ...]]) -> List[Tuple]:
+    """The cache keys of an operand's extents: one whole-stack key, or
+    one a run of _extent_rows shards."""
+    rows = _extent_rows
+    if rows <= 0 or n_shards <= rows:
+        return [key_base if versions is None else key_base + ("mono", versions)]
+    return [
+        key_base + ("ext", rows, i) + (() if versions is None else (versions[lo : lo + rows],))
+        for i, lo in enumerate(range(0, n_shards, rows))
+    ]
+
+
+def resident(cache: DeviceCache, key_base: Tuple, n_shards: int, versions: Optional[Tuple[int, ...]] = None) -> bool:
+    """Whether staging this operand would copy nothing: every extent is
+    cached. Pins nothing."""
+    return cache.contains_all(_extent_keys(key_base, n_shards, versions))
 
 
 def stage_row_stack(

@@ -17,6 +17,8 @@
 //   rows_counts_kernel pilosa_tpu/ops/pallas_kernels.py _rows_counts
 //   plan_count_kernel  pilosa_tpu/exec/plan.py _eval_jit/_eval_multi_jit +
 //                      _root_out ("count" mode), an XLA program
+//   plan_count_multi_kernel pilosa_tpu/exec/plan.py _eval_multi_jit +
+//                      _root_out ("count" mode): N roots, one launch
 //   plan_rows_kernel   pilosa_tpu/exec/plan.py _eval_jit ("row" mode) with
 //                      pilosa_tpu/ops/bitmap.py shift_bits, an XLA program
 //   gather_tally_kernel pilosa_tpu/ops/bitmap.py gather_tally_sorted, an
@@ -498,6 +500,139 @@ plan_count_kernel(const int64_t* __restrict__ meta, int32_t n_push, int32_t n_co
 }
 
 // ---------------------------------------------------------------------------
+// plan_count_multi: N plan roots over one shared leaf set in one launch,
+// per-root per-shard counts.
+// ---------------------------------------------------------------------------
+//
+// Replaces pilosa_tpu/exec/plan.py _eval_multi_jit (with _root_out in
+// "count" mode), an XLA program that evaluates several roots with one
+// memo, so an operand shared by roots is read from HBM once a dispatch.
+//
+// Bound: bytes. Each distinct leaf is read once a launch and the [N, S]
+// counts written once; the roots' programs run over shared memory.
+//
+// Design. Work items are (shard, tile) pairs, a tile being kMultiThreads
+// uint4 of a row. For each item thread 0 issues one TMA bulk copy per
+// distinct leaf into that leaf's slot of a shared-memory buffer, all
+// completing on the buffer's `full` barrier; every root's micro program
+// (plan_count's, with the leaf's slot in the code's high bits) then runs
+// over the slots, each thread on its own uint4 column. With `nbuf` 2 the
+// next item's copies land while this one is evaluated; a buffer is
+// refilled only after the block's __syncthreads past its last read. Each
+// root's popcount is summed per warp and added into a shared 64-bit
+// counter; at a shard change (and at the end) the counters go to
+// out[root * shards + shard] with one atomic each. The host groups the
+// roots so each launch's distinct leaves, its deepest stack and its
+// table fit the shared memory (ops/kernels.py plan_count_multi).
+constexpr int kMultiThreads = 128;
+constexpr int kMultiMaxRoots = 64;
+// the card's 227 KiB a block less 1 KiB for the static counters and barriers
+constexpr int kMultiMaxDynSmem = 226 * 1024;
+constexpr int kMultiMetaSmemBytes = 16384;
+
+__global__ void __launch_bounds__(kMultiThreads)
+plan_count_multi_kernel(const int64_t* __restrict__ meta, int32_t n_leaf, int32_t n_root,
+                        int32_t n_code, int32_t stack_slots, int32_t nbuf, int32_t meta_in_smem,
+                        int64_t w4, int64_t tiles, int64_t n_items, int64_t shards,
+                        unsigned long long* __restrict__ out) {
+  constexpr int T = kMultiThreads;
+  extern __shared__ uint4 smem[];
+  __shared__ unsigned long long cnt[kMultiMaxRoots];
+  __shared__ uint64_t full[2];
+  int64_t lo, hi;
+  block_items(n_items, &lo, &hi);
+  if (lo >= hi || n_leaf == 0) return;  // no leaf: every root is zero, as the table copy left it
+  const int tid = threadIdx.x;
+  uint4* bufs = smem;                                  // [nbuf][n_leaf][T]
+  uint4* stack = smem + (int64_t)nbuf * n_leaf * T;    // [stack_slots][T]
+  const int n_meta = n_leaf + n_root + 1 + n_code;
+  const int64_t* m = meta;
+  if (meta_in_smem) {
+    int64_t* sm = reinterpret_cast<int64_t*>(stack + (int64_t)stack_slots * T);
+    for (int i = tid; i < n_meta; i += T) sm[i] = meta[i];
+    m = sm;
+  }
+  if (tid < n_root) cnt[tid] = 0ull;
+  if (tid == 0) {
+    for (int b = 0; b < nbuf; ++b) mbar_init(&full[b], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int64_t* leaf_ptr = m;
+  const int64_t* root_start = m + n_leaf;
+  const int64_t* code = m + n_leaf + n_root + 1;
+
+  auto issue = [&](int64_t item, int b) {  // thread 0: item's tiles into buffer b
+    const int64_t s = item / tiles;
+    const int64_t col = (item - s * tiles) * T;
+    const int64_t rest = w4 - col;
+    const uint32_t bytes = (uint32_t)((rest < T ? rest : T) * sizeof(uint4));
+    mbar_expect_tx(&full[b], bytes * (uint32_t)n_leaf);
+    for (int l = 0; l < n_leaf; ++l) {
+      const uint4* src = reinterpret_cast<const uint4*>(leaf_ptr[l]) + s * w4 + col;
+      bulk_copy(bufs + ((int64_t)b * n_leaf + l) * T, src, bytes, &full[b]);
+    }
+  };
+  auto flush = [&](int64_t s) {
+    __syncthreads();
+    if (tid < n_root) {
+      const unsigned long long v = cnt[tid];
+      if (v != 0ull) atomicAdd(out + (int64_t)tid * shards + s, v);
+      cnt[tid] = 0ull;
+    }
+    __syncthreads();
+  };
+  if (tid == 0) {
+    for (int b = 0; b < nbuf && lo + b < hi; ++b) issue(lo + b, b);
+  }
+
+  int64_t cur = lo / tiles;
+  int64_t k = 0;
+  for (int64_t item = lo; item < hi; ++item, ++k) {
+    const int64_t s = item / tiles;
+    if (s != cur) {
+      flush(cur);
+      cur = s;
+    }
+    const int b = (int)(k % nbuf);
+    mbar_wait(&full[b], (uint32_t)((k / nbuf) & 1));
+    // past the row's end the buffer holds stale bytes: read zeros there
+    const bool valid = (item - s * tiles) * T + tid < w4;
+    const uint4* tile = bufs + (int64_t)b * n_leaf * T + tid;
+    for (int r = 0; r < n_root; ++r) {
+      const int pc0 = (int)root_start[r], pc1 = (int)root_start[r + 1];
+      uint4 top = make_uint4(0u, 0u, 0u, 0u);
+      int sp = 0;  // entries below top, in stack[0, sp)
+      for (int pc = pc0; pc < pc1; ++pc) {
+        const int64_t c = code[pc];
+        const int kind = (int)((c >> 3) & 7), op = (int)(c & 7);
+        if (kind == M_STACK_OP) {
+          --sp;
+          top = binop(op, stack[sp * T + tid], top);
+          continue;
+        }
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if ((kind == M_PUSH || kind == M_LEAF_OP) && valid) v = tile[(c >> 6) * T];
+        if (kind >= M_LEAF_OP) {
+          top = binop(op, top, v);
+        } else {
+          if (pc > pc0) {  // every push but the first has a value under it
+            stack[sp * T + tid] = top;
+            ++sp;
+          }
+          top = v;
+        }
+      }
+      const uint32_t n = warp_sum(popc4(top));
+      if ((tid & 31) == 0 && n != 0u) atomicAdd(&cnt[r], (unsigned long long)n);
+    }
+    __syncthreads();  // every thread is past its reads of buffer b
+    if (tid == 0 && item + nbuf < hi) issue(item + nbuf, b);
+  }
+  flush(cur);
+}
+
+// ---------------------------------------------------------------------------
 // plan_rows: the same postfix program, storing the result words of every
 // stack row and each row's popcount, with Shift as a kind of push.
 // ---------------------------------------------------------------------------
@@ -942,6 +1077,49 @@ PT_EXPORT int pt_plan_count(const void* host_table, int64_t table_bytes, void* d
     return launch_plan_count<2>(meta, shards, n_push, n_code, stack_slots, w, out, st);
   }
   return launch_plan_count<1>(meta, shards, n_push, n_code, stack_slots, w, out, st);
+}
+
+// `host_table` (pinned) holds n_root * shards zeros (the [N, S] output),
+// then the n_leaf distinct leaf pointers, the n_root + 1 offsets of each
+// root's codes, and the n_code micro program entries of every root, each
+// code plan_count's kind * 8 + op plus 64 * the leaf slot it reads. The
+// caller has built them from checked programs, checked alignment and
+// w % 4 == 0, and grouped the roots so that n_leaf + stack_slots slots
+// of kMultiThreads uint4 fit kMultiMaxDynSmem beside a meta table of up
+// to kMultiMetaSmemBytes (larger tables are read from device memory).
+PT_EXPORT int pt_plan_count_multi(const void* host_table, int64_t table_bytes, void* dev_table,
+                                  int64_t shards, int64_t n_root, int64_t n_leaf,
+                                  int64_t n_code, int64_t stack_slots, int64_t w, void* stream) {
+  const int64_t tile_bytes = (int64_t)kMultiThreads * sizeof(uint4);
+  if (shards < 1 || n_root < 1 || n_root > kMultiMaxRoots || n_leaf < 0 || n_code < n_root ||
+      stack_slots < 0 || stack_slots >= kMaxStack || w < 4 || w % 4 != 0 ||
+      (n_leaf + stack_slots) * tile_bytes + kMultiMetaSmemBytes > kMultiMaxDynSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cudaMemcpyAsync(dev_table, host_table, table_bytes, cudaMemcpyHostToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+  if (n_leaf == 0) return (int)cudaGetLastError();  // every root is zero
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      plan_count_multi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMultiMaxDynSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  auto* out = static_cast<unsigned long long*>(dev_table);
+  const int64_t* meta = static_cast<const int64_t*>(dev_table) + n_root * shards;
+  const int64_t w4 = w / 4;
+  const int64_t tiles = (w4 + kMultiThreads - 1) / kMultiThreads;
+  const int64_t n_meta = n_leaf + n_root + 1 + n_code;
+  const int meta_in_smem = n_meta * (int64_t)sizeof(int64_t) <= kMultiMetaSmemBytes;
+  const size_t meta_smem = meta_in_smem ? (size_t)n_meta * sizeof(int64_t) : 0;
+  // double-buffer while two buffers still leave room for two blocks an SM
+  const int nbuf = (2 * n_leaf + stack_slots) * tile_bytes + (int64_t)meta_smem <= 100 * 1024 ? 2 : 1;
+  const size_t smem = (size_t)(nbuf * n_leaf + stack_slots) * tile_bytes + meta_smem;
+  const int64_t n_items = shards * tiles;
+  const int grid = resident_grid(plan_count_multi_kernel, smem, n_items, kMultiThreads);
+  plan_count_multi_kernel<<<grid, kMultiThreads, smem, st>>>(
+      meta, (int32_t)n_leaf, (int32_t)n_root, (int32_t)n_code, (int32_t)stack_slots, nbuf,
+      meta_in_smem, w4, tiles, n_items, shards, out);
+  return (int)cudaGetLastError();
 }
 
 // `host_table` (pinned) holds `rows` zeros (the per-row counts), then per

@@ -16,6 +16,8 @@ failed build or launch raises.
 |                   | `popcount` are its one-segment case)                |
 | `rows_counts`     | pallas_kernels.py `_rows_counts`                    |
 | `plan_count`      | exec/plan.py `_eval_jit`/`_root_out` (XLA program)  |
+| `plan_count_multi`| exec/plan.py `_eval_multi_jit`/`_root_out`: N roots |
+|                   | over one shared leaf set in one launch              |
 | `plan_rows`       | exec/plan.py `_eval_jit(plan, "row")` with          |
 |                   | ops/bitmap.py `shift_bits` (XLA program)            |
 | `gather_tally`    | ops/bitmap.py `gather_tally_sorted` (XLA program)   |
@@ -44,7 +46,8 @@ name keyed by a hash of the sources and flags, and loaded with ctypes
 and `popcount` launches count under `count2`: one kernel template serves
 them all); only the CUDA route counts.
 
-`count2_segments`, `plan_count`, `plan_rows` and `or_bits` take a table built on the
+`count2_segments`, `plan_count`, `plan_count_multi`, `plan_rows` and `or_bits`
+take a table built on the
 host for each launch (segment pointers and lengths; leaf pointers and the
 micro program; key chunks). It goes through `_Staging`, a ring of pinned host slots: the C
 entry point copies the slot to the card asynchronously on the launch
@@ -89,6 +92,7 @@ LAUNCHES = {
     "count2": 0,
     "rows_counts": 0,
     "plan_count": 0,
+    "plan_count_multi": 0,
     "plan_rows": 0,
     "gather_tally": 0,
     "counts_cross": 0,
@@ -206,6 +210,7 @@ class _Library:
             "pt_count2": [p, i64, p, i64, i64, i32, p],
             "pt_rows_counts": [p, i64, i64, p, i64, i32, p, p],
             "pt_plan_count": [p, i64, p, i64, i64, i64, i64, i64, p],
+            "pt_plan_count_multi": [p, i64, p, i64, i64, i64, i64, i64, i64, p],
             "pt_plan_rows": [p, i64, p, i64, i64, i64, i64, i64, p, p],
             "pt_gather_tally": [p, i64, p, p, i64, p, p, i64, p, p],
             "pt_counts_cross": [p, i64, p, i64, i64, i64, i32, p, p],
@@ -593,6 +598,154 @@ def plan_count(
     )
     _launched("plan_count", rc)
     return table[:shards]
+
+
+# ---------------------------------------------------------------------------
+# plan_count_multi  (exec/plan.py _eval_multi_jit + _root_out "count")
+# ---------------------------------------------------------------------------
+
+# mirrors bitmap_kernels.cu: threads a block, roots a launch, the shared
+# memory a launch may take and the part of it kept for the table
+MULTI_THREADS = 128
+MULTI_MAX_ROOTS = 64
+MULTI_SMEM_BYTES = 226 * 1024
+MULTI_META_SMEM_BYTES = 16384
+# one leaf tile (or stack entry) in shared memory
+MULTI_TILE_BYTES = MULTI_THREADS * 16
+# code bits below the leaf slot (kind * 8 + op < 64)
+_MULTI_SLOT_SHIFT = 6
+
+
+def plan_count_multi_plain(
+    leaves: Sequence[torch.Tensor], progs: Sequence[Sequence[int]], shards: int
+) -> torch.Tensor:
+    return torch.stack([plan_count_plain(leaves, p, shards) for p in progs])
+
+
+def _multi_slots(prog: Sequence[int]) -> int:
+    """Shared-memory slots a root takes in a plan_count_multi launch: its
+    distinct leaves and its stack entries."""
+    _, pushes, slots = plan_micro_program(prog)
+    return len(set(pushes)) + slots
+
+
+# the slots one launch holds beside its table
+MULTI_CAP = (MULTI_SMEM_BYTES - MULTI_META_SMEM_BYTES) // MULTI_TILE_BYTES
+
+
+def fits_multi(prog: Sequence[int]) -> bool:
+    """Whether a root fits a plan_count_multi launch at all. One that
+    reads more distinct leaves than a launch's shared memory holds is a
+    single-root program: plan_count streams any number of leaves."""
+    return _multi_slots(prog) <= MULTI_CAP
+
+
+def plan_count_multi_groups(progs: Sequence[Sequence[int]]) -> List[List[int]]:
+    """The roots (indices into `progs`) of each plan_count_multi launch,
+    in order: as few groups as fit one launch each, a group holding at
+    most MULTI_MAX_ROOTS roots whose distinct leaves and deepest stack
+    take at most MULTI_SMEM_BYTES beside the table's share. Decided from
+    each root's micro program (the leaves its pushes read, the stack
+    entries it needs)."""
+    cap = MULTI_CAP
+    groups: List[List[int]] = []
+    cur: List[int] = []
+    cur_leaves: set = set()
+    cur_stack = 0
+    for r, prog in enumerate(progs):
+        _, pushes, slots = plan_micro_program(prog)
+        leaves = set(pushes)
+        if len(leaves) + slots > cap:
+            raise ValueError(f"plan_count_multi: a root reads {len(leaves)} leaves, more than one launch holds")
+        union = cur_leaves | leaves
+        stack = max(cur_stack, slots)
+        if cur and (len(cur) == MULTI_MAX_ROOTS or len(union) + stack > cap):
+            groups.append(cur)
+            cur, union, stack = [], leaves, slots
+        cur.append(r)
+        cur_leaves, cur_stack = union, stack
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def plan_count_multi_tables(
+    progs: Sequence[Sequence[int]],
+) -> List[Tuple[List[int], List[int], List[int], List[int], int]]:
+    """What each plan_count_multi launch is given, in launch order: (its
+    roots, indices into `progs`; the leaf, an index into the leaves, of
+    each shared-memory slot; each root's first code, then the end; the
+    codes, plan_micro_program's with the slot of each push in the bits
+    from _MULTI_SLOT_SHIFT up; the deepest stack of its roots)."""
+    out = []
+    for group in plan_count_multi_groups(progs):
+        slot_of: dict = {}
+        starts = [0]
+        codes: List[int] = []
+        stack = 0
+        for r in group:
+            micro, pushes, slots = plan_micro_program(progs[r])
+            stack = max(stack, slots)
+            j = 0
+            for c in micro:
+                if c >> 3 in (MICRO_KINDS["push"], MICRO_KINDS["leaf_op"]):
+                    c += slot_of.setdefault(pushes[j], len(slot_of)) << _MULTI_SLOT_SHIFT
+                    j += 1
+                codes.append(c)
+            starts.append(len(codes))
+        out.append((group, list(slot_of), starts, codes, stack))  # dicts keep slot order
+    return out
+
+
+def plan_count_multi(
+    leaves: Sequence[torch.Tensor], progs: Sequence[Sequence[int]], shards: int
+) -> torch.Tensor:
+    """Per-root, per-shard counts of N plan roots over one shared leaf
+    set: root r's postfix program `progs[r]` (plan_count's encoding, leaf
+    indices into `leaves`) over the [>=shards, W] leaf stacks, popcount,
+    summed per shard row, for the first `shards` rows. Returns
+    int64[N, shards]. One launch reads each distinct leaf a group's roots
+    push once; roots split into more launches only where one launch's
+    shared memory cannot hold their distinct leaves
+    (plan_count_multi_groups)."""
+    if not leaves:
+        raise ValueError("plan_count_multi needs at least one leaf (it fixes W)")
+    if not progs:
+        raise ValueError("plan_count_multi needs at least one root")
+    for prog in progs:
+        check_program(len(leaves), prog)
+    w = leaves[0].shape[1]
+    for t in leaves:
+        _words(t, "plan_count_multi leaf")
+        if t.dim() != 2 or t.shape[1] != w or t.shape[0] < shards:
+            raise ValueError(f"plan_count_multi: leaf shape {tuple(t.shape)}")
+    if _route(*leaves) == "cpu":
+        return plan_count_multi_plain(leaves, progs, shards)
+    if w % 4 != 0 or not _aligned(*leaves):
+        raise ValueError("plan_count_multi: W % 4 != 0 or a leaf not 16-byte aligned")
+    dev = leaves[0].device
+    tables = plan_count_multi_tables(progs)
+    if shards == 0 or w == 0:  # nothing to count: nothing to launch
+        return torch.zeros((len(progs), shards), dtype=torch.int64, device=dev)
+    outs = []
+    for group, slot_leaves, starts, codes, stack in tables:
+        n = len(group)
+        if not slot_leaves:  # every root of the group is all-zero
+            outs.append(torch.zeros((n, shards), dtype=torch.int64, device=dev))
+            continue
+        ptrs = [leaves[i].data_ptr() for i in slot_leaves]
+        # the table: zeros for the [n, shards] output, the leaf pointers,
+        # each root's first code, the codes
+        table, rc = _STAGING.launch(
+            dev,
+            (np.zeros(n * shards, np.int64), ptrs, starts, codes),
+            lambda host, nbytes, tab, stream: library().pt_plan_count_multi(
+                host, nbytes, tab, shards, n, len(ptrs), len(codes), stack, w, stream
+            ),
+        )
+        _launched("plan_count_multi", rc)
+        outs.append(table[: n * shards].view(n, shards))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 # ---------------------------------------------------------------------------

@@ -7,17 +7,23 @@ On a durable holder an import returns once one group commit made all of
 its writes durable, and a delete removes the index's or field's files.
 String row and column keys in imports translate through the field's and
 the index's key stores, and the CSV export writes keys where there are
-some. Admission, tracing, statistics, the Count batcher and every
-multi-node branch come in later slices; a request that needs one of them
-(the `profile` query option) is an ApiError naming what is missing (HTTP
-400).
+some. A query is admitted first (sched/admission.py: a concurrency
+slot, or a wait in the bounded queue, or a shed as HTTP 429), then a
+pure-Count request goes through the Count batcher (exec/batcher.py),
+which merges concurrent ones into one multi-root dispatch, and anything
+else to the executor, whose result cache serves repeats
+(core/resultcache.py). Tracing, statistics and every multi-node branch
+come in later slices; a request that needs one of them (the `profile`
+query option) is an ApiError naming what is missing (HTTP 400).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import os
 import re
+import uuid
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -28,12 +34,19 @@ from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.field import FIELD_TYPE_SET, FIELD_TYPE_TIME, FieldOptions
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
+from pilosa_tpu_torch.exec import batcher as batchmod
 from pilosa_tpu_torch.exec.executor import ExecOptions, NotFoundError, QueryResponse
 from pilosa_tpu_torch.pql import parse
+from pilosa_tpu_torch.sched import admission as admod
+from pilosa_tpu_torch.sched import cost as costmod
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXPONENT
 
 class ApiError(Exception):
     pass
+
+
+# the header a shed query's trace id rides in (the reference's)
+TRACE_HEADER = "X-Pilosa-Trace-Id"
 
 
 _VIEW_NAME_RE = re.compile(r"[a-z][a-z0-9_]{0,63}")
@@ -84,24 +97,87 @@ class API:
         index: str,
         query: str,
         shards: Optional[Sequence[int]] = None,
+        headers: Optional[dict] = None,
         column_attrs: bool = False,
         exclude_row_attrs: bool = False,
         exclude_columns: bool = False,
         profile: bool = False,
     ) -> QueryResponse:
-        """Parse the PQL (a ParseError is a 400), then execute it with the
-        query options: row attrs on Row results unless
+        """Parse the PQL (a ParseError is a 400), admit it (a ShedError is
+        a 429; the priority class and the remaining deadline come from the
+        X-Pilosa-Priority and X-Pilosa-Deadline headers), then execute it
+        with the query options: row attrs on Row results unless
         `exclude_row_attrs`, no columns with `exclude_columns`, and the
-        response's column attr sets with `column_attrs`. `profile` is an
+        response's column attr sets with `column_attrs`. Everything past
+        admission runs under the ticket's try/finally. `profile` is an
         ApiError: query tracing is not ported."""
         if profile:
             raise ApiError("profile: query tracing is not yet ported")
+        query = parse(query)
         opt = ExecOptions(
             column_attrs=column_attrs,
             exclude_row_attrs=exclude_row_attrs,
             exclude_columns=exclude_columns,
         )
-        return self.server.executor.execute_response(index, parse(query), shards=shards, opt=opt)
+        # a shed names the trace id the query would have run under
+        trace_id = (headers.get(TRACE_HEADER) if headers else None) or uuid.uuid4().hex[:16]
+        try:
+            ticket = self._admit(index, query, shards, headers, opt)
+        except admod.ShedError as e:
+            if not e.trace_id:
+                e.trace_id = trace_id
+            raise
+        try:
+            resp = self._query_batched(index, query, shards, opt)
+            if ticket is not None:
+                # past the batcher: no longer anyone's batch mate
+                ticket.done_batching()
+            if resp is None:
+                resp = self.server.executor.execute_response(index, query, shards=shards, opt=opt)
+            return resp
+        finally:
+            if ticket is not None:
+                ticket.release()
+
+    def _admit(self, index, query, shards, headers, opt):
+        """Estimate the query's device cost and block until the scheduler
+        grants a slot (or raise ShedError). Returns the Ticket to release,
+        or None when admission is off (max-concurrent-queries 0)."""
+        scheduler = self.server.scheduler
+        if scheduler is None:
+            return None
+        cls = deadline = None
+        if headers is not None:
+            cls = headers.get(admod.PRIORITY_HEADER)
+            raw = headers.get(admod.DEADLINE_HEADER)
+            if raw:
+                try:
+                    deadline = float(raw)
+                except ValueError:
+                    deadline = None
+        idx = self.holder.index(index)
+        qcost = costmod.estimate(idx, query, shards)
+        # only batcher-bound traffic feeds the batcher's hold hint: the
+        # predicate the routing in _query_batched uses
+        batchable = batchmod.batch_eligible(query, shards, opt)
+        if not qcost.write:
+            # a query about to wait has its extents staged meanwhile
+            scheduler.maybe_prefetch(lambda: self.server.executor.warm(index, query, shards), index=index)
+        return scheduler.admit(cls=cls, cost=qcost, deadline=deadline, batchable=batchable, index=index)
+
+    def _query_batched(self, index, query, shards, opt) -> Optional[QueryResponse]:
+        """A pure-Count request through the group-commit batcher: the
+        response, or None when the request is not batchable."""
+        if not batchmod.batch_eligible(query, shards, opt):
+            return None
+        results = self.server.count_batcher.run(
+            index,
+            query,
+            lambda merged: self.server.executor.execute_response(
+                index, merged, shards=None, opt=dataclasses.replace(opt)
+            ).results,
+        )
+        return QueryResponse(results=results)
 
     # -- schema DDL ----------------------------------------------------------
 
@@ -113,6 +189,7 @@ class API:
             self.holder.delete_index(name)
         except KeyError:
             pass
+        self.server.drop_index(name)
 
     def create_field(self, index: str, name: str, options: Optional[dict] = None):
         idx = self.holder.index(index)

@@ -2,8 +2,9 @@
 
 The port's slice of pilosa_tpu/server/handler.py: the same routing table
 for the public routes, the same JSON bodies and the same error mapping
-(NotFoundError -> 404; ExecError, ApiError, ParseError, ValueError and
-KeyError -> 400; anything else -> 500 with the traceback logged). The
+(NotFoundError -> 404; ShedError -> 429 with Retry-After; ExecError,
+ApiError, ParseError, ValueError and KeyError -> 400; anything else ->
+500 with the traceback logged). The
 internal, cluster, metrics, debug, tier and coherence routes come with
 the slices that port those planes; until then they answer 404 as any
 unknown route does.
@@ -15,6 +16,7 @@ keep-alive. PQL arrives as a raw body or as JSON {"query": ...}.
 from __future__ import annotations
 
 import json
+import math
 import re
 import socket
 import threading
@@ -25,8 +27,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from pilosa_tpu_torch.exec.executor import ExecError, NotFoundError
 from pilosa_tpu_torch.pql import ParseError
+from pilosa_tpu_torch.sched.admission import ShedError
 from pilosa_tpu_torch.server import wire
-from pilosa_tpu_torch.server.api import ApiError, _field_options_from_json
+from pilosa_tpu_torch.server.api import TRACE_HEADER, ApiError, _field_options_from_json
 
 _ROUTES: List[Tuple[str, re.Pattern, str]] = []
 
@@ -82,11 +85,14 @@ class Handler(BaseHTTPRequestHandler):
         code: int = 200,
         raw: Optional[bytes] = None,
         content_type: str = "application/json",
+        extra_headers: Optional[Dict[str, str]] = None,
     ) -> None:
         body = raw if raw is not None else json.dumps(obj).encode()
         self.send_response(code)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
+        for k, v in (extra_headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(body)
 
@@ -150,6 +156,8 @@ class Handler(BaseHTTPRequestHandler):
                     getattr(self, fn_name)(**match.groupdict())
                 except NotFoundError as e:
                     self._error(str(e), 404)
+                except ShedError as e:
+                    self._shed(e)
                 except (ExecError, ApiError, ParseError, ValueError, KeyError) as e:
                     self._error(str(e), 400)
                 except BrokenPipeError:
@@ -159,6 +167,26 @@ class Handler(BaseHTTPRequestHandler):
                     self._error(f"internal error: {e}", 500)
                 return
         self._error(f"no route for {method} {parsed.path}", 404)
+
+    def _shed(self, e: ShedError) -> None:
+        """Admission shed: 429, as the reference answers it. Retry-After
+        is RFC 9110 delta-seconds (an integer, rounded up); the exact value
+        rides X-Pilosa-Retry-After; a tenant quota's sheds name the limit;
+        the id the query would have run under rides the body and the
+        trace header."""
+        hdrs = {
+            "Retry-After": str(max(1, math.ceil(e.retry_after))),
+            "X-Pilosa-Retry-After": f"{e.retry_after:g}",
+        }
+        if e.quota_limit:
+            hdrs["X-Pilosa-Quota-Limit"] = e.quota_limit
+            hdrs["X-Pilosa-Quota-Usage"] = f"{e.quota_usage:g}"
+            hdrs["X-Pilosa-Quota-Value"] = f"{e.quota_value:g}"
+        body = {"error": str(e)}
+        if e.trace_id:
+            hdrs[TRACE_HEADER] = e.trace_id
+            body["traceId"] = e.trace_id
+        self._reply(body, code=429, extra_headers=hdrs)
 
     def do_GET(self):
         self._dispatch("GET")
@@ -272,6 +300,7 @@ class Handler(BaseHTTPRequestHandler):
             index,
             pql,
             shards=shards,
+            headers=self.headers,
             column_attrs=flag("columnAttrs"),
             exclude_row_attrs=flag("excludeRowAttrs"),
             exclude_columns=flag("excludeColumns"),
@@ -345,6 +374,10 @@ class NodeHTTPServer(ThreadingHTTPServer):
 
     daemon_threads = True
     allow_reuse_address = True
+    # the listen backlog: socketserver's default of 5 drops the connects
+    # of a burst of clients past it, which the clients' TCP retries only
+    # after a second
+    request_queue_size = 128
 
     def __init__(self, *args, **kw):
         self._conns: set = set()

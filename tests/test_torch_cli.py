@@ -6,8 +6,9 @@ snapshots, WAL tails, a torn WAL, a corrupt snapshot and a roaring file),
 what the reference's print and exit with the same codes. `import` and
 `export` talk HTTP to a port server on a data dir. The server honours
 `--hbm-extent-rows`, `--hbm-pin-timeout` and `--merge-device-threshold`
-(they reach hbm.residency and core.merge) and still refuses
-`--hbm-prefetch-depth` by name.
+(they reach hbm.residency and core.merge) and, since the query front end
+was ported, `--hbm-prefetch-depth`; it still refuses an unported knob
+beside them (`--shed-retry-after`) by name.
 """
 
 import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
@@ -198,10 +199,14 @@ def test_server_knobs_reach_residency_and_merge(knobs, monkeypatch):
 
 
 def test_server_refuses_prefetch_depth_by_name():
+    """`--hbm-prefetch-depth` is ported now: beside an unported knob only
+    that knob is named in the refusal."""
     with pytest.raises(SystemExit) as ei:
-        tmain(["server", "--data-dir", "", "--device", "cpu", "--hbm-extent-rows", "8", "--hbm-prefetch-depth", "4"])
+        tmain(["server", "--data-dir", "", "--device", "cpu", "--hbm-extent-rows", "8", "--hbm-prefetch-depth", "4",
+               "--shed-retry-after", "2"])
     msg = str(ei.value)
-    assert "--hbm-prefetch-depth" in msg and "not yet ported" in msg and "--hbm-extent-rows" not in msg
+    assert "--shed-retry-after" in msg and "not yet ported" in msg
+    assert "--hbm-prefetch-depth" not in msg and "--hbm-extent-rows" not in msg
 
 
 def test_server_subprocess_serves_with_the_knobs():

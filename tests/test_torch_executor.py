@@ -346,7 +346,8 @@ def test_wide_and_deep_trees_match_reference():
 def test_import_leaves_jax_out():
     code = (
         "import sys, pilosa_tpu_torch, pilosa_tpu_torch.compat, pilosa_tpu_torch.server, "
-        "pilosa_tpu_torch.cli; print('jax' in sys.modules)"
+        "pilosa_tpu_torch.cli, pilosa_tpu_torch.sched, pilosa_tpu_torch.exec.batcher, "
+        "pilosa_tpu_torch.core.resultcache, pilosa_tpu_torch.hbm.prefetch; print('jax' in sys.modules)"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, check=True

@@ -536,6 +536,117 @@ def test_session_matches_reference(servers):
     assert any(p.endswith("shard-nodes?shard=1000") and s == 200 and len(b) == 1 for (_, p, _, _), (s, b) in zip(steps, got))
 
 
+def _raw(uri: str, path: str, body: bytes, headers: dict):
+    host, port = uri.removeprefix("http://").rsplit(":", 1)
+    conn = http.client.HTTPConnection(host, int(port), timeout=60)
+    try:
+        conn.request("POST", path, body=body, headers=headers)
+        r = conn.getresponse()
+        return r.status, {k: v for k, v in r.getheaders() if k != "Date"}, r.read()
+    finally:
+        conn.close()
+
+
+def test_shed_429_matches_reference():
+    """Under forced saturation (one slot, held; no queue) a query gets the
+    reference's 429 byte for byte, headers included (the trace id comes
+    from the request's header on both); once the slot is free the same
+    query gets the same 200."""
+    kw = dict(max_concurrent_queries=1, admission_queue_depth=0)
+    ref = JNodeServer(None, "n0", bind="localhost:0", **kw).start()
+    port = TNodeServer(None, "n0", bind="localhost:0", device="cpu", **kw).start()
+    try:
+        out = []
+        for srv in (ref, port):
+            for path, body in (("/index/i", b"{}"), ("/index/i/field/f", b"{}"), ("/index/i/query", b"Set(3, f=1) Set(9, f=1)")):
+                assert _raw(srv.node.uri, path, body, {})[0] == 200
+            hdrs = {"X-Pilosa-Trace-Id": "0123456789abcdef", "Content-Type": "text/plain"}
+            ticket = srv.scheduler.admit()
+            try:
+                shed = _raw(srv.node.uri, "/index/i/query", b"Count(Row(f=1))", hdrs)
+            finally:
+                ticket.release()
+            out.append((shed, _raw(srv.node.uri, "/index/i/query", b"Count(Row(f=1))", hdrs)))
+        (jshed, jok), (tshed, tok) = out
+        assert jshed[0] == 429 and "Retry-After" in jshed[1]
+        assert tshed == jshed
+        assert tok == jok and tok[0] == 200 and json.loads(tok[2]) == {"results": [2]}
+    finally:
+        port.stop()
+        ref.stop()
+
+
+def test_batched_count_over_http_equals_unbatched(servers):
+    """Eight single-Count requests queued behind a held leader run as one
+    merged round in the port; each answer equals the reference's answer
+    to the same Count sent alone."""
+    from pilosa_tpu_torch.exec import batcher as tbatch
+
+    ref, port = servers
+    rng = np.random.default_rng(77)
+    for srv in (ref, port):
+        c = Client(srv.node.uri)
+        try:
+            assert c.req("POST", "/index/bq", {})[0] == 200
+            assert c.req("POST", "/index/bq/field/f", {})[0] == 200
+            cols = rng.integers(0, 3 * SHARD_WIDTH, 4000).tolist()
+            rows = [k % 4 for k in range(len(cols))]
+            assert c.req("POST", "/index/bq/field/f/import", {"rows": rows, "cols": cols})[0] == 200
+        finally:
+            c.close()
+        rng = np.random.default_rng(77)
+    queries = ["Count(Row(f=0))", "Count(Row(f=1))", "Count(Intersect(Row(f=0), Row(f=2)))",
+               "Count(Union(Row(f=1), Row(f=3)))", "Count(Xor(Row(f=2), Row(f=3)))", "Count(Difference(Row(f=0), Row(f=1)))",
+               "Count(Not(Row(f=2)))", "Count(Row(f=3))"]
+    want = {}
+    c = Client(ref.node.uri)
+    try:
+        for q in queries:
+            want[q] = c.req("POST", "/index/bq/query", q.encode(), "text/plain")
+    finally:
+        c.close()
+    b = port.count_batcher
+    real = port.executor.execute_response
+    entered, go = threading.Event(), threading.Event()
+
+    def gated(*a, **kw):
+        if not entered.is_set():
+            entered.set()
+            go.wait(10)  # the leader holds its dispatch while the others queue
+        return real(*a, **kw)
+
+    port.executor.execute_response = gated
+    tbatch.reset_stats()
+    got = {}
+
+    def client(q):
+        cl = Client(port.node.uri)
+        try:
+            got[q] = cl.req("POST", "/index/bq/query", q.encode(), "text/plain")
+        finally:
+            cl.close()
+
+    try:
+        ts = [threading.Thread(target=client, args=(queries[0],))]
+        ts[0].start()
+        assert entered.wait(10)
+        for q in queries[1:]:
+            ts.append(threading.Thread(target=client, args=(q,)))
+            ts[-1].start()
+        for _ in range(5000):
+            with b._mu:
+                if len(b._queue.get("bq", ())) == len(queries) - 1:
+                    break
+            time.sleep(0.002)
+        go.set()
+        for t in ts:
+            t.join(30)
+    finally:
+        port.executor.execute_response = real
+    assert got == want
+    assert tbatch.STATS["merged_execs"] == 1 and tbatch.STATS["batched"] == len(queries) - 1
+
+
 # ---------------------------------------------------------------------------
 # port only
 # ---------------------------------------------------------------------------
@@ -818,9 +929,11 @@ def test_node_without_device_needs_cuda(tmp_path):
         (["--data-dir", "", "--tier-store-path", "/tmp/tier"], "--tier-store-path"),
         (["--data-dir", "", "--mesh-group", "g0"], "--mesh-group"),
         (["--data-dir", "", "--coherence-lease-duration", "5"], "--coherence-lease-duration"),
-        (["--data-dir", "", "--max-concurrent-queries", "4", "--tenants-default-qps", "9"],
-         "--max-concurrent-queries, --tenants-default-qps"),
-        (["--data-dir", "", "--cache-count-repair", "false"], "--cache-count-repair"),
+        # the query front end's knobs are ported: only the unported one
+        # beside them is named
+        (["--data-dir", "", "--max-concurrent-queries", "4", "--tenants-default-qps", "9", "--shed-retry-after", "2"],
+         "--shed-retry-after"),
+        (["--data-dir", "", "--cache-count-repair", "false", "--long-query-time", "5"], "--long-query-time"),
     ],
 )
 def test_cli_refuses_unported_options(args, named):
@@ -828,6 +941,8 @@ def test_cli_refuses_unported_options(args, named):
         cli_main(["server", *args, "--device", "cpu"])
     assert named in str(ei.value) and "not yet ported" in str(ei.value)
     assert "--data-dir" not in str(ei.value) and "--wal-sync-interval" not in str(ei.value)
+    for ported in ("--max-concurrent-queries", "--tenants-default-qps", "--cache-count-repair"):
+        assert ported not in str(ei.value)
 
 
 def test_cli_other_commands_not_ported(tmp_path, capsys):
