@@ -601,7 +601,11 @@ def kernel_phase(rng, dev, errs):
         launched = K.LAUNCHES["plan_count_multi"] - before
         same("plan_count_multi", got, K.plan_count_multi_plain(leaves, progs, S_M))
         check(launched == n_groups, f"plan_count_multi, {what}: {launched} launches, {n_groups} groups")
-        n_meta = max(len(tb[1]) + len(tb[0]) + 1 + len(tb[3]) for tb in K.plan_count_multi_tables(progs))
+        tables = K.plan_count_multi_tables(progs)
+        n_meta = max(len(tb[1]) + len(tb[0]) + 1 + len(tb[3]) for tb in tables)
+        if what.startswith("64 chains"):
+            in_smem = [K.plan_count_multi_layout(len(g), len(sl), len(co), st)[3] for g, sl, _, co, st in tables]
+            check(not any(in_smem), f"plan_count_multi, {what}: the table is kept in shared memory")
         multi_groups.append(n_groups)
         print(f"kernels: plan_count_multi equal to twin, {what}: {n_groups} launches, table {n_meta} entries")
         del leaves, got
@@ -611,6 +615,7 @@ def kernel_phase(rng, dev, errs):
         f"and 32 shared leaves, 100 over 32 and 120, 64 chains over 48 ({multi_groups} launches)"
     )
 
+    multi_edge_checks(dev, same)
     plan_rows_checks(rng, dev, same, rand_words)
 
     # gather_tally: random lengths with empty segments; 8 row segments per
@@ -817,6 +822,68 @@ def kernel_phase(rng, dev, errs):
 # ---------------------------------------------------------------------------
 # phase 3: the main path over 2^30 columns
 # ---------------------------------------------------------------------------
+
+
+def multi_edge_checks(dev, same):
+    """plan_count_multi at every VEC (1, 2), ring depth (1, 2) and L (1,
+    2, 4, 8 uint4 a lane) its launcher picks, over 4 to 96 leaves, at W
+    on the tile edges (4, 1004, a VEC-1 and a VEC-2 tile + 4 words,
+    32772) and S = 1; 1000 one-word shards (every block's run crosses
+    shards mid-run); 1 root and 64; flat roots and roots that need stack
+    entries (one at the launch's cap); and 513 items of VEC 2 in each of
+    two shards over all-ones words (every lane's counter at its most).
+    Each held exactly to the twin, in as many launches as
+    plan_count_multi_groups makes. Own generators: the later checks'
+    data stay as they were."""
+    import torch
+
+    from pilosa_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(13)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = K.BINOPS
+    stacked = [[0, 1, 2, x["xor"], x["rev_andnot"]], [i % 3 for i in range(11)] + [x["xor"]] * 10,
+               [0, K.PUSH_ZERO, 1, x["or"], x["andnot"]]]
+    seen = set()
+
+    def run(n_roots, n_leaves, s, w, progs=None, fill=None):
+        if progs is None:
+            progs = [stacked[1]] if n_roots == 1 else (stacked + multi_programs(rng, n_roots - len(stacked), n_leaves))
+        if fill is None:
+            leaves = [torch.randint(-(2**31), 2**31, (s, w), dtype=torch.int32, device=dev, generator=gen)
+                      for _ in range(n_leaves)]
+        else:
+            leaves = [torch.full((s, w), fill, dtype=torch.int32, device=dev) for _ in range(n_leaves)]
+        tables = K.plan_count_multi_tables(progs)
+        for _, slot_leaves, starts, codes, stack in tables:
+            seen.add(K.plan_count_multi_layout(len(starts) - 1, len(slot_leaves), len(codes), stack)[:3])
+        before = K.LAUNCHES["plan_count_multi"]
+        got = K.plan_count_multi(leaves, progs, s)
+        launched = K.LAUNCHES["plan_count_multi"] - before
+        same("plan_count_multi", got, K.plan_count_multi_plain([t.cpu() for t in leaves], progs, s))
+        check(launched == len(tables), f"plan_count_multi, {n_roots} roots over {n_leaves} leaves, S = {s}, "
+              f"W = {w}: {launched} launches, {len(tables)} groups")
+        return got
+
+    for n_leaves in (4, 12, 24, 48, 90):
+        for s, w in ((3, 4), (2, 1004), (3, 512 + 4), (3, 1024 + 4), (2, 32772), (1, 32768)):
+            run(max(16, min(64, n_leaves)), n_leaves, s, w)  # every leaf read by some root
+    run(1, 4, 5, 32772)
+    run(64, 8, 3, 32772)
+    run(64, 32, 2, 1004)
+    run(40, 6, 1000, 4)
+    cap = K.MULTI_CAP - 9  # leaves beside the 9 stack entries of stacked[1]
+    run(2, cap, 2, 1028, progs=[[0] + [y for i in range(1, cap) for y in (i, x["or"])], stacked[1]])
+    w_ones = 4 * 2**17 + 4  # 2^17 + 1 uint4 a shard row: 513 items of VEC 2 a shard
+    got = run(3, 2, 2, w_ones, progs=[[0], [0, 1, x["and"]], [0, 1, x["xor"]]], fill=-1)
+    check(got[:2].eq(32 * w_ones).all().item(), f"all-ones counts {got.tolist()}, not {32 * w_ones}")
+    want = ({1, 2}, {1, 2}, {1, 2, 4, 8})
+    reached = tuple({lay[i] for lay in seen} for i in range(3))
+    check(all(a <= b for a, b in zip(want, reached)),
+          f"plan_count_multi layouts (VEC, nbuf, L) reached {sorted(seen)}, not every VEC, nbuf and L of {want}")
+    print(f"kernels: plan_count_multi equal to twin at (VEC, nbuf, L) {sorted(seen)}: W = 4, 1004, VEC-1 and VEC-2 "
+          "tiles + 4, 32772; S = 1; 1000 one-word shards; 1 root and 64; stacked roots, one at the cap; 513 items of "
+          "all-ones words a shard")
 
 
 def plan_rows_checks(rng, dev, same, rand_words):
@@ -1577,6 +1644,30 @@ def kernel_timing(holder, ex, launches, errs):
         f"{multi_extra['plan_count_multi_earlier_dispatch']:.4f} ms dispatch"
     )
     del mleaves
+    # plan_count_multi at a full launch, 64 roots over 32 leaves (their
+    # words made on the card from a seed), and at the served front end's
+    # round, 10 roots over its rows f 0-3 and g 0-1 at 512 shards
+    gen = torch.Generator(device=a.device).manual_seed(64)
+    wide = [torch.randint(-(2**31), 2**31, (s_all, w), dtype=torch.int32, device=a.device, generator=gen)
+            for _ in range(32)]
+    front = shards[:512]
+    fleaves = [view_f.row_stack(r, front) for r in range(4)] + [view_g.row_stack(r, front) for r in range(2)]
+    for key, lv, n_roots, sh in (("plan_count_multi_64x32", wide, 64, s_all),
+                                 ("plan_count_multi_10x6_front", fleaves, 10, len(front))):
+        pr = multi_programs(np.random.default_rng(4), n_roots, len(lv))
+        n_used = len({i for p in pr for i in p if i >= 0})
+        check(torch.equal(K.plan_count_multi(lv, pr, sh).cpu(), K.plan_count_multi_plain(lv, pr, sh).cpu()),
+              f"{key}: kernel differs from its twin")
+        multi_extra[key] = cuda_time_ms(lambda lv=lv, pr=pr, sh=sh: K.plan_count_multi(lv, pr, sh))
+        multi_extra[key + "_dispatch"] = dispatch_ms(lambda lv=lv, pr=pr, sh=sh: K.plan_count_multi(lv, pr, sh))
+        multi_extra[key + "_bound"] = (n_used * sh * w * 4 + n_roots * sh * 8) / HBM_BYTES_PER_S * 1e3
+        multi_extra[key + "_share"] = multi_extra[key + "_bound"] / multi_extra[key]
+        ms, bound = multi_extra[key], multi_extra[key + "_bound"]
+        print(
+            f"kernel {key}: {n_roots} roots over {n_used} leaves, S = {sh}: device {ms:.4f} ms, dispatch "
+            f"{multi_extra[key + '_dispatch']:.4f} ms, bound {bound:.4f} ms ({bound / ms:.1%} of it)"
+        )
+    del wide, fleaves
     # rows_counts: the filtered-TopN dense tally tile (2 rows x S shards)
     planes = view_f.plane_stack((0, 1), shards).reshape(-1, w)
     row(

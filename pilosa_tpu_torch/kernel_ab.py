@@ -1,4 +1,5 @@
-"""Time the GroupBy kernels of several checkouts in turn, on one card.
+"""Time the GroupBy and multi-Count kernels of several checkouts in turn,
+on one card.
 
     python -m pilosa_tpu_torch.kernel_ab DIR [DIR ...]
 
@@ -8,7 +9,11 @@ kernels and times them with chip_smoke's `cuda_time_ms` on the same
 seeded words, at the shapes of chip_smoke's main-path GroupBys (S = 1024
 shards of W = 32768 words): gather_and of 2 rows with one filter slab
 (the filtered selection), gather_and of 2 prefixes x 4 rows (a cross
-expansion) and counts_cross of 2 prefixes x 4 rows. Each result is held
+expansion) and counts_cross of 2 prefixes x 4 rows; and
+plan_count_multi at the Count batcher's timing row (16 roots of 1-4 Rows
+over 8 leaves), at a full 64-root launch over 32 leaves, and at the
+served front end's round (10 roots over 6 leaves at 512 shards), the
+roots from chip_smoke's `multi_programs` with seed 4. Each result is held
 to its twin, and each bound reads every distinct operand slab once and
 writes every output once, over 3.35 TB/s. Prints one JSON line per run;
 give two checkouts in mirrored order (A B B A) so that drift shows.
@@ -45,6 +50,14 @@ cases = {
     "counts_cross_2x4": (lambda: K.counts_cross(rows, planes), lambda: K.counts_cross_plain(rows, planes),
                          (2 + 4) * slab + 2 * 4 * S * 4),
 }
+for name, n_roots, n_leaves, s in (("plan_count_multi_16x8", 16, 8, S), ("plan_count_multi_64x32", 64, 32, S),
+                                   ("plan_count_multi_10x6_s512", 10, 6, 512)):
+    leaves = list(words(n_leaves))  # the first s shard rows of each are read
+    progs = chip_smoke.multi_programs(np.random.default_rng(4), n_roots, n_leaves)
+    used = len({i for p in progs for i in p if i >= 0})
+    cases[name] = (lambda leaves=leaves, progs=progs, s=s: K.plan_count_multi(leaves, progs, s),
+                   lambda leaves=leaves, progs=progs, s=s: K.plan_count_multi_plain(leaves, progs, s),
+                   used * s * W * 4 + n_roots * s * 8)
 out = {}
 for name, (fn, plain, nbytes) in cases.items():
     if not torch.equal(fn(), plain()):

@@ -509,125 +509,288 @@ plan_count_kernel(const int64_t* __restrict__ meta, int32_t n_push, int32_t n_co
 // memo, so an operand shared by roots is read from HBM once a dispatch.
 //
 // Bound: bytes. Each distinct leaf is read once a launch and the [N, S]
-// counts written once; the roots' programs run over shared memory.
+// counts written once, over 3.35 TB/s. The roots' programs read the leaf
+// tiles from shared memory once a code (a root of k Rows: k reads) and
+// popcount each root's words once; the kernel's first design, which ran
+// every root on every thread's uint4 and reduced each root across its
+// warp every item, spent most of its time in its programs, not its
+// copies (PERF.md section 6).
 //
 // Design. Work items are (shard, tile) pairs, a tile being kMultiThreads
-// uint4 of a row. For each item thread 0 issues one TMA bulk copy per
-// distinct leaf into that leaf's slot of a shared-memory buffer, all
-// completing on the buffer's `full` barrier; every root's micro program
-// (plan_count's, with the leaf's slot in the code's high bits) then runs
-// over the slots, each thread on its own uint4 column. With `nbuf` 2 the
-// next item's copies land while this one is evaluated; a buffer is
-// refilled only after the block's __syncthreads past its last read. Each
-// root's popcount is summed per warp and added into a shared 64-bit
-// counter; at a shard change (and at the end) the counters go to
-// out[root * shards + shard] with one atomic each. The host groups the
-// roots so each launch's distinct leaves, its deepest stack and its
-// table fit the shared memory (ops/kernels.py plan_count_multi).
-constexpr int kMultiThreads = 128;
+// * VEC uint4 of a row (VEC * 2 KiB). A fifth, producer warp walks the
+// block's run of items (block_items) and copies each item's tile of every
+// distinct leaf into that leaf's slot of one of `nbuf` ring buffers with
+// one TMA bulk copy each, all completing on the buffer's `full` barrier;
+// it refills a buffer as soon as its `empty` barrier completes, which
+// each of the four consumer warps arrives on once past its reads: no
+// block-wide barrier sits in the item loop. The roots are split between
+// the consumer warps (the host balances their codes), and a warp runs
+// each of its roots over the whole tile, L uint4 a lane at a time (4 * VEC
+// / L passes an item), so a code's read, decode and branch serve 32 * L
+// uint4 and leave L loads in flight. A flat root (one n-ary node over
+// leaves, as the batcher's Counts are) runs a loop with its op hoisted
+// out; any other runs plan_count's micro program (32-bit codes, the leaf's
+// slot in the high bits, read one ahead) with a per-warp operand stack. A
+// lane adds each root's popcount into its own 32-bit counter in shared
+// memory: no shuffle, atomic or barrier per item. Bits past a row's end
+// are evaluated from stale slot bytes and masked out of the popcount
+// (every op is bitwise, so a column's result reads only that column). At
+// a shard change and at the end of its run a warp sums each of its roots'
+// counters over its lanes (__reduce_add_sync) and adds the sum into
+// out[root * shards + shard] with one 64-bit atomic. The programs, not the
+// copies, bound the kernel, and they are bound by the loads a warp keeps
+// in flight, so the host picks the VEC, nbuf and L that keep the most
+// uint4 loads in flight an SM (resident blocks x L): a shallow ring in
+// several resident blocks beats a deep ring in one (ops/kernels.py
+// plan_count_multi_layout). The host groups the roots so each launch's
+// distinct leaves, its deepest stack and its counters fit the shared
+// memory at VEC 1, L 1 and one buffer, as the first design's did.
+constexpr int kMultiThreads = 128;  // consumer threads; a producer warp beside them
+constexpr int kMultiWarps = kMultiThreads / 32;
 constexpr int kMultiMaxRoots = 64;
-// the card's 227 KiB a block less 1 KiB for the static counters and barriers
+// the card's 227 KiB a block less 1 KiB for the static barriers
 constexpr int kMultiMaxDynSmem = 226 * 1024;
-constexpr int kMultiMetaSmemBytes = 16384;
+// a launch's leaf and stack slots (2 KiB each at VEC and L 1) leave this
+// much beside them for the counters and, where it fits, the table
+constexpr int kMultiCounterSmemBytes = 16384;
+// the table's 32-bit entries are copied to shared memory up to this
+// many; a longer table is read from device memory
+constexpr int kMultiTableSmemEntries = 2048;
+constexpr int kMultiMaxBuf = 4;
 
-__global__ void __launch_bounds__(kMultiThreads)
+// blocks of the kernel at L an SM holds by registers: its
+// __launch_bounds__ (the host's layout choice reads these as
+// MULTI_LANE_BLOCKS in ops/kernels.py)
+__host__ __device__ constexpr int multi_min_blocks(int lanes_vec) {
+  return lanes_vec >= 8 ? 3 : lanes_vec >= 4 ? 5 : lanes_vec >= 2 ? 7 : 8;
+}
+
+// bytes of dynamic shared memory a plan_count_multi launch takes: the
+// ring, the warps' stacks (L uint4 a lane and entry), the counters and the
+// table where it is kept there (table_entries > 0)
+__host__ __device__ constexpr int64_t multi_smem_bytes(int64_t n_root, int64_t n_leaf,
+                                                       int64_t stack_slots, int64_t vec,
+                                                       int64_t nbuf, int64_t lanes_vec,
+                                                       int64_t table_entries) {
+  return (nbuf * n_leaf * vec + stack_slots * lanes_vec) * kMultiThreads * 16 + n_root * 32 * 4 +
+         (table_entries * 4 + 15) / 16 * 16;
+}
+
+// micro op OP (0 and, 1 or, 2 xor, 3 andnot, 4 rev_andnot) of (a, b)
+template <int OP>
+__device__ __forceinline__ uint4 micro_op(uint4 a, uint4 b) {
+  if constexpr (OP == 0) return make_uint4(a.x & b.x, a.y & b.y, a.z & b.z, a.w & b.w);
+  if constexpr (OP == 1) return make_uint4(a.x | b.x, a.y | b.y, a.z | b.z, a.w | b.w);
+  if constexpr (OP == 2) return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+  if constexpr (OP == 3) return make_uint4(a.x & ~b.x, a.y & ~b.y, a.z & ~b.z, a.w & ~b.w);
+  return make_uint4(b.x & ~a.x, b.y & ~a.y, b.z & ~a.z, b.w & ~a.w);
+}
+
+template <int OP, int L>
+__device__ __forceinline__ void micro_op_into(uint4 (&top)[L], const uint4 (&v)[L]) {
+#pragma unroll
+  for (int m = 0; m < L; ++m) top[m] = micro_op<OP>(top[m], v[m]);
+}
+
+// top = op(top, v) for L uint4, one warp-uniform branch
+template <int L>
+__device__ __forceinline__ void op_into(int op, uint4 (&top)[L], const uint4 (&v)[L]) {
+  switch (op) {
+    case 0: micro_op_into<0, L>(top, v); break;
+    case 1: micro_op_into<1, L>(top, v); break;
+    case 2: micro_op_into<2, L>(top, v); break;
+    case 3: micro_op_into<3, L>(top, v); break;
+    default: micro_op_into<4, L>(top, v); break;
+  }
+}
+
+// A flat root (a leaf, then leaf_op OP over each further leaf: one n-ary
+// node over leaves, the batcher's usual Count) over the codes [pc, pc1):
+// the op is a template, so a code costs its slot's address and L loads.
+template <int OP, int L>
+__device__ __forceinline__ void flat_chain(uint4 (&top)[L], const uint4* part, int64_t tv,
+                                           const int32_t* code, int pc, int pc1) {
+  uint32_t c = (uint32_t)code[pc];  // read one ahead
+  for (; pc < pc1; ++pc) {
+    const uint32_t next = (uint32_t)code[pc + 1];
+    const uint4* slot = part + (int64_t)(c >> 6) * tv;
+#pragma unroll
+    for (int m = 0; m < L; ++m) top[m] = micro_op<OP>(top[m], slot[m * 32]);
+    c = next;
+  }
+}
+
+// meta: the n_leaf leaf pointers, then the table's 32-bit entries: the
+// first root of each consumer warp (kMultiWarps + 1), each root's output
+// row (plus 256 * (1 + its op) for a flat root), each root's first code
+// and the end, the codes and one padding entry (roots in warp order).
+template <int L>
+__global__ void __launch_bounds__(kMultiThreads + 32, multi_min_blocks(L))
 plan_count_multi_kernel(const int64_t* __restrict__ meta, int32_t n_leaf, int32_t n_root,
-                        int32_t n_code, int32_t stack_slots, int32_t nbuf, int32_t meta_in_smem,
-                        int64_t w4, int64_t tiles, int64_t n_items, int64_t shards,
-                        unsigned long long* __restrict__ out) {
+                        int32_t n_code, int32_t stack_slots, int32_t vec, int32_t nbuf,
+                        int32_t table_in_smem, int64_t w4, int64_t tiles, int64_t n_items,
+                        int64_t shards, unsigned long long* __restrict__ out) {
   constexpr int T = kMultiThreads;
   extern __shared__ uint4 smem[];
-  __shared__ unsigned long long cnt[kMultiMaxRoots];
-  __shared__ uint64_t full[2];
+  __shared__ uint64_t full[kMultiMaxBuf], empty[kMultiMaxBuf];
   int64_t lo, hi;
   block_items(n_items, &lo, &hi);
-  if (lo >= hi || n_leaf == 0) return;  // no leaf: every root is zero, as the table copy left it
+  if (lo >= hi) return;
   const int tid = threadIdx.x;
-  uint4* bufs = smem;                                  // [nbuf][n_leaf][T]
-  uint4* stack = smem + (int64_t)nbuf * n_leaf * T;    // [stack_slots][T]
-  const int n_meta = n_leaf + n_root + 1 + n_code;
-  const int64_t* m = meta;
-  if (meta_in_smem) {
-    int64_t* sm = reinterpret_cast<int64_t*>(stack + (int64_t)stack_slots * T);
-    for (int i = tid; i < n_meta; i += T) sm[i] = meta[i];
-    m = sm;
+  const int64_t tv = (int64_t)T * vec;  // uint4 of one leaf's tile
+  uint4* bufs = smem;                                        // [nbuf][n_leaf][tv]
+  uint4* stacks = smem + (int64_t)nbuf * n_leaf * tv;        // [warp][stack_slots][L][32]
+  uint32_t* cnt = reinterpret_cast<uint32_t*>(stacks + (int64_t)stack_slots * L * T);  // [n_root][32]
+  const int32_t* tab = reinterpret_cast<const int32_t*>(meta + n_leaf);
+  if (table_in_smem) {
+    int32_t* st = reinterpret_cast<int32_t*>(cnt + n_root * 32);
+    for (int i = tid; i < kMultiWarps + 3 + 2 * n_root + n_code; i += blockDim.x) st[i] = tab[i];
+    tab = st;
   }
-  if (tid < n_root) cnt[tid] = 0ull;
+  for (int i = tid; i < n_root * 32; i += blockDim.x) cnt[i] = 0u;
   if (tid == 0) {
-    for (int b = 0; b < nbuf; ++b) mbar_init(&full[b], 1);
+    for (int b = 0; b < nbuf; ++b) {
+      mbar_init(&full[b], 1);
+      mbar_init(&empty[b], kMultiWarps);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int64_t* leaf_ptr = m;
-  const int64_t* root_start = m + n_leaf;
-  const int64_t* code = m + n_leaf + n_root + 1;
+  const int64_t n_run = hi - lo;
 
-  auto issue = [&](int64_t item, int b) {  // thread 0: item's tiles into buffer b
-    const int64_t s = item / tiles;
-    const int64_t col = (item - s * tiles) * T;
-    const int64_t rest = w4 - col;
-    const uint32_t bytes = (uint32_t)((rest < T ? rest : T) * sizeof(uint4));
-    mbar_expect_tx(&full[b], bytes * (uint32_t)n_leaf);
-    for (int l = 0; l < n_leaf; ++l) {
-      const uint4* src = reinterpret_cast<const uint4*>(leaf_ptr[l]) + s * w4 + col;
-      bulk_copy(bufs + ((int64_t)b * n_leaf + l) * T, src, bytes, &full[b]);
+  if (tid >= T) {  // the producer warp: one lane issues every copy
+    if (tid == T) {
+      int64_t s = lo / tiles, t = lo - s * tiles;
+      int b = 0;
+      uint32_t phase = 0;  // of buffer b's empty barrier, once it has been used
+      for (int64_t q = 0; q < n_run; ++q) {
+        if (q >= nbuf) mbar_wait(&empty[b], phase);
+        const int64_t col = t * tv;
+        const int64_t rest = w4 - col;
+        const uint32_t bytes = (uint32_t)((rest < tv ? rest : tv) * sizeof(uint4));
+        mbar_expect_tx(&full[b], bytes * (uint32_t)n_leaf);
+        uint4* dst = bufs + (int64_t)b * n_leaf * tv;
+        for (int l = 0; l < n_leaf; ++l) {
+          const uint4* src = reinterpret_cast<const uint4*>(__ldg(meta + l)) + s * w4 + col;
+          bulk_copy(dst + (int64_t)l * tv, src, bytes, &full[b]);
+        }
+        if (++t == tiles) {
+          t = 0;
+          ++s;
+        }
+        if (++b == nbuf) {
+          b = 0;
+          if (q >= nbuf) phase ^= 1u;
+        }
+      }
     }
-  };
-  auto flush = [&](int64_t s) {
-    __syncthreads();
-    if (tid < n_root) {
-      const unsigned long long v = cnt[tid];
-      if (v != 0ull) atomicAdd(out + (int64_t)tid * shards + s, v);
-      cnt[tid] = 0ull;
-    }
-    __syncthreads();
-  };
-  if (tid == 0) {
-    for (int b = 0; b < nbuf && lo + b < hi; ++b) issue(lo + b, b);
+    return;
   }
 
-  int64_t cur = lo / tiles;
-  int64_t k = 0;
-  for (int64_t item = lo; item < hi; ++item, ++k) {
-    const int64_t s = item / tiles;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int32_t* rows = tab + kMultiWarps + 1;
+  const int32_t* starts = rows + n_root;
+  const int32_t* code = starts + n_root + 1;
+  const int r0 = tab[warp], r1 = tab[warp + 1];
+  uint4* stack = stacks + (int64_t)warp * stack_slots * L * 32 + lane;
+  uint32_t* my_cnt = cnt + lane;
+  auto flush = [&](int64_t s) {  // this warp's roots' counts of shard s, then zero
+    for (int r = r0; r < r1; ++r) {
+      const uint32_t v = my_cnt[r * 32];
+      my_cnt[r * 32] = 0u;
+      const uint32_t n = __reduce_add_sync(0xffffffffu, v);
+      if (lane == 0 && n != 0u) {
+        atomicAdd(out + (int64_t)(rows[r] & 255) * shards + s, (unsigned long long)n);
+      }
+    }
+  };
+  const int passes = 4 * vec / L;
+  int64_t s = lo / tiles, t = lo - s * tiles, cur = s;
+  int b = 0;
+  uint32_t phase = 0;  // of buffer b's full barrier
+  for (int64_t k = 0; k < n_run; ++k) {
     if (s != cur) {
       flush(cur);
       cur = s;
     }
-    const int b = (int)(k % nbuf);
-    mbar_wait(&full[b], (uint32_t)((k / nbuf) & 1));
-    // past the row's end the buffer holds stale bytes: read zeros there
-    const bool valid = (item - s * tiles) * T + tid < w4;
-    const uint4* tile = bufs + (int64_t)b * n_leaf * T + tid;
-    for (int r = 0; r < n_root; ++r) {
-      const int pc0 = (int)root_start[r], pc1 = (int)root_start[r + 1];
-      uint4 top = make_uint4(0u, 0u, 0u, 0u);
-      int sp = 0;  // entries below top, in stack[0, sp)
-      for (int pc = pc0; pc < pc1; ++pc) {
-        const int64_t c = code[pc];
-        const int kind = (int)((c >> 3) & 7), op = (int)(c & 7);
-        if (kind == M_STACK_OP) {
-          --sp;
-          top = binop(op, stack[sp * T + tid], top);
-          continue;
-        }
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if ((kind == M_PUSH || kind == M_LEAF_OP) && valid) v = tile[(c >> 6) * T];
-        if (kind >= M_LEAF_OP) {
-          top = binop(op, top, v);
-        } else {
-          if (pc > pc0) {  // every push but the first has a value under it
-            stack[sp * T + tid] = top;
-            ++sp;
+    mbar_wait(&full[b], phase);
+    const uint4* tile = bufs + (int64_t)b * n_leaf * tv + lane;
+    for (int p = 0; p < passes; ++p) {
+      const int i0 = p * L * 32;  // the pass's first uint4 of the tile
+      // columns past the row's end hold stale bytes: evaluated, not counted
+      bool valid[L];
+#pragma unroll
+      for (int m = 0; m < L; ++m) valid[m] = t * tv + i0 + m * 32 + lane < w4;
+      const uint4* part = tile + i0;
+      for (int r = r0; r < r1; ++r) {
+        const int pc0 = starts[r], pc1 = starts[r + 1];
+        const int flat = rows[r] >> 8;  // a flat root's op + 1, else 0
+        uint4 top[L];
+        if (flat) {
+          const uint4* slot = part + (int64_t)((uint32_t)code[pc0] >> 6) * tv;
+#pragma unroll
+          for (int m = 0; m < L; ++m) top[m] = slot[m * 32];
+          switch (flat - 1) {
+            case 0: flat_chain<0, L>(top, part, tv, code, pc0 + 1, pc1); break;
+            case 1: flat_chain<1, L>(top, part, tv, code, pc0 + 1, pc1); break;
+            case 2: flat_chain<2, L>(top, part, tv, code, pc0 + 1, pc1); break;
+            case 3: flat_chain<3, L>(top, part, tv, code, pc0 + 1, pc1); break;
+            default: flat_chain<4, L>(top, part, tv, code, pc0 + 1, pc1); break;
           }
-          top = v;
+        } else {
+#pragma unroll
+          for (int m = 0; m < L; ++m) top[m] = make_uint4(0u, 0u, 0u, 0u);
+          uint32_t c = (uint32_t)code[pc0];  // the next code, read one ahead
+          int sp = 0;  // entries below top, in stack[0, sp)
+          for (int pc = pc0; pc < pc1; ++pc) {
+            const uint32_t next = (uint32_t)code[pc + 1];
+            const int kind = (int)((c >> 3) & 7), op = (int)(c & 7);
+            uint4 v[L];
+            if (kind == M_STACK_OP) {  // top = op(below, top), as rev(op)(top, below)
+              --sp;
+#pragma unroll
+              for (int m = 0; m < L; ++m) v[m] = stack[(sp * L + m) * 32];
+              op_into<L>(op >= 3 ? 7 - op : op, top, v);
+            } else {
+              if (kind == M_PUSH || kind == M_LEAF_OP) {
+                const uint4* slot = part + (int64_t)(c >> 6) * tv;
+#pragma unroll
+                for (int m = 0; m < L; ++m) v[m] = slot[m * 32];
+              } else {
+#pragma unroll
+                for (int m = 0; m < L; ++m) v[m] = make_uint4(0u, 0u, 0u, 0u);
+              }
+              if (kind >= M_LEAF_OP) {
+                op_into<L>(op, top, v);
+              } else {
+                if (pc > pc0) {  // every push but the first has a value under it
+#pragma unroll
+                  for (int m = 0; m < L; ++m) stack[(sp * L + m) * 32] = top[m];
+                  ++sp;
+                }
+#pragma unroll
+                for (int m = 0; m < L; ++m) top[m] = v[m];
+              }
+            }
+            c = next;
+          }
         }
+        uint32_t n = 0;
+#pragma unroll
+        for (int m = 0; m < L; ++m) n += valid[m] ? popc4(top[m]) : 0u;
+        my_cnt[r * 32] += n;  // root r's count in this lane
       }
-      const uint32_t n = warp_sum(popc4(top));
-      if ((tid & 31) == 0 && n != 0u) atomicAdd(&cnt[r], (unsigned long long)n);
     }
-    __syncthreads();  // every thread is past its reads of buffer b
-    if (tid == 0 && item + nbuf < hi) issue(item + nbuf, b);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[b]);
+    if (++t == tiles) {
+      t = 0;
+      ++s;
+    }
+    if (++b == nbuf) {
+      b = 0;
+      phase ^= 1u;
+    }
   }
   flush(cur);
 }
@@ -1079,21 +1242,60 @@ PT_EXPORT int pt_plan_count(const void* host_table, int64_t table_bytes, void* d
   return launch_plan_count<1>(meta, shards, n_push, n_code, stack_slots, w, out, st);
 }
 
+namespace {
+
+template <int L>
+int launch_plan_count_multi(const int64_t* meta, int64_t shards, int64_t n_root, int64_t n_leaf,
+                            int64_t n_code, int64_t stack_slots, int64_t vec, int64_t nbuf,
+                            int64_t table_in_smem, int64_t w, unsigned long long* out,
+                            cudaStream_t st) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      plan_count_multi_kernel<L>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMultiMaxDynSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int64_t w4 = w / 4;
+  const int64_t tiles = (w4 + kMultiThreads * vec - 1) / (kMultiThreads * vec);
+  const size_t smem = (size_t)multi_smem_bytes(
+      n_root, n_leaf, stack_slots, vec, nbuf, L,
+      table_in_smem ? kMultiWarps + 3 + 2 * n_root + n_code : 0);
+  const int64_t n_items = shards * tiles;
+  const int grid = resident_grid(plan_count_multi_kernel<L>, smem, n_items, kMultiThreads + 32);
+  plan_count_multi_kernel<L><<<grid, kMultiThreads + 32, smem, st>>>(
+      meta, (int32_t)n_leaf, (int32_t)n_root, (int32_t)n_code, (int32_t)stack_slots, (int32_t)vec,
+      (int32_t)nbuf, (int32_t)table_in_smem, w4, tiles, n_items, shards, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // `host_table` (pinned) holds n_root * shards zeros (the [N, S] output),
-// then the n_leaf distinct leaf pointers, the n_root + 1 offsets of each
-// root's codes, and the n_code micro program entries of every root, each
-// code plan_count's kind * 8 + op plus 64 * the leaf slot it reads. The
-// caller has built them from checked programs, checked alignment and
-// w % 4 == 0, and grouped the roots so that n_leaf + stack_slots slots
-// of kMultiThreads uint4 fit kMultiMaxDynSmem beside a meta table of up
-// to kMultiMetaSmemBytes (larger tables are read from device memory).
+// then the n_leaf distinct leaf pointers, then as 32-bit entries the first
+// root of each of the kMultiWarps consumer warps and the end, each root's
+// output row plus 256 * (1 + its op) if it is flat (0 if not), the n_root
+// + 1 offsets of each root's codes, the n_code
+// micro program entries of every root (each code plan_count's kind * 8 +
+// op plus 64 * the leaf slot it reads) and one padding entry, the roots
+// in warp order. The caller has built them from checked programs,
+// checked alignment and w % 4 == 0, grouped the roots so that n_leaf +
+// stack_slots slots of kMultiThreads uint4 leave kMultiCounterSmemBytes
+// of kMultiMaxDynSmem, and chosen VEC, the ring's nbuf, L (uint4 a lane
+// a pass) and where the table lives (ops/kernels.py
+// plan_count_multi_layout); a layout that does not fit is refused.
 PT_EXPORT int pt_plan_count_multi(const void* host_table, int64_t table_bytes, void* dev_table,
                                   int64_t shards, int64_t n_root, int64_t n_leaf,
-                                  int64_t n_code, int64_t stack_slots, int64_t w, void* stream) {
+                                  int64_t n_code, int64_t stack_slots, int64_t vec,
+                                  int64_t nbuf, int64_t lanes_vec, int64_t table_in_smem,
+                                  int64_t w, void* stream) {
   const int64_t tile_bytes = (int64_t)kMultiThreads * sizeof(uint4);
+  const int64_t entries = kMultiWarps + 3 + 2 * n_root + n_code;
   if (shards < 1 || n_root < 1 || n_root > kMultiMaxRoots || n_leaf < 0 || n_code < n_root ||
       stack_slots < 0 || stack_slots >= kMaxStack || w < 4 || w % 4 != 0 ||
-      (n_leaf + stack_slots) * tile_bytes + kMultiMetaSmemBytes > kMultiMaxDynSmem) {
+      (n_leaf + stack_slots) * tile_bytes + kMultiCounterSmemBytes > kMultiMaxDynSmem ||
+      (vec != 1 && vec != 2) || nbuf < 1 || nbuf > kMultiMaxBuf ||
+      (lanes_vec != 1 && lanes_vec != 2 && lanes_vec != 4 && lanes_vec != 8) ||
+      lanes_vec > 4 * vec || table_in_smem < 0 || table_in_smem > 1 ||
+      (table_in_smem && entries > kMultiTableSmemEntries) ||
+      multi_smem_bytes(n_root, n_leaf, stack_slots, vec, nbuf, lanes_vec,
+                       table_in_smem ? entries : 0) > kMultiMaxDynSmem) {
     return (int)cudaErrorInvalidValue;
   }
   auto st = static_cast<cudaStream_t>(stream);
@@ -1101,25 +1303,22 @@ PT_EXPORT int pt_plan_count_multi(const void* host_table, int64_t table_bytes, v
       cudaMemcpyAsync(dev_table, host_table, table_bytes, cudaMemcpyHostToDevice, st);
   if (err != cudaSuccess) return (int)err;
   if (n_leaf == 0) return (int)cudaGetLastError();  // every root is zero
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      plan_count_multi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMultiMaxDynSmem);
-  if (attr != cudaSuccess) return (int)attr;
   auto* out = static_cast<unsigned long long*>(dev_table);
   const int64_t* meta = static_cast<const int64_t*>(dev_table) + n_root * shards;
-  const int64_t w4 = w / 4;
-  const int64_t tiles = (w4 + kMultiThreads - 1) / kMultiThreads;
-  const int64_t n_meta = n_leaf + n_root + 1 + n_code;
-  const int meta_in_smem = n_meta * (int64_t)sizeof(int64_t) <= kMultiMetaSmemBytes;
-  const size_t meta_smem = meta_in_smem ? (size_t)n_meta * sizeof(int64_t) : 0;
-  // double-buffer while two buffers still leave room for two blocks an SM
-  const int nbuf = (2 * n_leaf + stack_slots) * tile_bytes + (int64_t)meta_smem <= 100 * 1024 ? 2 : 1;
-  const size_t smem = (size_t)(nbuf * n_leaf + stack_slots) * tile_bytes + meta_smem;
-  const int64_t n_items = shards * tiles;
-  const int grid = resident_grid(plan_count_multi_kernel, smem, n_items, kMultiThreads);
-  plan_count_multi_kernel<<<grid, kMultiThreads, smem, st>>>(
-      meta, (int32_t)n_leaf, (int32_t)n_root, (int32_t)n_code, (int32_t)stack_slots, nbuf,
-      meta_in_smem, w4, tiles, n_items, shards, out);
-  return (int)cudaGetLastError();
+  switch (lanes_vec) {
+    case 8:
+      return launch_plan_count_multi<8>(meta, shards, n_root, n_leaf, n_code, stack_slots, vec,
+                                        nbuf, table_in_smem, w, out, st);
+    case 4:
+      return launch_plan_count_multi<4>(meta, shards, n_root, n_leaf, n_code, stack_slots, vec,
+                                        nbuf, table_in_smem, w, out, st);
+    case 2:
+      return launch_plan_count_multi<2>(meta, shards, n_root, n_leaf, n_code, stack_slots, vec,
+                                        nbuf, table_in_smem, w, out, st);
+    default:
+      return launch_plan_count_multi<1>(meta, shards, n_root, n_leaf, n_code, stack_slots, vec,
+                                        nbuf, table_in_smem, w, out, st);
+  }
 }
 
 // `host_table` (pinned) holds `rows` zeros (the per-row counts), then per

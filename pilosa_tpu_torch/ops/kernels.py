@@ -58,6 +58,7 @@ copy and no separate memset.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -210,7 +211,7 @@ class _Library:
             "pt_count2": [p, i64, p, i64, i64, i32, p],
             "pt_rows_counts": [p, i64, i64, p, i64, i32, p, p],
             "pt_plan_count": [p, i64, p, i64, i64, i64, i64, i64, p],
-            "pt_plan_count_multi": [p, i64, p, i64, i64, i64, i64, i64, i64, p],
+            "pt_plan_count_multi": [p, i64, p, i64, i64, i64, i64, i64, i64, i64, i64, i64, i64, p],
             "pt_plan_rows": [p, i64, p, i64, i64, i64, i64, i64, p, p],
             "pt_gather_tally": [p, i64, p, p, i64, p, p, i64, p, p],
             "pt_counts_cross": [p, i64, p, i64, i64, i64, i32, p, p],
@@ -604,16 +605,154 @@ def plan_count(
 # plan_count_multi  (exec/plan.py _eval_multi_jit + _root_out "count")
 # ---------------------------------------------------------------------------
 
-# mirrors bitmap_kernels.cu: threads a block, roots a launch, the shared
-# memory a launch may take and the part of it kept for the table
+# mirrors bitmap_kernels.cu: consumer threads a block (four warps; a
+# producer warp runs beside them), roots a launch, the shared memory a
+# launch may take and the part of it its slots leave for the per-lane
+# root counters and, where it fits, the table
 MULTI_THREADS = 128
+MULTI_WARPS = MULTI_THREADS // 32
 MULTI_MAX_ROOTS = 64
 MULTI_SMEM_BYTES = 226 * 1024
-MULTI_META_SMEM_BYTES = 16384
-# one leaf tile (or stack entry) in shared memory
+MULTI_COUNTER_SMEM_BYTES = 16384
+# one leaf tile (or stack entry) of one uint4 a thread: a launch at VEC v
+# takes v of these a leaf slot and buffer, and L of these a stack entry
 MULTI_TILE_BYTES = MULTI_THREADS * 16
+# the table's 32-bit entries copied to shared memory; a longer table is
+# read from device memory
+MULTI_TABLE_SMEM_ENTRIES = 2048
+# uint4 a thread an item (VEC), uint4 a lane a pass (L) and ring buffers
+# the kernel takes (the launcher uses one or two buffers)
+MULTI_VECS = (1, 2)
+MULTI_LANES = (1, 2, 4, 8)
+MULTI_MAX_BUF = 4
+# what bounds a launch's resident blocks an SM: the SM's shared memory
+# (228 KiB, 1 KiB of it reserved a block, 64 B of static barriers a
+# block), its 2048 threads, and the registers the kernel's
+# __launch_bounds__ allow at each L (multi_min_blocks in bitmap_kernels.cu)
+MULTI_SM_SMEM_BYTES = 228 * 1024
+MULTI_BLOCK_SMEM_EXTRA = 1024 + 64
+MULTI_SM_THREADS = 2048
+MULTI_LANE_BLOCKS = {1: 8, 2: 7, 4: 5, 8: 3}
 # code bits below the leaf slot (kind * 8 + op < 64)
 _MULTI_SLOT_SHIFT = 6
+
+
+def multi_table_entries(n_root: int, n_code: int) -> int:
+    """32-bit entries of a launch's table: each warp's first root and the
+    end, each root's output row, its first code and the end, the codes,
+    one padding entry."""
+    return MULTI_WARPS + 3 + 2 * n_root + n_code
+
+
+def multi_smem_bytes(n_root: int, n_leaf: int, stack: int, vec: int, nbuf: int, lanes: int,
+                     table_entries: int) -> int:
+    """Dynamic shared memory of a plan_count_multi launch (mirrors
+    multi_smem_bytes in bitmap_kernels.cu): the ring of `nbuf` buffers of
+    `n_leaf` slots, the warps' stacks (`lanes` uint4 a lane and entry),
+    a 32-bit counter a root and lane, and the table if it is kept there
+    (`table_entries` > 0)."""
+    return ((nbuf * n_leaf * vec + stack * lanes) * MULTI_TILE_BYTES + n_root * 32 * 4
+            + (table_entries * 4 + 15) // 16 * 16)
+
+
+def multi_launch_ok(n_root: int, n_leaf: int, n_code: int, stack: int, vec: int, nbuf: int, lanes: int,
+                    table_in_smem: bool) -> bool:
+    """Whether pt_plan_count_multi takes a launch of this shape and layout
+    (mirrors its argument check)."""
+    entries = multi_table_entries(n_root, n_code)
+    return (
+        1 <= n_root <= MULTI_MAX_ROOTS and n_leaf >= 0 and n_code >= n_root and 0 <= stack < MAX_STACK
+        and (n_leaf + stack) * MULTI_TILE_BYTES + MULTI_COUNTER_SMEM_BYTES <= MULTI_SMEM_BYTES
+        and vec in MULTI_VECS and 1 <= nbuf <= MULTI_MAX_BUF and lanes in MULTI_LANES and lanes <= 4 * vec
+        and not (table_in_smem and entries > MULTI_TABLE_SMEM_ENTRIES)
+        and multi_smem_bytes(n_root, n_leaf, stack, vec, nbuf, lanes, entries if table_in_smem else 0)
+        <= MULTI_SMEM_BYTES
+    )
+
+
+def multi_resident_blocks(smem: int, lanes: int) -> int:
+    """Blocks of a plan_count_multi launch an SM holds at once, taking
+    `smem` bytes of dynamic shared memory at L = `lanes`."""
+    return min(
+        MULTI_SM_SMEM_BYTES // (smem + MULTI_BLOCK_SMEM_EXTRA),
+        MULTI_LANE_BLOCKS[lanes],
+        MULTI_SM_THREADS // (MULTI_THREADS + 32),
+    )
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_count_multi_layout(n_root: int, n_leaf: int, n_code: int, stack: int) -> Tuple[int, int, int, bool]:
+    """(VEC, nbuf, L, table in shared memory) of a plan_count_multi
+    launch: of the layouts the kernel takes with one or two ring
+    buffers, the one with the most uint4 loads in flight an SM (resident
+    blocks x L: each code's loads are L a lane, and the programs, not the
+    copies, bound the kernel), then two buffers over one, wider L, the
+    table in shared memory, and the least shared memory. Any group
+    plan_count_multi_groups makes has one (VEC 1, one buffer, L 1 at the
+    cap)."""
+    entries = multi_table_entries(n_root, n_code)
+    best, best_key = None, None
+    for vec in MULTI_VECS:
+        for nbuf in (1, 2):  # a deeper ring costs resident blocks and lost at every shape measured
+            for lanes in MULTI_LANES:
+                for tab in (True, False):
+                    if not multi_launch_ok(n_root, n_leaf, n_code, stack, vec, nbuf, lanes, tab):
+                        continue
+                    smem = multi_smem_bytes(n_root, n_leaf, stack, vec, nbuf, lanes, entries if tab else 0)
+                    key = (multi_resident_blocks(smem, lanes) * lanes, nbuf, lanes, tab, -smem)
+                    if best_key is None or key > best_key:
+                        best, best_key = (vec, nbuf, lanes, tab), key
+    if best is None:
+        raise ValueError(
+            f"plan_count_multi: {n_root} roots over {n_leaf} leaves and {stack} stack slots do not fit a launch"
+        )
+    return best
+
+
+def plan_count_multi_warps(starts: Sequence[int]) -> List[List[int]]:
+    """The roots (positions in the launch) each consumer warp runs: the
+    longest programs first, each to the warp with the fewest codes so far
+    (a root costs its codes and one popcount pass), in launch order
+    within a warp."""
+    loads = [0] * MULTI_WARPS
+    warps: List[List[int]] = [[] for _ in range(MULTI_WARPS)]
+    cost = [starts[k + 1] - starts[k] + 1 for k in range(len(starts) - 1)]
+    for k in sorted(range(len(cost)), key=lambda k: (-cost[k], k)):
+        w = min(range(MULTI_WARPS), key=lambda w: (loads[w], w))
+        warps[w].append(k)
+        loads[w] += cost[k]
+    return [sorted(ks) for ks in warps]
+
+
+def multi_flat_op(codes: Sequence[int]) -> int:
+    """1 + the op of a flat root's codes (a leaf push, then leaf_ops of one
+    op: one n-ary node over leaves), which the kernel runs with the op
+    hoisted out of its loop; 0 for any other root."""
+    ops = {c & 7 for c in codes[1:]}
+    if (codes[0] >> 3) & 7 != MICRO_KINDS["push"] or len(ops) > 1:
+        return 0
+    if any((c >> 3) & 7 != MICRO_KINDS["leaf_op"] for c in codes[1:]):
+        return 0
+    return 1 + (ops.pop() if ops else 0)
+
+
+def plan_count_multi_table32(starts: Sequence[int], codes: Sequence[int]) -> np.ndarray:
+    """A launch's 32-bit table packed into int64 table words: the first
+    root of each warp and the end, each root's output row (its position
+    in the launch) plus 256 * multi_flat_op of its codes, each root's
+    first code and the end, the codes, one padding entry (the kernel
+    reads each code one ahead), the roots in warp order
+    (plan_count_multi_warps), zero-padded to whole words."""
+    firsts, rows, new_starts, body = [0], [], [0], []
+    for ks in plan_count_multi_warps(starts):
+        firsts.append(firsts[-1] + len(ks))
+        for k in ks:
+            own = codes[starts[k] : starts[k + 1]]
+            rows.append(k + 256 * multi_flat_op(own))
+            body += own
+            new_starts.append(len(body))
+    t = firsts + rows + new_starts + body + [0]
+    return np.array(t + [0] * (len(t) % 2), np.int32).view(np.int64)
 
 
 def plan_count_multi_plain(
@@ -629,8 +768,8 @@ def _multi_slots(prog: Sequence[int]) -> int:
     return len(set(pushes)) + slots
 
 
-# the slots one launch holds beside its table
-MULTI_CAP = (MULTI_SMEM_BYTES - MULTI_META_SMEM_BYTES) // MULTI_TILE_BYTES
+# the VEC-1 slots one launch holds beside its counters
+MULTI_CAP = (MULTI_SMEM_BYTES - MULTI_COUNTER_SMEM_BYTES) // MULTI_TILE_BYTES
 
 
 def fits_multi(prog: Sequence[int]) -> bool:
@@ -644,7 +783,8 @@ def plan_count_multi_groups(progs: Sequence[Sequence[int]]) -> List[List[int]]:
     """The roots (indices into `progs`) of each plan_count_multi launch,
     in order: as few groups as fit one launch each, a group holding at
     most MULTI_MAX_ROOTS roots whose distinct leaves and deepest stack
-    take at most MULTI_SMEM_BYTES beside the table's share. Decided from
+    take at most MULTI_CAP VEC-1 slots (MULTI_SMEM_BYTES less the
+    counters' share). Decided from
     each root's micro program (the leaves its pushes read, the stack
     entries it needs)."""
     cap = MULTI_CAP
@@ -734,13 +874,15 @@ def plan_count_multi(
             outs.append(torch.zeros((n, shards), dtype=torch.int64, device=dev))
             continue
         ptrs = [leaves[i].data_ptr() for i in slot_leaves]
+        vec, nbuf, lanes, tab_smem = plan_count_multi_layout(n, len(ptrs), len(codes), stack)
         # the table: zeros for the [n, shards] output, the leaf pointers,
-        # each root's first code, the codes
+        # the 32-bit warp, row, start and code entries
         table, rc = _STAGING.launch(
             dev,
-            (np.zeros(n * shards, np.int64), ptrs, starts, codes),
+            (np.zeros(n * shards, np.int64), ptrs, plan_count_multi_table32(starts, codes)),
             lambda host, nbytes, tab, stream: library().pt_plan_count_multi(
-                host, nbytes, tab, shards, n, len(ptrs), len(codes), stack, w, stream
+                host, nbytes, tab, shards, n, len(ptrs), len(codes), stack, vec, nbuf, lanes, int(tab_smem), w,
+                stream,
             ),
         )
         _launched("plan_count_multi", rc)

@@ -101,15 +101,40 @@ MULTI_SPLITS = {
 }
 
 
+def decode_table32(words, n_root, n_code):
+    """A launch's packed 32-bit table read back: each root's output row,
+    first code and end, and the codes, in the kernel's (warp) order;
+    checks the warp ranges cover the roots in order and the padding."""
+    t = words.view(np.int32)
+    w = K.MULTI_WARPS
+    firsts = t[: w + 1].tolist()
+    assert firsts[0] == 0 and firsts[-1] == n_root and firsts == sorted(firsts)
+    rows = t[w + 1 : w + 1 + n_root].tolist()
+    assert sorted(r & 255 for r in rows) == list(range(n_root))
+    starts = t[w + 1 + n_root : w + 2 + 2 * n_root].tolist()
+    assert starts[0] == 0 and starts[-1] == n_code
+    codes = t[w + 2 + 2 * n_root : w + 2 + 2 * n_root + n_code].tolist()
+    assert len(t) >= K.multi_table_entries(n_root, n_code) and t[w + 2 + 2 * n_root + n_code] == 0
+    # the flat roots' op: a leaf push, then leaf_ops of that op, nothing else
+    for k, row in enumerate(rows):
+        seg = codes[starts[k] : starts[k + 1]]
+        flat = [(c >> 3) & 7 for c in seg] == [K.MICRO_KINDS["push"]] + [K.MICRO_KINDS["leaf_op"]] * (len(seg) - 1)
+        flat = flat and len({c & 7 for c in seg[1:]}) <= 1
+        assert (row >> 8) == ((1 + (seg[1] & 7 if len(seg) > 1 else 0)) if flat else 0)
+    return [r & 255 for r in rows], starts, codes
+
+
 def run_multi_tables(leaves, progs, shards):
     """The plan_count_multi kernel's loop in numpy over the host tables
-    the wrapper hands each launch (plan_count_multi_tables): every root's
-    codes read the group's leaf slots and its own stack."""
+    the wrapper hands each launch (plan_count_multi_tables, its root
+    starts and codes read back from the packed 32-bit table): every
+    root's codes read the group's leaf slots and its own stack."""
     binop = [np.bitwise_and, np.bitwise_or, np.bitwise_xor, lambda a, b: a & ~b, lambda a, b: ~a & b]
     out = np.zeros((len(progs), shards), np.int64)
     for group, slot_leaves, starts, codes, stack in K.plan_count_multi_tables(progs):
+        rows, starts, codes = decode_table32(K.plan_count_multi_table32(starts, codes), len(group), len(codes))
         slots = [leaves[i][:shards] for i in slot_leaves]
-        for k, r in enumerate(group):
+        for k, r in ((k, group[row]) for k, row in enumerate(rows)):
             zero = np.zeros_like(leaves[0][:shards])
             top, below = zero, []
             for pc in range(starts[k], starts[k + 1]):
@@ -148,9 +173,10 @@ def test_plan_count_multi_launch_tables(split):
         assert len(group) <= K.MULTI_MAX_ROOTS
         assert len(slot_leaves) + stack <= K.MULTI_CAP
         assert len(starts) == len(group) + 1 and starts[-1] == len(codes)
-    n_meta = max(len(tb[1]) + len(tb[0]) + 1 + len(tb[3]) for tb in tables)
-    if split == "long table":
-        assert len(tables) == 1 and n_meta * 8 > K.MULTI_META_SMEM_BYTES
+    if split == "long table":  # its table is read from device memory
+        ((group, slot_leaves, starts, codes, stack),) = tables
+        assert len(starts) + 1 + len(codes) > K.MULTI_TABLE_SMEM_ENTRIES
+        assert not K.plan_count_multi_layout(len(group), len(slot_leaves), len(codes), stack)[3]
     else:
         assert len(tables) > 1
     want = K.plan_count_multi_plain([t(x) for x in leaves], progs, s).numpy()
@@ -194,6 +220,150 @@ def test_plan_count_multi_groups_fit_one_launch():
     assert len(groups) == -(-30 // (cap // 10))
     with pytest.raises(ValueError, match="more than one launch holds"):
         K.plan_count_multi_groups([union(list(range(cap + 1)))])
+
+
+def nested_programs(rng, n_roots, n_leaves, depth):
+    """Postfix programs that push `depth` distinct leaves before their
+    first operator, so each needs depth - 1 stack entries."""
+    return [
+        [int(i) for i in rng.choice(n_leaves, size=depth, replace=False)]
+        + [K.BINOPS[OPS[int(rng.integers(4))]] for _ in range(depth - 1)]
+        for _ in range(n_roots)
+    ]
+
+
+def random_batch(rng):
+    """2-64 roots over 1-120 leaves: chains, nested programs or both."""
+    n_roots, n_leaves = int(rng.integers(2, 65)), int(rng.integers(1, 121))
+    chains = chain_programs(rng, n_roots, n_leaves, int(rng.integers(1, min(n_leaves, 40) + 1)))
+    nested = nested_programs(rng, n_roots, n_leaves, int(rng.integers(1, min(n_leaves, 20) + 1)))
+    pick = int(rng.integers(3))
+    return chains if pick == 0 else nested if pick == 1 else chains[: n_roots // 2] + nested[n_roots // 2 :]
+
+
+LAYOUT_BATCHES = {f"split {k}": (lambda rng, k=k: MULTI_SPLITS[k](rng)) for k in MULTI_SPLITS}
+LAYOUT_BATCHES.update({f"random {i}": random_batch for i in range(12)})
+
+
+def layouts(n, n_leaf, n_code, stack):
+    """Every (VEC, nbuf, L, table in shared memory) of one or two ring
+    buffers the kernel takes for a launch of this shape, with its
+    resident blocks x L."""
+    entries = K.multi_table_entries(n, n_code)
+    out = {}
+    for vec in K.MULTI_VECS:
+        for nbuf in (1, 2):
+            for lanes in K.MULTI_LANES:
+                for tab in (True, False):
+                    if K.multi_launch_ok(n, n_leaf, n_code, stack, vec, nbuf, lanes, tab):
+                        smem = K.multi_smem_bytes(n, n_leaf, stack, vec, nbuf, lanes, entries if tab else 0)
+                        out[vec, nbuf, lanes, tab] = K.multi_resident_blocks(smem, lanes) * lanes
+    return out
+
+
+@pytest.mark.parametrize("batch", sorted(LAYOUT_BATCHES))
+def test_plan_count_multi_layout_fits(batch):
+    """The (VEC, nbuf, L, table) the launcher picks for every launch of a
+    batch fits the shared memory and passes the kernel's argument check,
+    and keeps the most uint4 loads in flight an SM (resident blocks x L)
+    of every layout of one or two ring buffers the kernel takes, two
+    buffers where a layout with as many loads does, and the table in
+    shared memory only when it is short enough."""
+    rng = np.random.default_rng(1200 + sorted(LAYOUT_BATCHES).index(batch))
+    progs = LAYOUT_BATCHES[batch](rng)
+    for group, slot_leaves, starts, codes, stack in K.plan_count_multi_tables(progs):
+        n, n_leaf, n_code = len(group), len(slot_leaves), len(codes)
+        vec, nbuf, lanes, tab = K.plan_count_multi_layout(n, n_leaf, n_code, stack)
+        assert K.multi_launch_ok(n, n_leaf, n_code, stack, vec, nbuf, lanes, tab)
+        entries = K.multi_table_entries(n, n_code)
+        smem = K.multi_smem_bytes(n, n_leaf, stack, vec, nbuf, lanes, entries if tab else 0)
+        assert smem <= K.MULTI_SMEM_BYTES and K.multi_resident_blocks(smem, lanes) >= 1
+        assert not tab or entries <= K.MULTI_TABLE_SMEM_ENTRIES
+        options = layouts(n, n_leaf, n_code, stack)
+        best = max(options.values())
+        assert options[vec, nbuf, lanes, tab] == best
+        if any(score == best and lay[1] >= 2 for lay, score in options.items()):
+            assert nbuf >= 2
+
+
+# seeded batches and the launches (roots a group, in order) that the
+# grouping rule gave them before the kernel's redesign; its groups stay
+PINNED_GROUPS = {
+    "roots": (1300, lambda rng: chain_programs(rng, 130, 40, 3), [64, 64, 2]),
+    "leaves": (1301, lambda rng: chain_programs(rng, 64, 120, 4), [52, 12]),
+    "chains": (1302, lambda rng: chain_programs(rng, 64, 105, 30), [64]),
+    "stacks": (1303, lambda rng: nested_programs(rng, 64, 100, 12), [29, 21, 14]),
+    "mixed": (1304, lambda rng: chain_programs(rng, 20, 90, 20) + nested_programs(rng, 30, 60, 8), [50]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED_GROUPS))
+def test_plan_count_multi_groups_pinned(name):
+    seed, make, sizes = PINNED_GROUPS[name]
+    progs = make(np.random.default_rng(seed))
+    groups = K.plan_count_multi_groups(progs)
+    assert [len(g) for g in groups] == sizes
+    assert sum(groups, []) == list(range(len(progs)))
+
+
+@pytest.mark.parametrize("batch", sorted(LAYOUT_BATCHES))
+def test_plan_count_multi_table32_decodes(batch):
+    """The packed 32-bit table of each launch decodes back to its roots'
+    micro programs: every root once, in the warps the host balanced, with
+    the same kinds and ops, each push reading its leaf through the
+    group's slot list, and the padding entry the kernel reads one code
+    ahead."""
+    rng = np.random.default_rng(1200 + sorted(LAYOUT_BATCHES).index(batch))
+    progs = LAYOUT_BATCHES[batch](rng)
+    reads = (K.MICRO_KINDS["push"], K.MICRO_KINDS["leaf_op"])
+    for group, slot_leaves, starts, codes, stack in K.plan_count_multi_tables(progs):
+        words = K.plan_count_multi_table32(starts, codes)
+        assert words.dtype == np.int64
+        rows, got_starts, got_codes = decode_table32(words, len(group), len(codes))
+        for k, row in enumerate(rows):
+            micro, pushes, slots = K.plan_micro_program(progs[group[row]])
+            seg = got_codes[got_starts[k] : got_starts[k + 1]]
+            assert [c & 63 for c in seg] == micro
+            assert [slot_leaves[c >> 6] for c in seg if (c >> 3) & 7 in reads] == pushes
+            assert slots <= stack
+        # the warps' codes: no warp more than the longest root above the least loaded
+        cost = [starts[k + 1] - starts[k] + 1 for k in range(len(group))]
+        loads = [sum(cost[k] for k in ks) for ks in K.plan_count_multi_warps(starts)]
+        assert max(loads) - min(loads) <= max(cost)
+
+
+def test_multi_launch_check_at_the_cap():
+    """The host's view of pt_plan_count_multi's argument check: a group
+    whose leaves (or leaves and stack) take every VEC-1 slot beside the
+    counters launches, at VEC 1 with one buffer (L 1 with a stack), also with 64
+    roots; one slot more is refused, and plan_count_multi_groups never
+    makes such a group."""
+    cap = K.MULTI_CAP
+    union = lambda ids: [ids[0]] + [x for i in ids[1:] for x in (i, K.BINOPS["or"])]  # noqa: E731
+    ((group, slots, starts, codes, stack),) = K.plan_count_multi_tables([union(list(range(cap)))])
+    assert len(slots) + stack == cap
+    assert K.plan_count_multi_layout(1, len(slots), len(codes), stack)[:2] == (1, 1)
+    assert K.multi_launch_ok(1, cap, len(codes), 0, 1, 1, 1, True)
+    assert K.multi_launch_ok(64, cap, 64, 0, 1, 1, 1, False)
+    assert K.multi_launch_ok(1, cap - 9, 1, 9, 1, 1, 1, False)
+    assert not K.multi_launch_ok(1, cap - 9, 1, 9, 1, 1, 2, False)  # the stack at L 2 does not fit
+    # one slot over: a leaf, or a stack entry
+    assert not K.multi_launch_ok(1, cap + 1, len(codes) + 1, 0, 1, 1, 1, False)
+    assert not K.multi_launch_ok(1, cap - 8, 1, 9, 1, 1, 1, False)
+    with pytest.raises(ValueError, match="more than one launch holds"):
+        K.plan_count_multi_groups([union(list(range(cap + 1)))])
+    # the kernel's other limits: roots, VEC, L, buffers, the table's length
+    assert not K.multi_launch_ok(65, 4, 65, 0, 1, 1, 1, False)
+    assert not K.multi_launch_ok(1, 4, 1, 0, 3, 1, 1, False)
+    assert not K.multi_launch_ok(1, 4, 1, 0, 4, 1, 1, False)
+    assert not K.multi_launch_ok(1, 4, 1, 0, 1, 1, 8, False)  # L above 4 * VEC
+    assert not K.multi_launch_ok(1, 4, 1, 0, 1, 0, 1, False)
+    assert not K.multi_launch_ok(1, 4, 1, 0, 1, K.MULTI_MAX_BUF + 1, 1, False)
+    long = K.MULTI_TABLE_SMEM_ENTRIES - K.multi_table_entries(1, 0) + 1
+    assert not K.multi_launch_ok(1, 4, long, 0, 1, 1, 1, True)
+    assert K.multi_launch_ok(1, 4, long, 0, 1, 1, 1, False)
+    assert K.multi_launch_ok(1, 4, long - 1, 0, 1, 1, 1, True)
+    assert not K.multi_launch_ok(1, 27, 1, 0, 2, K.MULTI_MAX_BUF, 1, False)  # 4 buffers of 27 VEC-2 slots: 432 KiB
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +499,13 @@ def test_cuda_plan_count_multi_matches_twin():
         pytest.skip("no nvcc")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(1000)
-    for s, w, n_roots, n_leaves in [(3, 4100, 2, 4), (7, 32768, 16, 16), (2, 512, 64, 32), (1, 4, 5, 60)]:
+    # ... and W on the tile edges of each VEC the launcher picks (a tile
+    # is 512 * VEC words), S = 1, and 300 one-word shards (block runs
+    # crossing shards)
+    shapes = [(3, 4100, 2, 4), (7, 32768, 16, 16), (2, 512, 64, 32), (1, 4, 5, 60)]
+    shapes += [(s, w, 16, n) for n in (4, 12, 30) for s, w in ((2, 516), (3, 1028), (1, 1004), (3, 32772))]
+    shapes += [(300, 4, 1, 3), (300, 4, 64, 8)]
+    for s, w, n_roots, n_leaves in shapes:
         leaves = [t(words(rng, s, w)) for _ in range(n_leaves)]
         progs = []
         for sp in shared_roots(rng, n_roots, n_leaves):
