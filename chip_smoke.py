@@ -18,7 +18,11 @@ Phases, each fatal on any mismatch or exception:
    segment, entries in no segment, src's last word, unaligned views and
    1024 shards x 8 rows with uniform and Zipf-skewed segment lengths,
    for the BSI kernels, depths 1..32, signed and unsigned fields, filters,
-   every range kind and edge predicates, and for GroupBy's kernels
+   every range kind and edge predicates, and the slab steps
+   bsi_min_max_step and bsi_range_step chained over slabs of 1, 3, 7, 16
+   and 32 planes at depths 1..32 (33-bit keys, every job shape of a
+   condition), each chain equal to its twins' and to the whole-stack
+   kernel's result, and for GroupBy's kernels
    counts_cross at every prefix-chunk size (G = 2..40; G = 1 goes to
    rows_counts) and gather_and on aligned and unaligned slabs, a filter
    broadcast and a cross expansion past one 16-output chunk; for the
@@ -60,8 +64,16 @@ Phases, each fatal on any mismatch or exception:
    then Sum/Min/Max (filtered and not, a Shift in the filter carried
    across shards, a non-call filter=), condition-row counts and condition
    rows in trees, each held to numpy answers built per shard while
-   generating. Launch counts are reset before and read after this
-   phase too; bsi_sum, bsi_min_max and bsi_range must have launched;
+   generating, at the default slab of 16 planes (amount and deep stream
+   their planes in slabs) and again at 4 (every int field streams), with
+   each query's slabs, slab bytes and launches of the streamed path
+   printed. Launch counts are reset before and read after this phase
+   too; bsi_sum, bsi_min_max, bsi_min_max_step, bsi_range and
+   bsi_range_step must have launched;
+3c. BSI slab residency: under a device budget a quarter of which holds
+   22 [S, W] rows, Sum, Min and Count(Row(amount > 500000)) must run in
+   one shard chunk at a slab of 16 and in two at 64 (the whole stack);
+   chunks, launches, the card's peak memory and p50s printed;
 4. timing: each kernel at the shapes the main paths gave it (count2 at
    Row.count()'s 1024 segments) against its twin: device time as 20
    back-to-back calls between two CUDA events, divided by 20, with a
@@ -77,7 +89,9 @@ Phases, each fatal on any mismatch or exception:
    in-process p50s of Row(f=1), Count(Shift(Row(f=6), n=1)) and the
    6-Shift-twin Count printed beside their figures before plan_rows; the
    three BSI kernels again over `deep` at depth 32 (their edge
-   predicates up to 2^32 - 1 held to the twin first);
+   predicates up to 2^32 - 1 held to the twin first); the slab steps at
+   deep's two [16, S, W] slabs, the first (state written) and the last
+   (state read, result reduced), and amount's last;
 4b. residency, on the main path's holder (extent_rows 256: 4 extents a
    1024-shard stack), launch counts reset before and read after: the
    query set Count(Intersect(Row(f=0), Row(g=0))), Count(Union(Row(f=0),
@@ -131,7 +145,8 @@ Phases, each fatal on any mismatch or exception:
    queries (Counts, Row, TopN with and without a filter, Sum/Min/Max, a
    condition count), each held to numpy and to Executor.execute on the
    server's holder; launch counts are reset before the served query set
-   and read after it, and six kernels must have launched. Rows(f) and
+   and read after it, and six kernels must have launched (amount's Min/Max
+   and its condition Count on the slab steps). Rows(f) and
    GroupBy(Rows(f), Rows(g)) are served too, held to numpy and to the
    executor (counts_cross launches). An unknown index answers 404; 8 clients x 2 rounds must get the serial answers; served and
    in-process p50s per query and the HTTP ingest rates are printed. The
@@ -707,6 +722,7 @@ def kernel_phase(rng, dev, errs):
         f"with and without a filter (empty masks give any = 0); bsi_range equal in {n_range} "
         "kind/sel/predicate/mode cases"
     )
+    slab_step_checks(rng, dev, rand_words)
 
     # GroupBy kernels (their own generator, so the main path's data stay
     # the same): counts_cross at every prefix-chunk size (G = 2, 3, 8, 16,
@@ -822,6 +838,88 @@ def kernel_phase(rng, dev, errs):
 # ---------------------------------------------------------------------------
 # phase 3: the main path over 2^30 columns
 # ---------------------------------------------------------------------------
+
+
+# the slab steps' job shapes: every decomposition exec/bsistream.py
+# `_decompose` gives (lt pos with the neg mask term, a between straddling
+# 0 as two lt jobs, eq neg, gt with the pos mask term, lte / gte), with
+# their predicates as functions of the top magnitude
+SLAB_JOBS = [
+    ((("lt", "pos", False),), lambda t: (t // 3,), ("neg",)),
+    ((("lt", "pos", True), ("lt", "neg", True)), lambda t: (t // 2, t // 3), ()),
+    ((("eq", "neg", False),), lambda t: (t // 7,), ()),
+    ((("eq", "pos", False),), lambda t: (0,), ("consider",)),
+    ((("gt", "pos", False),), lambda t: (t // 5,), ("pos",)),
+    ((("gt", "neg", True),), lambda t: (1,), ()),
+    ((("lt", "neg", True),), lambda t: (t,), ("pos",)),
+    ((("between", "pos", False),), lambda t: (t // 9, t // 2), ()),
+    ((("lt", "consider", False), ("gt", "consider", True)), lambda t: (t, t // 4), ("consider", "pos", "neg")),
+]
+SLAB_SPLITS = (1, 3, 7, 16, 32)
+SLAB_CHECK_SHAPES = ((13, 32768), (13, 1001))  # [S, W]: the uint4 path, and W % 4 != 0
+
+
+def slab_step_checks(rng, dev, rand_words):
+    """bsi_min_max_step and bsi_range_step chained over slabs of 1, 3, 7,
+    16 and 32 planes (MSB first) at depths 1..32: each chain equals the
+    same chain of twins and today's whole-stack kernel, exactly; Min/Max
+    signed at depth 32 keys on 33 bits (int64 va from the first slab)."""
+    import torch
+
+    from pilosa_tpu_torch.ops import bsi as obsi
+    from pilosa_tpu_torch.ops import kernels as K
+
+    def slabs(depth, slab):
+        los = list(range(0, depth, slab))[::-1]
+        return [(n == 0, n == len(los) - 1, lo, min(slab, depth - lo)) for n, lo in enumerate(los)]
+
+    n_mm = n_rng = 0
+    for d in (1, 7, 9, 17, 20, 31, 32):
+        top = (1 << d) - 1
+        for s, w in SLAB_CHECK_SHAPES:
+            planes, ex, sg, ft = rand_words(d, s, w), rand_words(s, w), rand_words(s, w), rand_words(s, w)
+            ex = ex & rand_words(s, w)
+            empty = torch.zeros_like(ex)
+            for sign in (sg, None):
+                key_bits = d + (sign is not None)
+                for filt in (ft, None, empty):
+                    for is_min in (True, False):
+                        whole = K.bsi_min_max(planes, ex, sign, filt, is_min)
+                        for slab in SLAB_SPLITS:
+                            got = want = None
+                            for first, last, lo, dd in slabs(d, slab):
+                                got = K.bsi_min_max_step(planes[lo : lo + dd], ex, sign, filt, got, is_min, first, last, key_bits)
+                                want = obsi.min_max_step(planes[lo : lo + dd], ex, sign, filt, want, is_min, first, last, key_bits)
+                            n_mm += 1
+                            check(torch.equal(got, want) and torch.equal(got, whole),
+                                  f"bsi_min_max_step chain (depth {d}, slab {slab}, signed {sign is not None}, "
+                                  f"filter {filt is not None}, min {is_min}, [{s}, {w}]): {got.tolist()} twin "
+                                  f"{want.tolist()} whole {whole.tolist()}")
+                        if filt is empty:
+                            check(whole.tolist() == [0, 0, 0], f"bsi_min_max on an empty mask: {whole.tolist()}")
+            for jobs, preds_of, extras in SLAB_JOBS:
+                for preds in (preds_of(top), tuple(sorted(int(rng.integers(0, top + 1)) for _ in preds_of(top)))):
+                    whole, off = [], 0
+                    for kind, sel, allow_eq in jobs:
+                        p = list(preds[off : off + obsi.range_npreds(kind)]) + [0]
+                        off += obsi.range_npreds(kind)
+                        whole.append(int(K.bsi_range(planes, ex, sg, sel, kind, allow_eq, p[0], p[1], "count").sum()))
+                    whole += [int(obsi.popcount_words(obsi.job_mask(ex, sg, None, sel)).sum()) for sel in extras]
+                    for slab in SLAB_SPLITS:
+                        got = want = None
+                        for first, last, lo, dd in slabs(d, slab):
+                            got = K.bsi_range_step(planes[lo : lo + dd], ex, sg, got, jobs, preds, lo, first, last, extras)
+                            want = obsi.range_step(planes[lo : lo + dd], ex, sg, want, jobs, preds, lo, first, last, extras)
+                        n_rng += 1
+                        check(got.tolist() == want.tolist() == whole,
+                              f"bsi_range_step chain (depth {d}, slab {slab}, {jobs}, {preds}, [{s}, {w}]): "
+                              f"{got.tolist()} twin {want.tolist()} whole {whole}")
+    torch.cuda.synchronize()
+    print(
+        f"kernels: bsi_min_max_step equal to its twin and to bsi_min_max in {n_mm} chains, bsi_range_step to its "
+        f"twin and to bsi_range in {n_rng} chains (slabs of {', '.join(map(str, SLAB_SPLITS))} planes, depths 1..32, "
+        "signed and unsigned, filtered, empty masks)"
+    )
 
 
 def multi_edge_checks(dev, same):
@@ -1223,6 +1321,7 @@ def main_path(args, rng):
 # phase 3b: the BSI path over the same 2^30 columns
 # ---------------------------------------------------------------------------
 
+BSI_KERNELS = ("bsi_sum", "bsi_min_max", "bsi_min_max_step", "bsi_range", "bsi_range_step")
 AMOUNT = (-1_000_000, 1_000_000)  # signed: base 0, 20 magnitude bits
 AGE = (0, 120)  # unsigned: base 0, 7 magnitude bits, no sign row
 N_VALUE_IMPORT = 8  # shards loaded through Field.import_values (16 until PR 11: cut for the script's time)
@@ -1470,50 +1569,77 @@ def bsi_path(args, holder, ex, state):
     )
 
     A = ans
+    # (pql, numpy's answer, what it launches: "sum" bsi_sum, "mm:<field>"
+    # bsi_min_max or, on a field deeper than the slab, bsi_min_max_step,
+    # "count" bsi_range_step, "rows" bsi_range, "mask" plan_count)
     queries = [
-        ("Sum(field=amount)", [A["sum"]], "bsi_sum"),
-        ("Sum(Row(f=1), field=amount)", [A["sum_f1"]], "bsi_sum"),
-        ("Sum(field=amount, filter=Row(age > 65))", [A["sum_old"]], "bsi_sum"),
-        ("Min(field=amount)", [A["min"]], "bsi_min_max"),
-        ("Max(field=amount)", [A["max"]], "bsi_min_max"),
-        ("Max(Row(g=0), field=age)", [A["max_age_g0"]], "bsi_min_max"),
-        ("Count(Row(amount > 500000))", [A["gt500k"]], "bsi_range"),
-        ("Count(Row(amount <= -250000))", [A["le_m250k"]], "bsi_range"),
-        ("Count(Row(amount == 12345))", [A["eq12345"]], "bsi_range"),
-        ("Count(Row(amount != 0))", [A["ne0"]], "bsi_range"),
-        ("Count(Row(-1000 <= amount <= 1000))", [A["btw1000"]], "bsi_range"),
-        ("Count(Row(amount != null))", [A["notnull"]], "plan_count"),
-        ("Count(Intersect(Row(age >= 18), Row(f=1)))", [A["adult_f1"]], "bsi_range"),
-        ("Count(Union(Row(age < 13), Row(age > 65)))", [A["young_or_old"]], "bsi_range"),
+        ("Sum(field=amount)", [A["sum"]], "sum"),
+        ("Sum(Row(f=1), field=amount)", [A["sum_f1"]], "sum"),
+        ("Sum(field=amount, filter=Row(age > 65))", [A["sum_old"]], "sum"),
+        ("Min(field=amount)", [A["min"]], "mm:amount"),
+        ("Max(field=amount)", [A["max"]], "mm:amount"),
+        ("Max(Row(g=0), field=age)", [A["max_age_g0"]], "mm:age"),
+        ("Count(Row(amount > 500000))", [A["gt500k"]], "count"),
+        ("Count(Row(amount <= -250000))", [A["le_m250k"]], "count"),
+        ("Count(Row(amount == 12345))", [A["eq12345"]], "count"),
+        ("Count(Row(amount != 0))", [A["ne0"]], "count"),
+        ("Count(Row(-1000 <= amount <= 1000))", [A["btw1000"]], "count"),
+        ("Count(Row(amount != null))", [A["notnull"]], "mask"),
+        ("Count(Intersect(Row(age >= 18), Row(f=1)))", [A["adult_f1"]], "rows"),
+        ("Count(Union(Row(age < 13), Row(age > 65)))", [A["young_or_old"]], "rows"),
         # a Shift in the filter (carried across shards), a non-call filter
-        ("Sum(field=amount, filter=Shift(Row(g=0), n=1))", [A["sum_g0_sh1"]], "bsi_sum"),
-        ("Min(Shift(Row(f=1), n=2), field=age)", [A["min_age_f1_sh2"]], "bsi_min_max"),
-        ("Sum(field=amount, filter=5)", [A["sum"]], "bsi_sum"),
+        ("Sum(field=amount, filter=Shift(Row(g=0), n=1))", [A["sum_g0_sh1"]], "sum"),
+        ("Min(Shift(Row(f=1), n=2), field=age)", [A["min_age_f1_sh2"]], "mm:age"),
+        ("Sum(field=amount, filter=5)", [A["sum"]], "sum"),
         # the signed field 32 bits deep
-        ("Sum(field=deep)", [A["deep_sum"]], "bsi_sum"),
-        ("Min(field=deep)", [A["deep_min"]], "bsi_min_max"),
-        ("Max(field=deep)", [A["deep_max"]], "bsi_min_max"),
-        (f"Count(Row(deep < {DEEP_LT}))", [A["deep_lt"]], "bsi_range"),
-        (f"Count(Row(deep > {DEEP_GT}))", [A["deep_gt"]], "bsi_range"),
-        ("Sum(Shift(Row(g=0), n=1), field=deep)", [A["deep_sum_g0_sh1"]], "bsi_sum"),
+        ("Sum(field=deep)", [A["deep_sum"]], "sum"),
+        ("Min(field=deep)", [A["deep_min"]], "mm:deep"),
+        ("Max(field=deep)", [A["deep_max"]], "mm:deep"),
+        (f"Count(Row(deep < {DEEP_LT}))", [A["deep_lt"]], "count"),
+        (f"Count(Row(deep > {DEEP_GT}))", [A["deep_gt"]], "count"),
+        ("Sum(Shift(Row(g=0), n=1), field=deep)", [A["deep_sum_g0_sh1"]], "sum"),
     ]
+    depths = {"amount": amount.options.bit_depth, "age": age.options.bit_depth, "deep": deep.options.bit_depth}
+
+    def kernel_of(what, slab):
+        if what.startswith("mm:"):
+            return "bsi_min_max_step" if depths[what[3:]] > slab else "bsi_min_max"
+        return {"sum": "bsi_sum", "count": "bsi_range_step", "rows": "bsi_range", "mask": "plan_count"}[what]
 
     def norm(r):
         return (r.value, r.count) if hasattr(r, "value") else r
 
+    from pilosa_tpu_torch.exec import bsistream
+
     t0 = time.perf_counter()
-    deep_launches = {k: 0 for k in ("bsi_sum", "bsi_min_max", "bsi_range")}
-    for pql, want, kernel in queries:
-        before = dict(K.LAUNCHES)
-        got = [norm(r) for r in ex.execute("smoke", pql)]
-        check(got == want, f"{pql}: got {got}, numpy says {want}")
-        check(K.LAUNCHES[kernel] > before[kernel], f"{pql} launched no {kernel}")
-        if "deep" in pql:
-            for k in deep_launches:
-                deep_launches[k] += K.LAUNCHES[k] - before[k]
+    deep_launches = {k: 0 for k in BSI_KERNELS}
+    slab_stats = {}
+    # the default slab of 16 streams amount (20 planes: 4, then 16) and
+    # deep (32: 16 and 16); a slab of 4 streams every int field
+    for slab in (16, 4):
+        bsistream.configure(slab_planes=slab)
+        for pql, want, what in queries:
+            kernel = kernel_of(what, slab)
+            before = dict(K.LAUNCHES)
+            sb = bsistream.stats_snapshot()
+            got = [norm(r) for r in ex.execute("smoke", pql)]
+            sa = bsistream.stats_snapshot()
+            check(got == want, f"{pql} at slab {slab}: got {got}, numpy says {want}")
+            check(K.LAUNCHES[kernel] > before[kernel], f"{pql} at slab {slab} launched no {kernel}")
+            delta = {k: sa[k] - sb[k] for k in sa}
+            slab_stats[f"{slab} {pql}"] = delta
+            print(f"bsi slab {slab}: {pql}: slabs {delta['slabs']}, slab bytes {delta['slab_bytes']}, "
+                  f"plane dispatches {delta['plane_dispatches']}")
+            if "deep" in pql and slab == 16:
+                for k in deep_launches:
+                    deep_launches[k] += K.LAUNCHES[k] - before[k]
+        if slab == 16:
+            first_s = time.perf_counter() - t0
+    bsistream.configure(slab_planes=16)
     print(
         f"bsi: Shift filters, a non-call filter and the signed 32-bit-deep field (values in +-(2^32 - 1) on "
-        f"1/{int(1 / DEEP_DENSITY)} of the columns) equal numpy; the deep queries launched {deep_launches}"
+        f"1/{int(1 / DEEP_DENSITY)} of the columns) equal numpy at slabs of 16 and 4 planes; the deep queries "
+        f"launched {deep_launches} at 16"
     )
     before = K.LAUNCHES["bsi_range"]
     row = ex.execute("smoke", "Row(age == 42)")[0]
@@ -1523,12 +1649,11 @@ def bsi_path(args, holder, ex, state):
         got_w = np.zeros_like(words) if seg is None else seg.cpu().numpy().view(np.uint32)
         check(np.array_equal(got_w, words), f"Row(age == 42) shard {s} differs from numpy")
     torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    for name in ("bsi_sum", "bsi_min_max", "bsi_range", "plan_count"):
+    for name in BSI_KERNELS + ("plan_count",):
         check(launches[name] > 0, f"BSI path never launched {name}: {launches}")
     print(
-        f"bsi: first pass of the {len(queries) + 1} BSI queries (plane staging included) "
+        f"bsi: first pass of the {len(queries) + 1} BSI queries at the default slab (plane staging included) "
         f"{first_s:.2f} s; every answer equals numpy"
     )
     print(f"bsi: launches during ingest + queries: {launches}")
@@ -1544,8 +1669,86 @@ def bsi_path(args, holder, ex, state):
         "import_values": n_values,
         "import_values_per_s": values_per_s,
         "deep_launches": deep_launches,
+        "slab_stats": slab_stats,
+        "answers": {k: A[k] for k in ("sum", "min", "gt500k")},
     }
     return launches, lat, info
+
+
+SLAB_RESIDENCY_ROWS = 22  # [S, W] rows a quarter of the budget holds: 19 and 21 fit, 23 does not
+
+
+def bsi_slab_residency(args, holder, ex, answers):
+    """Phase 3c: the residency slab streaming exists for. On `amount` (20
+    planes, exists and sign) over every shard, a device budget a quarter
+    of which holds 22 [S, W] rows: a slab of 16 planes with the word rows
+    (19) and Min's or the range count's carried state (21) fits, the whole
+    stack (23) does not. At a slab of 16, Sum, Min and Count(Row(amount >
+    500000)) must run in one shard chunk, at 64 (the whole stack) in two,
+    each answer equal to numpy's. Prints each query's chunks, launches and
+    slab counters, the card's peak memory over its first run after
+    torch.cuda.empty_cache() (peak allocated, and above what was allocated
+    before the query), and its in-process p50."""
+    import torch
+
+    from pilosa_tpu_torch.exec import bsistream
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.shardwidth import WORDS_PER_ROW
+
+    row_b = args.shards * WORDS_PER_ROW * 4
+    dcache = holder.dcache
+    old_budget = dcache.budget_bytes
+    chunks = []
+    real_agg, real_count = bsistream._aggregate_chunk, bsistream._count_chunk
+    bsistream._aggregate_chunk = lambda *a, **k: chunks.append(1) or real_agg(*a, **k)
+    bsistream._count_chunk = lambda *a, **k: chunks.append(1) or real_count(*a, **k)
+    queries = [
+        ("Sum(field=amount)", answers["sum"]),
+        ("Min(field=amount)", answers["min"]),
+        ("Count(Row(amount > 500000))", answers["gt500k"]),
+    ]
+    out = {}
+    try:
+        dcache.budget_bytes = 4 * SLAB_RESIDENCY_ROWS * row_b
+        for slab, want_chunks in ((16, 1), (64, 2)):
+            bsistream.configure(slab_planes=slab)
+            for pql, want in queries:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                chunks.clear()
+                before = dict(K.LAUNCHES)
+                sb = bsistream.stats_snapshot()
+                t0 = time.perf_counter()
+                r = ex.execute("smoke", pql)[0]
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t0) * 1e3
+                peak = torch.cuda.max_memory_allocated()
+                sa = bsistream.stats_snapshot()
+                got = (r.value, r.count) if hasattr(r, "value") else r
+                check(got == want, f"{pql} at slab {slab} under the slab budget: got {got}, numpy says {want}")
+                check(len(chunks) == want_chunks, f"{pql} at slab {slab}: {len(chunks)} shard chunks, want {want_chunks}")
+                n_chunks = len(chunks)
+                launched = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES if K.LAUNCHES[k] != before[k]}
+                p50 = host_p50_ms(lambda pql=pql: ex.execute("smoke", pql), reps=5)
+                rec = {
+                    "chunks": n_chunks, "launches": launched, "first_ms": first_ms, "p50_ms": p50,
+                    "peak_bytes": peak, "peak_above_bytes": peak - base,
+                    **{k: sa[k] - sb[k] for k in sa},
+                }
+                out[f"{slab} {pql}"] = rec
+                print(
+                    f"bsi slab residency (quarter budget {SLAB_RESIDENCY_ROWS} rows), slab {slab}: {pql}: "
+                    f"{n_chunks} chunk(s), launches {launched}, slabs {rec['slabs']}, slab bytes "
+                    f"{rec['slab_bytes']}, first run {first_ms:.1f} ms, peak {peak} B ({peak - base} B above "
+                    f"the {base} B allocated before), p50 {p50:.3f} ms"
+                )
+    finally:
+        bsistream._aggregate_chunk, bsistream._count_chunk = real_agg, real_count
+        bsistream.configure(slab_planes=16)
+        dcache.budget_bytes = old_budget
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1896,6 +2099,7 @@ def kernel_timing(holder, ex, launches, errs):
             f"{r['dispatch_ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['share_of_bound']:.1%} of it), {r['launches']} launches on the deep queries"
         )
+    step_rows(rows, launches, errs, stack_b, (dp, de, dsg, dd), (ap, ae, asg, da), bsrc)
     del dp, de, dsg
     # GroupBy kernels at the main path's shapes: GroupBy(Rows(f), Rows(g))
     # descends in chunks of gmax(S, W) = 2 prefixes, each a counts_cross of
@@ -1951,6 +2155,122 @@ def kernel_timing(holder, ex, launches, errs):
         f"{extra['plan_count_28_leaves_bound'] / extra['plan_count_28_leaves']:.1%} of it)"
     )
     return rows, extra
+
+
+def step_rows(rows, launches, errs, stack_b, deep, amount, bsrc):
+    """Timing rows of the slab step kernels at the main path's steps of
+    `deep` (signed, 32 planes in two slabs of 16: a 33-bit key, int64 va):
+    the first step, planes [16, 32), which writes the state, and the last,
+    planes [0, 16), which reads it and reduces; Count(Row(deep > DEEP_GT))
+    for the range step. And the last step of `amount` (planes [0, 16) after
+    [16, 20); a 21-bit key, int32 va), and bsi_sum over one 16-plane slab.
+    Each bound reads each distinct input once and writes the state (or the
+    result) once."""
+    import torch
+
+    from pilosa_tpu_torch.ops import bsi as obsi
+    from pilosa_tpu_torch.ops import kernels as K
+
+    dp, de, dsg, dd = deep
+    ap, ae, asg, da = amount
+    jobs, preds = (("gt", "pos", False),), (DEEP_GT,)
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+
+    def timed(fn, plain, nbytes, reps_plain=PLAIN_REPS):
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        return {
+            "exact": same(got, want), "ms": cuda_time_ms(fn), "dispatch_ms": dispatch_ms(fn),
+            "plain_ms": cuda_time_ms(plain, reps=reps_plain), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+        }
+
+    hi, lo_ = dp[16:], dp[:16]
+    kb = dd + 1
+    va_rows = 2 if obsi.min_max_wide(kb) else 1
+    mm = {
+        "first": timed(
+            lambda: K.bsi_min_max_step(hi, de, dsg, None, None, True, True, False, kb),
+            lambda: obsi.min_max_step(hi, de, dsg, None, None, True, True, False, kb),
+            (16 + 2) * stack_b + (1 + va_rows) * stack_b,
+        )
+    }
+    state = K.bsi_min_max_step(hi, de, dsg, None, None, True, True, False, kb)
+    mm["last"] = timed(
+        lambda: K.bsi_min_max_step(lo_, de, dsg, None, state, True, False, True, kb),
+        lambda: obsi.min_max_step(lo_, de, dsg, None, state, True, False, True, kb),
+        (16 + 1 + 1 + va_rows) * stack_b + 3 * 8,
+    )
+    a_state = K.bsi_min_max_step(ap[16:], ae, asg, None, None, True, True, False, da + 1)
+    mm["amount_last"] = timed(
+        lambda: K.bsi_min_max_step(ap[:16], ae, asg, None, a_state, True, False, True, da + 1),
+        lambda: obsi.min_max_step(ap[:16], ae, asg, None, a_state, True, False, True, da + 1),
+        (16 + 3) * stack_b + 3 * 8,
+    )
+    rs = {
+        "first": timed(
+            lambda: K.bsi_range_step(hi, de, dsg, None, jobs, preds, 16, True, False),
+            lambda: obsi.range_step(hi, de, dsg, None, jobs, preds, 16, True, False),
+            (16 + 2) * stack_b + 2 * stack_b,
+        )
+    }
+    r_state = K.bsi_range_step(hi, de, dsg, None, jobs, preds, 16, True, False)
+    rs["last"] = timed(
+        lambda: K.bsi_range_step(lo_, de, dsg, r_state, jobs, preds, 0, False, True),
+        lambda: obsi.range_step(lo_, de, dsg, r_state, jobs, preds, 0, False, True),
+        (16 + 2) * stack_b + 8,
+    )
+    a_jobs, a_preds = (("gt", "pos", False),), (500_000,)
+    ar_state = K.bsi_range_step(ap[16:], ae, asg, None, a_jobs, a_preds, 16, True, False)
+    rs["amount_last"] = timed(
+        lambda: K.bsi_range_step(ap[:16], ae, asg, ar_state, a_jobs, a_preds, 0, False, True),
+        lambda: obsi.range_step(ap[:16], ae, asg, ar_state, a_jobs, a_preds, 0, False, True),
+        (16 + 2) * stack_b + 8,
+    )
+    # sum_stream_slab's port: bsi_sum over one [16, S, W] slab of deep
+    # (16 planes, exists and sign read, a [1 + 32] tally written)
+    sm = timed(lambda: K.bsi_sum(lo_, de, dsg, None), lambda: K.bsi_sum_plain(lo_, de, dsg, None),
+               (16 + 2) * stack_b + 33 * 8)
+    check(sm.pop("exact"), "bsi_sum over a 16-plane slab differs from its twin")
+    sm["share_of_bound"] = sm["bound_ms"] / sm["ms"]
+    rows["bsi_sum"]["slab16_signed"] = sm
+    print(
+        f"kernel bsi_sum over one slab ([16, {dp.shape[1]}, {dp.shape[2]}] signed, sum_stream_slab): device "
+        f"{sm['ms']:.4f} ms, dispatch {sm['dispatch_ms']:.4f} ms, twin {sm['plain_ms']:.4f} ms, bound "
+        f"{sm['bound_ms']:.4f} ms ({sm['share_of_bound']:.1%} of it)"
+    )
+    for name, parts, replaces in (("bsi_min_max_step", mm, "pilosa_tpu/ops/bsi.py:631"),
+                                  ("bsi_range_step", rs, "pilosa_tpu/ops/bsi.py:917")):
+        for step, r in parts.items():
+            check(r["exact"], f"{name} ({step} step) differs from its twin at the main path's shape")
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            print(
+                f"kernel {name} ({step} step, [16, {dp.shape[1]}, {dp.shape[2]}] signed): device {r['ms']:.4f} ms, "
+                f"dispatch {r['dispatch_ms']:.4f} ms, twin {r['plain_ms']:.4f} ms, {r['bytes']} B, bound "
+                f"{r['bound_ms']:.4f} ms ({r['share_of_bound']:.1%} of it)"
+            )
+        last = parts["last"]
+        errs[name] = max(errs.get(name, 0), 0)
+        rows[name] = {
+            "name": name,
+            "route": "cuda",
+            "source": bsrc,
+            "replaces": replaces,
+            "launches": launches.get(name, 0),
+            "max_abs_err": errs[name],
+            "ms": last["ms"],
+            "plain_ms": last["plain_ms"],
+            "bound_ms": last["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "dispatch_ms": last["dispatch_ms"],
+            "share_of_bound": last["share_of_bound"],
+            "bytes": last["bytes"],
+            "steps": {k: {kk: vv for kk, vv in v.items() if kk != "exact"} for k, v in parts.items()},
+        }
 
 
 # ---------------------------------------------------------------------------
@@ -2824,7 +3144,9 @@ SERVE_QUERIES = [
     "Sum(Row(g=0), field=amount)",
     "Count(Row(amount > 500000))",
 ]
-SERVE_KERNELS = ("plan_count", "rows_counts", "gather_tally", "bsi_sum", "bsi_min_max", "bsi_range")
+# amount's 20 planes stream at the served default slab of 16: Min/Max on
+# bsi_min_max_step, the condition Count on bsi_range_step
+SERVE_KERNELS = ("plan_count", "rows_counts", "gather_tally", "bsi_sum", "bsi_min_max_step", "bsi_range_step")
 # Rows and GroupBy on index s (held to numpy and Executor.execute, and after
 # the restart to the bodies served before it); the GroupBy launches
 # counts_cross, and count2 too where it descends (6 rows of f over gmax =
@@ -4472,9 +4794,12 @@ def main() -> int:
     t0 = time.perf_counter()
     bsi_launches, bsi_lat, bsi_info = bsi_path(args, holder, ex, state)
     phase_s["bsi"] = time.perf_counter() - t0
-    for name in ("bsi_sum", "bsi_min_max", "bsi_range"):
+    for name in BSI_KERNELS:
         launches[name] = bsi_launches[name]
         launches[name + "_deep"] = bsi_info["deep_launches"][name]
+    t0 = time.perf_counter()
+    bsi_info["slab_residency"] = bsi_slab_residency(args, holder, ex, bsi_info["answers"])
+    phase_s["bsi slab residency"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     rows, extra = kernel_timing(holder, ex, launches, errs)
     phase_s["timing"] = time.perf_counter() - t0
@@ -4531,7 +4856,7 @@ def main() -> int:
         "kernels": [
             rows[k]
             for k in ("plan_count", "plan_count_multi", "plan_rows", "gather_tally", "rows_counts", "count2", "bsi_sum", "bsi_min_max",
-                      "bsi_range", "counts_cross", "gather_and", "or_bits", "merge_mark")
+                      "bsi_min_max_step", "bsi_range", "bsi_range_step", "counts_cross", "gather_and", "or_bits", "merge_mark")
         ],
         "extra_ms": extra,
         "query_p50_ms": lat,

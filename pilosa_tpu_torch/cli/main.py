@@ -128,6 +128,7 @@ _PORTED_KNOBS = {
     ("tenants", "default_cache_bytes"),
     ("tenants", "overrides"),
     ("hbm", "prefetch_depth"),
+    ("bsi", "slab_planes"),
     ("cache", "result_mb"),
     ("cache", "count_repair"),
 }
@@ -266,6 +267,7 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None) -
             wal_sync_interval=cfg.wal.sync_interval,
             hbm_extent_rows=cfg.hbm.extent_rows,
             hbm_pin_timeout=cfg.hbm.pin_timeout,
+            bsi_slab_planes=cfg.bsi.slab_planes,
             merge_device_threshold=cfg.ingest.merge_device_threshold,
             max_concurrent_queries=cfg.sched.max_concurrent_queries,
             admission_queue_depth=cfg.sched.admission_queue_depth,

@@ -1,38 +1,52 @@
-"""Whole-field BSI aggregates and single-condition range counts.
+"""Plane-streamed BSI aggregates and single-condition range counts.
 
-The port of pilosa_tpu/exec/bsistream.py. Each shard chunk stages the
-field's [D, S, W] plane stack and its [S, W] word rows (exists, and sign
-for a signed field) once, then answers with ONE kernel launch over the
-whole stack and one small host read:
+The port of pilosa_tpu/exec/bsistream.py. A field's magnitude planes are
+staged and reduced in SLABS of at most `slab_planes()` consecutive planes
+(the `[bsi] slab-planes` knob, `--bsi-slab-planes`, or
+PILOSA_TPU_BSI_SLAB_PLANES; default 16), so a query holds one slab of
+planes on the card at a time, however deep the field. Each shard chunk
+stages its word rows (exists, sign for a signed field, the filter) once,
+then walks the slabs:
 
-- Sum: bsi_sum, the exact [1 + 2D] tally combined on the host as
-  sum_d 2^d (pos_d - neg_d) + count * base;
-- Min/Max: bsi_min_max, the virtual-key ladder reduced in the kernel,
-  decoded on the host;
-- Count(Row(<condition>)): one bsi_range launch in count mode per job of
-  the predicate's sign/saturation decomposition (`_decompose`), plus the
-  plain mask terms counted by plan_count, combined with +/-1 weights.
+- Sum: one bsi_sum launch a slab (the reference's sum_stream_slab);
+  each slab's [1 + 2d] tally is weighted by 2^lo on the host, and the
+  count is any one slab's; one host read a chunk;
+- Min/Max: one bsi_min_max_step launch a slab, MSB first, carrying the
+  ladder's (fa, va) words between slabs; the last slab's launch reduces
+  them in the kernel (the reference's separate finish program); a field
+  at or under the slab is one bsi_min_max launch;
+- Count(Row(<condition>)): one bsi_range_step launch a slab, MSB first,
+  advancing every job of the predicate's sign/saturation decomposition
+  (`_decompose`) together; the last slab's launch counts each job's
+  result and the plain mask terms, combined on the host with +/-1
+  weights; a decomposition with no ladder job is one plan_count launch a
+  mask term and stages no plane.
 
-The kernels read every plane word once per word group, so the reference's
-slab streaming (carried-state step/finish programs, the bsi-slab-planes
-knob) is not ported. The shard axis is still chunked under the device
-budget: (D + 3) x S x W x 4 bytes must fit a quarter of it. A chunk's
-stacks are staged as extents in one deferred-eviction session, pinned
-until its launches are queued.
+Each slab stages in its own deferred-eviction session with its own
+ExtentTable, released once its launch is queued, and the slab's tensor is
+dropped before the next slab is staged: earlier slabs' extents stay in
+the cache's LRU unpinned, evictable like any cached row. The counters
+`slabs`, `slab_bytes` (plane bytes the slabs held) and `plane_dispatches`
+(the launches above) count as the reference's do, except that the
+reference's finish dispatches are folded into the last step here.
 
-Fields whose range cannot store negatives (min >= base) skip the sign row
-entirely; a signed field 32 bits deep keys Min/Max on 33 bits, which the
-kernel's 64-bit key holds. An aggregate's filter lowers through the
-executor's stacked lowering over the chunk's shards plus each one's
-Shift predecessors, so a Shift in the filter carries across shards (and
-across chunk boundaries: each chunk reads its predecessors from
-storage); a non-call `filter=` argument is no filter, as in the
-reference.
+The shard axis is chunked only when one slab over the chunk misses a
+quarter of the device budget (`_slab_guard`). Fields whose range cannot
+store negatives (min >= base) skip the sign row entirely; a signed field
+32 bits deep keys Min/Max on 33 bits, carried as int64 from its first
+slab (the reference declines to stream that shape and stages its whole
+stack). An aggregate's filter lowers through the executor's stacked
+lowering over the chunk's shards plus each one's Shift predecessors, so
+a Shift in the filter carries across shards (and across chunk
+boundaries: each chunk reads its predecessors from storage); a non-call
+`filter=` argument is no filter, as in the reference.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import os
+import threading
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,6 +58,59 @@ from pilosa_tpu_torch.ops import bsi as obsi
 from pilosa_tpu_torch.ops import kernels
 from pilosa_tpu_torch.pql.ast import BETWEEN, EQ, GT, GTE, LT, LTE, NEQ
 from pilosa_tpu_torch.shardwidth import WORDS_PER_ROW
+
+_DEFAULT_SLAB_PLANES = 16
+
+
+def _env_slab_planes() -> int:
+    """PILOSA_TPU_BSI_SLAB_PLANES, or the default where it is unset, not
+    an int, or <= 0 (as configure() takes it)."""
+    raw = os.environ.get("PILOSA_TPU_BSI_SLAB_PLANES")
+    try:
+        v = int(raw) if raw else _DEFAULT_SLAB_PLANES
+    except ValueError:
+        return _DEFAULT_SLAB_PLANES
+    return v if v > 0 else _DEFAULT_SLAB_PLANES
+
+
+_slab_planes = _env_slab_planes()
+
+_stats_mu = threading.Lock()
+_counters: Dict[str, int] = {
+    "slabs": 0,  # plane slabs staged by streamed aggregates and counts
+    "slab_bytes": 0,  # plane bytes those slabs held (resident or staged)
+    "plane_dispatches": 0,  # launches of the streamed path, mask counts included
+}
+
+
+def configure(slab_planes: Optional[int] = None) -> None:
+    """Install the server's [bsi] knob (cli/config.py -> server/node.py);
+    process-global like the [hbm] knobs. slab_planes <= 0 restores the
+    default."""
+    global _slab_planes
+    if slab_planes is not None:
+        _slab_planes = int(slab_planes) if slab_planes > 0 else _DEFAULT_SLAB_PLANES
+
+
+def slab_planes() -> int:
+    return _slab_planes
+
+
+def _bump(key: str, value: int = 1) -> None:
+    with _stats_mu:
+        _counters[key] += value
+
+
+def stats_snapshot() -> Dict[str, int]:
+    with _stats_mu:
+        return dict(_counters)
+
+
+def reset_stats() -> None:
+    with _stats_mu:
+        for k in _counters:
+            _counters[k] = 0
+
 
 _EMPTY = "empty"  # chunk sentinel: no data -> zero contribution
 
@@ -61,12 +128,43 @@ _MASK_PROGRAMS = {
 }
 
 
-def _chunk_guard(idx, n_shards: int, depth: int, over_budget: bool) -> None:
-    """The whole-stack budget guard: the planes plus the word rows
-    (exists, sign, filter) must fit a quarter of the device budget, or
-    the caller halves the shard axis (the per-shard pass skips it)."""
-    if not over_budget and (depth + 3) * n_shards * WORDS_PER_ROW * 4 > planmod.stack_budget(idx.dcache):
-        raise BudgetExceeded("BSI stack exceeds the device budget")
+def _slab_guard(idx, n_shards: int, rows: int, over_budget: bool) -> None:
+    """The slab-peak budget guard: `rows` [S, W] rows over the chunk must
+    fit a quarter of the device budget, or the caller halves the shard
+    axis (the per-shard pass skips it). The callers count what a chunk
+    holds at once: min(depth, slab) planes of one slab; exists, sign and
+    the filter (three, as the reference counts them); the filter's Shift
+    predecessor rows; and the ladder state a streamed path carries between
+    slabs (Min/Max: fa and va, two rows more for a 64-bit va; a range
+    count: every job's result and keeps, ops.bsi.range_state_rows; none
+    for Sum or a field at or under the slab). A slab that spans several
+    extents is joined by one torch.cat, a transient slab-sized copy on top
+    of these rows, not counted (the reference reads its parts in place)."""
+    if not over_budget and rows * n_shards * WORDS_PER_ROW * 4 > planmod.stack_budget(idx.dcache):
+        raise BudgetExceeded("BSI slab exceeds the device budget")
+
+
+def _slabs(depth: int, slab: int):
+    """(first, last, lo, d) of each slab of planes [lo, lo + d), MSB first."""
+    los = list(range(0, depth, slab))[::-1]
+    for n, lo in enumerate(los):
+        yield n == 0, n == len(los) - 1, lo, min(slab, depth - lo)
+
+
+def _slab_launch(bsiv, chunk, lo: int, d: int, launch):
+    """Stage planes [lo, lo + d) over `chunk` in a session of their own,
+    return launch(planes) and release the slab's pins once the launch is
+    queued; the caller keeps no reference to the planes."""
+    table = ExtentTable(bsiv.dcache)
+    try:
+        with bsiv.dcache.deferred_eviction():
+            planes = bsiv.plane_stack(range(BSI_OFFSET_BIT + lo, BSI_OFFSET_BIT + lo + d), chunk, extents=table)
+        _bump("slabs")
+        _bump("slab_bytes", planes.numel() * 4)
+        _bump("plane_dispatches")
+        return launch(planes)
+    finally:
+        table.release()
 
 
 def _signed_field(f) -> bool:
@@ -84,10 +182,6 @@ def _field_rows(bsiv, shards, signed_: bool, table: ExtentTable):
         return None, None
     sign = bsiv.row_stack(BSI_SIGN_BIT, shards, extents=table) if signed_ else None
     return exists, sign
-
-
-def _planes(bsiv, depth: int, shards, table: ExtentTable) -> torch.Tensor:
-    return bsiv.plane_stack(range(BSI_OFFSET_BIT, BSI_OFFSET_BIT + depth), shards, extents=table)
 
 
 def _filter_rows(ex, idx, filter_call, shards, over_budget: bool):
@@ -128,9 +222,14 @@ def aggregate(ex, idx, c, f, shard_list: Sequence[int], kind: str):
     if not bsi_shards:
         return exmod.ValCount(0, 0)
 
+    slab = _slab_planes
+    state_rows = 0
+    if kind != "sum" and depth > slab:
+        state_rows = 3 if obsi.min_max_wide(depth + signed_) else 2
+
     def one(chunk, over_budget):
-        _chunk_guard(idx, len(chunk), depth + k, over_budget)
-        return [_aggregate_chunk(ex, idx, bsiv, filter_call, chunk, kind, depth, signed_, over_budget)]
+        _slab_guard(idx, len(chunk), min(depth, slab) + 3 + k + state_rows, over_budget)
+        return [_aggregate_chunk(ex, idx, bsiv, filter_call, chunk, kind, depth, signed_, slab, over_budget)]
 
     parts = ex._chunk_by_budget(list(bsi_shards), one)
     count = 0
@@ -155,10 +254,10 @@ def aggregate(ex, idx, c, f, shard_list: Sequence[int], kind: str):
     return exmod.ValCount(value=best[0] + f.options.base, count=best[1])
 
 
-def _aggregate_chunk(ex, idx, bsiv, filter_call, chunk, kind: str, depth: int, signed_: bool, over_budget: bool):
+def _aggregate_chunk(ex, idx, bsiv, filter_call, chunk, kind: str, depth: int, signed_: bool, slab: int, over_budget: bool):
     """One shard chunk: (count, signed magnitude sum) for sum, (value,
     count) for min/max, or _EMPTY. The filter is evaluated first, and the
-    field's stacks cover only the shards where it has bits."""
+    field's rows and slabs cover only the shards where it has bits."""
     filt = None
     if filter_call is not None:
         lowered = _filter_rows(ex, idx, filter_call, chunk, over_budget)
@@ -169,20 +268,48 @@ def _aggregate_chunk(ex, idx, bsiv, filter_call, chunk, kind: str, depth: int, s
     try:
         with idx.dcache.deferred_eviction():
             exists, sign = _field_rows(bsiv, chunk, signed_, table)
-            if exists is None:
-                return _EMPTY
-            planes = _planes(bsiv, depth, chunk, table)
-        return _aggregate_launch(planes, exists, sign, filt, kind, depth, signed_)
+        if exists is None:
+            return _EMPTY
+        if kind == "sum":
+            return _sum_slabs(bsiv, chunk, exists, sign, filt, depth, slab)
+        return _min_max_slabs(bsiv, chunk, exists, sign, filt, kind == "min", depth, signed_, slab)
     finally:
         table.release()
 
 
-def _aggregate_launch(planes, exists, sign, filt, kind: str, depth: int, signed_: bool):
-    if kind == "sum":
-        return obsi.combine_sum(kernels.bsi_sum(planes, exists, sign, filt).cpu().tolist())
-    is_min = kind == "min"
-    host = kernels.bsi_min_max(planes, exists, sign, filt, is_min).cpu().tolist()
-    val, cnt, any_ = obsi.decode_min_max(host, depth, is_min, signed_)
+def _sum_slabs(bsiv, chunk, exists, sign, filt, depth: int, slab: int):
+    """One bsi_sum launch a slab, one host read: the count (every slab's
+    tally has it; the bottom slab's is taken) and sum_slabs 2^lo (pos -
+    neg)."""
+    tallies, los = [], []
+    for _, _, lo, d in _slabs(depth, slab):
+        tallies.append(_slab_launch(bsiv, chunk, lo, d, lambda planes: kernels.bsi_sum(planes, exists, sign, filt)))
+        los.append(lo)
+    host = torch.cat(tallies).cpu().tolist()
+    count, total, off = 0, 0, 0
+    for lo, t in zip(los, tallies):
+        count, part = obsi.combine_sum(host[off : off + t.numel()])
+        off += t.numel()
+        total += part << lo
+    return count, total
+
+
+def _min_max_slabs(bsiv, chunk, exists, sign, filt, is_min: bool, depth: int, signed_: bool, slab: int):
+    """Min/Max over the slabs, MSB first: one bsi_min_max launch for a
+    field at or under the slab, else one bsi_min_max_step a slab; one
+    host read."""
+    if depth <= slab:
+        out = _slab_launch(bsiv, chunk, 0, depth, lambda planes: kernels.bsi_min_max(planes, exists, sign, filt, is_min))
+    else:
+        out = None
+        for first, last, lo, d in _slabs(depth, slab):
+            out = _slab_launch(
+                bsiv, chunk, lo, d,
+                lambda planes, first=first, last=last, state=out: kernels.bsi_min_max_step(
+                    planes, exists, sign, filt, state, is_min, first, last, depth + signed_
+                ),
+            )
+    val, cnt, any_ = obsi.decode_min_max(out.cpu().tolist(), depth, is_min, signed_)
     if not any_ or cnt == 0:
         return _EMPTY
     return val, cnt
@@ -225,9 +352,14 @@ def count_range(ex, idx, c, shard_list: Sequence[int]) -> Optional[int]:
     if not bsi_shards:
         return 0
 
+    slab = _slab_planes
+    rows = 4  # no ladder job: the word rows and one plane, as the reference prices it
+    if jobs:
+        rows = min(depth, slab) + 3 + (obsi.range_state_rows(jobs) if depth > slab else 0)
+
     def one(chunk, over_budget):
-        _chunk_guard(idx, len(chunk), depth if jobs else 1, over_budget)
-        return [_count_chunk(bsiv, chunk, depth, signed_, jobs, preds, job_weights, extras)]
+        _slab_guard(idx, len(chunk), rows, over_budget)
+        return [_count_chunk(bsiv, chunk, depth, signed_, slab, jobs, preds, job_weights, extras)]
 
     return sum(ex._chunk_by_budget(list(bsi_shards), one))
 
@@ -313,37 +445,37 @@ def _decompose(f, cond, signed_: bool):
     return final([("lt", "neg", allow_eq)], [upred], [1], [("pos", 1)])
 
 
-def _count_chunk(bsiv, chunk, depth: int, signed_: bool, jobs, preds, job_weights, extras) -> int:
-    """One shard chunk's count: one bsi_range launch per job and one
-    plan_count launch per mask term, one host read, exact +/- combine."""
+def _count_chunk(bsiv, chunk, depth: int, signed_: bool, slab: int, jobs, preds, job_weights, extras) -> int:
+    """One shard chunk's count: one bsi_range_step launch a slab, MSB
+    first, the last counting every job and mask term; or, with no ladder
+    job, one plan_count launch a mask term. One host read, exact +/-
+    combine."""
     if not jobs and not extras:
         return 0
     table = ExtentTable(bsiv.dcache)
     try:
         with bsiv.dcache.deferred_eviction():
             exists, sign = _field_rows(bsiv, chunk, signed_, table)
-            if exists is None:
-                return 0
-            planes = _planes(bsiv, depth, chunk, table) if jobs else None
-        return _count_launch(planes, exists, sign, len(chunk), jobs, preds, job_weights, extras)
+        if exists is None:
+            return 0
+        if jobs:
+            out = None
+            for first, last, lo, d in _slabs(depth, slab):
+                out = _slab_launch(
+                    bsiv, chunk, lo, d,
+                    lambda planes, first=first, last=last, lo=lo, state=out: kernels.bsi_range_step(
+                        planes, exists, sign, state, jobs, preds, lo, first, last, [sel for sel, _ in extras]
+                    ),
+                )
+        else:
+            leaves = [exists] if sign is None else [exists, sign]
+            terms = []
+            for sel, _ in extras:
+                _bump("plane_dispatches")
+                terms.append(kernels.plan_count(leaves, _MASK_PROGRAMS[sel], len(chunk)).sum())
+            out = torch.stack(terms)
+        host = out.cpu().tolist()
     finally:
         table.release()
-
-
-def _count_launch(planes, exists, sign, n_shards: int, jobs, preds, job_weights, extras) -> int:
-    terms = []
-    if jobs:
-        off = 0
-        for kind, sel, allow_eq in jobs:
-            npred = 2 if kind == "between" else 1
-            p = list(preds[off : off + npred]) + [0]
-            off += npred
-            terms.append(
-                kernels.bsi_range(planes, exists, sign, sel, kind, allow_eq, p[0], p[1], "count")
-            )
-    leaves = [exists] if sign is None else [exists, sign]
-    for sel, _ in extras:
-        terms.append(kernels.plan_count(leaves, _MASK_PROGRAMS[sel], n_shards))
-    host = torch.stack(terms).sum(dim=1).cpu().tolist()
     weights = list(job_weights) + [w for _, w in extras]
     return sum(w * int(t) for w, t in zip(weights, host))

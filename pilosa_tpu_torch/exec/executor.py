@@ -5,8 +5,10 @@ trees (Row, Intersect, Union, Difference, Xor, Not, All, Shift, and BSI
 condition rows such as Row(v > 10)) lower to stacked plans over [S, W]
 device row stacks (exec/plan.py); Count runs the plan_count kernel
 (adjacent Counts batch into one MultiCountPlan) and a lone condition row
-runs the bsi_range kernel in count mode (exec/bsistream.py); Sum, Min and
-Max over int fields run the bsi_sum and bsi_min_max kernels; Set and Clear
+runs the bsi_range_step kernel over slabs of the field's planes
+(exec/bsistream.py); Sum, Min and Max over int fields run bsi_sum a slab
+and bsi_min_max (bsi_min_max_step a slab on a field deeper than the
+slab); Set and Clear
 write bits and int values; TopN answers unfiltered queries from the rank
 caches and filtered ones from one plan plus a device tally per shard
 chunk (rows_counts or counts_cross for dense candidates, gather_tally for
@@ -1327,8 +1329,8 @@ class Executor:
         shard_list = self._shards_for(idx, shards)
         child = c.children[0]
         if child.name in ("Row", "Range") and child.has_conditions():
-            # a lone condition: bsi_range in count mode, one launch per
-            # decomposition job (exec/bsistream.py)
+            # a lone condition: one bsi_range_step launch a plane slab for
+            # every job of its decomposition (exec/bsistream.py)
             counted = bsistream.count_range(self, idx, child, shard_list)
             if counted is not None:
                 return counted

@@ -5,8 +5,9 @@ phases for several checkouts in turn, on one card.
 
 Each DIR is the root of a checkout holding chip_smoke.py and the port.
 For each, in the order given, a subprocess started in DIR builds the
-kernels and runs chip_smoke's `main_path` and `bsi_path` on fresh data
-from seed 0 at chip_smoke's default 1024 shards, with no kernel phase
+kernels and runs chip_smoke's `main_path` and `bsi_path` (with the
+columns `residency_bursts` draws, as chip_smoke's own run has them) on
+fresh data from seed 0 at chip_smoke's default 1024 shards, with no kernel phase
 before them; this script prints one JSON line per run with the figures
 it read: ingest, first pass and each query's warm p50. Give two
 checkouts in mirrored order (A B B A) so that the host's drift shows.
@@ -31,6 +32,7 @@ K.build()
 K.library()
 args = argparse.Namespace(shards=1024, seed=0)
 holder, ex, _, lat, ingest_s, _, state = chip_smoke.main_path(args, np.random.default_rng(0))
+state["g_burst"] = chip_smoke.residency_bursts(args.seed, args.shards)["g_burst"]
 _, bsi_lat, bsi = chip_smoke.bsi_path(args, holder, ex, state)
 print(json.dumps({"main_ingest_s": ingest_s, "bsi": bsi, "main_p50_ms": lat, "bsi_p50_ms": bsi_lat}))
 """

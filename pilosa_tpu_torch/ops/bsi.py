@@ -223,3 +223,162 @@ def range_single(
     else:
         raise ValueError(f"unknown range kind {kind!r}")
     return res if mode == "rows" else popcount_rows(res)
+
+
+# ---------------------------------------------------------------------------
+# Slab steps: the ladders above with their state carried between slabs
+# ---------------------------------------------------------------------------
+#
+# The port of pilosa_tpu/ops/bsi.py min_max_stream_step/_finish and
+# range_stream_step/_finish/_single, and the twins of the step kernels.
+# A field's planes arrive as slabs of consecutive planes, MSB first
+# (`lo` is the absolute index of planes[0]); `first` builds the state
+# from the word rows, `last` reduces it to the result instead of
+# returning it. first and last together are the whole-stack ladder.
+
+
+def min_max_wide(key_bits: int) -> bool:
+    """Whether a Min/Max key of `key_bits` bits (depth, plus one for a
+    signed field) needs an int64 `va`; up to 32 bits it is int32 words."""
+    return key_bits > 32
+
+
+def _min_max_reduce(fa, va) -> torch.Tensor:
+    """[best key, any, count] over the words: fa != 0 exactly where the
+    word has a considered column (the ladder narrows fa only to a
+    non-empty subset)."""
+    valid = fa != 0
+    best = torch.where(valid, va, torch.full_like(va, -1)).max()
+    at_best = valid & (va == best)
+    cnt = torch.where(at_best, popcount_words(fa), torch.zeros_like(fa)).sum(dtype=torch.int64)
+    return torch.stack([best.clamp(min=0), valid.any().to(torch.int64), cnt])
+
+
+def min_max_step(planes, exists, sign, filt, state, is_min: bool, first: bool, last: bool, key_bits: int):
+    """One slab of the virtual-key ladder of min_max_stream. `state` is
+    None on the first slab, else the (fa int32[S, W], va [S, W]) the
+    previous slab returned; va is int64 where min_max_wide(key_bits),
+    else the key's low 32 bits as int32 words. Returns the next state,
+    or with `last` the int64[3] = [best key, any, count]."""
+    wide = min_max_wide(key_bits)
+    if first:
+        mask = job_mask(exists, sign, filt, "consider")
+        fa = mask
+        va = torch.zeros(mask.shape, dtype=torch.int64, device=mask.device)
+        if sign is not None:
+            top = mask & (sign if is_min else ~sign)
+            nz = top != 0
+            fa = torch.where(nz, top, fa)
+            va = nz.to(torch.int64)
+    else:
+        fa, va = state
+        va = va.to(torch.int64)
+        if not wide:
+            va = va & 0xFFFFFFFF
+    if sign is not None:
+        tx = ~sign if is_min else sign
+    else:
+        tx = torch.full_like(fa, -1 if is_min else 0)
+    for k in reversed(range(planes.shape[0])):
+        ra = fa & (planes[k] ^ tx)
+        nz = ra != 0
+        fa = torch.where(nz, ra, fa)
+        va = (va << 1) | nz.to(torch.int64)
+    if last:
+        return _min_max_reduce(fa, va)
+    return fa, (va if wide else va.to(torch.int32))
+
+
+# state words a range job carries: its result so far, then its keeps
+RANGE_STATE_ROWS = {"eq": 1, "lt": 2, "gt": 2, "between": 3}
+
+
+def range_state_rows(jobs) -> int:
+    return sum(RANGE_STATE_ROWS[kind] for kind, _, _ in jobs)
+
+
+def range_npreds(kind: str) -> int:
+    return 2 if kind == "between" else 1
+
+
+def lt_leading_zeros(p: int, top: int) -> bool:
+    """The lt ladder's leading-zeros flag on entering plane top - 1:
+    every bit of the predicate from `top` up is zero."""
+    return (p >> top) == 0
+
+
+def _ladder_plane(kind, allow_eq, i, b0, b1, lz, row, f, keep, keep2):
+    """One plane (absolute index i) of a range ladder: range_eq/lt/gt/
+    between_unsigned's loop body. Returns (f, keep, keep2, lz)."""
+    if kind == "eq":
+        return (f & row if b0 else f & ~row), keep, keep2, lz
+    if kind == "lt":
+        in_lz_skip = lz and not b0
+        if i == 0 and not allow_eq:
+            return (f & ~(row & ~keep) if b0 else keep), keep, keep2, in_lz_skip
+        if in_lz_skip:
+            f = f & ~row
+        elif not b0:
+            f = f & ~(row & ~keep)
+        elif i > 0:
+            keep = keep | (f & ~row)
+        return f, keep, keep2, in_lz_skip
+    if kind == "gt":
+        if i == 0 and not allow_eq:
+            return (keep if b0 else f & ~((f & ~row) & ~keep)), keep, keep2, lz
+        if b0:
+            f = f & ~((f & ~row) & ~keep)
+        elif i > 0:
+            keep = keep | (f & row)
+        return f, keep, keep2, lz
+    if kind == "between":
+        if b0:
+            f = f & ~((f & ~row) & ~keep)
+        elif i > 0:
+            keep = keep | (f & row)
+        if not b1:
+            f = f & ~(row & ~keep2)
+        elif i > 0:
+            keep2 = keep2 | (f & ~row)
+        return f, keep, keep2, lz
+    raise ValueError(f"unknown range kind {kind!r}")
+
+
+def range_step(planes, exists, sign, state, jobs, preds, lo: int, first: bool, last: bool, extras=()):
+    """Every job of a condition's decomposition advanced over one slab,
+    each slab plane read once for all of them. jobs = ((kind, sel,
+    allow_eq), ...) and preds (two magnitudes for between) as
+    exec/bsistream.py `_decompose` gives them; every predicate is below
+    2^(top plane + 1). `state` is None on the first slab, else the
+    int32[range_state_rows(jobs), S, W] the previous slab returned (per
+    job: its result words, then its keeps). Returns the next state, or
+    with `last` int64[len(jobs) + len(extras)]: the popcount of each
+    job's result, then of each extra mask job_mask(exists, sign, None,
+    sel)."""
+    d = planes.shape[0]
+    out = []
+    row = 0
+    off = 0
+    for kind, sel, allow_eq in jobs:
+        n = RANGE_STATE_ROWS[kind]
+        if first:
+            f = job_mask(exists, sign, None, sel)
+            keep = keep2 = torch.zeros_like(f)
+        else:
+            f = state[row]
+            keep = state[row + 1] if n > 1 else None
+            keep2 = state[row + 2] if n > 2 else None
+        p0 = preds[off]
+        p1 = preds[off + 1] if kind == "between" else 0
+        lz = lt_leading_zeros(p0, lo + d)
+        for k in reversed(range(d)):
+            i = lo + k
+            f, keep, keep2, lz = _ladder_plane(kind, allow_eq, i, _bit(p0, i), _bit(p1, i), lz, planes[k], f, keep, keep2)
+        out.append((f, keep, keep2)[:n])
+        row += n
+        off += range_npreds(kind)
+    if last:
+        terms = [popcount_words(st[0]).sum(dtype=torch.int64) for st in out]
+        terms += [popcount_words(job_mask(exists, sign, None, sel)).sum(dtype=torch.int64) for sel in extras]
+        return torch.stack(terms) if terms else torch.zeros(0, dtype=torch.int64)
+    return torch.stack([w for st in out for w in st])

@@ -8,23 +8,30 @@
 // operand [S, W].
 //
 // Kernels and what they replace:
-//   bsi_sum_kernel     pilosa_tpu/ops/pallas_kernels.py sum_counts
-//                      (_bsi_sum_kernel), the fused BSI sum tally
-//   bsi_min_max_kernel pilosa_tpu/ops/bsi.py min_max_stream (_vkey_init +
-//                      _vkey_ladder + _vkey_reduce), an XLA program
-//   bsi_range_kernel   pilosa_tpu/ops/bsi.py range_eq/lt/gt/between_unsigned
-//                      and range_stream_single, XLA programs
+//   bsi_sum_kernel        pilosa_tpu/ops/pallas_kernels.py sum_counts
+//                         (_bsi_sum_kernel), the fused BSI sum tally; over
+//                         one slab it is sum_stream_slab (ops/bsi.py)
+//   bsi_min_max_kernel    pilosa_tpu/ops/bsi.py min_max_stream (_vkey_init +
+//                         _vkey_ladder + _vkey_reduce) and, over one slab of
+//                         planes with carried state, min_max_stream_step
+//                         and min_max_stream_finish: XLA programs
+//   bsi_range_kernel      pilosa_tpu/ops/bsi.py range_eq/lt/gt/between_unsigned,
+//                         XLA programs
+//   bsi_range_step_kernel pilosa_tpu/ops/bsi.py range_stream_single,
+//                         range_stream_step and range_stream_finish: every
+//                         job of a condition over one slab, XLA programs
 //
-// All three read every plane word once and do a few bitwise operations and
+// All of them read every plane word once and do a few bitwise operations and
 // at most two popcounts per word, so they are bound by device-memory bytes.
 // Each thread loads one word group (four words as a uint4 where the row
 // width and the pointers allow it) of the row operands, forms the masks in
 // registers and walks the D planes of that group; nothing intermediate is
-// written to device memory. Reductions finish inside the kernels: per-block
-// sums are added once into the output with 64-bit atomics (bsi_sum,
-// bsi_range count mode), and the min/max key is reduced by the last block
-// to finish (an atomic ticket after a __threadfence), so the host reads one
-// small result per launch.
+// written to device memory, except the ladder state that the step kernels
+// carry from one slab of planes to the next (read and written once a slab).
+// Reductions finish inside the kernels: per-block sums are added once into
+// the output with 64-bit atomics (bsi_sum, the range counts), and the
+// min/max key is reduced by the last block to finish (an atomic ticket after
+// a __threadfence), so the host reads one small result per launch.
 //
 // Each C entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() as an int.
@@ -177,6 +184,14 @@ bsi_sum_kernel(const uint32_t* __restrict__ planes, const uint32_t* __restrict__
 // smaller magnitude must rank higher. max(key) over all words is the
 // answer; the count is the sum of popcount(fa) over the words at that key.
 // out = [best key, any, count], decoded on the host.
+//
+// One launch walks one slab of planes. `first` builds fa and va from the
+// mask (exists & filter) and the sign step; otherwise they are read from
+// the state the previous slab wrote. `last` reduces them to `out`;
+// otherwise they are written back in place. first && last is the whole
+// field in one launch. fa is nonzero exactly where the mask is (the ladder
+// narrows it only to a non-empty subset), so the reduce needs no mask.
+// va_state is uint64 where the key has over 32 bits (WIDE), else uint32.
 // ---------------------------------------------------------------------------
 
 // (best, count) over the block: the largest best, and the sum of the
@@ -210,12 +225,55 @@ __device__ __forceinline__ void block_best(long long& best, unsigned long long& 
   __syncthreads();
 }
 
-template <int VEC, bool SIGNED, bool FILT, bool IS_MIN>
+template <int VEC>
+__device__ __forceinline__ void load_keys(const void* __restrict__ p, int64_t i, bool wide,
+                                          unsigned long long (&va)[VEC]) {
+  if (wide) {
+    const auto* q = static_cast<const unsigned long long*>(p);
+    if constexpr (VEC == 4) {
+      const ulonglong2 a = __ldg(reinterpret_cast<const ulonglong2*>(q) + 2 * i);
+      const ulonglong2 b = __ldg(reinterpret_cast<const ulonglong2*>(q) + 2 * i + 1);
+      va[0] = a.x;
+      va[1] = a.y;
+      va[2] = b.x;
+      va[3] = b.y;
+    } else {
+      va[0] = __ldg(q + i);
+    }
+  } else {
+    const Words<VEC> w = load<VEC>(static_cast<const uint32_t*>(p), i);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) va[j] = w.v[j];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_keys(void* __restrict__ p, int64_t i, bool wide,
+                                           const unsigned long long (&va)[VEC]) {
+  if (wide) {
+    auto* q = static_cast<unsigned long long*>(p);
+    if constexpr (VEC == 4) {
+      reinterpret_cast<ulonglong2*>(q)[2 * i] = make_ulonglong2(va[0], va[1]);
+      reinterpret_cast<ulonglong2*>(q)[2 * i + 1] = make_ulonglong2(va[2], va[3]);
+    } else {
+      q[i] = va[0];
+    }
+  } else {
+    Words<VEC> w;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) w.v[j] = (uint32_t)va[j];
+    store<VEC>(static_cast<uint32_t*>(p), i, w);
+  }
+}
+
+template <int VEC, bool SIGNED, bool FILT>
 __global__ void __launch_bounds__(kThreads)
 bsi_min_max_kernel(const uint32_t* __restrict__ planes, const uint32_t* __restrict__ exists,
                    const uint32_t* __restrict__ sign, const uint32_t* __restrict__ filt,
-                   int depth, int64_t items, int64_t n, long long* __restrict__ partials,
-                   unsigned int* __restrict__ ticket, long long* __restrict__ out) {
+                   int depth, int64_t items, int64_t n, int is_min, int first, int last,
+                   uint32_t* __restrict__ fa_state, void* __restrict__ va_state, int wide,
+                   long long* __restrict__ partials, unsigned int* __restrict__ ticket,
+                   long long* __restrict__ out) {
   __shared__ long long s_best[kWarps];
   __shared__ unsigned long long s_cnt[kWarps];
   __shared__ bool s_last;
@@ -223,48 +281,59 @@ bsi_min_max_kernel(const uint32_t* __restrict__ planes, const uint32_t* __restri
   unsigned long long cnt = 0;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < items; i += stride) {
-    Words<VEC> mask = load<VEC>(exists, i);
-    if constexpr (FILT) {
-      const Words<VEC> f = load<VEC>(filt, i);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) mask.v[j] &= f.v[j];
-    }
-    Words<VEC> fa = mask;
+    Words<VEC> fa;
     Words<VEC> tx;  // per-column key transform of the magnitude planes
     unsigned long long va[VEC];
+    Words<VEC> sg{};
+    if constexpr (SIGNED) sg = load<VEC>(sign, i);
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) va[j] = 0ull;
-    if constexpr (SIGNED) {
-      const Words<VEC> sg = load<VEC>(sign, i);
+    for (int j = 0; j < VEC; ++j) {
+      if constexpr (SIGNED) {
+        tx.v[j] = is_min ? ~sg.v[j] : sg.v[j];
+      } else {
+        tx.v[j] = is_min ? 0xffffffffu : 0u;
+      }
+    }
+    if (first) {
+      fa = load<VEC>(exists, i);
+      if constexpr (FILT) {
+        const Words<VEC> f = load<VEC>(filt, i);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) fa.v[j] &= f.v[j];
+      }
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
-        const uint32_t top = mask.v[j] & (IS_MIN ? sg.v[j] : ~sg.v[j]);
-        if (top != 0u) {
-          fa.v[j] = top;
-          va[j] = 1ull;
+        va[j] = 0ull;
+        if constexpr (SIGNED) {
+          const uint32_t top = fa.v[j] & (is_min ? sg.v[j] : ~sg.v[j]);
+          if (top != 0u) {
+            fa.v[j] = top;
+            va[j] = 1ull;
+          }
         }
-        tx.v[j] = IS_MIN ? ~sg.v[j] : sg.v[j];
       }
+    } else {
+      fa = load<VEC>(fa_state, i);
+      load_keys<VEC>(va_state, i, wide != 0, va);
     }
     for (int k = depth - 1; k >= 0; --k) {
       const Words<VEC> p = load<VEC>(planes + k * n, i);
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
-        uint32_t t;
-        if constexpr (SIGNED) {
-          t = p.v[j] ^ tx.v[j];
-        } else {
-          t = IS_MIN ? ~p.v[j] : p.v[j];
-        }
-        const uint32_t ra = fa.v[j] & t;
+        const uint32_t ra = fa.v[j] & (p.v[j] ^ tx.v[j]);
         const bool nz = ra != 0u;
         if (nz) fa.v[j] = ra;
         va[j] = (va[j] << 1) | (nz ? 1ull : 0ull);
       }
     }
+    if (!last) {
+      store<VEC>(fa_state, i, fa);
+      store_keys<VEC>(va_state, i, wide != 0, va);
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      if (mask.v[j] != 0u) {
+      if (fa.v[j] != 0u) {
         const long long key = (long long)va[j];
         const unsigned long long c = __popc(fa.v[j]);
         if (key > best) {
@@ -276,6 +345,7 @@ bsi_min_max_kernel(const uint32_t* __restrict__ planes, const uint32_t* __restri
       }
     }
   }
+  if (!last) return;
   block_best(best, cnt, s_best, s_cnt);
   if (threadIdx.x == 0) {
     partials[2 * blockIdx.x] = best;
@@ -315,6 +385,69 @@ bsi_min_max_kernel(const uint32_t* __restrict__ planes, const uint32_t* __restri
 // writes the result words; count mode adds per-shard popcounts.
 // ---------------------------------------------------------------------------
 
+// One plane (absolute index i; b0, b1 its bits of p0, p1) of a ladder on
+// VEC words: range_eq/lt/gt/between_unsigned's loop body. `lz` is the lt
+// ladder's leading-zeros flag (the predicate's bits above i all zero).
+template <int VEC, int KIND>
+__device__ __forceinline__ void ladder_plane(const Words<VEC>& p, int i, bool b0, bool b1,
+                                             bool allow_eq, bool& lz, Words<VEC>& f,
+                                             Words<VEC>& keep, Words<VEC>& keep2) {
+  if constexpr (KIND == KIND_EQ) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) f.v[j] = b0 ? (f.v[j] & p.v[j]) : (f.v[j] & ~p.v[j]);
+  } else if constexpr (KIND == KIND_LT) {
+    const bool in_lz_skip = lz && !b0;
+    lz = in_lz_skip;
+    if (i == 0 && !allow_eq) {
+      // strict final: bit 0 keeps only kept columns (so `< 0` is empty);
+      // bit 1 removes the columns equal to the predicate
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) f.v[j] = !b0 ? keep.v[j] : (f.v[j] & ~(p.v[j] & ~keep.v[j]));
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      if (in_lz_skip) {
+        f.v[j] &= ~p.v[j];
+      } else if (!b0) {
+        f.v[j] &= ~(p.v[j] & ~keep.v[j]);
+      } else if (i > 0) {
+        keep.v[j] |= f.v[j] & ~p.v[j];
+      }
+    }
+  } else if constexpr (KIND == KIND_GT) {
+    if (i == 0 && !allow_eq) {
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        f.v[j] = b0 ? keep.v[j] : (f.v[j] & ~((f.v[j] & ~p.v[j]) & ~keep.v[j]));
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      if (b0) {
+        f.v[j] &= ~((f.v[j] & ~p.v[j]) & ~keep.v[j]);
+      } else if (i > 0) {
+        keep.v[j] |= f.v[j] & p.v[j];
+      }
+    }
+  } else {  // KIND_BETWEEN: >= p0 and <= p1 in one pass
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      if (b0) {
+        f.v[j] &= ~((f.v[j] & ~p.v[j]) & ~keep.v[j]);
+      } else if (i > 0) {
+        keep.v[j] |= f.v[j] & p.v[j];
+      }
+      if (!b1) {
+        f.v[j] &= ~(p.v[j] & ~keep2.v[j]);
+      } else if (i > 0) {
+        keep2.v[j] |= f.v[j] & ~p.v[j];
+      }
+    }
+  }
+}
+
 template <int VEC, int KIND>
 __device__ __forceinline__ Words<VEC> ladder(const uint32_t* __restrict__ planes, int64_t n,
                                              int64_t g, Words<VEC> f, int depth, uint32_t p0,
@@ -328,64 +461,7 @@ __device__ __forceinline__ Words<VEC> ladder(const uint32_t* __restrict__ planes
   bool lz = true;  // lt: still in the predicate's leading zeros
   for (int i = depth - 1; i >= 0; --i) {
     const Words<VEC> p = load<VEC>(planes + i * n, g);
-    const bool b0 = (p0 >> i) & 1u;
-    if constexpr (KIND == KIND_EQ) {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) f.v[j] = b0 ? (f.v[j] & p.v[j]) : (f.v[j] & ~p.v[j]);
-    } else if constexpr (KIND == KIND_LT) {
-      const bool in_lz_skip = lz && !b0;
-      lz = in_lz_skip;
-      if (i == 0 && !allow_eq) {
-        // strict final: bit 0 keeps only kept columns (so `< 0` is empty);
-        // bit 1 removes the columns equal to the predicate
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          f.v[j] = !b0 ? keep.v[j] : (f.v[j] & ~(p.v[j] & ~keep.v[j]));
-        }
-        break;
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        if (in_lz_skip) {
-          f.v[j] &= ~p.v[j];
-        } else if (!b0) {
-          f.v[j] &= ~(p.v[j] & ~keep.v[j]);
-        } else if (i > 0) {
-          keep.v[j] |= f.v[j] & ~p.v[j];
-        }
-      }
-    } else if constexpr (KIND == KIND_GT) {
-      if (i == 0 && !allow_eq) {
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          f.v[j] = b0 ? keep.v[j] : (f.v[j] & ~((f.v[j] & ~p.v[j]) & ~keep.v[j]));
-        }
-        break;
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        if (b0) {
-          f.v[j] &= ~((f.v[j] & ~p.v[j]) & ~keep.v[j]);
-        } else if (i > 0) {
-          keep.v[j] |= f.v[j] & p.v[j];
-        }
-      }
-    } else {  // KIND_BETWEEN: >= p0 and <= p1 in one pass
-      const bool b1 = (p1 >> i) & 1u;
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        if (b0) {
-          f.v[j] &= ~((f.v[j] & ~p.v[j]) & ~keep.v[j]);
-        } else if (i > 0) {
-          keep.v[j] |= f.v[j] & p.v[j];
-        }
-        if (!b1) {
-          f.v[j] &= ~(p.v[j] & ~keep2.v[j]);
-        } else if (i > 0) {
-          keep2.v[j] |= f.v[j] & ~p.v[j];
-        }
-      }
-    }
+    ladder_plane<VEC, KIND>(p, i, (p0 >> i) & 1u, (p1 >> i) & 1u, allow_eq, lz, f, keep, keep2);
   }
   return f;
 }
@@ -429,6 +505,161 @@ bsi_range_kernel(const uint32_t* __restrict__ planes, const uint32_t* __restrict
       for (int w = 0; w < kWarps; ++w) total += partial[w];
       if (total != 0ull) atomicAdd(counts_out + s, total);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bsi_range_step: every job of a condition's decomposition (at most two:
+// _decompose in exec/bsistream.py) advanced over one slab of d planes,
+// absolute planes [lo, lo + d), MSB first, each plane word read once for
+// all jobs. A job's state is its result words, then its keeps
+// (RANGE_STATE_ROWS in ops/bsi.py), rows of `state` from `row`. `first`
+// builds each job's starting mask from exists and sign; otherwise the state
+// is read. `last` counts each job's result and each extra mask (exists,
+// exists & ~sign or exists & sign) into `out`; otherwise the state is
+// written back in place. The lt leading-zeros flag on entering the slab
+// comes from the host (it depends only on the predicate's bits).
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxJobs = 2;
+constexpr int kMaxExtras = 3;
+
+struct RangeJobs {
+  int n_jobs;
+  int n_extras;
+  int kind[kMaxJobs];
+  int sel[kMaxJobs];
+  int allow_eq[kMaxJobs];
+  int lz[kMaxJobs];
+  int row[kMaxJobs];
+  uint32_t p0[kMaxJobs];
+  uint32_t p1[kMaxJobs];
+  int extra_sel[kMaxExtras];
+};
+
+template <int VEC>
+__device__ __forceinline__ Words<VEC> sel_mask(int sel, const Words<VEC>& ex, const Words<VEC>& sg) {
+  Words<VEC> m = ex;
+  if (sel != SEL_CONSIDER) {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) m.v[j] &= sel == SEL_POS ? ~sg.v[j] : sg.v[j];
+  }
+  return m;
+}
+
+template <int VEC>
+__device__ __forceinline__ uint32_t popc_words(const Words<VEC>& w) {
+  uint32_t c = 0;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) c += __popc(w.v[j]);
+  return c;
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+bsi_range_step_kernel(const uint32_t* __restrict__ planes, const uint32_t* __restrict__ exists,
+                      const uint32_t* __restrict__ sign, uint32_t* __restrict__ state,
+                      const RangeJobs jobs, int d, int lo, int first, int last, int64_t items,
+                      int64_t n, unsigned long long* __restrict__ out) {
+  __shared__ uint32_t counters[kMaxJobs + kMaxExtras];
+  const int n_out = jobs.n_jobs + jobs.n_extras;
+  if (last) {
+    for (int c = threadIdx.x; c < n_out; c += blockDim.x) counters[c] = 0u;
+    __syncthreads();
+  }
+  // per-thread counts: each job's result, each extra mask (kept apart so
+  // that every index is a constant after unrolling: registers, no stack)
+  uint32_t jcnt[kMaxJobs], ecnt[kMaxExtras];
+#pragma unroll
+  for (int t = 0; t < kMaxJobs; ++t) jcnt[t] = 0u;
+#pragma unroll
+  for (int e = 0; e < kMaxExtras; ++e) ecnt[e] = 0u;
+  const bool rows = first || (last && jobs.n_extras > 0);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < items; i += stride) {
+    Words<VEC> ex{}, sg{};
+    if (rows) {
+      ex = load<VEC>(exists, i);
+      if (sign != nullptr) sg = load<VEC>(sign, i);
+    }
+    Words<VEC> f[kMaxJobs], keep[kMaxJobs], keep2[kMaxJobs];
+    bool lz[kMaxJobs];
+#pragma unroll
+    for (int t = 0; t < kMaxJobs; ++t) {
+      lz[t] = jobs.lz[t] != 0;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        f[t].v[j] = 0u;
+        keep[t].v[j] = 0u;
+        keep2[t].v[j] = 0u;
+      }
+      if (t >= jobs.n_jobs) continue;
+      const int kind = jobs.kind[t];
+      if (first) {
+        f[t] = sel_mask<VEC>(jobs.sel[t], ex, sg);
+      } else {
+        const uint32_t* st = state + jobs.row[t] * n;
+        f[t] = load<VEC>(st, i);
+        if (kind != KIND_EQ) keep[t] = load<VEC>(st + n, i);
+        if (kind == KIND_BETWEEN) keep2[t] = load<VEC>(st + 2 * n, i);
+      }
+    }
+    for (int k = d - 1; k >= 0; --k) {
+      const Words<VEC> p = load<VEC>(planes + k * n, i);
+      const int a = lo + k;
+#pragma unroll
+      for (int t = 0; t < kMaxJobs; ++t) {
+        if (t >= jobs.n_jobs) continue;
+        const bool b0 = (jobs.p0[t] >> a) & 1u;
+        const bool b1 = (jobs.p1[t] >> a) & 1u;
+        const bool ae = jobs.allow_eq[t] != 0;
+        switch (jobs.kind[t]) {
+          case KIND_EQ:
+            ladder_plane<VEC, KIND_EQ>(p, a, b0, b1, ae, lz[t], f[t], keep[t], keep2[t]);
+            break;
+          case KIND_LT:
+            ladder_plane<VEC, KIND_LT>(p, a, b0, b1, ae, lz[t], f[t], keep[t], keep2[t]);
+            break;
+          case KIND_GT:
+            ladder_plane<VEC, KIND_GT>(p, a, b0, b1, ae, lz[t], f[t], keep[t], keep2[t]);
+            break;
+          default:
+            ladder_plane<VEC, KIND_BETWEEN>(p, a, b0, b1, ae, lz[t], f[t], keep[t], keep2[t]);
+            break;
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kMaxJobs; ++t) {
+      if (t >= jobs.n_jobs) continue;
+      if (last) {
+        jcnt[t] += popc_words<VEC>(f[t]);
+        continue;
+      }
+      uint32_t* st = state + jobs.row[t] * n;
+      store<VEC>(st, i, f[t]);
+      if (jobs.kind[t] != KIND_EQ) store<VEC>(st + n, i, keep[t]);
+      if (jobs.kind[t] == KIND_BETWEEN) store<VEC>(st + 2 * n, i, keep2[t]);
+    }
+    if (last) {
+#pragma unroll
+      for (int e = 0; e < kMaxExtras; ++e) {
+        if (e < jobs.n_extras) ecnt[e] += popc_words<VEC>(sel_mask<VEC>(jobs.extra_sel[e], ex, sg));
+      }
+    }
+  }
+  if (!last) return;
+#pragma unroll
+  for (int t = 0; t < kMaxJobs; ++t) {
+    if (t < jobs.n_jobs) block_add(jcnt[t], counters + t);
+  }
+#pragma unroll
+  for (int e = 0; e < kMaxExtras; ++e) {
+    if (e < jobs.n_extras) block_add(ecnt[e], counters + jobs.n_jobs + e);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < n_out; c += blockDim.x) {
+    if (counters[c] != 0u) atomicAdd(out + c, (unsigned long long)counters[c]);
   }
 }
 
@@ -476,39 +707,29 @@ int dispatch_range(int grid, cudaStream_t st, const uint32_t* planes, const uint
   return 0;
 }
 
-template <int VEC, bool SIGNED, bool FILT>
-void launch_min_max(int grid, cudaStream_t st, const uint32_t* planes, const uint32_t* exists,
-                    const uint32_t* sign, const uint32_t* filt, int depth, int64_t items,
-                    int64_t n, int is_min, long long* partials, unsigned int* ticket,
-                    long long* out) {
-  if (is_min) {
-    bsi_min_max_kernel<VEC, SIGNED, FILT, true><<<grid, kThreads, 0, st>>>(
-        planes, exists, sign, filt, depth, items, n, partials, ticket, out);
-  } else {
-    bsi_min_max_kernel<VEC, SIGNED, FILT, false><<<grid, kThreads, 0, st>>>(
-        planes, exists, sign, filt, depth, items, n, partials, ticket, out);
-  }
-}
-
 template <int VEC>
 void dispatch_min_max(int grid, cudaStream_t st, const uint32_t* planes, const uint32_t* exists,
                       const uint32_t* sign, const uint32_t* filt, int depth, int64_t items,
-                      int64_t n, int is_min, long long* partials, unsigned int* ticket,
-                      long long* out) {
+                      int64_t n, int is_min, int first, int last, uint32_t* fa, void* va,
+                      int wide, long long* partials, unsigned int* ticket, long long* out) {
   if (sign != nullptr) {
     if (filt != nullptr) {
-      launch_min_max<VEC, true, true>(grid, st, planes, exists, sign, filt, depth, items, n,
-                                      is_min, partials, ticket, out);
+      bsi_min_max_kernel<VEC, true, true><<<grid, kThreads, 0, st>>>(
+          planes, exists, sign, filt, depth, items, n, is_min, first, last, fa, va, wide,
+          partials, ticket, out);
     } else {
-      launch_min_max<VEC, true, false>(grid, st, planes, exists, sign, filt, depth, items, n,
-                                       is_min, partials, ticket, out);
+      bsi_min_max_kernel<VEC, true, false><<<grid, kThreads, 0, st>>>(
+          planes, exists, sign, filt, depth, items, n, is_min, first, last, fa, va, wide,
+          partials, ticket, out);
     }
   } else if (filt != nullptr) {
-    launch_min_max<VEC, false, true>(grid, st, planes, exists, sign, filt, depth, items, n,
-                                     is_min, partials, ticket, out);
+    bsi_min_max_kernel<VEC, false, true><<<grid, kThreads, 0, st>>>(
+        planes, exists, sign, filt, depth, items, n, is_min, first, last, fa, va, wide, partials,
+        ticket, out);
   } else {
-    launch_min_max<VEC, false, false>(grid, st, planes, exists, sign, filt, depth, items, n,
-                                      is_min, partials, ticket, out);
+    bsi_min_max_kernel<VEC, false, false><<<grid, kThreads, 0, st>>>(
+        planes, exists, sign, filt, depth, items, n, is_min, first, last, fa, va, wide, partials,
+        ticket, out);
   }
 }
 
@@ -561,24 +782,33 @@ PT_EXPORT int pt_bsi_sum(const void* planes, const void* exists, const void* sig
   return (int)cudaGetLastError();
 }
 
-// `partials` holds 2 * grid int64 of scratch, `ticket` one zeroed uint32;
-// `out` is int64[3] = [best key, any, count].
+// One slab of `depth` planes (n words each) of Min/Max. first: fa/va are
+// built from exists, filt and sign, else read from fa (int32[n]) and va
+// (int64[n] when wide, else int32[n]); last: `partials` holds 2 * grid int64
+// of scratch, `ticket` one zeroed uint32, and `out` gets int64[3] = [best
+// key, any, count], else fa and va are written back. first && last needs
+// no fa or va.
 PT_EXPORT int pt_bsi_min_max(const void* planes, const void* exists, const void* sign,
                              const void* filt, int depth, int64_t n, int vec, int is_min,
-                             int grid, void* partials, void* ticket, void* out, void* stream) {
+                             int first, int last, void* fa, void* va, int wide, int grid,
+                             void* partials, void* ticket, void* out, void* stream) {
   if (depth < 1 || depth > kMaxDepth || grid < 1) return (int)cudaErrorInvalidValue;
+  if (!(first && last) && (fa == nullptr || va == nullptr)) return (int)cudaErrorInvalidValue;
   const auto* pp = static_cast<const uint32_t*>(planes);
   const auto* pe = static_cast<const uint32_t*>(exists);
   const auto* ps = static_cast<const uint32_t*>(sign);
   const auto* pf = static_cast<const uint32_t*>(filt);
+  auto* pa = static_cast<uint32_t*>(fa);
   auto* part = static_cast<long long*>(partials);
   auto* tk = static_cast<unsigned int*>(ticket);
   auto* po = static_cast<long long*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   if (vec) {
-    dispatch_min_max<4>(grid, st, pp, pe, ps, pf, depth, n / 4, n, is_min, part, tk, po);
+    dispatch_min_max<4>(grid, st, pp, pe, ps, pf, depth, n / 4, n, is_min, first, last, pa, va,
+                        wide, part, tk, po);
   } else {
-    dispatch_min_max<1>(grid, st, pp, pe, ps, pf, depth, n, n, is_min, part, tk, po);
+    dispatch_min_max<1>(grid, st, pp, pe, ps, pf, depth, n, n, is_min, first, last, pa, va, wide,
+                        part, tk, po);
   }
   return (int)cudaGetLastError();
 }
@@ -612,5 +842,61 @@ PT_EXPORT int pt_bsi_range(const void* planes, const void* base, const void* sig
                            allow_eq, (int32_t)bps, count, out);
   }
   if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}
+
+// One slab of d planes (absolute [lo, lo + d), n words each) of a range
+// count. `desc` is a host int64 array: n_jobs, n_extras, then per job (kind,
+// sel, allow_eq, lz, first state row, p0, p1), then the extras' selectors.
+// state: int32[rows, n] (unused when first && last); last: `out` is
+// int64[n_jobs + n_extras], zeroed by the caller. vec: n % 4 == 0 and every
+// pointer 16-byte aligned; at most 256 items per thread.
+PT_EXPORT int pt_bsi_range_step(const void* planes, const void* exists, const void* sign,
+                                void* state, const int64_t* desc, int d, int lo, int first,
+                                int last, int64_t n, int vec, int grid, void* out, void* stream) {
+  if (d < 1 || d > kMaxDepth || lo < 0 || lo + d > kMaxDepth || grid < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  RangeJobs jobs = {};
+  jobs.n_jobs = (int)desc[0];
+  jobs.n_extras = (int)desc[1];
+  if (jobs.n_jobs < 0 || jobs.n_jobs > kMaxJobs || jobs.n_extras < 0 ||
+      jobs.n_extras > kMaxExtras) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t* q = desc + 2;
+  for (int t = 0; t < jobs.n_jobs; ++t, q += 7) {
+    jobs.kind[t] = (int)q[0];
+    jobs.sel[t] = (int)q[1];
+    jobs.allow_eq[t] = (int)q[2];
+    jobs.lz[t] = (int)q[3];
+    jobs.row[t] = (int)q[4];
+    jobs.p0[t] = (uint32_t)q[5];
+    jobs.p1[t] = (uint32_t)q[6];
+    if (jobs.kind[t] < KIND_EQ || jobs.kind[t] > KIND_BETWEEN) return (int)cudaErrorInvalidValue;
+    if (jobs.sel[t] != SEL_CONSIDER && sign == nullptr) return (int)cudaErrorInvalidValue;
+  }
+  for (int e = 0; e < jobs.n_extras; ++e) {
+    jobs.extra_sel[e] = (int)q[e];
+    if (jobs.extra_sel[e] != SEL_CONSIDER && sign == nullptr) return (int)cudaErrorInvalidValue;
+  }
+  if (!(first && last) && jobs.n_jobs > 0 && state == nullptr) return (int)cudaErrorInvalidValue;
+  const int64_t items = vec ? n / 4 : n;
+  if ((items + (int64_t)grid * kThreads - 1) / ((int64_t)grid * kThreads) > 256) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto* pp = static_cast<const uint32_t*>(planes);
+  const auto* pe = static_cast<const uint32_t*>(exists);
+  const auto* ps = static_cast<const uint32_t*>(sign);
+  auto* pst = static_cast<uint32_t*>(state);
+  auto* po = static_cast<unsigned long long*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    bsi_range_step_kernel<4><<<grid, kThreads, 0, st>>>(pp, pe, ps, pst, jobs, d, lo, first,
+                                                         last, items, n, po);
+  } else {
+    bsi_range_step_kernel<1><<<grid, kThreads, 0, st>>>(pp, pe, ps, pst, jobs, d, lo, first,
+                                                         last, items, n, po);
+  }
   return (int)cudaGetLastError();
 }

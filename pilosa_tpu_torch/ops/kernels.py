@@ -26,7 +26,11 @@ failed build or launch raises.
 |                   | `_select_pairs`, `_cross_expand` (XLA programs)     |
 | `bsi_sum`         | pallas_kernels.py `sum_counts` (`_bsi_sum_kernel`)  |
 | `bsi_min_max`     | ops/bsi.py `min_max_stream` (XLA program)           |
-| `bsi_range`       | ops/bsi.py `range_*_unsigned`, `range_stream_single` |
+| `bsi_min_max_step`| ops/bsi.py `min_max_stream_step` and `_finish`: one |
+|                   | slab of planes with carried state (XLA programs)    |
+| `bsi_range`       | ops/bsi.py `range_*_unsigned` (XLA programs)        |
+| `bsi_range_step`  | ops/bsi.py `range_stream_single`, `_step` and       |
+|                   | `_finish`: every job of a condition over one slab   |
 | `or_bits`         | core/view.py `_patch_entry`'s gather/OR/scatter:    |
 |                   | the barrier's merged bit keys ORed into a resident  |
 |                   | entry; wrapper and twin in ops/merge.py             |
@@ -100,7 +104,9 @@ LAUNCHES = {
     "gather_and": 0,
     "bsi_sum": 0,
     "bsi_min_max": 0,
+    "bsi_min_max_step": 0,
     "bsi_range": 0,
+    "bsi_range_step": 0,
     "or_bits": 0,
     "merge_mark": 0,
 }
@@ -116,9 +122,9 @@ RANGE_KINDS = {"eq": 0, "lt": 1, "gt": 2, "between": 3}
 RANGE_SELS = {"consider": 0, "pos": 1, "neg": 2}
 RANGE_MODES = ("rows", "count")
 
-# grid-stride kernels (bsi_sum, bsi_min_max): 132 SMs x 16 blocks, more
-# only where a thread would otherwise walk over 256 items (the bound of
-# bsi_sum's 32-bit block counters)
+# grid-stride kernels (bsi_sum, bsi_min_max and the two step kernels): 132
+# SMs x 16 blocks, more only where a thread would otherwise walk over 256
+# items (the bound of the 32-bit block counters)
 _THREADS = 256
 _MAX_GRID = 132 * 16
 _MAX_ITEMS_PER_THREAD = 256
@@ -217,8 +223,9 @@ class _Library:
             "pt_counts_cross": [p, i64, p, i64, i64, i64, i32, p, p],
             "pt_gather_and": [p, p, p, p, i64, i64, i32, p, p],
             "pt_bsi_sum": [p, p, p, p, i32, i64, i32, i32, p, p],
-            "pt_bsi_min_max": [p, p, p, p, i32, i64, i32, i32, i32, p, p, p, p],
+            "pt_bsi_min_max": [p, p, p, p, i32, i64, i32, i32, i32, i32, p, p, i32, i32, p, p, p, p],
             "pt_bsi_range": [p, p, p, i32, i64, i64, i32, i32, i32, u32, u32, i32, i32, p, p],
+            "pt_bsi_range_step": [p, p, p, p, p, i32, i32, i32, i32, i64, i32, i32, p, p],
             "pt_merge_mark": [p, i64, p, p, p],
             "pt_or_bits": [p, i64, p, p, p, i64, i64, p],
         }
@@ -1156,8 +1163,9 @@ def gather_and(a: torch.Tensor, ia, b: torch.Tensor, ib) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# BSI kernels: bsi_sum (Pallas sum_counts), bsi_min_max and bsi_range
-# (ops/bsi.py XLA programs). planes int32[D, S, W], row operands int32[S, W].
+# BSI kernels: bsi_sum (Pallas sum_counts), bsi_min_max, bsi_range and the
+# slab steps bsi_min_max_step and bsi_range_step (ops/bsi.py XLA programs).
+# planes int32[D, S, W], row operands int32[S, W].
 # ---------------------------------------------------------------------------
 
 
@@ -1229,6 +1237,53 @@ def bsi_min_max_plain(planes, exists, sign=None, filt=None, is_min: bool = True)
     return obsi.min_max_stream(planes, exists, sign, filt, is_min)
 
 
+def _min_max_launch(name, planes, exists, sign, filt, state, is_min, first, last, key_bits):
+    """One bsi_min_max_kernel launch over a slab (ops.bsi.min_max_step's
+    contract); counted under `name`."""
+    d = planes.shape[0]
+    n = exists.numel()
+    dev = planes.device
+    wide = obsi.min_max_wide(key_bits)
+    if first:
+        fa = va = None
+        if not last:
+            fa = torch.empty_like(exists)
+            va = torch.empty(exists.shape, dtype=torch.int64 if wide else torch.int32, device=dev)
+    else:
+        fa, va = state
+    ts = [t for t in (planes, exists, sign, filt, fa, va) if t is not None]
+    vec = n % 4 == 0 and _aligned(*ts)
+    grid = _grid_stride(n, vec)
+    partials = ticket = out = None
+    if last:
+        partials = torch.empty(2 * grid, dtype=torch.int64, device=dev)
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        out = torch.empty(3, dtype=torch.int64, device=dev)
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    rc = library().pt_bsi_min_max(
+        planes.data_ptr(),
+        exists.data_ptr(),
+        ptr(sign),
+        ptr(filt),
+        d,
+        n,
+        int(vec),
+        int(is_min),
+        int(first),
+        int(last),
+        ptr(fa),
+        ptr(va),
+        int(wide),
+        grid,
+        ptr(partials),
+        ptr(ticket),
+        ptr(out),
+        _stream(planes),
+    )
+    _launched(name, rc)
+    return out if last else (fa, va)
+
+
 def bsi_min_max(
     planes: torch.Tensor,
     exists: torch.Tensor,
@@ -1239,35 +1294,53 @@ def bsi_min_max(
     """Min or Max over the considered columns as the virtual-key ladder:
     int64[3] = [best key, any, count of columns at that key], decoded by
     ops.bsi.decode_min_max. The cross-word reduce finishes in the kernel
-    (the last block to finish reduces every block's partial)."""
+    (the last block to finish reduces every block's partial). This is
+    bsi_min_max_step over the whole stack (first and last), counted on its
+    own."""
     ts = _bsi_check("bsi_min_max", planes, (("exists", exists), ("sign", sign), ("filter", filt)))
     if _route(*ts) == "cpu":
         return bsi_min_max_plain(planes, exists, sign, filt, is_min)
-    d = planes.shape[0]
-    n = exists.numel()
-    dev = planes.device
-    vec = n % 4 == 0 and _aligned(*ts)
-    grid = _grid_stride(n, vec)
-    partials = torch.empty(2 * grid, dtype=torch.int64, device=dev)
-    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
-    out = torch.empty(3, dtype=torch.int64, device=dev)
-    rc = library().pt_bsi_min_max(
-        planes.data_ptr(),
-        exists.data_ptr(),
-        0 if sign is None else sign.data_ptr(),
-        0 if filt is None else filt.data_ptr(),
-        d,
-        n,
-        int(vec),
-        int(is_min),
-        grid,
-        partials.data_ptr(),
-        ticket.data_ptr(),
-        out.data_ptr(),
-        _stream(planes),
-    )
-    _launched("bsi_min_max", rc)
-    return out
+    key_bits = planes.shape[0] + (sign is not None)
+    return _min_max_launch("bsi_min_max", planes, exists, sign, filt, None, is_min, True, True, key_bits)
+
+
+def bsi_min_max_step_plain(planes, exists, sign, filt, state, is_min, first, last, key_bits):
+    return obsi.min_max_step(planes, exists, sign, filt, state, is_min, first, last, key_bits)
+
+
+def bsi_min_max_step(
+    planes: torch.Tensor,
+    exists: torch.Tensor,
+    sign: Optional[torch.Tensor],
+    filt: Optional[torch.Tensor],
+    state,
+    is_min: bool,
+    first: bool,
+    last: bool,
+    key_bits: int,
+):
+    """One slab of Min/Max (ops.bsi.min_max_step): slabs arrive MSB first;
+    `state` is None on the first, else the (fa, va) pair the previous slab
+    returned, which the kernel updates in place and returns. With `last`
+    the result is int64[3] = [best key, any, count], as bsi_min_max gives
+    it: the reference's separate finish program is this launch's last
+    block. `key_bits` is the whole field's key width (depth, plus one when
+    signed): over 32 bits va is int64 from the first slab on."""
+    ts = _bsi_check("bsi_min_max_step", planes, (("exists", exists), ("sign", sign), ("filter", filt)))
+    if not 1 <= key_bits <= obsi.MAX_DEPTH + 1:
+        raise ValueError(f"bsi_min_max_step: key_bits {key_bits} outside [1, {obsi.MAX_DEPTH + 1}]")
+    if not first:
+        if state is None or len(state) != 2:
+            raise ValueError("bsi_min_max_step: a later slab needs the (fa, va) state")
+        fa, va = state
+        want = torch.int64 if obsi.min_max_wide(key_bits) else torch.int32
+        for what, t, dtype in (("fa", fa, torch.int32), ("va", va, want)):
+            if t.dtype != dtype or tuple(t.shape) != tuple(exists.shape) or not t.is_contiguous():
+                raise ValueError(f"bsi_min_max_step: {what} must be contiguous {dtype} {tuple(exists.shape)}")
+            ts.append(t)
+    if _route(*ts) == "cpu":
+        return bsi_min_max_step_plain(planes, exists, sign, filt, state, is_min, first, last, key_bits)
+    return _min_max_launch("bsi_min_max_step", planes, exists, sign, filt, state, is_min, first, last, key_bits)
 
 
 def _range_args(sel: str, kind: str, mode: str, p0: int, p1: int, sign) -> None:
@@ -1337,3 +1410,90 @@ def bsi_range(
     )
     _launched("bsi_range", rc)
     return out
+
+
+def _range_step_desc(planes, sign, jobs, preds, lo: int, first: bool, extras) -> List[int]:
+    """Validate a range step's jobs and return the kernel's descriptor:
+    n_jobs, n_extras, per job (kind, sel, allow_eq, lz, first state row,
+    p0, p1), then the extras' selectors."""
+    d = planes.shape[0]
+    if not 1 <= len(jobs) <= 2 or len(extras) > 3:
+        raise ValueError(f"bsi_range_step: want 1-2 jobs and at most 3 extras, got {len(jobs)} and {len(extras)}")
+    if lo < 0 or lo + d > obsi.MAX_DEPTH:
+        raise ValueError(f"bsi_range_step: planes [{lo}, {lo + d}) outside [0, {obsi.MAX_DEPTH})")
+    if len(preds) != sum(obsi.range_npreds(kind) for kind, _, _ in jobs):
+        raise ValueError(f"bsi_range_step: {len(preds)} predicates for jobs {jobs}")
+    desc = [len(jobs), len(extras)]
+    row = off = 0
+    for kind, sel, allow_eq in jobs:
+        p = list(preds[off : off + obsi.range_npreds(kind)]) + [0]
+        _range_args(sel, kind, "count", p[0], p[1], sign)
+        if first and any(x >> (lo + d) for x in p):
+            raise ValueError(f"bsi_range_step: predicate {p[:-1]} has bits above the top slab's planes")
+        lz = obsi.lt_leading_zeros(p[0], lo + d)
+        desc += [RANGE_KINDS[kind], RANGE_SELS[sel], int(bool(allow_eq)), int(lz), row, p[0], p[1]]
+        row += obsi.RANGE_STATE_ROWS[kind]
+        off += obsi.range_npreds(kind)
+    for sel in extras:
+        _range_args(sel, "eq", "count", 0, 0, sign)
+        desc.append(RANGE_SELS[sel])
+    return desc
+
+
+def bsi_range_step_plain(planes, exists, sign, state, jobs, preds, lo, first, last, extras=()):
+    return obsi.range_step(planes, exists, sign, state, jobs, preds, lo, first, last, extras)
+
+
+def bsi_range_step(
+    planes: torch.Tensor,
+    exists: torch.Tensor,
+    sign: Optional[torch.Tensor],
+    state: Optional[torch.Tensor],
+    jobs,
+    preds,
+    lo: int,
+    first: bool,
+    last: bool,
+    extras=(),
+):
+    """Every job of a condition's decomposition over one slab
+    (ops.bsi.range_step): slabs arrive MSB first, planes[0] is absolute
+    plane `lo`; the state int32[rows, S, W] is allocated on the first
+    slab and updated in place on the others. With `last` the result is
+    int64[len(jobs) + len(extras)]: each job's count, then each extra
+    mask's. One launch reads each plane word once for every job."""
+    ts = _bsi_check("bsi_range_step", planes, (("exists", exists), ("sign", sign)))
+    desc = _range_step_desc(planes, sign, jobs, preds, lo, first, extras)
+    rows = obsi.range_state_rows(jobs)
+    if not first:
+        shape = (rows, *exists.shape)
+        if state is None or state.dtype != torch.int32 or tuple(state.shape) != shape or not state.is_contiguous():
+            raise ValueError(f"bsi_range_step: a later slab needs its contiguous int32 {shape} state")
+        ts.append(state)
+    if _route(*ts) == "cpu":
+        return bsi_range_step_plain(planes, exists, sign, state, jobs, preds, lo, first, last, extras)
+    n = exists.numel()
+    dev = planes.device
+    if first and not last:
+        state = torch.empty((rows, *exists.shape), dtype=torch.int32, device=dev)
+    out = torch.zeros(len(jobs) + len(extras), dtype=torch.int64, device=dev) if last else None
+    vec = n % 4 == 0 and _aligned(*ts, *([] if state is None else [state]))
+    host = np.asarray(desc, dtype=np.int64)
+    rc = library().pt_bsi_range_step(
+        planes.data_ptr(),
+        exists.data_ptr(),
+        0 if sign is None else sign.data_ptr(),
+        0 if state is None else state.data_ptr(),
+        host.ctypes.data,
+        planes.shape[0],
+        lo,
+        int(first),
+        int(last),
+        n,
+        int(vec),
+        _grid_stride(n, vec),
+        0 if out is None else out.data_ptr(),
+        _stream(planes),
+    )
+    _launched("bsi_range_step", rc)
+    return out if last else state

@@ -9,11 +9,12 @@ stack is `n_shards * WORDS_PER_ROW * 4` bytes, and no dispatch holds
 more than a quarter of the holder's device budget (larger queries are
 chunked, so the peak stays at that quarter while the sweep count grows).
 
-BSI: the reference prices a BSI reference at its plane-streamed slab
-peak (`bsistream.slab_planes()` planes plus state rows). The port stages
-a field's whole [D, S, W] plane stack until slab streaming is ported, so
-it prices what it stages: bit depth + 2 rows (the planes, exists and
-sign).
+BSI: a BSI reference is priced at its plane-streamed slab peak, as the
+reference prices it: min(bit depth, `bsistream.slab_planes()`) planes
+plus 3 rows (exists, sign and the filter or ladder state). The one
+divergence is a signed field 32 bits deep: the reference declines to
+stream it and prices its whole stack (depth + 2), while the port streams
+it, so it prices the slab peak.
 
 Discounts, as in the reference: a query whose every read call has a
 live cached result (core/resultcache.py) costs no device bytes, one
@@ -61,14 +62,17 @@ ZERO_COST = QueryCost()
 
 
 def _bsi_planes(idx: Any, field_name: Optional[str]) -> int:
-    """Row-stack equivalents of a BSI reference: the whole plane stack
-    the port stages (depth planes, exists, sign)."""
+    """Row-stack equivalents a BSI reference holds at its peak: one slab
+    of min(depth, slab) planes plus 3 word rows (exec/bsistream.py)."""
+    from pilosa_tpu_torch.exec import bsistream
+
+    slab = bsistream.slab_planes()
     if idx is not None and field_name:
         f = idx.field(field_name)
         depth = getattr(f.options, "bit_depth", 0) if f is not None else 0
         if depth:
-            return depth + 2
-    return _DEFAULT_BSI_PLANES
+            return min(depth, slab) + 3
+    return min(_DEFAULT_BSI_PLANES, slab + 3)
 
 
 def _call_rows(idx: Any, c: Call) -> float:

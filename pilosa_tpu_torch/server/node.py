@@ -17,9 +17,10 @@ with its tenant policy (sched/tenants.py), the Count batcher
 (hbm/prefetch.py, with hbm_prefetch_depth > 0) fed by its queue peek,
 and the versioned result cache (core/resultcache.py).
 
-The `[hbm]` knobs (extent rows, pin timeout), the `[ingest]` merge
-crossover and the `[cache]` knobs are process-wide, as in the reference:
-the node installs them through `hbm.residency.configure`,
+The `[hbm]` knobs (extent rows, pin timeout), the `[bsi]` slab planes,
+the `[ingest]` merge crossover and the `[cache]` knobs are process-wide,
+as in the reference: the node installs them through
+`hbm.residency.configure`, `exec.bsistream.configure`,
 `core.merge.configure` and `RESULT_CACHE.configure`, so the last node
 constructed in a process sets them for all. The result cache's budget
 goes back to its earlier value when the node stops, so a node's cache
@@ -38,6 +39,7 @@ from pilosa_tpu_torch.core import merge as merge_mod
 from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.resultcache import RESULT_CACHE
+from pilosa_tpu_torch.exec import bsistream
 from pilosa_tpu_torch.exec.batcher import CountBatcher
 from pilosa_tpu_torch.exec.executor import Executor
 from pilosa_tpu_torch.hbm import residency
@@ -61,6 +63,7 @@ class NodeServer:
         wal_sync_interval: float = 0.0,  # 0 strict; > 0 background fsync cadence, s
         hbm_extent_rows: int = residency.DEFAULT_EXTENT_ROWS,  # shards per extent; 0 = whole stacks
         hbm_pin_timeout: float = 60.0,  # stale-pin valve, s; 0 = off
+        bsi_slab_planes: int = 16,  # BSI planes a streamed launch; <= 0 the default
         merge_device_threshold: Optional[int] = None,  # None AUTO, < 0 host only, 0 always device
         max_concurrent_queries: int = 16,  # admission cap; 0 turns admission off
         admission_queue_depth: int = 128,  # bounded admission queue
@@ -88,6 +91,7 @@ class NodeServer:
         self.holder = Holder(self.data_dir, device=device)
         walmod.GROUP_COMMIT.configure(sync_interval=wal_sync_interval)
         residency.configure(extent_rows=hbm_extent_rows, pin_timeout=hbm_pin_timeout)
+        bsistream.configure(slab_planes=bsi_slab_planes)
         merge_mod.configure(device_threshold=merge_device_threshold)
         self.executor = Executor(self.holder)
         # cross-request group-commit Count batching, split by lowering class

@@ -13,9 +13,9 @@ parsing, limits and quota maps equal the reference's; a rate-limited
 index sheds with the reference's reason and quota detail. Cost: on
 set-field queries `estimate` prices exactly what the reference prices
 (same shards, same device budget, nothing resident, no cached result);
-on a BSI condition the port prices its whole plane stack (bit depth + 2
-rows), where the reference prices its plane-streamed slab peak, which
-the port does not have yet; the estimate's running totals (staged
+a BSI reference is priced at the plane-streamed slab peak as the
+reference prices it, except a signed field 32 bits deep, which the
+reference stages whole and the port streams; the estimate's running totals (staged
 positions, resident bytes, the shard count) equal a walk. Internal legs
 take their own lane alike on both sides. Also: the per-index device-cache
 quotas, the prefetch offer and the prefetcher's warm (it stages what is
@@ -480,16 +480,41 @@ def test_cost_matches_reference_on_set_fields(priced):
 
 
 def test_cost_prices_the_whole_bsi_plane_stack(priced):
-    """The port stages a BSI field's whole [D, S, W] stack (D planes plus
-    exists and sign); the reference prices its slab peak instead."""
+    """A BSI reference is priced at its slab peak, min(depth, slab) + 3
+    rows, not at the whole plane stack (depth + 2) the port staged before
+    slab streaming: equal to the reference's `_bsi_planes` for unsigned
+    and signed fields up to 31 bits at each slab; for a signed field 32
+    bits deep, which the reference stages whole (depth + 2), the port's
+    slab peak."""
+    from pilosa_tpu.exec import bsistream as jbs
+    from pilosa_tpu_torch.exec import bsistream as tbs
+
     jh, th = priced
-    idx = th.index("i")
-    depth = idx.field("v").options.bit_depth
+    for h, FO in ((jh, JFieldOptions), (th, TFieldOptions)):
+        h.index("i").create_field("u", FO(type="int", min=0, max=5000))
+        h.index("i").create_field("deep", FO(type="int", min=-(2**32 - 1), max=2**32 - 1))
+    idx, jidx = th.index("i"), jh.index("i")
     stack = 5 * WORDS_PER_ROW * 4
-    assert tcost.estimate(idx, "Count(Row(v > 5))").device_bytes == (depth + 2) * stack
-    assert tcost.estimate(idx, "Sum(field=v)").device_bytes == (depth + 2) * stack
-    ref = jcost.estimate(jh.index("i"), jparse("Count(Row(v > 5))")).device_bytes
-    assert ref == jcost._bsi_planes(jh.index("i"), "v") * stack != (depth + 2) * stack
+    saved = (jbs.slab_planes(), tbs.slab_planes())
+    try:
+        for slab in (4, 11, 16):
+            jbs.configure(slab_planes=slab)
+            tbs.configure(slab_planes=slab)
+            for name in ("v", "u", "deep", "nope", None):
+                want = jcost._bsi_planes(jidx, name)
+                depth = idx.field(name).options.bit_depth if name in ("v", "u", "deep") else 0
+                if name == "deep":
+                    assert want == depth + 2
+                    want = min(depth, slab) + 3
+                assert tcost._bsi_planes(idx, name) == want, (name, slab)
+            for pql in ("Count(Row(v > 5))", "Sum(field=u)", "Min(field=v)"):
+                want = jcost.estimate(jidx, jparse(pql)).device_bytes
+                assert tcost.estimate(idx, pql).device_bytes == want, (pql, slab)
+            depth = idx.field("deep").options.bit_depth
+            assert tcost.estimate(idx, "Sum(field=deep)").device_bytes == (min(depth, slab) + 3) * stack < (depth + 2) * stack
+    finally:
+        jbs.configure(slab_planes=saved[0])
+        tbs.configure(slab_planes=saved[1])
 
 
 def test_cost_running_totals_equal_a_walk(tmp_path):
