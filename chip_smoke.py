@@ -140,7 +140,8 @@ Phases, each fatal on any mismatch or exception:
    set field `g` (2 sparse rows) through /import JSON in batches of 5000,
    int field `amount` in 8 shards through import-value; every import
    returns once its writes are fsynced, so the ingest rates are durable
-   rates. Export-roaring of 4 shards reads back exactly what went in, and
+   rates, and the numpy roaring decode is timed apart from the rest of
+   the import-roaring requests (its share printed). Export-roaring of 4 shards reads back exactly what went in, and
    a Set/Clear changes the next Count by exactly its effect. Then 11
    queries (Counts, Row, TopN with and without a filter, Sum/Min/Max, a
    condition count), each held to numpy and to Executor.execute on the
@@ -211,6 +212,29 @@ Phases, each fatal on any mismatch or exception:
    acknowledged before the last interval may be. The two kill -9 nodes
    run at once, each on its own dir, while the offline tools read the
    stopped one.
+7. cluster: three `python -m pilosa_tpu_torch.cli server` processes on
+   the card (`--cluster-hosts n0@...,n1@...,n2@... --replicas 2`, a
+   probe every 0.5 s, the result cache off), each on a data dir of its
+   own; nvidia-smi must show three more compute processes (or, where it
+   reports another pid namespace, three contexts' worth of memory and
+   each node's CUDA device). Through n0 only: index `c` over 512 shards
+   (2^29 columns), set field `f` with 4 dense rows (densities 2^-4 to
+   2^-7, nested) and 4 sparse ones, `g` with 4 dense rows (2^-5 to
+   2^-8) and `h` with 8 sparse rows, one import-roaring POST a shard and
+   field (8 client threads; each body goes to both owners), `amount` on
+   64 shards (one column in 64) by /import-value, and a keyed index `ck`
+   of 2^16 column keys and 8 row keys by one keyed /import; a keyed Set
+   through n1 (its key stores forward the new keys to n0's). Then 19
+   queries on `c` (the set algebra, a 3-Count batch, Rows, Shift, TopN
+   with and without a filter, Rows, GroupBy of two and three children,
+   Sum/Min/Max, a condition Count) and 3 keyed ones through every node,
+   each equal to numpy and the same on every node, with n0's served
+   p50s; kill -9 of n2: n0 and n1 DEGRADED, every answer again through
+   them; n2 restarted on its data dir: NORMAL, every answer again
+   through n2 and n0. Each node logs its kernel launches as it stops:
+   their sum must show every kernel of the cluster's queries. Then
+   counts_cross at the cluster GroupBy's leg shapes (G = 11 x R = 8 over
+   171 shards, 8 x 8 over 256) against its twin, timed, with its bound.
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with a row per kernel; the last line is
@@ -3312,11 +3336,28 @@ def serve_path(args):
 
         # ingest: one import-roaring POST per shard; /import JSON in batches
         # of 5000 writes; one import-value POST per shard of values
+        # the numpy roaring decode (core/roaring_io.py) timed apart from the
+        # rest of each request: the server runs in this process, and the
+        # API calls the module's decode for each body
+        decode_s = [0.0]
+        real_decode = roaring_io.decode
+
+        def timed_decode(data):
+            td = time.perf_counter()
+            try:
+                return real_decode(data)
+            finally:
+                decode_s[0] += time.perf_counter() - td
+
+        roaring_io.decode = timed_decode
         t0 = time.perf_counter()
-        for s, body in enumerate(bodies):
-            out = http.json("POST", f"/index/s/field/f/import-roaring/{s}", body, "application/octet-stream")
-            check(out == {"changed": int(f_shard_bits[s])}, f"import-roaring shard {s}: {out}, want {int(f_shard_bits[s])} changed")
-        roaring_s = time.perf_counter() - t0
+        try:
+            for s, body in enumerate(bodies):
+                out = http.json("POST", f"/index/s/field/f/import-roaring/{s}", body, "application/octet-stream")
+                check(out == {"changed": int(f_shard_bits[s])}, f"import-roaring shard {s}: {out}, want {int(f_shard_bits[s])} changed")
+            roaring_s = time.perf_counter() - t0
+        finally:
+            roaring_io.decode = real_decode
         del bodies
         t0 = time.perf_counter()
         n_requests = n_import = 0
@@ -3343,6 +3384,8 @@ def serve_path(args):
             "roaring_bits": int(f_shard_bits.sum()),
             "roaring_mib_per_s": n_body / 2**20 / roaring_s,
             "roaring_bits_per_s": int(f_shard_bits.sum()) / roaring_s,
+            "roaring_decode_s": decode_s[0],
+            "roaring_decode_share": decode_s[0] / roaring_s,
             "import_s": import_s,
             "import_requests": n_requests,
             "import_bits_per_s": n_import / import_s,
@@ -3354,7 +3397,8 @@ def serve_path(args):
         print(
             f"serve: durable ingest {ingest['ingest_s']:.1f} s over HTTP: import-roaring {S} POSTs, {n_body / 2**20:.1f} MiB, "
             f"{ingest['roaring_bits']} bits in {roaring_s:.1f} s ({ingest['roaring_mib_per_s']:.2f} MiB/s, "
-            f"{ingest['roaring_bits_per_s']:.0f} bits/s); /import {n_requests} POSTs, {n_import} bits in {import_s:.1f} s "
+            f"{ingest['roaring_bits_per_s']:.0f} bits/s; the numpy decode {decode_s[0]:.2f} s of it, "
+            f"{ingest['roaring_decode_share']:.1%}); /import {n_requests} POSTs, {n_import} bits in {import_s:.1f} s "
             f"({ingest['import_bits_per_s']:.0f} bits/s); import-value {n_val} POSTs, {n_values} values in {value_s:.1f} s "
             f"({ingest['import_value_values_per_s']:.0f} values/s)"
         )
@@ -4695,6 +4739,526 @@ def durable_path(args, st) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the cluster, three CLI nodes on the card
+# ---------------------------------------------------------------------------
+
+CLUSTER_SHARDS = 512  # 2^29 columns, like the serve phase
+CLUSTER_NODES = ("n0", "n1", "n2")
+# the dense rows' densities 2^-d (bitmap and array containers): a field's
+# rows are nested, each the AND of the one before it and a fresh draw
+CLUSTER_F_DENSE_DRAWS = (4, 5, 6, 7)
+CLUSTER_G_DENSE_DRAWS = (5, 6, 7, 8)
+CLUSTER_SPARSE_BITS = 1000  # bits a shard of each sparse row (f rows 4-7, h rows 0-7)
+CLUSTER_VALUE_SHARDS = 64  # shards of `amount` through /import-value
+CLUSTER_VALUE_DENSITY = 64  # one column in 64 holds a value
+CLUSTER_KEYS = 1 << 16  # column keys of index ck
+CLUSTER_ROW_KEYS = 8  # row keys of its keyed field kf
+CLUSTER_REPS = 5  # runs per served p50 at n0
+CLUSTER_QUERIES = [
+    "Count(Row(f=0))",
+    "Count(Intersect(Row(f=0), Row(g=1)))",
+    "Count(Union(Row(f=1), Row(f=2), Row(g=0)))",
+    "Count(Difference(Row(f=0), Row(g=0)))",
+    "Count(Xor(Row(f=1), Row(g=2)))",
+    "Count(Not(Row(f=0)))",
+    "Count(Row(f=0))Count(Row(f=1))Count(Intersect(Row(f=2), Row(g=3)))",
+    "Row(f=4)",
+    "Intersect(Row(f=5), Row(g=0))",
+    "Shift(Row(f=6), n=1)",
+    "TopN(f, n=5)",
+    "TopN(f, Row(g=0), n=5)",
+    "Rows(f)",
+    "GroupBy(Rows(h), Rows(g))",
+    "GroupBy(Rows(f), Rows(g), Rows(h))",
+    "Sum(field=amount)",
+    "Min(field=amount)",
+    "Max(Row(g=1), field=amount)",
+    "Count(Row(amount > 500000))",
+]
+CLUSTER_KEYED_QUERIES = ['Row(kf="k9")', 'Count(Row(kf="k3"))', "TopN(kf, n=3)"]
+# every kernel a cluster query runs on some node (amount's 21 planes stream
+# at the default slab of 16: Min/Max on the min/max step, the condition
+# Count on the range step; the batched Counts are one plan_count_multi a
+# leg; the 3-child GroupBy descends, gather_and building its prefixes)
+CLUSTER_KERNELS = (
+    "plan_count", "plan_count_multi", "plan_rows", "gather_tally", "counts_cross", "gather_and",
+    "bsi_sum", "bsi_min_max_step", "bsi_range_step",
+)
+
+
+def _free_ports(n: int):
+    import socket
+
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+class _Node:
+    """One `python -m pilosa_tpu_torch.cli server` process of the cluster,
+    its stderr drained into `lines` by a thread."""
+
+    def __init__(self, nid: str, data_dir: str, port: int, hosts: str, extra=()):
+        import threading
+
+        self.nid, self.data_dir, self.port, self.hosts, self.extra = nid, data_dir, port, hosts, list(extra)
+        self.uri = f"http://127.0.0.1:{port}"
+        self.lines = []
+        self.p = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--data-dir", data_dir,
+             "--bind", f"127.0.0.1:{port}", "--node-id", nid, "--cluster-hosts", hosts, "--replicas", "2",
+             "--probe-interval", "0.5", "--max-writes-per-request", "0", "--cache-result-mb", "0"] + self.extra,
+            stderr=subprocess.PIPE, text=True,
+        )
+        self._t = threading.Thread(target=self._drain, daemon=True)
+        self._t.start()
+
+    def _drain(self):
+        for line in self.p.stderr:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_listening(self, timeout: float = 180.0):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            if any("listening on" in ln for ln in self.lines):
+                return time.perf_counter() - t0
+            if self.p.poll() is not None:
+                break
+            time.sleep(0.05)
+        fail(f"cluster node {self.nid} did not start: exit {self.p.poll()}, stderr {self.lines[-10:]}")
+
+    def launches(self) -> dict:
+        """The kernel launches the node logged as it stopped."""
+        for ln in reversed(self.lines):
+            m = re.search(r"stopped; kernel launches (\{.*\})", ln)
+            if m:
+                return json.loads(m.group(1))
+        fail(f"cluster node {self.nid} logged no kernel launches: {self.lines[-5:]}")
+
+    def stop(self, timeout: float = 60.0) -> int:
+        import signal
+
+        if self.p.poll() is None:
+            self.p.send_signal(signal.SIGTERM)
+            try:
+                self.p.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                self.p.kill()
+                self.p.wait()
+        self._t.join(timeout=10)
+        return self.p.returncode
+
+    def kill9(self):
+        self.p.kill()
+        self.p.wait()
+        self._t.join(timeout=10)
+
+
+def _roaring_shard(dense, sparse) -> bytes:
+    """A pilosa-dialect roaring body of one shard: `dense` is [(row, [W]
+    uint32 words)], `sparse` [(row, sorted in-shard positions)]. A 2^16-bit
+    container with more than 4096 bits is a bitmap container (its words
+    as they are), else an array container."""
+    import struct
+
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    per_row = SHARD_WIDTH >> 16
+    conts = []  # (key, type, n, payload)
+    for r, words in dense:
+        chunks = words.reshape(per_row, 2048)
+        counts = _LUT[chunks.view(np.uint8)].sum(axis=1, dtype=np.int64)
+        pos = np.flatnonzero(_bits(words))  # the row's columns, for array containers
+        ends = np.cumsum(counts)
+        for k, n in enumerate(counts.tolist()):
+            if n > 4096:
+                conts.append((r * per_row + k, 2, n, chunks[k].tobytes()))
+            elif n:
+                lows = (pos[ends[k] - n : ends[k]] & 0xFFFF).astype("<u2")
+                conts.append((r * per_row + k, 1, n, lows.tobytes()))
+    for r, pos in sparse:
+        hi = (pos >> np.uint64(16)).astype(np.int64)
+        for k in np.unique(hi).tolist():
+            lows = (pos[hi == k] & np.uint64(0xFFFF)).astype("<u2")
+            conts.append((r * per_row + k, 1, len(lows), lows.tobytes()))
+    conts.sort(key=lambda c: c[0])
+    head = struct.pack("<HBBI", 12348, 0, 0, len(conts))
+    desc = b"".join(struct.pack("<QHH", key, t, n - 1) for key, t, n, _ in conts)
+    off, offs = 8 + 16 * len(conts), []
+    for c in conts:
+        offs.append(struct.pack("<I", off))
+        off += len(c[3])
+    return head + desc + b"".join(offs) + b"".join(c[3] for c in conts)
+
+
+def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = True) -> dict:
+    """Phase 7: three CLI nodes (`--cluster-hosts n0@...,n1@...,n2@...
+    --replicas 2`), each on its own data dir, all on the card; data
+    imported through n0 only; the query set through every node, held to
+    numpy; kill -9 of n2 (DEGRADED, answers unchanged) and its restart on
+    its data dir (NORMAL, answers unchanged); the nodes' kernel launches
+    read from the line each logs as it stops."""
+    import os
+    import threading
+
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
+
+    W = WORDS_PER_ROW
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([args.seed, 7])
+    base_dir = durable_dir()
+    ports = _free_ports(len(CLUSTER_NODES))
+    hosts = ",".join(f"{nid}@http://127.0.0.1:{p}" for nid, p in zip(CLUSTER_NODES, ports))
+    before_apps, before_used = (_compute_apps(), _memory_used_mib()) if on_card else ([], 0)
+    nodes = [_Node(nid, os.path.join(base_dir, nid), p, hosts, server_args) for nid, p in zip(CLUSTER_NODES, ports)]
+    info = {"shards": S, "nodes": list(CLUSTER_NODES)}
+    try:
+        start_s = max(n.wait_listening() for n in nodes)
+        info["start_s"] = start_s
+        if on_card:
+            apps, used = _compute_apps(), _memory_used_mib()
+            pids = [n.p.pid for n in nodes]
+            devices = [re.search(r"\(device (\S+)\)", "\n".join(n.lines)) for n in nodes]
+            check(all(m is not None and m.group(1).startswith("cuda") for m in devices),
+                  f"cluster nodes serve on {[m and m.group(1) for m in devices]}")
+            if all(p in {a[0] for a in apps} for p in pids):
+                how = f"nvidia-smi lists the node pids {pids}"
+            elif len(apps) >= len(before_apps) + 3:
+                how = f"nvidia-smi lists {len(apps) - len(before_apps)} more compute processes than before the nodes ({apps})"
+            else:
+                # nvidia-smi reports the nodes under pids of another namespace
+                check(used - before_used >= 3 * 256,
+                      f"nvidia-smi lists {apps} (before the nodes {before_apps}); {used - before_used} MiB more in use")
+                how = (f"nvidia-smi lists {apps} (another pid namespace: before the nodes {before_apps}); "
+                       f"{used - before_used} MiB more in use on the card; each node serves on {devices[0].group(1)}")
+            print(f"cluster: 3 nodes on the card in {start_s:.1f} s: {how}")
+            info["contexts"] = how
+
+        # data from the seed
+        t0 = time.perf_counter()
+
+        def dense_rows(draws):
+            out, w = [], None
+            for d in range(1, max(draws) + 1):
+                x = rng.integers(0, 2**32, size=(S, W), dtype=np.uint32)
+                w = x if w is None else w & x
+                if d in draws:
+                    out.append(w.copy())
+            return out
+
+        f_dense = dense_rows(CLUSTER_F_DENSE_DRAWS)
+        g_dense = dense_rows(CLUSTER_G_DENSE_DRAWS)
+
+        def sparse_rows(n):
+            """n rows of CLUSTER_SPARSE_BITS random bits a shard: per row a
+            list of S sorted unique in-shard position arrays."""
+            return [[np.unique(rng.integers(0, SHARD_WIDTH, CLUSTER_SPARSE_BITS).astype(np.uint64)) for _ in range(S)] for _ in range(n)]
+
+        f_sparse = sparse_rows(4)
+        h_sparse = sparse_rows(8)
+        n_val = min(S, CLUSTER_VALUE_SHARDS)
+        v_cols = [np.sort(rng.choice(SHARD_WIDTH, SHARD_WIDTH // CLUSTER_VALUE_DENSITY, replace=False)) for _ in range(n_val)]
+        v_vals = [rng.integers(AMOUNT[0], AMOUNT[1] + 1, len(c)) for c in v_cols]
+        nf = len(f_dense)
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            f_bodies = list(pool.map(lambda s: _roaring_shard(
+                [(r, f_dense[r][s]) for r in range(nf)], [(nf + r, f_sparse[r][s]) for r in range(4)]), range(S)))
+            g_bodies = list(pool.map(lambda s: _roaring_shard([(r, g_dense[r][s]) for r in range(len(g_dense))], []), range(S)))
+            h_bodies = list(pool.map(lambda s: _roaring_shard([], [(r, h_sparse[r][s]) for r in range(8)]), range(S)))
+        n_body = sum(map(len, f_bodies)) + sum(map(len, g_bodies)) + sum(map(len, h_bodies))
+        gen_s = time.perf_counter() - t0
+        print(f"cluster: generated {S} shards x 3 roaring bodies ({n_body} B) and {sum(map(len, v_cols))} values in {gen_s:.1f} s")
+
+        # ingest through n0 only: 8 client threads, one connection each
+        http0 = _Http(nodes[0].uri)
+        http0.json("POST", "/index/c", {"options": {"trackExistence": True}})
+        for fld in ("f", "g", "h"):
+            http0.json("POST", f"/index/c/field/{fld}", {})
+        http0.json("POST", "/index/c/field/amount", {"options": {"type": "int", "min": AMOUNT[0], "max": AMOUNT[1]}})
+        local = threading.local()
+
+        def post(path, body, ctype="application/octet-stream"):
+            if not hasattr(local, "c"):
+                local.c = _Http(nodes[0].uri)
+            return local.c.json("POST", path, body, ctype)
+
+        t0 = time.perf_counter()
+        jobs = [(f"/index/c/field/{fld}/import-roaring/{s}", b) for fld, bodies in (("f", f_bodies), ("g", g_bodies), ("h", h_bodies))
+                for s, b in enumerate(bodies)]
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            outs = list(pool.map(lambda j: post(*j), jobs))
+        check(all("changed" in o for o in outs), f"import-roaring: {outs[:3]}")
+        roaring_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            outs = list(pool.map(lambda s: post("/index/c/field/amount/import-value", {
+                "cols": (v_cols[s] + s * SHARD_WIDTH).tolist(), "values": v_vals[s].tolist()}, "application/json"), range(n_val)))
+        check(all(o["errors"] == [] and o["applied"] == o["expected"] == 2 for o in outs), f"import-value: {outs[:3]}")
+        value_s = time.perf_counter() - t0
+        # the keyed index: 2^16 column keys in one /import
+        key_order = rng.permutation(CLUSTER_KEYS)
+        col_keys = [f"u{i:05d}" for i in key_order.tolist()]
+        row_of = rng.integers(0, CLUSTER_ROW_KEYS, CLUSTER_KEYS)
+        row_keys = [f"k{r}" for r in row_of.tolist()]
+        t0 = time.perf_counter()
+        http0.json("POST", "/index/ck", {"options": {"keys": True}})
+        http0.json("POST", "/index/ck/field/kf", {"options": {"keys": True}})
+        http0.json("POST", "/index/ck/field/kf/import", {"rowKeys": row_keys, "colKeys": col_keys})
+        keyed_s = time.perf_counter() - t0
+        del f_bodies, g_bodies, h_bodies
+        info["ingest"] = {
+            "roaring_s": roaring_s, "roaring_bytes": n_body, "roaring_requests": len(jobs),
+            "roaring_mib_per_s": n_body / 2**20 / roaring_s, "import_value_s": value_s,
+            "values": int(sum(map(len, v_cols))), "keyed_import_s": keyed_s, "generate_s": gen_s,
+        }
+        print(
+            f"cluster: ingest through n0: {len(jobs)} import-roaring POSTs, {n_body / 2**20:.1f} MiB in {roaring_s:.1f} s "
+            f"({n_body / 2**20 / roaring_s:.2f} MiB/s, each to 2 owners); {n_val} import-value POSTs in {value_s:.1f} s; "
+            f"{CLUSTER_KEYS} keyed pairs in {keyed_s:.1f} s"
+        )
+
+        # the numpy answers
+        t0 = time.perf_counter()
+        pc = np_popcount
+
+        def words_of(rows_pos):
+            out = np.zeros((S, W), np.uint32)
+            for s, pos in enumerate(rows_pos):
+                if len(pos):
+                    np.bitwise_or.at(out[s], (pos >> np.uint64(5)).astype(np.int64), np.uint32(1) << (pos & np.uint64(31)).astype(np.uint32))
+            return out
+
+        f_words = f_dense + [words_of(r) for r in f_sparse]
+        g_words = g_dense
+        h_words = [words_of(r) for r in h_sparse]
+        exists = np.zeros((S, W), np.uint32)
+        for wds in f_words + g_words + h_words:
+            exists |= wds
+        for s in range(n_val):
+            exists[s] |= _pack_positions(v_cols[s].astype(np.uint64))
+
+        def cols_of(rows_pos):
+            return np.concatenate([pos + np.uint64(s * SHARD_WIDTH) for s, pos in enumerate(rows_pos)])
+
+        def bits_at(words, cols):
+            """Bit of [S, W] words at each absolute column."""
+            s = (cols // np.uint64(SHARD_WIDTH)).astype(np.int64)
+            c = (cols % np.uint64(SHARD_WIDTH)).astype(np.int64)
+            return ((words[s, c >> 5] >> (c & 31).astype(np.uint32)) & 1).astype(bool)
+
+        vals_all = np.concatenate(v_vals)
+        v_abs = np.concatenate([c.astype(np.uint64) + np.uint64(s * SHARD_WIDTH) for s, c in enumerate(v_cols)])
+        g1_sel = bits_at(g_words[1], v_abs)
+        f_counts = [pc(w) for w in f_words]
+        top = sorted(((r, c) for r, c in enumerate(f_counts) if c), key=lambda kv: (-kv[1], kv[0]))[:5]
+        ic = [pc(f_words[r] & g_words[0]) for r in range(nf)] + [int(bits_at(g_words[0], cols_of(f_sparse[r])).sum()) for r in range(4)]
+        top_g0 = sorted(((r, c) for r, c in enumerate(ic) if c), key=lambda kv: (-kv[1], kv[0]))[:5]
+        f4 = cols_of(f_sparse[0])
+        f5 = cols_of(f_sparse[1])
+        f6 = cols_of(f_sparse[2])
+        gh, ghf = {}, {}
+        for r in range(8):
+            hc = cols_of(h_sparse[r])
+            G = np.stack([bits_at(g, hc) for g in g_words])
+            F = np.stack([bits_at(f, hc) for f in f_words])
+            for j, n in enumerate(G.sum(axis=1).tolist()):
+                if n:
+                    gh[(r, j)] = n
+            cnt = np.einsum("in,jn->ij", F.astype(np.int64), G.astype(np.int64))
+            for i, j in zip(*np.nonzero(cnt)):
+                ghf[(int(i), int(j), r)] = int(cnt[i, j])
+        lo, hi = _extreme(vals_all, True), _extreme(vals_all[g1_sel], False)
+        want = dict(zip(CLUSTER_QUERIES, [
+            [f_counts[0]],
+            [pc(f_words[0] & g_words[1])],
+            [pc(f_words[1] | f_words[2] | g_words[0])],
+            [pc(f_words[0] & ~g_words[0])],
+            [pc(f_words[1] ^ g_words[2])],
+            [pc(exists & ~f_words[0])],
+            [f_counts[0], f_counts[1], pc(f_words[2] & g_words[3])],
+            [{"attrs": {}, "columns": f4.tolist()}],
+            [{"attrs": {}, "columns": f5[bits_at(g_words[0], f5)].tolist()}],
+            [{"attrs": {}, "columns": (f6 + np.uint64(1)).tolist()}],
+            [[{"id": r, "count": c} for r, c in top]],
+            [[{"id": r, "count": c} for r, c in top_g0]],
+            [list(range(nf + 4))],
+            [group_json(("h", "g"), gh)],
+            [group_json(("f", "g", "h"), {k: v for k, v in ghf.items()})],
+            [{"value": int(vals_all.sum()), "count": len(vals_all)}],
+            [{"value": lo[0], "count": lo[1]}],
+            [{"value": hi[0], "count": hi[1]}],
+            [int((vals_all > 500_000).sum())],
+        ]))
+        # keyed: ids in order of first appearance
+        first = {}
+        for k in row_keys:
+            first.setdefault(k, len(first) + 1)
+        k3 = int((row_of == 3).sum())
+        kcounts = sorted(((first[f"k{r}"], f"k{r}", int((row_of == r).sum())) for r in range(CLUSTER_ROW_KEYS)),
+                         key=lambda t: (-t[2], t[0]))[:3]
+        new_id = CLUSTER_KEYS + 1
+        want_keyed = {
+            'Row(kf="k9")': [{"attrs": {}, "columns": [new_id], "keys": ["u99999"]}],
+            'Count(Row(kf="k3"))': [k3],
+            "TopN(kf, n=3)": [[{"id": i, "count": c, "key": k} for i, k, c in kcounts]],
+        }
+        print(f"cluster: numpy answers in {time.perf_counter() - t0:.1f} s")
+        del g1_sel
+
+        # a keyed Set through n1: its key stores forward the new keys to n0's
+        out = _Http(nodes[1].uri).json("POST", "/index/ck/query", b'Set("u99999", kf="k9")', "text/plain")
+        check(out == {"results": [True]}, f"keyed Set through n1: {out}")
+
+        def ask_all(live, label):
+            """Every query through every live node: equal to numpy."""
+            bodies = {}
+            t = time.perf_counter()
+            for n in live:
+                c = _Http(n.uri)
+                try:
+                    for index, qs, wants in (("c", CLUSTER_QUERIES, want), ("ck", CLUSTER_KEYED_QUERIES, want_keyed)):
+                        for q in qs:
+                            status, raw = c.raw("POST", f"/index/{index}/query", q.encode(), "text/plain")
+                            check(status == 200, f"cluster {label} {n.nid} {q}: HTTP {status}: {raw[:300]!r}")
+                            got = json.loads(raw)["results"]
+                            check(got == wants[q], f"cluster {label} {n.nid} {q}: {str(got)[:300]}, numpy says {str(wants[q])[:300]}")
+                            check(bodies.setdefault(q, raw) == raw, f"cluster {label} {q}: {n.nid}'s body differs from the first node's")
+                finally:
+                    c.close()
+            dt = time.perf_counter() - t
+            print(f"cluster {label}: {len(CLUSTER_QUERIES) + len(CLUSTER_KEYED_QUERIES)} queries through "
+                  f"{', '.join(n.nid for n in live)} equal numpy and each other in {dt:.1f} s")
+            return dt
+
+        def status_of(n):
+            return _Http(n.uri).json("GET", "/status")
+
+        def wait_state(n, state, timeout=30.0):
+            t = time.perf_counter()
+            while time.perf_counter() - t < timeout:
+                if status_of(n)["state"] == state:
+                    return time.perf_counter() - t
+                time.sleep(0.1)
+            fail(f"cluster: {n.nid} not {state} within {timeout} s: {status_of(n)}")
+
+        info["whole_s"] = ask_all(nodes, "whole")
+        # warm served p50s at n0
+        lat = {}
+        for index, qs in (("c", CLUSTER_QUERIES), ("ck", CLUSTER_KEYED_QUERIES)):
+            for q in qs:
+                body = q.encode()
+                lat[q] = statistics.median(
+                    _wall_ms(lambda: http0.raw("POST", f"/index/{index}/query", body, "text/plain")) for _ in range(CLUSTER_REPS)
+                )
+                print(f"cluster p50 {lat[q]:.3f} ms served at n0  {q}")
+        info["query_p50_ms"] = lat
+
+        # kill -9 n2: DEGRADED after a probe, every answer again
+        nodes[2].kill9()
+        info["degraded_after_s"] = wait_state(nodes[0], "DEGRADED")
+        wait_state(nodes[1], "DEGRADED")  # the coordinator's broadcast
+        print(f"cluster: kill -9 n2: n0 DEGRADED after {info['degraded_after_s']:.2f} s")
+        info["degraded_s"] = ask_all(nodes[:2], "degraded")
+        # restart n2 on its data dir: NORMAL again, every answer again
+        t0 = time.perf_counter()
+        nodes[2] = _Node("n2", nodes[2].data_dir, nodes[2].port, hosts, server_args)
+        nodes[2].wait_listening()
+        info["normal_after_s"] = wait_state(nodes[0], "NORMAL") + (time.perf_counter() - t0)
+        check(status_of(nodes[2])["state"] == "NORMAL", f"restarted n2: {status_of(nodes[2])}")
+        print(f"cluster: n2 restarted on its data dir: NORMAL {info['normal_after_s']:.2f} s after its start")
+        # through the restarted node and the coordinator, whose legs go to it again
+        info["restarted_s"] = ask_all([nodes[2], nodes[0]], "restarted")
+        http0.close()
+    finally:
+        rcs = [n.stop() for n in nodes]
+    check(all(rc == 0 for rc in rcs), f"cluster nodes exited {rcs} on SIGTERM")
+    per_node = {n.nid: n.launches() for n in nodes}
+    total = {k: sum(per_node[n][k] for n in per_node) for k in per_node[CLUSTER_NODES[0]]}
+    if on_card:
+        for name in CLUSTER_KERNELS:
+            check(total[name] > 0, f"the cluster's queries never launched {name}: {per_node}")
+    info["launches"] = total
+    info["launches_per_node"] = per_node
+    info["phase_s"] = time.perf_counter() - t_phase
+    import shutil
+
+    shutil.rmtree(base_dir, ignore_errors=True)
+    print(f"cluster: launches (n0, n1, n2 after its restart) {total}; phase {info['phase_s']:.1f} s")
+    return info
+
+
+def _wall_ms(fn) -> float:
+    t = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t) * 1e3
+
+
+def _compute_apps() -> list:
+    """[(pid, used MiB)] of nvidia-smi's compute processes."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    apps = []
+    for line in out.splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            apps.append((int(parts[0]), int(parts[1]) if parts[1].isdigit() else -1))
+    return apps
+
+
+def _memory_used_mib() -> int:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return int(out.split()[0])
+
+
+def counts_cross_legs(launches: int, errs) -> dict:
+    """counts_cross at the cluster GroupBy's leg shapes on random words: G =
+    gmax(171, W) = 11 prefixes x R = 8 rows over a third of 512 shards, and
+    G = gmax(256, W) = 8 x R = 8 over half of them (one node down); §3's
+    method, the bound each distinct word once (acc, planes, counts)."""
+    import torch
+
+    from pilosa_tpu_torch.exec.groupby import gmax
+    from pilosa_tpu_torch.ops import kernels as K
+    from pilosa_tpu_torch.shardwidth import WORDS_PER_ROW as W
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for s in (171, 256):
+        g, r = gmax(s, W), 8
+        acc = torch.randint(-(2**31), 2**31, (g, s, W), dtype=torch.int32, device="cuda", generator=gen)
+        planes = torch.randint(-(2**31), 2**31, (r, s, W), dtype=torch.int32, device="cuda", generator=gen)
+        got, ref = K.counts_cross(acc, planes), K.counts_cross_plain(acc, planes)
+        diff = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max().item())
+        check(diff == 0, f"counts_cross at G {g} x R {r}, S {s} differs from its twin by {diff}")
+        errs["counts_cross"] = max(errs.get("counts_cross", 0), diff)
+        nbytes = (g + r) * s * W * 4 + g * r * s * 4
+        ms = cuda_time_ms(lambda: K.counts_cross(acc, planes))
+        row = {
+            "G": g, "R": r, "S": s, "ms": ms, "dispatch_ms": dispatch_ms(lambda: K.counts_cross(acc, planes)),
+            "plain_ms": cuda_time_ms(lambda: K.counts_cross_plain(acc, planes), reps=PLAIN_REPS),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes, "launches_in_cluster": launches,
+        }
+        row["share_of_bound"] = row["bound_ms"] / ms
+        out[f"G{g}_R{r}_S{s}"] = row
+        print(
+            f"kernel counts_cross at a cluster leg (G {g}, R {r}, S {s}): device {ms:.4f} ms, dispatch "
+            f"{row['dispatch_ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['share_of_bound']:.1%} of it); {launches} counts_cross launches in the cluster phase"
+        )
+        del acc, planes, got, ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def offline_tools(d: str) -> dict:
     """`inspect` and `check` on a stopped data dir, one after the other;
     the dir is deleted after them."""
@@ -4823,11 +5387,19 @@ def main() -> int:
     t0 = time.perf_counter()
     durable = durable_path(args, recovered)
     phase_s["durable"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()  # the cluster's three processes share the card
+    t0 = time.perf_counter()
+    cluster = cluster_path(args)
+    phase_s["cluster"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows["counts_cross"]["cluster_legs"] = counts_cross_legs(cluster["launches"]["counts_cross"], errs)
+    phase_s["cluster legs"] = time.perf_counter() - t0
     for name, row in rows.items():
         row["launches_served"] = serve["launches"].get(name, 0)
         row["launches_recovered"] = durable["launches"].get(name, 0)
         row["launches_keyed"] = serve["keyed"]["launches"].get(name, 0)
         row["launches_front_end"] = serve["front_end"]["batcher"]["launches"].get(name, 0)
+        row["launches_cluster"] = cluster["launches"].get(name, 0)
     keyed = serve["keyed"]
     phase_s["keyed (in serve)"] = keyed["phase_s"]
     phase_s["front end (in serve)"] = serve["front_end"]["phase_s"]
@@ -4849,6 +5421,13 @@ def main() -> int:
         f"{ing['import_value_values_per_s']:.0f} values/s; data dir {durable['data_dir_bytes']} bytes; kill -9 lost "
         + ", ".join(f"{k['lost']} (interval {k['sync_interval']})" for k in durable["kill9"])
     )
+    print(
+        f"cluster summary ({smi}): 3 nodes, replicas 2, {cluster['shards']} shards; ingest "
+        f"{cluster['ingest']['roaring_mib_per_s']:.2f} MiB/s of roaring through n0; served p50 at n0 "
+        f"{min(cluster['query_p50_ms'].values()):.3f}-{max(cluster['query_p50_ms'].values()):.3f} ms; DEGRADED "
+        f"{cluster['degraded_after_s']:.2f} s after kill -9, NORMAL {cluster['normal_after_s']:.2f} s after the restart; "
+        f"phase {cluster['phase_s']:.1f} s"
+    )
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     print(smi)
@@ -4869,6 +5448,7 @@ def main() -> int:
         "device_cache_bytes": resident,
         "serve": serve,
         "durable": durable,
+        "cluster": cluster,
         "shards": args.shards,
         "build_s": build_s,
         "phase_s": phase_s,

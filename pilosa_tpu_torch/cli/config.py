@@ -6,7 +6,7 @@ TOML schema and cmd/root.go:94-131 precedence): flags > env (PILOSA_TPU_*)
 refuses every knob whose feature is not ported yet when it is set away
 from its default here (pilosa_tpu_torch/cli/main.py). `config` dumps the
 effective TOML and `generate-config` the defaults, as the reference's
-do. The cluster-hosts parser comes with the cluster."""
+do. `parse_hosts` reads the `--cluster-hosts` entries."""
 
 from __future__ import annotations
 
@@ -394,3 +394,19 @@ def _toml_value(v) -> str:
     if isinstance(v, list):
         return "[" + ", ".join(_toml_value(x) for x in v) + "]"
     return f'"{v}"'
+
+
+def parse_hosts(hosts: List[str], default_scheme: str = "http"):
+    """'node_id@http://host:port' entries -> [(id, uri)]. A bare host:port
+    entry gets `default_scheme` and the id host-port."""
+    out = []
+    for h in hosts:
+        if "@" in h:
+            nid, uri = h.split("@", 1)
+            if not uri.startswith("http"):
+                uri = f"{default_scheme}://{uri}"
+        else:
+            uri = h if h.startswith("http") else f"{default_scheme}://{h}"
+            nid = uri.split("//", 1)[-1].replace(":", "-")
+        out.append((nid, uri))
+    return out

@@ -12,10 +12,14 @@ dir (the default `~/.pilosa-tpu`; an empty one serves from memory), with
 `--wal-sync-interval` as the group commit's cadence; the front-end
 knobs are honoured too: `--max-concurrent-queries`, `--admission-*`,
 `--tenants-*`, `--hbm-prefetch-depth`, `--cache-result-mb` and
-`--cache-count-repair`. Every knob whose feature the port lacks
-(clusters and `--join`, TLS, `--shed-retry-after`, tiered storage, mesh
-groups, coherence, tracing, metrics) must stay at its default: a run
-that sets one exits non-zero naming it. `import` and `export` talk to a server over
+`--cache-count-repair`, and so are the cluster's: `--cluster-hosts`
+(`id@uri` entries: they seed the membership on the first boot, after
+which the data dir's `.topology` wins and the flags only heal peer
+URIs), `--replicas`, `--coordinator`, `--probe-interval`, the retry and
+breaker knobs and `--query-deadline`. Every knob whose feature the port
+lacks (`--join` and the resize knobs, TLS, `--shed-retry-after`, tiered
+storage, mesh groups, coherence, tracing, metrics) must stay at its
+default: a run that sets one exits non-zero naming it. `import` and `export` talk to a server over
 HTTP; `inspect` opens a data dir and `check` reads its files offline;
 `config` and `generate-config` print TOML. Each prints what the
 reference's does.
@@ -131,6 +135,15 @@ _PORTED_KNOBS = {
     ("bsi", "slab_planes"),
     ("cache", "result_mb"),
     ("cache", "count_repair"),
+    ("cluster", "hosts"),
+    ("cluster", "replicas"),
+    ("cluster", "coordinator"),
+    ("cluster", "probe_interval"),
+    ("cluster", "retry_max_attempts"),
+    ("cluster", "retry_base_backoff"),
+    ("cluster", "breaker_threshold"),
+    ("cluster", "breaker_cooldown"),
+    ("cluster", "query_deadline"),
 }
 
 # flags taking a list (the reference's nargs="*" flags)
@@ -242,16 +255,27 @@ def _unported_settings(cfg: Config, join: Optional[str]) -> List[str]:
     return out
 
 
-def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None) -> None:
-    """Serve until SIGINT or SIGTERM, then stop the node and return."""
+def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None, wait: bool = True):
+    """Start the node, install the cluster the flags or its data dir name,
+    then serve until SIGINT or SIGTERM and stop the node. With `wait`
+    False, return the started node instead."""
+    from pilosa_tpu_torch.cli.config import parse_hosts
+    from pilosa_tpu_torch.cluster.topology import Node
     from pilosa_tpu_torch.server.node import NodeServer
 
     unported = _unported_settings(cfg, join)
     if unported:
         raise SystemExit(
-            f"pilosa_tpu_torch server: {', '.join(unported)}: not yet ported (the port serves "
-            "one node); leave these options at their defaults"
+            f"pilosa_tpu_torch server: {', '.join(unported)}: not yet ported; "
+            "leave these options at their defaults"
         )
+    hosts = parse_hosts(cfg.cluster.hosts)
+    my_uri = cfg.bind if cfg.bind.startswith("http") else f"http://{cfg.bind}"
+    node_id = cfg.node_id
+    if not node_id:
+        # the id parse_hosts gives this address, so an entry naming it matches
+        matched = [nid for nid, uri in hosts if uri == my_uri]
+        node_id = matched[0] if matched else cfg.bind.replace(":", "-")
     log_stream = open(cfg.log_path, "a") if cfg.log_path else sys.stderr
 
     def logger(msg: str) -> None:
@@ -260,9 +284,16 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None) -
     try:
         srv = NodeServer(
             cfg.data_dir,
-            cfg.node_id or cfg.bind.replace(":", "-"),
+            node_id,
             bind=cfg.bind,
             device=device,
+            replica_n=cfg.cluster.replicas,
+            probe_interval=cfg.cluster.probe_interval,
+            retry_max_attempts=cfg.cluster.retry_max_attempts,
+            retry_base_backoff=cfg.cluster.retry_base_backoff,
+            breaker_threshold=cfg.cluster.breaker_threshold,
+            breaker_cooldown=cfg.cluster.breaker_cooldown,
+            query_deadline=cfg.cluster.query_deadline,
             max_writes_per_request=cfg.max_writes_per_request,
             wal_sync_interval=cfg.wal.sync_interval,
             hbm_extent_rows=cfg.hbm.extent_rows,
@@ -286,11 +317,29 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None) -
         )
     except RuntimeError as e:  # no CUDA device and no --device cpu
         raise SystemExit(f"pilosa_tpu_torch server: {e} (here: --device cpu)") from None
-    stop = threading.Event()
-    signal.signal(signal.SIGINT, lambda *a: stop.set())
-    signal.signal(signal.SIGTERM, lambda *a: stop.set())
     try:
         srv.start()
+        if srv.topology_restored:
+            # the membership is on disk: the flags only heal peer URIs
+            healed = srv.heal_peer_uris(hosts) if hosts else []
+            if hosts:
+                print(
+                    "cluster-hosts: membership restored from .topology"
+                    + (f"; healed URIs for {healed}" if healed else ""),
+                    file=sys.stderr,
+                )
+        elif hosts:
+            members = []
+            for nid, uri in hosts:
+                if uri == my_uri and nid != srv.node.id:
+                    # the entry naming this address keeps the durable .id
+                    print(f"cluster-hosts id {nid!r} for this address overridden by on-disk .id {srv.node.id!r}", file=sys.stderr)
+                    nid = srv.node.id
+                members.append(Node(id=nid, uri=uri))
+            if not any(m.id == srv.node.id for m in members):
+                members.append(Node(id=srv.node.id, uri=srv.node.uri))
+            members[0].is_coordinator = True
+            srv.set_topology(members, replica_n=cfg.cluster.replicas)
     except BaseException:
         srv.stop()  # the holder closes, the result-cache budget goes back
         raise
@@ -300,11 +349,25 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None) -
         file=sys.stderr,
         flush=True,
     )
+    if not wait:
+        return srv
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *a: stop.set())
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
     try:
         while not stop.wait(0.5):
             pass
     finally:
         srv.stop()
+        from pilosa_tpu_torch.ops import kernels
+
+        # the process's kernel launches, for whoever drove it (the smoke
+        # script's cluster phase reads them from each node's last line)
+        print(
+            f"pilosa_tpu_torch node {srv.node.id} stopped; kernel launches {json.dumps(dict(kernels.LAUNCHES))}",
+            file=sys.stderr,
+            flush=True,
+        )
         if log_stream is not sys.stderr:
             log_stream.close()
 

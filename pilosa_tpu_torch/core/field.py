@@ -40,7 +40,7 @@ from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core.devcache import DeviceCache
 from pilosa_tpu_torch.core.attrs import AttrStore
 from pilosa_tpu_torch.core.translate import TranslateStore
-from pilosa_tpu_torch.core.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View
+from pilosa_tpu_torch.core.view import VIEW_BSI_PREFIX, VIEW_STANDARD, View, bump_shards_epoch
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXPONENT
 from pilosa_tpu_torch.utils.arrays import group_slices
 
@@ -121,6 +121,9 @@ class Field:
         self.dcache = dcache
         self._mu = threading.RLock()
         self.views: Dict[str, View] = {}
+        # shards a cluster peer announced: they exist cluster-wide even
+        # where this node holds no fragment of them
+        self.remote_available_shards: Set[int] = set()
         # row attributes: .row_attrs.json and its append log
         self.row_attr_store = AttrStore(None if path is None else os.path.join(path, ".row_attrs.json"))
         # row keys of a keyed field
@@ -153,6 +156,9 @@ class Field:
         os.makedirs(self.path, exist_ok=True)
         if not os.path.exists(self.meta_path):
             self.save_meta()
+        if os.path.exists(self._avail_path):
+            with open(self._avail_path) as f:
+                self.remote_available_shards.update(json.load(f))
         views_dir = os.path.join(self.path, "views")
         if os.path.isdir(views_dir):
             for vname in sorted(os.listdir(views_dir)):
@@ -166,6 +172,39 @@ class Field:
         with open(tmp, "w") as f:
             json.dump(asdict(self.options), f)
         os.replace(tmp, self.meta_path)
+
+    @property
+    def _avail_path(self) -> Optional[str]:
+        return None if self.path is None else os.path.join(self.path, ".available.shards.json")
+
+    def add_remote_available(self, shards) -> None:
+        """Merge cluster-announced shards into the availability set and
+        persist it (`.available.shards.json`), so a restarted node still
+        knows which shards exist cluster-wide."""
+        with self._mu:
+            new = {int(s) for s in shards} - self.remote_available_shards
+            if not new:
+                return
+            self.remote_available_shards.update(new)
+            self._persist_available()
+        bump_shards_epoch()
+
+    def remove_remote_available(self, shard: int) -> None:
+        with self._mu:
+            if shard not in self.remote_available_shards:
+                return
+            self.remote_available_shards.discard(int(shard))
+            self._persist_available()
+        bump_shards_epoch()
+
+    def _persist_available(self) -> None:
+        """Write the availability sidecar atomically; call under _mu."""
+        p = self._avail_path
+        if p is not None:
+            tmp = p + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(sorted(self.remote_available_shards), f)
+            os.replace(tmp, p)
 
     def _view_create(self, name: str) -> View:
         with self._mu:
@@ -207,8 +246,9 @@ class Field:
         return VIEW_BSI_PREFIX + self.name
 
     def available_shards(self) -> Set[int]:
+        """The shards of local fragments and the cluster-announced ones."""
         with self._mu:
-            shards: Set[int] = set()
+            shards: Set[int] = set(self.remote_available_shards)
             for v in self.views.values():
                 shards.update(v.available_shards())
             return shards

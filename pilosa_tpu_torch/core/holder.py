@@ -29,6 +29,10 @@ class Holder:
         self.dcache = DeviceCache(default_budget(self.device))
         self._mu = threading.RLock()
         self._indexes: Dict[str, Index] = {}
+        # (index, shard, node id) writes a replica missed (down or
+        # partitioned when the write fanned out): the debt anti-entropy
+        # will repair, kept visible in /status
+        self._pending_repairs: set = set()
 
     def open(self) -> "Holder":
         if self.path is not None:
@@ -120,10 +124,41 @@ class Holder:
             idx.close()
             if idx.path is not None:
                 shutil.rmtree(idx.path, ignore_errors=True)
+            self.resolve_pending_repairs(index=name)
+
+    # -- pending replica repairs -----------------------------------------------
+
+    def record_pending_repair(self, index: str, shard: int, node_id: str) -> None:
+        with self._mu:
+            self._pending_repairs.add((index, int(shard), node_id))
+
+    def pending_repairs(self) -> List[tuple]:
+        with self._mu:
+            return sorted(self._pending_repairs)
 
     def pending_repair_count(self) -> int:
-        """Replica writes awaiting repair: none on one node."""
-        return 0
+        with self._mu:
+            return len(self._pending_repairs)
+
+    def discard_pending_repair(self, index: str, shard: int, node_id: str) -> bool:
+        with self._mu:
+            try:
+                self._pending_repairs.remove((index, int(shard), node_id))
+                return True
+            except KeyError:
+                return False
+
+    def resolve_pending_repairs(self, index: Optional[str] = None, shard: Optional[int] = None) -> int:
+        """Drop the entries of (index, shard), None matching all; returns
+        how many went."""
+        with self._mu:
+            before = len(self._pending_repairs)
+            self._pending_repairs = {
+                (i, s, n)
+                for (i, s, n) in self._pending_repairs
+                if (index is not None and i != index) or (shard is not None and s != shard)
+            }
+            return before - len(self._pending_repairs)
 
     def staged_position_count(self) -> int:
         """Staged SET positions not yet merged into row stores."""

@@ -30,9 +30,11 @@ freshness paths:
 Clears, mutex writes and version gaps drop the entries they cover. One
 process-global RESULT_CACHE serves every node of the process; keys carry
 the index's `_cache_scope` and vector elements each view's
-`_stack_token`, so two nodes never serve each other's entries. The
-reference's remote-vector candidates and subscription pins (the
-coherence plane) are not ported: every vector here is local.
+`_stack_token`, so two nodes never serve each other's entries. A cluster
+coordinator's vectors also hold its peers' elements, fetched over
+/internal/versions (exec/distributed.py); a key pays that round trip
+only from its second sighting on (`note_candidate`). The subscription
+pins of the reference's coherence plane are not ported.
 
 The store is off (budget 0) until a NodeServer installs its `[cache]`
 knobs (`configure`); a bare Executor then computes every query.
@@ -54,6 +56,9 @@ import threading
 DEFAULT_BUDGET_BYTES = 64 << 20
 
 _UNSET = object()
+
+# remote-vector keys remembered as sighted once (note_candidate)
+_CANDIDATE_CAP = 1024
 
 
 def _popcount(words: np.ndarray) -> int:
@@ -213,6 +218,8 @@ class ResultCache:
         # entries interested in that row's pre-merge words (the merge
         # barrier's old-words capture hook, core/merge.py)
         self._interest: Dict[tuple, Dict[int, int]] = {}
+        # keys sighted once whose vector needs peer round trips
+        self._candidates: "OrderedDict[tuple, bool]" = OrderedDict()
         # (scope, text) -> live entry keys (admission cost discount)
         self._by_text: Dict[tuple, Set[tuple]] = {}
         # per-index (tenant) byte quotas ([tenants] section; 0 / absent
@@ -365,6 +372,20 @@ class ResultCache:
                 e.repair_spec is not None or e.dep_rows is not None
             )
 
+    def note_candidate(self, key: tuple) -> bool:
+        """Record a sighting of a key whose vector needs peer round trips;
+        True when it was seen before (now worth paying them)."""
+        with self._mu:
+            if key in self._entries:
+                return True
+            if key in self._candidates:
+                self._candidates.move_to_end(key)
+                return True
+            self._candidates[key] = True
+            while len(self._candidates) > _CANDIDATE_CAP:
+                self._candidates.popitem(last=False)
+            return False
+
     def put(
         self,
         key: tuple,
@@ -402,6 +423,7 @@ class ResultCache:
             self._entries[key] = e
             self._index_locked(e)
             self._counters["stores"] += 1
+            self._candidates.pop(key, None)
             self._evict_over_budget_locked()
 
     def _spec_admissible(
@@ -886,6 +908,7 @@ class ResultCache:
                     self._drop_locked(key)
 
     def _clear_locked(self) -> None:
+        self._candidates.clear()
         self._entries.clear()
         self._by_token.clear()
         self._by_index.clear()

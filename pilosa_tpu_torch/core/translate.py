@@ -11,9 +11,13 @@ flushed to the OS, never fsynced: after a machine crash the log can lose
 keys that the fragments' WAL kept (ROADMAP Queue C). Translation runs on
 the host and never touches the card.
 
-The replication hooks of the reference (read-only replicas that forward
-writes, catch-up from the primary, `entries_since`) come with the cluster
-slice.
+In a cluster one node's store is the single writer (the coordinator's).
+Every other node's store is `read_only`: it forwards the keys it lacks
+to the primary (`forward_fn(keys) -> ids`) and applies the answer, and it
+pulls the primary's new entries (`catchup_fn()`) when asked for an id it
+does not know. `entries_since(offset)` serves the append log from a
+replication offset: a byte offset in the log file, or an entry index for
+an in-memory store.
 """
 
 from __future__ import annotations
@@ -32,12 +36,20 @@ class TranslateError(Exception):
     pass
 
 
+class ReadOnlyError(TranslateError):
+    """A write to a replica's store with no primary to forward it to."""
+
+
 class TranslateStore:
     """Bidirectional string <-> id map with an append-only on-disk log
     (path None: in memory)."""
 
-    def __init__(self, path: Optional[str] = None):
+    def __init__(self, path: Optional[str] = None, read_only: bool = False):
         self.path = path
+        self.read_only = read_only
+        # replication hooks, set by the node (server/node.py wire_translation)
+        self.forward_fn = None  # keys -> ids, allocated by the primary
+        self.catchup_fn = None  # pull and apply the primary's new entries
         self._lock = threading.RLock()
         self._by_key: Dict[str, int] = {}
         self._by_id: Dict[int, str] = {}
@@ -87,7 +99,25 @@ class TranslateStore:
 
     def translate_keys(self, keys: Sequence[str]) -> List[int]:
         """The id of every key, in order; new keys get the next ids in
-        order of first appearance and are appended to the log together."""
+        order of first appearance and are appended to the log together. A
+        read-only store forwards the keys it lacks to the primary (outside
+        the lock: a slow primary must not stall local reads) and applies
+        the ids it answers."""
+        if self.read_only:
+            with self._lock:
+                missing = sorted({k for k in keys if k not in self._by_key})
+            if missing:
+                if self.forward_fn is None:
+                    raise ReadOnlyError(f"translate store is read-only; forward {missing[0]!r} to primary")
+                ids = self.forward_fn(missing)
+                if len(ids) != len(missing):
+                    raise TranslateError(f"primary returned {len(ids)} ids for {len(missing)} keys")
+                self.apply_entries(zip(ids, missing))
+            with self._lock:
+                try:
+                    return [self._by_key[k] for k in keys]
+                except KeyError as e:
+                    raise TranslateError(f"key {e.args[0]!r} missing after primary forward") from None
         with self._lock:
             out = []
             new: List[Tuple[int, str]] = []
@@ -115,9 +145,10 @@ class TranslateStore:
         self._fh.flush()
 
     def apply_entries(self, entries) -> None:
-        """Load (id, key) pairs from another holder's store (compat),
-        appending the new ones to the log. The same id mapped to another
-        key raises TranslateError."""
+        """Load (id, key) pairs from the primary (a replica's follow path)
+        or another holder's store (compat), appending the new ones to the
+        log. The same id mapped to another key raises TranslateError: the
+        stores have diverged."""
         with self._lock:
             new = []
             for id_, key in entries:
@@ -141,9 +172,49 @@ class TranslateStore:
         return self._by_key.get(key)
 
     def key_for_id(self, id_: int) -> Optional[str]:
-        return self._by_id.get(id_)
+        key = self._by_id.get(id_)
+        if key is None and self.catchup_fn is not None:
+            # a stale replica: pull the primary's new entries once, retry
+            try:
+                self.catchup_fn()
+            except Exception:  # noqa: BLE001 - an unknown id reads as None
+                return None
+            key = self._by_id.get(id_)
+        return key
 
     def keys_for_ids(self, ids) -> List[Optional[str]]:
-        """The key of every id (None where there is none), in one pass."""
+        """The key of every id (None where there is none), in one pass; a
+        replica catches up from the primary at most once a batch."""
+        ids = np.asarray(ids, np.uint64).tolist()
+        if self.catchup_fn is not None and any(i not in self._by_id for i in ids):
+            try:
+                self.catchup_fn()
+            except Exception:  # noqa: BLE001 - unknown ids read as None
+                pass
         get = self._by_id.get
-        return [get(i) for i in np.asarray(ids, np.uint64).tolist()]
+        return [get(i) for i in ids]
+
+    # -- replication ---------------------------------------------------------
+
+    def entries_since(self, offset: int = 0) -> Tuple[List[Tuple[int, str]], int]:
+        """The entries appended at or after `offset`, and the offset after
+        them."""
+        with self._lock:
+            if not self.path or not os.path.exists(self.path):
+                items = sorted(self._by_id.items())
+                return items[offset:], len(items)
+            if self._fh:
+                self._fh.flush()
+            with open(self.path, "rb") as f:
+                f.seek(offset)
+                data = f.read()
+        out = []
+        off = 0
+        while off + _REC.size <= len(data):
+            id_, klen = _REC.unpack_from(data, off)
+            end = off + _REC.size + klen
+            if end > len(data):
+                break
+            out.append((id_, data[off + _REC.size : end].decode("utf-8")))
+            off = end
+        return out, offset + off

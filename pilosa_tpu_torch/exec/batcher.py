@@ -77,6 +77,7 @@ def batch_eligible(query, shards, opt) -> bool:
     share."""
     return (
         shards is None
+        and not opt.remote
         and not opt.column_attrs
         and not opt.exclude_row_attrs
         and not opt.exclude_columns

@@ -20,7 +20,10 @@ SetColumnAttrs write the attribute stores (core/attrs.py); a plain Row
 carries its row's attrs, and Options sets excludeRowAttrs,
 excludeColumns, columnAttrs and shards for its child. String keys are
 translated to ids before execution and ids back to keys after it
-(exec/translation.py).
+(exec/translation.py). A remote leg of a cluster query
+(`ExecOptions.remote`, exec/distributed.py) arrives translated and leaves
+untranslated, skips the row-attr tail and returns TopN's pass-1
+candidates untrimmed, as the reference's does.
 
 An unknown call raises ExecError. There is no per-shard fallback: a tree
 the stacked lowering cannot express is an error here, never a slower
@@ -91,6 +94,7 @@ class NotFoundError(ExecError):
 
 @dataclass
 class ExecOptions:
+    remote: bool = False  # a fan-out leg: no translation, untrimmed TopN
     exclude_row_attrs: bool = False
     exclude_columns: bool = False
     column_attrs: bool = False
@@ -564,10 +568,10 @@ class _CacheCtx:
 
     __slots__ = (
         "key", "kind", "views", "shard_list", "vector", "repair_spec",
-        "dep_rows", "text", "index_name", "clocks", "hit", "hit_result",
+        "dep_rows", "text", "index_name", "opt_remote", "call", "clocks", "hit", "hit_result",
     )
 
-    def __init__(self, key, kind, views, shard_list, text, index_name, repair_spec, dep_rows):
+    def __init__(self, key, kind, views, shard_list, text, index_name, repair_spec, dep_rows, opt_remote, call):
         self.key = key
         self.kind = kind
         self.views = views  # sorted ((field, view), ...)
@@ -576,6 +580,8 @@ class _CacheCtx:
         self.index_name = index_name
         self.repair_spec = repair_spec
         self.dep_rows = dep_rows
+        self.opt_remote = opt_remote
+        self.call = call  # the post-translation call (a coordinator's legs re-extend Shift)
         self.vector = None
         self.clocks = None  # per-view mutation clocks, read before the vector
         self.hit = False
@@ -622,7 +628,8 @@ class Executor:
             raise ExecError("too many writes in a single request")
         if shards is None:
             shards = opt.shards
-        translation.translate_query(idx, query)
+        if not opt.remote:  # a leg arrives translated by its coordinator
+            translation.translate_query(idx, query)
         results: List[Any] = []
         calls = query.calls
         i = 0
@@ -634,12 +641,12 @@ class Executor:
             if j - i >= 2 and self._counts_batchable(opt):
                 # every member looks the cache up first; the hits are
                 # served from host memory and the misses stay batched
-                ctxs = [self._cache_lookup(idx, cc, shards) for cc in calls[i:j]]
+                ctxs = [self._cache_lookup(idx, cc, shards, opt) for cc in calls[i:j]]
                 hit = [cx is not None and cx.hit for cx in ctxs]
                 miss = [(cc, cx) for cc, cx, h in zip(calls[i:j], ctxs, hit) if not h]
                 batch = None
                 if len(miss) >= 2:
-                    batch = self._execute_count_batch(idx, [cc for cc, _ in miss], shards)
+                    batch = self._execute_count_batch(idx, [cc for cc, _ in miss], shards, opt)
                     if batch is not None:
                         for (_, cx), r in zip(miss, batch):
                             self._cache_store(idx, cx, r)
@@ -656,7 +663,7 @@ class Executor:
                         results.append(r)
                 i = j
                 continue
-            cx = self._cache_lookup(idx, calls[i], shards)
+            cx = self._cache_lookup(idx, calls[i], shards, opt)
             if cx is not None and cx.hit:
                 results.append(cx.hit_result)
             else:
@@ -667,7 +674,8 @@ class Executor:
         resp = QueryResponse(results=results)
         if opt.column_attrs:
             resp.column_attr_sets = self._column_attr_sets(idx, results)
-        resp.results = translation.translate_results(idx, query, results)
+        if not opt.remote:
+            resp.results = translation.translate_results(idx, query, results)
         return resp
 
     @staticmethod
@@ -719,7 +727,7 @@ class Executor:
         if name == "Clear":
             return self._execute_clear(idx, c)
         if name == "TopN":
-            return self._execute_topn(idx, c, shards)
+            return self._execute_topn(idx, c, shards, opt)
         if name == "Sum":
             return self._execute_bsi_aggregate(idx, c, shards, "sum")
         if name == "Min":
@@ -744,11 +752,11 @@ class Executor:
     # the versioned result cache (core/resultcache.py)
     # ------------------------------------------------------------------
 
-    def _cache_spec(self, idx: Index, c: Call, shards) -> Optional[_CacheCtx]:
+    def _cache_spec(self, idx: Index, c: Call, shards, opt: ExecOptions) -> Optional[_CacheCtx]:
         """The cache context of one call, or None when it is ineligible.
-        The key is (index scope, post-translation text, shard list,
-        False): the reference's fourth element marks remote legs, which
-        one node never runs."""
+        The key is (index scope, post-translation text, shard list, remote
+        flag): a remote leg answers another shape (untrimmed TopN
+        candidates) than a coordinator, so it caches under its own key."""
         kind = _CACHE_KINDS.get(c.name)
         if kind is None or rcache.RESULT_CACHE.budget_bytes <= 0:
             return None
@@ -797,8 +805,11 @@ class Executor:
         if not uniq:
             return None
         text = str(c)
-        key = (idx._cache_scope, text, shard_list, False)
-        return _CacheCtx(key, kind, uniq, shard_list, text, idx.name, repair_spec, self._cache_dep_rows(idx, c, kind))
+        key = (idx._cache_scope, text, shard_list, bool(opt.remote))
+        return _CacheCtx(
+            key, kind, uniq, shard_list, text, idx.name, repair_spec,
+            self._cache_dep_rows(idx, c, kind), bool(opt.remote), c,
+        )
 
     def _cache_views(self, idx: Index, c: Call, out: list) -> bool:
         """Collect the (field, view)s a bitmap tree reads; False when they
@@ -938,31 +949,40 @@ class Executor:
             return None
         return {k: (frozenset(v) if v is not None else None) for k, v in deps.items()}
 
-    def version_vector(self, idx: Index, views, shard_list) -> tuple:
-        """The fragment-version vector of `views` over `shard_list`: one
-        ("v", "", field, view, view token, shards, versions) element a
-        view, ("m", ...) for a missing field or view. Lock-free monotonic
-        reads: every mutation bumps its fragment's version."""
+    def local_version_vector(self, idx: Index, views, shard_list, node: str = "") -> tuple:
+        """The fragment-version vector of `views` over `shard_list` on this
+        holder: one ("v", node, field, view, view token, shards, versions)
+        element a view, ("m", node, ...) for a missing field or view.
+        Lock-free monotonic reads: every mutation bumps its fragment's
+        version."""
         vec = []
         for fname, vname in views:
             f = idx.field(fname)
             if f is None:
-                vec.append(("m", "", fname, ""))
+                vec.append(("m", node, fname, ""))
                 continue
             v = f.view(vname)
             if v is None:
-                vec.append(("m", "", fname, vname))
+                vec.append(("m", node, fname, vname))
                 continue
             frags = v.fragments
             versions = tuple(fr.version if (fr := frags.get(s)) is not None else -1 for s in shard_list)
-            vec.append(("v", "", fname, vname, v._stack_token, tuple(shard_list), versions))
+            vec.append(("v", node, fname, vname, v._stack_token, tuple(shard_list), versions))
         return tuple(vec)
 
-    def clock_vector(self, idx: Index, views) -> tuple:
+    def version_vector(self, idx: Index, ctx: _CacheCtx, opt: ExecOptions, expect=None):
+        """The vector a call's cached result is held to: on one node, the
+        local one. The distributed executor assembles its peers' parts
+        too; `expect` lets it stop before their round trips when the
+        local part already differs."""
+        return self.local_version_vector(idx, ctx.views, ctx.shard_list)
+
+    def clock_vector(self, idx: Index, ctx: _CacheCtx, opt: ExecOptions):
         """One mutation clock a view: equal clocks imply equal versions,
-        so a warm repeat never walks the shard axis."""
+        so a warm repeat never walks the shard axis. None turns the fast
+        path off (a coordinator's clocks live on its peers)."""
         vec = []
-        for fname, vname in views:
+        for fname, vname in ctx.views:
             f = idx.field(fname)
             if f is None:
                 vec.append(("m", "", fname, ""))
@@ -974,22 +994,27 @@ class Executor:
             vec.append(("c", v._stack_token, v.mutation_clock))
         return tuple(vec)
 
-    def _cache_lookup(self, idx: Index, c: Call, shards) -> Optional[_CacheCtx]:
+    def _cache_lookup(self, idx: Index, c: Call, shards, opt: ExecOptions) -> Optional[_CacheCtx]:
         """Look one call up. None: ineligible; else a context whose `hit`
         is set when the stored result revalidated, or was repaired or
         re-keyed by the read barrier this lookup ran."""
-        ctx = self._cache_spec(idx, c, shards)
+        ctx = self._cache_spec(idx, c, shards, opt)
         if ctx is None:
             return None
         RC = rcache.RESULT_CACHE
         # clocks first: a write racing the reads leaves the fast path
         # disarmed, never stale
-        clocks = ctx.clocks = self.clock_vector(idx, ctx.views)
+        clocks = ctx.clocks = self.clock_vector(idx, ctx, opt)
         found, res = RC.get_by_clock(ctx.key, clocks)
         if found:
             ctx.hit, ctx.hit_result = True, res
             return ctx
-        ctx.vector = self.version_vector(idx, ctx.views, ctx.shard_list)
+        ctx.vector = self.version_vector(idx, ctx, opt)
+        if ctx.vector is None:
+            # no vector this time (a first sighting of a key that needs
+            # peer round trips, or an unreachable peer): a miss
+            RC.count_miss()
+            return ctx
         # a miss is counted at the end: a repaired serve is one hit
         found, res = RC.get(ctx.key, ctx.vector, recount=False)
         if found:
@@ -997,12 +1022,14 @@ class Executor:
         elif (ctx.repair_spec is not None or ctx.dep_rows is not None) and RC.repairable(ctx.key):
             # the read barrier merges the staged bursts; note_merges then
             # patches or re-keys the entry, served with no dispatch
-            clocks = ctx.clocks = self.clock_vector(idx, ctx.views)
+            clocks = ctx.clocks = self.clock_vector(idx, ctx, opt)
             self._cache_barrier(idx, ctx)
-            ctx.vector = self.version_vector(idx, ctx.views, ctx.shard_list)
-            found, res = RC.get(ctx.key, ctx.vector, recount=False)
-            if found:
-                RC.refresh_clocks(ctx.key, clocks)
+            vec2 = self.version_vector(idx, ctx, opt)
+            if vec2 is not None:
+                ctx.vector = vec2
+                found, res = RC.get(ctx.key, vec2, recount=False)
+                if found:
+                    RC.refresh_clocks(ctx.key, clocks)
         if found:
             ctx.hit, ctx.hit_result = True, res
         else:
@@ -1027,7 +1054,8 @@ class Executor:
         is a write that landed mid-query)."""
         if ctx is None or ctx.vector is None or result is None:
             return
-        if self.version_vector(idx, ctx.views, ctx.shard_list) != ctx.vector:
+        opt = ExecOptions(remote=ctx.opt_remote)
+        if self.version_vector(idx, ctx, opt, expect=ctx.vector) != ctx.vector:
             return
         rcache.RESULT_CACHE.put(
             ctx.key, ctx.kind, ctx.index_name, ctx.text, result, ctx.vector,
@@ -1036,7 +1064,8 @@ class Executor:
 
     def _counts_batchable(self, opt: ExecOptions) -> bool:
         """Whether a run of adjacent Counts may evaluate as one multi-root
-        plan (always, on one node)."""
+        plan (always: on a cluster's coordinator, one merged round across
+        the nodes, exec/distributed.py)."""
         return True
 
     def count_lowering_class(self, index_name: str, query) -> str:
@@ -1265,7 +1294,11 @@ class Executor:
 
     def _finish_bitmap_row(self, idx: Index, c: Call, row: Row, opt: ExecOptions) -> Row:
         """A plain Row() (no condition) carries its row's attrs, unless
-        excludeRowAttrs; excludeColumns drops every segment."""
+        excludeRowAttrs; excludeColumns drops every segment. The
+        coordinator finishes a cluster's Row: a remote leg's partial
+        leaves as it is."""
+        if opt is None or opt.remote:
+            return row
         if c.name == "Row" and not c.has_conditions():
             if opt.exclude_row_attrs:
                 row.attrs = {}
@@ -1302,7 +1335,9 @@ class Executor:
     # Count
     # ------------------------------------------------------------------
 
-    def _execute_count_batch(self, idx: Index, calls: List[Call], shards) -> Optional[List[int]]:
+    def _execute_count_batch(
+        self, idx: Index, calls: List[Call], shards, opt: Optional[ExecOptions] = None
+    ) -> Optional[List[int]]:
         """N adjacent Counts as one multi-root dispatch + one [N, S] read;
         None sends the caller to per-call execution."""
         children = []
@@ -1488,6 +1523,7 @@ class Executor:
         if len(c.children) != 1:
             raise ExecError("Options() requires a single child query")
         new_opt = ExecOptions(
+            remote=opt.remote,
             exclude_row_attrs=bool(c.args.get("excludeRowAttrs", opt.exclude_row_attrs)),
             exclude_columns=bool(c.args.get("excludeColumns", opt.exclude_columns)),
             column_attrs=bool(c.args.get("columnAttrs", opt.column_attrs)),
@@ -1589,17 +1625,19 @@ class Executor:
     # TopN (two-pass protocol)
     # ------------------------------------------------------------------
 
-    def _execute_topn(self, idx: Index, c: Call, shards) -> List[Pair]:
+    def _execute_topn(self, idx: Index, c: Call, shards, opt: ExecOptions) -> List[Pair]:
         ids_arg = c.args.get("ids")
         n = c.uint_arg("n")
-        if not ids_arg:
+        if not ids_arg and not opt.remote:
             # one pass: the batched tally already holds exact counts for
             # every candidate in every present shard
             pairs = self._topn_local_full(idx, c, shards)
             if pairs is not None:
                 return pairs[:n] if n else pairs
         pairs = self._topn_shards(idx, c, shards)
-        if not pairs or ids_arg:
+        # ids and remote legs return untrimmed: the caller (or coordinator)
+        # needs an exact count for every candidate to merge
+        if not pairs or ids_arg or opt.remote:
             return pairs
         # second pass: exact counts for the candidate ids
         other = Call(c.name, dict(c.args), list(c.children))

@@ -1,8 +1,9 @@
 """API: every operation of one node as a validated method.
 
-The port's single-node slice of pilosa_tpu/server/api.py: query (parse,
-then execute), schema DDL, the imports (bits, values, roaring), the
-exports and the status reads, bound to the port's Holder and Executor.
+The port of pilosa_tpu/server/api.py, without resize, tiering and
+subscriptions: query (parse, then execute), schema DDL, the imports
+(bits, values, roaring), the exports, the status reads and the cluster
+messages, bound to the port's Holder and (distributed) Executor.
 On a durable holder an import returns once one group commit made all of
 its writes durable, and a delete removes the index's or field's files.
 String row and column keys in imports translate through the field's and
@@ -12,9 +13,18 @@ slot, or a wait in the bounded queue, or a shed as HTTP 429), then a
 pure-Count request goes through the Count batcher (exec/batcher.py),
 which merges concurrent ones into one multi-root dispatch, and anything
 else to the executor, whose result cache serves repeats
-(core/resultcache.py). Tracing, statistics and every multi-node branch
-come in later slices; a request that needs one of them (the `profile`
-query option) is an ApiError naming what is missing (HTTP 400).
+(core/resultcache.py).
+
+In a cluster DDL is broadcast to every peer, an import splits by shard
+owner (the local share applies at once, each peer gets one frame of
+every shard it owns, over the node's import pool) and forwards with
+`remote=1`, and a shard an import or a Set created is announced to every
+node. A missing replica is not an error while another owner took the
+write: it is pending-repair debt, counted in /status. While the cluster
+is DEGRADED every method stays open except the schema deletes, which a
+down node could never learn of (DisabledError, HTTP 503). Tracing and
+statistics come in later slices; a request that needs one of them (the
+`profile` query option) is an ApiError naming what is missing (HTTP 400).
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from pilosa_tpu_torch import __version__
+from pilosa_tpu_torch.cluster.topology import STATE_DEGRADED, STATE_NORMAL
 from pilosa_tpu_torch.core import roaring_io
 from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core import timeq
@@ -40,9 +51,15 @@ from pilosa_tpu_torch.pql import parse
 from pilosa_tpu_torch.sched import admission as admod
 from pilosa_tpu_torch.sched import cost as costmod
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXPONENT
+from pilosa_tpu_torch.utils.arrays import group_slices
+
 
 class ApiError(Exception):
     pass
+
+
+class DisabledError(ApiError):
+    """An operation the cluster's state does not allow (HTTP 503)."""
 
 
 # the header a shed query's trace id rides in (the reference's)
@@ -81,6 +98,29 @@ class API:
                 f"({limit}); split the request into smaller batches"
             )
 
+    def _validate(self, method: str) -> None:
+        """DEGRADED keeps every method of NORMAL except the schema deletes:
+        the rejoin repair (a schema push) only adds, so a node that was
+        down would never learn of the delete."""
+        state = self.server.state
+        if state == STATE_NORMAL:
+            return
+        if state == STATE_DEGRADED:
+            if method in ("delete_index", "delete_field"):
+                raise DisabledError(f"api method {method!r} not allowed in state {state}: a down node would never learn the delete")
+            return
+        raise DisabledError(f"api method {method!r} not allowed in state {state}")
+
+    def _broadcast(self, message: dict) -> None:
+        """Send a cluster message to every peer."""
+        for n in self.cluster.nodes:
+            if n.id == self.server.node.id:
+                continue
+            try:
+                self.server.client.send_message(n.uri, message)
+            except Exception:  # noqa: BLE001 - the rejoin schema push repairs
+                self.server.logger(f"broadcast {message.get('type')} to {n.id} failed")
+
     def _index_field(self, index: str, field: str):
         idx = self.holder.index(index)
         if idx is None:
@@ -102,19 +142,23 @@ class API:
         exclude_row_attrs: bool = False,
         exclude_columns: bool = False,
         profile: bool = False,
+        remote: bool = False,
     ) -> QueryResponse:
         """Parse the PQL (a ParseError is a 400), admit it (a ShedError is
         a 429; the priority class and the remaining deadline come from the
-        X-Pilosa-Priority and X-Pilosa-Deadline headers), then execute it
-        with the query options: row attrs on Row results unless
+        X-Pilosa-Priority and X-Pilosa-Deadline headers, and a remote leg
+        of a peer's fan-out has a lane of its own), then execute it with
+        the query options: row attrs on Row results unless
         `exclude_row_attrs`, no columns with `exclude_columns`, and the
         response's column attr sets with `column_attrs`. Everything past
         admission runs under the ticket's try/finally. `profile` is an
         ApiError: query tracing is not ported."""
         if profile:
             raise ApiError("profile: query tracing is not yet ported")
+        self._validate("query")
         query = parse(query)
         opt = ExecOptions(
+            remote=remote,
             column_attrs=column_attrs,
             exclude_row_attrs=exclude_row_attrs,
             exclude_columns=exclude_columns,
@@ -142,7 +186,9 @@ class API:
     def _admit(self, index, query, shards, headers, opt):
         """Estimate the query's device cost and block until the scheduler
         grants a slot (or raise ShedError). Returns the Ticket to release,
-        or None when admission is off (max-concurrent-queries 0)."""
+        or None when admission is off (max-concurrent-queries 0). A remote
+        leg defaults to the internal class and rides the leg lane: a
+        coordinator holds its own slot while it waits for its legs."""
         scheduler = self.server.scheduler
         if scheduler is None:
             return None
@@ -155,15 +201,20 @@ class API:
                     deadline = float(raw)
                 except ValueError:
                     deadline = None
+        if opt.remote and not cls:
+            cls = admod.CLASS_INTERNAL
         idx = self.holder.index(index)
         qcost = costmod.estimate(idx, query, shards)
         # only batcher-bound traffic feeds the batcher's hold hint: the
         # predicate the routing in _query_batched uses
         batchable = batchmod.batch_eligible(query, shards, opt)
-        if not qcost.write:
-            # a query about to wait has its extents staged meanwhile
+        if not qcost.write and not opt.remote and len(self.cluster.nodes) <= 1:
+            # a query about to wait has its extents staged meanwhile (on
+            # one node: a leg's shards are warmed by its own node)
             scheduler.maybe_prefetch(lambda: self.server.executor.warm(index, query, shards), index=index)
-        return scheduler.admit(cls=cls, cost=qcost, deadline=deadline, batchable=batchable, index=index)
+        return scheduler.admit(
+            cls=cls, cost=qcost, deadline=deadline, batchable=batchable, index=index, leg=opt.remote
+        )
 
     def _query_batched(self, index, query, shards, opt) -> Optional[QueryResponse]:
         """A pure-Count request through the group-commit batcher: the
@@ -181,23 +232,37 @@ class API:
 
     # -- schema DDL ----------------------------------------------------------
 
-    def create_index(self, name: str, keys: bool = False, track_existence: bool = True):
-        return self.holder.create_index_if_not_exists(name, keys=keys, track_existence=track_existence)
+    def create_index(self, name: str, keys: bool = False, track_existence: bool = True, broadcast: bool = True):
+        self._validate("create_index")
+        idx = self.holder.create_index_if_not_exists(name, keys=keys, track_existence=track_existence)
+        self.server.wire_translation()
+        if broadcast:
+            self._broadcast({"type": "create-index", "index": name, "keys": keys, "trackExistence": track_existence})
+        return idx
 
-    def delete_index(self, name: str) -> None:
+    def delete_index(self, name: str, broadcast: bool = True) -> None:
+        self._validate("delete_index")
         try:
             self.holder.delete_index(name)
         except KeyError:
             pass
         self.server.drop_index(name)
+        if broadcast:
+            self._broadcast({"type": "delete-index", "index": name})
 
-    def create_field(self, index: str, name: str, options: Optional[dict] = None):
+    def create_field(self, index: str, name: str, options: Optional[dict] = None, broadcast: bool = True):
+        self._validate("create_field")
         idx = self.holder.index(index)
         if idx is None:
             raise NotFoundError(f"index not found: {index}")
-        return idx.create_field_if_not_exists(name, FieldOptions(**(options or {})))
+        f = idx.create_field_if_not_exists(name, FieldOptions(**(options or {})))
+        self.server.wire_translation()
+        if broadcast:
+            self._broadcast({"type": "create-field", "index": index, "field": name, "options": options or {}})
+        return f
 
-    def delete_field(self, index: str, name: str) -> None:
+    def delete_field(self, index: str, name: str, broadcast: bool = True) -> None:
+        self._validate("delete_field")
         idx = self.holder.index(index)
         if idx is None:
             raise NotFoundError(f"index not found: {index}")
@@ -205,15 +270,19 @@ class API:
             idx.delete_field(name)
         except KeyError:
             pass
+        if broadcast:
+            self._broadcast({"type": "delete-field", "index": index, "field": name})
 
     def schema(self) -> List[dict]:
         return self.holder.schema()
 
     def apply_schema(self, schema: List[dict]) -> None:
-        """Create every index and field of a schema dump that is missing."""
+        """Create every index and field of a schema dump that is missing
+        (no broadcast: the rejoin repair sends one to each node)."""
+        self._validate("apply_schema")
         for ix in schema:
             opts = ix.get("options", {})
-            idx = self.create_index(
+            idx = self.holder.create_index_if_not_exists(
                 ix["name"],
                 keys=opts.get("keys", False),
                 track_existence=opts.get("trackExistence", True),
@@ -221,6 +290,7 @@ class API:
             for fd in ix.get("fields", []):
                 options = _field_options_from_json(fd.get("options", {}))
                 idx.create_field_if_not_exists(fd["name"], options)
+        self.server.wire_translation()
 
     # -- imports -------------------------------------------------------------
 
@@ -232,30 +302,116 @@ class API:
         cols: Sequence,
         clear: bool = False,
         timestamps: Optional[Sequence] = None,
+        local_only: bool = False,
     ) -> dict:
         """Bulk set-bit import; `timestamps` (strings or unix seconds, None
-        for none) fan a time field's bits into its unit views. Returns
-        {"applied", "expected", "errors"}: on one node every shard of the
-        batch is applied once."""
-        self._check_write_count(len(cols))
+        for none) fan a time field's bits into its unit views. In a
+        cluster the bits go to every owner of their shard (`local_only`:
+        a peer's frame, applied here only). Returns {"applied",
+        "expected", "errors"}: owner applications made and wanted, and
+        what each missing replica said."""
+        self._validate("import_bits")
+        if not local_only:  # a replica frame is a slice of a capped request
+            self._check_write_count(len(cols))
         idx, f = self._index_field(index, field)
         rows, cols = _translate_import(idx, f, rows, cols)
-        ts = None if timestamps is None else [None if t is None else timeq.parse_time(t) for t in timestamps]
-        with walmod.GROUP_COMMIT.barrier():
-            f.import_bits(rows, cols, timestamps=ts, clear=clear)
-            idx.track_columns(cols)
-        n = len(np.unique(cols >> np.uint64(SHARD_WIDTH_EXPONENT)))
-        return {"applied": n, "expected": n, "errors": []}
 
-    def import_values(self, index: str, field: str, cols: Sequence, values: Sequence[int]) -> dict:
-        self._check_write_count(len(cols))
+        def parse_ts(ts):
+            return None if ts is None else [None if t is None else timeq.parse_time(t) for t in ts]
+
+        def local_apply(sel, ts):
+            with walmod.GROUP_COMMIT.barrier():
+                f.import_bits(rows[sel], cols[sel], timestamps=parse_ts(ts), clear=clear)
+                idx.track_columns(cols[sel])
+
+        def ship(n, sel, ts, shard):
+            self.server.client.import_bits(n.uri, idx.name, f.name, shard, rows[sel], cols[sel], clear, timestamps=ts)
+
+        return self._import_routed(idx, f, cols, timestamps, local_apply, ship, "import", local_only)
+
+    def import_values(
+        self, index: str, field: str, cols: Sequence, values: Sequence[int], local_only: bool = False
+    ) -> dict:
+        self._validate("import_values")
+        if not local_only:
+            self._check_write_count(len(cols))
         idx, f = self._index_field(index, field)
         _, cols = _translate_import(idx, f, None, cols)
-        with walmod.GROUP_COMMIT.barrier():
-            f.import_values(cols, np.asarray(values, dtype=np.int64))
-            idx.track_columns(cols)
-        n = len(np.unique(cols >> np.uint64(SHARD_WIDTH_EXPONENT)))
-        return {"applied": n, "expected": n, "errors": []}
+        values = np.asarray(values, dtype=np.int64)
+
+        def local_apply(sel, _ts):
+            with walmod.GROUP_COMMIT.barrier():
+                f.import_values(cols[sel], values[sel])
+                idx.track_columns(cols[sel])
+
+        def ship(n, sel, _ts, shard):
+            self.server.client.import_values(n.uri, idx.name, f.name, shard, cols[sel], values[sel])
+
+        return self._import_routed(idx, f, cols, None, local_apply, ship, "import-value", local_only)
+
+    def _import_routed(self, idx, f, cols, timestamps, local_apply, ship, kind: str, local_only: bool) -> dict:
+        """Apply an import's local share and ship each peer one frame of
+        every shard it owns, concurrently on the node's import pool. A
+        peer that fails costs pending-repair debt for its shards (with
+        replicas) and an error entry each; a shard no owner took raises
+        after the shards that did apply are announced."""
+        shards = cols >> np.uint64(SHARD_WIDTH_EXPONENT)
+        if local_only or len(self.cluster.nodes) <= 1:
+            local_apply(slice(None), timestamps)
+            n = len(np.unique(shards))
+            return {"applied": n, "expected": n, "errors": []}
+        summary = {"applied": 0, "expected": 0, "errors": []}
+        groups = [(int(s), sl) for s, sl in group_slices(shards)]
+        applied = {s: 0 for s, _ in groups}
+        errors: Dict[int, List[str]] = {s: [] for s, _ in groups}
+        local, by_node = [], {}
+        for s, sl in groups:
+            owners = self.cluster.shard_nodes(idx.name, s)
+            summary["expected"] += len(owners)
+            for n in owners:
+                if n.id == self.server.node.id:
+                    local.append((s, sl))
+                else:
+                    by_node.setdefault(n.id, (n, []))[1].append((s, sl))
+
+        def frame(gs):
+            sel = np.concatenate([sl for _, sl in gs])
+            ts = None if timestamps is None else [timestamps[i] for i in sel.tolist()]
+            return sel, ts
+
+        futures = []
+        for n, gs in by_node.values():
+            sel, ts = frame(gs)
+            futures.append((n, gs, self.server.import_pool.submit(ship, n, sel, ts, gs[0][0])))
+        if local:
+            local_apply(*frame(local))
+            for s, _ in local:
+                applied[s] += 1
+        from pilosa_tpu_torch.server.client import ClientError
+
+        for n, gs, fut in futures:
+            try:
+                fut.result()
+                for s, _ in gs:
+                    applied[s] += 1
+            except ClientError as e:
+                for s, _ in gs:
+                    errors[s].append(f"{n.id}: {e}")
+                    if self.cluster.replica_n > 1:
+                        self.holder.record_pending_repair(idx.name, s, n.id)
+                self.server.logger(f"{kind} shards {sorted(s for s, _ in gs)} to replica {n.id} failed: {e}")
+        failed = [(s, errors[s]) for s, _ in groups if not applied[s]]
+        for s, _ in groups:
+            if applied[s]:
+                summary["applied"] += applied[s]
+                summary["errors"] += errors[s]
+        done = [s for s, _ in groups if applied[s]]
+        if done:
+            self._announce_shards(idx.name, f.name, done)
+        if failed:
+            shard, errs = failed[0]
+            raise ApiError(f"{kind} shard {shard}: no owner reachable: {errs}")
+        return summary
 
     def import_roaring(
         self,
@@ -265,30 +421,51 @@ class API:
         data: bytes,
         clear: bool = False,
         view: Optional[str] = None,
+        local_only: bool = False,
     ) -> int:
         """Bulk ingest of a serialized roaring bitmap (either dialect)
         whose positions are fragment positions row * SHARD_WIDTH + col %
         SHARD_WIDTH, unioned (or cleared) in one batch, into the standard
-        view or a named (time) view. Set and time fields only: the mutex and
-        BSI layouts need the parsing imports. Returns the number of bits
-        that changed."""
+        view or a named (time) view, on every owner of the shard
+        (`local_only`: here only, a peer's forward). Set and time fields
+        only: the mutex and BSI layouts need the parsing imports. Returns
+        the most bits that changed on any owner reached."""
+        self._validate("import_roaring")
         idx, f = self._index_field(index, field)
         if f.options.type not in (FIELD_TYPE_SET, FIELD_TYPE_TIME):
             raise ApiError(f"cannot import roaring into {f.options.type} field {field!r}")
         view = view or VIEW_STANDARD
         _validate_view_name(view)
-        positions = roaring_io.decode(data)
-        frag = f._view_create(view).fragment(shard)
-        with walmod.GROUP_COMMIT.barrier():
-            if clear:
-                _, changed = frag.import_positions(None, positions)
-            else:
-                changed, _ = frag.import_positions(positions, None)
-                if len(positions):
-                    seen = np.zeros(SHARD_WIDTH, bool)
-                    seen[positions % np.uint64(SHARD_WIDTH)] = True
-                    idx.track_columns(np.flatnonzero(seen).astype(np.uint64) + np.uint64(shard * SHARD_WIDTH))
+        changed = 0
+        owners = [self.server.node] if local_only else self.cluster.shard_nodes(idx.name, shard)
+        for n in owners:
+            if n.id != self.server.node.id:
+                changed = max(
+                    changed, self.server.client.import_roaring(n.uri, index, field, shard, data, clear=clear, view=view)
+                )
+                continue
+            positions = roaring_io.decode(data)
+            frag = f._view_create(view).fragment(shard)
+            with walmod.GROUP_COMMIT.barrier():
+                if clear:
+                    _, local_changed = frag.import_positions(None, positions)
+                else:
+                    local_changed, _ = frag.import_positions(positions, None)
+                    if len(positions):
+                        seen = np.zeros(SHARD_WIDTH, bool)
+                        seen[positions % np.uint64(SHARD_WIDTH)] = True
+                        idx.track_columns(np.flatnonzero(seen).astype(np.uint64) + np.uint64(shard * SHARD_WIDTH))
+            changed = max(changed, local_changed)
+        if not local_only and len(self.cluster.nodes) > 1:
+            self._announce_shards(index, field, [shard])
         return changed
+
+    def _announce_shards(self, index: str, field: str, shards: List[int]) -> None:
+        """Tell every node the shards exist, so each node's fan-out covers
+        them: one message for a whole import."""
+        msg = {"type": "available-shards", "index": index, "field": field, "shards": list(shards)}
+        self.receive_message(msg)
+        self._broadcast(msg)
 
     # -- exports -------------------------------------------------------------
 
@@ -328,9 +505,9 @@ class API:
         return out.getvalue()
 
     def recalculate_caches(self) -> None:
-        """Rebuild every rank cache of the node (one node: nothing to
-        broadcast)."""
+        """Rebuild every rank cache of the node and ask every peer to."""
         self.holder.recalculate_caches()
+        self._broadcast({"type": "recalculate-caches"})
 
     # -- node info -----------------------------------------------------------
 
@@ -340,9 +517,11 @@ class API:
             "localID": self.server.node.id,
             "clusterID": self.server.cluster_name,
             "nodes": [n.to_json() for n in self.cluster.nodes],
+            # replica writes this node's fan-outs dropped, awaiting repair
             "pendingRepairs": self.holder.pending_repair_count(),
             "walStagedPositions": self.holder.staged_position_count(),
-            "breakers": {},
+            # peer URI -> circuit state: the peers this node shuns
+            "breakers": self.server.breakers.snapshot(),
             "health": "/cluster/health",
         }
 
@@ -387,9 +566,8 @@ class API:
         }
 
     def shard_nodes(self, index: str, shard: int) -> List[dict]:
-        """The nodes that own a shard of an index: on one node, the node
-        itself, for any index and shard."""
-        return [n.to_json() for n in self.cluster.nodes]
+        """The owners of a shard of an index, primary first."""
+        return [n.to_json() for n in self.cluster.shard_nodes(index, shard)]
 
     def max_shards(self) -> Dict[str, int]:
         """Per index, one past its highest shard (0 when it has none)."""
@@ -398,6 +576,49 @@ class API:
             av = idx.available_shards()
             out[idx.name] = (max(av) + 1) if av else 0
         return out
+
+    # -- cluster messages ------------------------------------------------------
+
+    def receive_message(self, msg: dict) -> dict:
+        """Apply one cluster message (POST /internal/cluster/message)."""
+        t = msg.get("type")
+        if t == "create-index":
+            self.holder.create_index_if_not_exists(
+                msg["index"], keys=msg.get("keys", False), track_existence=msg.get("trackExistence", True)
+            )
+            self.server.wire_translation()
+        elif t == "delete-index":
+            try:
+                self.holder.delete_index(msg["index"])
+            except KeyError:
+                pass
+            self.server.drop_index(msg["index"])
+        elif t == "create-field":
+            idx = self.holder.index(msg["index"])
+            if idx is not None:
+                idx.create_field_if_not_exists(msg["field"], FieldOptions(**msg.get("options", {})))
+            self.server.wire_translation()
+        elif t == "delete-field":
+            idx = self.holder.index(msg["index"])
+            if idx is not None:
+                try:
+                    idx.delete_field(msg["field"])
+                except KeyError:
+                    pass
+        elif t == "available-shards":
+            idx = self.holder.index(msg["index"])
+            f = idx.field(msg["field"]) if idx is not None else None
+            if f is not None:
+                f.add_remote_available(msg["shards"])
+        elif t == "cluster-status":
+            self.server.apply_cluster_status(msg)
+        elif t == "node-state":
+            self.server.set_node_state(msg["node"], msg["state"])
+        elif t == "recalculate-caches":
+            self.holder.recalculate_caches()
+        else:
+            raise ApiError(f"unknown cluster message type {t!r}")
+        return {"ok": True}
 
 
 def _translate_import(idx, f, rows: Optional[Sequence[Any]], cols: Sequence[Any]):

@@ -1,13 +1,18 @@
-"""HTTP handler: the public REST routes of one node.
+"""HTTP handler: the public REST routes of a node and the internal routes
+of its cluster.
 
 The port's slice of pilosa_tpu/server/handler.py: the same routing table
-for the public routes, the same JSON bodies and the same error mapping
-(NotFoundError -> 404; ShedError -> 429 with Retry-After; ExecError,
-ApiError, ParseError, ValueError and KeyError -> 400; anything else ->
-500 with the traceback logged). The
-internal, cluster, metrics, debug, tier and coherence routes come with
-the slices that port those planes; until then they answer 404 as any
-unknown route does.
+for the public routes and for the internal routes of the cluster's read
+and write plane (remote query legs, fragment versions, cluster messages,
+availability, replica imports, key translation), the same JSON bodies
+and the same error mapping (NotFoundError -> 404; ShedError -> 429 with
+Retry-After; DisabledError -> 503; ExecError, ApiError, ParseError,
+ValueError and KeyError -> 400; anything else -> 500 with the traceback
+logged). A remote leg's execution error answers 200 with {"error"}, as
+the reference's does: the peer ran the request, so the coordinator must
+not fail it over. The resize, sync, metrics, debug, tier and coherence
+routes come with the slices that port those planes; until then they
+answer 404 as any unknown route does.
 
 stdlib ThreadingHTTPServer, one thread per connection, HTTP/1.1 with
 keep-alive. PQL arrives as a raw body or as JSON {"query": ...}.
@@ -29,7 +34,9 @@ from pilosa_tpu_torch.exec.executor import ExecError, NotFoundError
 from pilosa_tpu_torch.pql import ParseError
 from pilosa_tpu_torch.sched.admission import ShedError
 from pilosa_tpu_torch.server import wire
-from pilosa_tpu_torch.server.api import TRACE_HEADER, ApiError, _field_options_from_json
+import numpy as np
+
+from pilosa_tpu_torch.server.api import TRACE_HEADER, ApiError, DisabledError, _field_options_from_json
 
 _ROUTES: List[Tuple[str, re.Pattern, str]] = []
 
@@ -99,6 +106,24 @@ class Handler(BaseHTTPRequestHandler):
     def _error(self, msg: str, code: int = 400) -> None:
         self._reply({"error": msg}, code=code)
 
+    def _json_body_dict(self) -> dict:
+        """A JSON object body, or a 400 naming what is wrong."""
+        try:
+            d = self._json_body()
+        except ValueError:
+            raise BadParam("request body must be valid JSON") from None
+        if d is None:
+            return {}
+        if not isinstance(d, dict):
+            raise BadParam(f"request body must be a JSON object, got {type(d).__name__}")
+        return d
+
+    def _body_str(self, d: dict, name: str) -> str:
+        raw = d.get(name)
+        if not isinstance(raw, str) or not raw:
+            raise BadParam(f"body field {name!r} must be a non-empty string, got {raw!r}")
+        return raw
+
     def _int_param(self, name: str, default: Any = _REQUIRED) -> Optional[int]:
         raw = self.query.get(name)
         if raw is None:
@@ -158,6 +183,8 @@ class Handler(BaseHTTPRequestHandler):
                     self._error(str(e), 404)
                 except ShedError as e:
                     self._shed(e)
+                except DisabledError as e:
+                    self._error(str(e), 503)
                 except (ExecError, ApiError, ParseError, ValueError, KeyError) as e:
                     self._error(str(e), 400)
                 except BrokenPipeError:
@@ -340,6 +367,7 @@ class Handler(BaseHTTPRequestHandler):
             self._body(),
             clear=self._bool_param("clear"),
             view=self.query.get("view"),
+            local_only=self._bool_param("remote"),
         )
         self._reply({"changed": changed})
 
@@ -365,6 +393,125 @@ class Handler(BaseHTTPRequestHandler):
             self._str_param("index"), self._str_param("field"), self._int_param("shard", None)
         )
         self._reply(None, raw=csv.encode(), content_type="text/csv")
+
+    # -- internal routes -------------------------------------------------------
+
+    @route("GET", "/internal/nodes")
+    def get_internal_nodes(self):
+        self._reply(self.api.hosts())
+
+    @route("GET", "/internal/fragment/nodes")
+    def get_fragment_nodes(self):
+        """The owners of one shard."""
+        self._reply(self.api.shard_nodes(self.query.get("index", ""), self._int_param("shard", 0)))
+
+    @route("GET", "/internal/shards/max")
+    def get_max_shards(self):
+        self._reply({"standard": self.api.max_shards()})
+
+    @route("POST", "/internal/index/(?P<index>[^/]+)/query")
+    def post_internal_query(self, index: str):
+        """A remote leg of a peer's fan-out, its results in the tagged
+        internode encoding (server/wire.py)."""
+        d = self._json_body()
+        try:
+            resp = self.api.query_response(
+                index, d.get("query", ""), shards=d.get("shards"), remote=d.get("remote", True), headers=self.headers
+            )
+        except (ExecError, ApiError) as e:
+            self._reply({"error": str(e)})
+            return
+        self._reply({"results": [wire.encode_result(r) for r in resp.results]})
+
+    @route("POST", "/internal/versions")
+    def post_internal_versions(self):
+        """The result cache's revalidation: this node's fragment-version
+        vector for one call over a shard list; `views: null` when the call
+        is not cacheable here."""
+        d = self._json_body_dict()
+        index = self._body_str(d, "index")
+        pql = self._body_str(d, "query")
+        shards = d.get("shards")
+        if not isinstance(shards, list) or not all(isinstance(s, int) and not isinstance(s, bool) for s in shards):
+            raise BadParam("shards must be a list of integers")
+        payload = self.node.executor.versions_payload(index, pql, shards)
+        if payload is None:
+            self._reply({"views": None})
+            return
+        shard_list, views = payload
+        self._reply({"boot": self.node.boot_id, "shards": shard_list, "views": views})
+
+    @route("POST", "/internal/cluster/message")
+    def post_cluster_message(self):
+        self._reply(self.api.receive_message(self._json_body()))
+
+    @route("GET", "/internal/index/(?P<index>[^/]+)/available-shards")
+    def get_available_shards(self, index: str):
+        """Per field, the shards this node knows of cluster-wide."""
+        idx = self.node.holder.index(index)
+        if idx is None:
+            raise NotFoundError(f"index not found: {index}")
+        self._reply({"fields": {f.name: sorted(f.available_shards()) for f in idx.fields(include_hidden=True)}})
+
+    @route("POST", "/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import")
+    def post_internal_import(self, index: str, field: str):
+        """A replica's share of an import: binary array frames (rows, cols;
+        clear by ?clear=1) or JSON for timestamped bits."""
+        ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip()
+        if ctype == wire.ARRAYS_CTYPE:
+            rows, cols = wire.decode_arrays(self._body(), 2)
+            self.api.import_bits(index, field, rows, cols, clear=self._bool_param("clear"), local_only=True)
+        else:
+            d = self._json_body()
+            self.api.import_bits(
+                index, field, d.get("rows", []), d.get("cols", []),
+                clear=d.get("clear", False), timestamps=d.get("timestamps"), local_only=True,
+            )
+        self._reply({})
+
+    @route("POST", "/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import-value")
+    def post_internal_import_value(self, index: str, field: str):
+        ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip()
+        if ctype == wire.ARRAYS_CTYPE:
+            cols, vals_u64 = wire.decode_arrays(self._body(), 2)
+            # values travel as uint64 two's complement
+            self.api.import_values(index, field, cols, vals_u64.view(np.int64), local_only=True)
+        else:
+            d = self._json_body()
+            self.api.import_values(index, field, d.get("cols", []), d.get("values", []), local_only=True)
+        self._reply({})
+
+    def _translate_store(self, index: str, field: Optional[str]):
+        idx = self.node.holder.index(index)
+        if idx is None:
+            raise NotFoundError(f"index not found: {index}")
+        store = idx.translate_store
+        if field:
+            f = idx.field(field)
+            if f is None:
+                raise NotFoundError(f"field not found: {field}")
+            store = f.translate_store
+        if store is None:
+            raise NotFoundError(f"no key store: {index}" + (f"/{field}" if field else ""))
+        return store
+
+    @route("POST", "/internal/translate/keys")
+    def post_translate_keys(self):
+        """Allocate ids for keys: the translation primary only."""
+        d = self._json_body()
+        store = self._translate_store(d["index"], d.get("field"))
+        coord = self.node.cluster.coordinator()
+        if coord is not None and coord.id != self.node.node.id:
+            self._reply({"error": "not the translation primary"})
+            return
+        self._reply({"ids": store.translate_keys(d.get("keys", []))})
+
+    @route("GET", "/internal/translate/data")
+    def get_translate_data(self):
+        """The key entries from a replication offset on."""
+        store = self._translate_store(self._str_param("index"), self.query.get("field"))
+        entries, offset = store.entries_since(self._int_param("offset", 0))
+        self._reply({"entries": entries, "offset": offset})
 
 
 class NodeHTTPServer(ThreadingHTTPServer):
