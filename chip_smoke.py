@@ -23,8 +23,9 @@ Phases, each fatal on any mismatch or exception:
    and 32 planes at depths 1..32 (33-bit keys, every job shape of a
    condition), each chain equal to its twins' and to the whole-stack
    kernel's result, and for GroupBy's kernels
-   counts_cross at every prefix-chunk size (G = 2..40; G = 1 goes to
-   rows_counts) and gather_and on aligned and unaligned slabs, a filter
+   counts_cross at widths that pack one to eight word ranges into its
+   16 x 8 tensor-core tile, either way round, and that span several tiles
+   (G = 2..40, R up to 70; G = 1 goes to rows_counts) and gather_and on aligned and unaligned slabs, a filter
    broadcast and a cross expansion past one 16-output chunk; for the
    merge barrier's kernels, or_bits on an empty table, an empty segment,
    one key, bit 31, the entry's last word, a word's run across the
@@ -224,17 +225,21 @@ Phases, each fatal on any mismatch or exception:
    field (8 client threads; each body goes to both owners), `amount` on
    64 shards (one column in 64) by /import-value, and a keyed index `ck`
    of 2^16 column keys and 8 row keys by one keyed /import; a keyed Set
-   through n1 (its key stores forward the new keys to n0's). Then 19
+   through n1 (its key stores forward the new keys to n0's). Then 26
    queries on `c` (the set algebra, a 3-Count batch, Rows, Shift, TopN
    with and without a filter, Rows, GroupBy of two and three children,
-   Sum/Min/Max, a condition Count) and 3 keyed ones through every node,
+   Sum/Min/Max, a condition Count; a Count, an Intersect and a Sum over
+   a Shift, whose carry crosses into shards another node answers,
+   MinRow/MaxRow and a GroupBy with an offset, with and without a limit)
+   and 3 keyed ones through every node,
    each equal to numpy and the same on every node, with n0's served
    p50s; kill -9 of n2: n0 and n1 DEGRADED, every answer again through
    them; n2 restarted on its data dir: NORMAL, every answer again
    through n2 and n0. Each node logs its kernel launches as it stops:
    their sum must show every kernel of the cluster's queries. Then
    counts_cross at the cluster GroupBy's leg shapes (G = 11 x R = 8 over
-   171 shards, 8 x 8 over 256) against its twin, timed, with its bound.
+   171 shards, 8 x 8 over 256) against its twin, timed, with its bound,
+   and held to its twin at G = 12, 16 and 17 x R = 8 over 171.
 
 The second-to-last lines are the card's name and power limit and one JSON
 object with a row per kernel; the last line is
@@ -749,9 +754,10 @@ def kernel_phase(rng, dev, errs):
     slab_step_checks(rng, dev, rand_words)
 
     # GroupBy kernels (their own generator, so the main path's data stay
-    # the same): counts_cross at every prefix-chunk size (G = 2, 3, 8, 16,
-    # 17, 40; G = 1 runs on rows_counts), plane rows past one 64-row round,
-    # W not a multiple of 4 or of a tile, unaligned views; gather_and over
+    # the same): counts_cross at one tile packed with 1-2 word ranges, full,
+    # and spread over 2-3 tiles of prefixes or 9 of rows (G = 2, 3, 8, 16,
+    # 17, 40, R up to 70; G = 1 runs on rows_counts), W not a multiple of 4
+    # or of a step, unaligned views; gather_and over
     # aligned and unaligned slabs, a filter broadcast, repeated indices and
     # a cross expansion over three 16-output chunks
     grng = np.random.default_rng(7)
@@ -4775,6 +4781,16 @@ CLUSTER_QUERIES = [
     "Min(field=amount)",
     "Max(Row(g=1), field=amount)",
     "Count(Row(amount > 500000))",
+    # a Shift's carry crosses into the next shard, which another node may
+    # answer: each shard is counted once, with its predecessor's carry
+    "Count(Shift(Row(h=0), n=2000))",
+    "Count(Intersect(Shift(Row(f=0), n=1), Row(g=1)))",
+    "Sum(Shift(Row(h=1), n=2000), field=amount)",
+    # MinRow/MaxRow legs cross the wire; GroupBy's offset pages the merged groups
+    "MinRow(field=h)",
+    "MaxRow(field=f)",
+    "GroupBy(Rows(h), Rows(g), offset=3)",
+    "GroupBy(Rows(h), Rows(g), offset=3, limit=5)",
 ]
 CLUSTER_KEYED_QUERIES = ['Row(kf="k9")', 'Count(Row(kf="k3"))', "TopN(kf, n=3)"]
 # every kernel a cluster query runs on some node (amount's 21 planes stream
@@ -5076,6 +5092,10 @@ def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = 
             for i, j in zip(*np.nonzero(cnt)):
                 ghf[(int(i), int(j), r)] = int(cnt[i, j])
         lo, hi = _extreme(vals_all, True), _extreme(vals_all[g1_sel], False)
+        h0 = cols_of(h_sparse[0])
+        f0_shifted = _shift_np(f_words[0], 1)[:S]  # its carry into shard S meets no bit of g
+        h1_sel = np.isin(v_abs, cols_of(h_sparse[1]) + np.uint64(2000))
+        gh_json = group_json(("h", "g"), gh)
         want = dict(zip(CLUSTER_QUERIES, [
             [f_counts[0]],
             [pc(f_words[0] & g_words[1])],
@@ -5096,6 +5116,13 @@ def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = 
             [{"value": lo[0], "count": lo[1]}],
             [{"value": hi[0], "count": hi[1]}],
             [int((vals_all > 500_000).sum())],
+            [len(h0)],
+            [pc(f0_shifted & g_words[1])],
+            [{"value": int(vals_all[h1_sel].sum()), "count": int(h1_sel.sum())}],
+            [{"id": 0, "count": 1}],
+            [{"id": nf + 3, "count": 1}],
+            [gh_json[3:]],
+            [gh_json[3:8]],
         ]))
         # keyed: ids in order of first appearance
         first = {}
@@ -5255,6 +5282,19 @@ def counts_cross_legs(launches: int, errs) -> dict:
             f"({row['share_of_bound']:.1%} of it); {launches} counts_cross launches in the cluster phase"
         )
         del acc, planes, got, ref
+    # the tensor-core tile holds 16 prefixes: one tile short of full, full,
+    # and one prefix into a second tile
+    s, r = 171, 8
+    planes = torch.randint(-(2**31), 2**31, (r, s, W), dtype=torch.int32, device="cuda", generator=gen)
+    for g in (12, 16, 17):
+        acc = torch.randint(-(2**31), 2**31, (g, s, W), dtype=torch.int32, device="cuda", generator=gen)
+        got, ref = K.counts_cross(acc, planes), K.counts_cross_plain(acc, planes)
+        diff = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max().item())
+        check(diff == 0, f"counts_cross at G {g} x R {r}, S {s} differs from its twin by {diff}")
+        errs["counts_cross"] = max(errs.get("counts_cross", 0), diff)
+        del acc, got, ref
+    del planes
+    print("kernel counts_cross equal to its twin at G = 11, 12, 16 and 17 x R = 8 over S = 171")
     torch.cuda.empty_cache()
     return out
 

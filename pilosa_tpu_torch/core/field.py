@@ -168,10 +168,7 @@ class Field:
     def save_meta(self) -> None:
         if self.path is None:
             return
-        tmp = self.meta_path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(asdict(self.options), f)
-        os.replace(tmp, self.meta_path)
+        walmod.write_durable(self.meta_path, json.dumps(asdict(self.options)))
 
     @property
     def _avail_path(self) -> Optional[str]:
@@ -201,10 +198,7 @@ class Field:
         """Write the availability sidecar atomically; call under _mu."""
         p = self._avail_path
         if p is not None:
-            tmp = p + ".tmp"
-            with open(tmp, "w") as f:
-                json.dump(sorted(self.remote_available_shards), f)
-            os.replace(tmp, p)
+            walmod.write_durable(p, json.dumps(sorted(self.remote_available_shards)))
 
     def _view_create(self, name: str) -> View:
         with self._mu:

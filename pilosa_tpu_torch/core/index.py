@@ -21,6 +21,7 @@ from pilosa_tpu_torch.core.devcache import DeviceCache, new_owner_token
 from pilosa_tpu_torch.core.field import FIELD_TYPE_SET, Field, FieldOptions, validate_name
 from pilosa_tpu_torch.core.translate import TranslateStore
 from pilosa_tpu_torch.core import view as viewmod
+from pilosa_tpu_torch.core import wal as walmod
 
 EXISTENCE_FIELD_NAME = "_exists"
 
@@ -87,10 +88,7 @@ class Index:
     def save_meta(self) -> None:
         if self.path is None:
             return
-        tmp = self.meta_path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump({"keys": self.keys, "track_existence": self.track_existence}, f)
-        os.replace(tmp, self.meta_path)
+        walmod.write_durable(self.meta_path, json.dumps({"keys": self.keys, "track_existence": self.track_existence}))
 
     def _new_field(self, name: str, options: FieldOptions) -> Field:
         return Field(

@@ -6,10 +6,13 @@ bidirectional map backed by an append-only log at `<dir>/.keys.translate`
 of `<QI` records (id, key length) each followed by the key's UTF-8 bytes,
 replayed on open. Ids are monotonic from 1; 0 means "not found". A torn
 tail record (a crash mid-append) is dropped on open and the file is cut
-back to the last whole record, so later appends realign. Appends are
-flushed to the OS, never fsynced: after a machine crash the log can lose
-keys that the fragments' WAL kept (ROADMAP Queue C). Translation runs on
-the host and never touches the card.
+back to the last whole record, so later appends realign. The log rides
+the fragments' WAL group commit (core/wal.py GROUP_COMMIT): under the
+strict WAL (sync interval 0) new keys are fsynced before the call that
+allocated them returns, so before the keyed write is acknowledged;
+otherwise they are fsynced on the WAL's cadence. So after a machine crash
+the log keeps every key whose bit the WAL kept. Translation runs on the
+host and never touches the card.
 
 In a cluster one node's store is the single writer (the coordinator's).
 Every other node's store is `read_only`: it forwards the keys it lacks
@@ -28,6 +31,8 @@ import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from pilosa_tpu_torch.core import wal as walmod
 
 _REC = struct.Struct("<QI")  # id, key length; followed by the key bytes
 
@@ -55,6 +60,9 @@ class TranslateStore:
         self._by_id: Dict[int, str] = {}
         self._next_id = 1
         self._fh = None
+        # a member of the WAL group commit: its token, and whether closed
+        self._tok = walmod.next_writer_token()
+        self._closed = False
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -62,15 +70,29 @@ class TranslateStore:
         if self.path:
             if os.path.exists(self.path):
                 self._replay()
+            created = not os.path.exists(self.path)
             os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
             self._fh = open(self.path, "ab")
+            if created:  # the new log's directory entry must survive
+                walmod.fsync_dir(os.path.dirname(os.path.abspath(self.path)))
         return self
 
     def close(self) -> None:
+        walmod.GROUP_COMMIT.forget(self)
         with self._lock:
+            self._closed = True
             if self._fh:
+                self._fh.flush()
+                os.fsync(self._fh.fileno())
                 self._fh.close()
                 self._fh = None
+
+    def _fsync(self) -> None:
+        """fsync the log for a group-commit round (a closed store synced
+        itself on close)."""
+        with self._lock:
+            if self._fh:
+                os.fsync(self._fh.fileno())
 
     def _replay(self) -> None:
         with open(self.path, "rb") as f:
@@ -118,6 +140,7 @@ class TranslateStore:
                     return [self._by_key[k] for k in keys]
                 except KeyError as e:
                     raise TranslateError(f"key {e.args[0]!r} missing after primary forward") from None
+        token = None
         with self._lock:
             out = []
             new: List[Tuple[int, str]] = []
@@ -132,23 +155,33 @@ class TranslateStore:
                     new.append((id_, key))
                 out.append(id_)
             if new:
-                self._append(new)
-            return out
+                token = self._append(new)
+        self._wait_durable(token)
+        return out
 
-    def _append(self, recs: List[Tuple[int, str]]) -> None:
+    def _append(self, recs: List[Tuple[int, str]]) -> Optional[int]:
+        """Write and flush the records; the group-commit token to wait on
+        (outside the lock), or None for an in-memory store."""
         if not self._fh:
-            return
+            return None
         blob = b"".join(
             _REC.pack(id_, len(kb)) + kb for id_, kb in ((i, k.encode("utf-8")) for i, k in recs)
         )
         self._fh.write(blob)
         self._fh.flush()
+        return walmod.GROUP_COMMIT.mark_dirty(self)
+
+    @staticmethod
+    def _wait_durable(token: Optional[int]) -> None:
+        if token is not None:
+            walmod.GROUP_COMMIT.wait_durable(token)
 
     def apply_entries(self, entries) -> None:
         """Load (id, key) pairs from the primary (a replica's follow path)
         or another holder's store (compat), appending the new ones to the
         log. The same id mapped to another key raises TranslateError: the
         stores have diverged."""
+        token = None
         with self._lock:
             new = []
             for id_, key in entries:
@@ -163,7 +196,8 @@ class TranslateStore:
                 self._next_id = max(self._next_id, id_ + 1)
                 new.append((id_, key))
             if new:
-                self._append(new)
+                token = self._append(new)
+        self._wait_durable(token)
 
     # -- reads -------------------------------------------------------------
 

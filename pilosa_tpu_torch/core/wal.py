@@ -78,7 +78,7 @@ def fault_point(point: str, path: str = "") -> None:
         hook(point, path)
 
 
-def _fsync_dir(path: str) -> None:
+def fsync_dir(path: str) -> None:
     """fsync a directory so a new or renamed entry in it survives a crash
     (fsyncing the file does not persist its directory entry)."""
     try:
@@ -89,6 +89,34 @@ def _fsync_dir(path: str) -> None:
         os.fsync(fd)
     finally:
         os.close(fd)
+
+
+def write_durable(path: str, text: str) -> None:
+    """Replace a small metadata file so that a crash leaves the old or the
+    new content, and the new one once this returns: write a temp file,
+    fsync it, rename it over `path`, fsync the directory."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(text)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    fsync_dir(os.path.dirname(os.path.abspath(path)))
+
+
+def remove_durable(path: str) -> None:
+    """Remove a file and fsync its directory, so the removal survives a
+    crash."""
+    os.remove(path)
+    fsync_dir(os.path.dirname(os.path.abspath(path)))
+
+
+def next_writer_token() -> int:
+    """A group-commit token for a log that is not a fragment's WAL (the key
+    translation log), from the writers' own sequence."""
+    with WalWriter._lru_mu:
+        WalWriter._next_tok += 1
+        return WalWriter._next_tok
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +175,7 @@ def write_snapshot(path: str, shard: int, n_bits: int, rows: Any) -> None:
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
-    _fsync_dir(os.path.dirname(os.path.abspath(path)))
+    fsync_dir(os.path.dirname(os.path.abspath(path)))
 
 
 def read_snapshot(path: str) -> Tuple[int, int, Dict[int, RowBits]]:
@@ -242,7 +270,7 @@ class WalWriter:
                     excess -= 1
             f = self._f
         if sync_dir is not None:
-            _fsync_dir(sync_dir)  # a new log's directory entry must survive
+            fsync_dir(sync_dir)  # a new log's directory entry must survive
         for fh in to_close:
             fh.close()
         try:

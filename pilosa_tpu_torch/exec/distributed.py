@@ -17,6 +17,15 @@ Every leg runs the kernels the single node does: a node's share of a
 Count is one plan_count launch, of a Row one plan_rows launch, and a run
 of adjacent Counts goes to each node as one multi-call request that the
 node evaluates as one plan_count_multi launch (`_execute_count_batch`).
+A Shift carries each shard's top bits into the next shard. The
+coordinator extends the shard list by those successors once, and each
+shard goes to one leg, which answers exactly the shards it is given. A
+leg still stacks each shard's predecessors for the carry: those its node
+does not own it fetches from an owner, as the rows of the trees' leaves
+over those shards in one internode request (`_pred_fills`). So every
+shard is counted once, with its carry in, and a cluster answers as one
+node over all shards.
+
 TopN keeps its exact two-pass protocol: pass 1 merges every node's
 untrimmed candidates, pass 2 re-counts the merged ids exactly on every
 node. Writes route by ownership: Set and Clear go to every replica owner
@@ -24,7 +33,8 @@ of the column's shard, ClearRow and Store run on every owner over its
 shards, attribute writes replicate to every node.
 
 The result cache revalidates a coordinator's entry against the versions
-of every node its legs read (`version_vector`): local parts directly,
+of every fragment its legs read, fetched predecessors included, on the
+node each is read from (`version_vector`): local parts directly,
 remote ones over one parallel /internal/versions round, paid only from a
 key's second sighting on. The reference's mesh-group execution, its
 transport cost profile and its coherence leases are not ported; locks are
@@ -199,14 +209,9 @@ class DistributedExecutor(Executor):
                 # re-map this node's shards to the next live replica,
                 # preferring replicas whose breaker is closed
                 for s in node_shards:
-                    owners = [
-                        n
-                        for n in cluster.shard_nodes(idx.name, s)
-                        if n.id not in failed and n.state != NODE_STATE_DOWN
-                    ]
+                    owners = [n for n in self._read_owners(cluster, idx.name, s) if n.id not in failed]
                     if not owners:
                         raise RemoteError(f"shard {s} unavailable: all replicas down")
-                    owners.sort(key=lambda n: n.id != self.local_id and self._breaker_open(n.uri))
                     retry.setdefault(owners[0].id, []).append(s)
             remaining = retry
         return partials
@@ -303,6 +308,8 @@ class DistributedExecutor(Executor):
                     best["count"] += p["count"]
                 elif (p["id"] < best["id"]) == (name == "MinRow"):
                     best = dict(p)
+            if best is not None and not c.children:
+                best["count"] = 1  # unfiltered, one node answers count 1
             return best or {"id": 0, "count": 0}
         if name == "Rows":
             merged = set()
@@ -530,26 +537,124 @@ class DistributedExecutor(Executor):
         return super()._shards_for(idx, idx.shard_list() or [0], call)
 
     # ------------------------------------------------------------------
+    # Shift predecessors held by other nodes
+    # ------------------------------------------------------------------
+
+    def _foreign_shards(self, idx: Index, shards) -> List[int]:
+        if self._is_single_node():
+            return []
+        cluster = self._cluster()
+        return [s for s in shards if not cluster.owns_shard(self.local_id, idx.name, s)]
+
+    def _read_owners(self, cluster: Cluster, index: str, shard: int) -> List[Any]:
+        """The live owners of a shard in the order a read tries them: the
+        placement's order, owners whose breaker is open last."""
+        owners = [n for n in cluster.shard_nodes(index, shard) if n.state != NODE_STATE_DOWN]
+        owners.sort(key=lambda n: n.id != self.local_id and self._breaker_open(n.uri))
+        return owners
+
+    @staticmethod
+    def _leaf_texts(idx: Index, calls: List[Call]) -> List[str]:
+        """The texts of the leaves under a Shift, as _StackedLowering keys
+        its fills: each Row/Range call, and All() for the existence row
+        that Not and All read. Only a Shift reads a predecessor's words
+        into a listed shard; other leaves' predecessor rows stay unread."""
+        out: Dict[str, None] = {}
+
+        def walk(c: Call, shifted: bool) -> None:
+            shifted = shifted or c.name == "Shift"
+            if c.name in ("Row", "Range"):
+                if shifted:
+                    out[str(c)] = None
+                return
+            if c.name in ("Not", "All") and shifted and idx.track_existence:
+                out["All()"] = None
+            for ch in c.children:
+                walk(ch, shifted)
+            for v in c.args.values():
+                if isinstance(v, Call):
+                    walk(v, shifted)
+
+        for c in calls:
+            walk(c, False)
+        return list(out)
+
+    def _pred_fills(self, idx: Index, calls: List[Call], preds: List[int]):
+        """Fetch the leaves' rows in the predecessor shards this node does
+        not own: one request per owner, of every leaf over its shards (a
+        leaf has no Shift, so the owner answers exactly those shards),
+        failing over to the shard's next live owner."""
+        foreign = self._foreign_shards(idx, preds)
+        texts = self._leaf_texts(idx, calls) if foreign else []
+        if not texts:
+            return None
+        cluster = self._cluster()
+        pql = "\n".join(texts)
+        order = {p: self._read_owners(cluster, idx.name, p) for p in foreign}
+        fills: Dict[str, Dict[int, torch.Tensor]] = {t: {} for t in texts}
+        pending = list(foreign)
+        errors: List[str] = []
+        while pending:
+            by_node: Dict[str, List[int]] = {}
+            for p in pending:
+                if not order[p]:
+                    raise ExecError(f"shard {p} unavailable for a Shift's carry: {'; '.join(errors)}")
+                by_node.setdefault(order[p].pop(0).id, []).append(p)
+            pending = []
+            for node_id, node_shards in by_node.items():
+                try:
+                    rows = self.client.query_node(
+                        self._uri_of(node_id), idx.name, pql, shards=node_shards, remote=True,
+                        timeout=self.query_deadline, deadline=self.query_deadline, device=self.holder.device,
+                    )
+                except Exception as e:  # noqa: BLE001 - the next owner answers
+                    errors.append(f"node {node_id}: {e}")
+                    pending.extend(node_shards)
+                    continue
+                for text, row in zip(texts, rows):
+                    for s, words in row.segments.items():
+                        fills[text][int(s)] = words
+        return fills
+
+    # ------------------------------------------------------------------
     # the result cache across nodes
     # ------------------------------------------------------------------
 
+    def _leg_reads(self, idx: Index, ctx) -> Dict[str, List[int]]:
+        """Per node, the shards whose fragments the fan-out reads there:
+        each leg's shards and the Shift predecessors its node owns, and
+        each predecessor a leg fetches on the owner it fetches it from."""
+        cluster = self._cluster()
+        legs = cluster.shards_by_node(idx.name, list(ctx.shard_list))
+        reads = {nid: set(shards) for nid, shards in legs.items()}
+        k = self._count_shifts(ctx.call)
+        for nid, shards in legs.items():
+            for p in self._shift_preds(sorted(shards), k) if k else ():
+                if cluster.owns_shard(nid, idx.name, p):
+                    reads[nid].add(p)
+                else:
+                    owners = self._read_owners(cluster, idx.name, p)
+                    if owners:
+                        reads.setdefault(owners[0].id, set()).add(p)
+        return {nid: sorted(shards) for nid, shards in reads.items()}
+
     def version_vector(self, idx: Index, ctx, opt: ExecOptions, expect=None):
-        """The fan-out's vector: per owner node, the versions of the
-        fragments its leg reads (Shift-extended as the leg extends them),
-        the local part read directly and the peers' over one parallel
-        /internal/versions round. None: not cacheable this time (a first
-        sighting of the key, an unreachable peer, a local part that
-        already differs from `expect`)."""
+        """The fan-out's vector: per node, the versions of the fragments
+        the fan-out reads there (`_leg_reads`), the local part read
+        directly and the peers' over one parallel /internal/versions
+        round. None: not cacheable this time (a first sighting of the
+        key, an unreachable peer, a local part that already differs from
+        `expect`)."""
         if opt.remote or self._is_single_node():
             return super().version_vector(idx, ctx, opt)
         try:
-            remaining = dict(self._cluster().shards_by_node(idx.name, list(ctx.shard_list)))
+            remaining = self._leg_reads(idx, ctx)
         except Exception:  # noqa: BLE001 - assembly is best effort
             return None
         parts: List[Any] = []
         rpc: List[tuple] = []
         for nid in sorted(remaining):
-            node_shards = tuple(Executor._shards_for(self, idx, sorted(remaining[nid]), ctx.call))
+            node_shards = tuple(remaining[nid])
             if nid == self.local_id:
                 parts.append(self.local_version_vector(idx, ctx.views, node_shards, node=nid))
             else:
@@ -626,8 +731,9 @@ class DistributedExecutor(Executor):
 
     def versions_payload(self, index_name: str, pql: str, shards):
         """Serve /internal/versions: this node's version vector of one call
-        over `shards`, Shift-extended as a leg's execution extends them.
-        (shard_list, elements), or None when the call is ineligible."""
+        over exactly `shards` (the coordinator lists the fragments read
+        here). (shard_list, elements), or None when the call is
+        ineligible."""
         idx = self.holder.index(index_name)
         if idx is None:
             return None
@@ -638,10 +744,10 @@ class DistributedExecutor(Executor):
         if len(q.calls) != 1:
             return None
         c = q.calls[0]
-        ctx = self._cache_spec(idx, c, list(shards), ExecOptions(remote=True))
+        shard_list = tuple(sorted(int(s) for s in shards))
+        ctx = self._cache_spec(idx, c, list(shard_list), ExecOptions(remote=True), reads=shard_list)
         if ctx is None:
             return None
-        shard_list = tuple(Executor._shards_for(self, idx, sorted(int(s) for s in shards), c))
         out = []
         for elem in self.local_version_vector(idx, ctx.views, shard_list):
             if elem[0] == "m":

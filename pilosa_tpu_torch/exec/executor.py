@@ -229,6 +229,7 @@ class _StackedLowering:
         collect: bool = False,
         no_sparse_guard: bool = False,
         over_budget: bool = False,
+        fills: Optional[Dict[str, Dict[int, torch.Tensor]]] = None,
     ):
         self.ex = ex
         self.idx = idx
@@ -246,6 +247,9 @@ class _StackedLowering:
         self.collected: List[Tuple[Any, Optional[int]]] = []
         # pins on the staged operands' extents, released by the plan
         self.extents = ExtentTable(idx.dcache)
+        # a cluster leg's Shift predecessors that other nodes own: leaf
+        # text -> {shard: its words there} (Executor._pred_fills)
+        self.fills = fills
 
     def _stack_guard(self, view, mult: int = 1) -> None:
         n = len(self.shards)
@@ -296,6 +300,25 @@ class _StackedLowering:
                     self._leaf_memo[key] = len(self.operands) - 1
         return self._leaf_memo[key]
 
+    def _filled(self, key: str, node: PNode) -> PNode:
+        """A leaf with the rows other nodes hold for it in this stack's
+        predecessor shards ORed in (they are zero in the local stacks)."""
+        rows = self.fills.get(key) if self.fills and not self.collect else None
+        if not rows:
+            return node
+        leaf = self._leaf_memo.get(("fill", key))
+        if leaf is None:
+            pos = {s: i for i, s in enumerate(self.shards)}
+            if not any(s in pos for s in rows):
+                return node
+            stack = torch.zeros((len(self.shards), WORDS_PER_ROW), dtype=torch.int32, device=self.ex.holder.device)
+            for s, words in rows.items():
+                if s in pos:
+                    stack[pos[s]] = words.to(stack.device)
+            self.operands.append(stack)
+            leaf = self._leaf_memo[("fill", key)] = PLeaf(len(self.operands) - 1)
+        return leaf if isinstance(node, PZero) else PNary("or", (node, leaf))
+
     def lower(self, c: Call) -> PNode:
         node = self._call_memo.get(id(c))
         if node is None:
@@ -305,7 +328,7 @@ class _StackedLowering:
     def _lower(self, c: Call) -> PNode:
         name = c.name
         if name in ("Row", "Range"):
-            return self._lower_row(c)
+            return self._filled(str(c), self._lower_row(c))
         if name == "Intersect":
             if not c.children:
                 raise ExecError("empty Intersect query is currently not supported")
@@ -360,9 +383,7 @@ class _StackedLowering:
         if ef is None:
             raise ExecError("existence field not available")
         v = ef.view(VIEW_STANDARD)
-        if v is None:
-            return PZero()
-        return self._view_leaf(v, 0)
+        return self._filled("All()", PZero() if v is None else self._view_leaf(v, 0))
 
     def _prev_idx(self) -> Tuple[int, ...]:
         """Stack index of shard_id-1 per stack position (-1 = absent)."""
@@ -567,15 +588,18 @@ class _CacheCtx:
     time)."""
 
     __slots__ = (
-        "key", "kind", "views", "shard_list", "vector", "repair_spec",
+        "key", "kind", "views", "shard_list", "reads", "vector", "repair_spec",
         "dep_rows", "text", "index_name", "opt_remote", "call", "clocks", "hit", "hit_result",
     )
 
-    def __init__(self, key, kind, views, shard_list, text, index_name, repair_spec, dep_rows, opt_remote, call):
+    def __init__(self, key, kind, views, shard_list, reads, text, index_name, repair_spec, dep_rows, opt_remote, call):
         self.key = key
         self.kind = kind
         self.views = views  # sorted ((field, view), ...)
         self.shard_list = shard_list
+        # the shards whose fragments the result reads: shard_list and its
+        # Shift predecessors
+        self.reads = reads
         self.text = text
         self.index_name = index_name
         self.repair_spec = repair_spec
@@ -699,6 +723,11 @@ class Executor:
         return [ColumnAttrSet(id=c, attrs=a) for c, a in zip(cols, store.attrs_many(cols)) if a]
 
     def _shards_for(self, idx: Index, shards, call: Optional[Call] = None) -> List[int]:
+        """The shards a call answers: the given ones (every shard when
+        None) and, for a call with k Shifts, the k successors of each,
+        which its carry reaches. A cluster leg passes no call: its
+        coordinator extended the list once, and each shard is answered by
+        one leg."""
         s = list(shards) if shards is not None else (idx.shard_list() or [0])
         if call is not None:
             # Shift carries bits into following shards: include them
@@ -710,6 +739,28 @@ class Executor:
                 s = sorted(ext)
         return s
 
+    @staticmethod
+    def _shift_preds(shard_list, k: int) -> List[int]:
+        """The k predecessors of each listed shard that the list lacks:
+        a Shift reads them for its carry into the listed shards."""
+        present = set(shard_list)
+        extra = set()
+        for s in shard_list:
+            extra.update(p for p in range(max(0, s - k), s) if p not in present)
+        return sorted(extra)
+
+    def _foreign_shards(self, idx: Index, shards) -> List[int]:
+        """The listed shards whose fragments this node does not hold: none
+        on one node (a cluster node holds the shards it owns)."""
+        return []
+
+    def _pred_fills(self, idx: Index, calls: List[Call], preds: List[int]):
+        """The rows of the trees' leaves in those predecessor shards that
+        this node does not hold, as _StackedLowering's `fills`, or None
+        when it holds them all (the distributed executor fetches them from
+        their owners)."""
+        return None
+
     def _execute_call(self, idx: Index, c: Call, shards, opt: ExecOptions):
         name = c.name
         if name == "Options":
@@ -719,7 +770,7 @@ class Executor:
         if name == "SetColumnAttrs":
             return self._execute_set_column_attrs(idx, c)
         if name not in ("Set", "Clear"):
-            shards = self._shards_for(idx, shards, c)
+            shards = self._shards_for(idx, shards, None if opt.remote else c)
         if name == "Count":
             return self._execute_count(idx, c, shards)
         if name == "Set":
@@ -752,11 +803,15 @@ class Executor:
     # the versioned result cache (core/resultcache.py)
     # ------------------------------------------------------------------
 
-    def _cache_spec(self, idx: Index, c: Call, shards, opt: ExecOptions) -> Optional[_CacheCtx]:
+    def _cache_spec(self, idx: Index, c: Call, shards, opt: ExecOptions, reads=None) -> Optional[_CacheCtx]:
         """The cache context of one call, or None when it is ineligible.
         The key is (index scope, post-translation text, shard list, remote
         flag): a remote leg answers another shape (untrimmed TopN
-        candidates) than a coordinator, so it caches under its own key."""
+        candidates) than a coordinator, so it caches under its own key.
+        The versions are read over the shards and their Shift
+        predecessors (`reads` overrides that); a leg whose predecessors
+        live on other nodes is not cached, since its own versions cannot
+        cover them."""
         kind = _CACHE_KINDS.get(c.name)
         if kind is None or rcache.RESULT_CACHE.budget_bytes <= 0:
             return None
@@ -798,7 +853,12 @@ class Executor:
                 filt = c.args.get("filter")
                 if isinstance(filt, Call) and not self._cache_views(idx, filt, views):
                     return None
-            shard_list = tuple(self._shards_for(idx, shards, c))
+            shard_list = tuple(self._shards_for(idx, shards, None if opt.remote else c))
+            if reads is None:
+                preds = self._shift_preds(shard_list, self._count_shifts(c))
+                if opt.remote and self._foreign_shards(idx, preds):
+                    return None
+                reads = sorted(set(shard_list).union(preds))
         except Exception:  # noqa: BLE001 - eligibility is best effort
             return None
         uniq = tuple(sorted(set(views)))
@@ -807,7 +867,7 @@ class Executor:
         text = str(c)
         key = (idx._cache_scope, text, shard_list, bool(opt.remote))
         return _CacheCtx(
-            key, kind, uniq, shard_list, text, idx.name, repair_spec,
+            key, kind, uniq, shard_list, tuple(reads), text, idx.name, repair_spec,
             self._cache_dep_rows(idx, c, kind), bool(opt.remote), c,
         )
 
@@ -975,7 +1035,7 @@ class Executor:
         local one. The distributed executor assembles its peers' parts
         too; `expect` lets it stop before their round trips when the
         local part already differs."""
-        return self.local_version_vector(idx, ctx.views, ctx.shard_list)
+        return self.local_version_vector(idx, ctx.views, ctx.reads)
 
     def clock_vector(self, idx: Index, ctx: _CacheCtx, opt: ExecOptions):
         """One mutation clock a view: equal clocks imply equal versions,
@@ -1044,7 +1104,7 @@ class Executor:
             v = f.view(vname) if f is not None else None
             if v is not None:
                 try:
-                    v.sync_pending(shards=ctx.shard_list)
+                    v.sync_pending(shards=ctx.reads)
                 except Exception:  # noqa: BLE001 - best effort here
                     return
 
@@ -1160,36 +1220,35 @@ class Executor:
         `over_budget` admits the stacks over the budget guard."""
         shard_list = list(shard_list)
         # Shift reads the previous shard's bits for its carry: stack the
-        # predecessors of an explicit shard subset too (output excludes them)
+        # predecessors of an explicit shard subset too (output excludes
+        # them), with the rows of those another node holds fetched from it
         k = max(self._count_shifts(c) for c in calls)
-        aug = shard_list
-        if k:
-            present = set(shard_list)
-            extra = []
-            for s in shard_list:
-                for p in range(max(0, s - k), s):
-                    if p not in present:
-                        present.add(p)
-                        extra.append(p)
-            aug = shard_list + sorted(extra)
-        low = _StackedLowering(self, idx, aug, over_budget=over_budget)
+        extra = self._shift_preds(shard_list, k) if k else []
+        aug = shard_list + extra
+        fills = self._pred_fills(idx, calls, extra) if extra else None
+        low = _StackedLowering(self, idx, aug, over_budget=over_budget, fills=fills)
         try:
             roots = self._lower_all(low, calls)
         except SparseView:
-            return self._lower_roots_compacted(idx, calls, shard_list, aug, k, over_budget)
+            return self._lower_roots_compacted(idx, calls, shard_list, aug, k, over_budget, fills)
         if not low.operands:
             low.extents.release()
             return self._EMPTY
         return roots, low, len(shard_list), shard_list
 
-    def _lower_roots_compacted(self, idx: Index, calls: List[Call], shard_list, aug, k: int, over_budget: bool):
+    def _lower_roots_compacted(
+        self, idx: Index, calls: List[Call], shard_list, aug, k: int, over_budget: bool, fills=None
+    ):
         """SparseView recovery: keep only shards where a touched view is
-        materialized (plus up to k Shift relay successors) and re-lower."""
+        materialized or a fetched predecessor row has bits (plus up to k
+        Shift relay successors) and re-lower."""
         collect = _StackedLowering(self, idx, aug, collect=True)
         for c in calls:
             collect.lower(c)
         views = list(collect.views.values())
         keep = {s for s in aug if any(v.fragment_if_exists(s) is not None for v in views)}
+        for rows in (fills or {}).values():
+            keep.update(rows)
         if k:
             aug_set = set(aug)
             for s in sorted(keep):
@@ -1201,7 +1260,7 @@ class Executor:
             return self._EMPTY
         req = set(shard_list)
         n_out = sum(1 for s in compact if s in req)
-        low = _StackedLowering(self, idx, compact, no_sparse_guard=True, over_budget=over_budget)
+        low = _StackedLowering(self, idx, compact, no_sparse_guard=True, over_budget=over_budget, fills=fills)
         roots = self._lower_all(low, calls)
         if not low.operands:
             low.extents.release()
@@ -1345,8 +1404,10 @@ class Executor:
             if len(c.children) != 1:
                 raise ExecError("Count() only accepts a single bitmap input")
             children.append(c.children[0])
-        # every call must agree on its shard list (Shift extends theirs)
-        lists = [self._shards_for(idx, shards, c) for c in calls]
+        # every call must agree on its shard list (Shift extends theirs,
+        # except on a leg, whose coordinator extended them)
+        remote = opt is not None and opt.remote
+        lists = [self._shards_for(idx, shards, None if remote else c) for c in calls]
         if any(lst != lists[0] for lst in lists[1:]):
             return None
         try:

@@ -9,7 +9,10 @@ kernels and times them with chip_smoke's `cuda_time_ms` on the same
 seeded words, at the shapes of chip_smoke's main-path GroupBys (S = 1024
 shards of W = 32768 words): gather_and of 2 rows with one filter slab
 (the filtered selection), gather_and of 2 prefixes x 4 rows (a cross
-expansion) and counts_cross of 2 prefixes x 4 rows; and
+expansion) and counts_cross of 2 prefixes x 4 rows; counts_cross at the
+cluster GroupBy's leg shapes (11 prefixes x 8 rows over 171 shards, 8 x
+8 over 256 with a node down) and at the one-shot shape (16 x 8 over 64);
+and
 plan_count_multi at the Count batcher's timing row (16 roots of 1-4 Rows
 over 8 leaves), at a full 64-root launch over 32 leaves, and at the
 served front end's round (10 roots over 6 leaves at 512 shards), the
@@ -50,6 +53,12 @@ cases = {
     "counts_cross_2x4": (lambda: K.counts_cross(rows, planes), lambda: K.counts_cross_plain(rows, planes),
                          (2 + 4) * slab + 2 * 4 * S * 4),
 }
+for gg, rr, ss in ((11, 8, 171), (8, 8, 256), (16, 8, 64)):
+    acc = torch.randint(-2**31, 2**31, (gg, ss, W), dtype=torch.int32, device="cuda", generator=g)
+    pl = torch.randint(-2**31, 2**31, (rr, ss, W), dtype=torch.int32, device="cuda", generator=g)
+    cases[f"counts_cross_{gg}x{rr}_s{ss}"] = (lambda acc=acc, pl=pl: K.counts_cross(acc, pl),
+                                             lambda acc=acc, pl=pl: K.counts_cross_plain(acc, pl),
+                                             (gg + rr) * ss * W * 4 + gg * rr * ss * 4)
 for name, n_roots, n_leaves, s in (("plan_count_multi_16x8", 16, 8, S), ("plan_count_multi_64x32", 64, 32, S),
                                    ("plan_count_multi_10x6_s512", 10, 6, 512)):
     leaves = list(words(n_leaves))  # the first s shard rows of each are read

@@ -4,10 +4,10 @@
 // column 32w + b). PyTorch holds them as int32; the kernels read them as
 // uint32. Every kernel here but gather_and and plan_rows is a popcount
 // reduction that reads each input word once (gather_tally: each word idx
-// points at; counts_cross: each plane word once per chunk of 16 prefixes),
-// gather_and is one AND per distinct slab word read, and plan_rows a few
-// bitwise operations and one popcount per word read and written, so all
-// seven are bound by device-memory bytes, not operations:
+// points at; counts_cross: each plane word once per 16 prefixes, on the
+// tensor cores), gather_and is one AND per distinct slab word read, and
+// plan_rows a few bitwise operations and one popcount per word read and
+// written, so all seven are bound by device-memory bytes, not operations:
 // loads are 128-bit (uint4) where the pointers and the row width allow it,
 // popcount is one __popc per word, and partial sums stay in registers and
 // shared memory (nothing intermediate is written to device memory).
@@ -37,6 +37,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 #define PT_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -1386,18 +1388,36 @@ PT_EXPORT int pt_gather_tally(const void* src, int64_t n_src, const void* idx, c
 //   gather_and_kernel    _select_rows_filtered, _select_pairs and
 //                        _cross_expand: out[i] = A[ia[i]] & B[ib[i]] over
 //                        whole [S, W] slabs
-// Both are bound by device-memory bytes: counts_cross reads each acc word
-// once per chunk of GC prefixes and each plane word once per chunk (one
-// chunk when G <= 16), gather_and reads each distinct operand slab once
-// and writes each output slab once, where eager PyTorch writes both
-// gathered slabs (repeats included) before the AND.
+// Both are bound by device-memory bytes. gather_and reads each distinct
+// operand slab once and writes each output slab once, where eager PyTorch
+// writes both gathered slabs (repeats included) before the AND.
+//
+// counts_cross is, shard by shard, a binary matrix product: [G x 32W bits]
+// times [32W bits x R] with AND as the multiply and popcount as the add.
+// On the CUDA cores that is G * R popcounts for every G + R words read, and
+// at the cluster legs' G = 11 x R = 8 the popcount pipe (16 a clock per SM
+// on compute capability 9.0) held the kernel at 37% of its byte bound. The
+// tensor cores compute exactly this product: mma.sync m16n8k256 .b1 with
+// .and.popc takes a 16 x 256-bit tile of acc rows and a 256-bit x 8 tile of
+// plane rows into a 16 x 8 tile of s32 counts. So a warp holds one 16 x 8
+// count tile (4 registers a thread) across its share of a shard's words,
+// and every acc and plane word is read once (G <= 16, R <= 8; a wider
+// product reads acc once per 8 plane rows and the planes once per 16
+// prefixes). Prefixes past G and rows past R are zero words in the tile:
+// they cost tensor time, not bytes.
 // ---------------------------------------------------------------------------
 
 namespace {
 
-// plane rows whose per-(g, r) counts a block gathers in shared memory before
-// it adds them to the output
-constexpr int kCcRows = 64;
+// counts_cross: warps per block, words of a row per warp step (four mma's
+// of 8 words each), and steps whose loads a warp keeps in flight together
+constexpr int kCxWarps = 8;
+constexpr int kCxThreads = kCxWarps * 32;
+constexpr int kCxStep = 32;
+constexpr int kCxUnroll = 4;  // 2 on the word-by-word path (VEC = 0), which spills at 4
+// blocks a launch aims for (16 per SM): a shard's words are split among
+// blocks until the grid has about this many
+constexpr int64_t kCxBlocks = 132 * 16;
 
 // This thread's WPT words of the tile starting at word `base` of a W-word
 // row: uint4 q = base / 4 + k * kThreads + tid for k < WPT / 4 (VEC), else
@@ -1426,72 +1446,159 @@ __device__ __forceinline__ void tile_words(const uint32_t* __restrict__ row, int
   }
 }
 
-// One block per (shard s, tile of kThreads * WPT words, chunk of GC
-// prefixes). The chunk's acc words stay in registers (GC * WPT of them);
-// each plane row's tile is read once and meets every prefix of the chunk;
-// a warp sums each (g, r) with one __reduce_add_sync, lane 0 adds it to the
-// block's shared counter, and the block adds each non-zero (g, r) counter to
-// out[g, r, s] with one atomic (out zeroed by the entry point).
-template <int GC, int WPT, int VEC>
-__global__ void __launch_bounds__(kThreads)
-counts_cross_kernel(const uint32_t* __restrict__ acc, const uint32_t* __restrict__ planes,
-                    int64_t G, int64_t R, int64_t S, int64_t W, int64_t tiles,
-                    unsigned int* __restrict__ out) {
-  __shared__ unsigned int cnt[GC * kCcRows];
-  const int64_t s = blockIdx.x / tiles;
-  const int64_t base = (blockIdx.x % tiles) * (int64_t)(kThreads * WPT);
-  const int64_t g0 = (int64_t)blockIdx.y * GC;
-  const int lane = threadIdx.x & 31;
-  uint32_t a[GC][WPT];
+// One m16n8k256 tile of the binary product, accumulated into c: a0/a2 are
+// 32-bit slots t and t + 4 (t = lane % 4) of prefix row lane / 4, a1/a3 the
+// same slots of row lane / 4 + 8; b0/b1 slots t and t + 4 of plane row
+// lane / 4; c0/c1 count rows lane / 4, c2/c3 rows lane / 4 + 8, at columns
+// 2t and 2t + 1.
+__device__ __forceinline__ void mma_and_popc(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// This lane's 8 words of one warp step of a row: x[0..3] = words base + 4t
+// .. base + 4t + 3 and x[4..7] = words base + 16 + 4t .. (t = lane % 4), so
+// the four lanes of a row read its 128 bytes as two 64-byte runs; zero past
+// the row's end or for an absent row (row == nullptr). VEC: W % 4 == 0 and
+// the row 16-byte aligned.
+template <int VEC>
+__device__ __forceinline__ void step_words(const uint32_t* __restrict__ row, int64_t base, int64_t W,
+                                           int t, uint32_t (&x)[8]) {
 #pragma unroll
-  for (int g = 0; g < GC; ++g) {
-    if (g0 + g < G) {
-      tile_words<WPT, VEC>(acc + ((g0 + g) * S + s) * W, base, W, a[g]);
+  for (int h = 0; h < 2; ++h) {
+    const int64_t i = base + 16 * h + 4 * t;
+    if constexpr (VEC) {
+      const uint4 v = (row != nullptr && i < W) ? __ldg(reinterpret_cast<const uint4*>(row + i))
+                                                : make_uint4(0u, 0u, 0u, 0u);
+      x[4 * h] = v.x;
+      x[4 * h + 1] = v.y;
+      x[4 * h + 2] = v.z;
+      x[4 * h + 3] = v.w;
     } else {
 #pragma unroll
-      for (int k = 0; k < WPT; ++k) a[g][k] = 0u;
+      for (int k = 0; k < 4; ++k) x[4 * h + k] = (row != nullptr && i + k < W) ? __ldg(row + i + k) : 0u;
     }
-  }
-  for (int64_t r0 = 0; r0 < R; r0 += kCcRows) {
-    const int nr = (int)(R - r0 < kCcRows ? R - r0 : kCcRows);
-    for (int i = threadIdx.x; i < GC * kCcRows; i += kThreads) cnt[i] = 0u;
-    __syncthreads();
-    for (int j = 0; j < nr; ++j) {
-      uint32_t p[WPT];
-      tile_words<WPT, VEC>(planes + ((r0 + j) * S + s) * W, base, W, p);
-#pragma unroll
-      for (int g = 0; g < GC; ++g) {
-        uint32_t c = 0u;
-#pragma unroll
-        for (int k = 0; k < WPT; ++k) c += __popc(a[g][k] & p[k]);
-        c = __reduce_add_sync(0xffffffffu, c);
-        if (lane == 0 && c != 0u) atomicAdd(&cnt[g * kCcRows + j], c);
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < GC * nr; i += kThreads) {
-      const int g = i / nr;
-      const int j = i - g * nr;
-      const unsigned int v = cnt[g * kCcRows + j];
-      if (v != 0u && g0 + g < G) atomicAdd(out + ((g0 + g) * R + r0 + j) * S + s, v);
-    }
-    __syncthreads();  // the counters are zeroed for the next rows
   }
 }
 
-template <int GC, int WPT>
-int launch_counts_cross(const uint32_t* acc, const uint32_t* planes, int64_t g, int64_t r,
-                        int64_t s, int64_t w, int vec, unsigned int* out, cudaStream_t st) {
-  const int64_t tiles = (w + kThreads * WPT - 1) / (kThreads * WPT);
-  const int64_t chunks = (g + GC - 1) / GC;
-  if (s * tiles > INT32_MAX || chunks > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned int)(s * tiles), (unsigned int)chunks);
-  if (vec) {
-    counts_cross_kernel<GC, WPT, 1><<<grid, kThreads, 0, st>>>(acc, planes, g, r, s, w, tiles, out);
-  } else {
-    counts_cross_kernel<GC, WPT, 0><<<grid, kThreads, 0, st>>>(acc, planes, g, r, s, w, tiles, out);
+// One block per (shard s, split of its words, 16-prefix x 8-row tile). The
+// split's warp steps go to the block's warps in turn (warp w takes steps
+// w, w + 8, ...), kCxUnroll steps' loads at once. A step covers kCxStep * P
+// words of every row. A product narrower than the tile (P > 1: P * G <= 16
+// prefixes and P * R <= 8 rows) packs P word ranges into it: tile row
+// p * G + g holds prefix g over the step's p-th 32 words, tile column
+// p * R + r plane row r over the same words, and only the P diagonal
+// blocks of the count tile are kept, so P times as many bytes are in
+// flight for the same registers. Within 32 words, word 4t + m (m < 4) of
+// every row fills 32-bit slot t of mma m and word 16 + 4t + m its slot
+// t + 4, for prefix and plane rows alike: the product sums over all
+// words, so it may take them in any order that pairs acc word w with plane
+// word w. The warps' tiles meet in shared memory, and the block adds each
+// non-zero count to out[g, r, s] with one atomic (out zeroed by the entry
+// point; a shard holds at most 2^20 bits, so no count wraps). The entry
+// point may hand the kernel the plane rows as its "prefixes" and the
+// prefixes as its "rows" (a product of fewer than 8 prefixes over more
+// rows packs more word ranges that way): tile row g and column r add to
+// out[g * oa + r * ob + s].
+template <int VEC>
+__global__ void __launch_bounds__(kCxThreads, 2)
+counts_cross_kernel(const uint32_t* __restrict__ acc, const uint32_t* __restrict__ planes,
+                    int64_t G, int64_t R, int64_t S, int64_t W, int P, int64_t splits, int64_t per,
+                    int64_t n_tiles, int64_t oa, int64_t ob, unsigned int* __restrict__ out) {
+  __shared__ int tile[16 * 8];
+  const int64_t s = blockIdx.x / splits;
+  const int64_t st0 = (blockIdx.x % splits) * per;
+  const int64_t span = (int64_t)kCxStep * P;
+  const int64_t steps = (W + span - 1) / span;
+  const int64_t st1 = st0 + per < steps ? st0 + per : steps;
+  const int64_t g0 = (int64_t)(blockIdx.y / n_tiles) * 16;
+  const int64_t r0 = (int64_t)(blockIdx.y % n_tiles) * 8;
+  // tile rows and columns per word range: the whole tile when P == 1
+  const int gt = P == 1 ? 16 : (int)G;
+  const int rt = P == 1 ? 8 : (int)R;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int q = lane >> 2;
+  const int t = lane & 3;
+  // this lane's rows (prefix rows q and q + 8, plane row q) and the offset
+  // of each one's word range within a step
+  const uint32_t* lo = nullptr;
+  const uint32_t* hi = nullptr;
+  const uint32_t* pl = nullptr;
+  int64_t off_lo = 0, off_hi = 0, off_pl = 0;
+  if (q / gt < P && g0 + q % gt < G) {
+    lo = acc + ((g0 + q % gt) * S + s) * W;
+    off_lo = (int64_t)(q / gt) * kCxStep;
   }
-  return (int)cudaGetLastError();
+  if ((q + 8) / gt < P && g0 + (q + 8) % gt < G) {
+    hi = acc + ((g0 + (q + 8) % gt) * S + s) * W;
+    off_hi = (int64_t)((q + 8) / gt) * kCxStep;
+  }
+  if (q / rt < P && r0 + q % rt < R) {
+    pl = planes + ((r0 + q % rt) * S + s) * W;
+    off_pl = (int64_t)(q / rt) * kCxStep;
+  }
+  if (threadIdx.x < 16 * 8) tile[threadIdx.x] = 0;
+  constexpr int U = VEC ? kCxUnroll : 2;
+  int c[4] = {0, 0, 0, 0};
+  for (int64_t st = st0 + warp; st < st1; st += kCxWarps * U) {
+    uint32_t a[U][8], b[U][8], p[U][8];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t su = st + (int64_t)u * kCxWarps;
+      const bool in = su < st1;
+      step_words<VEC>(in ? lo : nullptr, su * span + off_lo, W, t, a[u]);
+      step_words<VEC>(in ? hi : nullptr, su * span + off_hi, W, t, b[u]);
+      step_words<VEC>(in ? pl : nullptr, su * span + off_pl, W, t, p[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        mma_and_popc(c, a[u][m], b[u][m], a[u][4 + m], b[u][4 + m], p[u][m], p[u][4 + m]);
+      }
+    }
+  }
+  __syncthreads();  // the tile is zeroed
+  if (c[0] != 0) atomicAdd(&tile[q * 8 + 2 * t], c[0]);
+  if (c[1] != 0) atomicAdd(&tile[q * 8 + 2 * t + 1], c[1]);
+  if (c[2] != 0) atomicAdd(&tile[(q + 8) * 8 + 2 * t], c[2]);
+  if (c[3] != 0) atomicAdd(&tile[(q + 8) * 8 + 2 * t + 1], c[3]);
+  __syncthreads();
+  if (threadIdx.x < gt * rt) {
+    const int gi = threadIdx.x / rt;
+    const int rj = threadIdx.x % rt;
+    int v = 0;
+    for (int k = 0; k < P; ++k) v += tile[(k * gt + gi) * 8 + k * rt + rj];
+    const int64_t g = g0 + gi;
+    const int64_t r = r0 + rj;
+    if (v != 0 && g < G && r < R) atomicAdd(out + g * oa + r * ob + s, (unsigned int)v);
+  }
+}
+
+// The b1 tensor-core rate probe (b1_probe.py): every warp runs `iters`
+// rounds of kProbeChains independent m16n8k256 and.popc mma's on register
+// words, and one lane stores the sums so none is dead code.
+constexpr int kProbeChains = 8;
+
+__global__ void b1_mma_probe_kernel(int64_t iters, int* __restrict__ sink) {
+  uint32_t x = 0x9e3779b9u * (threadIdx.x + 1) + blockIdx.x;
+  int c[kProbeChains][4] = {};
+  for (int64_t i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int k = 0; k < kProbeChains; ++k) {
+      mma_and_popc(c[k], x, x ^ (uint32_t)k, x + (uint32_t)k, ~x, x * 3u, x >> 1);
+    }
+    x ^= x << 13;
+  }
+  int sum = 0;
+#pragma unroll
+  for (int k = 0; k < kProbeChains; ++k) sum += c[k][0] + c[k][1] + c[k][2] + c[k][3];
+  if (sum == 0x7fffffff) sink[blockIdx.x] = sum;
 }
 
 // Store this thread's WPT words of the tile starting at word `base` of a
@@ -1556,23 +1663,57 @@ gather_and_kernel(const uint32_t* __restrict__ a, const int32_t* __restrict__ ia
 
 }  // namespace
 
-// acc[g, s, w] x planes[r, s, w] -> out int32[g, r, s] (zeroed here). vec:
-// w % 4 == 0 and both stacks 16-byte aligned.
+// acc[g, s, w] x planes[r, s, w] -> out int32[g, r, s] (zeroed here), on
+// the tensor cores. vec: w % 4 == 0 and both stacks 16-byte aligned.
 PT_EXPORT int pt_counts_cross(const void* acc, int64_t g, const void* planes, int64_t r,
                               int64_t s, int64_t w, int vec, void* out, void* stream) {
   if (g < 1 || r < 1 || s < 1 || w < 1 || (vec && w % 4 != 0)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = cudaMemsetAsync(out, 0, (size_t)(g * r * s) * sizeof(int32_t), st);
   if (err != cudaSuccess) return (int)err;
+  // one 16 x 8 tile of the product per grid row, or P word ranges packed
+  // into one tile when the product is narrower, the prefixes on the tile's
+  // rows or, where that packs more, on its columns; a shard's words split
+  // among blocks until the grid has about kCxBlocks of them, each split
+  // keeping at least one round of kCxUnroll steps for every warp
   auto* x = static_cast<const uint32_t*>(acc);
   auto* p = static_cast<const uint32_t*>(planes);
   auto* o = static_cast<unsigned int*>(out);
-  // GC * WPT = 64 words of acc per thread at every chunk size (one prefix
-  // runs on rows_counts: the wrapper routes it there)
-  if (g <= 2) return launch_counts_cross<2, 16>(x, p, g, r, s, w, vec, o, st);
-  if (g <= 4) return launch_counts_cross<4, 16>(x, p, g, r, s, w, vec, o, st);
-  if (g <= 8) return launch_counts_cross<8, 8>(x, p, g, r, s, w, vec, o, st);
-  return launch_counts_cross<16, 4>(x, p, g, r, s, w, vec, o, st);
+  const int pack = g <= 16 && r <= 8 ? (int)(16 / g < 8 / r ? 16 / g : 8 / r) : 1;
+  const int swapped = r <= 16 && g <= 8 ? (int)(16 / r < 8 / g ? 16 / r : 8 / g) : 1;
+  int64_t oa = r * s, ob = s;
+  int P = pack;
+  if (swapped > pack) {
+    std::swap(x, p);
+    std::swap(g, r);
+    std::swap(oa, ob);
+    P = swapped;
+  }
+  const int64_t tiles = ((g + 15) / 16) * ((r + 7) / 8);
+  const int64_t steps = (w + kCxStep * P - 1) / (kCxStep * P);
+  int64_t splits = (kCxBlocks + s * tiles - 1) / (s * tiles);
+  const int64_t most = steps / (kCxWarps * kCxUnroll);
+  splits = splits < most ? splits : (most > 1 ? most : 1);
+  const int64_t per = (steps + splits - 1) / splits;
+  splits = (steps + per - 1) / per;
+  if (s * splits > INT32_MAX || tiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned int)(s * splits), (unsigned int)tiles);
+  const int64_t n_tiles = (r + 7) / 8;
+  if (vec) {
+    counts_cross_kernel<1><<<grid, kCxThreads, 0, st>>>(x, p, g, r, s, w, P, splits, per, n_tiles, oa, ob, o);
+  } else {
+    counts_cross_kernel<0><<<grid, kCxThreads, 0, st>>>(x, p, g, r, s, w, P, splits, per, n_tiles, oa, ob, o);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The b1 mma probe: `blocks` blocks of kCxThreads threads, each warp
+// running iters * kProbeChains mma's; `sink` holds `blocks` ints.
+PT_EXPORT int pt_b1_mma_probe(int64_t blocks, int64_t iters, void* sink, void* stream) {
+  if (blocks < 1 || blocks > INT32_MAX || iters < 1) return (int)cudaErrorInvalidValue;
+  b1_mma_probe_kernel<<<(unsigned int)blocks, kCxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      iters, static_cast<int*>(sink));
+  return (int)cudaGetLastError();
 }
 
 // out[i] = a[ia[i]] & b[ib[i]] for i < n, each a slab of `len` words; ia

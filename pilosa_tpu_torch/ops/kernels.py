@@ -37,8 +37,9 @@ failed build or launch raises.
 | `merge_mark`      | ops/merge.py `_merge_sorted_u64` after its sort;    |
 |                   | wrapper and twin in ops/merge.py                    |
 
-All of them read every input word once (counts_cross: once per chunk of
-16 prefixes) and do a few bitwise operations and popcounts per word, so
+All of them read every input word once (counts_cross: once per 16
+prefixes and 8 rows, with its ANDs and popcounts on the tensor cores as
+binary mma's) and do a few bitwise operations and popcounts per word, so
 on the card they are bound by device-memory bytes. The twins of
 counts_cross and gather_and live in ops/bitmap.py.
 
@@ -221,6 +222,7 @@ class _Library:
             "pt_plan_rows": [p, i64, p, i64, i64, i64, i64, i64, p, p],
             "pt_gather_tally": [p, i64, p, p, i64, p, p, i64, p, p],
             "pt_counts_cross": [p, i64, p, i64, i64, i64, i32, p, p],
+            "pt_b1_mma_probe": [i64, i64, p, p],
             "pt_gather_and": [p, p, p, p, i64, i64, i32, p, p],
             "pt_bsi_sum": [p, p, p, p, i32, i64, i32, i32, p, p],
             "pt_bsi_min_max": [p, p, p, p, i32, i64, i32, i32, i32, i32, p, p, i32, i32, p, p, p, p],

@@ -214,10 +214,7 @@ class NodeServer:
             if disk_id:
                 return disk_id
         os.makedirs(self.data_dir, exist_ok=True)
-        tmp = path + ".tmp"
-        with open(tmp, "w") as f:
-            f.write(node_id)
-        os.replace(tmp, path)
+        walmod.write_durable(path, node_id)
         return node_id
 
     @property
@@ -235,7 +232,7 @@ class NodeServer:
             in_cluster = any(n.id == self.node.id for n in self.cluster.nodes)
             if len(self.cluster.nodes) <= 1 or not in_cluster:
                 if os.path.exists(path):
-                    os.remove(path)
+                    walmod.remove_durable(path)
                 return
             doc = {
                 "clusterName": self.cluster_name,
@@ -247,10 +244,7 @@ class NodeServer:
                     for n in self.cluster.nodes
                 ],
             }
-            tmp = path + ".tmp"
-            with open(tmp, "w") as f:
-                json.dump(doc, f)
-            os.replace(tmp, path)
+            walmod.write_durable(path, json.dumps(doc))
         except OSError as e:
             self.logger(f"persist .topology: {e}")
 

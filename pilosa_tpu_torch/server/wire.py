@@ -6,7 +6,9 @@ The port of pilosa_tpu/server/wire.py. The internode form is tagged
 JSON, byte for byte the reference's: a Row travels as base64 uint32 bit
 positions per shard, so a remote partial merges exactly into the
 coordinator's Row; counts, Sum/Min/Max pairs (with their counts), TopN
-pairs, GroupBy groups and Rows lists travel as JSON numbers. Every number
+pairs, GroupBy groups, Rows lists and MinRow/MaxRow's {"id", "count"}
+travel as JSON numbers (the last under a tag the reference lacks: its
+cluster cannot carry a MinRow leg). Every number
 leaves as a Python int or bool: `json.dumps` raises on numpy scalars and
 on 0-d tensors, which a count read back from the card may be.
 """
@@ -105,6 +107,8 @@ def encode_result(r: Any) -> Dict[str, Any]:
         return {"type": "valcount", "value": _number(r.value), "count": _number(r.count)}
     if isinstance(r, Pair):
         return {"type": "pair", "id": _number(r.id), "count": _number(r.count), "key": r.key}
+    if isinstance(r, dict) and set(r) == {"id", "count"}:  # MinRow / MaxRow
+        return {"type": "idcount", "id": _number(r["id"]), "count": _number(r["count"])}
     if isinstance(r, list):
         if all(isinstance(p, Pair) for p in r):
             return {
@@ -156,6 +160,8 @@ def decode_result(d: Dict[str, Any], device=None) -> Any:
         return ValCount(value=int(d["value"]), count=int(d["count"]))
     if t == "pair":
         return Pair(id=int(d["id"]), count=int(d["count"]), key=d.get("key"))
+    if t == "idcount":
+        return {"id": int(d["id"]), "count": int(d["count"])}
     if t == "pairs":
         return [Pair(id=int(p["id"]), count=int(p["count"]), key=p.get("key")) for p in d["pairs"]]
     if t == "groupcounts":
