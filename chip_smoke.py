@@ -234,8 +234,19 @@ Phases, each fatal on any mismatch or exception:
    and 3 keyed ones through every node,
    each equal to numpy and the same on every node, with n0's served
    p50s; kill -9 of n2: n0 and n1 DEGRADED, every answer again through
-   them; n2 restarted on its data dir: NORMAL, every answer again
-   through n2 and n0. Each node logs its kernel launches as it stops:
+   them; with n2 down, through n0: a new row of `f` on 32 shards n2 owns
+   (16 as primary, 16 as replica), Sets of it on 4 more, a SetRowAttrs
+   and a SetColumnAttrs: n0's /status shows pendingRepairs > 0; n2
+   restarted on its data dir: NORMAL, and its block digests of the
+   written shards differ from their co-owners'. Anti-entropy: `POST
+   /internal/sync` on n0, n1 and n2 in turn (each pass's seconds,
+   synced, reached and blocks merged printed); pendingRepairs 0 on
+   every node; both owners' block digests equal on every written shard
+   and on 16 more (field, shard) pairs drawn from --seed; one more pass
+   a node repairs nothing and moves no node's restage_bytes; then every
+   answer through n2 and n0 equal to numpy with the downtime writes,
+   the new row's Count, filtered TopN, row and column attributes
+   included. Each node logs its kernel launches as it stops:
    their sum must show every kernel of the cluster's queries. Then
    counts_cross at the cluster GroupBy's leg shapes (G = 11 x R = 8 over
    171 shards, 8 x 8 over 256) against its twin, timed, with its bound,
@@ -256,7 +267,8 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -719,7 +731,8 @@ def kernel_phase(rng, dev, errs):
         preds = sorted({0, 1, top - 1, top, min(top + 1, 2**32 - 1), int(rng.integers(0, top + 1))})
         for s, w in ((1, 32768), (13, 32768), (13, 1001)):
             planes, ex, sg, ft = rand_words(d, s, w), rand_words(s, w), rand_words(s, w), rand_words(s, w)
-            c = lambda x: None if x is None else x.cpu()  # noqa: E731
+            on_cpu = {id(x): x.cpu() for x in (planes, ex, sg, ft)}  # the twins' inputs, copied once
+            c = lambda x: None if x is None else on_cpu[id(x)]  # noqa: E731
             for sign in (sg, None):
                 for filt in (ft, None):
                     same("bsi_sum", K.bsi_sum(planes, ex, sign, filt), K.bsi_sum_plain(c(planes), c(ex), c(sign), c(filt)))
@@ -1504,6 +1517,25 @@ def bsi_shard(seed: int, s: int, state, writes, sample: bool):
     return out
 
 
+def _bsi_shard_state(state, s: int) -> dict:
+    """The rows of `state` that bsi_shard reads for shard s (its own and
+    its predecessor's f1, g0 and existence words; phase 4b's burst
+    columns in the shard), small enough to send to a worker process."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    keep = (s - 1, s) if s else (s,)
+    out = {k: {i: state[k][i] for i in keep} for k in ("exists", "f1", "g0")}
+    gb = state["g_burst"]
+    lo, hi = np.searchsorted(gb, [s * SHARD_WIDTH, (s + 1) * SHARD_WIDTH])
+    out["g_burst"] = gb[lo:hi]
+    return out
+
+
+def _bsi_shard_job(job):
+    """bsi_shard in a worker process: job is its arguments."""
+    return bsi_shard(*job)
+
+
 def bsi_path(args, holder, ex, state):
     import torch
 
@@ -1554,10 +1586,22 @@ def bsi_path(args, holder, ex, state):
         if "age42" in out:
             age42[out["s"]] = out["age42"]
 
-    with ThreadPoolExecutor(max_workers=8) as pool:
-        jobs = pool.map(lambda s: bsi_shard(args.seed, s, state, writes, s in samples), range(S))
+    def import_planes(frag, ex_w, sign_w, planes_w):
+        frag.import_row_words(BSI_EXISTS_BIT, ex_w)
+        if sign_w is not None:
+            frag.import_row_words(BSI_SIGN_BIT, sign_w)
+        for d, pw in enumerate(planes_w):
+            frag.import_row_words(BSI_OFFSET_BIT + d, pw)
+
+    # the shards are generated in 7 worker processes (numpy generation on
+    # threads holds the GIL against the imports), each sent only the rows
+    # of state its shard reads; the main thread imports
+    bsi_views = {f: f._view_create(f.bsi_view_name()) for f in (amount, age, deep)}
+    jobs = [(args.seed, s, _bsi_shard_state(state, s), writes, s in samples) for s in range(S)]
+    pool = ProcessPoolExecutor(max_workers=7, mp_context=multiprocessing.get_context("spawn"))
+    try:
         t_gen = time.perf_counter()
-        for out in jobs:
+        for out in pool.map(_bsi_shard_job, jobs, chunksize=4):
             gen_s += time.perf_counter() - t_gen
             t_imp = time.perf_counter()
             if "values" in out:
@@ -1567,22 +1611,14 @@ def bsi_path(args, holder, ex, state):
                 n_values += len(ca) + len(cg)
                 values_s += time.perf_counter() - t_imp
             else:
-                for f, (ex_w, sign_w, planes_w) in ((amount, out["words"]["amount"]), (age, out["words"]["age"])):
-                    frag = f.view(f.bsi_view_name()).fragment(out["s"])
-                    frag.import_row_words(BSI_EXISTS_BIT, ex_w)
-                    if sign_w is not None:
-                        frag.import_row_words(BSI_SIGN_BIT, sign_w)
-                    for d, pw in enumerate(planes_w):
-                        frag.import_row_words(BSI_OFFSET_BIT + d, pw)
-            ex_w, sign_w, planes_w = out.pop("deep_words")
-            frag = deep._view_create(deep.bsi_view_name()).fragment(out["s"])
-            frag.import_row_words(BSI_EXISTS_BIT, ex_w)
-            frag.import_row_words(BSI_SIGN_BIT, sign_w)
-            for d, pw in enumerate(planes_w):
-                frag.import_row_words(BSI_OFFSET_BIT + d, pw)
+                for f in (amount, age):
+                    import_planes(bsi_views[f].fragment(out["s"]), *out["words"][f.name])
+            import_planes(bsi_views[deep].fragment(out["s"]), *out.pop("deep_words"))
             fold(out)
             import_s += time.perf_counter() - t_imp
             t_gen = time.perf_counter()
+    finally:
+        pool.shutdown(cancel_futures=True)
     got = []
     for field, col, value in writes:
         pql = f"Clear({col}, {field}=0)" if value is None else f"Set({col}, {field}={value})"
@@ -1594,7 +1630,7 @@ def bsi_path(args, holder, ex, state):
     ingest_s = time.perf_counter() - t0
     values_per_s = n_values / values_s
     print(
-        f"bsi: ingest {ingest_s:.2f} s (waits for generation {gen_s:.2f} s, imports {import_s:.2f} s); "
+        f"bsi: ingest {ingest_s:.2f} s (waits for generation in 7 processes {gen_s:.2f} s, imports {import_s:.2f} s); "
         f"Field.import_values took {n_values} values in {values_s:.2f} s = {values_per_s:.0f} values/s"
     )
 
@@ -4803,6 +4839,175 @@ CLUSTER_KERNELS = (
 )
 
 
+# anti-entropy: while n2 is down, n0 takes a new row of f on
+# CLUSTER_AE_SHARDS shards n2 owns as primary and as many as replica, Sets
+# of it on CLUSTER_AE_SETS more, and row and column attributes
+CLUSTER_AE_ROW = 8  # f's rows 0-7 hold the data above
+CLUSTER_AE_SHARDS = 16
+CLUSTER_AE_SETS = 4
+CLUSTER_AE_SAMPLES = 16  # other (field, shard) pairs whose owners' digests must agree
+CLUSTER_AE_ROW_ATTRS = {"label": "downtime", "rank": 3}
+CLUSTER_AE_COL_ATTRS = {"city": "x"}
+
+
+def downtime_writes(http0, seed: int, S: int) -> dict:
+    """Phase 7's writes through n0 while n2 is down: row CLUSTER_AE_ROW of
+    f on shards n2 owns (CLUSTER_SPARSE_BITS bits each, one `/import`),
+    Sets of it on CLUSTER_AE_SETS more shards n2 owns, a SetRowAttrs and a
+    SetColumnAttrs. Sets only: at replica 2 the merge is a union, so a
+    Clear n2 missed would come back (the CPU tests hold that property to
+    the reference)."""
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    rng = np.random.default_rng([seed, 17])
+    prim, repl, more = [], [], []
+    for s in rng.permutation(S).tolist():
+        ids = [n["id"] for n in http0.json("GET", f"/internal/fragment/nodes?index=c&shard={s}")]
+        if "n2" not in ids:
+            continue
+        if len(more) < CLUSTER_AE_SETS:
+            more.append(s)
+        elif ids[0] == "n2" and len(prim) < CLUSTER_AE_SHARDS:
+            prim.append(s)
+        elif ids[0] != "n2" and len(repl) < CLUSTER_AE_SHARDS:
+            repl.append(s)
+    check(prim and repl and more, f"cluster: n2 owns too few shards of {S} for the downtime writes")
+    shards = sorted(prim + repl)
+    cols = {s: np.unique(rng.integers(0, SHARD_WIDTH, CLUSTER_SPARSE_BITS).astype(np.uint64)) for s in shards}
+    abs_cols = np.concatenate([c + np.uint64(s * SHARD_WIDTH) for s, c in cols.items()])
+    out = http0.json("POST", "/index/c/field/f/import", {"rows": [CLUSTER_AE_ROW] * len(abs_cols), "cols": abs_cols.tolist()})
+    check(out["errors"] and out["applied"] < out["expected"], f"cluster: the import with n2 down: {str(out)[:300]}")
+    set_cols = [s * SHARD_WIDTH + int(rng.integers(0, SHARD_WIDTH)) for s in more]
+    for col in set_cols:
+        got = http0.json("POST", "/index/c/query", f"Set({col}, f={CLUSTER_AE_ROW})".encode(), "text/plain")
+        check(got == {"results": [True]}, f"cluster: Set({col}) with n2 down: {got}")
+    row_attrs = ", ".join(f"{k}={json.dumps(v)}" for k, v in CLUSTER_AE_ROW_ATTRS.items())
+    col_attrs = ", ".join(f"{k}={json.dumps(v)}" for k, v in CLUSTER_AE_COL_ATTRS.items())
+    attr_col = int(abs_cols[0])
+    for q in (f"SetRowAttrs(f, {CLUSTER_AE_ROW}, {row_attrs})", f"SetColumnAttrs({attr_col}, {col_attrs})"):
+        http0.json("POST", "/index/c/query", q.encode(), "text/plain")
+    return {"shards": shards, "primary": prim, "replica": repl, "set_shards": more, "cols": cols,
+            "set_cols": set_cols, "attr_col": attr_col, "bits": int(len(abs_cols))}
+
+
+def _pass_lines(n) -> list:
+    """The anti-entropy pass lines a node logged, in order."""
+    return [json.loads(ln.split("anti-entropy pass ", 1)[1]) for ln in list(n.lines) if "anti-entropy pass {" in ln]
+
+
+def _sync(n, http, label: str) -> dict:
+    """POST /internal/sync until a pass runs on n (a pass a peer's debt
+    nudge started may be running: `ran` false); its reply, the wall
+    seconds of the POST that ran and the line the node logged for it."""
+    n_before = len(_pass_lines(n))
+    t_start = time.perf_counter()
+    while True:
+        t = time.perf_counter()
+        r = http.json("POST", "/internal/sync")
+        dt = time.perf_counter() - t
+        if r["ran"]:
+            break
+        check(time.perf_counter() - t_start < 300, f"cluster {label} {n.nid}: no pass ran in 300 s")
+        time.sleep(0.2)
+    t = time.perf_counter()
+    while len(_pass_lines(n)) == n_before and time.perf_counter() - t < 10:
+        time.sleep(0.02)  # the node's stderr reaches us on a thread
+    lines = _pass_lines(n)
+    check(len(lines) > n_before, f"cluster {label} {n.nid}: the pass logged no line")
+    line = lines[-1]
+    print(f"cluster {label} {n.nid}: pass {dt:.2f} s ({line['seconds']:.2f} s in the node), synced {r['synced']}, "
+          f"reached {len(r['reached'])}, fragments {line['fragments']}, blocks merged {line['blocks']}, bits applied "
+          f"{line['bits_applied']}, bits sent {line['bits_sent']}; restage_bytes {line['restage_bytes_before']} -> "
+          f"{line['restage_bytes_after']}")
+    return {"node": n.nid, "seconds": dt, "synced": r["synced"], "reached": len(r["reached"]), "pass": line}
+
+
+def anti_entropy_check(nodes, down: dict, seed: int, S: int, status_of) -> dict:
+    """After n2's restart: its copies of the written shards differ from
+    their co-owners'; one `POST /internal/sync` on n0, n1 and n2 in turn
+    repays every node's debt and leaves both owners' block digests equal
+    on every written shard and on CLUSTER_AE_SAMPLES more (field, shard)
+    pairs (each node's debt nudges are waited for before the next
+    node's pass); then one more pass a node, with nothing drifted,
+    repairs nothing and moves no node's `restage_bytes` (each node's
+    count at the end of its repairing pass equals the count after its
+    clean pass: no query ran in between)."""
+    t_phase = time.perf_counter()
+    https = {n.nid: _Http(n.uri) for n in nodes}
+    by_id = {n.nid: n for n in nodes}
+    try:
+        def owners(shard):
+            return [n["id"] for n in https["n0"].json("GET", f"/internal/fragment/nodes?index=c&shard={shard}")]
+
+        def blocks(nid, field, view, shard):
+            q = f"index=c&field={field}&view={view}&shard={shard}"
+            return https[nid].json("GET", f"/internal/fragment/blocks?{q}")["blocks"]
+
+        drifted = sum(blocks(a, "f", "standard", s) != blocks(b, "f", "standard", s)
+                      for s in down["shards"] for a, b in [owners(s)])
+        check(drifted >= 1, "cluster: n2's copies of the shards written while it was down equal their co-owners'")
+        print(f"cluster: n2 restarted: f's block digests differ from the co-owner's on {drifted} of "
+              f"{len(down['shards'])} written shards")
+        passes = []
+        for n in nodes:
+            p = _sync(n, https[n.nid], "anti-entropy")
+            # the reply comes once the local pass is done; the nudges that
+            # ask the primaries of shards it holds no copy of for a pass
+            # run on after it. Wait for them: a pass started meanwhile
+            # would make a nudge's pass answer `ran` false, and that debt
+            # would wait for the next pass here
+            t = time.perf_counter()
+            while status_of(n)["pendingRepairs"]:
+                check(time.perf_counter() - t < 120, f"cluster: {n.nid}'s pendingRepairs 120 s after its pass: {status_of(n)}")
+                time.sleep(0.1)
+            p["nudges_s"] = time.perf_counter() - t
+            passes.append(p)
+            print(f"cluster anti-entropy {n.nid}: its pendingRepairs 0 {p['nudges_s']:.2f} s after its reply")
+        pending = {n.nid: status_of(n)["pendingRepairs"] for n in nodes}
+        check(not any(pending.values()), f"cluster: pendingRepairs {pending} after the passes")
+        rng = np.random.default_rng([seed, 19])
+        pairs = [("f", "standard", s) for s in down["shards"] + down["set_shards"]]
+        kinds = [("f", "standard", S), ("g", "standard", S), ("h", "standard", S), ("_exists", "standard", S),
+                 ("amount", "bsig_amount", min(S, CLUSTER_VALUE_SHARDS))]
+        n_written = len(pairs)
+        while len(pairs) < n_written + CLUSTER_AE_SAMPLES:
+            fld, view, n_sh = kinds[int(rng.integers(len(kinds)))]
+            pair = (fld, view, int(rng.integers(n_sh)))
+            if pair not in pairs:
+                pairs.append(pair)
+        for fld, view, s in pairs:
+            a, b = owners(s)
+            ba, bb = blocks(a, fld, view, s), blocks(b, fld, view, s)
+            check(ba == bb and len(ba) > 0, f"cluster: {fld}/{view} shard {s}: {a}'s and {b}'s block digests differ after the sync")
+        print(f"cluster: pendingRepairs 0 on every node; both owners' block digests "
+              f"equal on {n_written} written (f, shard) pairs and {CLUSTER_AE_SAMPLES} more")
+        clean = [_sync(n, https[n.nid], "clean") for n in nodes]
+        for c in clean:
+            check(c["synced"] == 0 and c["pass"]["blocks"] == 0, f"cluster: a clean pass on {c['node']} repaired: {c}")
+        restage = {}
+        for n in nodes:
+            lines = _pass_lines(n)
+            before, last = lines[-2], lines[-1]
+            restage[n.nid] = (before["restage_bytes_after"], last["restage_bytes_before"], last["restage_bytes_after"])
+            check(len(set(restage[n.nid])) == 1, f"cluster: restage_bytes moved on {n.nid} over the clean passes: {restage[n.nid]}")
+        pending = {n.nid: status_of(n)["pendingRepairs"] for n in nodes}
+        check(not any(pending.values()), f"cluster: pendingRepairs {pending} after the clean passes")
+        # every repairing pass, the ones the debt nudges started included
+        repairing = [ln for n in nodes for ln in _pass_lines(n)[:-1]]
+        totals = {k: sum(ln[k] for ln in repairing) for k in ("seconds", "fragments", "blocks", "bits_applied", "bits_sent")}
+        totals["passes"] = len(repairing)
+        print(f"cluster: {len(repairing)} repairing passes in all (nudged ones included): "
+              + ", ".join(f"{k} {v:.2f}" if k == "seconds" else f"{k} {v}" for k, v in totals.items() if k != "passes"))
+        print(f"cluster: clean passes repaired nothing; restage_bytes (after the repairing pass, before and after the "
+              f"clean pass) {restage}")
+    finally:
+        for h in https.values():
+            h.close()
+    return {"drifted_shards": drifted, "passes": passes, "repairing_totals": totals, "digest_pairs": len(pairs),
+            "clean": clean, "restage_bytes": restage, "phase_s": time.perf_counter() - t_phase,
+            "pending_at_n0": down.get("pending_at_n0")}
+
+
 def _free_ports(n: int):
     import socket
 
@@ -4919,9 +5124,13 @@ def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = 
     """Phase 7: three CLI nodes (`--cluster-hosts n0@...,n1@...,n2@...
     --replicas 2`), each on its own data dir, all on the card; data
     imported through n0 only; the query set through every node, held to
-    numpy; kill -9 of n2 (DEGRADED, answers unchanged) and its restart on
-    its data dir (NORMAL, answers unchanged); the nodes' kernel launches
-    read from the line each logs as it stops."""
+    numpy; kill -9 of n2 (DEGRADED, answers unchanged), writes through n0
+    while n2 is down (pending-repair debt), its restart on its data dir
+    (NORMAL, its copies drifted), anti-entropy passes on every node
+    (`anti_entropy_check`), then the query set and the new row's
+    queries through n2 and n0, held to numpy with the downtime writes;
+    the nodes' kernel launches read from the line each logs as it
+    stops."""
     import os
     import threading
 
@@ -5144,14 +5353,14 @@ def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = 
         out = _Http(nodes[1].uri).json("POST", "/index/ck/query", b'Set("u99999", kf="k9")', "text/plain")
         check(out == {"results": [True]}, f"keyed Set through n1: {out}")
 
-        def ask_all(live, label):
+        def ask_all(live, label, want_c=want):
             """Every query through every live node: equal to numpy."""
             bodies = {}
             t = time.perf_counter()
             for n in live:
                 c = _Http(n.uri)
                 try:
-                    for index, qs, wants in (("c", CLUSTER_QUERIES, want), ("ck", CLUSTER_KEYED_QUERIES, want_keyed)):
+                    for index, qs, wants in (("c", list(want_c), want_c), ("ck", CLUSTER_KEYED_QUERIES, want_keyed)):
                         for q in qs:
                             status, raw = c.raw("POST", f"/index/{index}/query", q.encode(), "text/plain")
                             check(status == 200, f"cluster {label} {n.nid} {q}: HTTP {status}: {raw[:300]!r}")
@@ -5161,7 +5370,7 @@ def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = 
                 finally:
                     c.close()
             dt = time.perf_counter() - t
-            print(f"cluster {label}: {len(CLUSTER_QUERIES) + len(CLUSTER_KEYED_QUERIES)} queries through "
+            print(f"cluster {label}: {len(want_c) + len(CLUSTER_KEYED_QUERIES)} queries through "
                   f"{', '.join(n.nid for n in live)} equal numpy and each other in {dt:.1f} s")
             return dt
 
@@ -5194,6 +5403,14 @@ def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = 
         wait_state(nodes[1], "DEGRADED")  # the coordinator's broadcast
         print(f"cluster: kill -9 n2: n0 DEGRADED after {info['degraded_after_s']:.2f} s")
         info["degraded_s"] = ask_all(nodes[:2], "degraded")
+        # writes n2 misses while it is down: its debt, anti-entropy's to repay
+        down = downtime_writes(http0, args.seed, S)
+        st = status_of(nodes[0])
+        check(st["pendingRepairs"] > 0, f"cluster: writes with n2 down left no pending repairs at n0: {st}")
+        down["pending_at_n0"] = st["pendingRepairs"]
+        print(f"cluster: with n2 down, n0 took a new row f={CLUSTER_AE_ROW} on {len(down['shards'])} shards n2 owns "
+              f"({len(down['primary'])} as primary, {len(down['replica'])} as replica; {down['bits']} bits), "
+              f"{len(down['set_cols'])} Sets, a SetRowAttrs and a SetColumnAttrs: pendingRepairs {st['pendingRepairs']}")
         # restart n2 on its data dir: NORMAL again, every answer again
         t0 = time.perf_counter()
         nodes[2] = _Node("n2", nodes[2].data_dir, nodes[2].port, hosts, server_args)
@@ -5201,8 +5418,48 @@ def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = 
         info["normal_after_s"] = wait_state(nodes[0], "NORMAL") + (time.perf_counter() - t0)
         check(status_of(nodes[2])["state"] == "NORMAL", f"restarted n2: {status_of(nodes[2])}")
         print(f"cluster: n2 restarted on its data dir: NORMAL {info['normal_after_s']:.2f} s after its start")
-        # through the restarted node and the coordinator, whose legs go to it again
-        info["restarted_s"] = ask_all([nodes[2], nodes[0]], "restarted")
+        # anti-entropy repays the debt; then through the restarted node and
+        # the coordinator, whose legs go to it again, every answer equals
+        # numpy with the downtime writes
+        info["anti_entropy"] = anti_entropy_check(nodes, down, args.seed, S, status_of)
+        want_after = dict(want)
+        f8 = [np.unique(np.concatenate([down["cols"].get(s, np.empty(0, np.uint64)),
+                                      np.array([c % SHARD_WIDTH for c in down["set_cols"] if c // SHARD_WIDTH == s], np.uint64)]))
+              for s in range(S)]
+        f8_words = words_of(f8)
+        f8_cols = cols_of(f8)
+        n8 = len(f8_cols)
+        ext = exists | f8_words
+        all_counts = f_counts + [n8]
+        want_after["Count(Not(Row(f=0)))"] = [pc(ext & ~f_words[0])]
+        want_after["TopN(f, n=5)"] = [[{"id": r, "count": c} for r, c in
+                                       sorted(((r, c) for r, c in enumerate(all_counts) if c), key=lambda kv: (-kv[1], kv[0]))[:5]]]
+        ic8 = ic + [int(bits_at(g_words[0], f8_cols).sum())]
+        want_after["TopN(f, Row(g=0), n=5)"] = [[{"id": r, "count": c} for r, c in
+                                                 sorted(((r, c) for r, c in enumerate(ic8) if c), key=lambda kv: (-kv[1], kv[0]))[:5]]]
+        want_after["Rows(f)"] = [list(range(CLUSTER_AE_ROW + 1))]
+        want_after["MaxRow(field=f)"] = [{"id": CLUSTER_AE_ROW, "count": 1}]
+        ghf8 = dict(ghf)
+        for r in range(8):
+            hc = cols_of(h_sparse[r])
+            in8 = bits_at(f8_words, hc)
+            for j, g in enumerate(g_words):
+                n = int((in8 & bits_at(g, hc)).sum())
+                if n:
+                    ghf8[(CLUSTER_AE_ROW, j, r)] = n
+        want_after["GroupBy(Rows(f), Rows(g), Rows(h))"] = [group_json(("f", "g", "h"), ghf8)]
+        # the new row's own Count, filtered TopN and attributes
+        want_after[f"Count(Row(f={CLUSTER_AE_ROW}))"] = [n8]
+        t8 = [pc(w & f8_words) for w in f_words] + [n8]
+        want_after[f"TopN(f, Row(f={CLUSTER_AE_ROW}), n=5)"] = [[{"id": r, "count": c} for r, c in
+                                                                 sorted(((r, c) for r, c in enumerate(t8) if c), key=lambda kv: (-kv[1], kv[0]))[:5]]]
+        want_after[f"Row(f={CLUSTER_AE_ROW})"] = [{"attrs": CLUSTER_AE_ROW_ATTRS, "columns": f8_cols.tolist()}]
+        info["restarted_s"] = ask_all([nodes[2], nodes[0]], "repaired", want_after)
+        for n in (nodes[2], nodes[0]):
+            out = _Http(n.uri).json("POST", "/index/c/query", {"query": f"Row(f={CLUSTER_AE_ROW})", "columnAttrs": True})
+            check(out.get("columnAttrs") == [{"id": down["attr_col"], "attrs": CLUSTER_AE_COL_ATTRS}],
+                  f"cluster repaired {n.nid}: column attributes {out.get('columnAttrs')}")
+        print(f"cluster repaired: the column attributes written with n2 down read back through n2 and n0")
         http0.close()
     finally:
         rcs = [n.stop() for n in nodes]
@@ -5466,6 +5723,10 @@ def main() -> int:
         f"{cluster['ingest']['roaring_mib_per_s']:.2f} MiB/s of roaring through n0; served p50 at n0 "
         f"{min(cluster['query_p50_ms'].values()):.3f}-{max(cluster['query_p50_ms'].values()):.3f} ms; DEGRADED "
         f"{cluster['degraded_after_s']:.2f} s after kill -9, NORMAL {cluster['normal_after_s']:.2f} s after the restart; "
+        f"anti-entropy passes (s, repairing / clean) "
+        + ", ".join(f"{p['node']} {p['pass']['seconds']:.2f} / {c['pass']['seconds']:.2f}"
+                    for p, c in zip(cluster["anti_entropy"]["passes"], cluster["anti_entropy"]["clean"]))
+        + f", blocks merged {cluster['anti_entropy']['repairing_totals']['blocks']}; "
         f"phase {cluster['phase_s']:.1f} s"
     )
     print("phases (s): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))

@@ -16,13 +16,15 @@ knobs are honoured too: `--max-concurrent-queries`, `--admission-*`,
 (`id@uri` entries: they seed the membership on the first boot, after
 which the data dir's `.topology` wins and the flags only heal peer
 URIs), `--replicas`, `--coordinator`, `--probe-interval`, the retry and
-breaker knobs and `--query-deadline`. Every knob whose feature the port
-lacks (`--join` and the resize knobs, TLS, `--shed-retry-after`, tiered
+breaker knobs and `--query-deadline`, and `--anti-entropy-interval`
+(seconds between anti-entropy passes; the default 0 runs one only on
+`POST /internal/sync`). Every knob whose feature the port lacks
+(`--join` and the resize knobs, TLS, `--shed-retry-after`, tiered
 storage, mesh groups, coherence, tracing, metrics) must stay at its
-default: a run that sets one exits non-zero naming it. `import` and `export` talk to a server over
-HTTP; `inspect` opens a data dir and `check` reads its files offline;
-`config` and `generate-config` print TOML. Each prints what the
-reference's does.
+default: a run that sets one exits non-zero naming it. `import` and
+`export` talk to a server over HTTP; `inspect` opens a data dir and
+`check` reads its files offline; `config` and `generate-config` print
+TOML. Each prints what the reference's does.
 """
 
 from __future__ import annotations
@@ -144,6 +146,7 @@ _PORTED_KNOBS = {
     ("cluster", "breaker_threshold"),
     ("cluster", "breaker_cooldown"),
     ("cluster", "query_deadline"),
+    ("anti_entropy", "interval"),
 }
 
 # flags taking a list (the reference's nargs="*" flags)
@@ -313,6 +316,7 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None, w
             hbm_prefetch_depth=cfg.hbm.prefetch_depth,
             cache_result_mb=cfg.cache.result_mb,
             cache_count_repair=cfg.cache.count_repair,
+            anti_entropy_interval=cfg.anti_entropy.interval,
             logger=logger,
         )
     except RuntimeError as e:  # no CUDA device and no --device cpu

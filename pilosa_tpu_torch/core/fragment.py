@@ -42,6 +42,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.core import blocks
 from pilosa_tpu_torch.core import cache as cachemod
 from pilosa_tpu_torch.core import merge as merge_mod
 from pilosa_tpu_torch.core import rowstore
@@ -503,14 +504,17 @@ class Fragment:
         with self._mu:
             return self.dcache.get_or_build((self._stack_token, ids), build)
 
-    def pairs(self) -> Tuple[np.ndarray, np.ndarray]:
-        """Bits as (row_ids, in-shard cols) uint64 arrays, row-major sorted
-        (the exports read these)."""
+    def pairs(self, row_lo: Optional[int] = None, row_hi: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Bits as (row_ids, in-shard cols) uint64 arrays, row-major sorted,
+        optionally only the rows in [row_lo, row_hi) (the exports and
+        anti-entropy read these)."""
         with self._mu, self._rows.bulk():
             self._sync_locked()
             rows_out = []
             cols_out = []
             for row_id in sorted(self._rows):
+                if (row_lo is not None and row_id < row_lo) or (row_hi is not None and row_id >= row_hi):
+                    continue
                 pos = self._rows.peek(row_id).to_positions()
                 if len(pos):
                     rows_out.append(np.full(len(pos), row_id, dtype=np.uint64))
@@ -518,6 +522,32 @@ class Fragment:
             if not rows_out:
                 return np.empty(0, np.uint64), np.empty(0, np.uint64)
             return np.concatenate(rows_out), np.concatenate(cols_out)
+
+    # -- anti-entropy (the reference's fragment.go:1762-1874 Blocks) --------
+
+    def block_checksums(self) -> Dict[int, bytes]:
+        """Per-100-row-block digests of the host row store, for comparing
+        replicas (core/blocks.py)."""
+        return blocks.block_checksums(self.pairs())
+
+    def block_pairs(self, block_id: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(rows, cols) of the bits in one checksum block."""
+        return self.pairs(block_id * blocks.HASH_BLOCK_SIZE, (block_id + 1) * blocks.HASH_BLOCK_SIZE)
+
+    def apply_deltas(
+        self, sets: Tuple[np.ndarray, np.ndarray], clears: Tuple[np.ndarray, np.ndarray]
+    ) -> Tuple[int, int]:
+        """Apply an anti-entropy merge's (rows, cols) set and clear deltas
+        as one exact write (WAL, row store, device invalidation); returns
+        (bits set, bits cleared)."""
+
+        def positions(rows_cols):
+            rows, cols = rows_cols
+            if not len(rows):
+                return None
+            return np.asarray(rows, np.uint64) * np.uint64(SHARD_WIDTH) + np.asarray(cols, np.uint64)
+
+        return self.import_positions(positions(sets), positions(clears))
 
     def row_count(self, row_id: int) -> int:
         with self._mu:

@@ -67,6 +67,8 @@ class RowBits:
                 self.dense = None
 
     def _to_dense(self) -> np.ndarray:
+        if not len(self.positions):  # a new row: no bool pass to pack
+            return np.zeros(self.n_words, dtype=np.uint32)
         bits = np.zeros(self.n_bits, dtype=bool)
         bits[self.positions] = True
         return np.packbits(bits, bitorder="little").view(np.uint32)

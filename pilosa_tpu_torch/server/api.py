@@ -20,7 +20,8 @@ owner (the local share applies at once, each peer gets one frame of
 every shard it owns, over the node's import pool) and forwards with
 `remote=1`, and a shard an import or a Set created is announced to every
 node. A missing replica is not an error while another owner took the
-write: it is pending-repair debt, counted in /status. While the cluster
+write: it is pending-repair debt, counted in /status and repaid by
+anti-entropy (server/node.py `sync_holder`). While the cluster
 is DEGRADED every method stays open except the schema deletes, which a
 down node could never learn of (DisabledError, HTTP 503). Tracing and
 statistics come in later slices; a request that needs one of them (the
@@ -412,6 +413,13 @@ class API:
             shard, errs = failed[0]
             raise ApiError(f"{kind} shard {shard}: no owner reachable: {errs}")
         return summary
+
+    def apply_block_deltas(self, index: str, field: str, view: str, shard: int, sets, clears) -> None:
+        """An anti-entropy merge's set and clear deltas, each (rows, cols),
+        applied to this node's fragment (made if missing)."""
+        _, f = self._index_field(index, field)
+        _validate_view_name(view)
+        f._view_create(view).fragment(shard).apply_deltas(sets, clears)
 
     def import_roaring(
         self,

@@ -3,9 +3,10 @@
 The port of pilosa_tpu/server/client.py for the cluster's read and write
 plane: remote query legs, schema pushes, fragment-version reads for the
 result cache, status probes, cluster messages, the replica imports
-(bits, values, roaring), availability reads and key-translation
-replication. stdlib urllib only, JSON control bodies and binary array
-frames (server/wire.py) for bulk imports. Every method raises
+(bits, values, roaring), availability reads, key-translation
+replication and anti-entropy (block digests, block data and deltas,
+attribute blocks, a pass on a peer). stdlib urllib only, JSON control
+bodies and binary array frames (server/wire.py) for bulk data. Every method raises
 ClientError on a transport or remote failure so the executor's failover
 can re-map shards.
 
@@ -15,9 +16,9 @@ retryable failures (connection refused, timeouts, 5xx, 408, 429) back
 off and retry within it; and a per-peer circuit breaker fails a request
 to a known-dead node at once instead of spending the budget. Every verb
 here is idempotent (set/clear semantics, reads, status messages), so
-retrying a request whose response was lost is safe. The resize, block
-sync, tier and coherence calls come with their slices; no tracing
-headers are sent and TLS is not ported.
+retrying a request whose response was lost is safe. The resize, tier
+and coherence calls come with their slices; no tracing headers are sent
+and TLS is not ported.
 """
 
 from __future__ import annotations
@@ -366,6 +367,70 @@ class InternalClient:
             "POST", uri, f"/index/{index}/field/{field}/import-roaring/{shard}?" + "&".join(params), data
         )
         return int((resp or {}).get("changed", 0))
+
+    # -- anti-entropy (the reference's http/client.go:842-933 and holder.go:975-1019) --
+
+    def fragment_blocks(self, uri: str, index: str, field: str, view: str, shard: int) -> Dict[int, str]:
+        """A peer's block digests of one fragment, {block id: hex}."""
+        resp = self._json(
+            "GET",
+            uri,
+            "/internal/fragment/blocks",
+            query={"index": index, "field": field, "view": view, "shard": shard},
+        )
+        return {int(k): v for k, v in resp.get("blocks", {}).items()}
+
+    def block_data(
+        self, uri: str, index: str, field: str, view: str, shard: int, block: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """A peer's (rows, cols) of one block, as binary array frames."""
+        data = self._do(
+            "GET",
+            uri,
+            "/internal/fragment/block/data",
+            query={"index": index, "field": field, "view": view, "shard": shard, "block": block},
+            headers_fn=lambda _remaining: {"Accept": wire.ARRAYS_CTYPE},
+        )
+        rows, cols = wire.decode_arrays(data, 2)
+        return rows, cols
+
+    def send_block_deltas(
+        self,
+        uri: str,
+        index: str,
+        field: str,
+        view: str,
+        shard: int,
+        sets: Tuple[np.ndarray, np.ndarray],
+        clears: Tuple[np.ndarray, np.ndarray],
+    ) -> None:
+        """Ship a peer its set and clear deltas of one merged block."""
+        self._do(
+            "POST",
+            uri,
+            "/internal/fragment/block/deltas",
+            wire.encode_arrays(sets[0], sets[1], clears[0], clears[1]),
+            query={"index": index, "field": field, "view": view, "shard": shard},
+            content_type=wire.ARRAYS_CTYPE,
+        )
+
+    def attr_blocks(self, uri: str, index: str, field: Optional[str]) -> list:
+        """A peer's attribute-store block checksums: a field's row
+        attributes, or the index's column attributes with no field."""
+        q = {"field": field} if field else None
+        return self._json("GET", uri, f"/internal/index/{index}/attrs/blocks", query=q)["blocks"]
+
+    def attr_block_data(self, uri: str, index: str, field: Optional[str], block_id: int) -> dict:
+        q = {"field": field} if field else None
+        return self._json("GET", uri, f"/internal/index/{index}/attrs/block/{block_id}", query=q)["attrs"]
+
+    def trigger_sync(self, uri: str, timeout: float = 300.0) -> dict:
+        """Ask a peer to run one anti-entropy pass now (POST
+        /internal/sync): {"synced": n, "ran": bool, "reached": [[index,
+        shard, node id], ...]}, `reached` the replica reconciliations the
+        pass confirmed. A whole pass over a large holder is slow, hence
+        the long timeout."""
+        return self._json("POST", uri, "/internal/sync", timeout=timeout) or {}
 
     # -- availability and key replication ----------------------------------------
 

@@ -10,7 +10,7 @@ Retry-After; DisabledError -> 503; ExecError, ApiError, ParseError,
 ValueError and KeyError -> 400; anything else -> 500 with the traceback
 logged). A remote leg's execution error answers 200 with {"error"}, as
 the reference's does: the peer ran the request, so the coordinator must
-not fail it over. The resize, sync, metrics, debug, tier and coherence
+not fail it over. The resize, metrics, debug, tier and coherence
 routes come with the slices that port those planes; until then they
 answer 404 as any unknown route does.
 
@@ -448,10 +448,97 @@ class Handler(BaseHTTPRequestHandler):
     @route("GET", "/internal/index/(?P<index>[^/]+)/available-shards")
     def get_available_shards(self, index: str):
         """Per field, the shards this node knows of cluster-wide."""
+        idx = self._index_of(index)
+        self._reply({"fields": {f.name: sorted(f.available_shards()) for f in idx.fields(include_hidden=True)}})
+
+    # -- anti-entropy -------------------------------------------------------------
+
+    @route("GET", "/internal/index/(?P<index>[^/]+)/attrs/blocks")
+    def get_attr_blocks(self, index: str):
+        """Attribute-store block checksums: ?field= a field's row
+        attributes, none the index's column attributes."""
+        self._reply({"blocks": self._attr_store(index, self.query.get("field")).blocks()})
+
+    @route("GET", "/internal/index/(?P<index>[^/]+)/attrs/block/(?P<block>[0-9]+)")
+    def get_attr_block_data(self, index: str, block: str):
+        store = self._attr_store(index, self.query.get("field"))
+        self._reply({"attrs": {str(k): v for k, v in store.block_data(int(block)).items()}})
+
+    def _attr_store(self, index: str, field: Optional[str]):
+        if not field:
+            return self._index_of(index).column_attr_store
+        return self._field_of(index, field).row_attr_store
+
+    @route("POST", "/internal/sync")
+    def post_internal_sync(self):
+        """One anti-entropy pass now. `ran` is false when a pass was
+        already running; `reached` lists the (index, shard, node)
+        reconciliations the pass confirmed."""
+        res = self.node.try_sync_holder()
+        if res is None:
+            self._reply({"synced": 0, "ran": False})
+            return
+        synced, reached = res
+        self._reply({"synced": synced, "ran": True, "reached": [[i, s, d] for i, s, d in sorted(reached)]})
+
+    def _index_of(self, index: str):
         idx = self.node.holder.index(index)
         if idx is None:
             raise NotFoundError(f"index not found: {index}")
-        self._reply({"fields": {f.name: sorted(f.available_shards()) for f in idx.fields(include_hidden=True)}})
+        return idx
+
+    def _field_of(self, index: str, field: str):
+        f = self._index_of(index).field(field)
+        if f is None:
+            raise NotFoundError(f"field not found: {field}")
+        return f
+
+    def _fragment(self):
+        """The fragment ?index= &field= &view= &shard= names, or None where
+        the view or the fragment does not exist."""
+        f = self._field_of(self._str_param("index"), self._str_param("field"))
+        v = f.views.get(self.query.get("view", "standard"))
+        if v is None:
+            return None
+        return v.fragment_if_exists(self._int_param("shard"))
+
+    @route("GET", "/internal/fragment/blocks")
+    def get_fragment_blocks(self):
+        frag = self._fragment()
+        sums = frag.block_checksums() if frag is not None else {}
+        self._reply({"blocks": {str(k): v.hex() for k, v in sums.items()}})
+
+    @route("GET", "/internal/fragment/block/data")
+    def get_block_data(self):
+        """One block's (rows, cols): binary array frames when the client
+        accepts them, else JSON."""
+        block = self._int_param("block")  # checked even for a missing fragment
+        frag = self._fragment()
+        if frag is None:
+            rows = cols = np.zeros(0, np.uint64)
+        else:
+            rows, cols = frag.block_pairs(block)
+        if wire.ARRAYS_CTYPE in (self.headers.get("Accept") or ""):
+            self._reply(None, raw=wire.encode_arrays(rows, cols), content_type=wire.ARRAYS_CTYPE)
+        else:
+            self._reply({"rows": rows.tolist(), "cols": cols.tolist()})
+
+    @route("POST", "/internal/fragment/block/deltas")
+    def post_block_deltas(self):
+        """Apply a merged block's set and clear deltas to one fragment
+        (made if missing): binary frames (sets rows, cols, clears rows,
+        cols; the fragment in the query) or JSON."""
+        ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip()
+        if ctype == wire.ARRAYS_CTYPE:
+            d = dict(self.query)
+            sr, sc, cr, cc = wire.decode_arrays(self._body(), 4)
+            sets, clears = (sr, sc), (cr, cc)
+        else:
+            d = self._json_body()
+            sets = (np.array(d["sets"]["rows"], np.uint64), np.array(d["sets"]["cols"], np.uint64))
+            clears = (np.array(d["clears"]["rows"], np.uint64), np.array(d["clears"]["cols"], np.uint64))
+        self.api.apply_block_deltas(d["index"], d["field"], d.get("view", "standard"), int(d["shard"]), sets, clears)
+        self._reply({})
 
     @route("POST", "/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import")
     def post_internal_import(self, index: str, field: str):
@@ -482,15 +569,7 @@ class Handler(BaseHTTPRequestHandler):
         self._reply({})
 
     def _translate_store(self, index: str, field: Optional[str]):
-        idx = self.node.holder.index(index)
-        if idx is None:
-            raise NotFoundError(f"index not found: {index}")
-        store = idx.translate_store
-        if field:
-            f = idx.field(field)
-            if f is None:
-                raise NotFoundError(f"field not found: {field}")
-            store = f.translate_store
+        store = self._field_of(index, field).translate_store if field else self._index_of(index).translate_store
         if store is None:
             raise NotFoundError(f"no key store: {index}" + (f"/{field}" if field else ""))
         return store

@@ -1,9 +1,9 @@
 """NodeServer: one node of the port, serving its holder over HTTP.
 
-The port of pilosa_tpu/server/node.py without resize, anti-entropy,
-tiering, coherence, tracing and telemetry: a holder on the card (or on
-the CPU when the caller passes device="cpu"), the distributed executor,
-the API and an HTTP listener on a daemon thread.
+The port of pilosa_tpu/server/node.py without resize, tiering,
+coherence, tracing and telemetry: a holder on the card (or on the CPU
+when the caller passes device="cpu"), the distributed executor, the API,
+anti-entropy and an HTTP listener on a daemon thread.
 
 A node starts as its own coordinator in a one-member cluster in state
 NORMAL; `set_topology` installs a membership (the CLI's --cluster-hosts,
@@ -18,7 +18,19 @@ keys to it and catch up from its log (`wire_translation`). With
 `probe_interval` > 0 the coordinator probes every peer's /status on a
 ticker, marks the silent ones DOWN (NORMAL -> DEGRADED, or DOWN when
 replicaN nodes are gone), broadcasts the new state, and pushes the whole
-schema to a node that comes back. With a data
+schema to a node that comes back.
+
+Anti-entropy (`sync_holder`, `POST /internal/sync`, or a pass every
+`anti_entropy_interval` seconds when it is above 0) repairs replicas that
+missed writes: the primary of each shard compares per-block digests of
+each fragment with its live replicas' and merges each differing block
+by majority vote (at replica 2 the union), writing the deltas through
+the fragments' ordinary write path; the pending-repair ledger loses an
+entry only when every fragment of its shard reached its replica, and
+debt on a shard this node holds no copy of is nudged to the shard's
+primary. Peers' availability and the attribute stores are pulled too.
+The digests read the host row stores, so a pass stages nothing on the
+device; each pass logs one line of what it did. With a data
 directory the holder is durable: it opens what the directory holds, logs
 every acknowledged write to the WAL (group commit at `wal_sync_interval`,
 0 = each write fsynced before it is acknowledged) and writes its rank
@@ -55,6 +67,7 @@ import uuid
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence
 
+from pilosa_tpu_torch.cluster import antientropy
 from pilosa_tpu_torch.cluster.topology import (
     NODE_STATE_DOWN,
     NODE_STATE_READY,
@@ -79,6 +92,9 @@ from pilosa_tpu_torch.server.client import ClientError, InternalClient
 
 CACHE_FLUSH_INTERVAL = 60.0  # s between rank-cache sidecar writes (the reference's default)
 IMPORT_CONCURRENCY = 8  # replica-import RPCs in flight per node (the reference's default)
+# what a fragment sync counts: blocks merged, bits written here, bits
+# shipped to replicas (a pass logs their sums)
+AE_COUNTS = ("blocks", "bits_applied", "bits_sent")
 
 
 class NodeServer:
@@ -115,6 +131,7 @@ class NodeServer:
         hbm_prefetch_depth: int = 0,  # warm queue bound; 0 turns the prefetcher off
         cache_result_mb: int = 64,  # result-cache budget, MB; 0 turns it off
         cache_count_repair: bool = True,  # Count repair on staged bursts
+        anti_entropy_interval: float = 0.0,  # s between anti-entropy passes; 0 = on demand only
         logger: Optional[Callable[[str], None]] = None,
     ):
         self.data_dir = os.path.expanduser(data_dir) if data_dir else None
@@ -195,6 +212,18 @@ class NodeServer:
         self._closing = threading.Event()
         self._cache_thread: Optional[threading.Thread] = None
         self._probe_thread: Optional[threading.Thread] = None
+        self.anti_entropy_interval = float(anti_entropy_interval)
+        self._ae_thread: Optional[threading.Thread] = None
+        # fragment versions as of their last sync: a pass takes the
+        # fragments mutated since first
+        self._ae_versions: Dict[tuple, int] = {}
+        # single-flight passes: the ticker, POST /internal/sync and a
+        # peer's debt nudge never stack (which also ends A-nudges-B-nudges-A)
+        self._sync_once = threading.Lock()
+        # the nudge runs outside _sync_once, so it has its own guard
+        self._nudge_once = threading.Lock()
+        # what the last finished pass did (also logged as one line)
+        self.ae_last: Optional[dict] = None
 
     # -- durable identity and membership -----------------------------------------
 
@@ -317,6 +346,11 @@ class NodeServer:
         if self.probe_interval > 0:
             self._probe_thread = threading.Thread(target=self._probe_loop, name=f"probe-{self.node.id}", daemon=True)
             self._probe_thread.start()
+        if self.anti_entropy_interval > 0:
+            self._ae_thread = threading.Thread(
+                target=self._anti_entropy_loop, name=f"anti-entropy-{self.node.id}", daemon=True
+            )
+            self._ae_thread.start()
         return self
 
     @property
@@ -356,6 +390,9 @@ class NodeServer:
         if self._probe_thread is not None:
             self._probe_thread.join()
             self._probe_thread = None
+        if self._ae_thread is not None:
+            self._ae_thread.join()
+            self._ae_thread = None
         with self._import_pool_mu:
             pool, self._import_pool = self._import_pool, None
         if pool is not None:
@@ -588,3 +625,314 @@ class NodeServer:
             if require and failed:
                 raise ClientError(f"cluster-status {state} not acknowledged by: {failed}")
             return failed
+
+    # -- anti-entropy (the reference's holder.go:911 SyncHolder) ----------------------
+
+    def _anti_entropy_loop(self) -> None:
+        while not self._closing.wait(self.anti_entropy_interval):
+            try:
+                # the non-waiting form: a tick must not stall behind the
+                # passes its debt nudge starts on peers
+                self.try_sync_holder()
+            except Exception as e:  # noqa: BLE001 - keep the ticker alive
+                self.logger(f"anti-entropy ticker error: {e!r}\n{traceback.format_exc()}")
+
+    def sync_holder(self) -> int:
+        """One whole anti-entropy pass, waiting for its debt nudge: every
+        fragment whose shard this node primary-owns (or owes repair debt
+        on) is reconciled with its live replicas by block digests and the
+        majority-vote merge. Returns how many fragments needed repair; 0
+        when another pass was running (single-flight)."""
+        res = self.try_sync_holder(wait_nudge=True)
+        return 0 if res is None else res[0]
+
+    def try_sync_holder(self, wait_nudge: bool = False):
+        """One pass, or None when another pass is running. Returns
+        (fragments repaired, reached): `reached` holds the confirmed
+        (index, shard, node id) reconciliations, returned rather than kept
+        so that a pass starting next cannot change it before the caller
+        replies. Debt left on shards this node does not own is nudged to
+        their primaries on a thread of its own, which `wait_nudge` joins
+        (POST /internal/sync replies as soon as the local pass is done:
+        mutual debt would otherwise chain blocking passes across nodes)."""
+        if not self._sync_once.acquire(blocking=False):
+            return None
+        try:
+            res = self._sync_holder_pass()
+        finally:
+            self._sync_once.release()
+        if self.holder.pending_repair_count() == 0:
+            return res
+        t = threading.Thread(target=self._nudge_debt_primaries, name=f"nudge-{self.node.id}", daemon=True)
+        t.start()
+        if wait_nudge:
+            t.join()
+        return res
+
+    def _sync_holder_pass(self):
+        """Returns (fragments repaired, confirmed reached triples) and
+        leaves what the pass did in `ae_last` and the log."""
+        t0 = time.perf_counter()
+        restage0 = residency.stats_snapshot()["restage_bytes"]
+        repaired, reached, tally = self._sync_holder_work()
+        self.ae_last = dict(
+            seconds=time.perf_counter() - t0,
+            synced=repaired,
+            reached=len(reached),
+            restage_bytes_before=restage0,
+            restage_bytes_after=residency.stats_snapshot()["restage_bytes"],
+            pending_repairs=self.holder.pending_repair_count(),
+            **tally,
+        )
+        self.logger(f"anti-entropy pass {json.dumps(self.ae_last)}")
+        return repaired, reached
+
+    def _sync_holder_work(self):
+        """(fragments repaired, reached triples, the fragment syncs' sums
+        of AE_COUNTS)."""
+        tally = dict.fromkeys(("fragments",) + AE_COUNTS, 0)
+        if len(self.cluster.nodes) <= 1:
+            return 0, set(), tally
+        # first every peer's availability: a node that missed shard
+        # announcements while it was down learns which shards exist (this
+        # is about fan-out, so it runs at replica_n 1 too)
+        peers = [n for n in self.cluster.nodes if n.id != self.node.id and n.state != NODE_STATE_DOWN]
+
+        def merge_avail(args) -> None:
+            idx, peer = args
+            try:
+                for fname, shards in self.client.available_shards(peer.uri, idx.name).items():
+                    f = idx.field(fname)
+                    if f is not None:
+                        f.add_remote_available(shards)
+            except ClientError:
+                pass
+
+        tasks = [(idx, p) for idx in self.holder.indexes() for p in peers]
+        if tasks:
+            with ThreadPoolExecutor(max_workers=min(8, len(tasks))) as pool:
+                list(pool.map(merge_avail, tasks))
+        # attributes live on every node (not sharded): their repair runs
+        # at replica_n 1 too
+        self._sync_attrs(peers)
+        if self.cluster.replica_n <= 1:
+            return 0, set(), tally
+        sync_tasks = self._ae_tasks()
+        if not sync_tasks:
+            return 0, set(), tally
+
+        def run_sync(t):
+            idx, f, vname, shard, replicas = t
+            attempted = [n.id for n in replicas]
+            try:
+                repaired, reached, counts = self._sync_fragment(idx, f, vname, shard, replicas)
+            except Exception as e:  # noqa: BLE001 - one bad fragment must not end the pass
+                self.logger(f"anti-entropy {idx.name}/{f.name}/{vname}/{shard}: {e!r}")
+                return False, (idx.name, shard, attempted, []), {}
+            frag = f.views[vname].fragment_if_exists(shard)
+            if frag is not None:
+                self._ae_versions[(idx.name, f.name, vname, shard)] = frag.version
+            return repaired, (idx.name, shard, attempted, reached), counts
+
+        with ThreadPoolExecutor(max_workers=min(8, len(sync_tasks))) as pool:
+            results = list(pool.map(run_sync, sync_tasks))
+        tally["fragments"] = len(results)
+        for k in AE_COUNTS:
+            tally[k] = sum(counts.get(k, 0) for _, _, counts in results)
+        # (index, shard, replica) is confirmed only when EVERY fragment task
+        # of the shard (each field and view syncs on its own) reached the
+        # replica: one failed fragment leaves the shard's debt unpaid
+        confirmed: Dict[tuple, bool] = {}
+        shard_all_ok: Dict[tuple, bool] = {}
+        for _, (iname, shard, attempted, reached), _ in results:
+            for nid in attempted:
+                key = (iname, shard, nid)
+                confirmed[key] = confirmed.get(key, True) and nid in reached
+            ok = all(nid in reached for nid in attempted)
+            shard_all_ok[(iname, shard)] = shard_all_ok.get((iname, shard), True) and ok
+        reached_triples = {k for k, ok in confirmed.items() if ok}
+        # a shard whose every fragment reached every attempted replica left
+        # this node's own copy merged with them all: it counts as reached
+        # for this node too, so a peer whose debtor is this node (a primary
+        # never lists itself among its replicas) can resolve its entry
+        for (iname, shard), ok in shard_all_ok.items():
+            if ok:
+                reached_triples.add((iname, shard, self.node.id))
+        for iname, shard, nid in reached_triples:
+            self.holder.discard_pending_repair(iname, shard, nid)
+        return sum(1 for r, _, _ in results if r), reached_triples, tally
+
+    def _nudge_debt_primaries(self) -> None:
+        """Debt on shards this node holds no copy of cannot be repaired
+        here: ask each such shard's primary for a pass now. An entry goes
+        only when the primary's reply lists exactly that (index, shard,
+        debtor) in `reached`; a pass that could not reach the debtor keeps
+        the debt visible. Single-flight, so mutual debt cannot recurse."""
+        if not self._nudge_once.acquire(blocking=False):
+            return
+        try:
+            foreign: Dict[str, set] = {}
+            for iname, shard, debtor in self.holder.pending_repairs():
+                owners = self.cluster.shard_nodes(iname, shard)
+                if not owners or any(n.id == self.node.id for n in owners):
+                    continue  # this node's own debt-driven task covers it
+                if owners[0].state != NODE_STATE_DOWN:
+                    foreign.setdefault(owners[0].id, set()).add((iname, shard, debtor))
+            for nid, entries in foreign.items():
+                n = self.cluster.node_by_id(nid)
+                if n is None:
+                    continue
+                try:
+                    resp = self.client.trigger_sync(n.uri)
+                except ClientError as e:
+                    self.logger(f"debt sync nudge to {nid}: {e}")
+                    continue
+                if not resp.get("ran"):
+                    continue  # the primary was mid-pass: the next tick retries
+                reached = {(i, int(s), d) for i, s, d in resp.get("reached", [])}
+                for entry in entries & reached:
+                    self.holder.discard_pending_repair(*entry)
+        finally:
+            self._nudge_once.release()
+
+    def _ae_tasks(self) -> list:
+        """A pass's fragment syncs, (index, field, view name, shard, live
+        replicas), the fragments mutated since their last sync first (a
+        fixed order would starve fresh drift behind clean fragments under
+        sustained writes)."""
+        sync_tasks = []
+        for idx in self.holder.indexes():
+            for f in idx.fields(include_hidden=True):
+                for vname, v in list(f.views.items()):
+                    # shards known cluster-wide but absent here too: a
+                    # replica may hold a fragment its primary missed
+                    for shard in sorted(set(v.fragments) | set(f.remote_available_shards)):
+                        owners = self.cluster.shard_nodes(idx.name, shard)
+                        if not owners or owners[0].id != self.node.id:
+                            continue  # the primary drives the sync
+                        replicas = [n for n in owners[1:] if n.state != NODE_STATE_DOWN]
+                        if replicas:
+                            sync_tasks.append((idx, f, vname, shard, replicas))
+        # debt-driven tasks: a shard with a pending-repair entry is synced
+        # now where this node holds a copy, even as a replica (the primary
+        # may be the very node that missed the write)
+        pending: Dict[str, set] = {}
+        for iname, shard, _ in self.holder.pending_repairs():
+            pending.setdefault(iname, set()).add(shard)
+        seen = {(idx.name, f.name, vname, shard) for idx, f, vname, shard, _ in sync_tasks}
+        for idx in self.holder.indexes():
+            debt_shards = pending.get(idx.name)
+            if not debt_shards:
+                continue
+            for f in idx.fields(include_hidden=True):
+                for vname, v in list(f.views.items()):
+                    for shard in sorted(set(v.fragments) & debt_shards):
+                        if (idx.name, f.name, vname, shard) in seen:
+                            continue
+                        owners = self.cluster.shard_nodes(idx.name, shard)
+                        if not any(n.id == self.node.id for n in owners):
+                            continue  # not a copy of ours: the nudge covers it
+                        replicas = [n for n in owners if n.id != self.node.id and n.state != NODE_STATE_DOWN]
+                        if replicas:
+                            sync_tasks.append((idx, f, vname, shard, replicas))
+        # forget the versions of fragments no longer walked (a recreated
+        # index must not inherit a "clean" mark; the map must not grow)
+        live_keys = {(idx.name, f.name, vname, shard) for idx, f, vname, shard, _ in sync_tasks}
+        for key in list(self._ae_versions):
+            if key not in live_keys:
+                self._ae_versions.pop(key, None)  # a concurrent prune may have won
+
+        def changed_first(t) -> int:
+            idx, f, vname, shard, _ = t
+            frag = f.views[vname].fragment_if_exists(shard)
+            return 0 if frag is None or self._ae_versions.get((idx.name, f.name, vname, shard)) != frag.version else 1
+
+        sync_tasks.sort(key=changed_first)
+        return sync_tasks
+
+    def _sync_attrs(self, peers) -> None:
+        """Pull-merge the attribute stores from peers by block checksums
+        (the reference's holder.go:975-1019 syncIndex): the index's column
+        attributes and each field's row attributes. Pull-only and
+        add-only, as the reference's bulk merge: a delete a peer missed
+        may come back (deletes travel by the SetRowAttrs/SetColumnAttrs
+        broadcast, not here). The peers' block lists are fetched on one
+        pool; a local checksum is recomputed only for a merged block."""
+        if not peers:
+            return
+        stores = []
+        for idx in self.holder.indexes():
+            stores.append((idx.name, None, idx.column_attr_store))
+            for f in idx.fields():
+                stores.append((idx.name, f.name, f.row_attr_store))
+        if not stores:
+            return
+
+        def fetch(args):
+            iname, fname, peer = args
+            try:
+                return self.client.attr_blocks(peer.uri, iname, fname)
+            except ClientError:
+                return None
+
+        jobs = [(iname, fname, p) for iname, fname, _ in stores for p in peers]
+        with ThreadPoolExecutor(max_workers=min(16, len(jobs))) as pool:
+            remotes = list(pool.map(fetch, jobs))
+        by_store: Dict[tuple, list] = {}
+        for (iname, fname, peer), remote in zip(jobs, remotes):
+            by_store.setdefault((iname, fname), []).append((peer, remote))
+        for iname, fname, store in stores:
+            results = by_store.get((iname, fname), [])
+            if not any(r for _, r in results):
+                continue
+            local = {b["id"]: b["checksum"] for b in store.blocks()}
+            for peer, remote in results:
+                for b in remote or []:
+                    bid = int(b["id"])
+                    if local.get(bid) == b["checksum"]:
+                        continue
+                    try:
+                        data = self.client.attr_block_data(peer.uri, iname, fname, bid)
+                    except ClientError:
+                        continue
+                    if data:
+                        store.set_bulk_attrs({int(k): v for k, v in data.items()})
+                        local[bid] = store.block_checksum(bid)
+
+    def _sync_fragment(self, idx, f, view: str, shard: int, replicas):
+        """Reconcile one fragment with its live replicas. Returns
+        (repaired, ids of the replicas reached, {AE_COUNTS name: n}): only
+        a reached replica's debt may be resolved."""
+        frag = f.views[view].fragment(shard)  # made here if only replicas hold it
+        local_sums = frag.block_checksums()
+        peer_sums = []
+        live = []
+        for n in replicas:
+            try:
+                sums = self.client.fragment_blocks(n.uri, idx.name, f.name, view, shard)
+            except ClientError:
+                continue
+            peer_sums.append({k: bytes.fromhex(hx) for k, hx in sums.items()})
+            live.append(n)
+        if not live:
+            return False, [], {}
+        reached = [n.id for n in live]
+        diff: set = set()
+        for ps in peer_sums:
+            diff.update(antientropy.diff_blocks(local_sums, ps))
+        if not diff:
+            return False, reached, {}
+        counts = dict.fromkeys(AE_COUNTS, 0)
+        for bid in sorted(diff):
+            blocks = [frag.block_pairs(bid)]
+            for n in live:
+                blocks.append(self.client.block_data(n.uri, idx.name, f.name, view, shard, bid))
+            sets, clears = antientropy.merge_block(bid, blocks)
+            frag.apply_deltas(sets[0], clears[0])
+            counts["blocks"] += 1
+            counts["bits_applied"] += len(sets[0][0]) + len(clears[0][0])
+            for i, n in enumerate(live, start=1):
+                if len(sets[i][0]) or len(clears[i][0]):
+                    self.client.send_block_deltas(n.uri, idx.name, f.name, view, shard, sets[i], clears[i])
+                    counts["bits_sent"] += len(sets[i][0]) + len(clears[i][0])
+        return True, reached, counts

@@ -6,8 +6,9 @@ goes over TCP as between processes. Node i is `node{i}`, node0 the
 coordinator. The nodes share the process-wide settings (the [hbm],
 [bsi], [ingest] and [cache] knobs) and, on the card, one CUDA context.
 Extra keyword arguments go to every NodeServer (`device="cpu"` for the
-CPU path, or the retry, breaker and deadline knobs). TLS is not ported:
-`tls=` is refused by name.
+CPU path, or the retry, breaker and deadline knobs); with
+`anti_entropy_interval` > 0 every node runs an anti-entropy pass that
+often. TLS is not ported: `tls=` is refused by name.
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ what the reference's print and exit with the same codes. `import` and
 `export` talk HTTP to a port server on a data dir. The server honours
 `--hbm-extent-rows`, `--hbm-pin-timeout` and `--merge-device-threshold`
 (they reach hbm.residency and core.merge) and, since the query front end
-was ported, `--hbm-prefetch-depth`; it still refuses an unported knob
-beside them (`--shed-retry-after`) by name.
+was ported, `--hbm-prefetch-depth`, and `--anti-entropy-interval`
+(it reaches NodeServer); it still refuses each unported knob beside
+them by name.
 """
 
 import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
@@ -183,6 +184,7 @@ def test_server_knobs_reach_residency_and_merge(knobs, monkeypatch):
             super().__init__(*a, **kw)
 
         def start(self):
+            self.stop()  # puts back the process-wide result-cache budget
             raise Stop
 
     monkeypatch.setattr(tnode, "NodeServer", FakeNode)
@@ -238,3 +240,71 @@ def test_server_subprocess_serves_with_the_knobs():
             p.kill()
             p.wait(timeout=30)
         p.stderr.close()
+
+
+def _unported_flags():
+    """(flag, a value away from its default) of every server knob whose
+    feature the port lacks."""
+    import importlib
+
+    # the module: the package's `main` attribute is the function
+    cli = importlib.import_module("pilosa_tpu_torch.cli.main")
+    defaults = cli.Config()
+    out = []
+    for dest, (section, knob) in cli._FLAG_KNOBS.items():
+        if (section, knob) in cli._PORTED_KNOBS:
+            continue
+        flag = "--" + dest.replace("_", "-")
+        default = cli._knob(defaults, section, knob)
+        if isinstance(default, bool):
+            out.append((flag, [flag] if not default else [flag, "false"]))
+        elif isinstance(default, (int, float)):
+            out.append((flag, [flag, str(default * 2 + 1)]))
+        elif isinstance(default, list):
+            out.append((flag, [flag, "x"]))
+        else:
+            out.append((flag, [flag, default + "x"]))
+    return out
+
+
+def test_server_takes_the_anti_entropy_interval(monkeypatch):
+    """`--anti-entropy-interval` is ported: it reaches NodeServer, whose
+    default (the reference's 0.0) runs a pass only on demand."""
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    class FakeNode(NodeServer):
+        def __init__(self, *a, **kw):
+            seen.update(kw)
+            super().__init__(*a, **kw)
+
+        def start(self):
+            self.stop()  # puts back the process-wide result-cache budget
+            raise Stop
+
+    monkeypatch.setattr(tnode, "NodeServer", FakeNode)
+    with pytest.raises(Stop):
+        tmain(["server", "--data-dir", "", "--device", "cpu", "--anti-entropy-interval", "2.5"])
+    assert seen["anti_entropy_interval"] == 2.5
+    seen.clear()
+    with pytest.raises(Stop):
+        tmain(["server", "--data-dir", "", "--device", "cpu"])
+    assert seen["anti_entropy_interval"] == 0.0
+    srv = NodeServer(None, "n", device="cpu")
+    try:
+        assert srv.anti_entropy_interval == 0.0
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("flag,argv", _unported_flags(), ids=[f for f, _ in _unported_flags()])
+def test_server_still_refuses_each_unported_knob(flag, argv):
+    """Beside the ported `--anti-entropy-interval`, every knob whose
+    feature is not ported is refused by its name, and only it."""
+    with pytest.raises(SystemExit) as ei:
+        tmain(["server", "--data-dir", "", "--device", "cpu", "--anti-entropy-interval", "0.5"] + argv)
+    msg = str(ei.value)
+    assert flag in msg and "not yet ported" in msg, msg
+    assert "--anti-entropy-interval" not in msg

@@ -776,8 +776,8 @@ def test_keys_and_unported_flags_are_400(node):
 
 @pytest.mark.parametrize(
     "method,path",
-    [("GET", "/metrics"), ("GET", "/debug/vars"), ("GET", "/internal/fragment/blocks"), ("POST", "/cluster/join"),
-     ("POST", "/internal/sync"), ("GET", "/cluster/health"), ("PUT", "/index/i"),
+    [("GET", "/metrics"), ("GET", "/debug/vars"), ("GET", "/internal/fragment/data"), ("POST", "/cluster/join"),
+     ("POST", "/internal/resize/catchup"), ("GET", "/cluster/health"), ("PUT", "/index/i"),
      ("GET", "/cluster/resize/job"), ("GET", "/internal/index/i/fragments")],
 )
 def test_unregistered_routes_are_404(node, method, path):
