@@ -246,8 +246,24 @@ Phases, each fatal on any mismatch or exception:
    a node repairs nothing and moves no node's restage_bytes; then every
    answer through n2 and n0 equal to numpy with the downtime writes,
    the new row's Count, filtered TopN, row and column attributes
-   included. Each node logs its kernel launches as it stops:
-   their sum must show every kernel of the cluster's queries. Then
+   included. Then the resize: a CLI node n3 starts with `--join <n0>`
+   while a writer imports a new row 9 of f (1000 bits a shard on every
+   shard) through n0 in batches (again while the job runs), retrying
+   503s and counting every acknowledged bit; the job is polled to DONE; every node reports 4
+   members and NORMAL and no pending repair; n3 answers
+   Count(Intersect(Row(f=0), Row(g=1))) (first pass and warm p50); every
+   query through n0-n3 equals numpy with the writer's bits (Count(Row(f=9))
+   the acknowledged count); the holder cleaner (the job's last phase) left
+   each node exactly the fragments the 4-node placement assigns it, and the
+   device-resident bytes fell on every node it took fragments from; a
+   pass on each node leaves pendingRepairs 0 (the job's moves owe their
+   new owners a repair, and so does a write a node missed while a probe
+   held it DOWN), and one more on n3 repairs nothing and moves no
+   restage_bytes. Then `POST /cluster/resize/remove-node` of n3
+   and the same checks on n0-n2 (the 3-node placement); n3 stops. Each
+   node logs its kernel launches as it stops: their sum must show every
+   kernel of the cluster's queries, and n3's the kernels its answers
+   ran. Then
    counts_cross at the cluster GroupBy's leg shapes (G = 11 x R = 8 over
    171 shards, 8 x 8 over 256) against its twin, timed, with its bound,
    and held to its twin at G = 12, 16 and 17 x R = 8 over 171.
@@ -5027,15 +5043,17 @@ class _Node:
     """One `python -m pilosa_tpu_torch.cli server` process of the cluster,
     its stderr drained into `lines` by a thread."""
 
-    def __init__(self, nid: str, data_dir: str, port: int, hosts: str, extra=()):
+    def __init__(self, nid: str, data_dir: str, port: int, hosts, extra=()):
+        """`hosts` None: no --cluster-hosts (a node that joins)."""
         import threading
 
         self.nid, self.data_dir, self.port, self.hosts, self.extra = nid, data_dir, port, hosts, list(extra)
         self.uri = f"http://127.0.0.1:{port}"
         self.lines = []
+        membership = [] if hosts is None else ["--cluster-hosts", hosts]
         self.p = subprocess.Popen(
             [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--data-dir", data_dir,
-             "--bind", f"127.0.0.1:{port}", "--node-id", nid, "--cluster-hosts", hosts, "--replicas", "2",
+             "--bind", f"127.0.0.1:{port}", "--node-id", nid] + membership + ["--replicas", "2",
              "--probe-interval", "0.5", "--max-writes-per-request", "0", "--cache-result-mb", "0"] + self.extra,
             stderr=subprocess.PIPE, text=True,
         )
@@ -5118,6 +5136,268 @@ def _roaring_shard(dense, sparse) -> bytes:
         offs.append(struct.pack("<I", off))
         off += len(c[3])
     return head + desc + b"".join(offs) + b"".join(c[3] for c in conts)
+
+
+# the resize: n3 joins under a writer of f row 9 (1001 bits a shard), then leaves
+CLUSTER_JOIN_ROW = CLUSTER_AE_ROW + 1
+CLUSTER_JOIN_BATCH_SHARDS = 16  # shards a writer request covers (16,000 bits)
+CLUSTER_JOIN_PACE = 0.05  # s between the writer's requests
+CLUSTER_N3_REPS = 9  # n3's warm runs of its p50 query
+CLUSTER_N3_QUERY = "Count(Intersect(Row(f=0), Row(g=1)))"
+# kernels n3's legs of the query set run (the BSI ones where it holds amount)
+RESIZE_N3_KERNELS = ("plan_count", "plan_count_multi", "plan_rows", "gather_tally", "counts_cross", "gather_and")
+BSI_N3_KERNELS = ("bsi_sum", "bsi_min_max_step", "bsi_range_step")
+
+
+def _cleaner_lines(n) -> list:
+    """The holder-cleaner lines a node logged, in order."""
+    return [json.loads(ln.split("holder cleaner ", 1)[1]) for ln in list(n.lines) if "holder cleaner {" in ln]
+
+
+def _job_of(http) -> dict:
+    return http.json("GET", "/cluster/resize/job")
+
+
+def _wait_job(http, label: str, timeout: float = 900.0) -> dict:
+    """Poll the coordinator's job record until it is no longer RUNNING."""
+    t = time.perf_counter()
+    while True:
+        job = _job_of(http)
+        if job["state"] not in ("RUNNING", "NONE"):
+            return job
+        check(time.perf_counter() - t < timeout, f"cluster {label}: the resize job still {job['state']} after {timeout} s")
+        time.sleep(0.1)
+
+
+def resize_steps(args, nodes, server_args, base_dir, S, want_with, row8, words_of, cols_of, ask_all, status_of) -> dict:
+    """Phase 7's resize: n3 joins the loaded cluster under a writer, the
+    cluster answers as one node over 4, the cleaner leaves each node its
+    own fragments; then n3 leaves and the same holds over 3. `nodes` is
+    n0-n2 (n0 the coordinator); returns what was measured, n3's launches
+    included."""
+    import os
+    import threading
+
+    from pilosa_tpu_torch.cluster.topology import Cluster, Node
+    from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+
+    t_phase = time.perf_counter()
+    out = {}
+    http0 = _Http(nodes[0].uri)
+    rng = np.random.default_rng([args.seed, 23])
+    # one bit a shard more than the sparse rows' 1000 draws: TopN's first
+    # pass takes each shard's top n from its rank cache, ties by lowest id,
+    # so a row tied with rows 4-7 in every shard would never be a candidate
+    f9 = [np.sort(rng.choice(SHARD_WIDTH, CLUSTER_SPARSE_BITS + 1, replace=False)).astype(np.uint64) for _ in range(S)]
+    row9 = (CLUSTER_JOIN_ROW, words_of(f9), cols_of(f9), {})
+    batches = [list(range(s0, min(S, s0 + CLUSTER_JOIN_BATCH_SHARDS))) for s0 in range(0, S, CLUSTER_JOIN_BATCH_SHARDS)]
+    w = {"acked_bits": 0, "acked": 0, "retries_503": 0, "during_job": 0, "replica_misses": 0, "failed": None}
+
+    def writer():
+        """Every batch once, then the batches again (the same bits) while
+        the job runs, so that some requests meet the cutover barrier."""
+        c = _Http(nodes[0].uri)
+        i = 0
+        try:
+            while i < len(batches) or job_running.is_set():
+                b = batches[i % len(batches)]
+                i += 1
+                cols = np.concatenate([f9[s] + np.uint64(s * SHARD_WIDTH) for s in b])
+                body = {"rows": [CLUSTER_JOIN_ROW] * len(cols), "cols": cols.tolist()}
+                t_end = time.perf_counter() + 300
+                while True:
+                    status, raw = c.raw("POST", "/index/c/field/f/import", body)
+                    if status == 200:
+                        break
+                    if status == 503 and time.perf_counter() < t_end:
+                        w["retries_503"] += 1
+                        time.sleep(0.1)
+                        continue
+                    w["failed"] = f"HTTP {status}: {raw[:300]!r}"
+                    return
+                res = json.loads(raw)
+                w["acked"] += 1
+                if i <= len(batches):
+                    w["acked_bits"] += len(cols)
+                w["replica_misses"] += len(res.get("errors", []))
+                if job_running.is_set():
+                    w["during_job"] += 1
+                time.sleep(CLUSTER_JOIN_PACE)
+        finally:
+            c.close()
+
+    def placement(ids):
+        return Cluster(nodes=[Node(id=i) for i in ids], replica_n=2)
+
+    def check_holdings(live, cl, label):
+        """Each live node holds exactly the fragments `cl` assigns it: every
+        shard of f, g, h and _exists, amount's on its 64 shards, ck's on 0."""
+        held = {}
+        for n in live:
+            c = _Http(n.uri)
+            try:
+                frags = c.json("GET", "/internal/index/c/fragments")["frags"]
+                frags_k = c.json("GET", "/internal/index/ck/fragments")["frags"]
+            finally:
+                c.close()
+            mine = {s for s in range(S) if any(o.id == n.nid for o in cl.shard_nodes("c", s))}
+            for fld, n_sh in (("f", S), ("g", S), ("h", S), ("_exists", S), ("amount", min(S, CLUSTER_VALUE_SHARDS))):
+                got = {sh for fl, _, sh in frags if fl == fld}
+                want_sh = {s for s in mine if s < n_sh}
+                check(got == want_sh, f"cluster {label}: {n.nid} holds {fld} on {len(got)} shards, the placement assigns "
+                      f"{len(want_sh)} (extra {sorted(got - want_sh)[:8]}, missing {sorted(want_sh - got)[:8]})")
+            owns_k0 = any(o.id == n.nid for o in cl.shard_nodes("ck", 0))
+            check({sh for _, _, sh in frags_k} == ({0} if owns_k0 else set()), f"cluster {label}: {n.nid}'s ck fragments {frags_k}")
+            held[n.nid] = len(frags) + len(frags_k)
+        return held
+
+    def check_cleaner(live, before_counts, label):
+        """The cleaner's line a node logged in this job: a node it took
+        fragments from holds fewer device-resident bytes after it."""
+        runs = {}
+        for n in live:
+            lines = _cleaner_lines(n)[before_counts.get(n.nid, 0):]
+            check(len(lines) == 1, f"cluster {label}: {n.nid} logged {len(lines)} holder-cleaner lines")
+            ln = lines[0]
+            if ln["removed"]:
+                check(ln["resident_bytes_after"] < ln["resident_bytes_before"],
+                      f"cluster {label}: {n.nid}'s cleaner removed {ln['removed']} fragments, resident bytes {ln}")
+            runs[n.nid] = ln
+        print(f"cluster {label}: holder cleaner per node (fragments removed, device-resident bytes before -> after): "
+              + ", ".join(f"{k} {v['removed']} ({v['resident_bytes_before']} -> {v['resident_bytes_after']})" for k, v in runs.items()))
+        return runs
+
+    def wait_settled(live, n_members, label):
+        t = time.perf_counter()
+        while True:
+            sts = {n.nid: status_of(n) for n in live}
+            if all(len(st["nodes"]) == n_members and st["state"] == "NORMAL" for st in sts.values()):
+                return time.perf_counter() - t
+            check(time.perf_counter() - t < 300, f"cluster {label}: not {n_members} NORMAL members: "
+                  + str({k: (len(v["nodes"]), v["state"]) for k, v in sts.items()}))
+            time.sleep(0.2)
+
+    def repay(live, label):
+        """A pass on each node in turn (waiting for its nudges), then a
+        clean pass on the last: it repairs nothing and moves no
+        restage_bytes, and no node owes a repair."""
+        debt = {n.nid: status_of(n)["pendingRepairs"] for n in live}
+        passes = []
+        for n in live:
+            c = _Http(n.uri)
+            try:
+                passes.append(_sync(n, c, label))
+            finally:
+                c.close()
+            t = time.perf_counter()
+            while status_of(n)["pendingRepairs"]:
+                check(time.perf_counter() - t < 120, f"cluster {label}: {n.nid}'s pendingRepairs 120 s after its pass: {status_of(n)}")
+                time.sleep(0.1)
+        c = _Http(live[-1].uri)
+        try:
+            clean = _sync(live[-1], c, label + " clean")
+        finally:
+            c.close()
+        line = clean["pass"]
+        check(clean["synced"] == 0 and line["blocks"] == 0 and line["restage_bytes_before"] == line["restage_bytes_after"],
+              f"cluster {label}: the clean pass on {live[-1].nid} repaired or re-staged: {line}")
+        pending = {n.nid: status_of(n)["pendingRepairs"] for n in live}
+        check(not any(pending.values()), f"cluster {label}: pendingRepairs {pending} after the passes")
+        print(f"cluster {label}: pendingRepairs {debt} before the passes, 0 after; the clean pass on {live[-1].nid} "
+              f"{line['seconds']:.2f} s, restage_bytes {line['restage_bytes_before']} -> {line['restage_bytes_after']}")
+        return {"debt_before": debt, "passes": [p["pass"] for p in passes], "clean": line}
+
+    def job_line(job, label):
+        st = job["stats"]
+        print(f"cluster {label}: job {job['state']} in {st['seconds']:.2f} s: {st['legs']} legs, {st['bytes_streamed']} bytes "
+              f"streamed, {st['catchup_rounds']} catch-up rounds, {st['delta_positions']} delta positions, "
+              f"{len(job['moved'])} (index, shard, node) moves")
+        return dict(st, moved=len(job["moved"]), state=job["state"])
+
+    try:
+        # every node stages what its legs read (the cleaner then frees it)
+        ask_all(nodes, "before the join", want_with([row8]))
+        cleaned0 = {n.nid: len(_cleaner_lines(n)) for n in nodes}
+        port3 = _free_ports(1)[0]
+        t0 = time.perf_counter()
+        n3 = _Node("n3", os.path.join(base_dir, "n3"), port3, None, list(server_args) + ["--join", nodes[0].uri])
+        job_running = threading.Event()
+        wt = threading.Thread(target=writer, name="join-writer")
+        try:
+            # the writer starts with the job
+            while _job_of(http0)["state"] == "NONE":
+                check(n3.p.poll() is None, f"n3 exited {n3.p.poll()}: {n3.lines[-10:]}")
+                check(time.perf_counter() - t0 < 300, "cluster join: n3 asked for no job in 300 s")
+                time.sleep(0.05)
+            job_running.set()
+            wt.start()
+            job = _wait_job(http0, "join")
+            job_running.clear()
+            wt.join(timeout=900)
+            check(not wt.is_alive(), "cluster join: the writer is still writing 900 s on")
+            check(w["failed"] is None, f"cluster join: the writer failed: {w['failed']}")
+            check(job["state"] == "DONE" and job["action"] == "add-node", f"cluster join: {job}")
+            n3.wait_listening()
+            join_s = time.perf_counter() - t0
+            out["join"] = job_line(job, "join")
+            out["join"]["wall_s"] = join_s
+            out["writer"] = dict(w, requests=len(batches))
+            n9 = len(row9[2])
+            check(w["acked_bits"] == n9, f"cluster join: the writer's acknowledged bits {w['acked_bits']} != its {n9} bits")
+            print(f"cluster join: n3 a member {join_s:.1f} s after its start; the writer's {len(batches)} imports of f row "
+                  f"{CLUSTER_JOIN_ROW} ({n9} bits) all acknowledged, {w['acked']} requests in all (the batches again "
+                  f"while the job ran), {w['during_job']} of them while the job ran, {w['retries_503']} 503s retried, "
+                  f"{w['replica_misses']} replica misses")
+            live = nodes + [n3]
+            out["join"]["settled_s"] = wait_settled(live, 4, "join")
+            # n3's first pass and warm p50 of one query
+            c3 = _Http(n3.uri)
+            try:
+                body = CLUSTER_N3_QUERY.encode()
+                first = _wall_ms(lambda: c3.raw("POST", "/index/c/query", body, "text/plain"))
+                warm = statistics.median(_wall_ms(lambda: c3.raw("POST", "/index/c/query", body, "text/plain"))
+                                         for _ in range(CLUSTER_N3_REPS))
+            finally:
+                c3.close()
+            out["n3_first_ms"], out["n3_warm_p50_ms"] = first, warm
+            print(f"cluster join: n3 served {CLUSTER_N3_QUERY} in {first:.3f} ms first, {warm:.3f} ms warm p50")
+            want_j = want_with([row8, row9])
+            out["joined_s"] = ask_all(live, "joined", want_j)
+            cl4 = placement(["n0", "n1", "n2", "n3"])
+            out["held_4"] = check_holdings(live, cl4, "join")
+            out["n3_holds_amount"] = any(s < min(S, CLUSTER_VALUE_SHARDS) for s in range(S)
+                                         if any(o.id == "n3" for o in cl4.shard_nodes("c", s)))
+            out["cleaner_join"] = check_cleaner(nodes, cleaned0, "join")
+            out["ae_after_join"] = repay(live, "joined")
+            # n3 leaves
+            cleaned1 = {n.nid: len(_cleaner_lines(n)) for n in nodes}
+            t0 = time.perf_counter()
+            http0.json("POST", "/cluster/resize/remove-node", {"id": "n3"})
+            job = _wait_job(http0, "remove")
+            check(job["state"] == "DONE" and job["action"] == "remove-node", f"cluster remove: {job}")
+            out["remove"] = job_line(job, "remove")
+            out["remove"]["wall_s"] = time.perf_counter() - t0
+            out["remove"]["settled_s"] = wait_settled(nodes, 3, "remove")
+            st3 = status_of(n3)
+            # the removed node learns the new membership, without itself
+            check([x["id"] for x in st3["nodes"]] == ["n0", "n1", "n2"] and st3["state"] == "NORMAL",
+                  f"cluster remove: n3 after it left: {st3}")
+            out["removed_s"] = ask_all(nodes, "removed", want_j)
+            out["held_3"] = check_holdings(nodes, placement(["n0", "n1", "n2"]), "remove")
+            out["cleaner_remove"] = check_cleaner(nodes, cleaned1, "remove")
+            out["ae_after_remove"] = repay(nodes, "removed")
+        finally:
+            job_running.clear()
+            if wt.is_alive():
+                wt.join(timeout=60)
+            rc3 = n3.stop()
+        check(rc3 == 0, f"n3 exited {rc3} on SIGTERM")
+        out["n3_launches"] = n3.launches()
+    finally:
+        http0.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"cluster resize: join and remove of n3 in {out['phase_s']:.1f} s")
+    return out
 
 
 def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = True) -> dict:
@@ -5422,60 +5702,72 @@ def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = 
         # the coordinator, whose legs go to it again, every answer equals
         # numpy with the downtime writes
         info["anti_entropy"] = anti_entropy_check(nodes, down, args.seed, S, status_of)
-        want_after = dict(want)
+        def top5(counts):
+            return [{"id": r, "count": c} for r, c in sorted(((r, c) for r, c in enumerate(counts) if c), key=lambda kv: (-kv[1], kv[0]))[:5]]
+
+        def want_with(extra):
+            """The answers with f's rows past 0-7: `extra` is [(row, words
+            [S, W], sorted columns, attrs)], rows 8, 9, ... in order."""
+            w = dict(want)
+            ext = exists.copy()
+            for _, wds, _, _ in extra:
+                ext |= wds
+            all_words = f_words + [wds for _, wds, _, _ in extra]
+            w["Count(Not(Row(f=0)))"] = [pc(ext & ~f_words[0])]
+            w["TopN(f, n=5)"] = [top5(f_counts + [len(cols) for _, _, cols, _ in extra])]
+            w["TopN(f, Row(g=0), n=5)"] = [top5(ic + [int(bits_at(g_words[0], cols).sum()) for _, _, cols, _ in extra])]
+            w["Rows(f)"] = [list(range(extra[-1][0] + 1))]
+            w["MaxRow(field=f)"] = [{"id": extra[-1][0], "count": 1}]
+            ghf_x = dict(ghf)
+            for r in range(8):
+                hc = cols_of(h_sparse[r])
+                for row, wds, _, _ in extra:
+                    in_row = bits_at(wds, hc)
+                    for j, g in enumerate(g_words):
+                        n = int((in_row & bits_at(g, hc)).sum())
+                        if n:
+                            ghf_x[(row, j, r)] = n
+            w["GroupBy(Rows(f), Rows(g), Rows(h))"] = [group_json(("f", "g", "h"), ghf_x)]
+            # each new row's own Count, filtered TopN and Row
+            for row, wds, cols, attrs in extra:
+                w[f"Count(Row(f={row}))"] = [len(cols)]
+                w[f"TopN(f, Row(f={row}), n=5)"] = [top5([pc(x & wds) for x in all_words])]
+                w[f"Row(f={row})"] = [{"attrs": attrs, "columns": cols.tolist()}]
+            return w
+
         f8 = [np.unique(np.concatenate([down["cols"].get(s, np.empty(0, np.uint64)),
                                       np.array([c % SHARD_WIDTH for c in down["set_cols"] if c // SHARD_WIDTH == s], np.uint64)]))
               for s in range(S)]
-        f8_words = words_of(f8)
-        f8_cols = cols_of(f8)
-        n8 = len(f8_cols)
-        ext = exists | f8_words
-        all_counts = f_counts + [n8]
-        want_after["Count(Not(Row(f=0)))"] = [pc(ext & ~f_words[0])]
-        want_after["TopN(f, n=5)"] = [[{"id": r, "count": c} for r, c in
-                                       sorted(((r, c) for r, c in enumerate(all_counts) if c), key=lambda kv: (-kv[1], kv[0]))[:5]]]
-        ic8 = ic + [int(bits_at(g_words[0], f8_cols).sum())]
-        want_after["TopN(f, Row(g=0), n=5)"] = [[{"id": r, "count": c} for r, c in
-                                                 sorted(((r, c) for r, c in enumerate(ic8) if c), key=lambda kv: (-kv[1], kv[0]))[:5]]]
-        want_after["Rows(f)"] = [list(range(CLUSTER_AE_ROW + 1))]
-        want_after["MaxRow(field=f)"] = [{"id": CLUSTER_AE_ROW, "count": 1}]
-        ghf8 = dict(ghf)
-        for r in range(8):
-            hc = cols_of(h_sparse[r])
-            in8 = bits_at(f8_words, hc)
-            for j, g in enumerate(g_words):
-                n = int((in8 & bits_at(g, hc)).sum())
-                if n:
-                    ghf8[(CLUSTER_AE_ROW, j, r)] = n
-        want_after["GroupBy(Rows(f), Rows(g), Rows(h))"] = [group_json(("f", "g", "h"), ghf8)]
-        # the new row's own Count, filtered TopN and attributes
-        want_after[f"Count(Row(f={CLUSTER_AE_ROW}))"] = [n8]
-        t8 = [pc(w & f8_words) for w in f_words] + [n8]
-        want_after[f"TopN(f, Row(f={CLUSTER_AE_ROW}), n=5)"] = [[{"id": r, "count": c} for r, c in
-                                                                 sorted(((r, c) for r, c in enumerate(t8) if c), key=lambda kv: (-kv[1], kv[0]))[:5]]]
-        want_after[f"Row(f={CLUSTER_AE_ROW})"] = [{"attrs": CLUSTER_AE_ROW_ATTRS, "columns": f8_cols.tolist()}]
+        row8 = (CLUSTER_AE_ROW, words_of(f8), cols_of(f8), CLUSTER_AE_ROW_ATTRS)
+        want_after = want_with([row8])
         info["restarted_s"] = ask_all([nodes[2], nodes[0]], "repaired", want_after)
         for n in (nodes[2], nodes[0]):
             out = _Http(n.uri).json("POST", "/index/c/query", {"query": f"Row(f={CLUSTER_AE_ROW})", "columnAttrs": True})
             check(out.get("columnAttrs") == [{"id": down["attr_col"], "attrs": CLUSTER_AE_COL_ATTRS}],
                   f"cluster repaired {n.nid}: column attributes {out.get('columnAttrs')}")
         print(f"cluster repaired: the column attributes written with n2 down read back through n2 and n0")
+        info["resize"] = resize_steps(args, nodes, server_args, base_dir, S, want_with, row8, words_of, cols_of,
+                                      ask_all, status_of)
         http0.close()
     finally:
         rcs = [n.stop() for n in nodes]
     check(all(rc == 0 for rc in rcs), f"cluster nodes exited {rcs} on SIGTERM")
     per_node = {n.nid: n.launches() for n in nodes}
+    per_node["n3"] = info["resize"]["n3_launches"]
     total = {k: sum(per_node[n][k] for n in per_node) for k in per_node[CLUSTER_NODES[0]]}
     if on_card:
         for name in CLUSTER_KERNELS:
             check(total[name] > 0, f"the cluster's queries never launched {name}: {per_node}")
+        ran = {k: v for k, v in per_node["n3"].items() if v}
+        for name in RESIZE_N3_KERNELS + (BSI_N3_KERNELS if info["resize"]["n3_holds_amount"] else ()):
+            check(per_node["n3"].get(name, 0) > 0, f"n3's answers never launched {name}: {ran}")
     info["launches"] = total
     info["launches_per_node"] = per_node
     info["phase_s"] = time.perf_counter() - t_phase
     import shutil
 
     shutil.rmtree(base_dir, ignore_errors=True)
-    print(f"cluster: launches (n0, n1, n2 after its restart) {total}; phase {info['phase_s']:.1f} s")
+    print(f"cluster: launches (n0, n1, n2 after its restart, n3) {total}; n3's {per_node['n3']}; phase {info['phase_s']:.1f} s")
     return info
 
 

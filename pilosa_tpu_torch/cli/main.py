@@ -16,10 +16,14 @@ knobs are honoured too: `--max-concurrent-queries`, `--admission-*`,
 (`id@uri` entries: they seed the membership on the first boot, after
 which the data dir's `.topology` wins and the flags only heal peer
 URIs), `--replicas`, `--coordinator`, `--probe-interval`, the retry and
-breaker knobs and `--query-deadline`, and `--anti-entropy-interval`
+breaker knobs and `--query-deadline`, `--anti-entropy-interval`
 (seconds between anti-entropy passes; the default 0 runs one only on
-`POST /internal/sync`). Every knob whose feature the port lacks
-(`--join` and the resize knobs, TLS, `--shed-retry-after`, tiered
+`POST /internal/sync`), `--join <coordinator URI>` (a fresh node asks the
+coordinator to admit it and waits until a resize job made it a member;
+ignored when the data dir's `.topology` already names a membership) and
+the resize knobs `--resize-transfer-concurrency`,
+`--resize-cutover-timeout` and `--resize-resume-policy`. Every knob
+whose feature the port lacks (TLS, `--shed-retry-after`, tiered
 storage, mesh groups, coherence, tracing, metrics) must stay at its
 default: a run that sets one exits non-zero naming it. `import` and
 `export` talk to a server over HTTP; `inspect` opens a data dir and
@@ -35,6 +39,7 @@ import os
 import signal
 import sys
 import threading
+import time
 import urllib.request
 from typing import List, Optional
 
@@ -147,6 +152,9 @@ _PORTED_KNOBS = {
     ("cluster", "breaker_cooldown"),
     ("cluster", "query_deadline"),
     ("anti_entropy", "interval"),
+    ("resize", "transfer_concurrency"),
+    ("resize", "cutover_timeout"),
+    ("resize", "resume_policy"),
 }
 
 # flags taking a list (the reference's nargs="*" flags)
@@ -179,7 +187,11 @@ def _build_parser() -> argparse.ArgumentParser:
         help="torch device to serve from (default: the CUDA card; 'cpu' runs the "
         "plain-PyTorch path)",
     )
-    sp.add_argument("--join", help="coordinator URI to join on boot (not yet ported)")
+    sp.add_argument(
+        "--join",
+        help="coordinator URI to join on boot (asks it for a resize job that adds this "
+        "node and waits until the node is a member)",
+    )
     defaults = Config()
     for dest, (section, knob) in _FLAG_KNOBS.items():
         flag = "--" + dest.replace("_", "-")
@@ -243,7 +255,7 @@ def _load_config(args) -> Config:
     return Config.load(path=args.config, overrides=overrides)
 
 
-def _unported_settings(cfg: Config, join: Optional[str]) -> List[str]:
+def _unported_settings(cfg: Config) -> List[str]:
     """Every option set away from its default whose feature the port lacks,
     named as its flag."""
     out = []
@@ -253,9 +265,42 @@ def _unported_settings(cfg: Config, join: Optional[str]) -> List[str]:
             continue
         if _knob(cfg, section, knob) != _knob(defaults, section, knob):
             out.append(f"--{dest.replace('_', '-')}")
-    if join:
-        out.append("--join")
     return out
+
+
+def _join_on_boot(srv, coordinator_uri: str, timeout: float = 180.0, clock=None, wake=None) -> None:
+    """Ask the coordinator to admit this node and wait until it is a
+    member in state NORMAL. A busy coordinator (another job running) or
+    one not up yet is asked again every second; a join whose job rolled
+    back (this node is alone again 10 s after it registered) registers
+    again. `clock` (monotonic seconds) and `wake` (an Event: `.wait(t)`
+    bounds each poll, `.set()` wakes the loop) let a test drive the loop
+    on a virtual clock. SystemExit when `timeout` passes."""
+    from pilosa_tpu_torch.server.client import ClientError
+
+    clock = clock or time.monotonic
+    wake = wake or threading.Event()
+    payload = {"id": srv.node.id, "uri": srv.node.uri}
+    deadline = clock() + timeout
+    registered_at: Optional[float] = None
+    while clock() < deadline:
+        if registered_at is None:
+            try:
+                srv.client.join_cluster(coordinator_uri, payload)
+                registered_at = clock()
+            except ClientError as e:
+                print(f"join: waiting for coordinator: {e}", file=sys.stderr, flush=True)
+                wake.wait(1.0)
+                continue
+        elif len(srv.cluster.nodes) <= 1 and clock() - registered_at > 10.0:
+            print("join: resize rolled back; re-registering", file=sys.stderr, flush=True)
+            registered_at = None
+            continue
+        if len(srv.cluster.nodes) > 1 and any(n.id == srv.node.id for n in srv.cluster.nodes) and srv.state == "NORMAL":
+            print(f"joined cluster of {len(srv.cluster.nodes)} nodes via {coordinator_uri}", file=sys.stderr, flush=True)
+            return
+        wake.wait(0.2)
+    raise SystemExit(f"join via {coordinator_uri} did not complete in {timeout}s")
 
 
 def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None, wait: bool = True):
@@ -266,7 +311,7 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None, w
     from pilosa_tpu_torch.cluster.topology import Node
     from pilosa_tpu_torch.server.node import NodeServer
 
-    unported = _unported_settings(cfg, join)
+    unported = _unported_settings(cfg)
     if unported:
         raise SystemExit(
             f"pilosa_tpu_torch server: {', '.join(unported)}: not yet ported; "
@@ -317,10 +362,15 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None, w
             cache_result_mb=cfg.cache.result_mb,
             cache_count_repair=cfg.cache.count_repair,
             anti_entropy_interval=cfg.anti_entropy.interval,
+            resize_transfer_concurrency=cfg.resize.transfer_concurrency,
+            resize_cutover_timeout=cfg.resize.cutover_timeout,
+            resize_resume_policy=cfg.resize.resume_policy,
             logger=logger,
         )
     except RuntimeError as e:  # no CUDA device and no --device cpu
         raise SystemExit(f"pilosa_tpu_torch server: {e} (here: --device cpu)") from None
+    except ValueError as e:  # a knob out of its range (--resize-resume-policy)
+        raise SystemExit(f"pilosa_tpu_torch server: {e}") from None
     try:
         srv.start()
         if srv.topology_restored:
@@ -344,6 +394,15 @@ def cmd_server(cfg: Config, device: Optional[str], join: Optional[str] = None, w
                 members.append(Node(id=srv.node.id, uri=srv.node.uri))
             members[0].is_coordinator = True
             srv.set_topology(members, replica_n=cfg.cluster.replicas)
+        if join:
+            if srv.topology_restored:
+                print(
+                    f"--join {join} ignored: membership restored from .topology "
+                    f"(remove {srv._topology_path} to join a different cluster)",
+                    file=sys.stderr,
+                )
+            else:
+                _join_on_boot(srv, join)
     except BaseException:
         srv.stop()  # the holder closes, the result-cache budget goes back
         raise

@@ -342,6 +342,11 @@ class Cluster:
 
     # -- state machine (cluster.go:543-583) --------------------------------
 
+    def placement_key(self) -> tuple:
+        """What placement depends on: two clusters with equal keys place
+        every shard on the same nodes (liveness marks do not move shards)."""
+        return tuple(n.id for n in self.nodes), self.replica_n, self.partition_n
+
     def determine_state(self, down_node_ids: Set[str]) -> str:
         """NORMAL if all nodes up; DEGRADED if < replica_n nodes down (reads
         still safe); DOWN otherwise (cluster.go determineClusterState)."""

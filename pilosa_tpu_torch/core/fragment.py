@@ -25,8 +25,19 @@ replays the WAL.
 Int (BSI) fragments keep sign + magnitude bit planes as ordinary rows
 (BSI_EXISTS_BIT, BSI_SIGN_BIT, then BSI_OFFSET_BIT + i for magnitude bit
 i); writes and point reads are host work here, and the aggregates run on
-the stacked path (exec/bsistream.py, plan range nodes). Not ported:
-transfer capture and the per-fragment BSI aggregates, which raise.
+the stacked path (exec/bsistream.py, plan range nodes). Not ported: the
+per-fragment BSI aggregates, which raise.
+
+Live transfer (the streaming resize, server/node.py): `begin_streaming`
+serializes the row store and arms a named write capture under one lock
+hold, so the snapshot plus the records every write funnel appends to the
+capture afterwards (`_log`, in the WAL's (op, positions) shape) is the
+fragment's state at any later `drain_capture`. `block_writes` arms the
+cutover barrier: every write funnel raises TransferCutover until it
+lifts or its deadline passes. `from_bytes` replaces the contents
+wholesale, `merge_from_bytes` unions a stream in, and
+`apply_transfer_records` replays a drained capture through the ordinary
+write funnels.
 
 Position convention: pos = row_id * SHARD_WIDTH + (col % SHARD_WIDTH).
 """
@@ -34,8 +45,10 @@ Position convention: pos = row_id * SHARD_WIDTH + (col % SHARD_WIDTH).
 from __future__ import annotations
 
 import contextlib
+import io
 import os
 import threading
+import time
 from itertools import repeat
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -61,6 +74,24 @@ DEFAULT_MAX_OP_N = 10_000
 BSI_EXISTS_BIT = 0
 BSI_SIGN_BIT = 1
 BSI_OFFSET_BIT = 2
+
+# a capture past this many positions is dropped and marked lost: the
+# destination refetches the snapshot rather than this node buffering an
+# unbounded delta for a transfer whose driver may have died
+CAPTURE_MAX_POSITIONS = 1 << 22
+
+
+class TransferCaptureLost(Exception):
+    """The write capture of a transfer is gone (overflowed, replaced
+    wholesale, or never armed): the destination must refetch the
+    snapshot (HTTP 410 on the delta route)."""
+
+
+class TransferCutover(Exception):
+    """The fragment is inside its resize-cutover write barrier: writes
+    are refused with a retryable error (HTTP 503 + Retry-After) until the
+    barrier lifts."""
+
 
 _BSI_STACKED = (
     "per-fragment BSI aggregates are not ported: Sum/Min/Max and condition "
@@ -247,6 +278,7 @@ class Fragment:
         cache_size: int = cachemod.DEFAULT_CACHE_SIZE,
         path: Optional[str] = None,
         max_op_n: int = DEFAULT_MAX_OP_N,
+        version: int = 0,
     ):
         self.path = path  # None: in memory
         self.max_op_n = max_op_n
@@ -271,7 +303,7 @@ class Fragment:
         # bumps the version by one), the version an extent must be keyed
         # at for the barrier's in-place patch to be exact
         self._pending_gen = 0
-        self._staged_base_version = 0
+        self._staged_base_version = version
         # barrier outcomes not yet in _rows: sorted unique position keys,
         # folded in by the next host read (bounded by _LAYER_CAP)
         self._premerged: List[np.ndarray] = []
@@ -284,8 +316,11 @@ class Fragment:
         self._stack_token = new_owner_token()
         dcache.tag_owner(self._token, index)
         dcache.tag_owner(self._stack_token, index)
-        # monotonic mutation counter; view stack keys carry it
-        self.version = 0
+        # monotonic mutation counter; view stack keys carry it. A view
+        # starts a re-created fragment above every version its deleted
+        # predecessor reached, so no key recorded against the old one
+        # revalidates against the new one
+        self.version = version
         # mutex fields: col -> owning row
         self._mutex_map: Optional[Dict[int, int]] = {} if mutex else None
         # owner hook fired after any mutation (the View drops the stack
@@ -293,6 +328,16 @@ class Fragment:
         self.on_mutate = None
         self._wal: Optional[walmod.WalWriter] = None
         self._op_n = 0  # changed bits since the last snapshot
+        # live-transfer write captures, one a transfer tag (two
+        # destinations of one source fragment each see the whole delta):
+        # tag -> records, tag -> positions held, tags lost to overflow or
+        # a wholesale replace
+        self._captures: Dict[str, List[Tuple[int, np.ndarray]]] = {}
+        self._capture_ns: Dict[str, int] = {}
+        self._captures_lost: set = set()
+        # cutover write barrier: a monotonic deadline, 0 = open (a lost
+        # release cannot block the fragment's writes past it)
+        self._write_block_until = 0.0
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -347,15 +392,20 @@ class Fragment:
                 replayed += 1
             self._sync_locked()
             self._wal = walmod.WalWriter(self.wal_path)
-            if self._mutex_map is not None:
-                self._mutex_map = {}
-                for row_id, rb in self._rows.items():
-                    self._mutex_map.update(zip(rb.to_positions().tolist(), repeat(row_id)))
+            self._rebuild_mutex_map()
             if self.cache.cache_type != cachemod.CACHE_TYPE_NONE:
                 loaded = replayed == 0 and cachemod.read_cache(self.cache_path, self.cache)
                 if not loaded and self._rows:
                     self.recalculate_cache()
             return self
+
+    def _rebuild_mutex_map(self) -> None:
+        """The mutex vector from the row store (under _mu)."""
+        if self._mutex_map is None:
+            return
+        self._mutex_map = {}
+        for row_id, rb in self._rows.items():
+            self._mutex_map.update(zip(rb.to_positions().tolist(), repeat(row_id)))
 
     def close(self) -> None:
         """Close the WAL, write the cache sidecar and drop the fragment's
@@ -402,8 +452,11 @@ class Fragment:
             self._op_n = 0
 
     def _log(self, records) -> Optional[int]:
-        """Append write records to the WAL (under _mu): the commit token
-        to wait on once the lock is released, or None."""
+        """Append write records to the WAL and to every armed capture
+        (under _mu): the commit token to wait on once the lock is
+        released, or None."""
+        for op, positions in records:
+            self._capture_record(op, positions)
         return self._wal.append_many(records) if self._wal is not None else None
 
     def _after_write(self, n_changed: int, tok: Optional[int]) -> Optional[int]:
@@ -549,6 +602,185 @@ class Fragment:
 
         return self.import_positions(positions(sets), positions(clears))
 
+    # -- serialization and live transfer -------------------------------------
+
+    def _stream_locked(self) -> bytes:
+        """The row store as one snapshot stream (under _mu, merged)."""
+        buf = io.BytesIO()
+        walmod.write_snapshot_stream(buf, self.shard, SHARD_WIDTH, self._rows)
+        return buf.getvalue()
+
+    def to_bytes(self) -> bytes:
+        """The whole fragment in the snapshot format."""
+        with self._mu:
+            self._sync_locked()
+            return self._stream_locked()
+
+    def _arm_capture_locked(self, tag: str) -> None:
+        self._captures[tag] = []
+        self._capture_ns[tag] = 0
+        self._captures_lost.discard(tag)
+
+    def begin_streaming(self, tag: str = "default") -> bytes:
+        """A transfer's first step: the snapshot stream, with the `tag`
+        capture armed in the same lock hold, so the stream plus the
+        drained records is exact at any later drain. Beginning a tag again
+        replaces that tag's capture only."""
+        with self._mu:
+            self._sync_locked()
+            blob = self._stream_locked()
+            self._arm_capture_locked(tag)
+            return blob
+
+    def begin_capture_if_version(self, tag: str, version: int) -> bool:
+        """Arm the `tag` capture without serializing, if the fragment is
+        still at `version` (a snapshot taken at that version plus the
+        capture is then exact). False when a write came between."""
+        with self._mu:
+            if self.version != version:
+                return False
+            self._sync_locked()
+            if self.version != version:
+                return False
+            self._arm_capture_locked(tag)
+            return True
+
+    def drain_capture(self, tag: str = "default") -> bytes:
+        """Pop the `tag` capture's records as one WAL-framed stream; the
+        capture stays armed for the next round. TransferCaptureLost when
+        there is none to drain."""
+        with self._mu:
+            records = self._captures.get(tag)
+            if records is None:
+                why = "write capture overflowed" if tag in self._captures_lost else "no active write capture"
+                raise TransferCaptureLost(f"{self.index}/{self.field}/{self.view}/{self.shard}: {why}")
+            self._captures[tag] = []
+            self._capture_ns[tag] = 0
+            return walmod.encode_records(records)
+
+    def end_capture(self, tag: Optional[str] = None) -> None:
+        """Stop the `tag` capture (None: every capture). The cutover
+        barrier lifts with the last one."""
+        with self._mu:
+            if tag is None:
+                self._captures.clear()
+                self._capture_ns.clear()
+                self._captures_lost.clear()
+            else:
+                self._captures.pop(tag, None)
+                self._capture_ns.pop(tag, None)
+                self._captures_lost.discard(tag)
+            if not self._captures:
+                self._write_block_until = 0.0
+
+    def block_writes(self, ttl: float) -> None:
+        """Arm the cutover barrier for `ttl` seconds: every write funnel
+        raises TransferCutover until it lifts. Reads go on."""
+        with self._mu:
+            self._write_block_until = time.monotonic() + max(ttl, 0.0)
+
+    def unblock_writes(self) -> None:
+        with self._mu:
+            self._write_block_until = 0.0
+
+    def _check_write_block_locked(self) -> None:
+        """At the top of every write funnel (under _mu)."""
+        if not self._write_block_until:
+            return
+        if time.monotonic() >= self._write_block_until:
+            self._write_block_until = 0.0  # a lost release heals itself
+            return
+        raise TransferCutover(f"{self.index}/{self.field}/{self.view}/{self.shard}: resize cutover in progress, retry")
+
+    def _capture_record(self, op: int, positions: np.ndarray) -> None:
+        """Append one write record to every armed capture (under _mu); a
+        capture past CAPTURE_MAX_POSITIONS is dropped and marked lost."""
+        for tag in list(self._captures):
+            n = self._capture_ns[tag] + len(positions)
+            if n > CAPTURE_MAX_POSITIONS:
+                del self._captures[tag]
+                del self._capture_ns[tag]
+                self._captures_lost.add(tag)
+            else:
+                self._captures[tag].append((op, positions))
+                self._capture_ns[tag] = n
+
+    def apply_transfer_records(self, data: bytes) -> int:
+        """Replay a drained capture through the ordinary write funnels
+        (WAL, device and cache invalidation as any write). The stream is
+        decoded whole first: a torn stream applies nothing. Returns the
+        positions applied (the bits of a row-words record)."""
+        records = list(walmod.decode_records(data))
+        n = 0
+        with walmod.GROUP_COMMIT.barrier():
+            for op, positions in records:
+                if op == walmod.OP_ROW_WORDS:
+                    words = np.ascontiguousarray(positions[1:]).view(np.uint32)
+                    self.import_row_words(int(positions[0]), words)
+                    n += rowstore._popcount_words(words)
+                elif op == walmod.OP_SET:
+                    self.import_positions(positions, None)
+                    n += len(positions)
+                else:
+                    self.import_positions(None, positions)
+                    n += len(positions)
+        if self._mutex_map is not None:
+            with self._mu:  # the replay went past the mutex vector
+                self._sync_locked()
+                self._rebuild_mutex_map()
+        return n
+
+    def _read_stream(self, data: bytes) -> Dict[int, RowBits]:
+        shard, n_bits, rows = walmod.read_snapshot_stream(io.BytesIO(data))
+        if shard != self.shard:
+            raise ValueError(f"fragment stream is for shard {shard}, not {self.shard}")
+        if n_bits != SHARD_WIDTH:
+            raise ValueError(f"fragment stream shard width {n_bits} != local {SHARD_WIDTH}")
+        return rows
+
+    def merge_from_bytes(self, data: bytes) -> int:
+        """Union a snapshot stream into this fragment (a row-words write a
+        row), keeping what it holds. Returns the bits newly set. Mutex
+        fragments refuse it (ValueError)."""
+        rows = self._read_stream(data)
+        added = 0
+        with walmod.GROUP_COMMIT.barrier():
+            for row_id, rb in rows.items():
+                words = np.asarray(rb.to_words(), dtype=np.uint32)
+                if words.any():
+                    added += self.import_row_words(row_id, words)
+        return added
+
+    def from_bytes(self, data: bytes) -> None:
+        """Replace the fragment's contents with a snapshot stream. Staged
+        and parked batches describe the replaced contents and are voided
+        (the view's staged tally with them), armed captures turn lost,
+        the fragment's device rows and the view's stacks over its shard
+        drop, and a durable fragment snapshots at once."""
+        rows = self._read_stream(data)
+        with self._mu:
+            self._note_staged(-(self._pending_n + self._premerged_n))
+            self._pending = []
+            self._pending_n = 0
+            self._pending_gen += 1
+            self._premerged = []
+            self._premerged_n = 0
+            if self._captures:
+                self._captures_lost.update(self._captures)
+                self._captures.clear()
+                self._capture_ns.clear()
+            store = _LazyRows(SHARD_WIDTH)
+            store._mat = rows
+            self._rows = store
+            self.dcache.invalidate_owners((self._token, self._stack_token))
+            self.version += 1
+            if self.on_mutate is not None:
+                self.on_mutate()
+            self._rebuild_mutex_map()
+            self.recalculate_cache()
+            if self._wal is not None:
+                self.snapshot()
+
     def row_count(self, row_id: int) -> int:
         with self._mu:
             self._sync_locked()
@@ -655,6 +887,7 @@ class Fragment:
         exact. The set and clear records land in the WAL as one write; the
         commit wait comes after the lock is released."""
         with self._mu:
+            self._check_write_block_locked()
             self._sync_locked()
             records = [
                 (op, p) for op, p in ((walmod.OP_SET, to_set), (walmod.OP_CLEAR, to_clear)) if p is not None and len(p)
@@ -682,6 +915,7 @@ class Fragment:
                 raise ValueError("stage_positions is not supported on mutex fields")
             if not n:
                 return 0
+            self._check_write_block_locked()
             tok = self._log([(walmod.OP_SET, positions)])
             if not self._pending:
                 self._staged_base_version = self.version
@@ -951,9 +1185,10 @@ class Fragment:
         with self._mu:
             if self._mutex_map is not None:
                 raise ValueError("word-level import is not supported on mutex fields")
+            self._check_write_block_locked()
             self._sync_locked()
             tok = None
-            if self._wal is not None:
+            if self._wal is not None or self._captures:
                 payload = np.empty(1 + words.nbytes // 8, np.uint64)
                 payload[0] = row_id
                 payload[1:] = words.view(np.uint64)
@@ -1077,9 +1312,10 @@ class Fragment:
             has.append((mags >> np.uint64(i)) & np.uint64(1) != 0)
             new_rows[BSI_OFFSET_BIT + i] = words_of(icols[has[i]])
         with self._mu:
+            self._check_write_block_locked()
             self._sync_locked()
             tok = None
-            if self._wal is not None:
+            if self._wal is not None or self._captures:
                 sw = np.uint64(SHARD_WIDTH)
                 to_set = [np.uint64(BSI_EXISTS_BIT) * sw + cols, np.uint64(BSI_SIGN_BIT) * sw + cols[neg]]
                 to_clear = [np.uint64(BSI_SIGN_BIT) * sw + cols[~neg]]

@@ -33,6 +33,17 @@ else:
         return int(_POPCNT16[words.view(np.uint16)].sum())
 
 
+def _word_positions(words: np.ndarray) -> np.ndarray:
+    """Sorted uint32 bit positions of dense uint32 words, unpacking only
+    the nonzero words (a sparse row's words are mostly zero)."""
+    nz = np.flatnonzero(words)
+    if not len(nz):
+        return np.empty(0, dtype=np.uint32)
+    bits = np.unpackbits(words[nz].view(np.uint8).reshape(len(nz), 4), axis=1, bitorder="little")
+    r, c = np.nonzero(bits)
+    return (nz[r].astype(np.uint32) << np.uint32(5)) | c.astype(np.uint32)
+
+
 class RowBits:
     """Bits of one (row, shard) pair: sorted uint32 positions or dense words.
 
@@ -97,8 +108,7 @@ class RowBits:
 
     def to_positions(self) -> np.ndarray:
         if self.dense is not None:
-            bits = np.unpackbits(self.dense.view(np.uint8), bitorder="little")
-            return np.nonzero(bits)[0].astype(np.uint32)
+            return _word_positions(self.dense)
         return self.positions.copy()
 
     def contains(self, pos: int) -> bool:

@@ -28,6 +28,13 @@ mutation reports its shard (`note_mutation(s)`), each barrier its merges
 every entry that read the view. `mutation_clock` moves after every
 version bump of a fragment of the view, so one integer a view
 revalidates a warm cached result.
+
+`delete_fragment` (the holder cleaner's and a rolled-back resize's unit
+of work) closes a fragment, removes its files and drops its device rows,
+the view's stacks and the cached results that read the view. A fragment
+made again for the shard starts above every version the deleted one
+reached, so no stack key or cached version vector of the old one
+revalidates against it.
 """
 
 from __future__ import annotations
@@ -106,6 +113,9 @@ class View:
         # dropped at stage time (they are keyed by version, so never
         # served stale): the barrier patches or drops them
         self._dirty_staged: set = set()
+        # the version a fragment made from now on starts at: above every
+        # version a deleted fragment of this view reached
+        self._version_floor = 0
 
     def open(self) -> "View":
         """Open every fragment of the view's directory (a shard with a
@@ -139,6 +149,7 @@ class View:
                     cache_size=self.cache_size,
                     path=None if self.path is None else os.path.join(self.path, "fragments", str(shard)),
                     max_op_n=self.max_op_n,
+                    version=self._version_floor,
                 ).open()
                 frag.on_mutate = lambda s=shard: self._on_fragment_mutate(s)
                 with frag._mu:  # what open replayed, then every change
@@ -171,6 +182,35 @@ class View:
 
     def fragment_if_exists(self, shard: int) -> Optional[Fragment]:
         return self.fragments.get(shard)
+
+    def delete_fragment(self, shard: int) -> bool:
+        """Drop one shard's fragment: close it, remove its snapshot, WAL
+        and cache files, and drop its device rows, the view's stacks and
+        the results cached over the view. False when there was none."""
+        with self._mu:
+            frag = self.fragments.pop(shard, None)
+            if frag is None:
+                return False
+            with frag._mu:
+                self._version_floor = max(self._version_floor, frag.version + 1)
+                self.staged.add(-(frag._pending_n + frag._premerged_n))
+                frag.staged_tally = None
+            frag.close()
+            self.dcache.untag_owner(frag._token)
+            self.dcache.untag_owner(frag._stack_token)
+            for p in (frag.snap_path, frag.wal_path, frag.cache_path):
+                if p is not None:
+                    try:
+                        os.remove(p)
+                    except FileNotFoundError:
+                        pass
+            with self._clock_mu:
+                self.mutation_clock += 1
+            self.dcache.invalidate_owner(self._stack_token)
+            RESULT_CACHE.drop_view(self._stack_token)
+            self._dirty_staged.discard(shard)
+        bump_shards_epoch()
+        return True
 
     def available_shards(self) -> List[int]:
         with self._mu:
@@ -421,14 +461,25 @@ class View:
         starts = np.concatenate(([0], bounds)).astype(np.int64)
         tokens = []
         dirty = []
-        # one group commit for the whole batch, at the barrier's exit
-        with walmod.GROUP_COMMIT.barrier():
-            for shard, chunk in zip(sh[starts].tolist(), np.split(pos, bounds)):
-                frag = self.fragment(int(shard))
-                frag.stage_positions(chunk, notify=False)
-                tokens.append(frag._token)
-                tokens.append(frag._stack_token)
-                dirty.append(int(shard))
+        try:
+            # one group commit for the whole batch, at the barrier's exit
+            with walmod.GROUP_COMMIT.barrier():
+                for shard, chunk in zip(sh[starts].tolist(), np.split(pos, bounds)):
+                    frag = self.fragment(int(shard))
+                    frag.stage_positions(chunk, notify=False)
+                    tokens.append(frag._token)
+                    tokens.append(frag._stack_token)
+                    dirty.append(int(shard))
+        finally:
+            # a fragment's cutover barrier can stop the batch part way: the
+            # shards staged before it still need their notices
+            self._staged_notices(tokens, dirty)
+
+    def _staged_notices(self, tokens: list, dirty: list) -> None:
+        """What stage_bulk owes the device cache, the mutation clock and
+        the result cache for the shards it staged."""
+        if not dirty:
+            return
         self.dcache.invalidate_owners(tokens)
         with self._clock_mu:
             self.mutation_clock += 1

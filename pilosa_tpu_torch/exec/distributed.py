@@ -51,6 +51,7 @@ import torch
 
 from pilosa_tpu_torch.cluster.topology import NODE_STATE_DOWN, Cluster
 from pilosa_tpu_torch.core import resultcache as rcache
+from pilosa_tpu_torch.core.fragment import TransferCutover
 from pilosa_tpu_torch.core.holder import Holder
 from pilosa_tpu_torch.core.index import Index
 from pilosa_tpu_torch.core.row import Row
@@ -388,6 +389,8 @@ class DistributedExecutor(Executor):
         return totals
 
     def _execute_call(self, idx: Index, c: Call, shards, opt: ExecOptions):
+        if opt.remote and c.name in ("Set", "Clear") and not self._is_single_node():
+            self._check_owner(idx, c)
         if opt.remote or self._is_single_node():
             return super()._execute_call(idx, c, shards, opt)
         name = c.name
@@ -419,18 +422,45 @@ class DistributedExecutor(Executor):
             return out
         return super()._execute_call(idx, c, shards, opt)
 
+    def _check_owner(self, idx: Index, c: Call) -> None:
+        """A peer's Set/Clear leg for a shard this node does not own under
+        its installed placement was routed by one a resize replaced: it is
+        refused as retryable, so the shard's fragment does not come back
+        here."""
+        col = c.args.get("_col")
+        if isinstance(col, int) and not isinstance(col, bool):
+            shard = col // SHARD_WIDTH
+            if not self._cluster().owns_shard(self.local_id, idx.name, shard):
+                raise TransferCutover(f"shard {shard} of {idx.name} is not this node's under its placement (a resize moved it): retry")
+
     def _execute_write_by_column(self, idx: Index, c: Call) -> bool:
-        """A one-column write to every replica owner of its shard."""
+        """Route a one-column write by the installed placement, and again
+        if a resize installed another meanwhile (Set and Clear are
+        idempotent)."""
+        for _ in range(3):
+            cluster = self._cluster()
+            changed = self._write_by_column_once(idx, c, cluster)
+            if self._cluster().placement_key() == cluster.placement_key():
+                break
+        return changed
+
+    def _write_by_column_once(self, idx: Index, c: Call, cluster: Cluster) -> bool:
+        """A one-column write to every replica owner of its shard. This
+        node's copy inside a resize's cutover barrier fails the write with
+        TransferCutover (HTTP 503, the client retries), and so does every
+        owner answering 503; a peer's 503 is retried by the client first."""
         col = c.args.get("_col")
         if not isinstance(col, int) or isinstance(col, bool):
             raise ExecError(f"{c.name}() column argument required")
         shard = col // SHARD_WIDTH
-        cluster = self._cluster()
         owners = cluster.shard_nodes(idx.name, shard)
         changed = False
         errs = []
         failed_nodes = []
+        cutover = 0
         for n in owners:
+            if n.id == self.local_id and self._cluster().placement_key() != cluster.placement_key():
+                continue  # routed by a replaced placement: the caller routes again
             try:
                 if n.id == self.local_id:
                     r = super()._execute_call(idx, c, [shard], ExecOptions(remote=True))
@@ -445,17 +475,25 @@ class DistributedExecutor(Executor):
                         deadline=self.query_deadline,
                     )[0]
                 changed = changed or bool(r)
+            except TransferCutover:
+                raise  # this node's copy is in a resize's cutover: the client retries
             except Exception as e:  # noqa: BLE001 - one replica's miss is debt
                 errs.append(f"{n.id}: {e}")
                 failed_nodes.append(n)
+                cutover += getattr(e, "status", None) == 503
         if errs and len(errs) == len(owners):
+            if cutover == len(owners):
+                raise TransferCutover(f"{c.name}() shard {shard}: every owner is in a resize cutover, retry")
             raise RemoteError("; ".join(errs))
         # a replica missed this write: visible debt, not silent drift
         # (remote replicas only, and only where a second copy exists)
         dropped = [n for n in failed_nodes if n.id != self.local_id]
         if cluster.replica_n > 1:
             for n in dropped:
-                self.holder.record_pending_repair(idx.name, shard, n.id)
+                # no debt when another placement is installed: the caller
+                # routes the write again, to its owners
+                if self._cluster().placement_key() == cluster.placement_key():
+                    self.holder.record_pending_repair(idx.name, shard, n.id)
         if c.name == "Set":
             self._announce_written_shard(idx, c, shard)
         return changed

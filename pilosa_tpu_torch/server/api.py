@@ -1,9 +1,11 @@
 """API: every operation of one node as a validated method.
 
-The port of pilosa_tpu/server/api.py, without resize, tiering and
+The port of pilosa_tpu/server/api.py, without tiering and
 subscriptions: query (parse, then execute), schema DDL, the imports
-(bits, values, roaring), the exports, the status reads and the cluster
-messages, bound to the port's Holder and (distributed) Executor.
+(bits, values, roaring), the exports, the status reads, the cluster
+messages and the membership changes (join, remove-node, abort, the job
+record, set-coordinator), bound to the port's Holder and (distributed)
+Executor.
 On a durable holder an import returns once one group commit made all of
 its writes durable, and a delete removes the index's or field's files.
 String row and column keys in imports translate through the field's and
@@ -23,7 +25,11 @@ node. A missing replica is not an error while another owner took the
 write: it is pending-repair debt, counted in /status and repaid by
 anti-entropy (server/node.py `sync_holder`). While the cluster
 is DEGRADED every method stays open except the schema deletes, which a
-down node could never learn of (DisabledError, HTTP 503). Tracing and
+down node could never learn of (DisabledError, HTTP 503); while it is
+RESIZING only reads are. A fragment inside a resize's cutover barrier
+refuses writes with TransferCutover (HTTP 503 with Retry-After), and an
+import shard whose every owner answered so fails the same way, so the
+client retries the import. Tracing and
 statistics come in later slices; a request that needs one of them (the
 `profile` query option) is an ApiError naming what is missing (HTTP 400).
 """
@@ -40,11 +46,12 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 
 from pilosa_tpu_torch import __version__
-from pilosa_tpu_torch.cluster.topology import STATE_DEGRADED, STATE_NORMAL
+from pilosa_tpu_torch.cluster.topology import STATE_DEGRADED, STATE_NORMAL, STATE_RESIZING, Node
 from pilosa_tpu_torch.core import roaring_io
 from pilosa_tpu_torch.core import wal as walmod
 from pilosa_tpu_torch.core import timeq
 from pilosa_tpu_torch.core.field import FIELD_TYPE_SET, FIELD_TYPE_TIME, FieldOptions
+from pilosa_tpu_torch.core.fragment import TransferCutover
 from pilosa_tpu_torch.core.view import VIEW_STANDARD
 from pilosa_tpu_torch.exec import batcher as batchmod
 from pilosa_tpu_torch.exec.executor import ExecOptions, NotFoundError, QueryResponse
@@ -99,16 +106,19 @@ class API:
                 f"({limit}); split the request into smaller batches"
             )
 
-    def _validate(self, method: str) -> None:
+    def _validate(self, method: str, write: bool = False) -> None:
         """DEGRADED keeps every method of NORMAL except the schema deletes:
         the rejoin repair (a schema push) only adds, so a node that was
-        down would never learn of the delete."""
+        down would never learn of the delete. RESIZING keeps the queries
+        that do not write."""
         state = self.server.state
         if state == STATE_NORMAL:
             return
         if state == STATE_DEGRADED:
             if method in ("delete_index", "delete_field"):
                 raise DisabledError(f"api method {method!r} not allowed in state {state}: a down node would never learn the delete")
+            return
+        if state == STATE_RESIZING and method == "query" and not write:
             return
         raise DisabledError(f"api method {method!r} not allowed in state {state}")
 
@@ -234,7 +244,7 @@ class API:
     # -- schema DDL ----------------------------------------------------------
 
     def create_index(self, name: str, keys: bool = False, track_existence: bool = True, broadcast: bool = True):
-        self._validate("create_index")
+        self._validate("create_index", write=True)
         idx = self.holder.create_index_if_not_exists(name, keys=keys, track_existence=track_existence)
         self.server.wire_translation()
         if broadcast:
@@ -242,7 +252,7 @@ class API:
         return idx
 
     def delete_index(self, name: str, broadcast: bool = True) -> None:
-        self._validate("delete_index")
+        self._validate("delete_index", write=True)
         try:
             self.holder.delete_index(name)
         except KeyError:
@@ -252,7 +262,7 @@ class API:
             self._broadcast({"type": "delete-index", "index": name})
 
     def create_field(self, index: str, name: str, options: Optional[dict] = None, broadcast: bool = True):
-        self._validate("create_field")
+        self._validate("create_field", write=True)
         idx = self.holder.index(index)
         if idx is None:
             raise NotFoundError(f"index not found: {index}")
@@ -263,7 +273,7 @@ class API:
         return f
 
     def delete_field(self, index: str, name: str, broadcast: bool = True) -> None:
-        self._validate("delete_field")
+        self._validate("delete_field", write=True)
         idx = self.holder.index(index)
         if idx is None:
             raise NotFoundError(f"index not found: {index}")
@@ -280,7 +290,7 @@ class API:
     def apply_schema(self, schema: List[dict]) -> None:
         """Create every index and field of a schema dump that is missing
         (no broadcast: the rejoin repair sends one to each node)."""
-        self._validate("apply_schema")
+        self._validate("apply_schema", write=True)
         for ix in schema:
             opts = ix.get("options", {})
             idx = self.holder.create_index_if_not_exists(
@@ -311,7 +321,7 @@ class API:
         a peer's frame, applied here only). Returns {"applied",
         "expected", "errors"}: owner applications made and wanted, and
         what each missing replica said."""
-        self._validate("import_bits")
+        self._validate("import_bits", write=True)
         if not local_only:  # a replica frame is a slice of a capped request
             self._check_write_count(len(cols))
         idx, f = self._index_field(index, field)
@@ -333,7 +343,7 @@ class API:
     def import_values(
         self, index: str, field: str, cols: Sequence, values: Sequence[int], local_only: bool = False
     ) -> dict:
-        self._validate("import_values")
+        self._validate("import_values", write=True)
         if not local_only:
             self._check_write_count(len(cols))
         idx, f = self._index_field(index, field)
@@ -350,24 +360,52 @@ class API:
 
         return self._import_routed(idx, f, cols, None, local_apply, ship, "import-value", local_only)
 
+    def _owns_all(self, index: str, shards) -> None:
+        """A peer's frame or leg writes only shards this node owns under
+        its installed placement; one routed by a placement a resize has
+        since replaced is refused as retryable (TransferCutover, 503), so
+        no fragment comes back on a node that gave its shard up."""
+        cl = self.cluster
+        if len(cl.nodes) <= 1:
+            return
+        me = self.server.node.id
+        for s in np.unique(np.asarray(shards, np.uint64)).tolist():
+            if not cl.owns_shard(me, index, int(s)):
+                raise TransferCutover(f"shard {s} of {index} is not this node's under its placement (a resize moved it): retry")
+
     def _import_routed(self, idx, f, cols, timestamps, local_apply, ship, kind: str, local_only: bool) -> dict:
         """Apply an import's local share and ship each peer one frame of
         every shard it owns, concurrently on the node's import pool. A
         peer that fails costs pending-repair debt for its shards (with
         replicas) and an error entry each; a shard no owner took raises
-        after the shards that did apply are announced."""
+        after the shards that did apply are announced. A resize that
+        installs another placement meanwhile makes the import run again
+        under it (the writes are idempotent), so no owner of the new
+        placement misses it."""
         shards = cols >> np.uint64(SHARD_WIDTH_EXPONENT)
         if local_only or len(self.cluster.nodes) <= 1:
+            if local_only:
+                self._owns_all(idx.name, shards)
             local_apply(slice(None), timestamps)
             n = len(np.unique(shards))
             return {"applied": n, "expected": n, "errors": []}
+        for _ in range(3):
+            cl = self.cluster
+            summary = self._import_once(cl, idx, f, cols, shards, timestamps, local_apply, ship, kind)
+            if self.cluster.placement_key() == cl.placement_key():
+                break
+        return summary
+
+    def _import_once(self, cl, idx, f, cols, shards, timestamps, local_apply, ship, kind: str) -> dict:
+        """One routing of an import by the placement of `cl`."""
         summary = {"applied": 0, "expected": 0, "errors": []}
         groups = [(int(s), sl) for s, sl in group_slices(shards)]
         applied = {s: 0 for s, _ in groups}
         errors: Dict[int, List[str]] = {s: [] for s, _ in groups}
+        owner_errs: Dict[int, list] = {s: [] for s, _ in groups}
         local, by_node = [], {}
         for s, sl in groups:
-            owners = self.cluster.shard_nodes(idx.name, s)
+            owners = cl.shard_nodes(idx.name, s)
             summary["expected"] += len(owners)
             for n in owners:
                 if n.id == self.server.node.id:
@@ -384,7 +422,7 @@ class API:
         for n, gs in by_node.values():
             sel, ts = frame(gs)
             futures.append((n, gs, self.server.import_pool.submit(ship, n, sel, ts, gs[0][0])))
-        if local:
+        if local and self.cluster.placement_key() == cl.placement_key():  # else the caller routes again
             local_apply(*frame(local))
             for s, _ in local:
                 applied[s] += 1
@@ -398,10 +436,15 @@ class API:
             except ClientError as e:
                 for s, _ in gs:
                     errors[s].append(f"{n.id}: {e}")
-                    if self.cluster.replica_n > 1:
+                    owner_errs[s].append(e)
+                    # no debt when another placement is installed: the
+                    # caller routes the import again, to its owners
+                    if cl.replica_n > 1 and self.cluster.placement_key() == cl.placement_key():
                         self.holder.record_pending_repair(idx.name, s, n.id)
                 self.server.logger(f"{kind} shards {sorted(s for s, _ in gs)} to replica {n.id} failed: {e}")
         failed = [(s, errors[s]) for s, _ in groups if not applied[s]]
+        if failed and self.cluster.placement_key() != cl.placement_key():
+            return summary  # the caller routes the import again
         for s, _ in groups:
             if applied[s]:
                 summary["applied"] += applied[s]
@@ -411,6 +454,9 @@ class API:
             self._announce_shards(idx.name, f.name, done)
         if failed:
             shard, errs = failed[0]
+            if all(e.status == 503 for e in owner_errs[shard]):
+                # every owner was inside a resize's cutover barrier: retryable
+                raise TransferCutover(f"{kind} shard {shard}: every owner is in a resize cutover, retry: {errs}")
             raise ApiError(f"{kind} shard {shard}: no owner reachable: {errs}")
         return summary
 
@@ -438,13 +484,15 @@ class API:
         (`local_only`: here only, a peer's forward). Set and time fields
         only: the mutex and BSI layouts need the parsing imports. Returns
         the most bits that changed on any owner reached."""
-        self._validate("import_roaring")
+        self._validate("import_roaring", write=True)
         idx, f = self._index_field(index, field)
         if f.options.type not in (FIELD_TYPE_SET, FIELD_TYPE_TIME):
             raise ApiError(f"cannot import roaring into {f.options.type} field {field!r}")
         view = view or VIEW_STANDARD
         _validate_view_name(view)
         changed = 0
+        if local_only:
+            self._owns_all(idx.name, [shard])
         owners = [self.server.node] if local_only else self.cluster.shard_nodes(idx.name, shard)
         for n in owners:
             if n.id != self.server.node.id:
@@ -480,6 +528,7 @@ class API:
     def export_roaring(self, index: str, field: str, shard: int, view: Optional[str] = None) -> bytes:
         """One fragment as a pilosa-dialect roaring file (the inverse of
         import_roaring)."""
+        self._validate("export_roaring")
         _, f = self._index_field(index, field)
         if view is not None:
             _validate_view_name(view)
@@ -494,6 +543,7 @@ class API:
         """"row,column" lines of the standard view, shard by shard; a
         keyed field writes row keys, a keyed index column keys (the id
         where an id has no key)."""
+        self._validate("export_csv")
         idx, f = self._index_field(index, field)
         v = f.view(VIEW_STANDARD)
         if v is None:
@@ -514,8 +564,86 @@ class API:
 
     def recalculate_caches(self) -> None:
         """Rebuild every rank cache of the node and ask every peer to."""
+        self._validate("recalculate_caches")
         self.holder.recalculate_caches()
         self._broadcast({"type": "recalculate-caches"})
+
+    # -- membership changes ----------------------------------------------------
+
+    def cluster_join(self, node: dict) -> dict:
+        """Admit a node: the coordinator starts a resize job that adds it.
+        Returns the job record (poll resize_job); a known member's join is
+        a no-op."""
+        self._validate("cluster_join", write=True)
+        joiner = Node.from_json(node)
+        if not joiner.id or not joiner.uri:
+            raise ApiError("join requires node id and uri")
+        # a fresh node calls itself a coordinator; it joins as a member
+        joiner.is_coordinator = False
+        cur = self.server.cluster.nodes
+        if any(n.id == joiner.id for n in cur):
+            return {"state": "DONE", "action": "noop", "nodes": [n.to_json() for n in cur]}
+        from pilosa_tpu_torch.server.client import ClientError
+
+        try:
+            return self.server.start_resize(list(cur) + [joiner], "add-node")
+        except ClientError as e:
+            raise ApiError(str(e))
+
+    def remove_node(self, node_id: str) -> dict:
+        """A resize job without `node_id` (a dead node too). Removing the
+        coordinator hands its role to the first remaining node."""
+        self._validate("remove_node", write=True)
+        cur = self.server.cluster.nodes
+        if not any(n.id == node_id for n in cur):
+            raise NotFoundError(f"node not in cluster: {node_id}")
+        remaining = [
+            Node(id=n.id, uri=n.uri, is_coordinator=n.is_coordinator, mesh_group=n.mesh_group)
+            for n in cur
+            if n.id != node_id
+        ]
+        if not remaining:
+            raise ApiError("cannot remove the last node")
+        if not any(n.is_coordinator for n in remaining):
+            remaining[0].is_coordinator = True
+        from pilosa_tpu_torch.server.client import ClientError
+
+        try:
+            return self.server.start_resize(remaining, "remove-node")
+        except ClientError as e:
+            raise ApiError(str(e))
+
+    def resize_abort(self) -> dict:
+        return self.server.abort_resize()
+
+    def resize_job(self) -> dict:
+        return self.server.resize_job or {"state": "NONE"}
+
+    def set_coordinator(self, node_id: str) -> dict:
+        """Hand the coordinator role to `node_id`: every member must
+        acknowledge the new membership, or the old one is put back
+        everywhere (two coordinators would be two key-translation
+        writers)."""
+        self._validate("set_coordinator", write=True)
+        cur = self.cluster.nodes
+        if not any(n.id == node_id for n in cur):
+            raise NotFoundError(f"node not in cluster: {node_id}")
+
+        def copy(coord):
+            return [
+                Node(id=n.id, uri=n.uri, is_coordinator=coord(n), state=n.state, mesh_group=n.mesh_group) for n in cur
+            ]
+
+        members = copy(lambda n: n.id == node_id)
+        old = copy(lambda n: n.is_coordinator)
+        from pilosa_tpu_torch.server.client import ClientError
+
+        try:
+            self.server._send_status(members, members, self.cluster.replica_n, self.server.state, require=True)
+        except ClientError as e:
+            self.server._send_status(old, old, self.cluster.replica_n, self.server.state, retries=10)
+            raise ApiError(f"set-coordinator rolled back: {e}")
+        return {"coordinator": node_id}
 
     # -- node info -----------------------------------------------------------
 
@@ -624,6 +752,17 @@ class API:
             self.server.set_node_state(msg["node"], msg["state"])
         elif t == "recalculate-caches":
             self.holder.recalculate_caches()
+        elif t == "clean-holder":
+            self.server.clean_holder()
+        elif t == "resize-quiesce":
+            # the cutover barrier on this job's captured fragments
+            self.server.quiesce_job_captures(msg.get("job", ""), float(msg.get("ttl", 30.0)))
+        elif t == "resize-release":
+            # the committed job's teardown: captures end, fragments stay
+            self.server.release_job_captures(msg.get("job"))
+        elif t == "resize-cleanup":
+            # the rollback: what the job created here goes
+            self.server.resize_cleanup(msg.get("job", ""), aborting=True)
         else:
             raise ApiError(f"unknown cluster message type {t!r}")
         return {"ok": True}

@@ -13,12 +13,15 @@ can re-map shards.
 Every `_do` call rides the fault-tolerance plane (server/faults.py): its
 `timeout` is a total deadline budget that all retry attempts share;
 retryable failures (connection refused, timeouts, 5xx, 408, 429) back
-off and retry within it; and a per-peer circuit breaker fails a request
-to a known-dead node at once instead of spending the budget. Every verb
-here is idempotent (set/clear semantics, reads, status messages), so
-retrying a request whose response was lost is safe. The resize, tier
-and coherence calls come with their slices; no tracing headers are sent
-and TLS is not ported.
+off and retry within it (a 503 of a fragment's cutover barrier carries
+Retry-After, which the wait honours); and a per-peer circuit breaker
+fails a request to a known-dead node at once instead of spending the
+budget. Every verb here is idempotent (set/clear semantics, reads,
+status messages), so retrying a request whose response was lost is
+safe, except the capture drain, which pops the source's records and so
+makes one attempt: its caller refetches the snapshot on any failure.
+The tier and coherence calls come with their slices; no tracing headers
+are sent and TLS is not ported.
 """
 
 from __future__ import annotations
@@ -146,6 +149,7 @@ class InternalClient:
         timeout: Optional[float] = None,
         headers_fn=None,
         check_breaker: bool = True,
+        max_attempts: Optional[int] = None,
     ) -> bytes:
         """One logical RPC: up to `retry_policy.max_attempts` attempts in a
         total budget of `timeout` (default `self.timeout`), with backoff
@@ -153,7 +157,8 @@ class InternalClient:
         (`check_breaker=False` for liveness probes, which must reach a
         shunned peer so that it can recover). `headers_fn(remaining)` is
         evaluated per attempt with the budget's remaining seconds, so a
-        deadline header shrinks across retries."""
+        deadline header shrinks across retries. `max_attempts` caps the
+        attempts below the policy's for a verb that must not be retried."""
         url = uri.rstrip("/") + path
         if query:
             url += "?" + urllib.parse.urlencode(query)
@@ -195,23 +200,25 @@ class InternalClient:
             except Exception as e:  # noqa: BLE001 - classified below
                 err = self._classify(method, url, uri, e)
                 timed_out = self._is_timeout(e)
-            # an HTTP status (a 4xx, or a 429 shed) proves the peer alive: a
-            # loaded peer is not a dead one. Only node-down shaped failures
-            # count against its breaker, and a timeout under a starved
-            # allotment blames the caller's budget, not the peer.
+            # an HTTP status (a 4xx, a 429 shed, or a 503 with Retry-After
+            # from a resize's cutover barrier) proves the peer alive: a
+            # loaded or barred peer is not a dead one. Only node-down shaped
+            # failures count against its breaker, and a timeout under a
+            # starved allotment blames the caller's budget, not the peer.
             if breakers is not None:
-                if err.status is not None and (not err.retryable or err.status == 429):
+                if err.status is not None and (not err.retryable or err.status == 429 or err.retry_after is not None):
                     breakers.record(uri, True)
                 elif err.retryable and not (timed_out and remaining < _TIMEOUT_PENALTY_FLOOR):
                     breakers.record(uri, False)
                 else:
                     # release a half-open probe slot this attempt may hold
                     breakers.record_neutral(uri)
-            if not err.retryable or attempts >= policy.max_attempts:
+            if not err.retryable or attempts >= (max_attempts or policy.max_attempts):
                 raise err
             delay = policy.backoff(attempts)
             if err.retry_after is not None:
-                # the peer said when to come back (a 429 shed)
+                # the peer said when to come back (a 429 shed, a 503 of a
+                # cutover barrier)
                 delay = max(delay, err.retry_after)
             if budget.remaining() <= delay:
                 raise err  # no budget left for another attempt
@@ -296,6 +303,91 @@ class InternalClient:
             self._json("POST", uri, "/internal/cluster/message", json.dumps(message).encode(), timeout=timeout)
             or {}
         )
+
+    # -- resize -----------------------------------------------------------------
+
+    def resize_node(
+        self,
+        uri: str,
+        nodes: List[dict],
+        old_nodes: Optional[List[dict]] = None,
+        replica_n: Optional[int] = None,
+        schema: Optional[List[dict]] = None,
+        timeout: float = 300.0,
+    ) -> dict:
+        """One node's step of a checkpoint resize (POST /internal/resize):
+        fetch what the new membership assigns it, then install it. A
+        joining node gets the membership it joins and the schema."""
+        body: Dict[str, Any] = {"nodes": nodes}
+        if old_nodes is not None:
+            body["oldNodes"] = old_nodes
+        if replica_n is not None:
+            body["replicaN"] = replica_n
+        if schema is not None:
+            body["schema"] = schema
+        return self._json("POST", uri, "/internal/resize", json.dumps(body).encode(), timeout=timeout) or {}
+
+    def resize_stream(
+        self,
+        uri: str,
+        job: str,
+        nodes: List[dict],
+        old_nodes: Optional[List[dict]] = None,
+        replica_n: Optional[int] = None,
+        old_replica_n: Optional[int] = None,
+        schema: Optional[List[dict]] = None,
+        timeout: float = 600.0,
+        post_commit: bool = False,
+    ) -> dict:
+        """One node's stream step of a job (POST /internal/resize/stream):
+        every fragment the new placement assigns it, snapshot plus write
+        capture, then catch-up rounds; the node serves the old placement
+        meanwhile. Resumable (the node's ledger skips what landed), so
+        retries are safe. `post_commit`: the sweep after the cutover,
+        fetching only fragments made since, merged, with no capture."""
+        body: Dict[str, Any] = {"job": job, "nodes": nodes}
+        if old_nodes is not None:
+            body["oldNodes"] = old_nodes
+        if replica_n is not None:
+            body["replicaN"] = replica_n
+        if old_replica_n is not None:
+            body["oldReplicaN"] = old_replica_n
+        if schema is not None:
+            body["schema"] = schema
+        if post_commit:
+            body["postCommit"] = True
+        return self._json("POST", uri, "/internal/resize/stream", json.dumps(body).encode(), timeout=timeout) or {}
+
+    def resize_catchup(self, uri: str, job: str, timeout: float = 120.0) -> dict:
+        """The cutover's drain round on one destination."""
+        return self._json("POST", uri, "/internal/resize/catchup", json.dumps({"job": job}).encode(), timeout=timeout) or {}
+
+    def fragment_delta(self, uri: str, index: str, field: str, view: str, shard: int, job: str) -> bytes:
+        """Drain one transfer's captured writes (WAL-framed bytes). One
+        attempt: the drain pops the source's records, so a retry after a
+        lost response would skip them; the caller refetches the snapshot
+        instead (a 410, capture lost, too)."""
+        q = {"index": index, "field": field, "view": view, "shard": shard, "job": job}
+        return self._do("GET", uri, "/internal/fragment/delta", query=q, max_attempts=1)
+
+    def join_cluster(self, coordinator_uri: str, node: dict) -> dict:
+        """Ask the coordinator to admit a node; the resize job's record."""
+        return self._json("POST", coordinator_uri, "/cluster/join", json.dumps(node).encode()) or {}
+
+    def retrieve_fragment(
+        self, uri: str, index: str, field: str, view: str, shard: int, capture: Optional[str] = None
+    ) -> bytes:
+        """A fragment's snapshot stream; `capture=<tag>` makes the source
+        arm a write capture with it (drain it with fragment_delta)."""
+        q: Dict[str, Any] = {"index": index, "field": field, "view": view, "shard": shard}
+        if capture:
+            q["capture"] = capture
+        return self._do("GET", uri, "/internal/fragment/data", query=q)
+
+    def fragment_inventory(self, uri: str, index: str) -> List[Tuple[str, str, int]]:
+        """(field, view, shard) of every fragment a node holds of an index."""
+        resp = self._json("GET", uri, f"/internal/index/{index}/fragments")
+        return [(f, v, int(s)) for f, v, s in resp.get("frags", [])]
 
     # -- imports ----------------------------------------------------------------
 

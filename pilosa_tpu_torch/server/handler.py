@@ -4,15 +4,19 @@ of its cluster.
 The port's slice of pilosa_tpu/server/handler.py: the same routing table
 for the public routes and for the internal routes of the cluster's read
 and write plane (remote query legs, fragment versions, cluster messages,
-availability, replica imports, key translation), the same JSON bodies
-and the same error mapping (NotFoundError -> 404; ShedError -> 429 with
-Retry-After; DisabledError -> 503; ExecError, ApiError, ParseError,
-ValueError and KeyError -> 400; anything else -> 500 with the traceback
-logged). A remote leg's execution error answers 200 with {"error"}, as
-the reference's does: the peer ran the request, so the coordinator must
-not fail it over. The resize, metrics, debug, tier and coherence
-routes come with the slices that port those planes; until then they
-answer 404 as any unknown route does.
+availability, replica imports, key translation, anti-entropy) and of
+its membership changes (join, remove-node, abort, the job record,
+set-coordinator, the resize steps and the fragment transfer), the same
+JSON bodies and the same error mapping (NotFoundError -> 404; ShedError
+-> 429 with Retry-After; DisabledError -> 503; TransferCutover, a
+fragment inside a resize's cutover barrier, -> 503 with Retry-After: 1;
+ExecError, ApiError, ParseError, ValueError and KeyError -> 400; anything
+else -> 500 with the traceback logged). A malformed resize body is a 400
+naming the field. A remote leg's execution error answers 200 with
+{"error"}, as the reference's does: the peer ran the request, so the
+coordinator must not fail it over. The metrics, debug, tier and
+coherence routes come with the slices that port those planes; until
+then they answer 404 as any unknown route does.
 
 stdlib ThreadingHTTPServer, one thread per connection, HTTP/1.1 with
 keep-alive. PQL arrives as a raw body or as JSON {"query": ...}.
@@ -30,9 +34,12 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
 
+from pilosa_tpu_torch.cluster.topology import Node
+from pilosa_tpu_torch.core.fragment import TransferCaptureLost, TransferCutover
 from pilosa_tpu_torch.exec.executor import ExecError, NotFoundError
 from pilosa_tpu_torch.pql import ParseError
-from pilosa_tpu_torch.sched.admission import ShedError
+from pilosa_tpu_torch.sched.admission import CLASS_BATCH, ShedError
+from pilosa_tpu_torch.server import resize as resizemod
 from pilosa_tpu_torch.server import wire
 import numpy as np
 
@@ -124,6 +131,38 @@ class Handler(BaseHTTPRequestHandler):
             raise BadParam(f"body field {name!r} must be a non-empty string, got {raw!r}")
         return raw
 
+    def _body_int(self, d: dict, name: str) -> Optional[int]:
+        raw = d.get(name)
+        if raw is None:
+            return None
+        if isinstance(raw, bool) or not isinstance(raw, int):
+            raise BadParam(f"body field {name!r} must be an integer, got {raw!r}")
+        return raw
+
+    def _body_nodes(self, d: dict, name: str, required: bool = True) -> Optional[List[Node]]:
+        """A membership list of node objects, or a 400 naming the field
+        and the element."""
+        raw = d.get(name)
+        if raw is None:
+            if required:
+                raise BadParam(f"missing required body field {name!r}")
+            return None
+        if not isinstance(raw, list):
+            raise BadParam(f"body field {name!r} must be a list of node objects, got {type(raw).__name__}")
+        nodes = []
+        for i, n in enumerate(raw):
+            if not isinstance(n, dict) or not isinstance(n.get("id"), str) or not n["id"]:
+                raise BadParam(f"body field {name!r}[{i}] must be a node object with a non-empty string 'id'")
+            nodes.append(Node.from_json(n))
+        return nodes
+
+    def _admit_transfer(self):
+        """A resize transfer is served in the batch admission class: it
+        holds a real slot but never starves interactive queries. The
+        ticket to release, or None with admission off."""
+        sched = self.node.scheduler
+        return None if sched is None else sched.admit(cls=CLASS_BATCH)
+
     def _int_param(self, name: str, default: Any = _REQUIRED) -> Optional[int]:
         raw = self.query.get(name)
         if raw is None:
@@ -185,6 +224,10 @@ class Handler(BaseHTTPRequestHandler):
                     self._shed(e)
                 except DisabledError as e:
                     self._error(str(e), 503)
+                except TransferCutover as e:
+                    # the barrier lasts one drain round: retry in a second
+                    resizemod.count("cutover_rejects")
+                    self._reply({"error": str(e)}, code=503, extra_headers={"Retry-After": "1"})
                 except (ExecError, ApiError, ParseError, ValueError, KeyError) as e:
                     self._error(str(e), 400)
                 except BrokenPipeError:
@@ -539,6 +582,122 @@ class Handler(BaseHTTPRequestHandler):
             clears = (np.array(d["clears"]["rows"], np.uint64), np.array(d["clears"]["cols"], np.uint64))
         self.api.apply_block_deltas(d["index"], d["field"], d.get("view", "standard"), int(d["shard"]), sets, clears)
         self._reply({})
+
+    # -- membership changes and the fragment transfer ------------------------------
+
+    @route("POST", "/cluster/join")
+    def post_cluster_join(self):
+        d = self._json_body_dict()
+        self._body_str(d, "id")
+        self._body_str(d, "uri")
+        self._reply(self.api.cluster_join(d))
+
+    @route("POST", "/cluster/resize/remove-node")
+    def post_remove_node(self):
+        self._reply(self.api.remove_node(self._body_str(self._json_body_dict(), "id")))
+
+    @route("POST", "/cluster/resize/abort")
+    def post_resize_abort(self):
+        self._reply(self.api.resize_abort())
+
+    @route("GET", "/cluster/resize/job")
+    def get_resize_job(self):
+        self._reply(self.api.resize_job())
+
+    @route("POST", "/cluster/resize/set-coordinator")
+    def post_set_coordinator(self):
+        self._reply(self.api.set_coordinator(self._json_body().get("id", "")))
+
+    @route("POST", "/internal/resize")
+    def post_internal_resize(self):
+        """One node's checkpoint resize (the manual fallback): the schema
+        first when given (a joiner), then fetch and install."""
+        d = self._json_body_dict()
+        nodes = self._body_nodes(d, "nodes")
+        old_nodes = self._body_nodes(d, "oldNodes", required=False)
+        replica_n = self._body_int(d, "replicaN")
+        old_replica_n = self._body_int(d, "oldReplicaN")
+        if d.get("schema"):
+            self.api.apply_schema(d["schema"])
+        fetched = self.node.resize_to(nodes, replica_n=replica_n, old_nodes=old_nodes, old_replica_n=old_replica_n)
+        self._reply({"fetched": fetched})
+
+    @route("POST", "/internal/resize/stream")
+    def post_internal_resize_stream(self):
+        """One node's stream step of a job (the installed membership keeps
+        serving meanwhile)."""
+        d = self._json_body_dict()
+        job = self._body_str(d, "job")
+        nodes = self._body_nodes(d, "nodes")
+        old_nodes = self._body_nodes(d, "oldNodes", required=False)
+        replica_n = self._body_int(d, "replicaN")
+        old_replica_n = self._body_int(d, "oldReplicaN")
+        post_commit = d.get("postCommit", False)
+        if not isinstance(post_commit, bool):
+            raise BadParam(f"body field 'postCommit' must be a boolean, got {post_commit!r}")
+        if d.get("schema"):
+            self.api.apply_schema(d["schema"])
+        self._reply(
+            self.node.resize_stream(
+                job, nodes, replica_n=replica_n, old_nodes=old_nodes, old_replica_n=old_replica_n, post_commit=post_commit
+            )
+        )
+
+    @route("POST", "/internal/resize/catchup")
+    def post_internal_resize_catchup(self):
+        """The cutover's drain round on this destination."""
+        job = self._body_str(self._json_body_dict(), "job")
+        self._reply({"applied": self.node.resize_catchup(job)})
+
+    @route("GET", "/internal/fragment/data")
+    def get_fragment_data(self):
+        """A fragment's snapshot stream; with ?capture=<tag> the source's
+        write capture is armed in the same lock hold (served in the batch
+        admission class)."""
+        capture = self.query.get("capture")
+        ticket = self._admit_transfer() if capture else None
+        try:
+            frag = self._fragment()
+            if frag is None:
+                self._error("fragment not found", 404)
+                return
+            if capture:
+                key = (self.query["index"], self.query["field"], self.query.get("view", "standard"), self._int_param("shard"))
+                blob = self.node.begin_fragment_capture(capture, key, frag)
+            else:
+                blob = frag.to_bytes()
+            self._reply(None, raw=blob, content_type="application/octet-stream")
+        finally:
+            if ticket is not None:
+                ticket.release()
+
+    @route("GET", "/internal/fragment/delta")
+    def get_fragment_delta(self):
+        """Drain one transfer's captured writes (WAL-framed bytes); 410
+        when the capture is lost and the destination must refetch."""
+        job = self._str_param("job")
+        key = (self._str_param("index"), self._str_param("field"), self.query.get("view", "standard"), self._int_param("shard"))
+        ticket = self._admit_transfer()
+        try:
+            try:
+                data = self.node.drain_fragment_capture(job, key)
+            except TransferCaptureLost as e:
+                self._error(str(e), 410)
+                return
+            self._reply(None, raw=data, content_type="application/octet-stream")
+        finally:
+            if ticket is not None:
+                ticket.release()
+
+    @route("GET", "/internal/index/(?P<index>[^/]+)/fragments")
+    def get_fragment_inventory(self, index: str):
+        """[field, view, shard] of every fragment this node holds."""
+        idx = self._index_of(index)
+        frags = []
+        for f in idx.fields(include_hidden=True):
+            for vname, v in f.views.items():
+                frags.extend([f.name, vname, shard] for shard in sorted(v.fragments))
+        self._reply({"frags": frags})
 
     @route("POST", "/internal/index/(?P<index>[^/]+)/field/(?P<field>[^/]+)/import")
     def post_internal_import(self, index: str, field: str):

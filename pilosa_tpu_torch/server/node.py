@@ -1,9 +1,10 @@
 """NodeServer: one node of the port, serving its holder over HTTP.
 
-The port of pilosa_tpu/server/node.py without resize, tiering,
-coherence, tracing and telemetry: a holder on the card (or on the CPU
-when the caller passes device="cpu"), the distributed executor, the API,
-anti-entropy and an HTTP listener on a daemon thread.
+The port of pilosa_tpu/server/node.py without tiering, coherence,
+tracing and telemetry: a holder on the card (or on the CPU when the
+caller passes device="cpu"), the distributed executor, the API,
+anti-entropy, the elastic resize (server/resize.py: join, remove-node,
+abort and the holder cleaner) and an HTTP listener on a daemon thread.
 
 A node starts as its own coordinator in a one-member cluster in state
 NORMAL; `set_topology` installs a membership (the CLI's --cluster-hosts,
@@ -18,7 +19,8 @@ keys to it and catch up from its log (`wire_translation`). With
 `probe_interval` > 0 the coordinator probes every peer's /status on a
 ticker, marks the silent ones DOWN (NORMAL -> DEGRADED, or DOWN when
 replicaN nodes are gone), broadcasts the new state, and pushes the whole
-schema to a node that comes back.
+schema to a node that comes back; it leaves the status flow to a running
+resize job.
 
 Anti-entropy (`sync_holder`, `POST /internal/sync`, or a pass every
 `anti_entropy_interval` seconds when it is above 0) repairs replicas that
@@ -72,6 +74,7 @@ from pilosa_tpu_torch.cluster.topology import (
     NODE_STATE_DOWN,
     NODE_STATE_READY,
     STATE_NORMAL,
+    STATE_RESIZING,
     Cluster,
     Node,
 )
@@ -89,6 +92,7 @@ from pilosa_tpu_torch.sched.tenants import TenantPolicy
 from pilosa_tpu_torch.server import faults
 from pilosa_tpu_torch.server.api import API
 from pilosa_tpu_torch.server.client import ClientError, InternalClient
+from pilosa_tpu_torch.server.resize import Resizer
 
 CACHE_FLUSH_INTERVAL = 60.0  # s between rank-cache sidecar writes (the reference's default)
 IMPORT_CONCURRENCY = 8  # replica-import RPCs in flight per node (the reference's default)
@@ -97,7 +101,7 @@ IMPORT_CONCURRENCY = 8  # replica-import RPCs in flight per node (the reference'
 AE_COUNTS = ("blocks", "bits_applied", "bits_sent")
 
 
-class NodeServer:
+class NodeServer(Resizer):
     def __init__(
         self,
         data_dir: Optional[str],
@@ -132,8 +136,13 @@ class NodeServer:
         cache_result_mb: int = 64,  # result-cache budget, MB; 0 turns it off
         cache_count_repair: bool = True,  # Count repair on staged bursts
         anti_entropy_interval: float = 0.0,  # s between anti-entropy passes; 0 = on demand only
+        resize_transfer_concurrency: int = 4,  # fragment fetches in flight per node
+        resize_cutover_timeout: float = 30.0,  # wall bound of a stream step's catch-up rounds, s
+        resize_resume_policy: str = "resume",  # resume | abort on a failed stream step
         logger: Optional[Callable[[str], None]] = None,
     ):
+        # first: a bad resize knob raises before any process-wide setting moves
+        self._init_resize(resize_transfer_concurrency, resize_cutover_timeout, resize_resume_policy)
         self.data_dir = os.path.expanduser(data_dir) if data_dir else None
         # a data dir's .id wins: placement is keyed by id, so a new id
         # would orphan every fragment the node holds
@@ -393,6 +402,9 @@ class NodeServer:
         if self._ae_thread is not None:
             self._ae_thread.join()
             self._ae_thread = None
+        if self._resize_thread is not None:
+            self._resize_thread.join(timeout=60.0)
+            self._resize_thread = None
         with self._import_pool_mu:
             pool, self._import_pool = self._import_pool, None
         if pool is not None:
@@ -444,10 +456,11 @@ class NodeServer:
             self.node = mine
         self.wire_translation()
         self._save_topology()
-        # a departed node's debt can never be repaired: drop it
+        # debt of a node that no longer holds the shard (it left, or a
+        # resize moved the shard away) can never be repaid: drop it
         member_ids = {n.id for n in self.cluster.nodes}
         for iname, shard, debtor in self.holder.pending_repairs():
-            if debtor not in member_ids:
+            if debtor not in member_ids or not self.cluster.owns_shard(debtor, iname, shard):
                 self.holder.discard_pending_repair(iname, shard, debtor)
 
     def wire_translation(self) -> None:
@@ -496,7 +509,8 @@ class NodeServer:
                 self._down_ids.add(node_id)
             else:
                 self._down_ids.discard(node_id)
-            self.state = self.cluster.determine_state(self._down_ids)
+            if self.state != STATE_RESIZING:  # a resize job's broadcast restores it
+                self.state = self.cluster.determine_state(self._down_ids)
 
     # -- liveness -----------------------------------------------------------------------
 
@@ -545,10 +559,15 @@ class NodeServer:
         schema: it missed every DDL broadcast while it was down."""
         if not self.node.is_coordinator or len(self.cluster.nodes) <= 1:
             return False
+        if self.state == STATE_RESIZING:
+            return False  # the resize job owns the status flow
         before = {n.id: n.state for n in self.cluster.nodes}
         before_state = self.state
         self.probe_peers(timeout=timeout)
         with self._status_mu:
+            # a job started while this pass probed: its broadcasts win
+            if self.state == STATE_RESIZING or (self.resize_job is not None and self.resize_job["state"] == "RUNNING"):
+                return False
             after = {n.id: n.state for n in self.cluster.nodes}
             if before == after and before_state == self.state:
                 return False

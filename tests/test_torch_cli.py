@@ -7,9 +7,10 @@ what the reference's print and exit with the same codes. `import` and
 `export` talk HTTP to a port server on a data dir. The server honours
 `--hbm-extent-rows`, `--hbm-pin-timeout` and `--merge-device-threshold`
 (they reach hbm.residency and core.merge) and, since the query front end
-was ported, `--hbm-prefetch-depth`, and `--anti-entropy-interval`
-(it reaches NodeServer); it still refuses each unported knob beside
-them by name.
+was ported, `--hbm-prefetch-depth`, `--anti-entropy-interval` and the
+three resize knobs (they reach NodeServer) and `--join` (a subprocess
+joins a running node and answers as a member); it still refuses each
+unported knob beside them by name.
 """
 
 import torch_threads  # noqa: F401  (first: one intra-op thread per test process)
@@ -308,3 +309,144 @@ def test_server_still_refuses_each_unported_knob(flag, argv):
     msg = str(ei.value)
     assert flag in msg and "not yet ported" in msg, msg
     assert "--anti-entropy-interval" not in msg
+
+
+@pytest.mark.parametrize(
+    "flag,value,kw,want",
+    [
+        ("--resize-transfer-concurrency", "7", "resize_transfer_concurrency", 7),
+        ("--resize-cutover-timeout", "4.5", "resize_cutover_timeout", 4.5),
+        ("--resize-resume-policy", "abort", "resize_resume_policy", "abort"),
+    ],
+)
+def test_server_takes_the_resize_knobs(monkeypatch, flag, value, kw, want):
+    """The resize knobs are ported: each reaches NodeServer and the node
+    keeps it; a resume policy outside resume|abort exits naming it."""
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    class FakeNode(NodeServer):
+        def __init__(self, *a, **kw):
+            seen.update(kw)
+            super().__init__(*a, **kw)
+
+        def start(self):
+            seen["node"] = {k: getattr(self, k) for k in ("resize_transfer_concurrency", "resize_cutover_timeout", "resize_resume_policy")}
+            self.stop()
+            raise Stop
+
+    monkeypatch.setattr(tnode, "NodeServer", FakeNode)
+    with pytest.raises(Stop):
+        tmain(["server", "--data-dir", "", "--device", "cpu", flag, value])
+    assert seen[kw] == want and seen["node"][kw] == want
+    from pilosa_tpu_torch.core.resultcache import RESULT_CACHE
+
+    budget = RESULT_CACHE.budget_bytes
+    with pytest.raises(SystemExit) as ei:
+        tmain(["server", "--data-dir", "", "--device", "cpu", "--resize-resume-policy", "sometimes"])
+    assert "resize_resume_policy" in str(ei.value)
+    assert RESULT_CACHE.budget_bytes == budget  # refused before any process-wide setting moved
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def test_join_on_boot_subprocess(tmp_path):
+    """A fresh `server --join <coordinator>` process asks the coordinator
+    to admit it, waits for the job and then serves the whole index as a
+    member (the reference's tests/test_lifecycle.py join-on-boot case)."""
+    import json
+    import time
+    import urllib.request
+
+    def http(method, uri, path, body=None, timeout=60):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(uri + path, data=data, method=method, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return json.loads(resp.read() or b"{}")
+
+    coord = NodeServer(str(tmp_path / "c0"), "c0", device="cpu").start()
+    port = _free_port()
+    p = None
+    try:
+        http("POST", coord.node.uri, "/index/jb", {"options": {}})
+        http("POST", coord.node.uri, "/index/jb/field/f", {"options": {"type": "set"}})
+        cols = [s * SHARD_WIDTH + 2 for s in range(16)]
+        http("POST", coord.node.uri, "/index/jb/field/f/import", {"rows": [0] * len(cols), "cols": cols})
+        p = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--data-dir", str(tmp_path / "j1"),
+             "--bind", f"127.0.0.1:{port}", "--node-id", "j1", "--device", "cpu", "--join", coord.node.uri],
+            cwd=REPO, stderr=subprocess.PIPE, text=True,
+        )
+        lines = []
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            line = p.stderr.readline()
+            if not line:
+                break
+            lines.append(line)
+            if "listening on" in line:
+                break
+        assert any("joined cluster of 2 nodes" in ln for ln in lines), lines
+        uri1 = f"http://127.0.0.1:{port}"
+        for uri in (coord.node.uri, uri1):
+            st = http("GET", uri, "/status")
+            assert len(st["nodes"]) == 2 and st["state"] == "NORMAL", st
+        assert http("POST", uri1, "/index/jb/query", {"query": "Count(Row(f=0))"})["results"] == [len(cols)]
+        assert coord.resize_job["state"] == "DONE" and coord.resize_job["action"] == "add-node"
+        p.send_signal(signal.SIGTERM)
+        assert p.wait(timeout=30) == 0
+    finally:
+        if p is not None:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+            p.stderr.close()
+        coord.stop()
+
+
+def test_join_on_boot_reregisters_after_a_rollback():
+    """The join loop on a virtual clock: a busy coordinator is asked again,
+    and a join whose job rolled back (the node alone 10 s after it
+    registered) registers again."""
+    import types
+
+    import importlib
+
+    climain = importlib.import_module("pilosa_tpu_torch.cli.main")
+    from pilosa_tpu_torch.server.client import ClientError
+
+    now = [0.0]
+    calls = []
+
+    class Wake:
+        def wait(self, t):
+            now[0] += t
+
+    class Client:
+        def join_cluster(self, uri, payload):
+            calls.append(now[0])
+            if len(calls) == 1:
+                raise ClientError("a resize job is already running")
+            if len(calls) == 3:  # the second job commits
+                srv.cluster.nodes = [srv.node, types.SimpleNamespace(id="c0")]
+            return {"state": "RUNNING"}
+
+    me = types.SimpleNamespace(id="j1", uri="http://j1")
+    srv = types.SimpleNamespace(node=me, cluster=types.SimpleNamespace(nodes=[me]), state="NORMAL", client=Client())
+    climain._join_on_boot(srv, "http://c0", timeout=100.0, clock=lambda: now[0], wake=Wake())
+    assert len(calls) == 3 and calls[1] == 1.0 and calls[2] > 11.0
+    srv.cluster.nodes = [me]
+    calls.clear()
+    Client.join_cluster = lambda self, uri, payload: {}
+    with pytest.raises(SystemExit):
+        climain._join_on_boot(srv, "http://c0", timeout=30.0, clock=lambda: now[0], wake=Wake())

@@ -1,6 +1,7 @@
 """Liveness and durable membership of the port's cluster, on the CPU.
 
-The cases of tests/test_liveness.py on the port (everything but resize):
+The cases of tests/test_liveness.py on the port (the resize ones are in
+test_torch_resize_jobs.py):
 the coordinator's probe pass is concurrent, flips the cluster NORMAL ->
 DEGRADED when a node dies and back when it answers again, broadcasts
 the state to the other members, refuses schema deletes while DEGRADED
@@ -288,7 +289,7 @@ def test_cli_disk_id_overrides_flag_id_for_own_address(tmp_path):
         srv.stop()
 
 
-@pytest.mark.parametrize("flag", [["--join", "http://localhost:9"], ["--tls-certificate", "/x.pem"], ["--tls-skip-verify"], ["--shed-retry-after", "3"]])
+@pytest.mark.parametrize("flag", [["--mesh-group", "g0"], ["--tls-certificate", "/x.pem"], ["--tls-skip-verify"], ["--shed-retry-after", "3"]])
 def test_cli_still_refuses_unported_flags_by_name(flag):
     from pilosa_tpu_torch.cli.main import main
 
