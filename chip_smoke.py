@@ -135,8 +135,8 @@ Phases, each fatal on any mismatch or exception:
    kept-alive connection, on a data dir (WAL, snapshots, group commit:
    the deployment users run) under the default temp dir, whose
    filesystem and free bytes are printed first (at least 2 GiB free, or
-   the phase fails). Index `s` over 2^29 columns (512 shards: cut to keep
-   the script inside its time): set field
+   the phase fails). Index `s` over 2^28 columns (256 shards: cut to keep
+   the script inside its time; 512 until PR 18): set field
    `f` (2 dense, 4 sparse rows) through one import-roaring POST per shard,
    set field `g` (2 sparse rows) through /import JSON in batches of 5000,
    int field `amount` in 8 shards through import-value; every import
@@ -179,7 +179,7 @@ Phases, each fatal on any mismatch or exception:
 5e. front end: a second NodeServer, in memory, with the reference's
    front-end defaults (16 concurrent queries, a queue of 128, a 64 MB
    result cache with count repair, prefetch depth 4) on the serve
-   phase's f/g words (f rows 0-3, g rows 0-1, existence) over its 512
+   phase's f/g words (f rows 0-3, g rows 0-1, existence) over its 256
    shards: with the cache budget at 0, 32 client threads x 20
    single-Count requests over 8 distinct trees, every answer held to
    numpy, the Count batcher must merge rounds and launch
@@ -256,10 +256,10 @@ Phases, each fatal on any mismatch or exception:
    the acknowledged count); the holder cleaner (the job's last phase) left
    each node exactly the fragments the 4-node placement assigns it, and the
    device-resident bytes fell on every node it took fragments from; a
-   pass on each node leaves pendingRepairs 0 (the job's moves owe their
-   new owners a repair, and so does a write a node missed while a probe
-   held it DOWN), and one more on n3 repairs nothing and moves no
-   restage_bytes. Then `POST /cluster/resize/remove-node` of n3
+   pass on each node that still owes a repair leaves pendingRepairs 0
+   (the job's moves owe their new owners a repair, which its own passes
+   repay, and so does a write a node missed while a probe held it DOWN),
+   and one more on n3 repairs nothing and moves no restage_bytes. Then `POST /cluster/resize/remove-node` of n3
    and the same checks on n0-n2 (the 3-node placement); n3 stops. Each
    node logs its kernel launches as it stops: their sum must show every
    kernel of the cluster's queries, and n3's the kernels its answers
@@ -3210,8 +3210,8 @@ N_SERVE_SPARSE_F, N_SERVE_G = 4, 2  # sparse rows of f and g, ~1000 bits per sha
 N_SERVE_VALUES = 8  # shards of `amount` loaded through import-value
 IMPORT_BATCH = 5000  # writes per /import request: the default max-writes-per-request
 # the serve phase's depth, cut to keep the script inside its time: index s
-# over 512 shards (2^29 columns), 2 rounds of the query set per client
-SERVE_SHARDS = 512
+# over 256 shards (2^28 columns), 2 rounds of the query set per client
+SERVE_SHARDS = 256  # 512 until PR 18: cut for the script's time on slow hosts
 CONCURRENT_ROUNDS = 2
 SERVE_QUERIES = [
     "Count(Intersect(Row(f=0), Row(g=0)))",
@@ -5141,7 +5141,7 @@ def _roaring_shard(dense, sparse) -> bytes:
 # the resize: n3 joins under a writer of f row 9 (1001 bits a shard), then leaves
 CLUSTER_JOIN_ROW = CLUSTER_AE_ROW + 1
 CLUSTER_JOIN_BATCH_SHARDS = 16  # shards a writer request covers (16,000 bits)
-CLUSTER_JOIN_PACE = 0.05  # s between the writer's requests
+CLUSTER_JOIN_PACE = 0.3  # s between the writer's requests
 CLUSTER_N3_REPS = 9  # n3's warm runs of its p50 query
 CLUSTER_N3_QUERY = "Count(Intersect(Row(f=0), Row(g=1)))"
 # kernels n3's legs of the query set run (the BSI ones where it holds amount)
@@ -5278,12 +5278,15 @@ def resize_steps(args, nodes, server_args, base_dir, S, want_with, row8, words_o
             time.sleep(0.2)
 
     def repay(live, label):
-        """A pass on each node in turn (waiting for its nudges), then a
-        clean pass on the last: it repairs nothing and moves no
+        """A pass on each node that owes a repair (waiting for its
+        nudges; the job's own passes usually left none), then a clean
+        pass on the last node: it repairs nothing and moves no
         restage_bytes, and no node owes a repair."""
         debt = {n.nid: status_of(n)["pendingRepairs"] for n in live}
         passes = []
         for n in live:
+            if not status_of(n)["pendingRepairs"]:
+                continue
             c = _Http(n.uri)
             try:
                 passes.append(_sync(n, c, label))
@@ -5315,8 +5318,15 @@ def resize_steps(args, nodes, server_args, base_dir, S, want_with, row8, words_o
         return dict(st, moved=len(job["moved"]), state=job["state"])
 
     try:
-        # every node stages what its legs read (the cleaner then frees it)
-        ask_all(nodes, "before the join", want_with([row8]))
+        # every node stages the rows its legs read (the cleaner then frees them)
+        want8 = want_with([row8])
+        for n in nodes:
+            c = _Http(n.uri)
+            try:
+                got = c.json("POST", "/index/c/query", CLUSTER_N3_QUERY.encode(), "text/plain")["results"]
+            finally:
+                c.close()
+            check(got == want8[CLUSTER_N3_QUERY], f"cluster before the join {n.nid}: {got}, numpy {want8[CLUSTER_N3_QUERY]}")
         cleaned0 = {n.nid: len(_cleaner_lines(n)) for n in nodes}
         port3 = _free_ports(1)[0]
         t0 = time.perf_counter()
