@@ -136,7 +136,7 @@ Phases, each fatal on any mismatch or exception:
    the deployment users run) under the default temp dir, whose
    filesystem and free bytes are printed first (at least 2 GiB free, or
    the phase fails). Index `s` over 2^28 columns (256 shards: cut to keep
-   the script inside its time; 512 until PR 18): set field
+   the script inside its time; it had 512 before): set field
    `f` (2 dense, 4 sparse rows) through one import-roaring POST per shard,
    set field `g` (2 sparse rows) through /import JSON in batches of 5000,
    int field `amount` in 8 shards through import-value; every import
@@ -3211,7 +3211,7 @@ N_SERVE_VALUES = 8  # shards of `amount` loaded through import-value
 IMPORT_BATCH = 5000  # writes per /import request: the default max-writes-per-request
 # the serve phase's depth, cut to keep the script inside its time: index s
 # over 256 shards (2^28 columns), 2 rounds of the query set per client
-SERVE_SHARDS = 256  # 512 until PR 18: cut for the script's time on slow hosts
+SERVE_SHARDS = 256  # 512 before: cut for the script's time on slow hosts
 CONCURRENT_ROUNDS = 2
 SERVE_QUERIES = [
     "Count(Intersect(Row(f=0), Row(g=0)))",

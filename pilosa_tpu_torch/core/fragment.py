@@ -77,7 +77,7 @@ BSI_OFFSET_BIT = 2
 
 # a capture past this many positions is dropped and marked lost: the
 # destination refetches the snapshot rather than this node buffering an
-# unbounded delta for a transfer whose driver may have died
+# unbounded delta for a transfer whose coordinator may have died
 CAPTURE_MAX_POSITIONS = 1 << 22
 
 

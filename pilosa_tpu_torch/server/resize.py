@@ -11,7 +11,7 @@ arms a write capture on the source under one lock hold
 (`Fragment.begin_streaming`); it then drains the capture
 (/internal/fragment/delta) in catch-up rounds until a round comes back
 empty. Captures are leased: a capture no drain touched for CAPTURE_LEASE
-seconds is dropped, so a dead driver cannot leave a source buffering
+seconds is dropped, so a dead coordinator cannot leave a source buffering
 writes. Each destination has a capture of its own (`<job>:<node id>`).
 
 The coordinator's job (`start_resize`, a thread running `_run_resize`)
