@@ -119,8 +119,10 @@ Phases, each fatal on any mismatch or exception:
    left between queries; (e) a fresh 8-shard index under a budget below
    4 x one shard's stack answers a two-leaf Count and a filtered TopN;
 4c. time, on the main path's holder, launch counts reset before and read
-   after: a YMDH time field t (2 rows, 32 random columns per shard, hour
-   and row over 192 hours from 2024-01-01: 6,291,456 bits a row, each in
+   after: a YMDH time field t over the index's first 128 shards (cut
+   from every shard for the script's time) (2 rows, 32 random
+   columns per shard, hour and row over 192 hours from 2024-01-01:
+   786,432 bits a row, each in
    its Y, M, D and H views and the standard view) through one
    Field.import_bits per row with a datetime64 timestamp array, and a
    bool field b over the columns row 0's events touch; the 47-view range
@@ -139,7 +141,7 @@ Phases, each fatal on any mismatch or exception:
    the script inside its time; it had 512 before): set field
    `f` (2 dense, 4 sparse rows) through one import-roaring POST per shard,
    set field `g` (2 sparse rows) through /import JSON in batches of 5000,
-   int field `amount` in 8 shards through import-value; every import
+   int field `amount` in 4 shards (8 before) through import-value; every import
    returns once its writes are fsynced, so the ingest rates are durable
    rates, and the numpy roaring decode is timed apart from the rest of
    the import-roaring requests (its share printed). Export-roaring of 4 shards reads back exactly what went in, and
@@ -231,7 +233,9 @@ Phases, each fatal on any mismatch or exception:
    Sum/Min/Max, a condition Count; a Count, an Intersect and a Sum over
    a Shift, whose carry crosses into shards another node answers,
    MinRow/MaxRow and a GroupBy with an offset, with and without a limit)
-   and 3 keyed ones through every node,
+   and 3 keyed ones through every node (the nodes asked at once, a client
+   thread each, here and in every later round; the data are made from
+   --seed while the nodes start),
    each equal to numpy and the same on every node, with n0's served
    p50s; kill -9 of n2: n0 and n1 DEGRADED, every answer again through
    them; with n2 down, through n0: a new row of `f` on 32 shards n2 owns
@@ -2896,7 +2900,8 @@ TIME_OPEN = "from='2024-01-05T00:00'"  # to the field's last hour
 TIME_OPEN_HOURS = (96, TIME_HOURS)
 TIME_BURST = 1 << 20  # columns of one timestamped burst into t row 0, all in hour 2024-01-08T20
 TIME_BURST_HOUR = 188
-TIME_REPS = 4  # runs per p50 (REPS elsewhere): Rows and GroupBy read 47 views x 1024 fragments on the host (10, then 6, in PR 11)
+TIME_REPS = 4  # runs per p50 (REPS elsewhere): Rows and GroupBy read 47 views x 128 fragments on the host
+TIME_SHARDS = 128  # the index's shards the time field's events fall in (cut from every shard for the script's time)
 
 
 def _shift_np(words: np.ndarray, n: int) -> np.ndarray:
@@ -2931,22 +2936,23 @@ def time_path(args, holder, ex, state, errs, smi):
     from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, WORDS_PER_ROW
 
     S, W, SW = args.shards, WORDS_PER_ROW, SHARD_WIDTH
+    TS = min(S, TIME_SHARDS)  # the time field's shards; the index's others hold none of its bits
     t_phase = time.perf_counter()
     idx = holder.index("smoke")
     f_rows, g_rows = state["f_rows"], state["g_rows"]
     pc = np_popcount
-    sample = sorted({0, 1, S // 2, S - 1})
+    sample = sorted({0, 1, TS // 2, TS - 1, S - 1})
     rng = np.random.default_rng([args.seed, 10])
-    base = (np.arange(S, dtype=np.uint64) * np.uint64(SW))[None, :, None]
+    base = (np.arange(TS, dtype=np.uint64) * np.uint64(SW))[None, :, None]
     events = [
-        (rng.integers(0, SW, size=(TIME_HOURS, S, TIME_PER_HOUR), dtype=np.uint64) + base).reshape(-1)
+        (rng.integers(0, SW, size=(TIME_HOURS, TS, TIME_PER_HOUR), dtype=np.uint64) + base).reshape(-1)
         for _ in range(2)
     ]
-    hour_of = np.repeat(np.arange(TIME_HOURS), S * TIME_PER_HOUR)
+    hour_of = np.repeat(np.arange(TIME_HOURS), TS * TIME_PER_HOUR)
     # b: every column a row-0 event touched, true or false with equal odds
     b_cols = sorted_unique(events[0])
     b_val = rng.integers(0, 2, len(b_cols)).astype(np.uint64)
-    burst = rng.integers(0, S * SW, TIME_BURST).astype(np.uint64)
+    burst = rng.integers(0, TS * SW, TIME_BURST).astype(np.uint64)
 
     def pack(cols):
         words = np.zeros(S * W, np.uint32)
@@ -2976,9 +2982,9 @@ def time_path(args, holder, ex, state, errs, smi):
     ingest_s = time.perf_counter() - t0
     n_views = len(t.views)
     print(
-        f"time: field t ({TIME_QUANTUM}) {n_views} views, {len(events[0])} bits a row over {TIME_HOURS} hours "
-        f"(each in Y, M, D, H and standard), bool field b over the {len(b_cols)} columns row 0 touches; "
-        f"ingest {ingest_s:.1f} s"
+        f"time: field t ({TIME_QUANTUM}) {n_views} views over {TS} of the index's {S} shards, {len(events[0])} bits a "
+        f"row over {TIME_HOURS} hours (each in Y, M, D, H and standard), bool field b over the {len(b_cols)} columns "
+        f"row 0 touches; ingest {ingest_s:.1f} s"
     )
 
     def run(pql):
@@ -3147,7 +3153,7 @@ def time_path(args, holder, ex, state, errs, smi):
 
     # writes: Store the range into f row 100, ClearRow t row 1 (every view),
     # flip one bool column
-    col = int(np.flatnonzero(_bits(b_true[S // 2]))[0]) + (S // 2) * SW
+    col = int(np.flatnonzero(_bits(b_true[TS // 2]))[0]) + (TS // 2) * SW
     writes = [
         (f"Store({rng_row}, f=100)", [True]),
         ("Count(Row(f=100))", [pc(t_range[0])]),
@@ -3182,6 +3188,7 @@ def time_path(args, holder, ex, state, errs, smi):
     )
     info = {
         "views": n_views,
+        "shards": TS,
         "bits_per_row": len(events[0]),
         "ingest_s": ingest_s,
         "first_pass_s": first_pass_s,
@@ -3207,7 +3214,7 @@ def time_path(args, holder, ex, state, errs, smi):
 # f's dense rows: bit densities 2^-1 and 2^-3 (the AND of 1 and 3 draws)
 SERVE_DENSE_DRAWS = (1, 3)
 N_SERVE_SPARSE_F, N_SERVE_G = 4, 2  # sparse rows of f and g, ~1000 bits per shard each
-N_SERVE_VALUES = 8  # shards of `amount` loaded through import-value
+N_SERVE_VALUES = 4  # shards of `amount` loaded through import-value (cut from 8 for the script's time)
 IMPORT_BATCH = 5000  # writes per /import request: the default max-writes-per-request
 # the serve phase's depth, cut to keep the script inside its time: index s
 # over 256 shards (2^28 columns), 2 rounds of the query set per client
@@ -3331,7 +3338,7 @@ def serve_path(args):
     rng = np.random.default_rng([args.seed, 5])
     print(
         f"serve: cut: index s over {S} of {args.shards} shards; int field amount in "
-        f"{n_val} of them (import-value JSON carries ~15M values; the BSI phase drives the int path over every shard)"
+        f"{n_val} of them (import-value JSON carries ~7.5M values; the BSI phase drives the int path over every shard)"
     )
 
     # data from the seed: f = dense rows, then sparse rows (one roaring body
@@ -5050,6 +5057,7 @@ class _Node:
         self.nid, self.data_dir, self.port, self.hosts, self.extra = nid, data_dir, port, hosts, list(extra)
         self.uri = f"http://127.0.0.1:{port}"
         self.lines = []
+        self.t_launch = time.perf_counter()
         membership = [] if hosts is None else ["--cluster-hosts", hosts]
         self.p = subprocess.Popen(
             [sys.executable, "-m", "pilosa_tpu_torch.cli", "server", "--data-dir", data_dir,
@@ -5065,10 +5073,10 @@ class _Node:
             self.lines.append(line.rstrip("\n"))
 
     def wait_listening(self, timeout: float = 180.0):
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < timeout:
+        """Seconds from the launch to the node's `listening on` line."""
+        while time.perf_counter() - self.t_launch < timeout:
             if any("listening on" in ln for ln in self.lines):
-                return time.perf_counter() - t0
+                return time.perf_counter() - self.t_launch
             if self.p.poll() is not None:
                 break
             time.sleep(0.05)
@@ -5436,28 +5444,7 @@ def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = 
     nodes = [_Node(nid, os.path.join(base_dir, nid), p, hosts, server_args) for nid, p in zip(CLUSTER_NODES, ports)]
     info = {"shards": S, "nodes": list(CLUSTER_NODES)}
     try:
-        start_s = max(n.wait_listening() for n in nodes)
-        info["start_s"] = start_s
-        if on_card:
-            apps, used = _compute_apps(), _memory_used_mib()
-            pids = [n.p.pid for n in nodes]
-            devices = [re.search(r"\(device (\S+)\)", "\n".join(n.lines)) for n in nodes]
-            check(all(m is not None and m.group(1).startswith("cuda") for m in devices),
-                  f"cluster nodes serve on {[m and m.group(1) for m in devices]}")
-            if all(p in {a[0] for a in apps} for p in pids):
-                how = f"nvidia-smi lists the node pids {pids}"
-            elif len(apps) >= len(before_apps) + 3:
-                how = f"nvidia-smi lists {len(apps) - len(before_apps)} more compute processes than before the nodes ({apps})"
-            else:
-                # nvidia-smi reports the nodes under pids of another namespace
-                check(used - before_used >= 3 * 256,
-                      f"nvidia-smi lists {apps} (before the nodes {before_apps}); {used - before_used} MiB more in use")
-                how = (f"nvidia-smi lists {apps} (another pid namespace: before the nodes {before_apps}); "
-                       f"{used - before_used} MiB more in use on the card; each node serves on {devices[0].group(1)}")
-            print(f"cluster: 3 nodes on the card in {start_s:.1f} s: {how}")
-            info["contexts"] = how
-
-        # data from the seed
+        # data from the seed, made while the nodes start
         t0 = time.perf_counter()
 
         def dense_rows(draws):
@@ -5491,6 +5478,27 @@ def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = 
         n_body = sum(map(len, f_bodies)) + sum(map(len, g_bodies)) + sum(map(len, h_bodies))
         gen_s = time.perf_counter() - t0
         print(f"cluster: generated {S} shards x 3 roaring bodies ({n_body} B) and {sum(map(len, v_cols))} values in {gen_s:.1f} s")
+
+        start_s = max(n.wait_listening() for n in nodes)
+        info["start_s"] = start_s
+        if on_card:
+            apps, used = _compute_apps(), _memory_used_mib()
+            pids = [n.p.pid for n in nodes]
+            devices = [re.search(r"\(device (\S+)\)", "\n".join(n.lines)) for n in nodes]
+            check(all(m is not None and m.group(1).startswith("cuda") for m in devices),
+                  f"cluster nodes serve on {[m and m.group(1) for m in devices]}")
+            if all(p in {a[0] for a in apps} for p in pids):
+                how = f"nvidia-smi lists the node pids {pids}"
+            elif len(apps) >= len(before_apps) + 3:
+                how = f"nvidia-smi lists {len(apps) - len(before_apps)} more compute processes than before the nodes ({apps})"
+            else:
+                # nvidia-smi reports the nodes under pids of another namespace
+                check(used - before_used >= 3 * 256,
+                      f"nvidia-smi lists {apps} (before the nodes {before_apps}); {used - before_used} MiB more in use")
+                how = (f"nvidia-smi lists {apps} (another pid namespace: before the nodes {before_apps}); "
+                       f"{used - before_used} MiB more in use on the card; each node serves on {devices[0].group(1)}")
+            print(f"cluster: 3 nodes on the card in {start_s:.1f} s: {how}")
+            info["contexts"] = how
 
         # ingest through n0 only: 8 client threads, one connection each
         http0 = _Http(nodes[0].uri)
@@ -5644,11 +5652,13 @@ def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = 
         check(out == {"results": [True]}, f"keyed Set through n1: {out}")
 
         def ask_all(live, label, want_c=want):
-            """Every query through every live node: equal to numpy."""
-            bodies = {}
+            """Every query through every live node, the nodes asked at
+            once (a client thread each): equal to numpy and to the first
+            node's bodies."""
             t = time.perf_counter()
-            for n in live:
-                c = _Http(n.uri)
+
+            def ask(n):
+                bodies, c = {}, _Http(n.uri)
                 try:
                     for index, qs, wants in (("c", list(want_c), want_c), ("ck", CLUSTER_KEYED_QUERIES, want_keyed)):
                         for q in qs:
@@ -5656,9 +5666,16 @@ def cluster_path(args, S: int = CLUSTER_SHARDS, server_args=(), on_card: bool = 
                             check(status == 200, f"cluster {label} {n.nid} {q}: HTTP {status}: {raw[:300]!r}")
                             got = json.loads(raw)["results"]
                             check(got == wants[q], f"cluster {label} {n.nid} {q}: {str(got)[:300]}, numpy says {str(wants[q])[:300]}")
-                            check(bodies.setdefault(q, raw) == raw, f"cluster {label} {q}: {n.nid}'s body differs from the first node's")
+                            bodies[q] = raw
                 finally:
                     c.close()
+                return bodies
+
+            with ThreadPoolExecutor(len(live)) as pool:
+                per_node = list(pool.map(ask, live))
+            for n, bodies in zip(live[1:], per_node[1:]):
+                for q, raw in bodies.items():
+                    check(raw == per_node[0][q], f"cluster {label} {q}: {n.nid}'s body differs from the first node's")
             dt = time.perf_counter() - t
             print(f"cluster {label}: {len(want_c) + len(CLUSTER_KEYED_QUERIES)} queries through "
                   f"{', '.join(n.nid for n in live)} equal numpy and each other in {dt:.1f} s")
